@@ -40,3 +40,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running tests"
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (CUDA kernels); skips itself without one",
+    )
