@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 Phases, one JSON line each on stdout:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the time to build every CUDA kernel of the path
-   from ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``.
+   CUDA versions, and the time to build every CUDA kernel of both paths
+   (``int4_dequant``, ``flash_fwd``, ``flash_bwd``) from
+   ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``, one
+   ``nvcc`` per source, all at once.
 2. ``kernels``: each kernel against its plain PyTorch version on the
-   card, bit for bit, at the shapes the Llama-3-8B forward gives it, with
-   its time (CUDA events, median), the least time the card could take
-   (bytes moved over the card's spec bandwidth) and the plain version's
-   time.
+   card: the int4 dequant bit for bit at the Llama-3-8B forward's shapes;
+   the flash forward, dQ and dK/dV in bf16 at the 8B training shape, the
+   1B shape, a ragged length, packed documents and a non-causal case, to
+   a stated tolerance. Times by CUDA events (median), the least time the
+   card could take (bytes over its bandwidth or flops over its bf16
+   peak, whichever is larger), the plain version's time and, for
+   attention, ``F.scaled_dot_product_attention``'s as a yardstick.
 3. ``slice``: Llama-3-8B at full width and depth with an int4 base
    (random weights from a seed) served through ``CompletionService`` and
-   its HTTP surface: single-prompt, 4 ragged prompts and a sampled
-   request. Checks status, token ids, lengths, and that the int4 kernel
-   ran exactly 225 times per forward (32 layers x 7 weights + lm_head).
-4. ``parity_on_card``: a 2-layer model at the 8B width gives the same
-   logits and cache, bit for bit, with the kernel as with the plain
-   dequant in its place; and the 32-layer model's served greedy tokens
-   equal those of the plain dequant.
+   its HTTP surface; int4 launches exactly 225 per forward.
+4. ``parity_on_card``: the serving path with the kernel against the plain
+   dequant (bit-identical logits, cache and greedy tokens).
+5. ``profile``: where an 8B decode step's device time goes.
+6. ``train``: the 8B QLoRA step (int4 base, LoRA r16 on wq/wk/wv/wo,
+   remat "attn") through ``Trainer.benchmark`` at batch 2, seq 4096:
+   step time, tokens/s, MFU, peak memory, and the exact launches of each
+   kernel per step.
+7. ``train_parity_on_card``: a 2-layer model at 8B width, the loss and
+   every adapter gradient with the kernels against the plain versions,
+   on an unpacked and a packed batch; and remat "attn" against "none".
+8. ``train_profile``: where one 8B training step's device time goes.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -59,6 +70,38 @@ SHAPES_8B = (
 # that is not a multiple of the rows per thread
 SHAPES_RAGGED = (("ragged", 154, 1003), ("ragged16", 74, 208))
 LAUNCHES_PER_FORWARD = 225
+# flash attention shapes: (name, B, S, Hq, Hkv, hd, causal, packed); the
+# first is the Llama-3-8B training step's, the main path's
+FLASH_SHAPES = (
+    ("8b_train", 2, 4096, 32, 8, 128, True, False),
+    ("1b_train", 8, 1024, 32, 8, 64, True, False),
+    ("ragged1000", 2, 1000, 32, 8, 128, True, False),
+    ("packed", 2, 4096, 32, 8, 128, True, True),
+    ("non_causal", 1, 2048, 32, 8, 128, False, False),
+)
+# kernel vs plain in bf16: the sums run in another order (online softmax
+# over 64-key tiles against one pass with the global row max, P and dS
+# rounded to bf16 at different points), so agreement is to a few bf16
+# ulps. Each output is held per tile of 64 positions of one row and head:
+# ||kernel - plain|| / ||plain|| <= flash_attention.TILE_RTOL[kernel] in
+# every tile (``flash_attention.tile_rel_err``), so a late tile is held to
+# its own scale; lse2 (f32) to 1e-3 absolute
+# planted faults at the 8B shape, each of which the check must reject: a
+# forward and a dQ that skip the key tile at FAULT_TILE, a dK/dV that
+# skips the query tile there
+FAULT_TILE = (2048, 64)
+# the 8B QLoRA training step: (batch, seq), and launches per step. Each
+# of the 32 layers runs the flash forward once (remat "attn" saves its
+# residuals) and the dQ and dK/dV kernels once; the int4 dequant runs for
+# the 7 weights of each layer in the forward and again in the layer's
+# recompute, plus once for the lm_head: 2 * 224 + 1
+TRAIN_SHAPE = (2, 4096)
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32,
+                           "int4_dequant": 2 * 224 + 1}
+# the 2-layer parity model: ||kernel - plain|| / ||plain|| <= tol for
+# every adapter gradient leaf; relative tolerance on the loss
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_LOSS_RTOL = 2e-3
 
 
 def emit(obj) -> None:
@@ -338,6 +381,18 @@ def parity_phase(torch, int4, cfg, params, served) -> dict:
     }
 
 
+def device_kernels(prof) -> dict:
+    """{kernel name: (device microseconds, launches)} of a profiler run;
+    a kernel event's ``device_time_total`` is its own duration."""
+    kernels = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            name = e.name if len(e.name) <= 60 else e.name[:57] + "..."
+            total, count = kernels.get(name, (0.0, 0))
+            kernels[name] = (total + e.device_time_total, count + 1)
+    return kernels
+
+
 def profile_phase(torch, cfg, params, batch: int) -> dict:
     """Where one 8B decode step's time goes: its wall time (CUDA events,
     no profiler), then ``torch.profiler`` over the same steps for the
@@ -381,13 +436,7 @@ def profile_phase(torch, cfg, params, batch: int) -> dict:
             step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            us = e.device_time_total  # a kernel's own duration, microseconds
-            name = e.name if len(e.name) <= 60 else e.name[:57] + "..."
-            total, count = kernels.get(name, (0.0, 0))
-            kernels[name] = (total + us, count + 1)
+    kernels = device_kernels(prof)
     device_ms = sum(t for t, _ in kernels.values()) / 1e3 / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {
@@ -403,6 +452,350 @@ def profile_phase(torch, cfg, params, batch: int) -> dict:
     }
 
 
+def _live_pairs(B, S, causal, seg):
+    """(query, key) pairs that attend, per query head, over the batch."""
+    if seg is None:
+        return B * (S * (S + 1) // 2 if causal else S * S)
+    total = 0
+    for row in seg.tolist():
+        runs, prev = [], None
+        for x in row:
+            if x == prev:
+                runs[-1] += 1
+            else:
+                runs.append(1)
+                prev = x
+        total += sum(n * (n + 1) // 2 if causal else n * n for n in runs)
+    return total
+
+
+def planted_faults(torch, fa, args, wants) -> dict:
+    """Three broken kernels, made from the plain versions with segment ids
+    and held to the check the real ones pass: a forward and a dQ that skip
+    the key tile at ``FAULT_TILE``, a dK/dV that skips the query tile
+    there. The check must reject each. ``max_abs_over_max`` is what a check
+    against the tensor's largest value would see of the same fault."""
+    q, k, v, lse, delta, do, _, _ = args
+    want_out, want_dq, want_dk, want_dv = wants
+    B, S = q.shape[:2]
+    t0, width = FAULT_TILE
+    zeros = torch.zeros((B, S), dtype=torch.int32, device=q.device)
+    tile = zeros.clone()
+    tile[:, t0 : t0 + width] = 1
+    # the tile's keys (or queries) in a document of their own
+    out_f, _ = fa.flash_fwd_reference(q, k, v, zeros, tile)
+    dq_f = fa.flash_dq_reference(q, k, v, lse, delta, do, zeros, tile)
+    dk_f, dv_f = fa.flash_dkv_reference(q, k, v, lse, delta, do, tile, zeros)
+    cases = (
+        ("flash_fwd", f"skips keys {t0}..{t0 + width - 1}", [(out_f, want_out)]),
+        ("flash_dq", f"skips keys {t0}..{t0 + width - 1}", [(dq_f, want_dq)]),
+        ("flash_dkv", f"skips queries {t0}..{t0 + width - 1}", [(dk_f, want_dk), (dv_f, want_dv)]),
+    )
+    result = {}
+    for name, fault, pairs in cases:
+        rel = max(fa.tile_rel_err(got, want) for got, want in pairs)
+        over = max(((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+                   for got, want in pairs)
+        if rel <= fa.TILE_RTOL[name]:
+            raise AssertionError(f"{name}: the check passed a planted fault ({fault}): {rel}")
+        result[name] = {"fault": fault, "tile_rel_err": rel, "max_abs_over_max": over}
+    return result
+
+
+def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
+    """Each flash kernel against its plain version at every shape; times
+    (kernel at every shape, plain and SDPA at the main path's) and bounds."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    stats = {n: {"max_abs_err": 0.0, "tile_rel_err": 0.0, "shapes": []}
+             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+    def close(name, got, want, shape):
+        err = (got.float() - want.float()).abs().max().item()
+        rel = fa.tile_rel_err(got, want)
+        if not rel <= fa.TILE_RTOL[name]:
+            raise AssertionError(f"{name} {shape}: tile relative err {rel} > "
+                                 f"{fa.TILE_RTOL[name]}")
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["tile_rel_err"] = max(st["tile_rel_err"], rel)
+        return err, rel
+
+    for shape, B, S, Hq, Hkv, hd, causal, packed in FLASH_SHAPES:
+        def rnd(*dims):
+            return torch.randn(dims, generator=gen, device="cuda").to(torch.bfloat16)
+
+        q, k, v, do = rnd(B, S, Hq, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hq, hd)
+        seg = None
+        if packed:  # documents of 200..1800 tokens back to back
+            cuts = torch.randint(200, 1800, (B, 8), generator=gen, device="cuda").cumsum(1)
+            seg = (torch.arange(S, device="cuda")[None, :, None] >= cuts[:, None, :]).sum(-1)
+            seg = seg.to(torch.int32).contiguous()
+        kw = dict(causal=causal, q_offset=0)
+        out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
+        errs = {"flash_fwd": close("flash_fwd", out, ref_out, shape)}
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_fwd {shape}: lse2 max abs err {lse_err}")
+        del ref_lse
+        delta = fa.flash_delta(out, do)
+        args = (q, k, v, lse, delta, do, seg, seg)
+        dq = fa.flash_dq(*args, **kw)
+        ref_dq = fa.flash_dq_reference(*args, **kw)
+        errs["flash_dq"] = close("flash_dq", dq, ref_dq, shape)
+        dk, dv = fa.flash_dkv(*args, **kw)
+        rk, rv = fa.flash_dkv_reference(*args, **kw)
+        ek, ev = close("flash_dkv", dk, rk, shape), close("flash_dkv", dv, rv, shape)
+        errs["flash_dkv"] = (max(ek[0], ev[0]), max(ek[1], ev[1]))
+        if shape == FLASH_SHAPES[0][0]:
+            for name, fault in planted_faults(torch, fa, args, (ref_out, ref_dq, rk, rv)).items():
+                stats[name]["planted_fault"] = fault
+        del dq, dk, dv, rk, rv, ref_out, ref_dq
+        torch.cuda.empty_cache()
+
+        pairs = _live_pairs(B, S, causal, seg)
+        qb, kb = B * S * Hq * hd * 2, B * S * Hkv * hd * 2
+        rowb = B * Hq * S * 4
+        work = {  # (flops, bytes: each input read once, each output written once)
+            "flash_fwd": (4 * hd * pairs * Hq, 2 * qb + 2 * kb + rowb),
+            "flash_dq": (6 * hd * pairs * Hq, 3 * qb + 2 * kb + 2 * rowb),
+            "flash_dkv": (8 * hd * pairs * Hq, 2 * qb + 4 * kb + 2 * rowb),
+        }
+        launch = {
+            "flash_fwd": lambda i: fa.flash_fwd(q, k, v, seg, seg, **kw),
+            "flash_dq": lambda i: fa.flash_dq(*args, **kw),
+            "flash_dkv": lambda i: fa.flash_dkv(*args, **kw),
+        }
+        for name in stats:
+            flops, nbytes = work[name]
+            row = {
+                "shape": shape, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                "causal": causal, "packed": packed, "live_pairs_per_head": pairs,
+                "flops": flops, "bytes": nbytes, "max_abs_err": errs[name][0],
+                "tile_rel_err": errs[name][1],
+                "ms": time_ms(torch, launch[name], iters=10),
+                "bound_ms": max(flops / peak, nbytes / bw) * 1e3,
+                "bound_by": "operations" if flops / peak > nbytes / bw else "bytes",
+            }
+            row["tflops_per_s"] = flops / row["ms"] / 1e9
+            stats[name]["shapes"].append(row)
+
+        if shape == FLASH_SHAPES[0][0]:  # the main path's shape: plain and library
+            plain = {
+                "flash_fwd": lambda i: fa.flash_fwd_reference(q, k, v, seg, seg, **kw),
+                "flash_dq": lambda i: fa.flash_dq_reference(*args, **kw),
+                "flash_dkv": lambda i: fa.flash_dkv_reference(*args, **kw),
+            }
+            qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True)
+            lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, enable_gqa=True), iters=10)
+            g = do.transpose(1, 2)
+            lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
+                sdpa, (qh, kh, vh), g, retain_graph=True), iters=10)
+            # SDPA's backward computes dQ, dK and dV in one call: it stands
+            # beside the dK/dV row alone, so the pair is not counted twice
+            library = {"flash_fwd": lib_fwd, "flash_dq": None, "flash_dkv": lib_bwd}
+            for name in stats:
+                main = stats[name]["shapes"][0]
+                main["plain_ms"] = time_ms(torch, plain[name], iters=2, reps=3)
+                main["library_ms"] = library[name]
+                torch.cuda.empty_cache()
+            del sdpa, qh, kh, vh
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+
+    rows = []
+    tpu = {"flash_fwd": (169, 361, "_fwd_kernel"), "flash_dq": (401, 696, "_dq_kernel"),
+           "flash_dkv": (489, 781, "_dkv_kernel")}
+    for name, st in stats.items():
+        main = st["shapes"][0]
+        line, call, fn = tpu[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "odh_kubeflow_tpu_torch/csrc/"
+            + ("flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
+            "replaces": f"odh_kubeflow_tpu/ops/pallas_attention.py:{line}",
+            "tpu_kernel": f"{fn} (pallas_call at odh_kubeflow_tpu/ops/pallas_attention.py:{call})",
+            "max_abs_err": st["max_abs_err"],
+            "tile_rel_err": st["tile_rel_err"],
+            "tolerance": f"||kernel - plain|| / ||plain|| <= {fa.TILE_RTOL[name]} in every "
+                         "tile of 64 positions of one row and head, bf16",
+            "planted_fault": st["planted_fault"],
+            # ms, plain_ms, bound_ms and library_ms: one launch at the 8B
+            # training shape (B 2, S 4096, 32/8 heads, hd 128, causal)
+            "unit": "one launch at the 8B training shape",
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            # one SDPA call: the forward, or on the dK/dV row the backward,
+            # which computes dQ, dK and dV together (dQ: null)
+            "library_ms": main["library_ms"],
+            "shapes": st["shapes"],
+        })
+    return rows
+
+
+def counts(fa, int4) -> dict:
+    return {"flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
+            "flash_dkv": fa.dkv_launches, "int4_dequant": int4.launches}
+
+
+def zero_counts(fa, int4) -> None:
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = int4.launches = 0
+
+
+def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
+    """The 8B QLoRA training step through ``Trainer.benchmark``."""
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    B, S = TRAIN_SHAPE
+    cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4",
+                      precompile_batch=(B, S))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    steps, warmup = 3, 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, int4)  # the training path's count starts here
+    bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    launched = counts(fa, int4)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = {k: n * (steps + warmup) for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if launched != expected:
+        raise AssertionError(f"training launches {launched}, expected {expected}")
+    metrics = trainer.train_step(trainer.make_fake_batch(B, S, seed=1))
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
+    if not math.isfinite(bench["loss"]):
+        raise AssertionError(f"benchmark loss {bench['loss']}")
+    moved = {n: trainer.lora_params["layers"][n]["b"].abs().max().item()
+             for n in trainer.lora_params["layers"]}
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"adapters b did not move from zero: {moved}")
+    record = {
+        "phase": "train",
+        "config": "llama3_8b QLoRA: int4 base (group 128, random weights, seed 0), "
+                  "LoRA r16 on wq/wk/wv/wo, remat attn, 32 layers",
+        "batch": B, "seq": S, "steps": steps, "warmup": warmup,
+        "init_s": init_s, "resident_params_gb": resident_gb, "peak_memory_gb": peak_gb,
+        "step_time_s": bench["step_time_s"], "tokens_per_s": bench["tokens_per_s"],
+        "model_flops_per_step": bench["model_flops_per_step"],
+        "strict_mfu": bench["flops_per_s"] / peak,
+        "train_equiv_mfu": bench["train_equiv_flops_per_s"] / peak,
+        "peak_flops": peak, "loss_benchmark": bench["loss"],
+        "loss_after": loss, "grad_norm_after": gnorm,
+        "launches": launched, "launches_per_step": TRAIN_LAUNCHES_PER_STEP,
+        "adapter_b_max_abs": moved,
+    }
+    return record, trainer
+
+
+def train_parity_phase(torch, fa, int4) -> dict:
+    """A 2-layer model at 8B width: the kernels against the plain versions
+    inside one training step's loss and adapter gradients."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
+
+    def with_plain(fn):
+        kept = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant)
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+            fa.flash_fwd_reference, fa.flash_dq_reference, fa.flash_dkv_reference)
+        int4.int4_dequant = int4.int4_dequant_reference
+        try:
+            return fn()
+        finally:
+            fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant = kept
+
+    B, S = TRAIN_SHAPE
+    cfg = LlamaConfig.llama3_8b(num_layers=2, remat=True, remat_policy="attn")
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4", seed=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    with torch.no_grad():  # a live adapter: b != 0, so every leaf has a gradient
+        for ab in trainer.lora_params["layers"].values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01)
+    rng = torch.Generator().manual_seed(10)
+    docs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=rng).tolist()
+            for n in torch.randint(100, 1500, (24,), generator=rng)]
+    packed = next(prefetch_to_device(pack_documents(docs, B, S)))
+    batches = {"unpacked": trainer.make_fake_batch(B, S, seed=2), "packed": packed}
+    out = {"phase": "train_parity_on_card", "layers": 2, "batch": B, "seq": S,
+           "grad_tol": f"||kernel - plain|| / ||plain|| <= {TRAIN_GRAD_TOL} per leaf",
+           "loss_rtol": TRAIN_LOSS_RTOL}
+    for name, batch in batches.items():
+        before = counts(fa, int4)
+        k_loss, k_grads = trainer.gradients(batch)
+        mid = counts(fa, int4)
+        if not all(mid[n] > before[n] for n in mid):
+            raise AssertionError(f"{name}: a kernel did not launch: {before} -> {mid}")
+        p_loss, p_grads = with_plain(lambda: trainer.gradients(batch))
+        if counts(fa, int4) != mid:
+            raise AssertionError(f"{name}: the plain run launched a kernel")
+        k_loss, p_loss = float(k_loss), float(p_loss)
+        worst = 0.0
+        for path, pg in p_grads.items():
+            kg = k_grads[path]
+            if not bool(torch.isfinite(kg).all()):
+                raise AssertionError(f"{name}: non-finite gradient {path}")
+            rel = ((kg.float() - pg.float()).norm() / pg.float().norm().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+        out[name] = {"loss_kernels": k_loss, "loss_plain": p_loss,
+                     "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+                     "worst_leaf_grad_rel_diff": worst, "leaves": len(p_grads)}
+        if not (math.isfinite(k_loss) and out[name]["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+                and worst <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"train parity {name}: {out[name]}")
+        if name == "unpacked":
+            unpacked = (batch, k_grads)
+    batch, attn_grads = unpacked
+    trainer.model_cfg = dataclasses.replace(cfg, remat_policy="none")
+    _, none_grads = trainer.gradients(batch)
+    worst = max((none_grads[p] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for p, g in attn_grads.items())
+    out["attn_vs_none_worst_leaf_grad_rel_diff"] = worst
+    if worst > 1e-3:
+        raise AssertionError(f"remat attn vs none gradients differ: {worst}")
+    return out
+
+
+def train_profile_phase(torch, trainer) -> dict:
+    """One 8B training step under ``torch.profiler``: the device's busy
+    share and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.make_fake_batch(*TRAIN_SHAPE, seed=3)
+    float(trainer.train_step(batch)["loss"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.train_step(batch)["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(t for t, _ in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "phase": "train_profile",
+        "profiled_step_wall_ms": wall_ms,
+        "device_kernel_ms": device_ms if kernels else "not measured",
+        "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+        "top_kernels": [{"kernel": k, "ms": t / 1e3, "launches": c} for k, (t, c) in top],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -413,44 +806,74 @@ def main() -> int:
     from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
     from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
     from odh_kubeflow_tpu_torch.ops import _build, int4
+    from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+    from odh_kubeflow_tpu_torch.utils.device import peak_flops_per_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     label = card_label()
     name = torch.cuda.get_device_name(0)
     bw = spec_bandwidth(name)
+    peak = peak_flops_per_device(name)
+    if not peak:
+        raise RuntimeError(f"no bf16 peak known for {name!r}")
+    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
-    _build.build(["int4_dequant"])
+    _build.build(kernel_names)
     build_s = time.perf_counter() - t0
-    ptxas = [
-        line.strip()
-        for line in _build.build_logs.get("int4_dequant", "").splitlines()
-        if "registers" in line or "spill" in line
-    ]
+    ptxas = {
+        n: [line.strip() for line in _build.build_logs.get(n, "").splitlines()
+            if "registers" in line or "spill" in line]
+        for n in kernel_names
+    }
     emit({"phase": "device", "card": label, "device_name": name,
-          "spec_bandwidth_bytes_s": bw, "torch": torch.__version__,
+          "spec_bandwidth_bytes_s": bw, "peak_bf16_flops": peak, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s, "ptxas": ptxas})
 
     kernel = kernels_phase(torch, int4, bw)
+    flash_rows = flash_kernels_phase(torch, fa, bw, peak)
     emit({"phase": "kernels", "int4_dequant_bit_exact": True,
-          "shapes_checked": len(kernel["shapes"])})
+          "shapes_checked": len(kernel["shapes"]),
+          "flash": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
+                                        "ms", "plain_ms", "bound_ms", "library_ms")}
+                    for r in flash_rows]})
 
+    # serving (slice 1)
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
     params = streaming_quantized_init(cfg, 0, bits=4, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     resident_gb = torch.cuda.memory_allocated() / 2**30
+    zero_counts(fa, int4)  # slice_phase zeroes int4 again right before its requests
     record, served = slice_phase(torch, int4, cfg, params)
     record.update(init_s=init_s, resident_params_gb=resident_gb, card=label)
+    if (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) != (0, 0, 0):
+        raise AssertionError("the serving path launched a flash kernel")
     emit(record)
-    kernel["launches"] = record["launches"]
-
+    serve_launches = record["launches"]
     emit(parity_phase(torch, int4, cfg, params, served))
     emit({"phase": "profile", "card": label,
           "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
+    del params
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [kernel]})
+    # training (slice 2)
+    record, trainer = train_phase(torch, fa, int4, peak)
+    record["card"] = label
+    emit(record)
+    train_launches = record["launches"]
+    emit(train_profile_phase(torch, trainer))
+    del trainer
+    torch.cuda.empty_cache()
+    emit(train_parity_phase(torch, fa, int4))
+
+    kernel["launches"] = serve_launches + train_launches["int4_dequant"]
+    kernel["launches_by_path"] = {"serve": serve_launches,
+                                  "train": train_launches["int4_dequant"]}
+    for row in flash_rows:
+        row["launches"] = train_launches[row["name"]]
+    emit({"kernels": [kernel, *flash_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

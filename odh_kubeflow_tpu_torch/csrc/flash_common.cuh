@@ -1,0 +1,166 @@
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// warp-level bf16 tensor-core products (mma.sync m16n8k16, f32 accumulate),
+// ldmatrix fragment loads from shared memory, and cp.async tile copies.
+//
+// Layout conventions. A block owns 64 rows (queries, or keys in dK/dV) and
+// runs 4 warps; warp w owns rows 16w..16w+15 of the block. Tiles of 64 rows
+// by HD columns sit in shared memory row-major with a row stride of
+// HD + kPad elements: the 16-byte pad puts the 8 rows that one ldmatrix
+// phase reads in 8 distinct bank groups.
+//
+// m16n8k16 fragments, for lane l, g = l / 4, t = l % 4:
+//   A (16x16):  a0 = (g, 2t..2t+1)  a1 = (g+8, 2t..)  a2 = (g, 2t+8..)
+//               a3 = (g+8, 2t+8..)
+//   B (16x8):   b0 = (k 2t..2t+1, n g)  b1 = (k 2t+8.., n g)
+//   C (16x8):   c0,c1 = (g, 2t..2t+1)   c2,c3 = (g+8, 2t..2t+1)
+// Two neighbouring C tiles (n 8j and 8j+8) of f32 accumulators are, rounded
+// to bf16, the A fragment of the 16-wide k-chunk j: that is how P and dS
+// feed the next product without a trip through shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // the masked score, as in the TPU kernel
+constexpr int kRows = 64;          // rows of a tile
+constexpr int kThreads = 128;      // 4 warps, 16 rows each
+constexpr int kPad = 8;            // shared-memory row padding, elements
+
+// element strides of a [B, S, H, hd] tensor (hd has stride 1)
+struct Strides {
+  long long b, s, h;
+};
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; when !valid the destination is zero-filled
+// and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy rows r0..r0+63 of one (batch, head) slice into a shared tile;
+// rows at or past S are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long row_stride,
+                                          int r0, int S) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const bool valid = r0 + r < S;
+    const bf16* src = valid ? base + static_cast<long long>(r0 + r) * row_stride + c : base;
+    cp_async16(tile + r * (HD + kPad) + c, src, valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A fragment: rows r0..r0+15, columns c0..c0+15 of a row-major tile
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile, int r0, int c0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(a, tile + (r0 + (l & 7) + ((l >> 3) & 1) * 8) * LD + c0 + (l >> 4) * 8);
+}
+
+// B fragments of the two n-tiles n0 and n0+8 at k0..k0+15, from a tile
+// stored [n][k] (K for S = Q K^T): {b[0], b[1]} for n0, {b[2], b[3]} for n0+8
+template <int LD>
+__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* tile, int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(b, tile + (n0 + (l & 7) + (l >> 4) * 8) * LD + k0 + ((l >> 3) & 1) * 8);
+}
+
+// the same from a tile stored [k][n] (V for O = P V), by transposing loads
+template <int LD>
+__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* tile, int k0, int n0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4_t(b, tile + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * LD + n0 + (l >> 4) * 8);
+}
+
+// d += a * b, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of k-chunk j from the f32 accumulators of n-tiles 2j, 2j+1
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The four lanes of a quad hold one row between them.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Whether (query q, key k) may attend: inside both sequences, causal, and in
+// one document. Positions are absolute within their sequences.
+__device__ __forceinline__ bool live(int q, int k, int Sq, int Sk, bool causal, int q_offset,
+                                     int qseg, int kseg, bool has_seg) {
+  return q < Sq && k < Sk && (!causal || q + q_offset >= k) && (!has_seg || qseg == kseg);
+}
+
+// Store two neighbouring bf16 values (columns c, c+1) of an output row.
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+}  // namespace flash

@@ -28,6 +28,7 @@ from odh_kubeflow_tpu_torch.models.llama import (
     Params,
     forward_with_cache,
 )
+from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +48,11 @@ def init_cache(
     max_len: int,
     dtype=torch.bfloat16,
     *,
-    device="cpu",
+    device="cuda",
 ) -> Params:
-    """Preallocated KV cache: ``{"k","v"}: [L, B, S_max, Hkv, hd]``."""
+    """Preallocated KV cache: ``{"k","v"}: [L, B, S_max, Hkv, hd]``, on the
+    card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

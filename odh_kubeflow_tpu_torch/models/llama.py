@@ -6,21 +6,32 @@ every per-layer weight carries a leading ``[L, ...]`` axis, weights are
 names match. Where JAX scans over the layer axis, this runs a Python
 loop over it, slicing one layer per step.
 
-This slice ports the serving path: ``forward_with_cache`` (prefill and
-decode, dense attention over the KV cache) and a dense ``forward``.
+Two paths: ``forward_with_cache`` serves (prefill and decode, dense
+attention over the KV cache) and ``forward`` trains, with flash
+attention on the card (``ops/flash_attention.py``) and the remat
+policies of the JAX package mapped onto ``torch.utils.checkpoint``.
 Quantized leaves (int8 ``{"q","scale"}``, int4 ``{"q4","scale4"}``)
-dequantize inside each layer, so only one layer's float weights exist
-at a time; the int4 dequant is the hand-written kernel on the card.
+dequantize inside each layer, inside its rematerialised region, so only
+one layer's float weights exist at a time and the backward recomputes
+them from the quantized tree; the int4 dequant is the hand-written
+kernel on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from odh_kubeflow_tpu_torch.ops.attention import dense_attention
+from odh_kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from odh_kubeflow_tpu_torch.ops.norms import rms_norm
 from odh_kubeflow_tpu_torch.ops.rope import apply_rope, rope_angles
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
@@ -41,11 +52,11 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
-    # "auto" and "dense" run dense attention; "flash" and "ring" arrive
-    # with the training and multi-device slices
+    # "auto" resolves to "flash" on the card and "dense" on the CPU;
+    # "ring" arrives with the multi-device slice
     attention_impl: str = "auto"
-    # training-side knobs, kept so a config means the same in both
-    # packages; the serving path has no backward pass to rematerialise
+    # training-side rematerialisation (``forward``; the serving path has
+    # no backward pass): "none", "dots", "attn", "attn_mlp"
     remat: bool = True
     remat_policy: str = "dots"
     remat_pin_layers: Optional[int] = None
@@ -253,6 +264,7 @@ def _decoder_layer(
     cache_layer=None,  # {"k","v"}: [B, S_max, Hkv, hd] views, or None
     cache_index=None,  # int or [B] tensor: write offset into the cache
     kv_mask=None,  # [B, S_max] bool: which cache slots are valid
+    save_names=(),  # activations a remat policy pins (see _tag)
 ):
     """Returns ``(x, cache_layer)``. On the KV-cache path this step's
     keys and values are written into ``cache_layer`` in place and it
@@ -270,19 +282,20 @@ def _decoder_layer(
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     kk = kk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     vv = vv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, sin, cos)
-    kk = apply_rope(kk, sin, cos)
+    q = _tag(apply_rope(q, sin, cos), "q_rope", save_names)
+    kk = _tag(apply_rope(kk, sin, cos), "k_rope", save_names)
+    vv = _tag(vv, "v_proj", save_names)
     if cache_layer is not None:
         attn, cache_layer = cache_write_and_attend(
             q, kk, vv, cache_layer, cache_index, kv_mask
         )
     else:
         attn = attention_fn(q, kk, vv, segment_ids=segment_ids)
-    attn = attn.reshape(B, S, cfg.q_dim)
+    attn = _tag(attn, "attn_out", save_names).reshape(B, S, cfg.q_dim)
     x = x + _maybe_lora("wo", attn, layer["wo"], lora_layer)
 
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    gate = _maybe_lora("w_gate", h, layer["w_gate"], lora_layer)
+    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer), "mlp_g", save_names)
     up = _maybe_lora("w_up", h, layer["w_up"], lora_layer)
     x = x + _maybe_lora(
         "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer
@@ -343,15 +356,17 @@ def cache_write_and_attend(
     return attn, {"k": ck, "v": cv}
 
 
-def resolved_attention_impl(cfg: LlamaConfig) -> str:
-    """This slice serves with dense attention: "auto" resolves to it."""
-    if cfg.attention_impl in ("auto", "dense"):
-        return "dense"
-    if cfg.attention_impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash' arrives with slice 2 of the port (the "
-            "LoRA/QLoRA training step and its flash fwd/dq/dkv kernels)"
-        )
+def resolved_attention_impl(cfg: LlamaConfig, device=None) -> str:
+    """"auto" is "flash" for a forward on the card and "dense" on the CPU
+    (the JAX package's backend rule: flash on the accelerator, dense
+    where the kernel would only be emulated). An explicit "flash" on CPU
+    tensors runs the kernels' plain versions through the same custom ops
+    and autograd."""
+    if cfg.attention_impl == "auto":
+        on_card = device is not None and torch.device(device).type == "cuda"
+        return "flash" if on_card else "dense"
+    if cfg.attention_impl in ("dense", "flash"):
+        return cfg.attention_impl
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' arrives with the multi-device slice of "
@@ -372,13 +387,134 @@ def _check_supported(cfg: LlamaConfig) -> None:
         )
 
 
+class _BF16ProductF32Out(torch.autograd.Function):
+    """``a @ b`` of 2-D bf16 operands on the tensor cores with an f32
+    output (``torch.mm(out_dtype=)``, which has no derivative of its
+    own). The backward rounds the f32 gradient to bf16 and runs bf16
+    products, so it stays on the tensor cores too."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ga = g @ b.t() if ctx.needs_input_grad[0] else None
+        gb = a.t() @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with float32 output: JAX's ``preferred_element_type=f32``.
+    On the card bf16 operands stay bf16 (tensor cores, f32 accumulate and
+    output); elsewhere the operands are upcast, which is exact, so the f32
+    product is the same."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        out = _BF16ProductF32Out.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
 def _logits(x: torch.Tensor, head: torch.Tensor, dtype) -> torch.Tensor:
-    """``x @ head`` in ``dtype`` with float32 products and output: JAX's
-    ``preferred_element_type=f32``. Upcasting a bf16 operand to f32 is
-    exact, so the f32 product of the upcast operands is the same."""
-    return torch.matmul(
-        x.to(dtype).to(torch.float32), head.to(dtype).to(torch.float32)
+    """``x @ head`` in ``dtype`` with float32 products and output."""
+    return f32_product(x.to(dtype), head.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+
+
+@torch.library.custom_op("odh_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that a remat policy can recognise by ``name``
+    (JAX's ``checkpoint_name``). Used only for names the active policy
+    saves, so other policies pay no copy."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
+def _tag(x: torch.Tensor, name: str, save_names) -> torch.Tensor:
+    return checkpoint_name(x, name) if name in save_names else x
+
+
+def _remat_plan(policy: str, impl: str):
+    """(ops saved by op identity, activation names saved) of a policy;
+    None for "none" (a plain checkpoint: everything recomputed).
+
+    - "dots": every matmul without batch dims (``aten.mm``: the
+      projections, LoRA and MLP products), plus the flash forward's
+      residuals, which JAX's dot policy adds on the flash path;
+    - "attn": the flash forward's ``(out, lse2)``, so the backward never
+      re-runs the O(S²) kernel; on the dense path, the attention output;
+    - "attn_mlp": "attn" plus the roped q/k, v and the MLP gate.
+    """
+    flash = (torch.ops.odh_torch.flash_fwd.default,) if impl == "flash" else ()
+    if policy == "none":
+        return None
+    if policy == "dots":
+        return (torch.ops.aten.mm.default, *flash), ()
+    if policy in ("attn", "attn_mlp"):
+        names = () if flash else ("attn_out",)
+        if policy == "attn_mlp":
+            names += ("q_rope", "k_rope", "v_proj", "mlp_g")
+        return flash, names
+    if policy == "attn_offload":
+        raise NotImplementedError(
+            "remat_policy='attn_offload' (residuals parked in pinned host "
+            "memory) is not ported yet; it is queued in ROADMAP.md"
+        )
+    raise ValueError(
+        f"unknown remat_policy {policy!r}; expected 'dots', 'attn', "
+        "'attn_mlp', 'attn_offload', or 'none'"
     )
+
+
+def _make_layer_fn(cfg: LlamaConfig, impl: str, attention_fn: Callable, policy: str):
+    """``fn(x, layer, lora_layer, sin, cos, segment_ids) -> x``, wrapped in
+    ``torch.utils.checkpoint`` per the policy when ``cfg.remat``. The
+    layer's slices are views of the stacked trees and the dequant runs
+    inside the region, so the recompute re-dequantizes from the
+    quantized leaves instead of saving a float copy of the model."""
+    if not cfg.remat:
+        return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest)[0]
+    plan = _remat_plan(policy, impl)
+    if plan is None:
+        context_fn = None
+        names = ()
+    else:
+        ops, names = plan
+        tagged = torch.ops.odh_torch.checkpoint_name.default
+
+        def keep(ctx, op, *args, **kwargs):
+            if op in ops or (op is tagged and args[1] in names):
+                return CheckpointPolicy.MUST_SAVE
+            return CheckpointPolicy.PREFER_RECOMPUTE
+
+        context_fn = functools.partial(create_selective_checkpoint_contexts, keep)
+
+    def body(x, layer, lora_layer, sin, cos, segment_ids):
+        return _decoder_layer(
+            cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
+            save_names=names,
+        )[0]
+
+    def layer_fn(x, *rest):
+        if not torch.is_grad_enabled():
+            return body(x, *rest)
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(body, x, *rest, use_reentrant=False, **kw)
+
+    return layer_fn
 
 
 def forward(
@@ -391,7 +527,13 @@ def forward(
     return_hidden: bool = False,
 ) -> torch.Tensor:
     """Returns logits [B, S, V] in float32, or with ``return_hidden`` the
-    final-norm hidden states [B, S, D]. Dense attention, no remat."""
+    final-norm hidden states [B, S, D] (the chunked loss runs the head).
+
+    Attention is ``resolved_attention_impl`` of the tokens' device. With
+    ``cfg.remat`` each layer is a checkpointed region under
+    ``cfg.remat_policy``; ``remat_pin_layers = n`` gives the first
+    ``L - n`` layers ``remat_prefix_policy`` and the last ``n`` the named
+    policy, as JAX's two scans do."""
     _check_supported(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -400,14 +542,23 @@ def forward(
 
     x = params["embed"][tokens].to(cfg.dtype)
 
-    def attention_fn(q, k, v, segment_ids=None):
-        return dense_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    impl = resolved_attention_impl(cfg, tokens.device)
+    if impl == "flash":
+        attention_fn = functools.partial(flash_attention, causal=True)
+    else:
+        def attention_fn(q, k, v, segment_ids=None):
+            return dense_attention(q, k, v, causal=True, segment_ids=segment_ids)
+
+    L = cfg.num_layers
+    policies = [cfg.remat_policy] * L
+    pin = cfg.remat_pin_layers
+    if cfg.remat and cfg.remat_policy != "none" and pin is not None and 0 < pin < L:
+        policies[: L - pin] = [cfg.remat_prefix_policy] * (L - pin)
+    fns = {p: _make_layer_fn(cfg, impl, attention_fn, p) for p in set(policies)}
 
     lora_layers = lora["layers"] if lora is not None else None
-    for i in range(cfg.num_layers):
-        x, _ = _decoder_layer(
-            cfg,
-            attention_fn,
+    for i in range(L):
+        x = fns[policies[i]](
             x,
             _layer_slice(params["layers"], i),
             _layer_slice(lora_layers, i),

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so``
 under the checkout, then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source rebuilds and a stale library
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds and a stale library
 is never loaded. Nothing builds at import: the first launch of a kernel
 builds it (``library``), or ``build`` builds several at once, one
 ``nvcc`` process per source, all started together.
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers count too: an edited header rebuilds its users
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

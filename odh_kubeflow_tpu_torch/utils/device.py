@@ -26,6 +26,30 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+# bf16 dense tensor-core peak, FLOP/s, by the name torch gives the card
+# (NVIDIA data sheets, at the card's full power limit)
+_PEAK_BF16_FLOPS = (
+    ("H100 80GB HBM3", 989e12),  # H100 SXM
+    ("H100 NVL", 835e12),
+    ("H100 PCIe", 756e12),
+    ("H200", 989e12),
+)
+
+
+def peak_flops_per_device(name: str | None = None) -> float:
+    """Peak bf16 dense FLOP/s of one card for MFU accounting (the
+    counterpart of ``utils/tpu.py`` ``peak_flops_per_chip``); ``name``
+    defaults to card 0's. 0.0 when the card is unknown or absent."""
+    if name is None:
+        if not torch.cuda.is_available():
+            return 0.0
+        name = torch.cuda.get_device_name(0)
+    for key, flops in _PEAK_BF16_FLOPS:
+        if key in name:
+            return flops
+    return 0.0
+
+
 def card_label() -> str:
     """The card's name and power limit, as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``

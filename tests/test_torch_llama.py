@@ -20,6 +20,7 @@ from odh_kubeflow_tpu.models import lora as jax_lora
 from odh_kubeflow_tpu.models import quant as jax_quant
 from odh_kubeflow_tpu_torch import convert
 from odh_kubeflow_tpu_torch.models import llama, lora
+from odh_kubeflow_tpu_torch.models.generate import init_cache
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 JCFG = jax_llama.LlamaConfig.tiny(dtype=jnp.float32)
@@ -212,9 +213,16 @@ def test_later_slices_raise_not_implemented():
     _, tp = trees("f32")
     toks = torch.ones((1, 2), dtype=torch.long)
     assert llama.resolved_attention_impl(TCFG) == "dense"
-    for cfg in (dataclasses.replace(TCFG, attention_impl="flash"),
-                dataclasses.replace(TCFG, attention_impl="ring"),
-                dataclasses.replace(TCFG, w8a8_decode=True)):
+    assert llama.resolved_attention_impl(TCFG, "cpu") == "dense"
+    assert llama.resolved_attention_impl(TCFG, "cuda") == "flash"
+    # flash is ported (slice 2): on CPU tensors it runs the plain versions
+    flash = dataclasses.replace(TCFG, attention_impl="flash")
+    np.testing.assert_allclose(
+        llama.forward(tp, toks, flash).numpy(), llama.forward(tp, toks, TCFG).numpy(), **TOL
+    )
+    for cfg in (dataclasses.replace(TCFG, attention_impl="ring"),
+                dataclasses.replace(TCFG, w8a8_decode=True),
+                dataclasses.replace(TCFG, remat=True, remat_policy="attn_offload")):
         with pytest.raises(NotImplementedError):
             llama.forward(tp, toks, cfg)
     with pytest.raises(ValueError):
@@ -229,6 +237,10 @@ def test_init_params_layout_and_device_default():
     assert got == want
     again = llama.init_params(0, TCFG, device="cpu")
     assert torch.equal(tp["layers"]["wq"], again["layers"]["wq"])
+    cache = init_cache(TCFG, 2, 8, device="cpu")
+    assert cache["k"].shape == (TCFG.num_layers, 2, 8, TCFG.num_kv_heads, TCFG.head_dim)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             llama.init_params(0, TCFG)  # default device is the card
+        with pytest.raises(RuntimeError):
+            init_cache(TCFG, 2, 8)  # so is the cache's
