@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and MoE training paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 Phases, one JSON line each on stdout:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the time to build every CUDA kernel of both paths
-   (``int4_dequant``, ``flash_fwd``, ``flash_bwd``) from
+   CUDA versions, and the time to build every CUDA kernel of the paths
+   (``int4_dequant``, ``flash_fwd``, ``flash_bwd``, ``gmm``,
+   ``swiglu_gmm``) from
    ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all at once.
 2. ``kernels``: each kernel against its plain PyTorch version on the
@@ -33,6 +34,20 @@ Phases, one JSON line each on stdout:
    every adapter gradient with the kernels against the plain versions,
    on an unpacked and a packed batch; and remat "attn" against "none".
 8. ``train_profile``: where one 8B training step's device time goes.
+9. ``moe_kernels`` (right after ``kernels``): the grouped-matmul kernels
+   (``gmm``, the fused SwiGLU forward and backward) against their plain
+   versions at the Mixtral-8x1B training shapes (M 17,408 sorted rows, D
+   2048, F 8192, E 8) on four routings (balanced, one expert, two empty
+   experts, a large tail), per 128-row tile, into NaN-filled buffers;
+   two planted faults per kernel that the check must reject; times, bounds,
+   plain and ``torch._grouped_mm`` yardsticks.
+10. ``moe_train``: the Mixtral-8x1B QLoRA step (int8 expert banks,
+    dropless grouped dispatch, remat "attn" + ``pin_expert_acts``, LoRA
+    r16 on wq/wk/wv/wo) through ``Trainer.benchmark`` at batch 2, seq 4096,
+    with exact launches per step of all six kernels on its path.
+11. ``moe_train_profile``: one MoE step's device time by kernel kind.
+12. ``moe_train_parity_on_card``: a 2-layer model at 8x1B width on a
+    packed batch, kernels against plain versions.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -102,6 +117,18 @@ TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32,
 # every adapter gradient leaf; relative tolerance on the loss
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_LOSS_RTOL = 2e-3
+# the Mixtral-8x1B QLoRA step: (batch, seq); M = round_up(B·S·k + E·128, 512)
+# sorted rows per layer; launches per step. Each of the 16 layers runs, in
+# the forward, the flash forward, the fused SwiGLU and the down projection
+# (K 8192); remat "attn" with pin_expert_acts saves the flash residuals and
+# the expert op's (y, g), so the recompute launches nothing; the backward
+# runs dQ, dK/dV, the down dlhs (K 2048), the SwiGLU backward and the
+# gate and up dlhs (K 8192)
+MOE_TRAIN_SHAPE = (2, 4096)
+MOE_M = 17_408
+MOE_LAUNCHES_PER_STEP = {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16,
+                         "swiglu_fwd": 16, "swiglu_bwd": 16, "gmm_k8192": 48,
+                         "gmm_k2048": 16, "gmm": 64}
 
 
 def emit(obj) -> None:
@@ -796,6 +823,477 @@ def train_profile_phase(torch, trainer) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# MoE (slice 3): the Mixtral-8x1B QLoRA step and its grouped-matmul kernels
+
+
+def grouped_offsets(torch, counts, M: int):
+    """``route_sorted``'s offsets for per-expert row counts: starts padded
+    to ``ALIGN``, ``offsets[E] = M`` (the last expert owns the tail)."""
+    from odh_kubeflow_tpu_torch.ops.grouped_matmul import ALIGN
+
+    starts, s = [], 0
+    for c in counts:
+        starts.append(s)
+        s += -(-c // ALIGN) * ALIGN
+    if s > M:
+        raise ValueError(f"counts {counts} overflow M={M}")
+    return torch.tensor(starts + [M], dtype=torch.int32, device="cuda")
+
+
+def moe_routings(torch) -> dict:
+    """The routings the grouped kernels are held on, at the 8x1B training
+    shape: near-balanced (``route_sorted`` of random logits), one expert
+    taking every row, two empty experts, and a tail region of 9,344 rows
+    past the last real group (7,500 real rows)."""
+    from odh_kubeflow_tpu_torch.models.moe import MoeConfig, route_sorted
+
+    cfg = MoeConfig.mixtral_8x1b()
+    B, S = MOE_TRAIN_SHAPE
+    E = cfg.num_experts
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    logits = torch.randn((B, S, E), generator=gen, device="cuda")
+    _, _, balanced, _, _ = route_sorted(logits, cfg)
+    M = MOE_M
+    per = B * S * cfg.num_experts_per_tok // E  # 2048 rows an expert when balanced
+    return {
+        "balanced": balanced,
+        "one_expert": grouped_offsets(torch, [0, 0, 0, M, 0, 0, 0, 0], M),
+        "two_empty": grouped_offsets(torch, [per + 700, 0, per + 300, per, per - 900, 0,
+                                             per + 500, per], M),
+        "large_tail": grouped_offsets(torch, [1000, 900, 1100, 800, 1000, 1050, 950, 700], M),
+    }
+
+
+def gmm_work(M, K, N, E, kind):
+    """(flops, bytes) of one launch over all M rows: each input read once,
+    each output written once."""
+    if kind == "swiglu_fwd":
+        return 4 * M * K * N, M * K * 2 + 2 * E * K * N + 2 * E * N * 4 + 2 * M * N * 2
+    if kind == "swiglu_bwd":
+        return 2 * M * K * N, M * K * 2 + E * K * N + E * N * 4 + 4 * M * N * 2
+    return 2 * M * K * N, M * K * 2 + E * K * N + E * max(K, N) * 4 + M * N * 2
+
+
+def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
+    """Each grouped kernel against its plain version at the Mixtral-8x1B
+    training shapes (M 17,408 sorted rows, D 2048, F 8192, E 8), on four
+    routings, per 128-row tile, into output buffers left full of NaN;
+    planted faults the check must reject; times at the balanced routing."""
+    E, D, F, M = 8, 2048, 8192, MOE_M
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    routings = moe_routings(torch)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def bank(*shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        last = shape[-1]
+        s = torch.rand((shape[0], 1, last), generator=gen, device="cuda") * 2e-3 + 1e-4
+        return q, s
+
+    def poisoned(rows, cols):
+        torch.full((rows, cols), float("nan"), dtype=torch.bfloat16, device="cuda")
+
+    # (row, shape label, K, N, trans): the gmm launches of one MoE layer's step
+    gmm_shapes = (
+        ("gmm_k8192", "down fwd", F, D, False),
+        ("gmm_k8192", "gate/up dlhs (trans)", F, D, True),
+        ("gmm_k2048", "down dlhs (trans)", D, F, True),
+    )
+    stats = {n: {"max_abs_err": 0.0, "tile_rel_err": 0.0, "shapes": [], "planted_fault": {}}
+             for n in ("gmm_k8192", "gmm_k2048", "swiglu_fwd", "swiglu_bwd")}
+
+    def check(name, got, want, label):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {label}: non-finite output (an unwritten row?)")
+        rel = gm.tile_rel_err(got, want)
+        if not rel <= gm.TILE_RTOL:
+            raise AssertionError(f"{name} {label}: tile relative err {rel} > {gm.TILE_RTOL}")
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], (got.float() - want.float()).abs().max().item())
+        st["tile_rel_err"] = max(st["tile_rel_err"], rel)
+        return rel
+
+    def plant(name, label, want, faults):
+        """faults: {description: output of the plain version made wrong}"""
+        for what, bad in faults.items():
+            rel = gm.tile_rel_err(bad, want)
+            if rel <= gm.TILE_RTOL:
+                raise AssertionError(f"{name}: the check passed a planted fault ({what}): {rel}")
+            stats[name]["planted_fault"][f"{label}: {what}"] = rel
+
+    def wrong_expert(offs):
+        """Offsets that hand the first 128-row tile of a group to the
+        expert before it (the boundary moves one tile up)."""
+        o = offs.clone()
+        for e in range(1, o.numel() - 1):
+            if o[e + 1] > o[e] and o[e] > 0:
+                o[e] += 128
+                return o
+        raise AssertionError("no group boundary to move")
+
+    def library(fn):
+        """One ``torch._grouped_mm`` call as the yardstick, where the
+        card's torch has it; what it raised otherwise."""
+        if not hasattr(torch, "_grouped_mm"):
+            return None, "torch._grouped_mm absent"
+        try:
+            fn(0)
+            return time_ms(torch, fn, iters=10), None
+        except Exception as e:  # noqa: BLE001 — a yardstick, not a phase result
+            return None, f"torch._grouped_mm raised {type(e).__name__}: {str(e)[:200]}"
+
+    for name, label, K, N, trans in gmm_shapes:
+        lhs = bf16(M, K)
+        q, s = bank(E, N, K) if trans else bank(E, K, N)
+        for rname, offs in routings.items():
+            poisoned(M, N)
+            got = gm.gmm(lhs, q, offs, trans, s)
+            want = gm.gmm_reference(lhs, q, offs, trans, s)
+            torch.cuda.synchronize()
+            rel = check(name, got, want, f"{label} {rname}")
+            if rname == "balanced":
+                short = lhs.clone()
+                short[:, -64:] = 0
+                plant(name, label, want, {
+                    "a tile given the wrong expert": gm.gmm_reference(
+                        lhs, q, wrong_expert(offs), trans, s),
+                    "the last K chunk of 64 skipped": gm.gmm_reference(short, q, offs, trans, s),
+                })
+                del short
+                flops, nbytes = gmm_work(M, K, N, E, name)
+                row = {"shape": label, "M": M, "K": K, "N": N, "trans": trans,
+                       "flops": flops, "bytes": nbytes, "tile_rel_err": rel,
+                       "ms": time_ms(torch, lambda i: gm.gmm(lhs, q, offs, trans, s), iters=10),
+                       "plain_ms": time_ms(torch, lambda i: gm.gmm_reference(lhs, q, offs, trans, s),
+                                           iters=2, reps=3),
+                       "bound_ms": max(flops / peak, nbytes / bw) * 1e3,
+                       "bound_by": "operations" if flops / peak > nbytes / bw else "bytes"}
+                qb = q.to(torch.bfloat16)
+                rhs = qb.transpose(1, 2) if trans else qb
+                ends = offs[1:].contiguous()
+                row["library_ms"], row["library_note"] = library(
+                    lambda i: torch._grouped_mm(lhs, rhs, offs=ends))
+                row["tflops_per_s"] = flops / row["ms"] / 1e9
+                stats[name]["shapes"].append(row)
+                del qb, rhs
+            del got, want
+        del lhs, q, s
+        torch.cuda.empty_cache()
+
+    # the fused SwiGLU, forward and backward
+    x = bf16(M, D)
+    (wg, sg), (wu, su) = bank(E, D, F), bank(E, D, F)
+    dh = bf16(M, F)
+    for rname, offs in routings.items():
+        poisoned(M, F)
+        h, g = gm.swiglu_fwd(x, wg, wu, sg, su, offs)
+        wh, wgt = gm.swiglu_fwd_reference(x, wg, wu, sg, su, offs)
+        torch.cuda.synchronize()
+        rel_f = max(check("swiglu_fwd", h, wh, f"h {rname}"), check("swiglu_fwd", g, wgt, f"g {rname}"))
+        poisoned(M, F)
+        dg, du = gm.swiglu_bwd(x, wu, su, wgt, dh, offs)
+        wdg, wdu = gm.swiglu_bwd_reference(x, wu, su, wgt, dh, offs)
+        torch.cuda.synchronize()
+        rel_b = max(check("swiglu_bwd", dg, wdg, f"dg {rname}"),
+                    check("swiglu_bwd", du, wdu, f"du {rname}"))
+        if rname == "balanced":
+            short = x.clone()
+            short[:, -64:] = 0
+            moved = wrong_expert(offs)
+            plant("swiglu_fwd", "h", wh, {
+                "a tile given the wrong expert":
+                    gm.swiglu_fwd_reference(x, wg, wu, sg, su, moved)[0],
+                "the last K chunk of 64 skipped":
+                    gm.swiglu_fwd_reference(short, wg, wu, sg, su, offs)[0],
+            })
+            plant("swiglu_bwd", "dg", wdg, {
+                "a tile given the wrong expert":
+                    gm.swiglu_bwd_reference(x, wu, su, wgt, dh, moved)[0],
+                "the last K chunk of 64 skipped":
+                    gm.swiglu_bwd_reference(short, wu, su, wgt, dh, offs)[0],
+            })
+            del short
+            ends = offs[1:].contiguous()
+            wgu = torch.cat([wg, wu], dim=2).to(torch.bfloat16)
+            wub = wu.to(torch.bfloat16)
+            for name, rel, fn, plain, lib in (
+                ("swiglu_fwd", rel_f, lambda i: gm.swiglu_fwd(x, wg, wu, sg, su, offs),
+                 lambda i: gm.swiglu_fwd_reference(x, wg, wu, sg, su, offs),
+                 lambda i: torch._grouped_mm(x, wgu, offs=ends)),
+                ("swiglu_bwd", rel_b, lambda i: gm.swiglu_bwd(x, wu, su, wgt, dh, offs),
+                 lambda i: gm.swiglu_bwd_reference(x, wu, su, wgt, dh, offs),
+                 lambda i: torch._grouped_mm(x, wub, offs=ends)),
+            ):
+                flops, nbytes = gmm_work(M, D, F, E, name)
+                row = {"shape": "gate/up D->F", "M": M, "K": D, "N": F, "flops": flops,
+                       "bytes": nbytes, "tile_rel_err": rel,
+                       "ms": time_ms(torch, fn, iters=10),
+                       "plain_ms": time_ms(torch, plain, iters=2, reps=3),
+                       "bound_ms": max(flops / peak, nbytes / bw) * 1e3,
+                       "bound_by": "operations" if flops / peak > nbytes / bw else "bytes"}
+                row["library_ms"], row["library_note"] = library(lib)
+                row["tflops_per_s"] = flops / row["ms"] / 1e9
+                stats[name]["shapes"].append(row)
+            del wgu, wub
+        del h, g, wh, wgt, dg, du, wdg, wdu
+    del x, wg, wu, sg, su, dh
+    torch.cuda.empty_cache()
+
+    tpu = {
+        "gmm_k8192": ("odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:307",
+                      "_gmm_b_kernel (pallas_call at odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:447)",
+                      "csrc/gmm.cu"),
+        "gmm_k2048": ("odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:210",
+                      "_gmm_a_kernel_q (pallas_call at odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:287)",
+                      "csrc/gmm.cu"),
+        "swiglu_fwd": ("odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:672",
+                       "_swiglu_fwd_kernel (pallas_call at odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:757)",
+                       "csrc/swiglu_gmm.cu"),
+        "swiglu_bwd": ("odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:698",
+                       "_swiglu_bwd_kernel (pallas_call at odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:782)",
+                       "csrc/swiglu_gmm.cu"),
+    }
+    rows = []
+    for name, st in stats.items():
+        main_row = st["shapes"][0]
+        replaces, fn, src = tpu[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "odh_kubeflow_tpu_torch/" + src,
+            "replaces": replaces,
+            "tpu_kernel": fn,
+            "max_abs_err": st["max_abs_err"],
+            "tile_rel_err": st["tile_rel_err"],
+            "tolerance": f"||kernel - plain|| / ||plain|| <= {gm.TILE_RTOL} in every 128-row "
+                         "tile, bf16, on 4 routings (balanced, one expert, two empty, large tail)",
+            "planted_fault": st["planted_fault"],
+            "unit": f"one launch at the Mixtral-8x1B training shape ({main_row['shape']}, "
+                    f"M {MOE_M}, K {main_row['K']}, N {main_row['N']}, balanced routing)",
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "library": "torch._grouped_mm over a bf16 copy of the bank"
+                       + (" (gate|up concatenated: the two products only, no silu)"
+                          if name == "swiglu_fwd" else
+                          " (the u product only)" if name == "swiglu_bwd" else ""),
+            "shapes": st["shapes"],
+        })
+    return rows
+
+
+def moe_counts(fa, gm) -> dict:
+    return {"flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
+            "flash_dkv": fa.dkv_launches, "swiglu_fwd": gm.swiglu_fwd_launches,
+            "swiglu_bwd": gm.swiglu_bwd_launches,
+            "gmm_k8192": gm.gmm_launches_by_k.get(8192, 0),
+            "gmm_k2048": gm.gmm_launches_by_k.get(2048, 0), "gmm": gm.gmm_launches}
+
+
+def zero_moe_counts(fa, int4, gm) -> None:
+    zero_counts(fa, int4)
+    gm.gmm_launches = gm.swiglu_fwd_launches = gm.swiglu_bwd_launches = 0
+    gm.gmm_launches_by_k.clear()
+
+
+def moe_config():
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.moe import MoeConfig
+
+    return MoeConfig.mixtral_8x1b(
+        base=LlamaConfig.llama3_1b(remat_policy="attn"), dispatch="grouped",
+        pin_expert_acts=True,
+    )
+
+
+def moe_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
+    """The Mixtral-8x1B QLoRA step through ``Trainer.benchmark``."""
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base=True,
+                      precompile_batch=(B, S))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    steps, warmup = 3, 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_moe_counts(fa, int4, gm)  # the MoE training path's count starts here
+    bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    launched = moe_counts(fa, gm)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = {k: n * (steps + warmup) for k, n in MOE_LAUNCHES_PER_STEP.items()}
+    if launched != expected or int4.launches:
+        raise AssertionError(f"MoE training launches {launched} (int4 {int4.launches}), "
+                             f"expected {expected}")
+    metrics = trainer.train_step(trainer.make_fake_batch(B, S, seed=1))
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
+    if not math.isfinite(bench["loss"]):
+        raise AssertionError(f"benchmark loss {bench['loss']}")
+    moved = {n: trainer.lora_params["layers"][n]["b"].abs().max().item()
+             for n in trainer.lora_params["layers"]}
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"adapters b did not move from zero: {moved}")
+    b = cfg.base
+    record = {
+        "phase": "moe_train",
+        "config": f"mixtral_8x1b QLoRA: D {b.hidden_size}, F {b.intermediate_size}, "
+                  f"{b.num_layers} layers, {b.num_heads}/{b.num_kv_heads} heads, hd {b.head_dim}, "
+                  f"V {b.vocab_size}, E {cfg.num_experts}, top-{cfg.num_experts_per_tok}, int8 "
+                  "base (random weights, seed 0), dispatch grouped, remat attn + pin_expert_acts, "
+                  "LoRA r16 on wq/wk/wv/wo",
+        "batch": B, "seq": S, "steps": steps, "warmup": warmup, "sorted_rows_M": MOE_M,
+        "init_s": init_s, "resident_params_gb": resident_gb, "peak_memory_gb": peak_gb,
+        "step_time_s": bench["step_time_s"], "tokens_per_s": bench["tokens_per_s"],
+        "model_flops_per_step": bench["model_flops_per_step"],
+        "strict_mfu": bench["flops_per_s"] / peak,
+        "train_equiv_mfu": bench["train_equiv_flops_per_s"] / peak,
+        "peak_flops": peak, "loss_benchmark": bench["loss"],
+        "loss_after": loss, "grad_norm_after": gnorm,
+        "launches": launched, "launches_per_step": MOE_LAUNCHES_PER_STEP,
+        "adapter_b_max_abs": moved,
+    }
+    return record, trainer
+
+
+KERNEL_KINDS = (  # (kind, substrings of the device kernel's name)
+    ("grouped gemm (gmm.cu)", ("gmm_kernel", "prescale_kernel")),
+    ("swiglu fwd (swiglu_gmm.cu)", ("swiglu_fwd_kernel",)),
+    ("swiglu bwd (swiglu_gmm.cu)", ("swiglu_bwd_kernel",)),
+    ("flash (flash_fwd.cu, flash_bwd.cu)", ("flash_",)),
+    ("cuBLAS GEMMs", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
+)
+
+
+def moe_train_profile_phase(torch, trainer) -> dict:
+    """One MoE training step under ``torch.profiler``: device ms by kernel
+    kind, the busy share, and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.make_fake_batch(*MOE_TRAIN_SHAPE, seed=3)
+    float(trainer.train_step(batch)["loss"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.train_step(batch)["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(t for t, _ in kernels.values()) / 1e3
+    kinds = {}
+    for k, (t, c) in kernels.items():
+        kind = next((n for n, keys in KERNEL_KINDS if any(s in k for s in keys)),
+                    "other (elementwise, norms, casts, loss, routing)")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + t / 1e3, n + c)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    # the PyTorch ops that own the device time (a custom op counts the
+    # kernels it launches; an aten op its own elementwise kernels)
+    ops = []
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", None)
+        if own is None:
+            own = getattr(e, "self_cuda_time_total", 0.0)
+        if own > 0 and str(e.device_type).endswith("CPU"):
+            ops.append({"op": e.key, "self_device_ms": own / 1e3, "calls": e.count})
+    ops.sort(key=lambda o: -o["self_device_ms"])
+    return {
+        "phase": "moe_train_profile",
+        "top_ops": ops[:15],
+        "profiled_step_wall_ms": wall_ms,
+        "device_kernel_ms": device_ms if kernels else "not measured",
+        "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+        "by_kind": {k: {"ms": ms, "launches": n} for k, (ms, n) in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0])},
+        "top_kernels": [{"kernel": k, "ms": t / 1e3, "launches": c} for k, (t, c) in top],
+    }
+
+
+def moe_train_parity_phase(torch, fa, int4, gm) -> dict:
+    """A 2-layer model at 8x1B width, int8 banks, one packed batch: the
+    loss and every adapter gradient with the kernels against the plain
+    versions."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
+
+    def with_plain(fn):
+        kept = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, gm.gmm, gm.swiglu_fwd, gm.swiglu_bwd)
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+            fa.flash_fwd_reference, fa.flash_dq_reference, fa.flash_dkv_reference)
+        gm.gmm, gm.swiglu_fwd, gm.swiglu_bwd = (
+            gm.gmm_reference, gm.swiglu_fwd_reference, gm.swiglu_bwd_reference)
+        try:
+            return fn()
+        finally:
+            (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, gm.gmm, gm.swiglu_fwd,
+             gm.swiglu_bwd) = kept
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_config()
+    cfg = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, num_layers=2))
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base=True, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():  # a live adapter: b != 0, so every leaf has a gradient
+        for ab in trainer.lora_params["layers"].values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01)
+    rng = torch.Generator().manual_seed(10)
+    docs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=rng).tolist()
+            for n in torch.randint(100, 1500, (24,), generator=rng)]
+    batch = next(prefetch_to_device(pack_documents(docs, B, S)))
+    offsets = []
+    route = moe_lib.route_sorted
+
+    def spy(*a, **k):
+        out = route(*a, **k)
+        offsets.append(out[2].tolist())
+        return out
+
+    moe_lib.route_sorted = spy
+    try:
+        before = moe_counts(fa, gm)
+        k_loss, k_grads = trainer.gradients(batch)
+        mid = moe_counts(fa, gm)
+        p_loss, p_grads = with_plain(lambda: trainer.gradients(batch))
+        after = moe_counts(fa, gm)
+    finally:
+        moe_lib.route_sorted = route
+    if not all(mid[n] > before[n] for n in mid):
+        raise AssertionError(f"a kernel did not launch: {before} -> {mid}")
+    if after != mid:
+        raise AssertionError("the plain run launched a kernel")
+    k_loss, p_loss = float(k_loss), float(p_loss)
+    worst = 0.0
+    for path, pg in p_grads.items():
+        kg = k_grads[path]
+        if not bool(torch.isfinite(kg).all()):
+            raise AssertionError(f"non-finite gradient {path}")
+        worst = max(worst, ((kg.float() - pg.float()).norm()
+                            / pg.float().norm().clamp_min(1e-30)).item())
+    n = len(offsets) // 2
+    out = {"phase": "moe_train_parity_on_card", "layers": 2, "batch": B, "seq": S,
+           "packed_segments": int(batch["segment_ids"].max()),
+           "padding_tokens": int((batch["segment_ids"] == 0).sum()),
+           "grad_tol": f"||kernel - plain|| / ||plain|| <= {TRAIN_GRAD_TOL} per leaf",
+           "loss_rtol": TRAIN_LOSS_RTOL, "loss_kernels": k_loss, "loss_plain": p_loss,
+           "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+           "worst_leaf_grad_rel_diff": worst, "leaves": len(p_grads),
+           "group_offsets_equal": offsets[:n] == offsets[n:]}
+    if not (math.isfinite(k_loss) and out["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+            and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"MoE train parity: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -807,6 +1305,7 @@ def main() -> int:
     from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
     from odh_kubeflow_tpu_torch.ops import _build, int4
     from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+    from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
     from odh_kubeflow_tpu_torch.utils.device import peak_flops_per_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -817,7 +1316,7 @@ def main() -> int:
     peak = peak_flops_per_device(name)
     if not peak:
         raise RuntimeError(f"no bf16 peak known for {name!r}")
-    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd"]
+    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm"]
     t0 = time.perf_counter()
     _build.build(kernel_names)
     build_s = time.perf_counter() - t0
@@ -837,6 +1336,11 @@ def main() -> int:
           "flash": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
                                         "ms", "plain_ms", "bound_ms", "library_ms")}
                     for r in flash_rows]})
+    moe_rows = moe_kernels_phase(torch, gm, bw, peak)
+    emit({"phase": "moe_kernels", "card": label,
+          "grouped": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
+                                          "ms", "plain_ms", "bound_ms", "library_ms")}
+                      for r in moe_rows]})
 
     # serving (slice 1)
     cfg = LlamaConfig.llama3_8b()
@@ -868,12 +1372,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(train_parity_phase(torch, fa, int4))
 
+    # MoE training (slice 3)
+    record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
+    record["card"] = label
+    emit(record)
+    moe_launches = record["launches"]
+    emit(moe_train_profile_phase(torch, trainer))
+    del trainer
+    torch.cuda.empty_cache()
+    emit(moe_train_parity_phase(torch, fa, int4, gm))
+
     kernel["launches"] = serve_launches + train_launches["int4_dequant"]
     kernel["launches_by_path"] = {"serve": serve_launches,
-                                  "train": train_launches["int4_dequant"]}
+                                  "train": train_launches["int4_dequant"], "moe_train": 0}
     for row in flash_rows:
-        row["launches"] = train_launches[row["name"]]
-    emit({"kernels": [kernel, *flash_rows]})
+        row["launches"] = train_launches[row["name"]] + moe_launches[row["name"]]
+        row["launches_by_path"] = {"train": train_launches[row["name"]],
+                                   "moe_train": moe_launches[row["name"]]}
+    for row in moe_rows:
+        row["launches"] = moe_launches[row["name"]]
+        row["launches_by_path"] = {"moe_train": moe_launches[row["name"]]}
+    emit({"kernels": [kernel, *flash_rows, *moe_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

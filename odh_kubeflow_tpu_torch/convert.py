@@ -1,8 +1,8 @@
 """Carry parameter trees between the JAX package and this one.
 
-A tree is nested dicts of arrays: the Llama param tree, a LoRA tree, or
-a quantized tree whose leaves are int8 ``{"q","scale"}`` or int4
-``{"q4","scale4"}`` dicts. Names, layout and dtypes are unchanged in
+A tree is nested dicts of arrays: the Llama or MoE param tree (expert
+banks ``[L, E, ...]`` included), a LoRA tree, or a quantized tree whose
+leaves are int8 ``{"q","scale"}`` or int4 ``{"q4","scale4"}`` dicts. Names, layout and dtypes are unchanged in
 both directions. Arrays cross as numpy, which has no bf16 of its own:
 ``to_numpy_tree`` widens bf16 to float32 (exact), and
 ``from_numpy_tree`` turns an array of the ``bfloat16`` extension dtype

@@ -117,7 +117,8 @@ def family_forward(cfg):
     single model-family dispatch point of ``generate``."""
     if hasattr(cfg, "base"):
         raise NotImplementedError(
-            "MoE configs are ported with the MoE slice (grouped-matmul kernels)"
+            "MoE serving (forward_with_cache, generate, serve) arrives with the "
+            "MoE-serving slice of the port"
         )
     return cfg, forward_with_cache
 

@@ -190,6 +190,12 @@ def init_params(
 ) -> Params:
     """Random weights in the JAX package's layout, drawn from one
     ``torch.Generator`` seeded with ``seed`` (not JAX's random bits)."""
+    return init_from_shapes(param_shapes(cfg), seed, dtype, device=device)
+
+
+def init_from_shapes(shapes: Params, seed: int, dtype, *, device="cuda") -> Params:
+    """A ``param_shapes``-style tree of ``(shape, fan_in)`` leaves made
+    real: ``normal · fan_in^-0.5``, ones where ``fan_in`` is None."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -208,7 +214,7 @@ def init_params(
                 out[k] = (w * fan_in**-0.5).to(dtype)
         return out
 
-    return build(param_shapes(cfg))
+    return build(shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -270,11 +276,39 @@ def _decoder_layer(
     keys and values are written into ``cache_layer`` in place and it
     attends densely over the whole cache; ``attention_fn`` serves the
     no-cache forward only."""
-    B, S, D = x.shape
     # quantized frozen weights dequantize here, inside the layer: only
     # this layer's float copy ever exists
     layer = _maybe_dequant(layer, cfg.dtype)
+    x, cache_layer = attention_block(
+        cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
+        cache_layer, cache_index, kv_mask, save_names,
+    )
+    h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer), "mlp_g", save_names)
+    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer)
+    x = x + _maybe_lora(
+        "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer
+    )
+    return x, cache_layer
 
+
+def attention_block(
+    cfg: LlamaConfig,
+    attention_fn: Optional[Callable],
+    x: torch.Tensor,
+    layer: Params,  # float leaves of this layer
+    lora_layer,
+    sin: torch.Tensor,
+    cos: torch.Tensor,
+    segment_ids,
+    cache_layer=None,
+    cache_index=None,
+    kv_mask=None,
+    save_names=(),
+):
+    """The attention half of a decoder layer, shared with the MoE family:
+    ``x + wo(attention(rope(q), rope(k), v))``; returns ``(x, cache_layer)``."""
+    B, S, D = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
     q = _maybe_lora("wq", h, layer["wq"], lora_layer)
     kk = _maybe_lora("wk", h, layer["wk"], lora_layer)
@@ -292,15 +326,7 @@ def _decoder_layer(
     else:
         attn = attention_fn(q, kk, vv, segment_ids=segment_ids)
     attn = _tag(attn, "attn_out", save_names).reshape(B, S, cfg.q_dim)
-    x = x + _maybe_lora("wo", attn, layer["wo"], lora_layer)
-
-    h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer), "mlp_g", save_names)
-    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer)
-    x = x + _maybe_lora(
-        "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer
-    )
-    return x, cache_layer
+    return x + _maybe_lora("wo", attn, layer["wo"], lora_layer), cache_layer
 
 
 def cache_write_and_attend(
@@ -376,6 +402,18 @@ def resolved_attention_impl(cfg: LlamaConfig, device=None) -> str:
         f"unknown attention_impl {cfg.attention_impl!r}; "
         "expected 'dense', 'flash', or 'ring'"
     )
+
+
+def causal_attention_fn(impl: str) -> Callable:
+    """``fn(q, k, v, segment_ids=None)``: causal attention of the resolved
+    implementation, "flash" or "dense"."""
+    if impl == "flash":
+        return functools.partial(flash_attention, causal=True)
+
+    def attention_fn(q, k, v, segment_ids=None):
+        return dense_attention(q, k, v, causal=True, segment_ids=segment_ids)
+
+    return attention_fn
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
@@ -488,9 +526,24 @@ def _make_layer_fn(cfg: LlamaConfig, impl: str, attention_fn: Callable, policy: 
     if not cfg.remat:
         return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest)[0]
     plan = _remat_plan(policy, impl)
+    names = () if plan is None else plan[1]
+
+    def body(x, layer, lora_layer, sin, cos, segment_ids):
+        return _decoder_layer(
+            cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
+            save_names=names,
+        )[0]
+
+    return remat_wrap(body, plan)
+
+
+def remat_wrap(body: Callable, plan) -> Callable:
+    """``body`` as a ``torch.utils.checkpoint`` region (with grad on):
+    ``plan`` is ``(ops, names)``: ops saved by identity and ``_tag`` names
+    saved, everything else recomputed in the backward; None recomputes
+    everything."""
     if plan is None:
         context_fn = None
-        names = ()
     else:
         ops, names = plan
         tagged = torch.ops.odh_torch.checkpoint_name.default
@@ -501,12 +554,6 @@ def _make_layer_fn(cfg: LlamaConfig, impl: str, attention_fn: Callable, policy: 
             return CheckpointPolicy.PREFER_RECOMPUTE
 
         context_fn = functools.partial(create_selective_checkpoint_contexts, keep)
-
-    def body(x, layer, lora_layer, sin, cos, segment_ids):
-        return _decoder_layer(
-            cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
-            save_names=names,
-        )[0]
 
     def layer_fn(x, *rest):
         if not torch.is_grad_enabled():
@@ -543,11 +590,7 @@ def forward(
     x = params["embed"][tokens].to(cfg.dtype)
 
     impl = resolved_attention_impl(cfg, tokens.device)
-    if impl == "flash":
-        attention_fn = functools.partial(flash_attention, causal=True)
-    else:
-        def attention_fn(q, k, v, segment_ids=None):
-            return dense_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    attention_fn = causal_attention_fn(impl)
 
     L = cfg.num_layers
     policies = [cfg.remat_policy] * L

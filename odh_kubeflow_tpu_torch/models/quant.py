@@ -155,15 +155,15 @@ def streaming_quantized_init(
     leaf plus one layer's f32 working set. Quantizing per layer gives
     the same codes as quantizing the stack: the scales reduce within a
     layer. Non-matmul leaves (embedding, norms) are ``normal * scale``
-    in bf16, as in the JAX package.
+    in bf16, as in the JAX package. ``cfg`` may be a ``LlamaConfig`` or a
+    ``MoeConfig``: expert banks ``[L, E, K, N]`` quantize like any other
+    matmul weight, a per-channel scale ``[L, E, 1, N]`` per expert.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if hasattr(cfg, "base"):
-        raise NotImplementedError(
-            "MoE configs are ported with the MoE slice (grouped-matmul kernels)"
-        )
-    from odh_kubeflow_tpu_torch.models.llama import param_shapes
+    from odh_kubeflow_tpu_torch.models import llama, moe
+
+    param_shapes = moe.param_shapes if isinstance(cfg, moe.MoeConfig) else llama.param_shapes
 
     dev = resolve_device(device)
     qt = quantize_tensor if bits == 8 else quantize_tensor4

@@ -73,7 +73,8 @@ class CompletionService:
             )
         if hasattr(cfg, "base"):
             raise NotImplementedError(
-                "MoE configs are ported with the MoE slice (grouped-matmul kernels)"
+                "MoE serving (forward_with_cache, generate, serve) arrives with the "
+                "MoE-serving slice of the port"
             )
         self.device = resolve_device(device)
         self.params = params
@@ -258,7 +259,8 @@ def build_service(argv: Optional[list] = None) -> tuple[CompletionService, Any]:
 
     if args.config.startswith("mixtral"):
         raise NotImplementedError(
-            "MoE configs are ported with the MoE slice (grouped-matmul kernels)"
+            "MoE serving (forward_with_cache, generate, serve) arrives with the "
+            "MoE-serving slice of the port"
         )
     if args.checkpoint:
         raise NotImplementedError(

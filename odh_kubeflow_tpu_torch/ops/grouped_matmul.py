@@ -1,0 +1,461 @@
+"""Grouped matmul for dropless MoE (counterpart of
+``ops/pallas_grouped_matmul.py``).
+
+``gmm(lhs, rhs, offsets)`` multiplies row groups of ``lhs [M, K]`` by
+per-expert matrices: rows ``[offsets[e], offsets[e+1])`` go through
+``rhs[e]`` (``[E, K, N]``, or ``[E, N, K]`` with ``trans_rhs``). The
+caller's counting sort (``models/moe.py`` ``route_sorted``) pads every
+group start to a multiple of ``ALIGN`` and pins ``offsets[E] = M``, so
+each 128-row tile belongs to exactly one expert.
+
+Three kernels back this module, each with a plain PyTorch version here
+and a launch counter:
+
+- ``gmm`` → ``csrc/gmm.cu`` (``_gmm_a_kernel_q`` and ``_gmm_b_kernel``):
+  int8 banks with their per-channel scale ``[E, 1, bank-last-axis]``;
+- ``swiglu_fwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_fwd_kernel``):
+  ``h = silu(x·Wg·sg) · (x·Wu·su)`` and ``g``;
+- ``swiglu_bwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_bwd_kernel``):
+  recompute ``u``, then ``dg`` and ``du``.
+
+On CUDA tensors a wrapper launches its kernel (bf16 rows, int8 bank) or
+raises; on CPU tensors it runs the plain version, whatever the dtype, so
+the CPU tests also cover float (unscaled) banks. A float bank on the card
+is ``_gmm_a_kernel``'s work and its weight gradient ``_tgmm_kernel``'s:
+both wait for the MoE-serving slice of the port.
+
+``gmm``, ``swiglu_gmm`` and ``expert_ffn`` (the fused gate/up followed by
+the down projection) are ``torch.library`` custom ops with fake and
+autograd registrations, so selective activation checkpointing sees them
+and can save their outputs by op identity. With an int8 (frozen) bank a
+product's backward is one more grouped product of the cotangent through
+the same bank read the other way round; it saves no activation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from odh_kubeflow_tpu_torch.ops import _build
+
+# group starts are padded to this: the kernels' row tile
+ALIGN = 128
+# route_sorted rounds M up to this (the TPU kernel B's row tile; kept so
+# the sorted layout has the JAX package's size)
+DEFAULT_BM_B = 512
+# the TPU kernel A's VMEM limit, kept for the same kernel choice: the fused
+# SwiGLU takes K <= 2 * MAX_K_A (else two separate products, as in JAX)
+MAX_K_A = 4096
+
+# kernel launches since the last reset (plain counters: the caller zeroes them)
+gmm_launches = 0
+gmm_launches_by_k: dict[int, int] = {}  # the same launches, by contraction size
+swiglu_fwd_launches = 0
+swiglu_bwd_launches = 0
+
+_argtypes_set: set[str] = set()
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.library(name)
+    if name in _argtypes_set:
+        return lib
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if name == "gmm":
+        # lhs q scale offsets out scaled | M K N E trans | stream
+        lib.gmm_launch.argtypes = [P] * 6 + [I] * 5 + [P]
+        lib.gmm_launch.restype = I
+    else:
+        # x wg wu sg su offsets h g | M K N E | stream
+        lib.swiglu_fwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+        lib.swiglu_fwd_launch.restype = I
+        # x wu su offsets g dh dg du | M K N E | stream
+        lib.swiglu_bwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+        lib.swiglu_bwd_launch.restype = I
+    _argtypes_set.add(name)
+    return lib
+
+
+def group_of_tile(m: int, offsets: torch.Tensor) -> torch.Tensor:
+    """Expert id of each ``ALIGN``-row tile (``_group_of_tile``): the
+    aligned group boundaries give each tile exactly one."""
+    tiles = torch.arange(m // ALIGN, device=offsets.device, dtype=offsets.dtype) * ALIGN
+    return torch.searchsorted(offsets[1:-1].contiguous(), tiles, right=True)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the CPU path and the kernels' oracle on the card
+
+
+def _groups(offsets: torch.Tensor):
+    """(expert, first row, end row) of every non-empty group."""
+    offs = offsets.tolist()
+    return [(e, offs[e], offs[e + 1]) for e in range(len(offs) - 1) if offs[e + 1] > offs[e]]
+
+
+def gmm_reference(lhs, rhs, offsets, trans_rhs: bool = False, scale=None) -> torch.Tensor:
+    """Per group, ``lhs[rows] @ rhs[e]`` with f32 products, the scale where
+    the TPU kernels put it, one cast to ``lhs.dtype``. Rows of no group
+    (none when ``offsets[E] = M``) are zero."""
+    n = rhs.shape[1] if trans_rhs else rhs.shape[2]
+    out = torch.zeros((lhs.shape[0], n), dtype=lhs.dtype, device=lhs.device)
+    for e, s, t in _groups(offsets):
+        a = lhs[s:t]
+        if scale is not None and trans_rhs:
+            # the scaled axis is the contraction: JAX's lhs *
+            # scale.astype(lhs.dtype), rounded to the lhs dtype
+            a = a * scale[e, 0].to(lhs.dtype)
+        w = rhs[e].to(lhs.dtype)
+        acc = a.float() @ (w.T if trans_rhs else w).float()
+        if scale is not None and not trans_rhs:
+            acc = acc * scale[e, 0].float()
+        out[s:t] = acc.to(lhs.dtype)
+    return out
+
+
+def tgmm_reference(lhs, dout, offsets, num_groups: int) -> torch.Tensor:
+    """Per-group weight gradient ``lhs[rows]ᵀ · dout[rows]`` ``[E, K, N]``
+    in f32 sums, cast to ``dout.dtype``; zeros for empty groups."""
+    out = torch.zeros((num_groups, lhs.shape[1], dout.shape[1]), dtype=dout.dtype,
+                      device=lhs.device)
+    for e, s, t in _groups(offsets):
+        out[e] = (lhs[s:t].float().T @ dout[s:t].float()).to(dout.dtype)
+    return out
+
+
+def swiglu_fwd_reference(lhs, wg, wu, sg, su, offsets):
+    """``(h, g)`` in ``lhs.dtype``: ``g = (x·Wg)·sg``, ``u = (x·Wu)·su`` in
+    f32, ``h = silu(g)·u``."""
+    m, n = lhs.shape[0], wg.shape[2]
+    h = torch.zeros((m, n), dtype=lhs.dtype, device=lhs.device)
+    g = torch.zeros_like(h)
+    for e, s, t in _groups(offsets):
+        a = lhs[s:t].float()
+        ge = (a @ wg[e].to(lhs.dtype).float()) * sg[e, 0].float()
+        ue = (a @ wu[e].to(lhs.dtype).float()) * su[e, 0].float()
+        h[s:t] = (torch.nn.functional.silu(ge) * ue).to(lhs.dtype)
+        g[s:t] = ge.to(lhs.dtype)
+    return h, g
+
+
+def swiglu_bwd_reference(lhs, wu, su, g, dh, offsets):
+    """``(dg, du)`` in ``lhs.dtype``: ``u`` recomputed in f32, then
+    ``dg = dh·u·σ(g)(1 + g(1 − σ(g)))`` and ``du = dh·g·σ(g)``."""
+    dg = torch.zeros_like(g, dtype=lhs.dtype)
+    du = torch.zeros_like(dg)
+    for e, s, t in _groups(offsets):
+        u = (lhs[s:t].float() @ wu[e].to(lhs.dtype).float()) * su[e, 0].float()
+        ge, dhe = g[s:t].float(), dh[s:t].float()
+        sig = torch.sigmoid(ge)
+        dg[s:t] = (dhe * u * (sig * (1.0 + ge * (1.0 - sig)))).to(lhs.dtype)
+        du[s:t] = (dhe * (ge * sig)).to(lhs.dtype)
+    return dg, du
+
+
+# what each kernel is held to against its plain version in bf16, as
+# tile_rel_err over 128-row tiles. Both sides round the same f32 sums once
+# to bf16 (the lhs prescale is bit-identical), so a sound kernel differs
+# only where the f32 sums, taken in another order, land on either side of
+# a rounding boundary: the worst tile on an H100 at the Mixtral-8x1B
+# shapes read 2.1e-4 (chip_smoke.py, PERF.md). The limit is ~10x that and
+# above one whole bf16 rounding (~1.1e-3 RMS relative), and 45x below the
+# smallest planted fault (a skipped last 64-wide chunk of K = 8192 reads
+# 0.090, ~sqrt(64/8192)).
+TILE_RTOL = 2e-3
+
+
+def tile_rel_err(got: torch.Tensor, want: torch.Tensor, tile: int = ALIGN) -> float:
+    """How far a kernel's ``[M, N]`` result is from its plain version's:
+    the largest ``||got - want|| / ||want||`` over tiles of ``tile``
+    consecutive rows (a tile whose ``want`` is all zero counts its
+    absolute error), so one expert's tile is held to its own scale."""
+    d = (got.float() - want.float()).square().sum(-1)
+    w = want.float().square().sum(-1)
+    pad = -d.shape[0] % tile
+    d = torch.nn.functional.pad(d, (0, pad)).reshape(-1, tile).sum(1)
+    w = torch.nn.functional.pad(w, (0, pad)).reshape(-1, tile).sum(1)
+    return (d.sqrt() / torch.where(w > 0, w.sqrt(), 1.0)).max().item()
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel on the card, the plain version on the CPU
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _cuda_operands(name: str, lhs, banks, scales, offsets, num_groups: int):
+    """The kernels' contract; returns int32 offsets on the device."""
+    dev = lhs.device
+    for t in (*banks, *scales, offsets):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(
+                f"{name}: every operand must be on one CUDA device (or all on the "
+                f"CPU); got {lhs.device} and {t.device}"
+            )
+    if any(b.dtype != torch.int8 for b in banks):
+        raise NotImplementedError(
+            f"{name}: a float expert bank on the card is _gmm_a_kernel's work (and "
+            "its weight gradient _tgmm_kernel's); both arrive with the MoE-serving "
+            "slice of the port. The kernels take int8 {'q','scale'} banks."
+        )
+    if lhs.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernels take bfloat16 rows, got {lhs.dtype}")
+    m, k = lhs.shape
+    if m % ALIGN or k % 16:
+        raise ValueError(f"{name}: needs M % {ALIGN} == 0 and K % 16 == 0, got {m}x{k}")
+    for t in (lhs, *banks, *scales):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous with 16-byte aligned bases")
+    for s in scales:
+        if s.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32, got {s.dtype}")
+    if offsets.shape != (num_groups + 1,):
+        raise ValueError(f"{name}: offsets {tuple(offsets.shape)} for {num_groups} experts")
+    return offsets.to(torch.int32).contiguous()
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def gmm(lhs, rhs, offsets, trans_rhs: bool = False, scale=None) -> torch.Tensor:
+    """``[M, N]`` in ``lhs.dtype``. On the card: int8 ``rhs`` with its f32
+    ``scale`` ``[E, 1, N]`` (``[E, 1, K]`` with ``trans_rhs``)."""
+    global gmm_launches
+    if _on_cpu(lhs, rhs, offsets, *(() if scale is None else (scale,))):
+        return gmm_reference(lhs, rhs, offsets, trans_rhs, scale)
+    if scale is None:
+        if rhs.dtype == torch.int8:
+            raise ValueError("gmm: an int8 bank needs its scale")
+        scale = rhs.new_empty(0, dtype=torch.float32)  # _cuda_operands refuses the bank
+    E = rhs.shape[0]
+    m, k = lhs.shape
+    n = rhs.shape[1] if trans_rhs else rhs.shape[2]
+    offs = _cuda_operands("gmm", lhs, (rhs,), (scale,), offsets, E)
+    want_rhs = (E, n, k) if trans_rhs else (E, k, n)
+    if rhs.shape != want_rhs or scale.shape != (E, 1, rhs.shape[2]) or n % 16:
+        raise ValueError(
+            f"gmm: rhs {tuple(rhs.shape)} / scale {tuple(scale.shape)} do not fit lhs "
+            f"{tuple(lhs.shape)} (trans_rhs={trans_rhs}; N % 16 == 0)"
+        )
+    out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    # trans: the kernel's first pass writes the prescaled lhs here
+    scaled = torch.empty_like(lhs) if trans_rhs else None
+    lib = _library("gmm")
+    with torch.cuda.device(lhs.device):
+        rc = lib.gmm_launch(
+            lhs.data_ptr(), rhs.data_ptr(), scale.data_ptr(), offs.data_ptr(),
+            out.data_ptr(), None if scaled is None else scaled.data_ptr(), m, k, n, E,
+            int(trans_rhs), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "gmm")
+    gmm_launches += 1
+    gmm_launches_by_k[k] = gmm_launches_by_k.get(k, 0) + 1
+    return out
+
+
+def _swiglu_checks(lhs, banks, scales, offsets):
+    E, k, n = banks[0].shape
+    offs = _cuda_operands("swiglu_gmm", lhs, banks, scales, offsets, E)
+    if lhs.shape[1] != k or n % 16 or any(b.shape != (E, k, n) for b in banks) or any(
+        s.shape != (E, 1, n) for s in scales
+    ):
+        raise ValueError(
+            f"swiglu_gmm: banks {[tuple(b.shape) for b in banks]} / scales "
+            f"{[tuple(s.shape) for s in scales]} do not fit lhs {tuple(lhs.shape)}"
+        )
+    return offs, E, k, n
+
+
+def swiglu_fwd(lhs, wg, wu, sg, su, offsets):
+    """``(h, g)`` ``[M, N]`` in ``lhs.dtype``; int8 banks ``[E, K, N]``."""
+    global swiglu_fwd_launches
+    if _on_cpu(lhs, wg, wu, sg, su, offsets):
+        return swiglu_fwd_reference(lhs, wg, wu, sg, su, offsets)
+    offs, E, k, n = _swiglu_checks(lhs, (wg, wu), (sg, su), offsets)
+    m = lhs.shape[0]
+    h = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    g = torch.empty_like(h)
+    lib = _library("swiglu_gmm")
+    with torch.cuda.device(lhs.device):
+        rc = lib.swiglu_fwd_launch(
+            lhs.data_ptr(), wg.data_ptr(), wu.data_ptr(), sg.data_ptr(), su.data_ptr(),
+            offs.data_ptr(), h.data_ptr(), g.data_ptr(), m, k, n, E,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "swiglu_fwd")
+    swiglu_fwd_launches += 1
+    return h, g
+
+
+def swiglu_bwd(lhs, wu, su, g, dh, offsets):
+    """``(dg, du)`` ``[M, N]`` in ``lhs.dtype``."""
+    global swiglu_bwd_launches
+    if _on_cpu(lhs, wu, su, g, dh, offsets):
+        return swiglu_bwd_reference(lhs, wu, su, g, dh, offsets)
+    offs, E, k, n = _swiglu_checks(lhs, (wu,), (su,), offsets)
+    m = lhs.shape[0]
+    for name, t in (("g", g), ("dh", dh)):
+        if t.shape != (m, n) or t.dtype != lhs.dtype or not t.is_contiguous():
+            raise ValueError(f"swiglu_bwd: {name} must be contiguous {lhs.dtype} [{m}, {n}]")
+    dg = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    du = torch.empty_like(dg)
+    lib = _library("swiglu_gmm")
+    with torch.cuda.device(lhs.device):
+        rc = lib.swiglu_bwd_launch(
+            lhs.data_ptr(), wu.data_ptr(), su.data_ptr(), offs.data_ptr(), g.data_ptr(),
+            dh.data_ptr(), dg.data_ptr(), du.data_ptr(), m, k, n, E,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "swiglu_bwd")
+    swiglu_bwd_launches += 1
+    return dg, du
+
+
+# ---------------------------------------------------------------------------
+# custom ops and autograd
+
+
+@torch.library.custom_op("odh_torch::gmm", mutates_args=())
+def gmm_op(
+    lhs: torch.Tensor,
+    rhs: torch.Tensor,
+    offsets: torch.Tensor,
+    trans_rhs: bool,
+    scale: Optional[torch.Tensor],
+) -> torch.Tensor:
+    return gmm(lhs, rhs, offsets, trans_rhs, scale)
+
+
+@gmm_op.register_fake
+def _(lhs, rhs, offsets, trans_rhs, scale):
+    return lhs.new_empty((lhs.shape[0], rhs.shape[1] if trans_rhs else rhs.shape[2]))
+
+
+def _gmm_setup(ctx, inputs, output):
+    lhs, rhs, offsets, trans_rhs, scale = inputs
+    ctx.trans_rhs, ctx.dtype = trans_rhs, lhs.dtype
+    # an int8 bank is frozen: its backward needs the bank and the offsets,
+    # not this product's input, so lhs is kept only for a float bank's dW
+    ctx.save_for_backward(rhs, offsets, scale, lhs if scale is None else None)
+
+
+def _gmm_backward(ctx, dout):
+    rhs, offsets, scale, lhs = ctx.saved_tensors
+    # dlhs = dout · rhsᵀ: the same grouped product with rhs read the other
+    # way round, so no transposed bank is ever made
+    dlhs = gmm_op(dout.to(ctx.dtype).contiguous(), rhs, offsets, not ctx.trans_rhs, scale)
+    drhs = None
+    if scale is None and ctx.needs_input_grad[1]:
+        if not _on_cpu(lhs, dout):
+            raise NotImplementedError(
+                "gmm: the expert weight gradient is _tgmm_kernel's work, which "
+                "arrives with the MoE-serving slice of the port"
+            )
+        d = dout.to(ctx.dtype)
+        drhs = (tgmm_reference(d, lhs, offsets, rhs.shape[0]) if ctx.trans_rhs
+                else tgmm_reference(lhs, d, offsets, rhs.shape[0])).to(rhs.dtype)
+    return dlhs, drhs, None, None, None
+
+
+gmm_op.register_autograd(_gmm_backward, setup_context=_gmm_setup)
+
+
+@torch.library.custom_op("odh_torch::swiglu_gmm", mutates_args=())
+def swiglu_gmm_op(
+    lhs: torch.Tensor,
+    wg: torch.Tensor,
+    wu: torch.Tensor,
+    sg: torch.Tensor,
+    su: torch.Tensor,
+    offsets: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return swiglu_fwd(lhs, wg, wu, sg, su, offsets)
+
+
+@swiglu_gmm_op.register_fake
+def _(lhs, wg, wu, sg, su, offsets):
+    h = lhs.new_empty((lhs.shape[0], wg.shape[2]))
+    return h, torch.empty_like(h)
+
+
+def _swiglu_dlhs(lhs, wg, wu, sg, su, offsets, g, dh, dg_out=None):
+    """The SwiGLU backward from the pinned ``g``: one fused kernel (u
+    recomputed, the dsilu epilogue), then the lhs gradient through both
+    frozen banks read transposed, as in ``_swiglu_vjp_bwd``."""
+    dg, du = swiglu_bwd(lhs, wu, su, g, dh.to(lhs.dtype).contiguous(), offsets)
+    if dg_out is not None:
+        dg = dg + dg_out.to(dg.dtype)
+    return gmm_op(dg, wg, offsets, True, sg) + gmm_op(du, wu, offsets, True, su)
+
+
+def _swiglu_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[1])
+
+
+def _swiglu_backward(ctx, dh, dg_out):
+    lhs, wg, wu, sg, su, offsets, g = ctx.saved_tensors
+    dlhs = _swiglu_dlhs(lhs, wg, wu, sg, su, offsets, g, dh, dg_out)
+    return dlhs, None, None, None, None, None
+
+
+swiglu_gmm_op.register_autograd(_swiglu_backward, setup_context=_swiglu_setup)
+
+
+@torch.library.custom_op("odh_torch::expert_ffn", mutates_args=())
+def expert_ffn_op(
+    lhs: torch.Tensor,
+    wg: torch.Tensor,
+    sg: torch.Tensor,
+    wu: torch.Tensor,
+    su: torch.Tensor,
+    wd: torch.Tensor,
+    sd: torch.Tensor,
+    offsets: torch.Tensor,
+    keep_g: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y, g)``: the fused SwiGLU, then the down projection through the
+    int8 banks. ``g`` is the gate pre-activation when ``keep_g`` (the
+    backward then reads it: JAX's "moe_g" pin), else an empty tensor and
+    the backward re-runs the fused forward for it. ``h`` never outlives
+    the op, so a remat policy that saves this op's outputs keeps ``y``
+    (JAX's "moe_y") and at most ``g``, never ``h``."""
+    h, g = swiglu_fwd(lhs, wg, wu, sg, su, offsets)
+    y = gmm(h, wd, offsets, False, sd)
+    return y, g if keep_g else g.new_empty(0)
+
+
+@expert_ffn_op.register_fake
+def _(lhs, wg, sg, wu, su, wd, sd, offsets, keep_g):
+    y = lhs.new_empty((lhs.shape[0], wd.shape[2]))
+    return y, lhs.new_empty((lhs.shape[0], wg.shape[2]) if keep_g else (0,))
+
+
+def _ffn_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:8], output[1])
+
+
+def _ffn_backward(ctx, dy, _dg):
+    lhs, wg, sg, wu, su, wd, sd, offsets, g = ctx.saved_tensors
+    # down projection first: dh = dy · Wdᵀ needs only the bank, not h
+    dh = gmm_op(dy.to(lhs.dtype).contiguous(), wd, offsets, True, sd)
+    if g.numel() == 0:  # not kept: the fused forward runs again for it
+        _, g = swiglu_gmm_op(lhs, wg, wu, sg, su, offsets)
+    dlhs = _swiglu_dlhs(lhs, wg, wu, sg, su, offsets, g, dh)
+    return (dlhs,) + (None,) * 8
+
+
+expert_ffn_op.register_autograd(_ffn_backward, setup_context=_ffn_setup)
+
+
+def fused_swiglu_usable(k: int) -> bool:
+    """The TPU's fused kernel takes the whole K of its two resident
+    int8 blocks in VMEM (``_swiglu_specs``); past that the JAX package
+    falls back to separate products, and so does the port."""
+    return k <= 2 * MAX_K_A and 4 * 1024 * 1024 // k // 2 >= ALIGN

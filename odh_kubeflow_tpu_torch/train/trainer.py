@@ -1,5 +1,6 @@
-"""Training loop for Llama models on one GPU: full fine-tune, LoRA, or
-QLoRA on an int8/int4 base (counterpart of ``train/trainer.py``).
+"""Training loop for Llama and Mixtral-style MoE models on one GPU: full
+fine-tune, LoRA, or QLoRA on an int8/int4 base (counterpart of
+``train/trainer.py``).
 
 The JAX trainer compiles one sharded ``train_step`` against a mesh; this
 one runs eagerly on one device. The trainable tree (the adapters, or the
@@ -9,8 +10,9 @@ assigns the attribute. The optimizer is the optax chain of
 ``_make_optimizer`` written out by hand: ``clip_by_global_norm`` then
 ``adamw`` on a linear-warmup cosine-decay schedule. The forward is
 ``models/llama.py`` ``forward`` (flash attention and the remat policies
-on the card); sequences longer than 2048 take the chunked loss, which
-never builds ``[B, S, V]`` logits.
+on the card), or for a ``MoeConfig`` ``models/moe.py`` ``forward``, whose
+router aux loss is added to the LM loss; sequences longer than 2048 take
+the chunked loss, which never builds ``[B, S, V]`` logits.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from odh_kubeflow_tpu_torch.models import llama
 from odh_kubeflow_tpu_torch.models import lora as lora_lib
+from odh_kubeflow_tpu_torch.models import moe as moe_lib
 from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
 from odh_kubeflow_tpu_torch.ops import _build
 from odh_kubeflow_tpu_torch.utils import prometheus
@@ -189,12 +192,13 @@ class Trainer:
 
     ``lora_cfg=None`` trains every parameter; otherwise the base is frozen
     (float, or int8/int4 with ``quantize_base``) and only the adapters
-    train. ``device`` stands where the JAX trainer takes a mesh: one
-    device, the card by default."""
+    train; on a MoE model they attach to the attention projections only.
+    ``device`` stands where the JAX trainer takes a mesh: one device, the
+    card by default."""
 
     def __init__(
         self,
-        model_cfg,  # LlamaConfig
+        model_cfg,  # LlamaConfig or MoeConfig
         train_cfg: TrainConfig = TrainConfig(),
         lora_cfg: Optional[lora_lib.LoraConfig] = None,
         mesh=None,
@@ -210,11 +214,18 @@ class Trainer:
                 "a mesh arrives with slice 6 of the port (multi-device "
                 "parallelism over DeviceMesh/FSDP2); this trainer runs on one device"
             )
-        if not isinstance(model_cfg, llama.LlamaConfig):
-            raise NotImplementedError(
-                "MoE configs arrive with slice 5 of the port (MoE and its "
-                "grouped-matmul kernels)"
+        self.is_moe = isinstance(model_cfg, moe_lib.MoeConfig)
+        if not (self.is_moe or isinstance(model_cfg, llama.LlamaConfig)):
+            raise TypeError(
+                f"model_cfg must be a LlamaConfig or a MoeConfig, got {type(model_cfg).__name__}"
             )
+        if self.is_moe and lora_cfg is not None:
+            bad = set(lora_cfg.targets) - set(lora_lib.ATTENTION_TARGETS)
+            if bad:
+                raise ValueError(
+                    "MoE LoRA adapts attention projections only (expert banks "
+                    f"replace the dense MLP); invalid targets: {sorted(bad)}"
+                )
         if quantize_base and lora_cfg is None:
             raise ValueError(
                 "quantize_base freezes the base weights as int8/int4 — "
@@ -225,6 +236,8 @@ class Trainer:
                 f"quantize_base must be False/True/'int8'/'int4', got {quantize_base!r}"
             )
         self.model_cfg = model_cfg
+        # the dense backbone: attention, adapter widths, the lm_head
+        self.base_cfg = model_cfg.base if self.is_moe else model_cfg
         self.train_cfg = train_cfg
         self.lora_cfg = lora_cfg
         self.quantize_base = quantize_base
@@ -247,11 +260,10 @@ class Trainer:
                 model_cfg, seed, bits=self.quant_bits, device=self.device
             )
         else:
-            self.params = llama.init_params(
-                seed, model_cfg, dtype=model_cfg.dtype, device=self.device
-            )
+            init = moe_lib.init_params if self.is_moe else llama.init_params
+            self.params = init(seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device)
         self.lora_params = (
-            lora_lib.init_lora_params(seed + 1, model_cfg, lora_cfg, device=self.device)
+            lora_lib.init_lora_params(seed + 1, self.base_cfg, lora_cfg, device=self.device)
             if lora_cfg is not None
             else None
         )
@@ -275,25 +287,27 @@ class Trainer:
             params, lora_params = self.params, trainable
         else:
             params, lora_params = trainable, None
-        cfg = self.model_cfg
         tokens = batch["tokens"]
         seq_len = tokens.shape[1]
-        if seq_len > 2048 and seq_len % 1024 == 0:
-            # long context: never materialise [B, S, V] logits
-            hidden = llama.forward(
-                params, tokens, cfg, lora=lora_params,
-                segment_ids=batch.get("segment_ids"), return_hidden=True,
-            )
-            return chunked_cross_entropy(
-                hidden, llama.lm_head_weight(params, cfg), batch["targets"],
+        # long context: never materialise [B, S, V] logits
+        chunked = seq_len > 2048 and seq_len % 1024 == 0
+        model = moe_lib if self.is_moe else llama
+        out = model.forward(
+            params, tokens, self.model_cfg, lora=lora_params,
+            segment_ids=batch.get("segment_ids"), return_hidden=chunked,
+        )
+        # MoE: the router's load-balancing loss rides on the LM loss
+        out, aux = out if self.is_moe else (out, None)
+        if chunked:
+            loss = chunked_cross_entropy(
+                out, llama.lm_head_weight(params, self.base_cfg), batch["targets"],
                 batch.get("loss_mask"), z_loss=self.train_cfg.z_loss,
             )
-        logits = llama.forward(
-            params, tokens, cfg, lora=lora_params, segment_ids=batch.get("segment_ids")
-        )
-        return cross_entropy_loss(
-            logits, batch["targets"], batch.get("loss_mask"), z_loss=self.train_cfg.z_loss
-        )
+        else:
+            loss = cross_entropy_loss(
+                out, batch["targets"], batch.get("loss_mask"), z_loss=self.train_cfg.z_loss
+            )
+        return loss if aux is None else loss + aux
 
     # -- kernel build ahead of the first step ----------------------------------
 
@@ -306,7 +320,8 @@ class Trainer:
         """Start the one-time set-up of the first step on a background
         thread. In eager PyTorch there is no step to compile: that set-up
         is the build of the CUDA kernels this trainer will launch (int4
-        dequant for an int4 base, the flash kernels on the card), so this
+        dequant for an int4 base, the flash kernels on the card, the
+        grouped-matmul kernels for a grouped MoE), so this
         starts ``_build.build`` on them now and ``train_step`` joins it.
         The shape arguments are kept for signature parity. On the CPU
         nothing is built."""
@@ -314,8 +329,10 @@ class Trainer:
         if self._build_thread is not None or self.device.type != "cuda":
             return
         names = ["int4_dequant"] if self.quant_bits == 4 else []
-        if llama.resolved_attention_impl(self.model_cfg, self.device) == "flash":
+        if llama.resolved_attention_impl(self.base_cfg, self.device) == "flash":
             names += ["flash_fwd", "flash_bwd"]
+        if self.is_moe and self.model_cfg.dispatch == "grouped":
+            names += ["gmm", "swiglu_gmm"]
 
         def work():
             try:
@@ -432,7 +449,9 @@ class Trainer:
         #   adapters upstream, so the quadratic term still counts 3×.
         # Rematerialisation recompute is never credited; the 3×-based
         # figure is additionally reported as train_equiv_flops_per_s
-        # (the 6ND convention most cited "LoRA MFU" numbers use).
+        # (the 6ND convention most cited "LoRA MFU" numbers use). A MoE
+        # model counts its k active experts and the router only
+        # (``MoeConfig.flops_per_token``: strict-sparse).
         fpt = self.model_cfg.flops_per_token(seq_len)
         if self.lora_cfg is not None:
             attn_fpt = self.model_cfg.attn_flops_per_token(seq_len)

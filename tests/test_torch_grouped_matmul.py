@@ -1,0 +1,257 @@
+"""The port's grouped matmul (``ops/grouped_matmul.py``) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU, on the same
+numpy inputs.
+
+Tolerances. float32: max |port − JAX| ≤ 1e-5 · max |JAX| (the f32 sums
+run in another order: JAX's kernel B splits K into 1024-wide blocks).
+bfloat16: both sides round the same f32 sums once to bf16 and apply an
+int8 bank's transposed scale to the lhs with the same bf16 rounding, so
+they differ only where a sum in another order lands across a rounding
+boundary: at most one bf16 ulp, which is ≤ 2^-7 of the value, so
+max |port − JAX| ≤ 1e-2 · max |JAX|.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odh_kubeflow_tpu.models.quant import quantize_tensor as jquantize
+from odh_kubeflow_tpu.ops import pallas_grouped_matmul as jgm
+from odh_kubeflow_tpu_torch.models.quant import quantize_tensor
+from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+M, E = 1024, 4
+# 128-aligned group starts, offsets[E] = M
+OFFSETS = {
+    "balanced": [0, 256, 512, 768, 1024],
+    "empty_and_tail": [0, 256, 256, 640, 1024],  # expert 1 empty, 3 takes the tail
+    "one_expert": [0, 0, 896, 896, 1024],  # every token on expert 1
+}
+# group boundaries on kernel B's 512-row tiles; experts 1 and 2 empty
+OFFSETS_512 = [0, 512, 512, 512, 1024]
+DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
+
+
+def _t(a, dtype=None):
+    """numpy (or JAX) array → torch, with a torch dtype cast."""
+    t = torch.from_numpy(np.array(np.asarray(a, dtype=np.float32) if dtype else a))
+    return t.to(dtype) if dtype else t
+
+
+def _close(got: torch.Tensor, want, rel):
+    want = np.asarray(want, dtype=np.float32)
+    err = np.abs(got.detach().float().numpy() - want).max()
+    assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _bank(rng, shape, int8):
+    w = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    if not int8:
+        return w, None
+    q = jquantize(jnp.asarray(w))  # [E, K, N] int8, scale [E, 1, N]
+    return np.asarray(q["q"]), np.asarray(q["scale"])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("trans", [False, True], ids=["nt", "trans"])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float"])
+@pytest.mark.parametrize(
+    "k,n", [(256, 384), (6144, 256)], ids=["kernelA", "kernelB"]
+)
+def test_gmm_matches_jax_and_its_lhs_gradient(dtype, trans, int8, k, n):
+    jdt, tdt, rel = DTYPES[dtype]
+    if k > 4096 and dtype == "f32" and not int8:
+        k = 3072  # kernel B in f32 from K > 2048; keeps interpret mode quick
+    rng = np.random.default_rng(k + n + int(trans) + 2 * int(int8))
+    offs = np.asarray(OFFSETS["empty_and_tail"], np.int32)
+    if k > 4096 and int8 and not trans:
+        # one group per 512-row tile: where a tile spans groups, JAX's
+        # kernel B scales it with its last group's scale (the test below)
+        offs = np.asarray(OFFSETS_512, np.int32)
+    lhs = rng.standard_normal((M, k)).astype(np.float32)
+    q, scale = _bank(rng, (E, n, k) if trans else (E, k, n), int8)
+    dout = rng.standard_normal((M, n)).astype(np.float32)
+
+    jl = jnp.asarray(lhs, jdt)
+    jq = jnp.asarray(q) if int8 else jnp.asarray(q, jdt)
+    js = None if scale is None else jnp.asarray(scale)
+
+    def jfn(a):
+        return jgm.gmm(a, jq, jnp.asarray(offs), trans, None, js)
+
+    want, vjp = jax.vjp(jfn, jl)
+    (want_dl,) = vjp(jnp.asarray(dout, jdt))
+
+    tl = _t(lhs, tdt).requires_grad_()
+    tq = _t(q) if int8 else _t(q, tdt)
+    ts = None if scale is None else _t(scale)
+    got = gm.gmm_op(tl, tq, torch.from_numpy(offs), trans, ts)
+    assert got.dtype == tdt and got.shape == (M, n)
+    _close(got, want, rel)
+    (got_dl,) = torch.autograd.grad(got, tl, _t(dout, tdt))
+    _close(got_dl, want_dl, rel)
+
+
+@pytest.mark.parametrize("routing", ["balanced", "empty_and_tail"])
+def test_jax_kernel_b_scales_tiles_that_span_groups_with_the_last_group(routing):
+    """A fault of the reference, pinned so the port does not copy it: on
+    an int8 bank read forwards with K past kernel A's limit, JAX's
+    ``_gmm_b_kernel`` applies the output scale once per 512-row tile, at
+    the write, with the tile's last group's scale, so every earlier
+    group's rows in that tile carry another expert's scale. The port
+    scales each row with its own expert's (``gmm``'s contract, and what
+    JAX's kernel A and a dequantized bank give); JAX's rows are
+    reproduced exactly by the port's unscaled product times the last
+    group's scale."""
+    rng = np.random.default_rng(29)
+    k, n = 3072, 128
+    offs = np.asarray(OFFSETS[routing], np.int32)
+    lhs = rng.standard_normal((M, k)).astype(np.float32)
+    q, scale = _bank(rng, (E, k, n), True)
+    jout = np.asarray(jgm.gmm(jnp.asarray(lhs), jnp.asarray(q), jnp.asarray(offs), False, None,
+                              jnp.asarray(scale)))
+    tq, ts, to = _t(q), _t(scale), torch.from_numpy(offs)
+    port = gm.gmm_reference(_t(lhs), tq, to, False, ts).numpy()
+    dequant = (q.astype(np.float32) * scale)
+    for e in range(E):
+        s, t = offs[e], offs[e + 1]
+        np.testing.assert_allclose(port[s:t], lhs[s:t] @ dequant[e], rtol=1e-4, atol=1e-3)
+    acc = gm.gmm_reference(_t(lhs), tq.float(), to).numpy()
+    last = np.searchsorted(offs[1:-1], np.arange(M) // 512 * 512 + 511, side="right")
+    np.testing.assert_allclose(jout, acc * scale[last, 0], rtol=1e-5, atol=1e-4)
+    assert np.abs(jout - port).max() > 0.1 * np.abs(port).max()
+
+
+@pytest.mark.parametrize("routing", list(OFFSETS))
+def test_gmm_float_bank_weight_gradient_matches_jax_tgmm(routing):
+    """A float bank's dW (JAX's ``_tgmm_kernel``; the plain version here,
+    CPU only): zeros for empty experts."""
+    rng = np.random.default_rng(5)
+    k, n = 128, 256
+    offs = np.asarray(OFFSETS[routing], np.int32)
+    lhs = rng.standard_normal((M, k)).astype(np.float32)
+    rhs = (rng.standard_normal((E, k, n)) * 0.1).astype(np.float32)
+    dout = rng.standard_normal((M, n)).astype(np.float32)
+    want, vjp = jax.vjp(lambda a, w: jgm.gmm(a, w, jnp.asarray(offs)), jnp.asarray(lhs),
+                        jnp.asarray(rhs))
+    want_dl, want_dw = vjp(jnp.asarray(dout))
+    tl, tw = _t(lhs).requires_grad_(), _t(rhs).requires_grad_()
+    got = gm.gmm_op(tl, tw, torch.from_numpy(offs), False, None)
+    got_dl, got_dw = torch.autograd.grad(got, (tl, tw), _t(dout))
+    for g, w in ((got, want), (got_dl, want_dl), (got_dw, want_dw)):
+        _close(g, w, 1e-5)
+    for e in range(E):
+        if offs[e + 1] == offs[e]:
+            assert not got_dw[e].any()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("routing", list(OFFSETS))
+def test_swiglu_gmm_matches_jax_with_its_vjp(dtype, routing):
+    """``(h, g)`` of the fused SwiGLU and the lhs gradient of a cotangent
+    on both outputs (JAX folds g's into dg)."""
+    jdt, tdt, rel = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    k, n = 256, 384
+    offs = np.asarray(OFFSETS[routing], np.int32)
+    lhs = (rng.standard_normal((M, k)) * 0.5).astype(np.float32)
+    gq, gs = _bank(rng, (E, k, n), True)
+    uq, us = _bank(rng, (E, k, n), True)
+    dh = rng.standard_normal((M, n)).astype(np.float32)
+    dg = rng.standard_normal((M, n)).astype(np.float32) * 0.1
+
+    def jfn(a):
+        return jgm.swiglu_gmm(a, jnp.asarray(gq), jnp.asarray(uq), jnp.asarray(gs),
+                              jnp.asarray(us), jnp.asarray(offs), None)
+
+    (jh, jg), vjp = jax.vjp(jfn, jnp.asarray(lhs, jdt))
+    (jdl,) = vjp((jnp.asarray(dh, jdt), jnp.asarray(dg, jdt)))
+
+    tl = _t(lhs, tdt).requires_grad_()
+    h, g = gm.swiglu_gmm_op(tl, _t(gq), _t(uq), _t(gs), _t(us), torch.from_numpy(offs))
+    _close(h, jh, rel)
+    _close(g, jg, rel)
+    (dl,) = torch.autograd.grad((h, g), tl, (_t(dh, tdt), _t(dg, tdt)))
+    _close(dl, jdl, rel)
+
+
+@pytest.mark.parametrize("keep_g", [True, False])
+def test_expert_ffn_matches_jax_swiglu_then_gmm(keep_g):
+    """The fused expert op (SwiGLU, then the down projection) against JAX's
+    ``swiglu_gmm`` → ``gmm``, forward and lhs gradient; without ``keep_g``
+    its backward re-runs the fused forward for g."""
+    rng = np.random.default_rng(17)
+    k, f = 128, 256
+    offs = np.asarray(OFFSETS["empty_and_tail"], np.int32)
+    lhs = (rng.standard_normal((M, k)) * 0.5).astype(np.float32)
+    (gq, gs), (uq, us), (dq, ds) = (_bank(rng, s, True) for s in ((E, k, f), (E, k, f), (E, f, k)))
+    dy = rng.standard_normal((M, k)).astype(np.float32)
+    jo = jnp.asarray(offs)
+
+    def jfn(a):
+        h, _ = jgm.swiglu_gmm(a, jnp.asarray(gq), jnp.asarray(uq), jnp.asarray(gs),
+                              jnp.asarray(us), jo, None)
+        return jgm.gmm(h, jnp.asarray(dq), jo, False, None, jnp.asarray(ds))
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(lhs))
+    (want_dl,) = vjp(jnp.asarray(dy))
+    tl = _t(lhs).requires_grad_()
+    calls = []
+    fwd = gm.swiglu_fwd_reference
+    try:
+        gm.swiglu_fwd_reference = lambda *a: calls.append(1) or fwd(*a)
+        y, g = gm.expert_ffn_op(tl, _t(gq), _t(gs), _t(uq), _t(us), _t(dq), _t(ds),
+                                torch.from_numpy(offs), keep_g)
+        (dl,) = torch.autograd.grad(y, tl, _t(dy))
+    finally:
+        gm.swiglu_fwd_reference = fwd
+    assert g.shape == ((M, f) if keep_g else (0,))
+    assert len(calls) == (1 if keep_g else 2)
+    _close(y, want, 1e-5)
+    _close(dl, want_dl, 1e-5)
+
+
+@pytest.mark.parametrize("routing", list(OFFSETS))
+def test_group_of_tile_matches_jax(routing):
+    offs = np.asarray(OFFSETS[routing], np.int32)
+    want = np.asarray(jgm._group_of_tile(M, jnp.asarray(offs)))
+    np.testing.assert_array_equal(gm.group_of_tile(M, torch.from_numpy(offs)).numpy(), want)
+
+
+def test_port_copies_the_kernel_constants():
+    assert (gm.ALIGN, gm.DEFAULT_BM_B, gm.MAX_K_A) == (jgm.ALIGN, jgm.DEFAULT_BM_B, jgm.MAX_K_A)
+    assert gm.fused_swiglu_usable(2048) and gm.fused_swiglu_usable(8192)
+    assert not gm.fused_swiglu_usable(8192 + 128)
+
+
+def test_quantized_bank_codes_match_jax():
+    """The int8 bank layout the kernels read: codes and ``[E, 1, N]``
+    scales bit-identical to the JAX package's."""
+    w = np.random.default_rng(3).standard_normal((E, 64, 48)).astype(np.float32)
+    j, t = jquantize(jnp.asarray(w)), quantize_tensor(torch.from_numpy(w))
+    np.testing.assert_array_equal(t["q"].numpy(), np.asarray(j["q"]))
+    np.testing.assert_array_equal(t["scale"].numpy(), np.asarray(j["scale"]))
+    assert t["scale"].shape == (E, 1, 48)
+
+
+def test_tile_check_passes_bf16_rounding_and_rejects_planted_faults():
+    """``tile_rel_err`` over 128-row tiles: bf16 rounding of a result
+    passes ``TILE_RTOL``; a tile given the wrong expert and a product
+    that skips the last 64-wide chunk of K do not."""
+    rng = np.random.default_rng(23)
+    k, n = 2048, 256
+    offs = torch.tensor(OFFSETS["balanced"], dtype=torch.int32)
+    lhs = torch.from_numpy(rng.standard_normal((M, k)).astype(np.float32)).bfloat16()
+    q = quantize_tensor(torch.from_numpy(rng.standard_normal((E, k, n)).astype(np.float32)))
+    want = gm.gmm_reference(lhs.float(), q["q"], offs, False, q["scale"])
+    ok = gm.gmm_reference(lhs, q["q"], offs, False, q["scale"])  # one bf16 rounding
+    assert gm.tile_rel_err(ok, want) <= gm.TILE_RTOL
+    wrong = gm.gmm_reference(lhs, q["q"], torch.tensor([0, 384, 512, 768, 1024]), False,
+                             q["scale"])  # rows 256..383 through expert 0
+    skipped = lhs.clone()
+    skipped[:, -64:] = 0
+    short = gm.gmm_reference(skipped, q["q"], offs, False, q["scale"])
+    for bad in (wrong, short):
+        assert gm.tile_rel_err(bad, want) > 4 * gm.TILE_RTOL

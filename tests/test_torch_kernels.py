@@ -14,7 +14,11 @@ pass with the global row max, so P rounds to bf16 against another max),
 so results agree to a few bf16 ulps: ``||got - want|| / ||want||``
 within ``flash_attention.TILE_RTOL`` in every tile of 64 positions of
 one row and head (``flash_attention.tile_rel_err``) for outputs and
-gradients, 1e-3 absolute for the f32 lse.
+gradients, 1e-3 absolute for the f32 lse. Grouped matmul in bf16: the
+same norm-relative check per 128-row tile against ``grouped_matmul.
+TILE_RTOL`` (both sides round the same f32 sums once to bf16), on
+routings with empty experts, all rows on one expert and a large tail,
+into output buffers left full of NaN so an unwritten row shows.
 """
 
 import numpy as np
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 from odh_kubeflow_tpu_torch.ops import int4
 
 
@@ -195,3 +200,132 @@ def test_flash_kernels_refuse_what_they_do_not_take():
         fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])  # hd 32
     with pytest.raises(ValueError):
         fa.flash_fwd(q, k.cpu(), v)  # two devices
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul (csrc/gmm.cu, csrc/swiglu_gmm.cu). Tolerance: bf16, each
+# 128-row tile within gm.TILE_RTOL of the plain version, ||got - want|| /
+# ||want|| (gm.tile_rel_err): both round the same f32 sums once to bf16.
+
+GROUPED_OFFSETS = {
+    "balanced": [0, 256, 512, 768, 1024],
+    "empty": [0, 384, 384, 384, 1024],  # experts 1 and 2 own no row
+    "one_expert": [0, 0, 0, 1024, 1024],  # every row on expert 2
+    "large_tail": [0, 128, 256, 256, 1024],  # expert 3's rows are mostly tail
+}
+
+
+def _grouped_inputs(K, N, trans=False, seed=0, E=4, M=1024):
+    rng = np.random.default_rng(seed)
+    lhs = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda().bfloat16()
+    q = torch.from_numpy(rng.integers(-127, 128, (E, N, K) if trans else (E, K, N),
+                                      dtype=np.int8)).cuda()
+    scale = torch.from_numpy((rng.random((E, 1, K if trans else N)) * 0.02 + 1e-3)
+                             .astype(np.float32)).cuda()
+    return lhs, q, scale
+
+
+def _poison(*shape):
+    """Leave NaN in the caching allocator's next block of this size: an
+    output row a kernel does not write then shows as NaN."""
+    t = torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+    del t
+
+
+def _tiles_close(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = gm.tile_rel_err(got, want)
+    assert rel <= gm.TILE_RTOL, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
+@pytest.mark.parametrize("K,N,trans", [(2048, 512, False), (1024, 384, True), (4096, 256, True),
+                                       (208, 96, False)])
+def test_gmm_kernel_matches_plain_on_card(routing, K, N, trans):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    lhs, q, scale = _grouped_inputs(K, N, trans)
+    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    before = gm.gmm_launches
+    _poison(lhs.shape[0], N)
+    got = gm.gmm(lhs, q, offs, trans, scale)
+    torch.cuda.synchronize()
+    assert gm.gmm_launches == before + 1
+    _tiles_close(got, gm.gmm_reference(lhs, q, offs, trans, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
+def test_swiglu_kernels_match_plain_on_card(routing):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    K, N = 512, 640
+    lhs, wg, sg = _grouped_inputs(K, N, seed=1)
+    _, wu, su = _grouped_inputs(K, N, seed=2)
+    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    before = (gm.swiglu_fwd_launches, gm.swiglu_bwd_launches)
+    _poison(lhs.shape[0], N)
+    h, g = gm.swiglu_fwd(lhs, wg, wu, sg, su, offs)
+    want_h, want_g = gm.swiglu_fwd_reference(lhs, wg, wu, sg, su, offs)
+    torch.cuda.synchronize()
+    _tiles_close(h, want_h)
+    _tiles_close(g, want_g)
+    dh = torch.randn(h.shape, generator=torch.Generator("cuda").manual_seed(3),
+                     device="cuda").bfloat16()
+    dg, du = gm.swiglu_bwd(lhs, wu, su, g, dh, offs)
+    want_dg, want_du = gm.swiglu_bwd_reference(lhs, wu, su, g, dh, offs)
+    torch.cuda.synchronize()
+    _tiles_close(dg, want_dg)
+    _tiles_close(du, want_du)
+    assert (gm.swiglu_fwd_launches, gm.swiglu_bwd_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_g", [True, False])
+def test_expert_ffn_autograd_on_card(keep_g):
+    """The fused expert op through autograd: forward one SwiGLU and one
+    gmm launch; backward one down dlhs, one SwiGLU backward, two gate/up
+    dlhs (and without ``keep_g`` the SwiGLU forward again); the lhs
+    gradient equals the plain versions' composition."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    D, F = 256, 512
+    lhs, wg, sg = _grouped_inputs(D, F, seed=4)
+    _, wu, su = _grouped_inputs(D, F, seed=5)
+    _, wd, sd = _grouped_inputs(F, D, seed=6)
+    offs = torch.tensor(GROUPED_OFFSETS["large_tail"], dtype=torch.int32, device="cuda")
+    x = lhs.clone().requires_grad_()
+    counts = lambda: (gm.swiglu_fwd_launches, gm.swiglu_bwd_launches, gm.gmm_launches)  # noqa: E731
+    c0 = counts()
+    y, _ = gm.expert_ffn_op(x, wg, sg, wu, su, wd, sd, offs, keep_g)
+    dy = torch.randn(y.shape, generator=torch.Generator("cuda").manual_seed(7),
+                     device="cuda").bfloat16()
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1 if keep_g else 2, 1, 4)
+    h, g = gm.swiglu_fwd_reference(lhs, wg, wu, sg, su, offs)
+    _tiles_close(y, gm.gmm_reference(h, wd, offs, False, sd))
+    dh = gm.gmm_reference(dy, wd, offs, True, sd)
+    dg, du = gm.swiglu_bwd_reference(lhs, wu, su, g, dh, offs)
+    want = gm.gmm_reference(dg, wg, offs, True, sg) + gm.gmm_reference(du, wu, offs, True, su)
+    _tiles_close(dx, want)
+
+
+@pytest.mark.gpu
+def test_grouped_kernels_refuse_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    lhs, q, scale = _grouped_inputs(256, 128)
+    offs = torch.tensor(GROUPED_OFFSETS["balanced"], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="MoE-serving"):
+        gm.gmm(lhs, q.bfloat16(), offs)  # a float bank: _gmm_a_kernel's work
+    with pytest.raises(TypeError):
+        gm.gmm(lhs.float(), q, offs, False, scale)
+    with pytest.raises(ValueError):
+        gm.gmm(lhs[:1000], q, offs, False, scale)  # M not a multiple of 128
+    with pytest.raises(ValueError):
+        gm.gmm(lhs, q, offs.cpu(), False, scale)  # two devices
+    with pytest.raises(ValueError):
+        gm.gmm(lhs, q, offs, False, scale[:, :, :64])  # scale does not fit

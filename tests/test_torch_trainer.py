@@ -275,7 +275,7 @@ def test_trainer_refuses_what_jax_refuses_and_later_slices():
         Trainer(TCFG, lora_cfg=lora.LoraConfig(), quantize_base="int2", device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
         Trainer(TCFG, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(TypeError, match="LlamaConfig or a MoeConfig"):
         Trainer(object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
