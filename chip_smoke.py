@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and MoE training paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, MoE training and MoE
+serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -9,7 +9,7 @@ Phases, one JSON line each on stdout:
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the time to build every CUDA kernel of the paths
    (``int4_dequant``, ``flash_fwd``, ``flash_bwd``, ``gmm``,
-   ``swiglu_gmm``) from
+   ``swiglu_gmm``, ``tgmm``) from
    ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all at once.
 2. ``kernels``: each kernel against its plain PyTorch version on the
@@ -48,6 +48,27 @@ Phases, one JSON line each on stdout:
 11. ``moe_train_profile``: one MoE step's device time by kernel kind.
 12. ``moe_train_parity_on_card``: a 2-layer model at 8x1B width on a
     packed batch, kernels against plain versions.
+13. ``moe_kernels`` also holds the bf16-bank ``gmm`` (serving prefill M
+    3,072 and training M 17,408, both orientations) and ``tgmm`` (both
+    bank layouts) per tile on the four routings, with planted faults (a
+    wrong expert, a skipped last K chunk or 64-row chunk, an empty group
+    left unwritten), times, bounds, plain and library yardsticks.
+14. ``moe_serve``: Mixtral-8x1B at full width and depth, bf16 weights,
+    dispatch grouped, over HTTP: 4 ragged prompts and one of 700 tokens
+    (grouped prefills, exactly 48 ``gmm`` each) and one of 32 (ragged),
+    greedy, 32 new tokens; no kernel per decode step; TTFT, decode step,
+    peak memory.
+15. ``moe_serve_parity_on_card``: the same prefills and greedy requests
+    with the plain versions, both runs on the kernel run's routing
+    (``RoutingTape``): logits per row, the routing flips the plain run
+    would have made, greedy flips; ``moe_profile``: where a Mixtral-8x1B
+    decode step's time goes, at batch 1 and 4.
+16. ``moe_full_train``: the Mixtral-8x1B full fine-tune (every leaf
+    trains, bf16 Adam state), 8 layers, batch 2 x seq 4096, through
+    ``Trainer.benchmark``: exact launches (64 ``gmm``, 24 ``tgmm``, 8 of
+    each flash kernel a step), every expert of every bank moved;
+    ``moe_full_train_profile``; ``moe_full_train_parity_on_card`` (2
+    layers, loss and every gradient, kernels against plain versions).
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -128,7 +149,37 @@ MOE_TRAIN_SHAPE = (2, 4096)
 MOE_M = 17_408
 MOE_LAUNCHES_PER_STEP = {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16,
                          "swiglu_fwd": 16, "swiglu_bwd": 16, "gmm_k8192": 48,
-                         "gmm_k2048": 16, "gmm": 64}
+                         "gmm_k2048": 16, "gmm": 64, "gmm_bf16_k2048": 0,
+                         "gmm_bf16_k8192": 0, "tgmm": 0}
+# Mixtral-8x1B served at full depth with bf16 weights, dispatch grouped: a
+# prefill of B·S·k >= 2048 assignments is grouped, M = round_up(B·S·k +
+# E·128, 512) = 3072 sorted rows for [4, 256] and [1, 1024]; per grouped
+# prefill each of the 16 layers runs gate and up (K 2048) and down (K 8192)
+# on bf16 banks; decode steps take the ragged path, no kernel
+MOE_SERVE_BATCH = (4, 256)
+MOE_SERVE_M = 3072
+MOE_SERVE_PREFILL = {"gmm_bf16_k2048": 32, "gmm_bf16_k8192": 16, "gmm": 48}
+# serving parity, kernels against plain versions on the card, both runs
+# on the kernel run's routing (RoutingTape): prefill logits per row,
+# ||kernel - plain|| / ||plain|| over the row's real positions, within
+# SERVE_LOGITS_RTOL (bf16 roundings taken in another order, carried
+# through 16 layers; a tile given the wrong expert reads O(1)); greedy
+# tokens identical up to any step whose top-2 logit margin is below
+# GREEDY_FLIP_MARGIN, where a flip is reported
+SERVE_LOGITS_RTOL = 5e-2
+GREEDY_FLIP_MARGIN = 2e-1
+# the Mixtral-8x1B full fine-tune, cut to 8 layers (16 layers hold 6.87e9
+# bf16 params: params, grads and Adam's moments are 51.2 GiB before the
+# optimizer's temporaries), batch 2 x seq 4096, remat "attn" without
+# pin_expert_acts. Per layer and step: flash fwd, dQ, dK/dV once; gmm 3 in
+# the forward (gate, up at K 2048; down at K 8192), 2 in the backward's
+# recompute (gate, up: the expert op's saved output is y, JAX's "moe_y"),
+# 3 dlhs (down at K 2048; gate, up at K 8192); tgmm 3 (the bank gradients)
+MOE_FULL_LAYERS = 8
+MOE_FULL_LAUNCHES_PER_STEP = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8,
+                              "swiglu_fwd": 0, "swiglu_bwd": 0, "gmm_k8192": 0,
+                              "gmm_k2048": 0, "gmm": 64, "gmm_bf16_k2048": 40,
+                              "gmm_bf16_k8192": 24, "tgmm": 24}
 
 
 def emit(obj) -> None:
@@ -421,19 +472,20 @@ def device_kernels(prof) -> dict:
 
 
 def profile_phase(torch, cfg, params, batch: int) -> dict:
-    """Where one 8B decode step's time goes: its wall time (CUDA events,
-    no profiler), then ``torch.profiler`` over the same steps for the
-    device's busy share and the kernels that take the most device time."""
+    """Where one decode step's time goes (a dense or MoE model): its wall
+    time (CUDA events, no profiler), then ``torch.profiler`` over the same
+    steps for the device's busy share and the kernels that take the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from odh_kubeflow_tpu_torch.models.generate import init_cache
-    from odh_kubeflow_tpu_torch.models.llama import forward_with_cache
+    from odh_kubeflow_tpu_torch.models.generate import family_forward, init_cache
 
+    cache_cfg, forward_with_cache = family_forward(cfg)
     S, steps = 64, 8
     gen = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(1, cfg.vocab_size, (batch, S + 2 * steps + 1),
                          generator=gen, device="cuda")
-    cache = init_cache(cfg, batch, S + 2 * steps + 1, device="cuda")
+    cache = init_cache(cache_cfg, batch, S + 2 * steps + 1, device="cuda")
     mask = torch.zeros((batch, S + 2 * steps + 1), dtype=torch.bool, device="cuda")
     mask[:, :S] = True
     forward_with_cache(params, toks[:, :S], cfg, cache, 0,
@@ -841,28 +893,93 @@ def grouped_offsets(torch, counts, M: int):
     return torch.tensor(starts + [M], dtype=torch.int32, device="cuda")
 
 
-def moe_routings(torch) -> dict:
-    """The routings the grouped kernels are held on, at the 8x1B training
-    shape: near-balanced (``route_sorted`` of random logits), one expert
-    taking every row, two empty experts, and a tail region of 9,344 rows
-    past the last real group (7,500 real rows)."""
+def moe_routings(torch, B=MOE_TRAIN_SHAPE[0], S=MOE_TRAIN_SHAPE[1]) -> dict:
+    """The routings the grouped kernels are held on, for a batch of B x S
+    tokens: near-balanced (``route_sorted`` of random logits), one expert
+    taking every row, two empty experts, and a large tail region past the
+    last real group. At the 8x1B training shape (M 17,408) the tail is
+    9,344 rows (7,500 real rows); at the serving prefill (M 3,072) 2,048
+    (853 real rows)."""
     from odh_kubeflow_tpu_torch.models.moe import MoeConfig, route_sorted
 
     cfg = MoeConfig.mixtral_8x1b()
-    B, S = MOE_TRAIN_SHAPE
     E = cfg.num_experts
     gen = torch.Generator(device="cuda").manual_seed(31)
     logits = torch.randn((B, S, E), generator=gen, device="cuda")
     _, _, balanced, _, _ = route_sorted(logits, cfg)
-    M = MOE_M
-    per = B * S * cfg.num_experts_per_tok // E  # 2048 rows an expert when balanced
+    M = int(balanced[-1])
+    per = B * S * cfg.num_experts_per_tok // E  # rows an expert when balanced
+    if M == MOE_M:
+        two_empty = [per + 700, 0, per + 300, per, per - 900, 0, per + 500, per]
+        tail = [1000, 900, 1100, 800, 1000, 1050, 950, 700]
+    else:
+        two_empty = [per + 90, 0, per + 40, per, per - 110, 0, per + 60, per]
+        tail = [128, 100, 130, 90, 120, 110, 95, 80]
     return {
         "balanced": balanced,
         "one_expert": grouped_offsets(torch, [0, 0, 0, M, 0, 0, 0, 0], M),
-        "two_empty": grouped_offsets(torch, [per + 700, 0, per + 300, per, per - 900, 0,
-                                             per + 500, per], M),
-        "large_tail": grouped_offsets(torch, [1000, 900, 1100, 800, 1000, 1050, 950, 700], M),
+        "two_empty": grouped_offsets(torch, two_empty, M),
+        "large_tail": grouped_offsets(torch, tail, M),
     }
+
+
+def poison(torch, *shape) -> None:
+    """Leave NaN in the caching allocator's next block of this size: an
+    output element a kernel does not write then shows as NaN."""
+    torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+
+
+def wrong_expert(offs):
+    """Offsets that hand the first 128-row tile of a group to the expert
+    before it (the boundary moves one tile up)."""
+    o = offs.clone()
+    for e in range(1, o.numel() - 1):
+        if o[e + 1] > o[e] and o[e] > 0:
+            o[e] += 128
+            return o
+    raise AssertionError("no group boundary to move")
+
+
+def library_ms(torch, fn, what="torch._grouped_mm"):
+    """One library call timed as the yardstick, where the card's torch
+    takes it: (ms, None), else (None, what it raised)."""
+    if what.startswith("torch._grouped_mm") and not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent"
+    try:
+        fn(0)
+        return time_ms(torch, fn, iters=10), None
+    except Exception as e:  # noqa: BLE001 — a yardstick, not a phase result
+        return None, f"{what} raised {type(e).__name__}: {str(e)[:200]}"
+
+
+class TileChecks:
+    """Per-kernel accuracy records of the grouped kernels: ``check`` holds
+    a result per 128-row tile to ``TILE_RTOL``, ``plant`` requires the
+    same check to reject each planted fault."""
+
+    def __init__(self, gm, names):
+        self.gm = gm
+        self.stats = {n: {"max_abs_err": 0.0, "tile_rel_err": 0.0, "shapes": [],
+                          "planted_fault": {}} for n in names}
+
+    def check(self, name, got, want, label):
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{name} {label}: non-finite output (an unwritten row?)")
+        rel = self.gm.tile_rel_err(got, want)
+        if not rel <= self.gm.TILE_RTOL:
+            raise AssertionError(f"{name} {label}: tile relative err {rel} > {self.gm.TILE_RTOL}")
+        st = self.stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], (got.float() - want.float()).abs().max().item())
+        st["tile_rel_err"] = max(st["tile_rel_err"], rel)
+        return rel
+
+    def plant(self, name, label, want, faults):
+        """faults: {description: output of the plain version made wrong}"""
+        for what, bad in faults.items():
+            rel = self.gm.tile_rel_err(bad, want)
+            if rel <= self.gm.TILE_RTOL:
+                raise AssertionError(f"{name}: the check passed a planted fault ({what}): {rel}")
+            self.stats[name]["planted_fault"][f"{label}: {what}"] = rel
 
 
 def gmm_work(M, K, N, E, kind):
@@ -872,6 +989,8 @@ def gmm_work(M, K, N, E, kind):
         return 4 * M * K * N, M * K * 2 + 2 * E * K * N + 2 * E * N * 4 + 2 * M * N * 2
     if kind == "swiglu_bwd":
         return 2 * M * K * N, M * K * 2 + E * K * N + E * N * 4 + 4 * M * N * 2
+    if kind in ("gmm_bf16", "tgmm"):  # bf16 bank or gradient, no scale
+        return 2 * M * K * N, M * K * 2 + E * K * N * 2 + M * N * 2
     return 2 * M * K * N, M * K * 2 + E * K * N + E * max(K, N) * 4 + M * N * 2
 
 
@@ -893,63 +1012,20 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
         s = torch.rand((shape[0], 1, last), generator=gen, device="cuda") * 2e-3 + 1e-4
         return q, s
 
-    def poisoned(rows, cols):
-        torch.full((rows, cols), float("nan"), dtype=torch.bfloat16, device="cuda")
-
     # (row, shape label, K, N, trans): the gmm launches of one MoE layer's step
     gmm_shapes = (
         ("gmm_k8192", "down fwd", F, D, False),
         ("gmm_k8192", "gate/up dlhs (trans)", F, D, True),
         ("gmm_k2048", "down dlhs (trans)", D, F, True),
     )
-    stats = {n: {"max_abs_err": 0.0, "tile_rel_err": 0.0, "shapes": [], "planted_fault": {}}
-             for n in ("gmm_k8192", "gmm_k2048", "swiglu_fwd", "swiglu_bwd")}
-
-    def check(name, got, want, label):
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name} {label}: non-finite output (an unwritten row?)")
-        rel = gm.tile_rel_err(got, want)
-        if not rel <= gm.TILE_RTOL:
-            raise AssertionError(f"{name} {label}: tile relative err {rel} > {gm.TILE_RTOL}")
-        st = stats[name]
-        st["max_abs_err"] = max(st["max_abs_err"], (got.float() - want.float()).abs().max().item())
-        st["tile_rel_err"] = max(st["tile_rel_err"], rel)
-        return rel
-
-    def plant(name, label, want, faults):
-        """faults: {description: output of the plain version made wrong}"""
-        for what, bad in faults.items():
-            rel = gm.tile_rel_err(bad, want)
-            if rel <= gm.TILE_RTOL:
-                raise AssertionError(f"{name}: the check passed a planted fault ({what}): {rel}")
-            stats[name]["planted_fault"][f"{label}: {what}"] = rel
-
-    def wrong_expert(offs):
-        """Offsets that hand the first 128-row tile of a group to the
-        expert before it (the boundary moves one tile up)."""
-        o = offs.clone()
-        for e in range(1, o.numel() - 1):
-            if o[e + 1] > o[e] and o[e] > 0:
-                o[e] += 128
-                return o
-        raise AssertionError("no group boundary to move")
-
-    def library(fn):
-        """One ``torch._grouped_mm`` call as the yardstick, where the
-        card's torch has it; what it raised otherwise."""
-        if not hasattr(torch, "_grouped_mm"):
-            return None, "torch._grouped_mm absent"
-        try:
-            fn(0)
-            return time_ms(torch, fn, iters=10), None
-        except Exception as e:  # noqa: BLE001 — a yardstick, not a phase result
-            return None, f"torch._grouped_mm raised {type(e).__name__}: {str(e)[:200]}"
+    checks = TileChecks(gm, ("gmm_k8192", "gmm_k2048", "swiglu_fwd", "swiglu_bwd"))
+    stats, check, plant = checks.stats, checks.check, checks.plant
 
     for name, label, K, N, trans in gmm_shapes:
         lhs = bf16(M, K)
         q, s = bank(E, N, K) if trans else bank(E, K, N)
         for rname, offs in routings.items():
-            poisoned(M, N)
+            poison(torch, M, N)
             got = gm.gmm(lhs, q, offs, trans, s)
             want = gm.gmm_reference(lhs, q, offs, trans, s)
             torch.cuda.synchronize()
@@ -974,8 +1050,8 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
                 qb = q.to(torch.bfloat16)
                 rhs = qb.transpose(1, 2) if trans else qb
                 ends = offs[1:].contiguous()
-                row["library_ms"], row["library_note"] = library(
-                    lambda i: torch._grouped_mm(lhs, rhs, offs=ends))
+                row["library_ms"], row["library_note"] = library_ms(
+                    torch, lambda i: torch._grouped_mm(lhs, rhs, offs=ends))
                 row["tflops_per_s"] = flops / row["ms"] / 1e9
                 stats[name]["shapes"].append(row)
                 del qb, rhs
@@ -988,12 +1064,12 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
     (wg, sg), (wu, su) = bank(E, D, F), bank(E, D, F)
     dh = bf16(M, F)
     for rname, offs in routings.items():
-        poisoned(M, F)
+        poison(torch, M, F)
         h, g = gm.swiglu_fwd(x, wg, wu, sg, su, offs)
         wh, wgt = gm.swiglu_fwd_reference(x, wg, wu, sg, su, offs)
         torch.cuda.synchronize()
         rel_f = max(check("swiglu_fwd", h, wh, f"h {rname}"), check("swiglu_fwd", g, wgt, f"g {rname}"))
-        poisoned(M, F)
+        poison(torch, M, F)
         dg, du = gm.swiglu_bwd(x, wu, su, wgt, dh, offs)
         wdg, wdu = gm.swiglu_bwd_reference(x, wu, su, wgt, dh, offs)
         torch.cuda.synchronize()
@@ -1034,7 +1110,7 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
                        "plain_ms": time_ms(torch, plain, iters=2, reps=3),
                        "bound_ms": max(flops / peak, nbytes / bw) * 1e3,
                        "bound_by": "operations" if flops / peak > nbytes / bw else "bytes"}
-                row["library_ms"], row["library_note"] = library(lib)
+                row["library_ms"], row["library_note"] = library_ms(torch, lib)
                 row["tflops_per_s"] = flops / row["ms"] / 1e9
                 stats[name]["shapes"].append(row)
             del wgu, wub
@@ -1086,17 +1162,36 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
 
 
 def moe_counts(fa, gm) -> dict:
+    """Launches of the flash and grouped kernels; gmm_k* count the int8
+    bank's launches, gmm_bf16_k* the bf16 bank's, gmm all of them."""
+    by_k = gm.gmm_launches_by_k
     return {"flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
             "flash_dkv": fa.dkv_launches, "swiglu_fwd": gm.swiglu_fwd_launches,
             "swiglu_bwd": gm.swiglu_bwd_launches,
-            "gmm_k8192": gm.gmm_launches_by_k.get(8192, 0),
-            "gmm_k2048": gm.gmm_launches_by_k.get(2048, 0), "gmm": gm.gmm_launches}
+            "gmm_k8192": by_k.get(("int8", 8192), 0), "gmm_k2048": by_k.get(("int8", 2048), 0),
+            "gmm": gm.gmm_launches, "gmm_bf16_k2048": by_k.get(("bf16", 2048), 0),
+            "gmm_bf16_k8192": by_k.get(("bf16", 8192), 0), "tgmm": gm.tgmm_launches}
 
 
 def zero_moe_counts(fa, int4, gm) -> None:
     zero_counts(fa, int4)
-    gm.gmm_launches = gm.swiglu_fwd_launches = gm.swiglu_bwd_launches = 0
+    gm.gmm_launches = gm.swiglu_fwd_launches = gm.swiglu_bwd_launches = gm.tgmm_launches = 0
     gm.gmm_launches_by_k.clear()
+
+
+def moe_with_plain(fa, gm, fn):
+    """``fn()`` with every flash and grouped kernel's plain version in its
+    wrapper's place."""
+    names = (("flash_fwd", fa), ("flash_dq", fa), ("flash_dkv", fa), ("gmm", gm), ("tgmm", gm),
+             ("swiglu_fwd", gm), ("swiglu_bwd", gm))
+    kept = [getattr(m, n) for n, m in names]
+    for n, m in names:
+        setattr(m, n, getattr(m, n + "_reference"))
+    try:
+        return fn()
+    finally:
+        for (n, m), k in zip(names, kept):
+            setattr(m, n, k)
 
 
 def moe_config():
@@ -1164,7 +1259,8 @@ def moe_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
     return record, trainer
 
 
-KERNEL_KINDS = (  # (kind, substrings of the device kernel's name)
+KERNEL_KINDS = (  # (kind, substrings of the device kernel's name; first match)
+    ("tgmm (tgmm.cu)", ("tgmm_kernel",)),
     ("grouped gemm (gmm.cu)", ("gmm_kernel", "prescale_kernel")),
     ("swiglu fwd (swiglu_gmm.cu)", ("swiglu_fwd_kernel",)),
     ("swiglu bwd (swiglu_gmm.cu)", ("swiglu_bwd_kernel",)),
@@ -1173,7 +1269,7 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name)
 )
 
 
-def moe_train_profile_phase(torch, trainer) -> dict:
+def moe_train_profile_phase(torch, trainer, phase="moe_train_profile") -> dict:
     """One MoE training step under ``torch.profiler``: device ms by kernel
     kind, the busy share, and the kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1204,7 +1300,7 @@ def moe_train_profile_phase(torch, trainer) -> dict:
             ops.append({"op": e.key, "self_device_ms": own / 1e3, "calls": e.count})
     ops.sort(key=lambda o: -o["self_device_ms"])
     return {
-        "phase": "moe_train_profile",
+        "phase": phase,
         "top_ops": ops[:15],
         "profiled_step_wall_ms": wall_ms,
         "device_kernel_ms": device_ms if kernels else "not measured",
@@ -1225,18 +1321,6 @@ def moe_train_parity_phase(torch, fa, int4, gm) -> dict:
     from odh_kubeflow_tpu_torch.models.lora import LoraConfig
     from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
     from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
-
-    def with_plain(fn):
-        kept = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, gm.gmm, gm.swiglu_fwd, gm.swiglu_bwd)
-        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
-            fa.flash_fwd_reference, fa.flash_dq_reference, fa.flash_dkv_reference)
-        gm.gmm, gm.swiglu_fwd, gm.swiglu_bwd = (
-            gm.gmm_reference, gm.swiglu_fwd_reference, gm.swiglu_bwd_reference)
-        try:
-            return fn()
-        finally:
-            (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, gm.gmm, gm.swiglu_fwd,
-             gm.swiglu_bwd) = kept
 
     B, S = MOE_TRAIN_SHAPE
     cfg = moe_config()
@@ -1263,11 +1347,12 @@ def moe_train_parity_phase(torch, fa, int4, gm) -> dict:
         before = moe_counts(fa, gm)
         k_loss, k_grads = trainer.gradients(batch)
         mid = moe_counts(fa, gm)
-        p_loss, p_grads = with_plain(lambda: trainer.gradients(batch))
+        p_loss, p_grads = moe_with_plain(fa, gm, lambda: trainer.gradients(batch))
         after = moe_counts(fa, gm)
     finally:
         moe_lib.route_sorted = route
-    if not all(mid[n] > before[n] for n in mid):
+    used = [n for n, per_step in MOE_LAUNCHES_PER_STEP.items() if per_step]
+    if not all(mid[n] > before[n] for n in used):
         raise AssertionError(f"a kernel did not launch: {before} -> {mid}")
     if after != mid:
         raise AssertionError("the plain run launched a kernel")
@@ -1294,6 +1379,581 @@ def moe_train_parity_phase(torch, fa, int4, gm) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE serving and the MoE full fine-tune (slice 4): the bf16-bank grouped
+# matmul and the expert weight gradient
+
+
+def tgmm_library(torch, a, d, offs, E):
+    """The yardstick of one ``tgmm``: ``torch._grouped_mm`` in its 2-D x
+    2-D form (groups split the contraction), where the card's torch takes
+    it, else a per-expert ``torch.mm`` loop; (ms, label, note)."""
+    ends = offs[1:].contiguous()
+    label = "torch._grouped_mm 2-D x 2-D (a^T strided)"
+    ms, grouped_note = library_ms(torch, lambda i: torch._grouped_mm(a.t(), d, offs=ends), label)
+    if ms is not None:
+        return ms, label, None
+    bounds = offs.tolist()
+    out = torch.empty((E, a.shape[1], d.shape[1]), dtype=d.dtype, device=d.device)
+
+    def loop(i):
+        for e in range(E):
+            s, t = bounds[e], bounds[e + 1]
+            torch.mm(a[s:t].t(), d[s:t], out=out[e])
+
+    ms, note = library_ms(torch, loop, "per-expert torch.mm loop")
+    return ms, "per-expert torch.mm loop, bf16 (cuBLAS)", "; ".join(
+        n for n in (grouped_note, note) if n)
+
+
+def moe_bf16_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
+    """The bf16-bank ``gmm`` (``_gmm_a_kernel`` and the unscaled
+    ``_gmm_b_kernel``) at the serving prefill (M 3,072) and training (M
+    17,408) shapes in both orientations, and ``tgmm`` at the training
+    shape in both bank layouts, against their plain versions on four
+    routings each, per 128-row tile (``tgmm``: of its ``[E·K, N]`` view),
+    into NaN-filled buffers; planted faults the check must reject; times
+    at the balanced routing."""
+    E, D, F = 8, 2048, 8192
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    routings = {MOE_M: moe_routings(torch), MOE_SERVE_M: moe_routings(torch, *MOE_SERVE_BATCH)}
+    checks = TileChecks(gm, ("gmm_bf16_k2048", "gmm_bf16_k8192", "tgmm"))
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def timed(row, flops, nbytes, fn, plain):
+        row.update(flops=flops, bytes=nbytes, ms=time_ms(torch, fn, iters=10),
+                   plain_ms=time_ms(torch, plain, iters=2, reps=3),
+                   bound_ms=max(flops / peak, nbytes / bw) * 1e3,
+                   bound_by="operations" if flops / peak > nbytes / bw else "bytes")
+        row["tflops_per_s"] = flops / row["ms"] / 1e9
+        return row
+
+    # (row, shape label, M, K, N, trans); each row's first shape is its main one
+    gmm_shapes = (
+        ("gmm_bf16_k2048", "gate/up fwd", MOE_M, D, F, False),
+        ("gmm_bf16_k2048", "down dlhs (trans)", MOE_M, D, F, True),
+        ("gmm_bf16_k2048", "serving prefill gate/up", MOE_SERVE_M, D, F, False),
+        ("gmm_bf16_k2048", "down dlhs (trans) at the prefill's M", MOE_SERVE_M, D, F, True),
+        ("gmm_bf16_k8192", "down fwd", MOE_M, F, D, False),
+        ("gmm_bf16_k8192", "gate/up dlhs (trans)", MOE_M, F, D, True),
+        ("gmm_bf16_k8192", "serving prefill down", MOE_SERVE_M, F, D, False),
+        ("gmm_bf16_k8192", "gate/up dlhs (trans) at the prefill's M", MOE_SERVE_M, F, D, True),
+    )
+    for name, label, M, K, N, trans in gmm_shapes:
+        lhs = bf16(M, K)
+        w = bf16(E, N, K, scale=K**-0.5) if trans else bf16(E, K, N, scale=K**-0.5)
+        for rname, offs in routings[M].items():
+            poison(torch, M, N)
+            got = gm.gmm(lhs, w, offs, trans)
+            want = gm.gmm_reference(lhs, w, offs, trans)
+            torch.cuda.synchronize()
+            rel = checks.check(name, got, want, f"{label} M {M} {rname}")
+            if rname == "balanced":
+                short = lhs.clone()
+                short[:, -64:] = 0
+                checks.plant(name, f"{label} M {M}", want, {
+                    "a tile given the wrong expert": gm.gmm_reference(
+                        lhs, w, wrong_expert(offs), trans),
+                    "the last K chunk of 64 skipped": gm.gmm_reference(short, w, offs, trans),
+                })
+                del short
+                row = timed({"shape": label, "M": M, "K": K, "N": N, "trans": trans,
+                             "tile_rel_err": rel}, *gmm_work(M, K, N, E, "gmm_bf16"),
+                            lambda i: gm.gmm(lhs, w, offs, trans),
+                            lambda i: gm.gmm_reference(lhs, w, offs, trans))
+                rhs = w.transpose(1, 2) if trans else w
+                ends = offs[1:].contiguous()
+                row["library_ms"], row["library_note"] = library_ms(
+                    torch, lambda i: torch._grouped_mm(lhs, rhs, offs=ends))
+                checks.stats[name]["shapes"].append(row)
+            del got, want
+        del lhs, w
+        torch.cuda.empty_cache()
+
+    # tgmm: the gate/up gradient [8, 2048, 8192] from (xs, dg) and the down
+    # gradient [8, 8192, 2048] from (h, dy)
+    M = MOE_M
+    for label, K, N in (("[8, 2048, 8192] from (xs, dg)", D, F),
+                        ("[8, 8192, 2048] from (h, dy)", F, D)):
+        a, d = bf16(M, K), bf16(M, N)
+        for rname, offs in routings[M].items():
+            poison(torch, E, K, N)
+            got = gm.tgmm(a, d, offs, E)
+            want = gm.tgmm_reference(a, d, offs, E)
+            torch.cuda.synchronize()
+            rel = checks.check("tgmm", got.view(E * K, N), want.view(E * K, N),
+                               f"{label} {rname}")
+            bounds = offs.tolist()
+            if rname == "balanced":
+                short = a.clone()
+                short[bounds[1] - 64 : bounds[1]] = 0  # expert 0's last 64-row chunk
+                checks.plant("tgmm", label, want.view(E * K, N), {
+                    "a tile given the wrong expert":
+                        gm.tgmm_reference(a, d, wrong_expert(offs), E).view(E * K, N),
+                    "a group's last 64-row chunk skipped":
+                        gm.tgmm_reference(short, d, offs, E).view(E * K, N),
+                })
+                del short
+                row = timed({"shape": label, "M": M, "K": K, "N": N, "tile_rel_err": rel},
+                            *gmm_work(M, K, N, E, "tgmm"), lambda i: gm.tgmm(a, d, offs, E),
+                            lambda i: gm.tgmm_reference(a, d, offs, E))
+                (row["library_ms"], row["library"],
+                 row["library_note"]) = tgmm_library(torch, a, d, offs, E)
+                checks.stats["tgmm"]["shapes"].append(row)
+            if rname == "one_expert":  # skewed: 1 of 8 experts' blocks walk all M rows
+                row["one_expert_ms"] = time_ms(torch, lambda i: gm.tgmm(a, d, offs, E), iters=10)
+            if rname == "two_empty":
+                empty = next(e for e in range(E) if bounds[e + 1] == bounds[e])
+                stale = want.clone()
+                stale[empty] = want[0]  # what a reused buffer could still hold
+                checks.plant("tgmm", label, want.view(E * K, N), {
+                    "an empty group left unwritten": stale.view(E * K, N)})
+                del stale
+            del got, want
+        del a, d
+        torch.cuda.empty_cache()
+
+    tpu = {
+        "gmm_bf16_k2048": (201, "_gmm_a_kernel (pallas_call at odh_kubeflow_tpu/ops/"
+                                "pallas_grouped_matmul.py:287)", "csrc/gmm.cu"),
+        "gmm_bf16_k8192": (307, "_gmm_b_kernel, unscaled (pallas_call at odh_kubeflow_tpu/ops/"
+                                "pallas_grouped_matmul.py:447)", "csrc/gmm.cu"),
+        "tgmm": (474, "_tgmm_kernel (pallas_call at odh_kubeflow_tpu/ops/"
+                      "pallas_grouped_matmul.py:520)", "csrc/tgmm.cu"),
+    }
+    rows = []
+    for name, st in checks.stats.items():
+        main = st["shapes"][0]
+        line, fn, src = tpu[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "odh_kubeflow_tpu_torch/" + src,
+            "replaces": f"odh_kubeflow_tpu/ops/pallas_grouped_matmul.py:{line}",
+            "tpu_kernel": fn,
+            "max_abs_err": st["max_abs_err"],
+            "tile_rel_err": st["tile_rel_err"],
+            "tolerance": f"||kernel - plain|| / ||plain|| <= {gm.TILE_RTOL} in every 128-row "
+                         "tile" + (" of the [E*K, N] view" if name == "tgmm" else "")
+                         + ", bf16, on 4 routings (balanced, one expert, two empty, large tail)",
+            "planted_fault": st["planted_fault"],
+            "unit": f"one launch at the Mixtral-8x1B training shape ({main['shape']}, "
+                    f"M {main['M']}, K {main['K']}, N {main['N']}, balanced routing)",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library": main.get("library", "torch._grouped_mm on the bf16 bank"),
+            "shapes": st["shapes"],
+        })
+    return rows
+
+
+def moe_serve_config():
+    from odh_kubeflow_tpu_torch.models.moe import MoeConfig
+
+    return MoeConfig.mixtral_8x1b(dispatch="grouped")
+
+
+def moe_serve_requests(torch, V: int) -> dict:
+    """{name: prompts}: 4 ragged prompts (bucket [4, 256], grouped), one of
+    700 tokens (bucket [1, 1024], grouped), one of 32 (bucket [1, 64]:
+    ragged, no kernel)."""
+    gen = torch.Generator().manual_seed(17)
+
+    def prompt(n):
+        return torch.randint(1, V, (n,), generator=gen).tolist()
+
+    return {"ragged4": [prompt(n) for n in (17, 64, 200, 256)], "long": [prompt(700)],
+            "short": [prompt(32)]}
+
+
+def moe_serve_phase(torch, fa, int4, gm, cfg, params) -> tuple[dict, dict]:
+    """Serve Mixtral-8x1B over HTTP; the exact kernel launches of every
+    request. Returns the phase record and the served greedy completions."""
+    from odh_kubeflow_tpu_torch.models.serve import CompletionService, serve
+
+    V = cfg.vocab_size
+    prompts = moe_serve_requests(torch, V)
+    grouped = {"ragged4": True, "long": True, "short": False}
+    requests = [("warmup", "ragged4", 1)]
+    for name in prompts:
+        requests += [(f"{name}_first_token", name, 1), (name, name, 32)]
+    service = CompletionService(params, cfg, device="cuda")
+    httpd = serve(service, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, served = {}, {}
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            if r.status != 200:
+                raise AssertionError(f"/healthz answered {r.status}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_moe_counts(fa, int4, gm)  # the MoE serving path's count starts here
+        for name, key, n in requests:
+            before = moe_counts(fa, gm)
+            t0 = time.perf_counter()
+            code, out = post(base, {"prompt": prompts[key], "max_tokens": n})
+            dt = time.perf_counter() - t0
+            if code != 200:
+                raise AssertionError(f"{name}: HTTP {code}: {out}")
+            comps = out["completions"]
+            if len(comps) != len(prompts[key]) or any(
+                    len(c) != n or not all(0 <= t < V for t in c) for c in comps):
+                raise AssertionError(f"{name}: bad completions {comps}")
+            after = moe_counts(fa, gm)
+            launched = {k: after[k] - before[k] for k in after}
+            want = {k: MOE_SERVE_PREFILL.get(k, 0) if grouped[key] else 0 for k in after}
+            if launched != want or int4.launches:
+                raise AssertionError(f"{name}: launches {launched} (int4 {int4.launches}), "
+                                     f"expected {want}: one grouped prefill, none per decode step")
+            results[name] = {"seconds": dt, "gmm_launches": launched["gmm"],
+                             "padded_shape": out["usage"]["padded_shape"],
+                             "completion_tokens": out["usage"]["completion_tokens"]}
+            if n == 32:
+                served[key] = comps
+        launched = moe_counts(fa, gm)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    def decode(name, rows):
+        first = results[f"{name}_first_token"]["seconds"]
+        step = (results[name]["seconds"] - first) / 31
+        return {"ttft_s": first, "request_s": results[name]["seconds"],
+                "decode_step_ms": step * 1e3, "decode_tok_s": rows / step}
+
+    b = cfg.base
+    record = {
+        "phase": "moe_serve",
+        "config": f"mixtral_8x1b: D {b.hidden_size}, F {b.intermediate_size}, {b.num_layers} "
+                  f"layers, {b.num_heads}/{b.num_kv_heads} heads, hd {b.head_dim}, V "
+                  f"{b.vocab_size}, E {cfg.num_experts}, top-{cfg.num_experts_per_tok}; bf16 "
+                  "weights (random, seed 0), dispatch grouped",
+        "launches": launched, "prefill_launches": MOE_SERVE_PREFILL, "requests": results,
+        "ragged4": decode("ragged4", 4), "long": decode("long", 1), "short": decode("short", 1),
+        "peak_memory_gb": peak_gb,
+    }
+    return record, served
+
+
+class RoutingTape:
+    """Routing is discontinuous: a bf16 sum taken in another order flips a
+    near-tied token's experts, that token's hidden state then moves by
+    O(1), and through attention and later layers so do others'
+    (``moe_serve_parity_on_card`` reports it as ``free_routing``: flips at
+    far larger margins than any rounding explains, deep in the stack). So
+    a kernel run and a plain run are compared with the same routing:
+    ``record`` keeps every routing's top-k expert ids (the forward's, and a
+    remat recompute's, in call order); ``replay`` hands them to the second
+    run in the same order. The second run's router probabilities, its
+    routing weights, aux loss and router gradient, still come from its own
+    logits. ``flips`` lists, per replayed routing, the live tokens whose
+    own top-k set would have differed, with their margins (the smaller of
+    the 1st/2nd and 2nd/3rd router logit gaps)."""
+
+    def __init__(self, torch, moe_lib):
+        self.torch, self.moe = torch, moe_lib
+        self.ids, self.masks, self.gaps, self.flips = [], [], [], []
+
+    def _run(self, stats, fn):
+        kept = self.moe._routing_stats
+        self.moe._routing_stats = stats
+        try:
+            return fn()
+        finally:
+            self.moe._routing_stats = kept
+
+    def record(self, fn):
+        real = self.moe._routing_stats
+
+        def stats(logits, cfg, token_mask=None):
+            out = real(logits, cfg, token_mask)
+            self.ids.append(out[1])
+            self.masks.append(token_mask)
+            self.gaps.append(self._gap(logits, cfg.num_experts_per_tok))
+            return out
+
+        self.ids, self.masks, self.gaps = [], [], []
+        return self._run(stats, fn)
+
+    @staticmethod
+    def _gap(logits, k: int):
+        """Per token, the smaller of the 1st/2nd and 2nd/3rd logit gaps."""
+        z = logits.detach().float().sort(-1, descending=True).values
+        return (z[..., :k] - z[..., 1 : k + 1]).min(-1).values
+
+    def differs_from(self, other: "RoutingTape") -> list[dict]:
+        """Per routing of two recorded runs, the live tokens whose top-k
+        sets differ and the largest of their margins (this run's)."""
+        out = []
+        for a, b, mask, gap in zip(self.ids, other.ids, self.masks, self.gaps):
+            diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+            if mask is not None:
+                diff = diff & mask
+            out.append({"flipped": int(diff.sum()),
+                        "largest_margin": float(gap[diff].max()) if bool(diff.any()) else None})
+        return out
+
+    def replay(self, fn):
+        torch = self.torch
+        tape = list(self.ids)
+        self.flips = []
+
+        def stats(logits, cfg, token_mask=None):
+            idx = tape.pop(0)
+            probs = torch.softmax(logits, dim=-1)
+            own = probs.topk(cfg.num_experts_per_tok, dim=-1).indices
+            flip = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+            if token_mask is not None:
+                flip = flip & token_mask
+            gap = self._gap(logits, cfg.num_experts_per_tok)
+            self.flips.append(gap[flip].tolist())
+            # moe._routing_stats with the recorded ids in place of its top-k
+            top_p = probs.gather(-1, idx)
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            first = torch.nn.functional.one_hot(idx[..., 0], logits.shape[-1]).float()
+            if token_mask is None:
+                return top_p, idx, first.mean((0, 1)), probs.mean((0, 1))
+            m = token_mask.float()[..., None]
+            denom = m.sum().clamp_min(1.0)
+            return top_p, idx, (first * m).sum((0, 1)) / denom, (probs * m).sum((0, 1)) / denom
+
+        out = self._run(stats, fn)
+        if tape:
+            raise AssertionError(f"the replayed run routed {len(tape)} times fewer")
+        return out
+
+    def flip_report(self) -> dict:
+        margins = [m for call in self.flips for m in call]
+        return {"routings": len(self.flips), "flipped_tokens": len(margins),
+                "routings_with_flips": sum(1 for c in self.flips if c),
+                "largest_flip_margin": max(margins, default=None)}
+
+
+def moe_serve_parity_phase(torch, fa, gm, cfg, params, served) -> dict:
+    """The served requests again with the plain versions in the kernels'
+    place and the kernel run's routing (``RoutingTape``): prefill logits
+    per row, the flips the plain run's own routing would have made, and
+    greedy tokens."""
+    import importlib
+
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.models.generate import init_cache
+    from odh_kubeflow_tpu_torch.models.serve import CompletionService, _bucket
+
+    gen_mod = importlib.import_module("odh_kubeflow_tpu_torch.models.generate")
+    prompts = moe_serve_requests(torch, cfg.vocab_size)
+    service = CompletionService(params, cfg, device="cuda")
+    tape = RoutingTape(torch, moe_lib)
+    out = {"phase": "moe_serve_parity_on_card", "logits_rtol": SERVE_LOGITS_RTOL,
+           "greedy_flip_margin": GREEDY_FLIP_MARGIN}
+    for name, rows in prompts.items():
+        # the prefill as the service pads it
+        B = _bucket(len(rows), service.batch_buckets)
+        S = _bucket(max(map(len, rows)), service.prompt_buckets)
+        lens = torch.tensor([len(r) for r in rows] + [0] * (B - len(rows)), device="cuda")
+        toks = torch.tensor([r + [0] * (S - len(r)) for r in rows] + [[0] * S] * (B - len(rows)),
+                            device="cuda")
+        kv = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+
+        def prefill():
+            cache = init_cache(cfg.base, B, S, device="cuda")
+            with torch.no_grad():
+                return moe_lib.forward_with_cache(
+                    params, toks, cfg, cache, 0, positions=torch.arange(S, device="cuda").expand(B, S),
+                    kv_mask=kv, token_mask=kv)[0]
+
+        before = gm.gmm_launches
+        lk = tape.record(prefill)
+        launched = gm.gmm_launches - before
+        if launched != (MOE_SERVE_PREFILL["gmm"] if B * S * cfg.num_experts_per_tok >= 2048
+                        else 0):
+            raise AssertionError(f"{name}: the kernel prefill launched {launched} gmm")
+        lp = moe_with_plain(fa, gm, lambda: tape.replay(prefill))
+        prefill_flips = tape.flip_report()
+        # for the record: the plain run on its own routing
+        free = RoutingTape(torch, moe_lib)
+        lf = moe_with_plain(fa, gm, lambda: free.record(prefill))
+        if gm.gmm_launches - before != launched:
+            raise AssertionError(f"{name}: the plain prefill launched a kernel")
+
+        def rel_rows(a, b):
+            return [((a[i, : lens[i]] - b[i, : lens[i]]).norm() / b[i, : lens[i]].norm()).item()
+                    for i in range(len(rows))]
+
+        if not all(bool(torch.isfinite(lk[b, : lens[b]]).all()) for b in range(len(rows))):
+            raise AssertionError(f"{name}: non-finite prefill logits")
+        row_rel, free_rel = rel_rows(lk, lp), rel_rows(lk, lf)
+        free_flips = free.differs_from(tape)
+        del lk, lp, lf
+        if not max(row_rel) <= SERVE_LOGITS_RTOL:
+            raise AssertionError(f"{name}: prefill logits rows {row_rel} > {SERVE_LOGITS_RTOL}")
+
+        # greedy decoding through the service, each step's top-2 logit margin
+        def complete(margins):
+            real = gen_mod.sample_logits
+
+            def spy(logits, generator, **kw):
+                top = logits.topk(2, dim=-1).values
+                margins.append((top[:, 0] - top[:, 1]).cpu())
+                return real(logits, generator, **kw)
+
+            gen_mod.sample_logits = spy
+            try:
+                return service.complete(rows, max_tokens=32)["completions"]
+            finally:
+                gen_mod.sample_logits = real
+
+        mk, mp = [], []
+        toks_k = tape.record(lambda: complete(mk))
+        toks_p = moe_with_plain(fa, gm, lambda: tape.replay(lambda: complete(mp)))
+        if toks_k != served[name]:
+            raise AssertionError(f"{name}: a second kernel run gave other tokens than served")
+        flips = []
+        for b, (tk, tp) in enumerate(zip(toks_k, toks_p)):
+            i = next((j for j, (x, y) in enumerate(zip(tk, tp)) if x != y), None)
+            if i is None:
+                continue
+            margin = min(float(mk[i][b]), float(mp[i][b]))
+            if margin >= GREEDY_FLIP_MARGIN:
+                raise AssertionError(f"{name} row {b}: greedy tokens differ at step {i} with "
+                                     f"a top-2 margin of {margin}")
+            flips.append({"row": b, "step": i, "top2_margin": margin})
+        out[name] = {"padded_shape": [B, S], "prefill_logits_row_rel_err": row_rel,
+                     "prefill_routing_flips": prefill_flips,
+                     "free_routing": {"prefill_logits_row_rel_err": free_rel,
+                                      "flips_by_layer": free_flips},
+                     "greedy_tokens_identical": toks_k == toks_p, "greedy_flips": flips,
+                     "min_greedy_top2_margin": min(float(m.min()) for m in mp)}
+    return out
+
+
+def moe_full_config(num_layers: int = MOE_FULL_LAYERS):
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.moe import MoeConfig
+
+    return MoeConfig.mixtral_8x1b(
+        base=LlamaConfig.llama3_1b(remat_policy="attn", num_layers=num_layers),
+        dispatch="grouped",
+    )
+
+
+def bank_sums(torch, params) -> dict:
+    """Per bank, the f32 sum of each [layer, expert] matrix: a change shows
+    that the expert's weights moved."""
+    from odh_kubeflow_tpu_torch.models.moe import BANKS
+
+    with torch.no_grad():
+        return {n: torch.stack([params["layers"][n][i].float().sum(dim=(1, 2))
+                                for i in range(params["layers"][n].shape[0])]) for n in BANKS}
+
+
+def moe_full_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
+    """The Mixtral-8x1B full fine-tune step through ``Trainer.benchmark``."""
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_full_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainConfig(), None, precompile_batch=(B, S))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    start = bank_sums(torch, trainer.params)
+    steps, warmup = 3, 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_moe_counts(fa, int4, gm)  # the MoE full fine-tune's count starts here
+    bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    launched = moe_counts(fa, gm)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = {k: n * (steps + warmup) for k, n in MOE_FULL_LAUNCHES_PER_STEP.items()}
+    if launched != expected or int4.launches:
+        raise AssertionError(f"MoE full fine-tune launches {launched} (int4 {int4.launches}), "
+                             f"expected {expected}")
+    metrics = trainer.train_step(trainer.make_fake_batch(B, S, seed=1))
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"loss {loss}, grad_norm {gnorm}")
+    if not math.isfinite(bench["loss"]):
+        raise AssertionError(f"benchmark loss {bench['loss']}")
+    end = bank_sums(torch, trainer.params)
+    still = {n: int((end[n] == start[n]).sum()) for n in end}
+    if any(still.values()):
+        raise AssertionError(f"[layer, expert] banks that did not move: {still}")
+    b = cfg.base
+    record = {
+        "phase": "moe_full_train",
+        "config": f"mixtral_8x1b full fine-tune: D {b.hidden_size}, F {b.intermediate_size}, "
+                  f"{b.num_layers} layers (of 16), {b.num_heads}/{b.num_kv_heads} heads, hd "
+                  f"{b.head_dim}, V {b.vocab_size}, E {cfg.num_experts}, "
+                  f"top-{cfg.num_experts_per_tok}; bf16 params, grads and Adam moments "
+                  "(random weights, seed 0), dispatch grouped, remat attn, every leaf trains",
+        "reduced": "16 -> 8 layers: at 16 the 6.87e9 bf16 params, their grads and Adam's "
+                   "two moments hold 51.2 GiB before the optimizer's temporaries",
+        "batch": B, "seq": S, "steps": steps, "warmup": warmup, "sorted_rows_M": MOE_M,
+        "params": sum(t.numel() for t in trainer.params["layers"].values())
+        + trainer.params["embed"].numel() + trainer.params["final_norm"].numel(),
+        "init_s": init_s, "resident_gb": resident_gb, "peak_memory_gb": peak_gb,
+        "step_time_s": bench["step_time_s"], "tokens_per_s": bench["tokens_per_s"],
+        "model_flops_per_step": bench["model_flops_per_step"],
+        "strict_mfu": bench["flops_per_s"] / peak, "peak_flops": peak,
+        "loss_benchmark": bench["loss"], "loss_after": loss, "grad_norm_after": gnorm,
+        "launches": launched, "launches_per_step": MOE_FULL_LAUNCHES_PER_STEP,
+        "banks_moved": {n: int(end[n].numel()) for n in end},
+    }
+    return record, trainer
+
+
+def moe_full_train_parity_phase(torch, fa, int4, gm) -> dict:
+    """A 2-layer model at 8x1B width, every leaf trainable, one packed
+    batch: the loss and every gradient, banks included, with the kernels
+    against the plain versions, both on the kernel run's routing
+    (``RoutingTape``; the plain run's own flips are reported)."""
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_full_config(num_layers=2)
+    trainer = Trainer(cfg, TrainConfig(), None, seed=1)
+    rng = torch.Generator().manual_seed(10)
+    docs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=rng).tolist()
+            for n in torch.randint(100, 1500, (24,), generator=rng)]
+    batch = next(prefetch_to_device(pack_documents(docs, B, S)))
+    tape = RoutingTape(torch, moe_lib)
+    before = moe_counts(fa, gm)
+    k_loss, k_grads = tape.record(lambda: trainer.gradients(batch))
+    mid = moe_counts(fa, gm)
+    p_loss, p_grads = moe_with_plain(fa, gm, lambda: tape.replay(lambda: trainer.gradients(batch)))
+    after = moe_counts(fa, gm)
+    used = ("flash_fwd", "flash_dq", "flash_dkv", "gmm_bf16_k2048", "gmm_bf16_k8192", "tgmm")
+    if not all(mid[n] > before[n] for n in used):
+        raise AssertionError(f"a kernel did not launch: {before} -> {mid}")
+    if after != mid:
+        raise AssertionError("the plain run launched a kernel")
+    k_loss, p_loss = float(k_loss), float(p_loss)
+    rels = {}
+    for path, pg in p_grads.items():
+        kg = k_grads[path]
+        if not bool(torch.isfinite(kg).all()):
+            raise AssertionError(f"non-finite gradient {path}")
+        rels["/".join(path)] = ((kg.float() - pg.float()).norm()
+                                / pg.float().norm().clamp_min(1e-30)).item()
+    out = {"phase": "moe_full_train_parity_on_card", "layers": 2, "batch": B, "seq": S,
+           "packed_segments": int(batch["segment_ids"].max()),
+           "grad_tol": f"||kernel - plain|| / ||plain|| <= {TRAIN_GRAD_TOL} per leaf",
+           "loss_rtol": TRAIN_LOSS_RTOL, "loss_kernels": k_loss, "loss_plain": p_loss,
+           "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+           "worst_leaf_grad_rel_diff": max(rels.values()), "leaf_grad_rel_diff": rels,
+           "routing_flips": tape.flip_report()}
+    if not (math.isfinite(k_loss) and out["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+            and out["worst_leaf_grad_rel_diff"] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"MoE full fine-tune parity: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1316,7 +1976,7 @@ def main() -> int:
     peak = peak_flops_per_device(name)
     if not peak:
         raise RuntimeError(f"no bf16 peak known for {name!r}")
-    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm"]
+    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm", "tgmm"]
     t0 = time.perf_counter()
     _build.build(kernel_names)
     build_s = time.perf_counter() - t0
@@ -1337,10 +1997,11 @@ def main() -> int:
                                         "ms", "plain_ms", "bound_ms", "library_ms")}
                     for r in flash_rows]})
     moe_rows = moe_kernels_phase(torch, gm, bw, peak)
+    bf16_rows = moe_bf16_kernels_phase(torch, gm, bw, peak)
     emit({"phase": "moe_kernels", "card": label,
           "grouped": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
                                           "ms", "plain_ms", "bound_ms", "library_ms")}
-                      for r in moe_rows]})
+                      for r in moe_rows + bf16_rows]})
 
     # serving (slice 1)
     cfg = LlamaConfig.llama3_8b()
@@ -1382,17 +2043,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(moe_train_parity_phase(torch, fa, int4, gm))
 
+    # MoE serving (slice 4): Mixtral-8x1B, bf16 weights, grouped prefill
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+
+    cfg = moe_serve_config()
+    t0 = time.perf_counter()
+    params = moe_lib.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    record, served = moe_serve_phase(torch, fa, int4, gm, cfg, params)
+    record.update(init_s=init_s, resident_params_gb=resident_gb, card=label)
+    emit(record)
+    moe_serve_launches = record["launches"]
+    emit(moe_serve_parity_phase(torch, fa, gm, cfg, params, served))
+    emit({"phase": "moe_profile", "card": label,
+          "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
+    del params
+    torch.cuda.empty_cache()
+
+    # the MoE full fine-tune (slice 4): trainable bf16 banks
+    record, trainer = moe_full_train_phase(torch, fa, int4, gm, peak)
+    record["card"] = label
+    emit(record)
+    full_launches = record["launches"]
+    emit(moe_train_profile_phase(torch, trainer, "moe_full_train_profile"))
+    del trainer
+    torch.cuda.empty_cache()
+    emit(moe_full_train_parity_phase(torch, fa, int4, gm))
+
     kernel["launches"] = serve_launches + train_launches["int4_dequant"]
     kernel["launches_by_path"] = {"serve": serve_launches,
                                   "train": train_launches["int4_dequant"], "moe_train": 0}
-    for row in flash_rows:
-        row["launches"] = train_launches[row["name"]] + moe_launches[row["name"]]
-        row["launches_by_path"] = {"train": train_launches[row["name"]],
-                                   "moe_train": moe_launches[row["name"]]}
-    for row in moe_rows:
-        row["launches"] = moe_launches[row["name"]]
-        row["launches_by_path"] = {"moe_train": moe_launches[row["name"]]}
-    emit({"kernels": [kernel, *flash_rows, *moe_rows]})
+    paths = {"train": train_launches, "moe_train": moe_launches,
+             "moe_serve": moe_serve_launches, "moe_full_train": full_launches}
+    for row in flash_rows + moe_rows + bf16_rows:
+        row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
+                                   if n.get(row["name"])}
+        row["launches"] = sum(row["launches_by_path"].values())
+    emit({"kernels": [kernel, *flash_rows, *moe_rows, *bf16_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

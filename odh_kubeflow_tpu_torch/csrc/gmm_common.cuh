@@ -1,11 +1,11 @@
 // Shared main loop of the grouped-matmul kernels (gmm.cu, swiglu_gmm.cu):
-// bf16 rows times an int8 expert bank, mma.sync m16n8k16 with f32
+// bf16 rows times an expert bank, int8 or bf16, mma.sync m16n8k16 with f32
 // accumulators, one 128-row tile of one expert per block.
 //
 // Contract (checked by the Python wrappers, ops/grouped_matmul.py):
 //   lhs     bf16 [M, K] row-major, M % 128 == 0, K % 16 == 0;
-//   bank    int8 [E, K, N] (TRANS = false) or [E, N, K] (TRANS = true),
-//           N % 16 == 0;
+//   bank    W = int8_t or bf16, [E, K, N] (TRANS = false) or [E, N, K]
+//           (TRANS = true), N % 16 == 0;
 //   offsets int32 [E + 1], offsets[0] = 0, offsets[E] = M, every entry a
 //           multiple of 128, nondecreasing. So each 128-row tile lies in
 //           exactly one expert's group (empty groups own no tile), and the
@@ -13,9 +13,12 @@
 //
 // Block: 256 threads, 8 warps as 2 (rows) x 4 (columns); warp w owns rows
 // 64 * (w / 4) .. +63 and columns (BN / 4) * (w % 4) .. of the block tile.
-// K runs in chunks of 64 through a 3-stage cp.async ring of the raw lhs and
-// int8 bank tiles; each chunk's bank tile is widened to bf16 in shared
-// memory (exact: |q| <= 127) and read by ldmatrix like any bf16 operand.
+// K runs in chunks of 64 through a 3-stage cp.async ring of the lhs and
+// bank tiles. An int8 bank tile arrives as raw bytes (16 weights a copy)
+// and is widened to bf16 in shared memory (exact: |q| <= 127) once per
+// chunk; a bf16 bank tile is copied straight into its padded stage (8
+// weights a copy) and read there, with no widening pass. Either way the
+// tensor cores read bf16 by ldmatrix.
 
 #pragma once
 
@@ -40,33 +43,38 @@ __device__ __forceinline__ int tile_expert(const int* offsets, int E, int m0) {
   return e;
 }
 
-template <int BN, bool TRANS>
+// W: the bank's element type, int8_t (widened in shared memory) or bf16
+template <int BN, bool TRANS, typename W>
 struct Tiles {
-  static constexpr int kRawB = kBK * BN;                           // int8 bytes
+  static constexpr bool kWiden = sizeof(W) == 1;
   static constexpr int kLDB = TRANS ? kBK + kPad : BN + kPad;      // bf16 pitch
   static constexpr int kRowsB = TRANS ? BN : kBK;
   static constexpr int kConvB = kRowsB * kLDB;                     // bf16 elements
+  // bytes of one bank tile in a stage: raw int8, or the padded bf16 tile
+  static constexpr int kStageB = kWiden ? kBK * BN : kConvB * 2;
   static constexpr int kWN = BN / 4;                               // warp columns
   static constexpr int kNT = kWN / 8;                              // n8 tiles a warp
   static_assert(kNT % 2 == 0, "a warp takes its columns 16 at a time");
 };
 
 // Dynamic shared memory of a kernel with NB bank operands.
-template <int BN, int NB, bool TRANS>
+template <int BN, int NB, bool TRANS, typename W>
 constexpr int smem_bytes() {
-  using T = Tiles<BN, TRANS>;
-  return kStages * (kBM * kLDA * 2 + NB * T::kRawB) + NB * T::kConvB * 2;
+  using T = Tiles<BN, TRANS, W>;
+  return kStages * (kBM * kLDA * 2 + NB * T::kStageB) + (T::kWiden ? NB * T::kConvB * 2 : 0);
 }
 
+template <typename W>
 struct Operand {
-  const int8_t* q;      // this expert's [K, N] or [N, K] matrix
+  const W* q;      // this expert's [K, N] or [N, K] matrix
 };
 
 // Start the cp.async copies of chunk k0 into one stage.
-template <int BN, int NB, bool TRANS>
-__device__ __forceinline__ void load_chunk(bf16* sA, int8_t* sB, const bf16* lhs,
-                                           const Operand (&b)[NB], int m0, int n0, int k0,
+template <int BN, int NB, bool TRANS, typename W>
+__device__ __forceinline__ void load_chunk(bf16* sA, unsigned char* sB, const bf16* lhs,
+                                           const Operand<W> (&b)[NB], int m0, int n0, int k0,
                                            int K, int N) {
+  using T = Tiles<BN, TRANS, W>;
   // lhs: 128 rows x 64 columns, 8 bf16 (16 bytes) per copy
 #pragma unroll
   for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
@@ -76,46 +84,40 @@ __device__ __forceinline__ void load_chunk(bf16* sA, int8_t* sB, const bf16* lhs
     const bf16* src = lhs + static_cast<long long>(m0 + r) * K + (valid ? k0 + c : 0);
     flash::cp_async16(sA + r * kLDA + c, src, valid);
   }
-  // bank: 16 int8 per copy
+  // bank: 16 bytes per copy (16 int8 or 8 bf16 weights)
+  constexpr int kPer = 16 / sizeof(W);
+  constexpr int kCols = TRANS ? kBK : BN;  // weights per tile row
+  // an int8 tile lands unpadded, a bf16 tile at its padded pitch
+  constexpr int kPitch = T::kWiden ? kCols : T::kLDB;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
-    int8_t* dst = sB + j * Tiles<BN, TRANS>::kRawB;
-    if (TRANS) {  // rows n, 64 bytes of k each
+    W* dst = reinterpret_cast<W*>(sB + j * T::kStageB);
 #pragma unroll
-      for (int i = threadIdx.x; i < BN * (kBK / 16); i += kThreads) {
-        const int r = i / (kBK / 16);
-        const int c = (i % (kBK / 16)) * 16;
-        const bool valid = n0 + r < N && k0 + c < K;
-        const int8_t* src =
-            b[j].q + (valid ? static_cast<long long>(n0 + r) * K + k0 + c : 0);
-        flash::cp_async16(dst + r * kBK + c, src, valid);
-      }
-    } else {  // rows k, BN bytes of n each
-#pragma unroll
-      for (int i = threadIdx.x; i < kBK * (BN / 16); i += kThreads) {
-        const int r = i / (BN / 16);
-        const int c = (i % (BN / 16)) * 16;
-        const bool valid = k0 + r < K && n0 + c < N;
-        const int8_t* src =
-            b[j].q + (valid ? static_cast<long long>(k0 + r) * N + n0 + c : 0);
-        flash::cp_async16(dst + r * BN + c, src, valid);
-      }
+    for (int i = threadIdx.x; i < T::kRowsB * (kCols / kPer); i += kThreads) {
+      const int r = i / (kCols / kPer);
+      const int c = (i % (kCols / kPer)) * kPer;
+      // TRANS: rows n, 64 weights of k each; else rows k, BN weights of n
+      const int row = (TRANS ? n0 : k0) + r, col = (TRANS ? k0 : n0) + c;
+      const bool valid = TRANS ? (row < N && col < K) : (row < K && col < N);
+      const long long ld = TRANS ? K : N;
+      const W* src = b[j].q + (valid ? static_cast<long long>(row) * ld + col : 0);
+      flash::cp_async16(dst + r * kPitch + c, src, valid);
     }
   }
 }
 
 // Widen one stage's int8 bank tiles to bf16, same layout, padded pitch.
 template <int BN, int NB, bool TRANS>
-__device__ __forceinline__ void widen(bf16* sBc, const int8_t* sB) {
-  using T = Tiles<BN, TRANS>;
+__device__ __forceinline__ void widen(bf16* sBc, const unsigned char* sB) {
+  using T = Tiles<BN, TRANS, int8_t>;
   constexpr int kCols = TRANS ? kBK : BN;  // bytes per raw row
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
 #pragma unroll
-    for (int i = threadIdx.x; i < T::kRawB / 16; i += kThreads) {
+    for (int i = threadIdx.x; i < T::kStageB / 16; i += kThreads) {
       const int r = (i * 16) / kCols;
       const int c = (i * 16) % kCols;
-      const int4 raw = *reinterpret_cast<const int4*>(sB + j * T::kRawB + r * kCols + c);
+      const int4 raw = *reinterpret_cast<const int4*>(sB + j * T::kStageB + r * kCols + c);
       const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
       uint32_t w[8];
 #pragma unroll
@@ -131,14 +133,14 @@ __device__ __forceinline__ void widen(bf16* sBc, const int8_t* sB) {
 
 // acc[j][mi][ni][4] += lhs[m0.., :] @ bank_j[:, n0..] over the whole K.
 // sm: the kernel's dynamic shared memory.
-template <int BN, int NB, bool TRANS>
-__device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS>::kNT][4],
+template <int BN, int NB, bool TRANS, typename W>
+__device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS, W>::kNT][4],
                                          unsigned char* sm, const bf16* lhs,
-                                         const Operand (&b)[NB], int m0, int n0, int K,
+                                         const Operand<W> (&b)[NB], int m0, int n0, int K,
                                          int N) {
-  using T = Tiles<BN, TRANS>;
-  constexpr int kStageBytes = kBM * kLDA * 2 + NB * T::kRawB;
-  bf16* sBc = reinterpret_cast<bf16*>(sm + kStages * kStageBytes);
+  using T = Tiles<BN, TRANS, W>;
+  constexpr int kStageBytes = kBM * kLDA * 2 + NB * T::kStageB;
+  bf16* sBc = reinterpret_cast<bf16*>(sm + kStages * kStageBytes);  // int8 only
   const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 2) * 64;
   const int wn = (warp & 3) * T::kWN;
@@ -152,14 +154,14 @@ __device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS>::k
           acc[j][mi][ni][2] = acc[j][mi][ni][3] = 0.f;
 
   auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(sm + s * kStageBytes); };
-  auto stage_b = [&](int s) {
-    return reinterpret_cast<int8_t*>(sm + s * kStageBytes + kBM * kLDA * 2);
-  };
+  auto stage_b = [&](int s) { return sm + s * kStageBytes + kBM * kLDA * 2; };
 
   const int nk = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_chunk<BN, NB, TRANS>(stage_a(s), stage_b(s), lhs, b, m0, n0, s * kBK, K, N);
+    if (s < nk) {
+      load_chunk<BN, NB, TRANS, W>(stage_a(s), stage_b(s), lhs, b, m0, n0, s * kBK, K, N);
+    }
     flash::cp_async_commit();
   }
   for (int kc = 0; kc < nk; ++kc) {
@@ -167,13 +169,19 @@ __device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS>::k
     __syncthreads();                      // and chunk kc - 1 is consumed
     const int next = kc + kStages - 1;
     if (next < nk) {
-      load_chunk<BN, NB, TRANS>(stage_a(next % kStages), stage_b(next % kStages), lhs, b, m0,
-                                n0, next * kBK, K, N);
+      load_chunk<BN, NB, TRANS, W>(stage_a(next % kStages), stage_b(next % kStages), lhs, b,
+                                   m0, n0, next * kBK, K, N);
     }
     flash::cp_async_commit();
     bf16* sA = stage_a(kc % kStages);
-    widen<BN, NB, TRANS>(sBc, stage_b(kc % kStages));
-    __syncthreads();
+    const bf16* tiles;
+    if constexpr (T::kWiden) {
+      widen<BN, NB, TRANS>(sBc, stage_b(kc % kStages));
+      __syncthreads();
+      tiles = sBc;
+    } else {
+      tiles = reinterpret_cast<const bf16*>(stage_b(kc % kStages));
+    }
 
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -182,7 +190,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS>::k
       for (int mi = 0; mi < 4; ++mi) flash::frag_a<kLDA>(a[mi], sA, wm + mi * 16, kk);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        const bf16* tile = sBc + j * T::kConvB;
+        const bf16* tile = tiles + j * T::kConvB;
 #pragma unroll
         for (int nj = 0; nj < T::kNT / 2; ++nj) {
           uint32_t bf[4];
@@ -205,18 +213,17 @@ __device__ __forceinline__ void mainloop(float (&acc)[NB][4][Tiles<BN, TRANS>::k
 
 // Global row and column of accumulator element e (0..3) of n8 tile ni in
 // m16 tile mi; e and e + 1 (e even) are neighbouring columns of one row.
-template <int BN, bool TRANS>
 __device__ __forceinline__ int acc_row(int m0, int mi, int e) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   return m0 + (warp >> 2) * 64 + mi * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
 }
 
-template <int BN, bool TRANS>
+template <int BN>
 __device__ __forceinline__ int acc_col(int n0, int ni) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  return n0 + (warp & 3) * Tiles<BN, TRANS>::kWN + ni * 8 + 2 * (lane & 3);
+  return n0 + (warp & 3) * (BN / 4) + ni * 8 + 2 * (lane & 3);
 }
 
 }  // namespace gmm

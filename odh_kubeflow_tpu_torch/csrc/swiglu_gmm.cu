@@ -41,30 +41,30 @@ __global__ void __launch_bounds__(gmm::kThreads)
                       const int8_t* __restrict__ wu, const float* __restrict__ sg,
                       const float* __restrict__ su, const int* __restrict__ offsets,
                       bf16* __restrict__ h, bf16* __restrict__ g, int K, int N, int E) {
-  using T = gmm::Tiles<kBNFwd, false>;
+  using T = gmm::Tiles<kBNFwd, false, int8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * kBNFwd;
   const int m0 = blockIdx.y * gmm::kBM;
   const int e = gmm::tile_expert(offsets, E, m0);
   const long long bank = static_cast<long long>(e) * K * N;
-  const gmm::Operand b[2] = {{wg + bank}, {wu + bank}};
+  const gmm::Operand<int8_t> b[2] = {{wg + bank}, {wu + bank}};
   const float* sge = sg + static_cast<long long>(e) * N;
   const float* sue = su + static_cast<long long>(e) * N;
 
   float acc[2][4][T::kNT][4];
-  gmm::mainloop<kBNFwd, 2, false>(acc, smem, x, b, m0, n0, K, N);
+  gmm::mainloop<kBNFwd, 2, false, int8_t>(acc, smem, x, b, m0, n0, K, N);
 
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
     for (int ni = 0; ni < T::kNT; ++ni) {
-      const int col = gmm::acc_col<kBNFwd, false>(n0, ni);
+      const int col = gmm::acc_col<kBNFwd>(n0, ni);
       if (col >= N) continue;
       const float gs[2] = {__ldg(sge + col), __ldg(sge + col + 1)};
       const float us[2] = {__ldg(sue + col), __ldg(sue + col + 1)};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = static_cast<long long>(gmm::acc_row<kBNFwd, false>(m0, mi, 2 * r)) * N + col;
+        const long long at = static_cast<long long>(gmm::acc_row(m0, mi, 2 * r)) * N + col;
         float gv[2], hv[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
@@ -84,27 +84,27 @@ __global__ void __launch_bounds__(gmm::kThreads)
                       const float* __restrict__ su, const int* __restrict__ offsets,
                       const bf16* __restrict__ g, const bf16* __restrict__ dh,
                       bf16* __restrict__ dg, bf16* __restrict__ du, int K, int N, int E) {
-  using T = gmm::Tiles<kBNBwd, false>;
+  using T = gmm::Tiles<kBNBwd, false, int8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * kBNBwd;
   const int m0 = blockIdx.y * gmm::kBM;
   const int e = gmm::tile_expert(offsets, E, m0);
-  const gmm::Operand b[1] = {{wu + static_cast<long long>(e) * K * N}};
+  const gmm::Operand<int8_t> b[1] = {{wu + static_cast<long long>(e) * K * N}};
   const float* sue = su + static_cast<long long>(e) * N;
 
   float acc[1][4][T::kNT][4];
-  gmm::mainloop<kBNBwd, 1, false>(acc, smem, x, b, m0, n0, K, N);
+  gmm::mainloop<kBNBwd, 1, false, int8_t>(acc, smem, x, b, m0, n0, K, N);
 
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
     for (int ni = 0; ni < T::kNT; ++ni) {
-      const int col = gmm::acc_col<kBNBwd, false>(n0, ni);
+      const int col = gmm::acc_col<kBNBwd>(n0, ni);
       if (col >= N) continue;
       const float us[2] = {__ldg(sue + col), __ldg(sue + col + 1)};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = static_cast<long long>(gmm::acc_row<kBNBwd, false>(m0, mi, 2 * r)) * N + col;
+        const long long at = static_cast<long long>(gmm::acc_row(m0, mi, 2 * r)) * N + col;
         const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + at));
         const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dh + at));
         const float gg[2] = {gv.x, gv.y};
@@ -140,7 +140,7 @@ extern "C" int swiglu_fwd_launch(const void* x, const void* wg, const void* wu, 
                                  int K, int N, int E, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (int rc = check(M, K, N, E)) return rc;
-  constexpr int kSmem = gmm::smem_bytes<kBNFwd, 2, false>();
+  constexpr int kSmem = gmm::smem_bytes<kBNFwd, 2, false, int8_t>();
   static int attr = flash::set_smem(swiglu_fwd_kernel, kSmem);
   if (attr != 0) return attr;
   const dim3 grid(flash::ceil_div(N, kBNFwd), M / gmm::kBM);
@@ -157,7 +157,7 @@ extern "C" int swiglu_bwd_launch(const void* x, const void* wu, const void* su,
                                  void* du, int M, int K, int N, int E, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (int rc = check(M, K, N, E)) return rc;
-  constexpr int kSmem = gmm::smem_bytes<kBNBwd, 1, false>();
+  constexpr int kSmem = gmm::smem_bytes<kBNBwd, 1, false, int8_t>();
   static int attr = flash::set_smem(swiglu_bwd_kernel, kSmem);
   if (attr != 0) return attr;
   const dim3 grid(flash::ceil_div(N, kBNBwd), M / gmm::kBM);

@@ -113,13 +113,14 @@ def sample_logits(
 
 
 def family_forward(cfg):
-    """(cache-shape config, cached-forward fn) for a model config — the
-    single model-family dispatch point of ``generate``."""
+    """(cache-shape config, cached-forward fn) for a dense or MoE config —
+    the single model-family dispatch point of ``generate``. A MoeConfig
+    wraps a dense backbone whose shapes drive the cache; its own cached
+    forward routes the MLP through the experts."""
     if hasattr(cfg, "base"):
-        raise NotImplementedError(
-            "MoE serving (forward_with_cache, generate, serve) arrives with the "
-            "MoE-serving slice of the port"
-        )
+        from odh_kubeflow_tpu_torch.models import moe
+
+        return cfg.base, moe.forward_with_cache
     return cfg, forward_with_cache
 
 

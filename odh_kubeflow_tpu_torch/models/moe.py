@@ -14,13 +14,18 @@ Three dispatches, as in JAX (``MoeConfig.dispatch``):
 - "ragged": the same routing as index tables, gather and scatter-add;
 - "grouped": dropless. ``route_sorted`` counting-sorts the B·S·k
   assignments by expert into 128-aligned groups and the grouped-matmul
-  ops (``ops/grouped_matmul.py``) run every assignment once: on int8
-  banks the fused SwiGLU kernel, then the down projection
-  (``expert_ffn``), both hand-written kernels on the card.
+  ops (``ops/grouped_matmul.py``) run every assignment once
+  (``expert_ffn``): on int8 banks the fused SwiGLU kernel, then the down
+  projection; on float banks three grouped products, whose weight
+  gradients (a full fine-tune) are ``tgmm`` launches; all hand-written
+  kernels on the card. Batches of fewer than 2048 assignments (decode
+  steps) take the ragged path.
 
-The expert-parallel grouped path, the pipelined stack, ``param_specs``
-and the KV-cached forward (MoE serving) wait for later slices of the port
-and raise ``NotImplementedError`` naming theirs.
+``forward`` trains; ``forward_with_cache`` serves (``models/generate.py``,
+``models/serve.py``), dequantizing each layer whole, banks included, as
+JAX's does. The expert-parallel grouped path, the pipelined stack and
+``param_specs`` wait for slice 6 of the port (multi-device parallelism)
+and raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -383,14 +388,19 @@ def _grouped_usable(x: torch.Tensor, cfg: MoeConfig) -> bool:
 
 
 def _grouped_expert_ffn(xs, layer, offsets, dtype, save_names=(), keep_g=True):
-    """The three expert projections on the sorted rows. int8 banks whose K
-    fits the fused kernel take ``expert_ffn`` (fused gate/up/silu·mul,
-    then the down projection; u and h never reach a saved tensor); float
-    banks and larger K take separate ``gmm`` products, as in JAX."""
+    """The three expert projections on the sorted rows. One composite op,
+    ``expert_ffn``, takes int8 banks whose K fits the fused kernel (fused
+    gate/up/silu·mul, then the down projection) and float banks (cast to
+    ``dtype``, as JAX's ``q.astype(dtype)``: three ``gmm``); u and h never
+    reach a saved tensor. Other int8 banks (K past the fused kernel) take
+    separate ``gmm`` products, as in JAX."""
     (gq, gs), (uq, us), (dq, ds) = (_unpack(layer[n]) for n in BANKS)
-    if gs is not None and us is not None and ds is not None and gm.fused_swiglu_usable(
-        xs.shape[1]
-    ):
+    scales = (gs, us, ds)
+    if all(s is None for s in scales):
+        y, _ = gm.expert_ffn_op(xs, gq.to(dtype), None, uq.to(dtype), None, dq.to(dtype), None,
+                                offsets, keep_g)
+        return y
+    if all(s is not None for s in scales) and gm.fused_swiglu_usable(xs.shape[1]):
         y, _ = gm.expert_ffn_op(xs, gq, gs, uq, us, dq, ds, offsets, keep_g)
         return y
 
@@ -566,9 +576,47 @@ def forward(
     return llama._logits(x, llama.lm_head_weight(params, b), b.dtype), aux_total
 
 
-def forward_with_cache(*args, **kwargs):
-    raise NotImplementedError(
-        "the KV-cached MoE forward (MoE serving: generate, serve and the grouped "
-        "prefill on bf16 banks, _gmm_a_kernel) arrives with the MoE-serving slice "
-        "of the port"
-    )
+def forward_with_cache(
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] (S = prompt len for prefill, 1 for decode)
+    cfg: MoeConfig,
+    cache: Params,  # {"k","v"}: [L, B, S_max, Hkv, hd]
+    cache_index,  # int, or [B] tensor: write offset into the cache
+    *,
+    positions: torch.Tensor,  # [B, S] absolute positions (rope)
+    kv_mask: Optional[torch.Tensor] = None,  # [B, S_max] valid cache slots
+    lora: Optional[Params] = None,
+    token_mask: Optional[torch.Tensor] = None,  # [B, S] bool; False = pad
+) -> tuple[torch.Tensor, Params]:
+    """KV-cached MoE forward: returns (logits [B, S, V] float32, cache),
+    the cache updated in place (``llama.forward_with_cache``'s contract).
+
+    Attention is the dense family's cache path; the MLP is the router and
+    the experts through ``cfg.dispatch``. Each layer dequantizes whole,
+    expert banks included, so a grouped prefill runs its products on
+    float banks. Without ``token_mask``, a prefill (S > 1) routes only
+    the slots ``kv_mask`` marks valid: pads must not take expert rows. A
+    decode step always carries a real token. ``lora`` carries
+    attention-projection adapters (the MoE-LoRA targets)."""
+    b = cfg.base
+    llama._check_supported(b)
+    sin, cos = rope_angles(positions, b.head_dim, b.rope_theta)
+    x = params["embed"][tokens].to(b.dtype)
+    S = tokens.shape[1]
+    if token_mask is None and kv_mask is not None and S > 1:
+        token_mask = kv_mask[:, :S]
+    lora_layers = lora["layers"] if lora is not None else None
+
+    for i in range(b.num_layers):
+        layer = _maybe_dequant(llama._layer_slice(params["layers"], i), b.dtype)
+        x, _ = llama.attention_block(
+            b, None, x, layer, llama._layer_slice(lora_layers, i), sin, cos, None,
+            cache_layer={"k": cache["k"][i], "v": cache["v"][i]},
+            cache_index=cache_index, kv_mask=kv_mask,
+        )
+        h = rms_norm(x, layer["mlp_norm"], b.rms_norm_eps)
+        moe_out, _ = moe_mlp(h, layer, cfg, token_mask=token_mask)
+        x = x + moe_out
+
+    x = rms_norm(x, params["final_norm"], b.rms_norm_eps)
+    return llama._logits(x, llama.lm_head_weight(params, b), b.dtype), cache

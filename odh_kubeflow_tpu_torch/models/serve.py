@@ -10,10 +10,12 @@ Requests run one at a time through ``models/generate.py`` on the
 one-shot bucketed path: prompts pad to the same prompt and batch
 buckets as the JAX server, so both packages answer a request with the
 same padded shape. PyTorch runs eagerly, so there is no compiled
-program to cache per shape. Params may be a float tree, a LoRA-merged
-tree, or an int8/int4 tree from ``models/quant.py`` (dequantized per
-layer inside the forward). Tokenization is out of scope: ids in, ids
-out.
+program to cache per shape. The model is a dense ``LlamaConfig`` or a
+MoE ``MoeConfig`` (whose grouped prefill runs the grouped-matmul
+kernels). Params may be a float tree, a LoRA-merged tree (``main
+--checkpoint`` restores a trainer's adapters and merges them), or an
+int8/int4 tree from ``models/quant.py`` (dequantized per layer inside
+the forward). Tokenization is out of scope: ids in, ids out.
 
 Not in this slice: the continuous-batching engine (``engine_slots``,
 ``"stream": true``) and speculative decoding (``draft_params``).
@@ -51,7 +53,7 @@ class CompletionService:
     def __init__(
         self,
         params: Params,
-        cfg: LlamaConfig,
+        cfg,  # LlamaConfig or MoeConfig
         *,
         lora: Optional[Params] = None,
         draft_params: Optional[Params] = None,
@@ -70,11 +72,6 @@ class CompletionService:
             raise NotImplementedError(
                 "the continuous-batching engine (engine_slots > 0) arrives "
                 "with the serving-engine slice of the port"
-            )
-        if hasattr(cfg, "base"):
-            raise NotImplementedError(
-                "MoE serving (forward_with_cache, generate, serve) arrives with the "
-                "MoE-serving slice of the port"
             )
         self.device = resolve_device(device)
         self.params = params
@@ -236,47 +233,69 @@ def serve(
 CONFIGS = ("tiny", "llama3_1b", "llama3_8b", "mixtral_tiny", "mixtral_8x1b")
 
 
+def _restore_merged(cfg, args, device) -> Params:
+    """A trainer's LoRA adapters restored from ``args.checkpoint`` and
+    merged into its base. Adapter checkpoints exclude the frozen base, so
+    the trainer rebuilds it from ``args.seed``: the training run's seed."""
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig, merge_lora
+    from odh_kubeflow_tpu_torch.train import CheckpointManager, TrainConfig, Trainer
+
+    trainer = Trainer(cfg, TrainConfig(), lora_cfg=LoraConfig(rank=args.lora_rank),
+                      seed=args.seed, device=device)
+    with CheckpointManager(args.checkpoint) as mgr:
+        step = trainer.restore_checkpoint(mgr)
+    print(f"restored LoRA adapters at step {step}; merged", flush=True)
+    return merge_lora(trainer.params, trainer.lora_params)
+
+
 def build_service(argv: Optional[list] = None) -> tuple[CompletionService, Any]:
     """Parse ``main``'s arguments and build the service they describe;
     returns ``(service, args)``."""
     import argparse
 
-    from odh_kubeflow_tpu_torch.models.llama import init_params
-    from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
+    from odh_kubeflow_tpu_torch.models import llama, moe
+    from odh_kubeflow_tpu_torch.models.quant import quantize_params, streaming_quantized_init
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="llama3_1b", choices=CONFIGS)
     parser.add_argument(
-        "--checkpoint", default="", help="LoRA checkpoint dir (not in this slice)"
+        "--checkpoint", default="", help="LoRA checkpoint dir (train/checkpoint.py)"
     )
-    parser.add_argument("--seed", type=int, default=0, help="base-param init seed")
+    parser.add_argument("--lora-rank", type=int, default=16)
+    parser.add_argument(
+        "--seed", type=int, default=0,
+        help="base-param init seed; with --checkpoint it must be the training "
+        "run's Trainer seed (adapter checkpoints exclude the frozen base)",
+    )
     parser.add_argument("--int8", action="store_true", help="int8 weights")
-    parser.add_argument("--int4", action="store_true", help="int4 weights")
+    parser.add_argument("--int4", action="store_true", help="int4 weights (dense configs)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.config.startswith("mixtral"):
-        raise NotImplementedError(
-            "MoE serving (forward_with_cache, generate, serve) arrives with the "
-            "MoE-serving slice of the port"
-        )
-    if args.checkpoint:
-        raise NotImplementedError(
-            "LoRA checkpoint restore arrives with the training slice of the port"
-        )
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are exclusive")
     device = resolve_device(args.device)
-    cfg = getattr(LlamaConfig, args.config)(dtype=torch.bfloat16)
-    if args.int8 or args.int4:
-        # stream init+quantize per leaf: the bf16 tree never exists whole
-        params = streaming_quantized_init(
-            cfg, args.seed, bits=4 if args.int4 else 8, device=device
-        )
+    bits = 4 if args.int4 else 8 if args.int8 else 0
+    is_moe = args.config.startswith("mixtral")
+    if is_moe:
+        if args.int4:
+            raise ValueError("--int4 serves dense configs; a MoE model takes --int8")
+        # the factory's dispatch ("ragged"), as the JAX server
+        cfg = getattr(moe.MoeConfig, args.config)()
     else:
-        params = init_params(args.seed, cfg, dtype=torch.bfloat16, device=device)
+        cfg = getattr(LlamaConfig, args.config)(dtype=torch.bfloat16)
+    if args.checkpoint:
+        params = _restore_merged(cfg, args, device)
+    elif bits and not is_moe:
+        # stream init+quantize per leaf: the bf16 tree never exists whole
+        params = streaming_quantized_init(cfg, args.seed, bits=bits, device=device)
+    else:
+        init = moe.init_params if is_moe else llama.init_params
+        params = init(args.seed, cfg, dtype=torch.bfloat16, device=device)
+    if bits:  # leaves quantized already pass through unchanged
+        params = quantize_params(params, bits=bits)
     return CompletionService(params, cfg, device=device), args
 
 

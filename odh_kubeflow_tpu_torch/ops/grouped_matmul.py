@@ -8,28 +8,33 @@ caller's counting sort (``models/moe.py`` ``route_sorted``) pads every
 group start to a multiple of ``ALIGN`` and pins ``offsets[E] = M``, so
 each 128-row tile belongs to exactly one expert.
 
-Three kernels back this module, each with a plain PyTorch version here
+Four kernels back this module, each with a plain PyTorch version here
 and a launch counter:
 
-- ``gmm`` → ``csrc/gmm.cu`` (``_gmm_a_kernel_q`` and ``_gmm_b_kernel``):
-  int8 banks with their per-channel scale ``[E, 1, bank-last-axis]``;
+- ``gmm`` → ``csrc/gmm.cu`` (``_gmm_a_kernel``, ``_gmm_a_kernel_q`` and
+  ``_gmm_b_kernel``): a bf16 bank, or an int8 bank with its per-channel
+  scale ``[E, 1, bank-last-axis]``;
+- ``tgmm`` → ``csrc/tgmm.cu`` (``_tgmm_kernel``): the per-expert weight
+  gradient ``lhs[rows_e]ᵀ · dout[rows_e]`` of a float bank;
 - ``swiglu_fwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_fwd_kernel``):
-  ``h = silu(x·Wg·sg) · (x·Wu·su)`` and ``g``;
+  ``h = silu(x·Wg·sg) · (x·Wu·su)`` and ``g`` on int8 banks;
 - ``swiglu_bwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_bwd_kernel``):
   recompute ``u``, then ``dg`` and ``du``.
 
-On CUDA tensors a wrapper launches its kernel (bf16 rows, int8 bank) or
-raises; on CPU tensors it runs the plain version, whatever the dtype, so
-the CPU tests also cover float (unscaled) banks. A float bank on the card
-is ``_gmm_a_kernel``'s work and its weight gradient ``_tgmm_kernel``'s:
-both wait for the MoE-serving slice of the port.
+On CUDA tensors a wrapper launches its kernel (bf16 rows; an int8 or a
+bf16 bank) or raises: a float32 bank on the card is a ``TypeError``, as
+the model casts its banks to the compute dtype first (JAX's
+``q.astype(dtype)``). On CPU tensors it runs the plain version, whatever
+the dtype.
 
-``gmm``, ``swiglu_gmm`` and ``expert_ffn`` (the fused gate/up followed by
-the down projection) are ``torch.library`` custom ops with fake and
-autograd registrations, so selective activation checkpointing sees them
-and can save their outputs by op identity. With an int8 (frozen) bank a
-product's backward is one more grouped product of the cotangent through
-the same bank read the other way round; it saves no activation.
+``gmm``, ``swiglu_gmm`` and ``expert_ffn`` (the three expert products of
+one layer: the fused gate/up then the down projection on int8 banks,
+three ``gmm`` launches on float banks) are ``torch.library`` custom ops
+with fake and autograd registrations, so selective activation
+checkpointing sees them and can save their outputs by op identity. With
+an int8 (frozen) bank a product's backward is one more grouped product
+of the cotangent through the same bank read the other way round; a float
+bank's adds its weight gradient, a ``tgmm``.
 """
 
 from __future__ import annotations
@@ -52,7 +57,9 @@ MAX_K_A = 4096
 
 # kernel launches since the last reset (plain counters: the caller zeroes them)
 gmm_launches = 0
-gmm_launches_by_k: dict[int, int] = {}  # the same launches, by contraction size
+# the same launches by (bank kind "int8" or "bf16", contraction size K)
+gmm_launches_by_k: dict[tuple[str, int], int] = {}
+tgmm_launches = 0
 swiglu_fwd_launches = 0
 swiglu_bwd_launches = 0
 
@@ -68,6 +75,13 @@ def _library(name: str) -> ctypes.CDLL:
         # lhs q scale offsets out scaled | M K N E trans | stream
         lib.gmm_launch.argtypes = [P] * 6 + [I] * 5 + [P]
         lib.gmm_launch.restype = I
+        # lhs w offsets out | M K N E trans | stream
+        lib.gmm_bf16_launch.argtypes = [P] * 4 + [I] * 5 + [P]
+        lib.gmm_bf16_launch.restype = I
+    elif name == "tgmm":
+        # lhs dout offsets out | M K N E | stream
+        lib.tgmm_launch.argtypes = [P] * 4 + [I] * 4 + [P]
+        lib.tgmm_launch.restype = I
     else:
         # x wg wu sg su offsets h g | M K N E | stream
         lib.swiglu_fwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
@@ -189,7 +203,8 @@ def _on_cpu(*ts) -> bool:
 
 
 def _cuda_operands(name: str, lhs, banks, scales, offsets, num_groups: int):
-    """The kernels' contract; returns int32 offsets on the device."""
+    """The kernels' contract: bf16 rows, int8 banks with f32 scales or
+    bf16 banks without; returns int32 offsets on the device."""
     dev = lhs.device
     for t in (*banks, *scales, offsets):
         if t.device != dev or dev.type != "cuda":
@@ -197,11 +212,12 @@ def _cuda_operands(name: str, lhs, banks, scales, offsets, num_groups: int):
                 f"{name}: every operand must be on one CUDA device (or all on the "
                 f"CPU); got {lhs.device} and {t.device}"
             )
-    if any(b.dtype != torch.int8 for b in banks):
-        raise NotImplementedError(
-            f"{name}: a float expert bank on the card is _gmm_a_kernel's work (and "
-            "its weight gradient _tgmm_kernel's); both arrive with the MoE-serving "
-            "slice of the port. The kernels take int8 {'q','scale'} banks."
+    want = torch.int8 if scales else torch.bfloat16
+    if any(b.dtype != want for b in banks):
+        raise TypeError(
+            f"{name}: the kernels take an int8 bank with its scale or a bfloat16 bank "
+            f"without; got {[b.dtype for b in banks]} with {len(scales)} scale(s) "
+            "(cast a float bank to the rows' dtype first)"
         )
     if lhs.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernels take bfloat16 rows, got {lhs.dtype}")
@@ -225,43 +241,77 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def gmm(lhs, rhs, offsets, trans_rhs: bool = False, scale=None) -> torch.Tensor:
-    """``[M, N]`` in ``lhs.dtype``. On the card: int8 ``rhs`` with its f32
-    ``scale`` ``[E, 1, N]`` (``[E, 1, K]`` with ``trans_rhs``)."""
+    """``[M, N]`` in ``lhs.dtype``. On the card: a bf16 ``rhs``, or an int8
+    one with its f32 ``scale`` ``[E, 1, N]`` (``[E, 1, K]`` with
+    ``trans_rhs``)."""
     global gmm_launches
-    if _on_cpu(lhs, rhs, offsets, *(() if scale is None else (scale,))):
+    scales = () if scale is None else (scale,)
+    if _on_cpu(lhs, rhs, offsets, *scales):
         return gmm_reference(lhs, rhs, offsets, trans_rhs, scale)
-    if scale is None:
-        if rhs.dtype == torch.int8:
-            raise ValueError("gmm: an int8 bank needs its scale")
-        scale = rhs.new_empty(0, dtype=torch.float32)  # _cuda_operands refuses the bank
     E = rhs.shape[0]
     m, k = lhs.shape
     n = rhs.shape[1] if trans_rhs else rhs.shape[2]
-    offs = _cuda_operands("gmm", lhs, (rhs,), (scale,), offsets, E)
+    offs = _cuda_operands("gmm", lhs, (rhs,), scales, offsets, E)
     want_rhs = (E, n, k) if trans_rhs else (E, k, n)
-    if rhs.shape != want_rhs or scale.shape != (E, 1, rhs.shape[2]) or n % 16:
+    if rhs.shape != want_rhs or n % 16 or any(s.shape != (E, 1, rhs.shape[2]) for s in scales):
         raise ValueError(
-            f"gmm: rhs {tuple(rhs.shape)} / scale {tuple(scale.shape)} do not fit lhs "
-            f"{tuple(lhs.shape)} (trans_rhs={trans_rhs}; N % 16 == 0)"
+            f"gmm: rhs {tuple(rhs.shape)} / scale {[tuple(s.shape) for s in scales]} do not "
+            f"fit lhs {tuple(lhs.shape)} (trans_rhs={trans_rhs}; N % 16 == 0)"
         )
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    # trans: the kernel's first pass writes the prescaled lhs here
-    scaled = torch.empty_like(lhs) if trans_rhs else None
     lib = _library("gmm")
     with torch.cuda.device(lhs.device):
-        rc = lib.gmm_launch(
-            lhs.data_ptr(), rhs.data_ptr(), scale.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), None if scaled is None else scaled.data_ptr(), m, k, n, E,
-            int(trans_rhs), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if scale is None:
+            rc = lib.gmm_bf16_launch(lhs.data_ptr(), rhs.data_ptr(), offs.data_ptr(),
+                                     out.data_ptr(), m, k, n, E, int(trans_rhs), stream)
+        else:
+            # trans: the kernel's first pass writes the prescaled lhs here
+            scaled = torch.empty_like(lhs) if trans_rhs else None
+            rc = lib.gmm_launch(
+                lhs.data_ptr(), rhs.data_ptr(), scale.data_ptr(), offs.data_ptr(),
+                out.data_ptr(), None if scaled is None else scaled.data_ptr(), m, k, n, E,
+                int(trans_rhs), stream,
+            )
     _raise_on(rc, "gmm")
     gmm_launches += 1
-    gmm_launches_by_k[k] = gmm_launches_by_k.get(k, 0) + 1
+    key = ("bf16" if scale is None else "int8", k)
+    gmm_launches_by_k[key] = gmm_launches_by_k.get(key, 0) + 1
+    return out
+
+
+def tgmm(lhs, dout, offsets, num_groups: int) -> torch.Tensor:
+    """The per-expert weight gradient ``[E, K, N]`` in ``dout.dtype``:
+    ``lhs[rows_e]ᵀ · dout[rows_e]`` with f32 sums, zeros for an expert
+    with no row. On the card: bf16 ``lhs [M, K]`` and ``dout [M, N]``."""
+    global tgmm_launches
+    if _on_cpu(lhs, dout, offsets):
+        return tgmm_reference(lhs, dout, offsets, num_groups)
+    offs = _cuda_operands("tgmm", lhs, (), (), offsets, num_groups)
+    m, k = lhs.shape
+    n = dout.shape[1]
+    if dout.dtype != lhs.dtype or dout.shape != (m, n) or n % 16:
+        raise ValueError(
+            f"tgmm: dout {tuple(dout.shape)} {dout.dtype} does not fit lhs "
+            f"{tuple(lhs.shape)} {lhs.dtype} (N % 16 == 0)"
+        )
+    if not dout.is_contiguous() or dout.data_ptr() % 16 or dout.device != lhs.device:
+        raise ValueError("tgmm: dout must be contiguous with a 16-byte aligned base")
+    out = torch.empty((num_groups, k, n), dtype=dout.dtype, device=lhs.device)
+    lib = _library("tgmm")
+    with torch.cuda.device(lhs.device):
+        rc = lib.tgmm_launch(lhs.data_ptr(), dout.data_ptr(), offs.data_ptr(), out.data_ptr(),
+                             m, k, n, num_groups, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "tgmm")
+    tgmm_launches += 1
     return out
 
 
 def _swiglu_checks(lhs, banks, scales, offsets):
     E, k, n = banks[0].shape
+    if any(b.dtype != torch.int8 for b in banks):
+        raise TypeError(f"swiglu_gmm: the fused kernels take int8 banks, got "
+                        f"{[b.dtype for b in banks]}")
     offs = _cuda_operands("swiglu_gmm", lhs, banks, scales, offsets, E)
     if lhs.shape[1] != k or n % 16 or any(b.shape != (E, k, n) for b in banks) or any(
         s.shape != (E, 1, n) for s in scales
@@ -350,17 +400,15 @@ def _gmm_backward(ctx, dout):
     rhs, offsets, scale, lhs = ctx.saved_tensors
     # dlhs = dout · rhsᵀ: the same grouped product with rhs read the other
     # way round, so no transposed bank is ever made
-    dlhs = gmm_op(dout.to(ctx.dtype).contiguous(), rhs, offsets, not ctx.trans_rhs, scale)
+    d = dout.to(ctx.dtype).contiguous()
+    dlhs = gmm_op(d, rhs, offsets, not ctx.trans_rhs, scale)
     drhs = None
     if scale is None and ctx.needs_input_grad[1]:
-        if not _on_cpu(lhs, dout):
-            raise NotImplementedError(
-                "gmm: the expert weight gradient is _tgmm_kernel's work, which "
-                "arrives with the MoE-serving slice of the port"
-            )
-        d = dout.to(ctx.dtype)
-        drhs = (tgmm_reference(d, lhs, offsets, rhs.shape[0]) if ctx.trans_rhs
-                else tgmm_reference(lhs, d, offsets, rhs.shape[0])).to(rhs.dtype)
+        # a float bank's weight gradient, in its layout ([E, N, K] with
+        # trans_rhs), as in _gmm_bwd
+        E = rhs.shape[0]
+        drhs = (tgmm(d, lhs, offsets, E) if ctx.trans_rhs else tgmm(lhs, d, offsets, E))
+        drhs = drhs.to(rhs.dtype)
     return dlhs, drhs, None, None, None
 
 
@@ -412,22 +460,31 @@ swiglu_gmm_op.register_autograd(_swiglu_backward, setup_context=_swiglu_setup)
 def expert_ffn_op(
     lhs: torch.Tensor,
     wg: torch.Tensor,
-    sg: torch.Tensor,
+    sg: Optional[torch.Tensor],
     wu: torch.Tensor,
-    su: torch.Tensor,
+    su: Optional[torch.Tensor],
     wd: torch.Tensor,
-    sd: torch.Tensor,
+    sd: Optional[torch.Tensor],
     offsets: torch.Tensor,
     keep_g: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(y, g)``: the fused SwiGLU, then the down projection through the
-    int8 banks. ``g`` is the gate pre-activation when ``keep_g`` (the
-    backward then reads it: JAX's "moe_g" pin), else an empty tensor and
-    the backward re-runs the fused forward for it. ``h`` never outlives
-    the op, so a remat policy that saves this op's outputs keeps ``y``
-    (JAX's "moe_y") and at most ``g``, never ``h``."""
-    h, g = swiglu_fwd(lhs, wg, wu, sg, su, offsets)
-    y = gmm(h, wd, offsets, False, sd)
+    """``(y, g)``: the three expert products of one layer. int8 banks
+    (scales given): the fused SwiGLU, then the down projection. Float
+    banks (no scales, in ``lhs.dtype``): ``g`` and ``u`` by two ``gmm``,
+    ``h = silu(g)·u`` in f32, then the down ``gmm``. ``g`` is the gate
+    pre-activation when ``keep_g`` (the backward then reads it: JAX's
+    "moe_g" pin), else an empty tensor and the backward recomputes it;
+    ``u`` is always recomputed (inside the fused backward kernel on int8
+    banks). ``h`` never outlives the op, so a remat policy that saves
+    this op's outputs keeps ``y`` (JAX's "moe_y") and at most ``g``, and
+    the layer's recompute re-runs no expert product: the backward runs
+    only the ones JAX's remat recomputes (gate and up, or up alone)."""
+    if sg is None:
+        g = gmm(lhs, wg, offsets)
+        y = gmm(_silu_mul(g, gmm(lhs, wu, offsets)), wd, offsets)
+    else:
+        h, g = swiglu_fwd(lhs, wg, wu, sg, su, offsets)
+        y = gmm(h, wd, offsets, False, sd)
     return y, g if keep_g else g.new_empty(0)
 
 
@@ -437,18 +494,42 @@ def _(lhs, wg, sg, wu, su, wd, sd, offsets, keep_g):
     return y, lhs.new_empty((lhs.shape[0], wg.shape[2]) if keep_g else (0,))
 
 
+def _silu_mul(g, u):
+    """``silu(g)·u`` in f32, rounded to ``g.dtype`` (JAX's float path)."""
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(g.dtype)
+
+
 def _ffn_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:8], output[1])
 
 
 def _ffn_backward(ctx, dy, _dg):
     lhs, wg, sg, wu, su, wd, sd, offsets, g = ctx.saved_tensors
-    # down projection first: dh = dy · Wdᵀ needs only the bank, not h
-    dh = gmm_op(dy.to(lhs.dtype).contiguous(), wd, offsets, True, sd)
-    if g.numel() == 0:  # not kept: the fused forward runs again for it
-        _, g = swiglu_gmm_op(lhs, wg, wu, sg, su, offsets)
-    dlhs = _swiglu_dlhs(lhs, wg, wu, sg, su, offsets, g, dh)
-    return (dlhs,) + (None,) * 8
+    dy = dy.to(lhs.dtype).contiguous()
+    if sg is not None:
+        # down projection first: dh = dy · Wdᵀ needs only the bank, not h
+        dh = gmm_op(dy, wd, offsets, True, sd)
+        if g.numel() == 0:  # not kept: the fused forward runs again for it
+            _, g = swiglu_gmm_op(lhs, wg, wu, sg, su, offsets)
+        dlhs = _swiglu_dlhs(lhs, wg, wu, sg, su, offsets, g, dh)
+        return (dlhs,) + (None,) * 8
+    # float banks: recompute what was not kept, then the three dlhs
+    # products and, for the banks that train, the three weight gradients
+    E = wg.shape[0]
+    if g.numel() == 0:
+        g = gmm(lhs, wg, offsets)
+    u = gmm(lhs, wu, offsets)
+    dh = gmm(dy, wd, offsets, True).float()
+    gf, uf = g.float(), u.float()
+    sig = torch.sigmoid(gf)
+    dg = (dh * uf * (sig * (1.0 + gf * (1.0 - sig)))).to(lhs.dtype)
+    du = (dh * (gf * sig)).to(lhs.dtype)
+    dlhs = gmm(dg, wg, offsets, True) + gmm(du, wu, offsets, True)
+    need = ctx.needs_input_grad
+    dwg = tgmm(lhs, dg, offsets, E).to(wg.dtype) if need[1] else None
+    dwu = tgmm(lhs, du, offsets, E).to(wu.dtype) if need[3] else None
+    dwd = tgmm(_silu_mul(g, u), dy, offsets, E).to(wd.dtype) if need[5] else None
+    return dlhs, dwg, None, dwu, None, dwd, None, None, None
 
 
 expert_ffn_op.register_autograd(_ffn_backward, setup_context=_ffn_setup)

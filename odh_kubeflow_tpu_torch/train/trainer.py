@@ -321,7 +321,8 @@ class Trainer:
         thread. In eager PyTorch there is no step to compile: that set-up
         is the build of the CUDA kernels this trainer will launch (int4
         dequant for an int4 base, the flash kernels on the card, the
-        grouped-matmul kernels for a grouped MoE), so this
+        grouped-matmul kernels for a grouped MoE and, when its banks
+        train, their weight-gradient kernel), so this
         starts ``_build.build`` on them now and ``train_step`` joins it.
         The shape arguments are kept for signature parity. On the CPU
         nothing is built."""
@@ -333,6 +334,8 @@ class Trainer:
             names += ["flash_fwd", "flash_bwd"]
         if self.is_moe and self.model_cfg.dispatch == "grouped":
             names += ["gmm", "swiglu_gmm"]
+            if self.lora_cfg is None:  # the banks train: their weight gradient
+                names += ["tgmm"]
 
         def work():
             try:

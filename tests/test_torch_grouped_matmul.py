@@ -124,27 +124,59 @@ def test_jax_kernel_b_scales_tiles_that_span_groups_with_the_last_group(routing)
     assert np.abs(jout - port).max() > 0.1 * np.abs(port).max()
 
 
+@pytest.mark.parametrize("trans", [False, True], ids=["nt", "trans"])
 @pytest.mark.parametrize("routing", list(OFFSETS))
-def test_gmm_float_bank_weight_gradient_matches_jax_tgmm(routing):
-    """A float bank's dW (JAX's ``_tgmm_kernel``; the plain version here,
-    CPU only): zeros for empty experts."""
+def test_gmm_float_bank_weight_gradient_matches_jax_tgmm(routing, trans):
+    """A float bank's lhs and bank gradients through ``gmm_op`` against
+    ``jax.vjp`` of JAX's ``gmm`` (its ``_tgmm_kernel`` in interpret mode):
+    the bank's gradient in its own layout (``[E, N, K]`` with
+    ``trans_rhs``), zeros for empty experts."""
     rng = np.random.default_rng(5)
     k, n = 128, 256
     offs = np.asarray(OFFSETS[routing], np.int32)
     lhs = rng.standard_normal((M, k)).astype(np.float32)
-    rhs = (rng.standard_normal((E, k, n)) * 0.1).astype(np.float32)
+    rhs = (rng.standard_normal((E, n, k) if trans else (E, k, n)) * 0.1).astype(np.float32)
     dout = rng.standard_normal((M, n)).astype(np.float32)
-    want, vjp = jax.vjp(lambda a, w: jgm.gmm(a, w, jnp.asarray(offs)), jnp.asarray(lhs),
+    want, vjp = jax.vjp(lambda a, w: jgm.gmm(a, w, jnp.asarray(offs), trans), jnp.asarray(lhs),
                         jnp.asarray(rhs))
     want_dl, want_dw = vjp(jnp.asarray(dout))
     tl, tw = _t(lhs).requires_grad_(), _t(rhs).requires_grad_()
-    got = gm.gmm_op(tl, tw, torch.from_numpy(offs), False, None)
+    got = gm.gmm_op(tl, tw, torch.from_numpy(offs), trans, None)
     got_dl, got_dw = torch.autograd.grad(got, (tl, tw), _t(dout))
+    assert got_dw.shape == tw.shape
     for g, w in ((got, want), (got_dl, want_dl), (got_dw, want_dw)):
         _close(g, w, 1e-5)
     for e in range(E):
         if offs[e + 1] == offs[e]:
             assert not got_dw[e].any()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("orient", ["lhs_dout", "dout_lhs"])
+@pytest.mark.parametrize("routing", [*OFFSETS, "512"])
+def test_tgmm_matches_jax_tgmm_kernel(dtype, orient, routing):
+    """``tgmm`` against JAX's ``_tgmm`` (interpret mode) called on
+    ``span_pairs(include_empty=True)``, in both orientations its backward
+    uses: ``(lhs, dout)`` for an ``[E, K, N]`` bank and ``(dout, lhs)``
+    for a transposed one. The routings hold empty experts, a tail past the
+    last group, groups on 512-row tile edges and groups that span them."""
+    jdt, tdt, rel = DTYPES[dtype]
+    rng = np.random.default_rng(13)
+    offs = np.asarray(OFFSETS_512 if routing == "512" else OFFSETS[routing], np.int32)
+    a = rng.standard_normal((M, 128)).astype(np.float32)
+    d = rng.standard_normal((M, 256)).astype(np.float32)
+    lhs, dout = (a, d) if orient == "lhs_dout" else (d, a)
+    jo = jnp.asarray(offs)
+    pairs = jgm.span_pairs(jo, M, jgm.DEFAULT_BM_B, include_empty=True)
+    want = jgm._tgmm(jnp.asarray(lhs, jdt), jnp.asarray(dout, jdt), pairs, jo,
+                     bm=jgm.DEFAULT_BM_B, bk=jgm.DEFAULT_BK_T, bn=jgm.DEFAULT_BN_T,
+                     interpret=True)
+    got = gm.tgmm(_t(lhs, tdt), _t(dout, tdt), torch.from_numpy(offs), E)
+    assert got.dtype == tdt and got.shape == (E, lhs.shape[1], dout.shape[1])
+    _close(got, want, rel)
+    for e in range(E):
+        if offs[e + 1] == offs[e]:
+            assert not got[e].any()
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

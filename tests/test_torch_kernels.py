@@ -18,7 +18,9 @@ gradients, 1e-3 absolute for the f32 lse. Grouped matmul in bf16: the
 same norm-relative check per 128-row tile against ``grouped_matmul.
 TILE_RTOL`` (both sides round the same f32 sums once to bf16), on
 routings with empty experts, all rows on one expert and a large tail,
-into output buffers left full of NaN so an unwritten row shows.
+into output buffers left full of NaN so an unwritten row shows; the
+weight gradient ``tgmm`` the same way over 128-row tiles of its
+``[E·K, N]`` view.
 """
 
 import numpy as np
@@ -314,13 +316,142 @@ def test_expert_ffn_autograd_on_card(keep_g):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
+@pytest.mark.parametrize("K,N,trans", [(2048, 512, False), (1024, 384, True), (8192, 256, True),
+                                       (208, 96, False)])
+def test_gmm_bf16_bank_kernel_matches_plain_on_card(routing, K, N, trans):
+    """The bf16-bank form (``_gmm_a_kernel`` and the unscaled
+    ``_gmm_b_kernel``): no scale, either orientation, every row written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    lhs, q, _ = _grouped_inputs(K, N, trans)
+    w = (q.float() * 0.01).bfloat16()
+    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    before, by_k = gm.gmm_launches, gm.gmm_launches_by_k.get(("bf16", K), 0)
+    _poison(lhs.shape[0], N)
+    got = gm.gmm(lhs, w, offs, trans)
+    torch.cuda.synchronize()
+    assert gm.gmm_launches == before + 1 and gm.gmm_launches_by_k[("bf16", K)] == by_k + 1
+    _tiles_close(got, gm.gmm_reference(lhs, w, offs, trans))
+
+
+def _tgmm_close(got, want):
+    """Per 128-row tile of the ``[E·K, N]`` view (K % 128 == 0, so a tile
+    lies in one expert's block; an empty expert's want is zero)."""
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = gm.tile_rel_err(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+    assert rel <= gm.TILE_RTOL, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
+@pytest.mark.parametrize("K,N", [(256, 512), (512, 128), (384, 208)])
+def test_tgmm_kernel_matches_plain_on_card(routing, K, N):
+    """``_tgmm_kernel``'s port: ``[E, K, N]`` per-expert sums over each
+    group's rows, the tail with the last expert, zeros for an empty
+    expert (into a NaN-filled buffer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(K + N)
+    lhs = torch.from_numpy(rng.standard_normal((1024, K)).astype(np.float32)).cuda().bfloat16()
+    dout = torch.from_numpy(rng.standard_normal((1024, N)).astype(np.float32)).cuda().bfloat16()
+    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    before = gm.tgmm_launches
+    _poison(4, K, N)
+    got = gm.tgmm(lhs, dout, offs, 4)
+    torch.cuda.synchronize()
+    assert gm.tgmm_launches == before + 1 and got.dtype == torch.bfloat16
+    want = gm.tgmm_reference(lhs, dout, offs, 4)
+    _tgmm_close(got, want)
+    for e in range(4):
+        if GROUPED_OFFSETS[routing][e + 1] == GROUPED_OFFSETS[routing][e]:
+            assert not bool(got[e].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans", [False, True], ids=["nt", "trans"])
+def test_float_bank_gmm_op_backward_launches_one_gmm_and_one_tgmm_on_card(trans):
+    """A trainable bf16 bank through ``gmm_op``: the forward one ``gmm``,
+    the backward one ``gmm`` (dlhs, the bank read the other way round) and
+    one ``tgmm`` (dW, in the bank's layout); both against the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    K, N = 512, 256
+    lhs, q, _ = _grouped_inputs(K, N, trans, seed=8)
+    w = (q.float() * 0.01).bfloat16().requires_grad_()
+    x = lhs.clone().requires_grad_()
+    offs = torch.tensor(GROUPED_OFFSETS["large_tail"], dtype=torch.int32, device="cuda")
+    dout = torch.randn((1024, N), generator=torch.Generator("cuda").manual_seed(9),
+                       device="cuda").bfloat16()
+    c0 = (gm.gmm_launches, gm.tgmm_launches)
+    y = gm.gmm_op(x, w, offs, trans, None)
+    assert (gm.gmm_launches, gm.tgmm_launches) == (c0[0] + 1, c0[1])
+    dx, dw = torch.autograd.grad(y, (x, w), dout)
+    torch.cuda.synchronize()
+    assert (gm.gmm_launches, gm.tgmm_launches) == (c0[0] + 2, c0[1] + 1)
+    assert dw.shape == w.shape and dw.dtype == torch.bfloat16
+    _tiles_close(dx, gm.gmm_reference(dout, w.detach(), offs, not trans))
+    want_dw = (gm.tgmm_reference(dout, lhs, offs, 4) if trans
+               else gm.tgmm_reference(lhs, dout, offs, 4))
+    _tgmm_close(dw, want_dw)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_float_banks_autograd_on_card():
+    """The expert op on trainable bf16 banks, g not kept (remat "attn"):
+    forward three ``gmm``; backward two recomputed (gate, up), three dlhs
+    and three ``tgmm``; every gradient against the plain versions'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    D, F = 256, 512
+    lhs, wg, _ = _grouped_inputs(D, F, seed=4)
+    _, wu, _ = _grouped_inputs(D, F, seed=5)
+    _, wd, _ = _grouped_inputs(F, D, seed=6)
+    banks = [(w.float() * 0.002).bfloat16().requires_grad_() for w in (wg, wu, wd)]
+    offs = torch.tensor(GROUPED_OFFSETS["empty"], dtype=torch.int32, device="cuda")
+    x = lhs.clone().requires_grad_()
+    c0 = (gm.gmm_launches, gm.tgmm_launches)
+    y, _ = gm.expert_ffn_op(x, banks[0], None, banks[1], None, banks[2], None, offs, False)
+    assert (gm.gmm_launches - c0[0], gm.tgmm_launches - c0[1]) == (3, 0)
+    dy = torch.randn(y.shape, generator=torch.Generator("cuda").manual_seed(7),
+                     device="cuda").bfloat16()
+    grads = torch.autograd.grad(y, (x, *banks), dy)
+    torch.cuda.synchronize()
+    assert (gm.gmm_launches - c0[0], gm.tgmm_launches - c0[1]) == (8, 3)
+    bg, bu, bd = (b.detach() for b in banks)
+    g, u = gm.gmm_reference(lhs, bg, offs), gm.gmm_reference(lhs, bu, offs)
+    h = (torch.nn.functional.silu(g.float()) * u.float()).bfloat16()
+    _tiles_close(y, gm.gmm_reference(h, bd, offs))
+    dh = gm.gmm_reference(dy, bd, offs, True).float()
+    sig = torch.sigmoid(g.float())
+    dg = (dh * u.float() * sig * (1 + g.float() * (1 - sig))).bfloat16()
+    du = (dh * g.float() * sig).bfloat16()
+    _tiles_close(grads[0], gm.gmm_reference(dg, bg, offs, True) + gm.gmm_reference(du, bu, offs, True))
+    for got, want in zip(grads[1:], (gm.tgmm_reference(lhs, dg, offs, 4),
+                                      gm.tgmm_reference(lhs, du, offs, 4),
+                                      gm.tgmm_reference(h, dy, offs, 4))):
+        _tgmm_close(got, want)
+
+
+@pytest.mark.gpu
 def test_grouped_kernels_refuse_what_they_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     lhs, q, scale = _grouped_inputs(256, 128)
     offs = torch.tensor(GROUPED_OFFSETS["balanced"], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="MoE-serving"):
-        gm.gmm(lhs, q.bfloat16(), offs)  # a float bank: _gmm_a_kernel's work
+    before = gm.gmm_launches
+    got = gm.gmm(lhs, q.bfloat16(), offs)  # a bf16 bank: _gmm_a_kernel's port launches
+    assert gm.gmm_launches == before + 1
+    _tiles_close(got, gm.gmm_reference(lhs, q.bfloat16(), offs))
+    with pytest.raises(TypeError):
+        gm.gmm(lhs, q.float(), offs)  # a float32 bank: the model casts it first
+    with pytest.raises(TypeError):
+        gm.gmm(lhs, q.bfloat16(), offs, False, scale)  # a scale goes with an int8 bank
+    with pytest.raises(TypeError):
+        gm.tgmm(lhs.float(), lhs.float(), offs, 4)
+    with pytest.raises(ValueError):
+        gm.tgmm(lhs, lhs[:, :100], offs, 4)  # N % 16 != 0
     with pytest.raises(TypeError):
         gm.gmm(lhs.float(), q, offs, False, scale)
     with pytest.raises(ValueError):

@@ -314,8 +314,23 @@ def test_param_tree_layout_matches_jax():
 
 
 def test_later_slices_are_refused():
-    with pytest.raises(NotImplementedError, match="MoE-serving"):
-        moe.forward_with_cache()
+    """Slice 6's ``param_specs`` and an unknown dispatch raise. The
+    KV-cached forward runs: a prefill and a decode step give the logits of
+    the no-cache forward over the same tokens (a decode step and this
+    short prefill take the drop-free ragged path, so routing is per
+    token)."""
+    _, tp = _params(seed=2)
+    cfg = dataclasses.replace(TCFG, dispatch="grouped")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 9))).long()
+    with torch.no_grad():
+        full, _ = moe.forward(tp, toks, cfg)
+        cache = {k: torch.zeros((2, 2, 9, 2, 16)) for k in ("k", "v")}
+        pre, cache = moe.forward_with_cache(tp, toks[:, :8], cfg, cache, 0,
+                                            positions=torch.arange(8).expand(2, 8))
+        step, _ = moe.forward_with_cache(tp, toks[:, 8:], cfg, cache, 8,
+                                         positions=torch.full((2, 1), 8))
+    _close(pre, full[:, :8])
+    _close(step, full[:, 8:])
     with pytest.raises(NotImplementedError, match="slice 6"):
         moe.param_specs(TCFG)
     with pytest.raises(ValueError):

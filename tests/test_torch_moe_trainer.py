@@ -1,4 +1,5 @@
-"""The port's MoE QLoRA trainer against the JAX package's, float32.
+"""The port's MoE trainer against the JAX package's, float32: the QLoRA
+step and the full fine-tune.
 
 JAX's ``Trainer(MoeConfig.mixtral_tiny(dispatch="grouped",
 pin_expert_acts=True), lora r4, quantize_base=True)`` runs on a
@@ -9,6 +10,13 @@ the loss, every adapter gradient, the gradient norm and the adapters
 after the update to rtol 1e-4 (sums in another order; Adam divides by
 the root of the second moment). The smallest top-2 router margin of the
 port's tokens is asserted above 1e-4 (``tests/test_torch_moe.py``).
+
+The full fine-tune (``lora_cfg=None``) trains every leaf, the expert
+banks through the float grouped path (JAX's ``gmm`` and ``_tgmm`` in
+interpret mode): three steps, the loss per step to 1e-5 relative and
+every leaf to 1e-3 absolute, a tenth of one step at lr 1e-2 (a few of
+the weights have gradients at Adam's eps scale, where the normalised
+update depends on the last bits of the sums; ``tests/test_torch_trainer.py``).
 """
 
 import dataclasses
@@ -32,6 +40,7 @@ from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
 from odh_kubeflow_tpu_torch.train import trainer as ttrainer
 from odh_kubeflow_tpu_torch.utils import prometheus
+from test_torch_moe import MARGIN, ROUTER_GAIN, margins  # noqa: F401
 
 TC = dict(learning_rate=1e-2, warmup_steps=1, total_steps=10)
 JCFG = jmoe.MoeConfig.mixtral_tiny(base=JLlamaConfig.tiny(dtype=jnp.float32),
@@ -107,6 +116,39 @@ def test_moe_qlora_steps_match_jax(pair, monkeypatch):
     assert float(tt.lora_params["layers"]["wq"]["b"].abs().max()) > 0
     # CPU tensors take the plain versions: no kernel launched
     assert (gm.swiglu_fwd_launches, gm.gmm_launches) == fused
+
+
+def _batch(seed=6):
+    toks = np.random.default_rng(seed).integers(0, 256, (B, S)).astype(np.int32)
+    seg = np.repeat((np.arange(S) >= 190).astype(np.int32)[None] + 1, B, 0)
+    seg[0, -40:] = 0  # padding: no expert row, no aux mass, no loss
+    return {"tokens": toks, "targets": np.roll(toks, -1, axis=1), "segment_ids": seg,
+            "loss_mask": (seg > 0).astype(np.float32)}
+
+
+def test_moe_full_finetune_steps_match_jax(margins):  # noqa: F811
+    jt = JTrainer(JCFG, JTrainConfig(**TC), None,
+                  mesh=build_mesh(MeshConfig(), jax.devices()[:1]), seed=8)
+    jt.params["layers"]["router"] = jt.params["layers"]["router"] * ROUTER_GAIN
+    tt = Trainer(TCFG, TrainConfig(**TC), None, device="cpu",
+                 metrics_registry=prometheus.Registry())
+    tt.params = convert.from_numpy_tree(_np(jt.params))
+    start = {p: t.clone() for p, t in ttrainer._leaves(tt.params)}
+    assert tt.params["layers"]["moe_gate"].dtype == torch.float32
+    batch = _batch()
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    for _ in range(3):
+        jm = jt.train_step(jbatch)
+        tm = tt.train_step(batch)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+        for g, w in zip(jax.tree.leaves(convert.to_numpy_tree(tt.params)),
+                        jax.tree.leaves(_np(jt.params))):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
+    assert min(margins) > MARGIN
+    # a full fine-tune trains every leaf: norms, router and the three banks too
+    for path, t in ttrainer._leaves(tt.params):
+        assert not torch.equal(t.detach(), start[path]), path
 
 
 def test_moe_trainer_refuses_mlp_targets_and_counts_strict_sparse_flops(pair):

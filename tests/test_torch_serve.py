@@ -116,7 +116,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
         serve.main(["--config", "tiny", "--int4", "--port", "0"])
 
 
-def test_build_service_on_cpu_and_later_slices_refused():
+def test_build_service_on_cpu_and_later_slices_refused(tmp_path):
     svc, args = serve.build_service(["--config", "tiny", "--int4", "--device", "cpu"])
     assert set(svc.params["layers"]["wq"]) == {"q4", "scale4"}
     out = svc.complete([[1, 2, 3]], max_tokens=3)
@@ -127,6 +127,10 @@ def test_build_service_on_cpu_and_later_slices_refused():
         CompletionService(tp, TCFG, device="cpu", engine_slots=2)
     with pytest.raises(NotImplementedError):
         CompletionService(tp, TCFG, device="cpu", draft_params=tp)
-    for argv in (["--config", "mixtral_tiny"], ["--config", "tiny", "--checkpoint", "x"]):
-        with pytest.raises(NotImplementedError):
-            serve.build_service(argv + ["--device", "cpu"])
+    # MoE configs and --checkpoint now build (tests/test_torch_moe_serve.py);
+    # a checkpoint directory that holds no checkpoint is an error
+    moe_svc, _ = serve.build_service(["--config", "mixtral_tiny", "--device", "cpu"])
+    assert len(moe_svc.complete([[1, 2]], max_tokens=2)["completions"][0]) == 2
+    with pytest.raises(FileNotFoundError):
+        serve.build_service(["--config", "tiny", "--checkpoint", str(tmp_path / "x"),
+                             "--device", "cpu"])
