@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, MoE training and MoE
-serving paths on one NVIDIA GPU and check them.
+serving paths and its int4 fused-dequant matmul on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -9,7 +10,7 @@ Phases, one JSON line each on stdout:
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the time to build every CUDA kernel of the paths
    (``int4_dequant``, ``flash_fwd``, ``flash_bwd``, ``gmm``,
-   ``swiglu_gmm``, ``tgmm``) from
+   ``swiglu_gmm``, ``tgmm``, ``int4_matmul``) from
    ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all at once.
 2. ``kernels``: each kernel against its plain PyTorch version on the
@@ -69,6 +70,18 @@ Phases, one JSON line each on stdout:
     each flash kernel a step), every expert of every bank moved;
     ``moe_full_train_profile``; ``moe_full_train_parity_on_card`` (2
     layers, loss and every gradient, kernels against plain versions).
+17. ``int4_matmul_kernels`` (right after ``kernels``): the int4
+    fused-dequant matmul and its dX (``int4_mm``, ``int4_dlhs``) against
+    their plain versions per 128 x 128 tile into NaN-filled buffers, at
+    Llama-3-8B's four projection shapes at M 8,192 (the QLoRA step), 4 and
+    1 (decode), at ragged shapes and group 64; at M 8,192 also against
+    the dequant path; four planted faults each; the lm_head and a float32
+    ``x`` refused; times, bounds, plain, ``torch.matmul`` on a bf16 copy
+    (product only) and the dequant path, per launch and per 8B forward.
+18. ``int4_qlora_proj`` (after it): one 8B layer's seven projections at
+    M 8,192 through ``int4_matmul`` with autograd: exactly 7 + 7 launches
+    and no dequant; dx per tile against the dequant route; peak memory
+    and time of both routes.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -180,6 +193,34 @@ MOE_FULL_LAUNCHES_PER_STEP = {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8,
                               "swiglu_fwd": 0, "swiglu_bwd": 0, "gmm_k8192": 0,
                               "gmm_k2048": 0, "gmm": 64, "gmm_bf16_k2048": 40,
                               "gmm_bf16_k8192": 24, "tgmm": 24}
+
+# the int4 fused-dequant matmul (slice 5): Llama-3-8B's four distinct int4
+# projection shapes (name, K, N, launches per 8B forward: 224 in all), at
+# the QLoRA step's rows (batch 2 x seq 4096) and at decode (batch 4, 1)
+INT4_MM_SHAPES = (
+    ("wq/wo", 4096, 4096, 64),
+    ("wk/wv", 4096, 1024, 64),
+    ("gate/up", 4096, 14336, 64),
+    ("down", 14336, 4096, 32),
+)
+INT4_MM_ROWS = (8192, 4, 1)
+# shapes the contract accepts beyond those: ragged M and N (N % 16 != 0
+# takes the kernel's generic load path) and group 64: (label, M, K, N, group)
+INT4_MM_EXTRA = (
+    ("ragged", 300, 2048, 200, 128),
+    ("ragged decode", 1, 2048, 100, 128),
+    ("group 64", 512, 4096, 1024, 64),
+)
+# the 8B layer's seven projections at the QLoRA step's rows: (name, K, N)
+INT4_LAYER = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+              ("wo", 4096, 4096), ("w_gate", 4096, 14336), ("w_up", 4096, 14336),
+              ("w_down", 14336, 4096))
+# the layer's dx through the kernels against the dequant route, per 128 x
+# 128 tile: the two routes' bf16 activations (q, g, u) differ where sums
+# taken in another order round apart, and those differences pass through
+# silu(g)·u and a second product before they reach dx, so the bar is 5x
+# the single-kernel TILE_RTOL
+INT4_PROJ_RTOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -727,6 +768,7 @@ def counts(fa, int4) -> dict:
 
 def zero_counts(fa, int4) -> None:
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = int4.launches = 0
+    int4.mm_launches = int4.dlhs_launches = 0
 
 
 def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
@@ -1954,6 +1996,244 @@ def moe_full_train_parity_phase(torch, fa, int4, gm) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the int4 fused-dequant matmul (slice 5)
+
+
+def int4_operands(torch, gen, K, N, group, copies=1, scale_hi=0.02):
+    """``copies`` random packed weights (every nibble) and scales."""
+    q4 = [torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.uint8) for _ in range(copies)]
+    s = [torch.rand((K // group, N), generator=gen, device="cuda") * scale_hi + 1e-4
+         for _ in range(copies)]
+    return q4, s
+
+
+def int4_mm_work(M, K, N, group):
+    """(flops, bytes) of one launch in either direction: the activations,
+    the packed weights and scales read once, the result written once."""
+    return 2 * M * K * N, M * K * 2 + K * N // 2 + K // group * N * 4 + M * N * 2
+
+
+def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict, list[dict]]:
+    """Both int4 matmul kernels against their plain versions at Llama-3-8B's
+    four projection shapes, at M 8,192 (the QLoRA step) and M 4 and 1
+    (decode), and at ragged shapes and group 64, per 128 x 128 output tile
+    into NaN-filled buffers; at M 8,192 also against the port's dequant
+    path (``int4_dequant`` kernel, then an f32 product); planted faults the
+    check must reject; the lm_head must raise. Times by CUDA events:
+    kernel, plain, ``torch.matmul`` on a pre-dequantized bf16 weight
+    (product only) and the dequant path (``int4_dequant`` +
+    ``torch.matmul``), with per-8B-forward totals by launch count."""
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    checks = TileChecks(int4, ("int4_mm", "int4_dlhs"))
+    stats = checks.stats
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    kinds = {  # name: (kernel, plain, weight as the product reads it)
+        "int4_mm": (int4.int4_mm, int4.int4_matmul_reference, lambda w: w),
+        "int4_dlhs": (int4.int4_dlhs, int4.int4_dlhs_reference, lambda w: w.t()),
+    }
+    for label, K, N, per_fwd in INT4_MM_SHAPES:
+        for M in INT4_MM_ROWS:
+            wbytes = K * N // 2 + K // INT4_GROUP * N * 4
+            # at decode, enough distinct weights that a timed run reads them
+            # cold, as a forward reads each layer's (the L2 is 50 MB)
+            copies = 1 if M > 512 else min(32, max(1, math.ceil(200e6 / wbytes)))
+            q4, s = int4_operands(torch, gen, K, N, INT4_GROUP, copies)
+            x, d = bf16(M, K), bf16(M, N)
+            for name, a in (("int4_mm", x), ("int4_dlhs", d)):
+                fn, plain, orient = kinds[name]
+                tag = f"{label} M {M}"
+                poison(torch, M, N if name == "int4_mm" else K)
+                got = fn(a, q4[0], s[0])
+                want = plain(a, q4[0], s[0])
+                torch.cuda.synchronize()
+                row = {"shape": label, "M": M, "K": K, "N": N, "group": INT4_GROUP,
+                       "launches_per_8b_forward": per_fwd,
+                       "tile_rel_err": checks.check(name, got, want, tag)}
+                if M == INT4_MM_ROWS[0]:
+                    # the port's current path: the dequant kernel (bit-exact), then
+                    # one f32 product: the kernel must see the same bf16 weights
+                    w = orient(int4.int4_dequant(q4[0], s[0]).float())
+                    row["tile_rel_err_vs_dequant_path"] = checks.check(
+                        name, got, (a.float() @ w).to(a.dtype), tag + " vs the dequant path")
+                    del w
+                if label == "wq/wo" and M == INT4_MM_ROWS[0]:
+                    q, sc = q4[0], s[0]
+                    short = a.clone()
+                    short[:, -64:] = 0
+                    unwritten = want.clone()
+                    unwritten[:128, :128] = 0
+                    checks.plant(name, tag, want, {
+                        "nibble halves swapped": plain(a, (q >> 4) | (q << 4), sc),
+                        "every group given the next group's scale": plain(a, q, sc.roll(-1, 0)),
+                        ("the last K chunk of 64 skipped" if name == "int4_mm" else
+                         "the last N block of 64 skipped"): plain(short, q, sc),
+                        "one 128 x 128 output tile left unwritten (zeros)": unwritten,
+                    })
+                    del short, unwritten
+                del got, want
+                wb = [orient(int4.int4_dequant(qi, si)) for qi, si in zip(q4, s)]
+                iters = max(10, copies)
+                flops, nbytes = int4_mm_work(M, K, N, INT4_GROUP)
+                row.update(
+                    flops=flops, bytes=nbytes,
+                    ms=time_ms(torch, lambda i: fn(a, q4[i % copies], s[i % copies]), iters),
+                    plain_ms=time_ms(torch, lambda i: plain(a, q4[i % copies], s[i % copies]),
+                                     iters=2, reps=3),
+                    library_ms=time_ms(torch, lambda i: torch.matmul(a, wb[i % copies]), iters),
+                    dequant_path_ms=time_ms(torch, lambda i: torch.matmul(
+                        a, orient(int4.int4_dequant(q4[i % copies], s[i % copies]))), iters),
+                    bound_ms=max(flops / peak, nbytes / bw) * 1e3,
+                    bound_by="operations" if flops / peak > nbytes / bw else "bytes")
+                row["tflops_per_s"] = flops / row["ms"] / 1e9
+                row["gb_per_s"] = nbytes / row["ms"] / 1e6
+                stats[name]["shapes"].append(row)
+                del wb
+            del q4, s, x, d
+            torch.cuda.empty_cache()
+
+    # shapes the contract accepts beyond the 8B's: checked, not timed
+    for label, M, K, N, group in INT4_MM_EXTRA:
+        q4, s = int4_operands(torch, gen, K, N, group)
+        for name, a in (("int4_mm", bf16(M, K)), ("int4_dlhs", bf16(M, N))):
+            fn, plain, _ = kinds[name]
+            poison(torch, M, N if name == "int4_mm" else K)
+            got = fn(a, q4[0], s[0], group)
+            checks.check(name, got, plain(a, q4[0], s[0]), f"{label} M {M} K {K} N {N} g {group}")
+    # the lm_head (N 128,256) is refused, as by the TPU kernels: callers
+    # take the dequant path there; and a float32 x on the card is refused
+    lm_q4 = torch.zeros((2048, 128256), dtype=torch.uint8, device="cuda")
+    lm_s = torch.ones((32, 128256), device="cuda")
+    refused = {}
+    for name, a in (("int4_mm", bf16(1, 4096)), ("int4_dlhs", bf16(1, 128256))):
+        fn = kinds[name][0]
+        for what, args, err in (("lm_head", (a, lm_q4, lm_s), NotImplementedError),
+                                ("float32 on the card", (a.float(), lm_q4, lm_s), TypeError)):
+            try:
+                fn(*args)
+            except err as e:
+                refused[f"{name} {what}"] = f"{type(e).__name__}: {e}"
+            else:
+                raise AssertionError(f"{name} took {what}, which it must refuse")
+    del lm_q4, lm_s
+    torch.cuda.empty_cache()
+
+    totals = {}
+    for name, st in stats.items():
+        for M in INT4_MM_ROWS:
+            rs = [r for r in st["shapes"] if r["M"] == M]
+            totals.setdefault(name, {})[f"M {M}"] = {
+                k: sum(r[k] * r["launches_per_8b_forward"] for r in rs)
+                for k in ("ms", "bound_ms", "plain_ms", "library_ms", "dequant_path_ms")}
+    tpu = {"int4_mm": (119, "_int4_mm_kernel (pallas_call at odh_kubeflow_tpu/ops/pallas_int4.py:175)"),
+           "int4_dlhs": (193, "_int4_dlhs_kernel (pallas_call at "
+                              "odh_kubeflow_tpu/ops/pallas_int4.py:244)")}
+    rows = []
+    for name, st in stats.items():
+        main = st["shapes"][0]  # wq/wo at the QLoRA step's rows
+        line, fn = tpu[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "odh_kubeflow_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": f"odh_kubeflow_tpu/ops/pallas_int4.py:{line}",
+            "tpu_kernel": fn,
+            "max_abs_err": st["max_abs_err"],
+            "tile_rel_err": st["tile_rel_err"],
+            "tolerance": f"||kernel - plain|| / ||plain|| <= {int4.TILE_RTOL} in every 128 x 128 "
+                         "output tile, bf16, into NaN-filled buffers",
+            "planted_fault": st["planted_fault"],
+            "unit": f"one launch at the 8B wq/wo shape (M {main['M']}, K {main['K']}, "
+                    f"N {main['N']}, group {INT4_GROUP})",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library": "torch.matmul on the pre-dequantized bf16 weight (product only: no "
+                       "single call unpacks int4)",
+            "dequant_path_ms": main["dequant_path_ms"],
+            "dequant_path": "int4_dequant kernel + torch.matmul",
+            "per_8b_forward": totals[name],
+            "shapes": st["shapes"],
+        })
+    record = {"phase": "int4_matmul_kernels",
+              "checked": {n: len(st["shapes"]) + len(INT4_MM_EXTRA) for n, st in stats.items()},
+              "refused": refused,
+              "int4": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
+                                          "ms", "plain_ms", "bound_ms", "library_ms",
+                                          "dequant_path_ms", "per_8b_forward")} for r in rows]}
+    return record, rows
+
+
+def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
+    """The seven int4 projections of one Llama-3-8B layer at the QLoRA
+    step's rows (M 8,192), bf16, autograd through ``int4_matmul`` with
+    ``x.requires_grad`` and a seeded cotangent: exactly 7 matmul and 7 dX
+    launches and no dequant; dx per 128 x 128 tile against the same layer
+    through ``int4_dequant`` + ``torch.matmul``; peak device memory and
+    host time of both routes."""
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    M = INT4_MM_ROWS[0]
+    # scales so each product is O(1): weights ~ 0.01, rows ~ 1
+    layer = {n: [t[0] for t in int4_operands(torch, gen, K, N, INT4_GROUP, scale_hi=4e-3)]
+             for n, K, N in INT4_LAYER}
+    width = {n: (K, N) for n, K, N in INT4_LAYER}
+    x0 = torch.randn((M, width["wq"][0]), generator=gen, device="cuda").to(torch.bfloat16)
+    douts = [torch.randn((M, width[n][1]), generator=gen, device="cuda").to(torch.bfloat16)
+             for n in ("wo", "wk", "wv", "w_down")]
+
+    def layer_dx(proj):
+        x = x0.clone().requires_grad_(True)
+        q, k, v = (proj(x, *layer[n]) for n in ("wq", "wk", "wv"))
+        o = proj(q, *layer["wo"])  # q stands in for attention's output
+        g, u = proj(x, *layer["w_gate"]), proj(x, *layer["w_up"])
+        h = (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
+        torch.autograd.backward((o, k, v, proj(h, *layer["w_down"])), douts)
+        return x.grad
+
+    routes = {
+        "kernel": lambda a, q4, s: int4.int4_matmul(a, q4, s, INT4_GROUP),
+        "dequant": lambda a, q4, s: torch.matmul(a, int4.int4_dequant(q4, s)),
+    }
+    want_launches = {"kernel": {"int4_mm": 7, "int4_dlhs": 7, "int4_dequant": 0},
+                     "dequant": {"int4_mm": 0, "int4_dlhs": 0, "int4_dequant": 7}}
+    out = {"phase": "int4_qlora_proj", "M": M, "layer": [list(p) for p in INT4_LAYER]}
+    dx = {}
+    for route, proj in routes.items():
+        layer_dx(proj)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_moe_counts(fa, int4, gm)
+        t0 = time.perf_counter()
+        dx[route] = layer_dx(proj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {"int4_mm": int4.mm_launches, "int4_dlhs": int4.dlhs_launches,
+                    "int4_dequant": int4.launches}
+        others = {k: v for k, v in moe_counts(fa, gm).items() if v}
+        if launched != want_launches[route] or others:
+            raise AssertionError(f"int4_qlora_proj {route} route launched {launched} {others}, "
+                                 f"want {want_launches[route]}")
+        out[route] = {"launches": launched, "fwd_bwd_s": wall,
+                      "peak_above_weights_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    if not bool(dx["kernel"].isfinite().all()):
+        raise AssertionError("int4_qlora_proj: non-finite dx")
+    out["dx_tile_rel_err"] = int4.tile_rel_err(dx["kernel"], dx["dequant"])
+    diff = (dx["kernel"].float() - dx["dequant"].float()).abs()
+    out["dx_elements_differing"] = int((diff > 0).sum())
+    out["dx_max_abs_diff"] = diff.max().item()
+    out["dx_rms"] = {r: t.float().square().mean().sqrt().item() for r, t in dx.items()}
+    out["tolerance"] = f"dx per 128 x 128 tile within {INT4_PROJ_RTOL} of the dequant route's"
+    if not out["dx_tile_rel_err"] <= INT4_PROJ_RTOL:
+        raise AssertionError(f"int4_qlora_proj: dx {out['dx_tile_rel_err']} > {INT4_PROJ_RTOL}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1976,7 +2256,8 @@ def main() -> int:
     peak = peak_flops_per_device(name)
     if not peak:
         raise RuntimeError(f"no bf16 peak known for {name!r}")
-    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm", "tgmm"]
+    kernel_names = ["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm", "tgmm",
+                    "int4_matmul"]
     t0 = time.perf_counter()
     _build.build(kernel_names)
     build_s = time.perf_counter() - t0
@@ -1996,6 +2277,14 @@ def main() -> int:
           "flash": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
                                         "ms", "plain_ms", "bound_ms", "library_ms")}
                     for r in flash_rows]})
+    record, int4_rows = int4_matmul_kernels_phase(torch, int4, bw, peak)
+    record["card"] = label
+    emit(record)
+    # the int4 matmul's path (slice 5): one 8B layer's projections, autograd
+    record = int4_qlora_proj_phase(torch, fa, int4, gm)
+    record["card"] = label
+    emit(record)
+    proj_launches = record["kernel"]["launches"]
     moe_rows = moe_kernels_phase(torch, gm, bw, peak)
     bf16_rows = moe_bf16_kernels_phase(torch, gm, bw, peak)
     emit({"phase": "moe_kernels", "card": label,
@@ -2081,7 +2370,10 @@ def main() -> int:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}
         row["launches"] = sum(row["launches_by_path"].values())
-    emit({"kernels": [kernel, *flash_rows, *moe_rows, *bf16_rows]})
+    for row in int4_rows:
+        row["launches_by_path"] = {"int4_qlora_proj": proj_launches[row["name"]]}
+        row["launches"] = proj_launches[row["name"]]
+    emit({"kernels": [kernel, *flash_rows, *moe_rows, *bf16_rows, *int4_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

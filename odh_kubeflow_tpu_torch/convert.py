@@ -7,8 +7,9 @@ both directions. Arrays cross as numpy, which has no bf16 of its own:
 ``to_numpy_tree`` widens bf16 to float32 (exact), and
 ``from_numpy_tree`` turns an array of the ``bfloat16`` extension dtype
 (what ``np.asarray`` gives for a JAX bf16 array) back into bf16; a
-caller that sent bf16 as float32 casts on the torch side. Only numpy
-and torch are imported here.
+caller that sent bf16 as float32 casts on the torch side. Trees land on
+the card unless the caller asks for the CPU (``device="cpu"``, as the
+tests do); without a GPU the default raises.
 """
 
 from __future__ import annotations
@@ -16,12 +17,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
-def from_numpy_tree(tree, device="cpu"):
-    """numpy tree → torch tree on ``device``, dtypes kept (int8 codes,
-    packed uint8 nibbles, f32 scales, bf16 leaves)."""
+
+def from_numpy_tree(tree, device="cuda"):
+    """numpy tree → torch tree on ``device`` (the card by default; raises
+    without a GPU), dtypes kept (int8 codes, packed uint8 nibbles, f32
+    scales, bf16 leaves)."""
+    return _from_numpy(tree, resolve_device(device))
+
+
+def _from_numpy(tree, device: torch.device):
     if isinstance(tree, dict):
-        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
     arr = np.asarray(tree)
     bf16 = arr.dtype.name == "bfloat16"
     if bf16:

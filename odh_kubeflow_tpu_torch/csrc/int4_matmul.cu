@@ -1,0 +1,373 @@
+// int4 fused-dequant matmul and its input gradient for Hopper (sm_90a): the
+// weights stay packed in device memory and are unpacked tile by tile in
+// shared memory.
+//
+// Replaces two kernels of odh_kubeflow_tpu/ops/pallas_int4.py, both behind
+// int4_matmul (:268-297, a jax.custom_vjp differentiable in x only):
+//   _int4_mm_kernel   (:119, pallas_call at :175)  out = x @ W
+//   _int4_dlhs_kernel (:193, pallas_call at :244)  dx  = dout @ W^T
+// where W [K, N] is held as
+//   q4     uint8 [K/2, N], split halves (models/quant.py:75-80): weight row
+//          k < K/2 is the low nibble of packed row k, row k >= K/2 the high
+//          nibble of packed row k - K/2; nibbles are stored + 8;
+//   scale  f32 [K/group, N], one scale per group of rows and column.
+// Same function as the Pallas kernels' _unpack_scaled (:104-116): each weight
+// is bf16((nibble - 8) * scale[k / group, n]), computed in f32 and rounded
+// once, so the tensor cores see the exact bits int4_dequant writes; then one
+// product with f32 accumulation, rounded once to bf16. The scale goes on the
+// weight, not on the accumulator (the note at :88-92 says otherwise; the
+// kernel does this, see :122-125).
+//
+// Contract (checked by ops/int4.py, which raises NotImplementedError where
+// _int4_mm_impl (:155-165) and _int4_dlhs_impl (:226-237) do): x / dout bf16
+// row-major, K % 2048 == 0, group a power of two <= 1024, M and N of any size
+// up to 512 and multiples of 512 above. The kernel itself takes any M >= 1
+// and N >= 1 with K % 128 == 0: it masks its ragged edges, and when N is not
+// a multiple of 16 or a base is not 16-byte aligned it loads without cp.async.
+//
+// Bound. At the QLoRA training shape (M 8,192) operations: 2 M K N flops,
+// 0.278 ms for an 8B wq (K = N = 4096) at the H100 SXM's 989 TFLOP/s, against
+// 0.16 GB moved (0.05 ms at 3.35 TB/s). At decode (M 1..4) bytes: the packed
+// weights, 0.5 byte a weight (+ 4/group of scale), 2.66 us for wq.
+//
+// Design. On the TPU the innermost grid axis carries an f32 accumulator in
+// VMEM across grid steps (K chunks for mm, N blocks for dlhs). Blocks here run
+// in no order, so one block owns one output tile and loops over that axis
+// itself: mm a [128, 128] tile of out, over K in 64-wide chunks; dlhs a
+// [128, 128] tile of dx (128 rows of dout, 128 weight rows k), over N in
+// 64-wide chunks. Nothing goes to atomics or a second pass. Each chunk's x or
+// dout tile, packed bytes and scale rows arrive by cp.async in a 3-stage
+// ring; the packed tile is unpacked with its scales into one bf16 tile in
+// shared memory ([64 k][128 n] for mm, [128 k][64 n] for dlhs: the
+// transposed read of the same bank), which ldmatrix feeds to mma.sync
+// m16n8k16 with f32 accumulators (8 warps as 2 x 4, 64 x 32 each). K % 2048
+// == 0 keeps every chunk inside one nibble half. No bf16 copy of W ever
+// reaches device memory: the weights cross it at 0.5 byte each. Known
+// weakness: at M 1..4 a 128-row tile leaves the tensor cores mostly idle
+// and N / 128 (mm) or K / 128 (dlhs) blocks, 32 for a 4096-wide weight,
+// leave most of the 132 SMs idle, so decode runs far from its bytes bound;
+// split-K or a GEMV form is later work.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::bf16;
+
+constexpr int kBM = 128;       // rows of x / dout per block
+constexpr int kBN = 128;       // output columns per block
+constexpr int kBK = 64;        // contraction chunk
+constexpr int kThreads = 256;  // 8 warps, 2 (rows) x 4 (columns)
+constexpr int kStages = 3;
+constexpr int kPad = 8;        // bf16 row padding (16 bytes)
+constexpr int kLDA = kBK + kPad;     // pitch of the x / dout tile [128][64]
+constexpr int kLDWmm = kBN + kPad;   // pitch of mm's weight tile [64 k][128 n]
+constexpr int kLDWdl = kBK + kPad;   // pitch of dlhs's weight tile [128 k][64 n]
+constexpr int kABytes = kBM * kLDA * 2;
+constexpr int kPBytes = kBK * kBN;   // packed bytes a chunk, both kernels
+constexpr int kMaxScaleBytes = 128 * kBK * 4;  // group 1: a scale row per weight row
+
+// Geometry of one kernel: weight rows and columns of a chunk's tile.
+// mm: [64 k][128 n] per K chunk; dlhs: [128 k][64 n] per N chunk.
+template <bool kDlhs>
+struct Geo {
+  static constexpr int kRowsW = kDlhs ? kBN : kBK;  // weight rows k in a tile
+  static constexpr int kColsW = kDlhs ? kBK : kBN;  // weight columns n in a tile
+  static constexpr int kLDW = kDlhs ? kLDWdl : kLDWmm;
+  static constexpr int kWBytes = kRowsW * kLDW * 2;
+  // scale rows a tile spans: one when group >= the tile's rows
+  __host__ __device__ static int scale_rows(int group) {
+    return group >= kRowsW ? 1 : kRowsW / group;
+  }
+  __host__ __device__ static int stage_bytes(int group) {
+    return kABytes + kPBytes + scale_rows(group) * kColsW * 4;
+  }
+  __host__ static int smem_bytes(int group, bool vec) {
+    return vec ? kStages * stage_bytes(group) + kWBytes : kABytes + kWBytes;
+  }
+  static constexpr int kMaxSmem = kStages * (kABytes + kPBytes + kMaxScaleBytes) + kWBytes;
+};
+
+struct Args {
+  const bf16* a;         // x [M, K] (mm) or dout [M, N] (dlhs)
+  const uint8_t* q4;     // [K/2, N]
+  const float* scale;    // [K/group, N]
+  bf16* out;             // [M, N] (mm) or [M, K] (dlhs)
+  int M, K, N, group;
+};
+
+__device__ __forceinline__ float weight(uint32_t byte, bool hi, float s) {
+  const int nib = static_cast<int>(hi ? byte >> 4 : byte & 0xFu);
+  return static_cast<float>(nib - 8) * s;
+}
+
+// Start the cp.async copies of one chunk (vec path: N % 16 == 0, aligned
+// bases). mm: x[m0.., k0..k0+63], q4 rows p0..p0+63 x columns n0..n0+127,
+// scale rows of k0..k0+63. dlhs: dout[m0.., c0..c0+63], q4 rows p0..p0+127 x
+// columns c0..c0+63, scale rows of k0..k0+127. Out-of-range copies zero-fill.
+template <bool kDlhs>
+__device__ __forceinline__ void load_chunk(unsigned char* stage, const Args& g, int m0, int k0,
+                                           int p0, int n0) {
+  using G = Geo<kDlhs>;
+  bf16* sA = reinterpret_cast<bf16*>(stage);
+  uint8_t* sP = stage + kABytes;
+  float* sS = reinterpret_cast<float*>(stage + kABytes + kPBytes);
+  const int lda = kDlhs ? g.N : g.K;       // row pitch of x / dout
+  const int a_col0 = kDlhs ? n0 : k0;      // contraction offset of this chunk
+#pragma unroll
+  for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
+    const int r = i / (kBK / 8);
+    const int c = (i % (kBK / 8)) * 8;
+    const bool valid = m0 + r < g.M && a_col0 + c < lda;
+    const bf16* src = valid ? g.a + static_cast<long long>(m0 + r) * lda + a_col0 + c : g.a;
+    flash::cp_async16(sA + r * kLDA + c, src, valid);
+  }
+  // packed bytes: kRowsW rows of kColsW bytes, 16 a copy
+#pragma unroll
+  for (int i = threadIdx.x; i < G::kRowsW * (G::kColsW / 16); i += kThreads) {
+    const int r = i / (G::kColsW / 16);
+    const int c = (i % (G::kColsW / 16)) * 16;
+    const bool valid = n0 + c < g.N;
+    const uint8_t* src = valid ? g.q4 + static_cast<long long>(p0 + r) * g.N + n0 + c : g.q4;
+    flash::cp_async16(sP + r * G::kColsW + c, src, valid);
+  }
+  // scale rows: 4 floats a copy
+  const int srows = G::scale_rows(g.group);
+  const int s0 = k0 / g.group;
+  for (int i = threadIdx.x; i < srows * (G::kColsW / 4); i += kThreads) {
+    const int r = i / (G::kColsW / 4);
+    const int c = (i % (G::kColsW / 4)) * 4;
+    const bool valid = n0 + c < g.N;
+    const float* src = valid ? g.scale + static_cast<long long>(s0 + r) * g.N + n0 + c : g.scale;
+    flash::cp_async16(sS + r * G::kColsW + c, src, valid);
+  }
+}
+
+// Unpack a staged chunk into the bf16 weight tile, 16 weights a unit:
+// sW[r][c] = bf16((nibble - 8) * scale[(k0 + r) / group][c]).
+template <bool kDlhs>
+__device__ __forceinline__ void unpack_staged(bf16* sW, const unsigned char* stage, int k0, bool hi,
+                                              int group) {
+  using G = Geo<kDlhs>;
+  const uint8_t* sP = stage + kABytes;
+  const float* sS = reinterpret_cast<const float*>(stage + kABytes + kPBytes);
+  const int s0 = k0 / group;
+#pragma unroll
+  for (int u = threadIdx.x; u < G::kRowsW * (G::kColsW / 16); u += kThreads) {
+    const int r = u / (G::kColsW / 16);
+    const int c = (u % (G::kColsW / 16)) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(sP + r * G::kColsW + c);
+    const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+    const float* s = sS + ((k0 + r) / group - s0) * G::kColsW + c;
+    uint32_t packed[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t word = w4[j >> 1];
+      const int sh = 16 * (j & 1);
+      packed[j] = flash::pack_bf16(weight((word >> sh) & 0xFFu, hi, s[2 * j]),
+                                   weight((word >> (sh + 8)) & 0xFFu, hi, s[2 * j + 1]));
+    }
+    bf16* dst = sW + r * G::kLDW + c;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+  }
+}
+
+// Generic path (N % 16 != 0 or a misaligned base): load one chunk's x / dout
+// tile and unpack its weights straight from device memory, element by
+// element, zeros outside the operands.
+template <bool kDlhs>
+__device__ __forceinline__ void load_direct(bf16* sA, bf16* sW, const Args& g, int m0, int k0,
+                                            int p0, int n0, bool hi) {
+  using G = Geo<kDlhs>;
+  const int lda = kDlhs ? g.N : g.K;
+  const int a_col0 = kDlhs ? n0 : k0;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
+    const int r = i / kBK;
+    const int c = i % kBK;
+    const bool valid = m0 + r < g.M && a_col0 + c < lda;
+    sA[r * kLDA + c] = valid ? g.a[static_cast<long long>(m0 + r) * lda + a_col0 + c] : zero;
+  }
+  for (int i = threadIdx.x; i < G::kRowsW * G::kColsW; i += kThreads) {
+    const int r = i / G::kColsW;
+    const int c = i % G::kColsW;
+    float v = 0.f;
+    if (n0 + c < g.N) {
+      const uint32_t b = g.q4[static_cast<long long>(p0 + r) * g.N + n0 + c];
+      v = weight(b, hi, g.scale[static_cast<long long>((k0 + r) / g.group) * g.N + n0 + c]);
+    }
+    sW[r * G::kLDW + c] = __float2bfloat16_rn(v);
+  }
+}
+
+// acc += sA[.., 0..63] @ weight tile, this warp's 64 x 32 of the block tile
+template <bool kDlhs>
+__device__ __forceinline__ void mma_chunk(float (&acc)[4][4][4], const bf16* sA, const bf16* sW) {
+  using G = Geo<kDlhs>;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64;
+  const int wn = (warp & 3) * 32;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) flash::frag_a<kLDA>(a[mi], sA, wm + mi * 16, kk);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t b[4];
+      if (kDlhs) {
+        flash::frag_b_nk<G::kLDW>(b, sW, wn + nj * 16, kk);  // tile [k out][n contracted]
+      } else {
+        flash::frag_b_kn<G::kLDW>(b, sW, kk, wn + nj * 16);  // tile [k contracted][n out]
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        flash::mma(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        flash::mma(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// One [128, 128] output tile. mm: blockIdx.x walks N, the block loops over
+// K. dlhs: blockIdx.x walks K (the weight rows), the block loops over N.
+// Two blocks an SM, so at most 128 registers a thread: unbounded, ptxas gave
+// the mm kernel 174 and it ran 1.3x slower at one block an SM (H100).
+template <bool kDlhs, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2) int4_mm_kernel(Args g) {
+  using G = Geo<kDlhs>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.y * kBM;
+  const int c0 = blockIdx.x * kBN;  // first output column: n (mm) or k (dlhs)
+  const int K2 = g.K / 2;
+  const int nk = kDlhs ? (g.N + kBK - 1) / kBK : g.K / kBK;
+  // the chunk's first weight row k, packed row and nibble half; a dlhs
+  // block keeps its 128 weight rows through the loop (K/2 % 128 == 0)
+  auto k_of = [&](int kc) { return kDlhs ? c0 : kc * kBK; };
+  auto n_of = [&](int kc) { return kDlhs ? kc * kBK : c0; };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] =
+        acc[mi][ni][3] = 0.f;
+
+  if constexpr (kVec) {
+    const int stage_bytes = G::stage_bytes(g.group);
+    bf16* sW = reinterpret_cast<bf16*>(smem + kStages * stage_bytes);
+    auto stage = [&](int s) { return smem + s * stage_bytes; };
+    auto fetch = [&](int kc) {
+      const int k0 = k_of(kc);
+      load_chunk<kDlhs>(stage(kc % kStages), g, m0, k0, k0 < K2 ? k0 : k0 - K2, n_of(kc));
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nk) fetch(s);
+      flash::cp_async_commit();
+    }
+    for (int kc = 0; kc < nk; ++kc) {
+      flash::cp_async_wait<kStages - 2>();  // chunk kc has landed
+      __syncthreads();                      // and chunk kc - 1 is consumed
+      if (kc + kStages - 1 < nk) fetch(kc + kStages - 1);
+      flash::cp_async_commit();
+      const int k0 = k_of(kc);
+      unpack_staged<kDlhs>(sW, stage(kc % kStages), k0, k0 >= K2, g.group);
+      __syncthreads();
+      mma_chunk<kDlhs>(acc, reinterpret_cast<const bf16*>(stage(kc % kStages)), sW);
+    }
+    flash::cp_async_wait<0>();
+  } else {
+    bf16* sA = reinterpret_cast<bf16*>(smem);
+    bf16* sW = reinterpret_cast<bf16*>(smem + kABytes);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int k0 = k_of(kc);
+      __syncthreads();  // the previous chunk is consumed
+      load_direct<kDlhs>(sA, sW, g, m0, k0, k0 < K2 ? k0 : k0 - K2, n_of(kc), k0 >= K2);
+      __syncthreads();
+      mma_chunk<kDlhs>(acc, sA, sW);
+    }
+  }
+
+  // epilogue: one rounding to bf16; rows past M and columns past the output
+  // width are not written
+  const int width = kDlhs ? g.K : g.N;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool pairs = (width & 1) == 0;  // then (col, col + 1) is 4-byte aligned
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = c0 + (warp & 3) * 32 + ni * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + (warp >> 2) * 64 + mi * 16 + (lane >> 2) + 8 * h;
+        if (row >= g.M || col >= width) continue;
+        bf16* dst = g.out + static_cast<long long>(row) * width + col;
+        const float v0 = acc[mi][ni][2 * h];
+        const float v1 = acc[mi][ni][2 * h + 1];
+        if (pairs) {
+          flash::store2(dst, v0, v1);
+        } else {
+          dst[0] = __float2bfloat16_rn(v0);
+          if (col + 1 < width) dst[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <bool kDlhs, bool kVec>
+int launch(const Args& g, cudaStream_t stream) {
+  using G = Geo<kDlhs>;
+  static int attr = flash::set_smem(int4_mm_kernel<kDlhs, kVec>, G::kMaxSmem);
+  if (attr != 0) return attr;
+  const int width = kDlhs ? g.K : g.N;
+  const dim3 grid(flash::ceil_div(width, kBN), flash::ceil_div(g.M, kBM));
+  int4_mm_kernel<kDlhs, kVec><<<grid, kThreads, G::smem_bytes(g.group, kVec), stream>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDlhs>
+int run(const void* a, const void* q4, const void* scale, void* out, long long M, long long K,
+        long long N, long long group, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  // K % 256: whole 128-row dlhs tiles in each nibble half; group a power of
+  // two dividing 1024, so a chunk's scale rows are whole; M within the
+  // grid's y limit
+  if (K % 256 || group <= 0 || group > 1024 || 1024 % group || M > 65535LL * kBM ||
+      K >= (1LL << 31) || N >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args g{static_cast<const bf16*>(a), static_cast<const uint8_t*>(q4),
+               static_cast<const float*>(scale), static_cast<bf16*>(out),
+               static_cast<int>(M), static_cast<int>(K), static_cast<int>(N),
+               static_cast<int>(group)};
+  const bool vec = N % 16 == 0 && aligned16(a) && aligned16(q4) && aligned16(scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch<kDlhs, true>(g, st) : launch<kDlhs, false>(g, st);
+}
+
+}  // namespace
+
+// Both return a CUDA error code (0 on success). The caller has checked
+// dtypes (bf16 x / dout, uint8 q4, f32 scale), shapes, contiguity and one
+// device, and allocated the output.
+
+// out [M, N] = x [M, K] @ dequant(q4, scale)
+extern "C" int int4_mm_launch(const void* x, const void* q4, const void* scale, void* out,
+                              long long M, long long K, long long N, long long group,
+                              void* stream) {
+  return run<false>(x, q4, scale, out, M, K, N, group, stream);
+}
+
+// dx [M, K] = dout [M, N] @ dequant(q4, scale)^T
+extern "C" int int4_dlhs_launch(const void* dout, const void* q4, const void* scale, void* dx,
+                                long long M, long long K, long long N, long long group,
+                                void* stream) {
+  return run<true>(dout, q4, scale, dx, M, K, N, group, stream);
+}

@@ -20,7 +20,9 @@ TILE_RTOL`` (both sides round the same f32 sums once to bf16), on
 routings with empty experts, all rows on one expert and a large tail,
 into output buffers left full of NaN so an unwritten row shows; the
 weight gradient ``tgmm`` the same way over 128-row tiles of its
-``[E·K, N]`` view.
+``[E·K, N]`` view. The int4 fused-dequant matmul and its dX in bf16: per
+128 x 128 output tile within ``int4.TILE_RTOL`` (``int4.tile_rel_err``),
+into NaN-filled buffers.
 """
 
 import numpy as np
@@ -460,3 +462,92 @@ def test_grouped_kernels_refuse_what_they_do_not_take():
         gm.gmm(lhs, q, offs.cpu(), False, scale)  # two devices
     with pytest.raises(ValueError):
         gm.gmm(lhs, q, offs, False, scale[:, :, :64])  # scale does not fit
+
+
+# ---------------------------------------------------------------------------
+# int4 fused-dequant matmul (csrc/int4_matmul.cu). Tolerance: bf16, each
+# 128 x 128 output tile within int4.TILE_RTOL of the plain version
+# (int4.tile_rel_err): the kernel multiplies int4_dequant's bf16 weights and
+# both sides round f32 sums once to bf16.
+
+
+def _int4_mm_inputs(M, K, N, group, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda().bfloat16()
+    d = torch.from_numpy(rng.standard_normal((M, N)).astype(np.float32)).cuda().bfloat16()
+    q4 = torch.from_numpy(rng.integers(0, 256, (K // 2, N), dtype=np.uint8)).cuda()
+    s = torch.from_numpy((rng.random((K // group, N)) * 0.02 + 1e-4).astype(np.float32)).cuda()
+    return x, d, q4, s
+
+
+def _int4_tiles_close(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = int4.tile_rel_err(got, want)
+    assert rel <= int4.TILE_RTOL, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "M,K,N,group",
+    [
+        (256, 2048, 512, 128),
+        (1024, 4096, 1024, 64),
+        (1, 4096, 1024, 128),  # decode
+        (4, 2048, 512, 32),
+        (300, 2048, 200, 128),  # ragged M; N % 16 != 0: the generic load path
+        (1, 2048, 100, 1024),
+        (512, 6144, 1536, 256),  # three 1024-chunks a nibble half
+    ],
+)
+def test_int4_matmul_kernels_match_plain_on_card(M, K, N, group):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, d, q4, s = _int4_mm_inputs(M, K, N, group)
+    before = (int4.mm_launches, int4.dlhs_launches)
+    _poison(M, N)
+    got = int4.int4_mm(x, q4, s, group)
+    _poison(M, K)
+    dx = int4.int4_dlhs(d, q4, s, group)
+    torch.cuda.synchronize()
+    assert (int4.mm_launches, int4.dlhs_launches) == (before[0] + 1, before[1] + 1)
+    _int4_tiles_close(got, int4.int4_matmul_reference(x, q4, s))
+    _int4_tiles_close(dx, int4.int4_dlhs_reference(d, q4, s))
+
+
+@pytest.mark.gpu
+def test_int4_matmul_autograd_and_misaligned_view_on_card():
+    """``int4_matmul``'s backward launches the dlhs kernel once; a view
+    whose start is not 16-byte aligned takes the generic load path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, d, q4, s = _int4_mm_inputs(128, 2048, 256, 128)
+    x.requires_grad_(True)
+    scale = s.clone().requires_grad_(True)
+    before = (int4.mm_launches, int4.dlhs_launches, int4.launches)
+    out = int4.int4_matmul(x, q4, scale)
+    out.backward(d)
+    torch.cuda.synchronize()
+    assert (int4.mm_launches, int4.dlhs_launches, int4.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _int4_tiles_close(out, int4.int4_matmul_reference(x.detach(), q4, s))
+    _int4_tiles_close(x.grad, int4.int4_dlhs_reference(d, q4, s))
+    assert torch.equal(scale.grad, torch.zeros_like(s))
+    flat = torch.zeros(1 + 128 * 2048, dtype=torch.bfloat16, device="cuda")
+    view = flat[1:].view(128, 2048)  # contiguous, data_ptr % 16 == 2
+    view.copy_(x.detach())
+    _int4_tiles_close(int4.int4_mm(view, q4, s), int4.int4_matmul_reference(view, q4, s))
+
+
+@pytest.mark.gpu
+def test_int4_matmul_kernels_refuse_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, d, q4, s = _int4_mm_inputs(8, 2048, 64, 128)
+    with pytest.raises(TypeError):
+        int4.int4_matmul(x.float(), q4, s)  # f32 on the card: never cast
+    with pytest.raises(TypeError):
+        int4.int4_dlhs(d.float(), q4, s)
+    with pytest.raises(ValueError):
+        int4.int4_matmul(x, q4.cpu(), s)  # two devices
+    with pytest.raises(NotImplementedError):
+        int4.int4_matmul(x[:, :1024].contiguous(), q4[:512], s[:8])  # K % 2048

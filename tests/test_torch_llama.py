@@ -75,7 +75,7 @@ def trees(kind, seed=0):
     base = jax.tree.map(jnp.asarray, np_params(JCFG, seed))
     if kind != "f32":
         base = jax_quant.quantize_params(base, bits=8 if kind == "int8" else 4)
-    return base, convert.from_numpy_tree(jax.tree.map(np.asarray, base))
+    return base, convert.from_numpy_tree(jax.tree.map(np.asarray, base), device="cpu")
 
 
 def _tokens(B=2, S=6, seed=5):
@@ -89,7 +89,7 @@ def test_forward_logits_match_jax(kind, with_lora):
     jl = tl = None
     if with_lora:
         nl = np_lora(JCFG)
-        jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl)
+        jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl, device="cpu")
     toks = _tokens()
     want = np.asarray(jax_llama.forward(jp, jnp.asarray(toks), JCFG, lora=jl))
     got = llama.forward(tp, torch.from_numpy(toks).long(), TCFG, lora=tl)
@@ -106,7 +106,7 @@ def test_forward_with_cache_prefill_and_decode_match_jax(kind, with_lora):
     jl = tl = None
     if with_lora:
         nl = np_lora(JCFG, seed=2)
-        jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl)
+        jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl, device="cpu")
     B, S, steps = 2, 6, 3
     S_max = S + steps
     toks = _tokens(B, S, seed=6)
@@ -180,9 +180,9 @@ def test_merge_lora_matches_jax_and_the_adapter_path(kind):
     jp, tp = trees(kind, seed=3)
     if kind != "f32":
         jp = jax_quant.dequantize_params(jp, jnp.float32)
-        tp = convert.from_numpy_tree(jax.tree.map(np.asarray, jp))
+        tp = convert.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
     nl = np_lora(JCFG, seed=4)
-    jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl)
+    jl, tl = jax.tree.map(jnp.asarray, nl), convert.from_numpy_tree(nl, device="cpu")
     jm = jax_lora.merge_lora(jp, jl)
     tm = lora.merge_lora(tp, tl)
     for g, w in zip(jax.tree.leaves(convert.to_numpy_tree(tm)),

@@ -50,7 +50,7 @@ def _params(int8=False, seed=0):
     jp["layers"]["router"] = jp["layers"]["router"] * ROUTER_GAIN
     if int8:
         jp = jquantize_params(jp)
-    return jp, convert.from_numpy_tree(_np(jp))
+    return jp, convert.from_numpy_tree(_np(jp), device="cpu")
 
 
 def _layer0(tree):
@@ -305,7 +305,7 @@ def test_param_tree_layout_matches_jax():
     assert {k: tuple(v) for k, v in flat(tp).items()} == {k: tuple(v) for k, v in want.items()}
     # int8 trees carry across whole: the banks' codes and [L, E, 1, N] scales
     jq = jquantize_params(jp)
-    tq = convert.from_numpy_tree(_np(jq))
+    tq = convert.from_numpy_tree(_np(jq), device="cpu")
     assert tq["layers"]["moe_down"]["q"].dtype == torch.int8
     assert tuple(tq["layers"]["moe_down"]["scale"].shape) == (2, 4, 1, 64)
     sq = streaming_quantized_init(TCFG, 0, device="cpu")

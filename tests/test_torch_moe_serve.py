@@ -47,7 +47,7 @@ def _lora_trees(seed=4):
     rng = np.random.default_rng(seed)
     for ab in jl["layers"].values():
         ab["b"] = jnp.asarray(rng.standard_normal(ab["b"].shape).astype(np.float32) * 0.1)
-    return jl, convert.from_numpy_tree(_np(jl))
+    return jl, convert.from_numpy_tree(_np(jl), device="cpu")
 
 
 def _torch(a):

@@ -67,8 +67,8 @@ def pair():
     layers["router"] = jquantize(jnp.asarray(router))
     tt = Trainer(TCFG, TrainConfig(**TC), lora.LoraConfig(rank=4), quantize_base=True,
                  device="cpu", metrics_registry=prometheus.Registry())
-    tt.params = convert.from_numpy_tree(_np(jt.params))
-    tt.lora_params = convert.from_numpy_tree(_np(jt.lora_params))
+    tt.params = convert.from_numpy_tree(_np(jt.params), device="cpu")
+    tt.lora_params = convert.from_numpy_tree(_np(jt.lora_params), device="cpu")
     return jt, tt
 
 
@@ -132,7 +132,7 @@ def test_moe_full_finetune_steps_match_jax(margins):  # noqa: F811
     jt.params["layers"]["router"] = jt.params["layers"]["router"] * ROUTER_GAIN
     tt = Trainer(TCFG, TrainConfig(**TC), None, device="cpu",
                  metrics_registry=prometheus.Registry())
-    tt.params = convert.from_numpy_tree(_np(jt.params))
+    tt.params = convert.from_numpy_tree(_np(jt.params), device="cpu")
     start = {p: t.clone() for p, t in ttrainer._leaves(tt.params)}
     assert tt.params["layers"]["moe_gate"].dtype == torch.float32
     batch = _batch()

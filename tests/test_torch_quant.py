@@ -94,7 +94,7 @@ def test_int4_dequant_equals_jax_jnp_path(shape):
     jw, tw = _weights(shape, jnp.float32, seed=3)
     jt = jax_quant.quantize_tensor4(jw)
     want = np.asarray(jax_quant.dequantize_tensor4(jt, jnp.float32))
-    got = quant.dequantize_tensor4(convert.from_numpy_tree(_np(jt)), torch.float32)
+    got = quant.dequantize_tensor4(convert.from_numpy_tree(_np(jt), device="cpu"), torch.float32)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -197,7 +197,7 @@ def test_convert_round_trip_keeps_names_dtypes_and_bf16():
         "i8": {"q": rng.integers(-127, 128, (4, 6), dtype=np.int8),
                "scale": rng.random((1, 6)).astype(np.float32)},
     }
-    t = convert.from_numpy_tree(tree)
+    t = convert.from_numpy_tree(tree, device="cpu")
     assert t["f32"].dtype == torch.float32 and t["bf16"].dtype == torch.bfloat16
     assert t["q"]["q4"].dtype == torch.uint8 and t["i8"]["q"].dtype == torch.int8
     back = convert.to_numpy_tree(t)
@@ -205,3 +205,16 @@ def test_convert_round_trip_keeps_names_dtypes_and_bf16():
     np.testing.assert_array_equal(back["bf16"], np.asarray(tree["bf16"]).astype(np.float32))
     np.testing.assert_array_equal(back["q"]["q4"], tree["q"]["q4"])
     np.testing.assert_array_equal(back["i8"]["q"], tree["i8"]["q"])
+
+
+def test_convert_from_numpy_tree_defaults_to_the_card():
+    """Like every entry point, ``from_numpy_tree`` lands on the card unless
+    told otherwise, so without a GPU its default raises."""
+    tree = {"w": np.ones((2, 3), np.float32), "q": {"q4": np.zeros((1, 3), np.uint8)}}
+    t = convert.from_numpy_tree(tree, device="cpu")
+    assert t["w"].device.type == "cpu" and t["q"]["q4"].device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            convert.from_numpy_tree(tree)  # default device is the card
+    else:
+        assert convert.from_numpy_tree(tree)["q"]["q4"].device.type == "cuda"

@@ -55,9 +55,9 @@ def _pair(quantize_base=False, with_lora=True, jcfg=JCFG, tcfg=TCFG):
         tcfg, TrainConfig(**TC), lora.LoraConfig(rank=4) if with_lora else None,
         quantize_base=quantize_base, device="cpu", metrics_registry=prometheus.Registry(),
     )
-    tt.params = convert.from_numpy_tree(_np(jt.params))
+    tt.params = convert.from_numpy_tree(_np(jt.params), device="cpu")
     if with_lora:
-        tt.lora_params = convert.from_numpy_tree(_np(jt.lora_params))
+        tt.lora_params = convert.from_numpy_tree(_np(jt.lora_params), device="cpu")
     return jt, tt
 
 
