@@ -12,15 +12,17 @@ Phases, one JSON line each on stdout:
    (``int4_dequant``, ``flash_fwd``, ``flash_bwd``, ``gmm``,
    ``swiglu_gmm``, ``tgmm``, ``int4_matmul``) from
    ``odh_kubeflow_tpu_torch/csrc`` into ``build/torch_kernels/``, one
-   ``nvcc`` per source, all at once.
+   ``nvcc`` per source, all at once; ptxas's registers, spills and any
+   warning (a serialised ``wgmma``) per kernel.
 2. ``kernels``: each kernel against its plain PyTorch version on the
    card: the int4 dequant bit for bit at the Llama-3-8B forward's shapes;
    the flash forward, dQ and dK/dV in bf16 at the 8B training shape, the
-   1B shape, a ragged length, packed documents and a non-causal case, to
-   a stated tolerance. Times by CUDA events (median), the least time the
-   card could take (bytes over its bandwidth or flops over its bf16
-   peak, whichever is larger), the plain version's time and, for
-   attention, ``F.scaled_dot_product_attention``'s as a yardstick.
+   Mixtral-8x1B one (hd 64), the 1B shape, a ragged length, packed
+   documents and a non-causal case, to a stated tolerance. Times by CUDA
+   events (median), the least time the card could take (bytes over its
+   bandwidth or flops over its bf16 peak, whichever is larger), the plain
+   version's time and, for attention at the two training shapes,
+   ``F.scaled_dot_product_attention``'s as a yardstick.
 3. ``slice``: Llama-3-8B at full width and depth with an int4 base
    (random weights from a seed) served through ``CompletionService`` and
    its HTTP surface; int4 launches exactly 225 per forward.
@@ -120,9 +122,12 @@ SHAPES_8B = (
 SHAPES_RAGGED = (("ragged", 154, 1003), ("ragged16", 74, 208))
 LAUNCHES_PER_FORWARD = 225
 # flash attention shapes: (name, B, S, Hq, Hkv, hd, causal, packed); the
-# first is the Llama-3-8B training step's, the main path's
+# first is the Llama-3-8B training step's, the main path's, the second the
+# Mixtral-8x1B steps' (hd 64); both are also timed against the plain
+# version and SDPA
 FLASH_SHAPES = (
     ("8b_train", 2, 4096, 32, 8, 128, True, False),
+    ("8x1b_train", 2, 4096, 32, 8, 64, True, False),
     ("1b_train", 8, 1024, 32, 8, 64, True, False),
     ("ragged1000", 2, 1000, 32, 8, 128, True, False),
     ("packed", 2, 4096, 32, 8, 128, True, True),
@@ -139,6 +144,7 @@ FLASH_SHAPES = (
 # forward and a dQ that skip the key tile at FAULT_TILE, a dK/dV that
 # skips the query tile there
 FAULT_TILE = (2048, 64)
+MAIN_FLASH_SHAPES = ("8b_train", "8x1b_train")
 # the 8B QLoRA training step: (batch, seq), and launches per step. Each
 # of the 32 layers runs the flash forward once (remat "attn" saves its
 # residuals) and the dQ and dK/dV kernels once; the int4 dequant runs for
@@ -703,7 +709,7 @@ def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
             row["tflops_per_s"] = flops / row["ms"] / 1e9
             stats[name]["shapes"].append(row)
 
-        if shape == FLASH_SHAPES[0][0]:  # the main path's shape: plain and library
+        if shape in MAIN_FLASH_SHAPES:  # the main paths' shapes: plain and library
             plain = {
                 "flash_fwd": lambda i: fa.flash_fwd_reference(q, k, v, seg, seg, **kw),
                 "flash_dq": lambda i: fa.flash_dq_reference(*args, **kw),
@@ -720,7 +726,7 @@ def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
             # beside the dK/dV row alone, so the pair is not counted twice
             library = {"flash_fwd": lib_fwd, "flash_dq": None, "flash_dkv": lib_bwd}
             for name in stats:
-                main = stats[name]["shapes"][0]
+                main = stats[name]["shapes"][-1]
                 main["plain_ms"] = time_ms(torch, plain[name], iters=2, reps=3)
                 main["library_ms"] = library[name]
                 torch.cuda.empty_cache()
@@ -2263,7 +2269,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {
         n: [line.strip() for line in _build.build_logs.get(n, "").splitlines()
-            if "registers" in line or "spill" in line]
+            if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg", "arning"))]
         for n in kernel_names
     }
     emit({"phase": "device", "card": label, "device_name": name,

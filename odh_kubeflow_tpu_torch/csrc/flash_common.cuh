@@ -1,6 +1,8 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// warp-level bf16 tensor-core products (mma.sync m16n8k16, f32 accumulate),
-// ldmatrix fragment loads from shared memory, and cp.async tile copies.
+// Shared pieces of the mma.sync kernels (flash_bwd.cu; gmm_common.cuh,
+// tgmm.cu and int4_matmul.cu build on them too): warp-level bf16
+// tensor-core products (mma.sync m16n8k16, f32 accumulate), ldmatrix
+// fragment loads from shared memory, and cp.async tile copies. The
+// Hopper-specific kernels use sm90_common.cuh instead.
 //
 // Layout conventions. A block owns 64 rows (queries, or keys in dK/dV) and
 // runs 4 warps; warp w owns rows 16w..16w+15 of the block. Tiles of 64 rows
@@ -27,7 +29,6 @@ namespace flash {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;  // the masked score, as in the TPU kernel
 constexpr int kRows = 64;          // rows of a tile
 constexpr int kThreads = 128;      // 4 warps, 16 rows each
 constexpr int kPad = 8;            // shared-memory row padding, elements
@@ -132,17 +133,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// The four lanes of a quad hold one row between them.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Whether (query q, key k) may attend: inside both sequences, causal, and in

@@ -17,22 +17,25 @@
 // ms at 989 TFLOP/s, against 0.91 GB moved (0.27 ms at 3.35 TB/s); the
 // backward one product, 5.84e11 flops (0.59 ms), against 1.35 GB (0.40 ms).
 //
-// Design. The main loop is gmm.cu's (gmm_common.cuh): one 128-row tile of
-// one expert per block, the whole K in the block, the int8 tiles widened in
-// shared memory. The forward carries two accumulators, gate and up, over a
+// Design. Both kernels own one 128-row tile of one expert per block and run
+// the whole K in the block. The forward's main loop is gmm.cu's
+// (gmm_common.cuh: mma.sync over a cp.async ring, the int8 tiles widened in
+// shared memory); it carries two accumulators, gate and up, over a
 // 64-column tile so both stay in registers (64 f32 a thread); the epilogue
-// runs in f32 on the accumulators and writes h and g. The backward carries
-// one accumulator over a 128-column tile and reads g and dh only in its
-// epilogue. The two dlhs products after the backward are gmm.cu launches.
+// runs in f32 on the accumulators and writes h and g. The backward (namespace
+// swb below) is warp-specialised on wgmma, TMA and an mbarrier ring
+// (sm90_common.cuh); it carries one accumulator over a 256-column tile and
+// takes g and dh from shared memory in its epilogue. The two dlhs products
+// after the backward are gmm.cu launches.
 
 #include "gmm_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using gmm::bf16;
 
 constexpr int kBNFwd = 64;
-constexpr int kBNBwd = 128;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -79,50 +82,322 @@ __global__ void __launch_bounds__(gmm::kThreads)
   }
 }
 
-__global__ void __launch_bounds__(gmm::kThreads)
-    swiglu_bwd_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wu,
-                      const float* __restrict__ su, const int* __restrict__ offsets,
-                      const bf16* __restrict__ g, const bf16* __restrict__ dh,
-                      bf16* __restrict__ dg, bf16* __restrict__ du, int K, int N, int E) {
-  using T = gmm::Tiles<kBNBwd, false, int8_t>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * kBNBwd;
-  const int m0 = blockIdx.y * gmm::kBM;
+// The backward on Hopper's own machinery (sm90_common.cuh). One block owns
+// a 128-row tile of one expert (ALIGN: tile_expert finds it, as in gmm.cu)
+// and 256 columns, in three warpgroups:
+//   - warp 0's first thread TMA-loads the x chunk (128 x 64 bf16, swizzled)
+//     and the raw int8 bank chunk (64 x 256 bytes) into a ring of kStages
+//     stages of 32 KB with full and empty mbarriers; after the last chunk it
+//     goes round the ring once more and loads the tile's g and dh (128 x 256
+//     bf16 each, swizzled panels of 64 columns) into the stages as the last
+//     chunks free them, so the epilogue finds them in shared memory;
+//   - warps 1-3 load the tile's column scales into shared memory, then
+//     widen each int8 chunk (exact: |q| <= 127, by byte permutes and one
+//     float subtraction, no conversion instruction) into the swizzled bf16
+//     layout wgmma reads, one of kWiden buffers with their own full and
+//     empty mbarriers, running ahead of the products; each thread fences
+//     its generic stores to the async proxy before it arrives;
+//   - two consumer warpgroups of 64 rows issue wgmma m64n256k16 (x from
+//     shared memory K-major, the widened bank MN-major) with one chunk in
+//     flight behind the next, then the epilogue reads g and dh in the
+//     accumulator layout, writes dg and du over them, and one thread
+//     TMA-stores both.
+// TMA zero-fills x past K and the bank past K and N, and the store skips
+// columns past N, so no edge needs a mask. 256 columns (not 128) halve how
+// often the x chunk is read again for each column block.
+namespace swb {
+
+constexpr int kBM = 128, kBN = 256, kBK = 64;
+// A producer warpgroup and two consumer ones. ptxas compiles every path
+// within the launch's 168 registers a thread (65,536 / 384); setmaxnreg
+// then hands the producer's unused share to the consumers at run time.
+// A fourth warpgroup for widening would leave 128, fewer than one
+// m64n256k16 product's 154.
+constexpr int kThreads = 384;
+constexpr int kWidenThreads = 96;  // warps 1-3
+constexpr int kPieces = 1024;        // 16-byte pieces of a raw chunk (64 x 256 int8)
+constexpr int kConsumerPieces = 512;  // the consumers' share: 2 a thread
+constexpr int kStages = 4;          // x + raw bank chunks in flight
+constexpr int kWiden = 3;           // widened chunks in flight
+constexpr int kX = kBM * kBK * 2;   // 16 KB: one swizzled 128-row panel
+constexpr int kW = kBK * kBN;       // 16 KB of int8
+constexpr int kStage = kX + kW;     // 32 KB; later two 16 KB panels of g or dh
+constexpr int kWPanel = kBK * 128;  // 8 KB: 64 rows x 64 bf16 columns
+constexpr int kWB = 4 * kWPanel;    // the widened chunk: four column panels
+constexpr int kEpiPanel = kBM * 128;  // 16 KB: 128 rows x 64 bf16 columns of g or dh
+constexpr int kOffWB = kStages * kStage;
+constexpr int kSmem = kOffWB + kWiden * kWB + 1024;  // + slack to align the base to 1024 bytes
+static_assert(kStages * kStage == 8 * kEpiPanel, "g and dh fill the ring");
+
+// where panel `panel` (0..3) of g (t = 0) or dh (t = 1) lies in the ring:
+// panel pair i = (4t + panel) / 2 goes into the stage of fill nk + i
+__device__ __forceinline__ uint32_t epi_offset(int t, int panel, int nk) {
+  const int box = 4 * t + panel;
+  return ((nk + box / 2) % kStages) * kStage + (box % 2) * kEpiPanel;
+}
+
+// four int8 (one word) to two bf16x2 words, exactly: each byte, biased to
+// unsigned, becomes the low mantissa byte of 2^23; subtracting 2^23 + 128
+// leaves the value, whose upper 16 bits are its bf16
+__device__ __forceinline__ void widen4(uint32_t q, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = q ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+  }
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// Widen pieces first, first + step, ... below end of one raw int8 chunk
+// (64 rows x 256 bytes; piece i is row i / 16, columns 16 (i % 16) ..) into
+// the chunk's four swizzled bf16 panels.
+__device__ __forceinline__ void widen_pieces(const unsigned char* raw, unsigned char* wb,
+                                             int first, int step, int end) {
+  for (int i = first; i < end; i += step) {
+    const int r = i >> 4;  // bank row (k) of the chunk
+    const int c = i & 15;  // columns 16c..16c+15
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + i * 16);
+    uint4 w0, w1;
+    widen4(q.x, w0.x, w0.y);
+    widen4(q.y, w0.z, w0.w);
+    widen4(q.z, w1.x, w1.y);
+    widen4(q.w, w1.z, w1.w);
+    unsigned char* panel = wb + (c >> 2) * kWPanel;
+    const int ch = (c & 3) * 2;
+    *reinterpret_cast<uint4*>(panel + sm90::swz128(r, ch)) = w0;
+    *reinterpret_cast<uint4*>(panel + sm90::swz128(r, ch + 1)) = w1;
+  }
+}
+
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    swiglu_bwd_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __grid_constant__ CUtensorMap tdh,
+                      const __grid_constant__ CUtensorMap tdg,
+                      const __grid_constant__ CUtensorMap tdu, const float* __restrict__ su,
+                      const int* __restrict__ offsets, int K, int N, int E) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], wfull[kWiden], wempty[kWiden],
+      su_full;
+  __shared__ __align__(16) float su_tile[kBN];  // this expert's scale over the tile's columns
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
   const int e = gmm::tile_expert(offsets, E, m0);
-  const gmm::Operand<int8_t> b[1] = {{wu + static_cast<long long>(e) * K * N}};
-  const float* sue = su + static_cast<long long>(e) * N;
+  const int nk = sm90::ceil_div(K, kBK);
 
-  float acc[1][4][T::kNT][4];
-  gmm::mainloop<kBNBwd, 1, false, int8_t>(acc, smem, x, b, m0, n0, K, N);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      // consumer warps (x) and widening warps (raw)
+      sm90::mbar_init(&empty[s], 8 + kWidenThreads / 32);
+    }
+#pragma unroll
+    for (int b = 0; b < kWiden; ++b) {
+      sm90::mbar_init(&wfull[b], kWidenThreads + 256);  // every widening thread
+      sm90::mbar_init(&wempty[b], 8);
+    }
+    sm90::mbar_init(&su_full, kWidenThreads);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
 
+  const int wg = sm90::warpgroup_idx();
+  const int lane = threadIdx.x & 31;
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<56>();
+    if (threadIdx.x == 0) {  // TMA
+      sm90::prefetch_map(tx);
+      sm90::prefetch_map(tw);
+      for (int f = 0; f < nk + kStages; ++f) {
+        const int s = f % kStages;
+        unsigned char* stage = smem + s * kStage;
+        if (f >= kStages) sm90::mbar_wait(&empty[s], ((f / kStages) - 1) & 1);
+        if (f < nk) {
+          sm90::mbar_expect_tx(&full[s], kStage);
+          sm90::tma_load_2d(stage, tx, &full[s], f * kBK, m0);
+          sm90::tma_load_3d(stage + kX, tw, &full[s], n0, f * kBK, e);
+        } else {  // two panels of g or dh: boxes 2i and 2i + 1
+          const int i = f - nk;
+          int bytes = 0;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+          for (int x = 0; x < 2; ++x) bytes += n0 + 64 * ((2 * i + x) % 4) < N ? kEpiPanel : 0;
+          sm90::mbar_expect_tx(&full[s], bytes);
 #pragma unroll
-    for (int ni = 0; ni < T::kNT; ++ni) {
-      const int col = gmm::acc_col<kBNBwd>(n0, ni);
-      if (col >= N) continue;
-      const float us[2] = {__ldg(sue + col), __ldg(sue + col + 1)};
+          for (int x = 0; x < 2; ++x) {
+            const int box = 2 * i + x;
+            const int col = n0 + 64 * (box % 4);
+            if (col < N) {
+              sm90::tma_load_2d(stage + x * kEpiPanel, box < 4 ? tg : tdh, &full[s], col, m0);
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // widening: the pieces past the consumers' share
+      const int wt = threadIdx.x - 32;
+      for (int c = wt; c < kBN; c += kWidenThreads) {
+        su_tile[c] = n0 + c < N ? __ldg(su + static_cast<long long>(e) * N + n0 + c) : 0.f;
+      }
+      sm90::mbar_arrive(&su_full);
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % kStages;
+        const int b = kc % kWiden;
+        const unsigned char* raw = smem + s * kStage + kX;
+        unsigned char* wb = smem + kOffWB + b * kWB;
+        sm90::mbar_wait(&full[s], (kc / kStages) & 1);
+        if (kc >= kWiden) sm90::mbar_wait(&wempty[b], ((kc / kWiden) - 1) & 1);
+        widen_pieces(raw, wb, kConsumerPieces + wt, kWidenThreads, kPieces);
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(&wfull[b]);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);  // this warp's raw reads are done
+      }
+    }
+  } else {  // two consumer warpgroups of 64 rows
+    sm90::setmaxnreg_inc<224>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128;  // 0..255 over both consumer warpgroups
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int quad = lane & 3;
+
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    // the consumers' share of chunk c's widening, done while chunk c - 1's
+    // products run
+    auto widen_share = [&](int c) {
+      const int s = c % kStages;
+      const int b = c % kWiden;
+      sm90::mbar_wait(&full[s], (c / kStages) & 1);
+      if (c >= kWiden) sm90::mbar_wait(&wempty[b], ((c / kWiden) - 1) & 1);
+      widen_pieces(smem + s * kStage + kX, smem + kOffWB + b * kWB, t, 256, kConsumerPieces);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&wfull[b]);
+    };
+    widen_share(0);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int s = kc % kStages;
+      const int b = kc % kWiden;
+      const unsigned char* stage = smem + s * kStage;
+      const unsigned char* wb = smem + kOffWB + b * kWB;
+      sm90::mbar_wait(&wfull[b], (kc / kWiden) & 1);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < kBK / 16; ++k16) {
+        sm90::wgmma_ss_n256<1>(acc, sm90::desc128(stage + cw * 64 * 128 + k16 * 32, 16, 1024),
+                               sm90::desc128(wb + k16 * 16 * 128, kWPanel, 1024), 1);
+      }
+      sm90::wgmma_commit();
+      if (kc + 1 < nk) widen_share(kc + 1);
+      sm90::wgmma_wait<1>();  // chunk kc - 1's products are done
+      sm90::fence_regs(acc);
+      if (kc > 0 && lane == 0) {
+        sm90::mbar_arrive(&empty[(kc - 1) % kStages]);
+        sm90::mbar_arrive(&wempty[(kc - 1) % kWiden]);
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (lane == 0) sm90::mbar_arrive(&empty[(nk - 1) % kStages]);
+
+    // epilogue: u = acc * su; dg = dh u sig(g) (1 + g (1 - sig(g))),
+    // du = dh g sig(g), written over g and dh
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      sm90::mbar_wait(&full[(nk + i) % kStages], ((nk + i) / kStages) & 1);
+    }
+    sm90::mbar_wait(&su_full, 0);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int ct = 8 * j + 2 * quad;  // column within the tile
+      const float2 us2 = *reinterpret_cast<const float2*>(su_tile + ct);
+      const float us[2] = {us2.x, us2.y};
+      const uint32_t gbase = epi_offset(0, ct >> 6, nk);
+      const uint32_t dbase = epi_offset(1, ct >> 6, nk);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = static_cast<long long>(gmm::acc_row(m0, mi, 2 * r)) * N + col;
-        const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + at));
-        const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dh + at));
+        const int rt = cw * 64 + warp * 16 + (lane >> 2) + 8 * r;  // row within the tile
+        const uint32_t off = sm90::swz128(rt, (ct & 63) >> 3) + (ct & 7) * 2;
+        __nv_bfloat162* gp = reinterpret_cast<__nv_bfloat162*>(smem + gbase + off);
+        __nv_bfloat162* dp = reinterpret_cast<__nv_bfloat162*>(smem + dbase + off);
+        const float2 gv = __bfloat1622float2(*gp);
+        const float2 dv = __bfloat1622float2(*dp);
         const float gg[2] = {gv.x, gv.y};
         const float dd[2] = {dv.x, dv.y};
         float dgv[2], duv[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float u = acc[0][mi][ni][2 * r + c] * us[c];
-          const float sig = sigmoid(gg[c]);
+          const float u = acc[4 * j + 2 * r + c] * us[c];
+          const float sig = fast_sigmoid(gg[c]);
           dgv[c] = dd[c] * u * (sig * (1.f + gg[c] * (1.f - sig)));
           duv[c] = dd[c] * (gg[c] * sig);
         }
-        flash::store2(dg + at, dgv[0], dgv[1]);
-        flash::store2(du + at, duv[0], duv[1]);
+        *gp = __floats2bfloat162_rn(dgv[0], dgv[1]);
+        *dp = __floats2bfloat162_rn(duv[0], duv[1]);
       }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_sync(1, 256);
+    if (t == 0) {
+      for (int panel = 0; panel < 4 && n0 + 64 * panel < N; ++panel) {
+        sm90::tma_store_2d(tdg, smem + epi_offset(0, panel, nk), n0 + 64 * panel, m0);
+        sm90::tma_store_2d(tdu, smem + epi_offset(1, panel, nk), n0 + 64 * panel, m0);
+      }
+      sm90::tma_store_commit();
+      sm90::tma_store_wait_read();
     }
   }
 }
+
+// a row-major bf16 [rows, cols] matrix in boxes of 128 rows x 64 columns
+int rows_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
+  const uint32_t box[2] = {64, kBM};
+  return sm90::make_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+int launch(const void* x, const void* wu, const void* su, const void* offsets, const void* g,
+           const void* dh, void* dg, void* du, int M, int K, int N, int E, cudaStream_t stream) {
+  CUtensorMap tx, tw, tg, tdh, tdg, tdu;
+  if (int rc = rows_map(&tx, x, M, K)) return rc;
+  {  // the int8 bank [E, K, N] as {N, K, E}, raw 256 x 64 boxes
+    const uint64_t dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(E)};
+    const uint64_t strides[2] = {static_cast<uint64_t>(N),
+                                 static_cast<uint64_t>(K) * static_cast<uint64_t>(N)};
+    const uint32_t box[3] = {kBN, kBK, 1};
+    if (int rc = sm90::make_map<3>(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wu, dims, strides, box,
+                                   CU_TENSOR_MAP_SWIZZLE_NONE)) {
+      return rc;
+    }
+  }
+  if (int rc = rows_map(&tg, g, M, N)) return rc;
+  if (int rc = rows_map(&tdh, dh, M, N)) return rc;
+  if (int rc = rows_map(&tdg, dg, M, N)) return rc;
+  if (int rc = rows_map(&tdu, du, M, N)) return rc;
+  static int attr = sm90::set_smem(swiglu_bwd_kernel, kSmem);
+  if (attr != 0) return attr;
+  const dim3 grid(sm90::ceil_div(N, kBN), M / kBM);
+  swiglu_bwd_kernel<<<grid, kThreads, kSmem, stream>>>(
+      tx, tw, tg, tdh, tdg, tdu, static_cast<const float*>(su),
+      static_cast<const int*>(offsets), K, N, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace swb
 
 int check(int M, int K, int N, int E) {
   if (E <= 0 || K <= 0 || M % gmm::kBM || K % 16 || N % 16 || M / gmm::kBM > 65535) {
@@ -157,14 +432,6 @@ extern "C" int swiglu_bwd_launch(const void* x, const void* wu, const void* su,
                                  void* du, int M, int K, int N, int E, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (int rc = check(M, K, N, E)) return rc;
-  constexpr int kSmem = gmm::smem_bytes<kBNBwd, 1, false, int8_t>();
-  static int attr = flash::set_smem(swiglu_bwd_kernel, kSmem);
-  if (attr != 0) return attr;
-  const dim3 grid(flash::ceil_div(N, kBNBwd), M / gmm::kBM);
-  swiglu_bwd_kernel<<<grid, gmm::kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(wu),
-      static_cast<const float*>(su), static_cast<const int*>(offsets),
-      static_cast<const bf16*>(g), static_cast<const bf16*>(dh), static_cast<bf16*>(dg),
-      static_cast<bf16*>(du), K, N, E);
-  return static_cast<int>(cudaGetLastError());
+  return swb::launch(x, wu, su, offsets, g, dh, dg, du, M, K, N, E,
+                     static_cast<cudaStream_t>(stream));
 }

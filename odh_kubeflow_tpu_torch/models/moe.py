@@ -24,8 +24,8 @@ Three dispatches, as in JAX (``MoeConfig.dispatch``):
 ``forward`` trains; ``forward_with_cache`` serves (``models/generate.py``,
 ``models/serve.py``), dequantizing each layer whole, banks included, as
 JAX's does. The expert-parallel grouped path, the pipelined stack and
-``param_specs`` wait for slice 6 of the port (multi-device parallelism)
-and raise ``NotImplementedError`` naming it.
+``param_specs`` wait for the port's multi-device parallelism and raise
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -148,8 +148,8 @@ def init_params(seed: int, cfg: MoeConfig, dtype=torch.float32, *, device="cuda"
 
 def param_specs(cfg: MoeConfig):
     raise NotImplementedError(
-        "MoE param_specs (expert-sharded banks) arrive with slice 6 of the port "
-        "(multi-device parallelism)"
+        "MoE param_specs (expert-sharded banks) need multi-device parallelism, "
+        "which the port does not have yet"
     )
 
 

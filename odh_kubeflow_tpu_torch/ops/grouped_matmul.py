@@ -352,8 +352,10 @@ def swiglu_bwd(lhs, wu, su, g, dh, offsets):
     offs, E, k, n = _swiglu_checks(lhs, (wu,), (su,), offsets)
     m = lhs.shape[0]
     for name, t in (("g", g), ("dh", dh)):
-        if t.shape != (m, n) or t.dtype != lhs.dtype or not t.is_contiguous():
-            raise ValueError(f"swiglu_bwd: {name} must be contiguous {lhs.dtype} [{m}, {n}]")
+        if (t.shape != (m, n) or t.dtype != lhs.dtype or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"swiglu_bwd: {name} must be contiguous {lhs.dtype} [{m}, {n}] "
+                             "with a 16-byte aligned base (the kernel reads it by TMA)")
     dg = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     du = torch.empty_like(dg)
     lib = _library("swiglu_gmm")

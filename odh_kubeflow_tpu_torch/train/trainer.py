@@ -211,8 +211,8 @@ class Trainer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh arrives with slice 6 of the port (multi-device "
-                "parallelism over DeviceMesh/FSDP2); this trainer runs on one device"
+                "a mesh needs multi-device parallelism (DeviceMesh/FSDP2), which the "
+                "port does not have yet; this trainer runs on one device"
             )
         self.is_moe = isinstance(model_cfg, moe_lib.MoeConfig)
         if not (self.is_moe or isinstance(model_cfg, llama.LlamaConfig)):

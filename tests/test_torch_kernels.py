@@ -131,6 +131,9 @@ def _attn_inputs(B, Sq, Sk, Hq, Hkv, hd, seg, seed=0):
         (1, 130, 130, 4, 4, 128, False, 0, True),  # non-causal, segments, ragged
         (1, 128, 320, 4, 2, 128, True, 192, False),  # Sq != Sk, q_offset
         (1, 64, 128, 2, 1, 64, True, -80, False),  # rows with no live key
+        (1, 129, 129, 4, 2, 128, True, 0, False),  # one row past a 128-query tile
+        (1, 255, 255, 4, 2, 64, True, 0, False),  # one row short of two tiles
+        (1, 200, 392, 4, 2, 128, True, 192, False),  # Sq != Sk, q_offset, ragged tile
     ],
 )
 def test_flash_kernels_match_plain_on_card(B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, seg):
@@ -261,10 +264,13 @@ def test_gmm_kernel_matches_plain_on_card(routing, K, N, trans):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
-def test_swiglu_kernels_match_plain_on_card(routing):
+# (208, 96): K not a multiple of the 64-wide chunk, N ending inside the
+# second 64-column panel of the backward's 256-column tile; (1024, 400):
+# a last tile of 144 columns, whose last panel lies wholly past N
+@pytest.mark.parametrize("K,N", [(512, 640), (208, 96), (1024, 400)])
+def test_swiglu_kernels_match_plain_on_card(routing, K, N):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    K, N = 512, 640
     lhs, wg, sg = _grouped_inputs(K, N, seed=1)
     _, wu, su = _grouped_inputs(K, N, seed=2)
     offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
