@@ -43,12 +43,14 @@ Phases, one JSON line each on stdout:
    2048, F 8192, E 8) on four routings (balanced, one expert, two empty
    experts, a large tail), per 128-row tile, into NaN-filled buffers;
    two planted faults per kernel that the check must reject; times, bounds,
-   plain and ``torch._grouped_mm`` yardsticks.
+   plain and ``torch._grouped_mm`` yardsticks; the int8 trans ``gmm``'s
+   first pass (the lhs times its scale) also timed alone.
 10. ``moe_train``: the Mixtral-8x1B QLoRA step (int8 expert banks,
     dropless grouped dispatch, remat "attn" + ``pin_expert_acts``, LoRA
     r16 on wq/wk/wv/wo) through ``Trainer.benchmark`` at batch 2, seq 4096,
     with exact launches per step of all six kernels on its path.
-11. ``moe_train_profile``: one MoE step's device time by kernel kind.
+11. ``moe_train_profile``: one MoE step's device time by kernel kind
+    (the ``gmm`` product and its int8 trans prescale pass apart).
 12. ``moe_train_parity_on_card``: a 2-layer model at 8x1B width on a
     packed batch, kernels against plain versions.
 13. ``moe_kernels`` also holds the bf16-bank ``gmm`` (serving prefill M
@@ -1042,6 +1044,24 @@ def gmm_work(M, K, N, E, kind):
     return 2 * M * K * N, M * K * 2 + E * K * N + E * max(K, N) * 4 + M * N * 2
 
 
+def prescale(torch, gm, lhs, scale, offs):
+    """A launch of the int8 trans ``gmm``'s first pass alone (``lhs``
+    times its row's expert's scale, rounded to bf16), for its own time."""
+    lib = gm._library("gmm")
+    out = torch.empty_like(lhs)
+    M, K = lhs.shape
+    E = scale.shape[0]
+
+    def run(i):
+        rc = lib.gmm_prescale_launch(lhs.data_ptr(), scale.data_ptr(), offs.data_ptr(),
+                                     out.data_ptr(), M, K, E,
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"prescale launch failed: CUDA error {rc}")
+
+    return run
+
+
 def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
     """Each grouped kernel against its plain version at the Mixtral-8x1B
     training shapes (M 17,408 sorted rows, D 2048, F 8192, E 8), on four
@@ -1101,6 +1121,10 @@ def moe_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
                 row["library_ms"], row["library_note"] = library_ms(
                     torch, lambda i: torch._grouped_mm(lhs, rhs, offs=ends))
                 row["tflops_per_s"] = flops / row["ms"] / 1e9
+                if trans:  # the first pass inside "ms", alone: read x, write it scaled
+                    row["prescale_ms"] = time_ms(torch, prescale(torch, gm, lhs, s, offs),
+                                                 iters=10)
+                    row["prescale_bound_ms"] = (4 * M * K + 4 * E * K) / bw * 1e3
                 stats[name]["shapes"].append(row)
                 del qb, rhs
             del got, want
@@ -1309,7 +1333,8 @@ def moe_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
 
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name; first match)
     ("tgmm (tgmm.cu)", ("tgmm_kernel",)),
-    ("grouped gemm (gmm.cu)", ("gmm_kernel", "prescale_kernel")),
+    ("grouped gemm (gmm.cu)", ("gmm_kernel",)),
+    ("int8 trans prescale pass (gmm.cu)", ("prescale_kernel",)),
     ("swiglu fwd (swiglu_gmm.cu)", ("swiglu_fwd_kernel",)),
     ("swiglu bwd (swiglu_gmm.cu)", ("swiglu_bwd_kernel",)),
     ("flash (flash_fwd.cu, flash_bwd.cu)", ("flash_",)),

@@ -34,27 +34,23 @@
 // Design. The TPU's span pairs, masks, pad pairs and dummy row exist because
 // its grid runs in order on one core with a large VMEM. Here every group
 // start is 128-aligned and offsets[E] = M, so each 128-row tile belongs to
-// exactly one expert: a block takes one 128 x 128 output tile, finds its
-// expert from offsets, and loops over the whole K inside the block (the
-// in-block loop replaces kernel B's K grid axis). Every tile of every row is
-// written, the tail past the last real group with expert E-1's weights (the
-// caller scales it by w = 0: 0 * finite). Empty groups own no tile. The int8
-// bank is read at one byte a weight and widened in shared memory; a bf16
-// bank goes straight from its cp.async stage to ldmatrix; nothing is
-// dequantized in device memory. With an int8 bank and TRANS the scale
-// multiplies the lhs: a first pass writes bf16(lhs * bf16(scale[e])) once
-// per row (the rounding of the TPU kernels) into a buffer the caller
-// provides, which the GEMM then reads; done inside the GEMM it was redone by
-// every column block and cost 1.5x the product's time (PERF.md). wgmma, TMA
-// and a persistent grid are left to later work.
+// exactly one expert. gmm_kernel is grouped_sm90.cuh's persistent,
+// warp-specialised product (TMA ring, int8 widened in shared memory,
+// wgmma, setmaxnreg) with a 128 x BW output tile, BW 256 or 128 by the
+// shape (tile_width), and an epilogue that scales (int8, non-trans) and
+// stores bf16 pairs from registers. Every tile of every row is written, the
+// tail past the last real group with expert E-1's weights (the caller
+// scales it by w = 0: 0 * finite). Empty groups own no tile. With an int8
+// bank and TRANS the scale multiplies the lhs: a first pass writes
+// bf16(lhs * bf16(scale[e])) once per row (the rounding of the TPU
+// kernels) into a buffer the caller provides, which the product then reads;
+// done inside the product it would be redone by every column block.
 
-#include "gmm_common.cuh"
+#include "grouped_sm90.cuh"
 
 namespace {
 
-using gmm::bf16;
-
-constexpr int kBN = 128;
+using grouped::bf16;
 
 // scaled[r, k] = bf16(lhs[r, k] * bf16(scale[e(r), k])), 8 values a thread.
 // The product of two bf16 values is exact in f32, so the bf16x2 multiply's
@@ -68,7 +64,7 @@ __global__ void __launch_bounds__(256)
   if (i >= static_cast<long long>(M) * K) return;
   const int r = static_cast<int>(i / K);
   const int k = static_cast<int>(i % K);
-  const int e = gmm::tile_expert(offsets, E, r - r % gmm::kBM);
+  const int e = grouped::tile_expert(offsets, E, r - r % grouped::kBM);
   int4 raw = *reinterpret_cast<const int4*>(lhs + i);
   __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
   const float4* sp = reinterpret_cast<const float4*>(scale + static_cast<long long>(e) * K + k);
@@ -79,61 +75,89 @@ __global__ void __launch_bounds__(256)
   *reinterpret_cast<int4*>(scaled + i) = raw;
 }
 
-// W = int8_t: scale [E, 1, N] multiplies the accumulator (non-trans; with
-// TRANS the lhs was prescaled). W = bf16: no scale.
-template <bool TRANS, typename W>
-__global__ void __launch_bounds__(gmm::kThreads)
-    gmm_kernel(const bf16* __restrict__ lhs, const W* __restrict__ q,
-               const float* __restrict__ scale, const int* __restrict__ offsets,
-               bf16* __restrict__ out, int K, int N, int E) {
-  using T = gmm::Tiles<kBN, TRANS, W>;
-  constexpr bool kScaled = sizeof(W) == 1 && !TRANS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * gmm::kBM;
-  const int e = gmm::tile_expert(offsets, E, m0);
-  const long long bank = static_cast<long long>(K) * N;
-  const float* s = kScaled ? scale + static_cast<long long>(e) * N : nullptr;
-  const gmm::Operand<W> b[1] = {{q + e * bank}};
+// gmm_kernel's epilogue: out = acc (* scale[e, col], int8 non-trans) in
+// bf16, 16 bytes a store (quad_transpose), columns past N not stored.
+// Consumer thread t fetches the scale of the tile's column t (load) as
+// the tile starts.
+template <int BN, bool SCALED>
+struct GmmEpi {
+  bf16* out;
+  const float* scale;
 
-  float acc[1][4][T::kNT][4];
-  gmm::mainloop<kBN, 1, TRANS, W>(acc, smem, lhs, b, m0, n0, K, N);
+  __device__ __forceinline__ float load(int t, int n0, int e, int N) const {
+    if (!SCALED || t >= BN || n0 + t >= N) return 1.f;
+    return __ldg(scale + static_cast<long long>(e) * N + n0 + t);
+  }
 
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2], int m0, int n0, int e,
+                                             int N, float v, float* cols) const {
+    const grouped::Frag f = grouped::frag();
+    if (SCALED) grouped::share_cols(cols, v);
+    bf16* rows = out + static_cast<long long>(m0 + f.row0) * N;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+      uint32_t w[2][4];
 #pragma unroll
-    for (int ni = 0; ni < T::kNT; ++ni) {
-      const int col = gmm::acc_col<kBN>(n0, ni);
-      if (col >= N) continue;
-      const float s0 = kScaled ? __ldg(s + col) : 1.f;
-      const float s1 = kScaled ? __ldg(s + col + 1) : 1.f;
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        const float2 sc = SCALED ? *reinterpret_cast<const float2*>(cols + 8 * j + 2 * f.quad)
+                                 : make_float2(1.f, 1.f);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = gmm::acc_row(m0, mi, 2 * h);
-        flash::store2(out + static_cast<long long>(row) * N + col,
-                      acc[0][mi][ni][2 * h] * s0, acc[0][mi][ni][2 * h + 1] * s1);
+        for (int r = 0; r < 2; ++r) {
+          w[r][jj] = sm90::pack_bf16(acc[4 * j + 2 * r] * sc.x, acc[4 * j + 2 * r + 1] * sc.y);
+        }
+      }
+      const int col = n0 + 8 * (j0 + f.quad);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint4 v4 = grouped::quad_transpose(w[r]);
+        if (col < N) *reinterpret_cast<uint4*>(rows + static_cast<long long>(8 * r) * N + col) = v4;
       }
     }
   }
+};
+
+// W = int8_t: scale [E, 1, N] multiplies the accumulator (non-trans; with
+// TRANS the lhs was prescaled). W = bf16: no scale. BW: the output tile's
+// width, 256 or 128 (tile_width).
+template <int BW, bool TRANS, typename W>
+__global__ void __launch_bounds__(grouped::kThreads, 1)
+    gmm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+               const GmmEpi<BW, sizeof(W) == 1 && !TRANS> epi, const int* __restrict__ offsets,
+               grouped::Sched sched, int K, int N, int E) {
+  grouped::persistent_product<BW, TRANS, W, 1>(tx, tb, tb, epi, offsets, sched, K, N, E);
+}
+
+template <int BW, bool TRANS, typename W>
+int launch_width(const bf16* lhs, const W* q, const float* scale, const int* offsets, bf16* out,
+                 int M, int K, int N, int E, cudaStream_t stream) {
+  constexpr int kSmem = grouped::Cfg<BW, TRANS, W>::kSmem;
+  static int attr = sm90::set_smem(gmm_kernel<BW, TRANS, W>, kSmem);
+  if (attr != 0) return attr;
+  CUtensorMap tx, tb;
+  if (int rc = grouped::rows_map(&tx, lhs, M, K)) return rc;
+  if (int rc = grouped::bank_map<BW, BW, TRANS, W>(&tb, q, K, N, E)) return rc;
+  const GmmEpi<BW, sizeof(W) == 1 && !TRANS> epi{out, scale};
+  const grouped::Sched sched = grouped::schedule(M, N, BW);
+  gmm_kernel<BW, TRANS, W><<<grouped::launch_grid(sched), grouped::kThreads, kSmem, stream>>>(
+      tx, tb, epi, offsets, sched, K, N, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool TRANS, typename W>
 int launch_gemm(const bf16* lhs, const W* q, const float* scale, const int* offsets, bf16* out,
                 int M, int K, int N, int E, cudaStream_t stream) {
-  constexpr int kSmem = gmm::smem_bytes<kBN, 1, TRANS, W>();
-  static int attr = flash::set_smem(gmm_kernel<TRANS, W>, kSmem);
-  if (attr != 0) return attr;
-  const dim3 grid(flash::ceil_div(N, kBN), M / gmm::kBM);
-  gmm_kernel<TRANS, W><<<grid, gmm::kThreads, kSmem, stream>>>(lhs, q, scale, offsets, out, K,
-                                                               N, E);
-  return static_cast<int>(cudaGetLastError());
+  return grouped::tile_width(M, N, grouped::sm_count()) == 256
+             ? launch_width<256, TRANS, W>(lhs, q, scale, offsets, out, M, K, N, E, stream)
+             : launch_width<128, TRANS, W>(lhs, q, scale, offsets, out, M, K, N, E, stream);
 }
 
-int check(int M, int K, int N, int E) {
-  if (E <= 0 || K <= 0 || M % gmm::kBM || K % 16 || N % 16 || M / gmm::kBM > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
+int launch_prescale(const bf16* lhs, const float* scale, const int* offsets, bf16* scaled, int M,
+                    int K, int E, cudaStream_t stream) {
+  const long long vecs = static_cast<long long>(M) * K / 8;
+  prescale_kernel<<<static_cast<unsigned>((vecs + 255) / 256), 256, 0, stream>>>(
+      lhs, scale, offsets, scaled, M, K, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -148,7 +172,7 @@ extern "C" int gmm_launch(const void* lhs, const void* q, const void* scale, con
                           void* out, void* scaled, int M, int K, int N, int E, int trans,
                           void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (int rc = check(M, K, N, E)) return rc;
+  if (int rc = grouped::check_shape(M, K, N, E)) return rc;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const bf16*>(lhs);
   const auto* w = static_cast<const int8_t*>(q);
@@ -158,9 +182,7 @@ extern "C" int gmm_launch(const void* lhs, const void* q, const void* scale, con
   if (!trans) return launch_gemm<false>(l, w, s, o, y, M, K, N, E, st);
   auto* p = static_cast<bf16*>(scaled);
   if (p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const long long vecs = static_cast<long long>(M) * K / 8;
-  prescale_kernel<<<static_cast<unsigned>((vecs + 255) / 256), 256, 0, st>>>(l, s, o, p, M, K, E);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  if (int rc = launch_prescale(l, s, o, p, M, K, E, st)) return rc;
   return launch_gemm<true>(p, w, s, o, y, M, K, N, E, st);
 }
 
@@ -168,7 +190,7 @@ extern "C" int gmm_launch(const void* lhs, const void* q, const void* scale, con
 extern "C" int gmm_bf16_launch(const void* lhs, const void* w, const void* offsets, void* out,
                                int M, int K, int N, int E, int trans, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (int rc = check(M, K, N, E)) return rc;
+  if (int rc = grouped::check_shape(M, K, N, E)) return rc;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const bf16*>(lhs);
   const auto* b = static_cast<const bf16*>(w);
@@ -176,4 +198,25 @@ extern "C" int gmm_bf16_launch(const void* lhs, const void* w, const void* offse
   auto* y = static_cast<bf16*>(out);
   return trans ? launch_gemm<true>(l, b, nullptr, o, y, M, K, N, E, st)
                : launch_gemm<false>(l, b, nullptr, o, y, M, K, N, E, st);
+}
+
+// The schedule gmm_launch takes, for its Python mirror's test on the card:
+// the output tile width of an [M, N] result on `sms` SMs, and the
+// persistent tile order, (row tile, column tile) of tile t at out[2t..].
+extern "C" int gmm_tile_width(int M, int N, int sms) { return grouped::tile_width(M, N, sms); }
+
+extern "C" void gmm_tile_order(int m_tiles, int n_tiles, int* out) {
+  const grouped::Sched sched{m_tiles, n_tiles};
+  for (int t = 0; t < sched.count(); ++t) sched.coords(t, out[2 * t], out[2 * t + 1]);
+}
+
+// The first pass of an int8 trans launch alone, for its own time: scaled =
+// bf16(lhs * bf16(scale[e])), [M, K].
+extern "C" int gmm_prescale_launch(const void* lhs, const void* scale, const void* offsets,
+                                   void* scaled, int M, int K, int E, void* stream) {
+  if (M <= 0) return 0;
+  if (int rc = grouped::check_shape(M, K, 16, E)) return rc;
+  return launch_prescale(static_cast<const bf16*>(lhs), static_cast<const float*>(scale),
+                         static_cast<const int*>(offsets), static_cast<bf16*>(scaled), M, K, E,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd.cu, swiglu_gmm.cu's backward): TMA tensor maps and bulk tensor
-// copies, mbarriers, wgmma shared-memory descriptors and the wgmma products,
-// the async-proxy fence and register reallocation between warpgroups.
+// (flash_fwd.cu, swiglu_gmm.cu, and gmm.cu through grouped_sm90.cuh): TMA
+// tensor maps and bulk tensor copies, mbarriers, wgmma shared-memory
+// descriptors and the wgmma products, the async-proxy fence and register
+// reallocation between warpgroups.
 //
 // Shared-memory tiles that wgmma reads use the 128-byte swizzle: rows of
 // 64 bf16 (128 bytes) in atoms of 8 rows (1024 bytes, 1024-byte aligned),

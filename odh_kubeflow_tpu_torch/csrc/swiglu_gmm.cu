@@ -17,69 +17,110 @@
 // ms at 989 TFLOP/s, against 0.91 GB moved (0.27 ms at 3.35 TB/s); the
 // backward one product, 5.84e11 flops (0.59 ms), against 1.35 GB (0.40 ms).
 //
-// Design. Both kernels own one 128-row tile of one expert per block and run
-// the whole K in the block. The forward's main loop is gmm.cu's
-// (gmm_common.cuh: mma.sync over a cp.async ring, the int8 tiles widened in
-// shared memory); it carries two accumulators, gate and up, over a
-// 64-column tile so both stay in registers (64 f32 a thread); the epilogue
-// runs in f32 on the accumulators and writes h and g. The backward (namespace
-// swb below) is warp-specialised on wgmma, TMA and an mbarrier ring
-// (sm90_common.cuh); it carries one accumulator over a 256-column tile and
-// takes g and dh from shared memory in its epilogue. The two dlhs products
-// after the backward are gmm.cu launches.
+// Design. Both kernels are warp-specialised on wgmma, TMA and mbarrier
+// rings (sm90_common.cuh, grouped_sm90.cuh) and own 128-row tiles of one
+// expert each. The forward is grouped_sm90.cuh's persistent product with
+// one B of 256 columns, [gate 128 | up 128] of the same output columns: the
+// two raw int8 chunks load side by side into a stage and widen into one
+// 64 x 256 bf16 operand, so one wgmma m64n256k16 a k16 step gives each
+// consumer thread the gate and up sums of the same rows and columns
+// (accumulator pairs j and j + 16, 128 columns apart). Its epilogue runs in
+// f32 on the accumulators and writes h and g from registers; u never
+// reaches memory. The backward (namespace swb below) carries one
+// accumulator over a 256-column tile and takes g and dh from shared memory
+// in its epilogue. The two dlhs products after the backward are gmm.cu
+// launches.
 
-#include "gmm_common.cuh"
-#include "sm90_common.cuh"
+#include "grouped_sm90.cuh"
 
 namespace {
 
-using gmm::bf16;
-
-constexpr int kBNFwd = 64;
+using grouped::bf16;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void __launch_bounds__(gmm::kThreads)
-    swiglu_fwd_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wg,
-                      const int8_t* __restrict__ wu, const float* __restrict__ sg,
-                      const float* __restrict__ su, const int* __restrict__ offsets,
-                      bf16* __restrict__ h, bf16* __restrict__ g, int K, int N, int E) {
-  using T = gmm::Tiles<kBNFwd, false, int8_t>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * kBNFwd;
-  const int m0 = blockIdx.y * gmm::kBM;
-  const int e = gmm::tile_expert(offsets, E, m0);
-  const long long bank = static_cast<long long>(e) * K * N;
-  const gmm::Operand<int8_t> b[2] = {{wg + bank}, {wu + bank}};
-  const float* sge = sg + static_cast<long long>(e) * N;
-  const float* sue = su + static_cast<long long>(e) * N;
+// The forward's epilogue: g = acc_g sg, u = acc_u su, h = g sigmoid(g) u
+// in f32; h and g stored in bf16, 16 bytes a store (quad_transpose),
+// columns past N not stored. Consumer thread t fetches the gate (t < 128)
+// or up scale of the tile's column t % 128 (load) as the tile starts.
+struct SwigluFwdEpi {
+  static constexpr int kBN = 128;  // output columns of a tile
+  bf16* h;
+  bf16* g;
+  const float* sg;
+  const float* su;
 
-  float acc[2][4][T::kNT][4];
-  gmm::mainloop<kBNFwd, 2, false, int8_t>(acc, smem, x, b, m0, n0, K, N);
+  __device__ __forceinline__ float load(int t, int n0, int e, int N) const {
+    const int col = n0 + t % kBN;
+    if (col >= N) return 0.f;
+    return __ldg((t < kBN ? sg : su) + static_cast<long long>(e) * N + col);
+  }
 
+  __device__ __forceinline__ void operator()(const float (&acc)[2 * kBN / 2], int m0, int n0,
+                                             int e, int N, float v, float* cols) const {
+    constexpr int kPairs = kBN / 8;  // accumulator groups of the gate half
+    const grouped::Frag f = grouped::frag();
+    grouped::share_cols(cols, v);
+    const long long r0 = static_cast<long long>(m0 + f.row0) * N;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int j0 = 0; j0 < kPairs; j0 += 4) {
+      uint32_t hw[2][4], gw[2][4];
 #pragma unroll
-    for (int ni = 0; ni < T::kNT; ++ni) {
-      const int col = gmm::acc_col<kBNFwd>(n0, ni);
-      if (col >= N) continue;
-      const float gs[2] = {__ldg(sge + col), __ldg(sge + col + 1)};
-      const float us[2] = {__ldg(sue + col), __ldg(sue + col + 1)};
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        const float2 gs = *reinterpret_cast<const float2*>(cols + 8 * j + 2 * f.quad);
+        const float2 us = *reinterpret_cast<const float2*>(cols + kBN + 8 * j + 2 * f.quad);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float g0 = acc[4 * j + 2 * r] * gs.x, g1 = acc[4 * j + 2 * r + 1] * gs.y;
+          const float u0 = acc[4 * (j + kPairs) + 2 * r] * us.x;
+          const float u1 = acc[4 * (j + kPairs) + 2 * r + 1] * us.y;
+          hw[r][jj] = sm90::pack_bf16(g0 * sigmoid(g0) * u0, g1 * sigmoid(g1) * u1);
+          gw[r][jj] = sm90::pack_bf16(g0, g1);
+        }
+      }
+      const int col = n0 + 8 * (j0 + f.quad);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = static_cast<long long>(gmm::acc_row(m0, mi, 2 * r)) * N + col;
-        float gv[2], hv[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          gv[c] = acc[0][mi][ni][2 * r + c] * gs[c];
-          const float uv = acc[1][mi][ni][2 * r + c] * us[c];
-          hv[c] = gv[c] * sigmoid(gv[c]) * uv;
+        const uint4 hv = grouped::quad_transpose(hw[r]);
+        const uint4 gv = grouped::quad_transpose(gw[r]);
+        const long long at = r0 + static_cast<long long>(8 * r) * N + col;
+        if (col < N) {
+          *reinterpret_cast<uint4*>(h + at) = hv;
+          *reinterpret_cast<uint4*>(g + at) = gv;
         }
-        flash::store2(h + at, hv[0], hv[1]);
-        flash::store2(g + at, gv[0], gv[1]);
       }
     }
   }
+};
+
+__global__ void __launch_bounds__(grouped::kThreads, 1)
+    swiglu_fwd_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __grid_constant__ CUtensorMap tu, const SwigluFwdEpi epi,
+                      const int* __restrict__ offsets, grouped::Sched sched, int K, int N,
+                      int E) {
+  grouped::persistent_product<2 * SwigluFwdEpi::kBN, false, int8_t, 2>(tx, tg, tu, epi, offsets,
+                                                                         sched, K, N, E);
+}
+
+int swiglu_fwd(const void* x, const void* wg, const void* wu, const void* sg, const void* su,
+               const void* offsets, void* h, void* g, int M, int K, int N, int E,
+               cudaStream_t stream) {
+  constexpr int kBN = SwigluFwdEpi::kBN;
+  constexpr int kSmem = grouped::Cfg<2 * kBN, false, int8_t>::kSmem;
+  static int attr = sm90::set_smem(swiglu_fwd_kernel, kSmem);
+  if (attr != 0) return attr;
+  CUtensorMap tx, tg, tu;
+  if (int rc = grouped::rows_map(&tx, x, M, K)) return rc;
+  if (int rc = grouped::bank_map<2 * kBN, kBN, false, int8_t>(&tg, wg, K, N, E)) return rc;
+  if (int rc = grouped::bank_map<2 * kBN, kBN, false, int8_t>(&tu, wu, K, N, E)) return rc;
+  const SwigluFwdEpi epi{static_cast<bf16*>(h), static_cast<bf16*>(g),
+                         static_cast<const float*>(sg), static_cast<const float*>(su)};
+  const grouped::Sched sched = grouped::schedule(M, N, kBN);
+  swiglu_fwd_kernel<<<grouped::launch_grid(sched), grouped::kThreads, kSmem, stream>>>(
+      tx, tg, tu, epi, static_cast<const int*>(offsets), sched, K, N, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward on Hopper's own machinery (sm90_common.cuh). One block owns
@@ -136,41 +177,6 @@ __device__ __forceinline__ uint32_t epi_offset(int t, int panel, int nk) {
   return ((nk + box / 2) % kStages) * kStage + (box % 2) * kEpiPanel;
 }
 
-// four int8 (one word) to two bf16x2 words, exactly: each byte, biased to
-// unsigned, becomes the low mantissa byte of 2^23; subtracting 2^23 + 128
-// leaves the value, whose upper 16 bits are its bf16
-__device__ __forceinline__ void widen4(uint32_t q, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = q ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-  }
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
-// Widen pieces first, first + step, ... below end of one raw int8 chunk
-// (64 rows x 256 bytes; piece i is row i / 16, columns 16 (i % 16) ..) into
-// the chunk's four swizzled bf16 panels.
-__device__ __forceinline__ void widen_pieces(const unsigned char* raw, unsigned char* wb,
-                                             int first, int step, int end) {
-  for (int i = first; i < end; i += step) {
-    const int r = i >> 4;  // bank row (k) of the chunk
-    const int c = i & 15;  // columns 16c..16c+15
-    const uint4 q = *reinterpret_cast<const uint4*>(raw + i * 16);
-    uint4 w0, w1;
-    widen4(q.x, w0.x, w0.y);
-    widen4(q.y, w0.z, w0.w);
-    widen4(q.z, w1.x, w1.y);
-    widen4(q.w, w1.z, w1.w);
-    unsigned char* panel = wb + (c >> 2) * kWPanel;
-    const int ch = (c & 3) * 2;
-    *reinterpret_cast<uint4*>(panel + sm90::swz128(r, ch)) = w0;
-    *reinterpret_cast<uint4*>(panel + sm90::swz128(r, ch + 1)) = w1;
-  }
-}
-
 __device__ __forceinline__ float fast_sigmoid(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
@@ -191,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * kBM;
-  const int e = gmm::tile_expert(offsets, E, m0);
+  const int e = grouped::tile_expert(offsets, E, m0);
   const int nk = sm90::ceil_div(K, kBK);
 
   if (threadIdx.x == 0) {
@@ -255,7 +261,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         unsigned char* wb = smem + kOffWB + b * kWB;
         sm90::mbar_wait(&full[s], (kc / kStages) & 1);
         if (kc >= kWiden) sm90::mbar_wait(&wempty[b], ((kc / kWiden) - 1) & 1);
-        widen_pieces(raw, wb, kConsumerPieces + wt, kWidenThreads, kPieces);
+        grouped::widen_strided<kBN, false, 1>(raw, wb, kConsumerPieces + wt, kWidenThreads,
+                                              kPieces);
         sm90::fence_proxy_async();
         sm90::mbar_arrive(&wfull[b]);
         __syncwarp();
@@ -280,7 +287,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = c % kWiden;
       sm90::mbar_wait(&full[s], (c / kStages) & 1);
       if (c >= kWiden) sm90::mbar_wait(&wempty[b], ((c / kWiden) - 1) & 1);
-      widen_pieces(smem + s * kStage + kX, smem + kOffWB + b * kWB, t, 256, kConsumerPieces);
+      grouped::widen_strided<kBN, false, 1>(smem + s * kStage + kX, smem + kOffWB + b * kWB, t,
+                                            256, kConsumerPieces);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&wfull[b]);
     };
@@ -360,19 +368,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// a row-major bf16 [rows, cols] matrix in boxes of 128 rows x 64 columns
-int rows_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
-  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
-  const uint32_t box[2] = {64, kBM};
-  return sm90::make_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 int launch(const void* x, const void* wu, const void* su, const void* offsets, const void* g,
            const void* dh, void* dg, void* du, int M, int K, int N, int E, cudaStream_t stream) {
   CUtensorMap tx, tw, tg, tdh, tdg, tdu;
-  if (int rc = rows_map(&tx, x, M, K)) return rc;
+  if (int rc = grouped::rows_map(&tx, x, M, K)) return rc;
   {  // the int8 bank [E, K, N] as {N, K, E}, raw 256 x 64 boxes
     const uint64_t dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
                               static_cast<uint64_t>(E)};
@@ -384,10 +383,10 @@ int launch(const void* x, const void* wu, const void* su, const void* offsets, c
       return rc;
     }
   }
-  if (int rc = rows_map(&tg, g, M, N)) return rc;
-  if (int rc = rows_map(&tdh, dh, M, N)) return rc;
-  if (int rc = rows_map(&tdg, dg, M, N)) return rc;
-  if (int rc = rows_map(&tdu, du, M, N)) return rc;
+  if (int rc = grouped::rows_map(&tg, g, M, N)) return rc;
+  if (int rc = grouped::rows_map(&tdh, dh, M, N)) return rc;
+  if (int rc = grouped::rows_map(&tdg, dg, M, N)) return rc;
+  if (int rc = grouped::rows_map(&tdu, du, M, N)) return rc;
   static int attr = sm90::set_smem(swiglu_bwd_kernel, kSmem);
   if (attr != 0) return attr;
   const dim3 grid(sm90::ceil_div(N, kBN), M / kBM);
@@ -399,13 +398,6 @@ int launch(const void* x, const void* wu, const void* su, const void* offsets, c
 
 }  // namespace swb
 
-int check(int M, int K, int N, int E) {
-  if (E <= 0 || K <= 0 || M % gmm::kBM || K % 16 || N % 16 || M / gmm::kBM > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
-}
-
 }  // namespace
 
 // Both return a CUDA error code (0 on success). The caller has checked
@@ -414,24 +406,16 @@ extern "C" int swiglu_fwd_launch(const void* x, const void* wg, const void* wu, 
                                  const void* su, const void* offsets, void* h, void* g, int M,
                                  int K, int N, int E, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (int rc = check(M, K, N, E)) return rc;
-  constexpr int kSmem = gmm::smem_bytes<kBNFwd, 2, false, int8_t>();
-  static int attr = flash::set_smem(swiglu_fwd_kernel, kSmem);
-  if (attr != 0) return attr;
-  const dim3 grid(flash::ceil_div(N, kBNFwd), M / gmm::kBM);
-  swiglu_fwd_kernel<<<grid, gmm::kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(wg),
-      static_cast<const int8_t*>(wu), static_cast<const float*>(sg),
-      static_cast<const float*>(su), static_cast<const int*>(offsets), static_cast<bf16*>(h),
-      static_cast<bf16*>(g), K, N, E);
-  return static_cast<int>(cudaGetLastError());
+  if (int rc = grouped::check_shape(M, K, N, E)) return rc;
+  return swiglu_fwd(x, wg, wu, sg, su, offsets, h, g, M, K, N, E,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int swiglu_bwd_launch(const void* x, const void* wu, const void* su,
                                  const void* offsets, const void* g, const void* dh, void* dg,
                                  void* du, int M, int K, int N, int E, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (int rc = check(M, K, N, E)) return rc;
+  if (int rc = grouped::check_shape(M, K, N, E)) return rc;
   return swb::launch(x, wu, su, offsets, g, dh, dg, du, M, K, N, E,
                      static_cast<cudaStream_t>(stream));
 }

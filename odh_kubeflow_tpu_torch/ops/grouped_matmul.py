@@ -13,7 +13,8 @@ and a launch counter:
 
 - ``gmm`` → ``csrc/gmm.cu`` (``_gmm_a_kernel``, ``_gmm_a_kernel_q`` and
   ``_gmm_b_kernel``): a bf16 bank, or an int8 bank with its per-channel
-  scale ``[E, 1, bank-last-axis]``;
+  scale ``[E, 1, bank-last-axis]``; a persistent grid whose tile width and
+  order ``gmm_tile_width`` and ``tile_order`` mirror;
 - ``tgmm`` → ``csrc/tgmm.cu`` (``_tgmm_kernel``): the per-expert weight
   gradient ``lhs[rows_e]ᵀ · dout[rows_e]`` of a float bank;
 - ``swiglu_fwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_fwd_kernel``):
@@ -78,6 +79,14 @@ def _library(name: str) -> ctypes.CDLL:
         # lhs w offsets out | M K N E trans | stream
         lib.gmm_bf16_launch.argtypes = [P] * 4 + [I] * 5 + [P]
         lib.gmm_bf16_launch.restype = I
+        # the schedule, for the mirrors' test on the card
+        lib.gmm_tile_width.argtypes = [I] * 3
+        lib.gmm_tile_width.restype = I
+        lib.gmm_tile_order.argtypes = [I, I, P]
+        lib.gmm_tile_order.restype = None
+        # lhs scale offsets scaled | M K E | stream: an int8 trans launch's first pass
+        lib.gmm_prescale_launch.argtypes = [P] * 4 + [I] * 3 + [P]
+        lib.gmm_prescale_launch.restype = I
     elif name == "tgmm":
         # lhs dout offsets out | M K N E | stream
         lib.tgmm_launch.argtypes = [P] * 4 + [I] * 4 + [P]
@@ -91,6 +100,33 @@ def _library(name: str) -> ctypes.CDLL:
         lib.swiglu_bwd_launch.restype = I
     _argtypes_set.add(name)
     return lib
+
+
+# The persistent kernels' schedule (csrc/grouped_sm90.cuh), mirrored so the
+# CPU tests hold it; a card test compares these with the library's own.
+# Row tiles walked together before the next column block (kGroupM).
+TILE_GROUP_M = 8
+
+
+def gmm_tile_width(m: int, n: int, sms: int) -> int:
+    """``gmm``'s output tile width for an ``[m, n]`` result on ``sms`` SMs
+    (``tile_width``): 256 columns, unless those tiles would fill fewer
+    than three waves of the card; then 128."""
+    return 128 if (m // ALIGN) * -(-n // 256) < 3 * sms else 256
+
+
+def tile_order(m_tiles: int, n_tiles: int) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each linear tile index in the order the
+    persistent blocks take them (``Sched::coords``): groups of
+    ``TILE_GROUP_M`` row tiles, row tile fastest, one column block after
+    the other. Block b of a grid of G takes tiles b, b + G, ..."""
+    order = []
+    for t in range(m_tiles * n_tiles):
+        group, within = divmod(t, TILE_GROUP_M * n_tiles)
+        first = group * TILE_GROUP_M
+        rows = min(m_tiles - first, TILE_GROUP_M)
+        order.append((first + within % rows, within // rows))
+    return order
 
 
 def group_of_tile(m: int, offsets: torch.Tensor) -> torch.Tensor:

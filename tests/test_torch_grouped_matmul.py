@@ -287,3 +287,93 @@ def test_tile_check_passes_bf16_rounding_and_rejects_planted_faults():
     short = gm.gmm_reference(skipped, q["q"], offs, False, q["scale"])
     for bad in (wrong, short):
         assert gm.tile_rel_err(bad, want) > 4 * gm.TILE_RTOL
+
+
+# The persistent kernels' schedule (csrc/grouped_sm90.cuh) through its
+# mirrors: the main path's shapes (the Mixtral-8x1B training step, M
+# 17,408, and the serving prefill, M 3,072; D 2048, F 8192, E 8) on an
+# H100's 132 SMs, and the routings chip_smoke.py holds the kernels on.
+H100_SMS = 132
+SCHEDULE_SHAPES = {  # (M, N, output tile width or None for gmm's own choice)
+    "train_n2048": (17_408, 2048, None),
+    "train_n8192": (17_408, 8192, None),
+    "prefill_n2048": (3072, 2048, None),
+    "prefill_n8192": (3072, 8192, None),
+    "swiglu_fwd_train": (17_408, 8192, 128),
+    "swiglu_fwd_small": (1024, 272, 128),
+}
+
+
+def _routing_counts(m, name):
+    """Rows an expert (8 experts) for one of chip_smoke.py's routings."""
+    per = m // 8 - 128
+    return {
+        "balanced": [per] * 8,
+        "one_expert": [0, 0, 0, m, 0, 0, 0, 0],
+        "two_empty": [per + 90, 0, per + 40, per, per - 110, 0, per + 60, per],
+        "large_tail": [c * m // 17_408 for c in (1000, 900, 1100, 800, 1000, 1050, 950, 700)],
+    }[name]
+
+
+def _offsets(m, counts):
+    starts, s = [], 0
+    for c in counts:
+        starts.append(s)
+        s += -(-c // gm.ALIGN) * gm.ALIGN
+    assert s <= m
+    return torch.tensor(starts + [m], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("routing", ["balanced", "one_expert", "two_empty", "large_tail"])
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+def test_persistent_schedule_writes_every_tile_once(shape, routing):
+    """Every (row tile, column tile) pair is taken exactly once, by one
+    block of a grid of min(tiles, SMs), the blocks' shares within one tile
+    of each other; so every 128-row tile of every column block is written,
+    each by its own expert (the tail past the last group by expert E-1)."""
+    m, n, width = SCHEDULE_SHAPES[shape]
+    width = width or gm.gmm_tile_width(m, n, H100_SMS)
+    m_tiles, n_tiles = m // gm.ALIGN, -(-n // width)
+    order = gm.tile_order(m_tiles, n_tiles)
+    assert sorted(order) == [(i, j) for i in range(m_tiles) for j in range(n_tiles)]
+    grid = min(len(order), H100_SMS)
+    shares = [len(order[b::grid]) for b in range(grid)]
+    assert max(shares) - min(shares) <= 1 and sum(shares) == len(order)
+    offs = _offsets(m, _routing_counts(m, routing))
+    experts = gm.group_of_tile(m, offs).tolist()
+    seen = {}
+    for mt, nt in order:
+        seen.setdefault(nt, []).append(experts[mt])
+    for nt, es in seen.items():  # each column block: every row tile, its expert
+        assert sorted(es) == sorted(experts)
+    last = next(e for e in range(8) if offs[e + 1] == m)
+    assert experts[-1] == last and all(
+        offs[e] <= mt * gm.ALIGN < (offs[e + 1] if e < last else m)
+        for mt, e in enumerate(experts))
+
+
+def test_gmm_tile_width_follows_the_waves_of_the_card():
+    """256-wide tiles at the training shapes; 128 where 256-wide tiles
+    would fill fewer than three waves of 132 SMs (the prefill's down
+    projection: 192 tiles; the card tests' small shapes)."""
+    assert gm.gmm_tile_width(17_408, 2048, H100_SMS) == 256
+    assert gm.gmm_tile_width(17_408, 8192, H100_SMS) == 256
+    assert gm.gmm_tile_width(3072, 8192, H100_SMS) == 256  # 768 tiles
+    assert gm.gmm_tile_width(3072, 2048, H100_SMS) == 128  # 192 tiles
+    assert gm.gmm_tile_width(1024, 512, H100_SMS) == 128
+    for m in range(128, 20_000, 1280):
+        for n in (16, 272, 2048, 8192, 13_072):
+            tiles256 = (m // 128) * -(-n // 256)
+            assert gm.gmm_tile_width(m, n, H100_SMS) == (256 if tiles256 >= 3 * H100_SMS else 128)
+
+
+def test_tile_order_walks_row_groups_column_by_column():
+    """Within a group of ``TILE_GROUP_M`` row tiles the row tile moves
+    fastest, so concurrent blocks share a column block of the bank and a
+    group's rows of x; the last group may be short."""
+    order = gm.tile_order(10, 3)
+    g = gm.TILE_GROUP_M
+    assert order[:g] == [(i, 0) for i in range(g)]
+    assert order[g : 2 * g] == [(i, 1) for i in range(g)]
+    assert order[3 * g : 3 * g + 2] == [(g, 0), (g + 1, 0)]
+    assert order[-1] == (9, 2)

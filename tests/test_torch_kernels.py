@@ -232,6 +232,23 @@ def _grouped_inputs(K, N, trans=False, seed=0, E=4, M=1024):
     return lhs, q, scale
 
 
+def _grouped_offsets(routing, M):
+    """A routing of ``GROUPED_OFFSETS`` (written for 1,024 rows) scaled to
+    M rows, each group start rounded down to 128."""
+    offs = [o * M // 1024 // 128 * 128 for o in GROUPED_OFFSETS[routing][:-1]] + [M]
+    return torch.tensor(offs, dtype=torch.int32, device="cuda")
+
+
+# gmm's edges in the persistent design (K, N, trans, M): N 272 ends 16
+# columns into a last 128- or 256-wide tile; K 48 is less than one 64-wide
+# chunk; M 256 gives fewer tiles than SMs; N 13,072 at M 1024 is enough
+# tiles for the 256-wide width (gm.gmm_tile_width), with a last tile of 16
+# columns.
+GMM_EDGES = [(1024, 272, False, 1024), (1024, 272, True, 1024), (48, 512, False, 1024),
+             (48, 512, True, 1024), (2048, 512, False, 256), (1024, 384, True, 256),
+             (256, 13_072, False, 1024), (256, 13_072, True, 1024)]
+
+
 def _poison(*shape):
     """Leave NaN in the caching allocator's next block of this size: an
     output row a kernel does not write then shows as NaN."""
@@ -247,13 +264,14 @@ def _tiles_close(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
-@pytest.mark.parametrize("K,N,trans", [(2048, 512, False), (1024, 384, True), (4096, 256, True),
-                                       (208, 96, False)])
-def test_gmm_kernel_matches_plain_on_card(routing, K, N, trans):
+@pytest.mark.parametrize("K,N,trans,M", [(2048, 512, False, 1024), (1024, 384, True, 1024),
+                                         (4096, 256, True, 1024), (208, 96, False, 1024),
+                                         *GMM_EDGES])
+def test_gmm_kernel_matches_plain_on_card(routing, K, N, trans, M):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    lhs, q, scale = _grouped_inputs(K, N, trans)
-    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    lhs, q, scale = _grouped_inputs(K, N, trans, M=M)
+    offs = _grouped_offsets(routing, M)
     before = gm.gmm_launches
     _poison(lhs.shape[0], N)
     got = gm.gmm(lhs, q, offs, trans, scale)
@@ -266,14 +284,17 @@ def test_gmm_kernel_matches_plain_on_card(routing, K, N, trans):
 @pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
 # (208, 96): K not a multiple of the 64-wide chunk, N ending inside the
 # second 64-column panel of the backward's 256-column tile; (1024, 400):
-# a last tile of 144 columns, whose last panel lies wholly past N
-@pytest.mark.parametrize("K,N", [(512, 640), (208, 96), (1024, 400)])
-def test_swiglu_kernels_match_plain_on_card(routing, K, N):
+# a last tile of 144 columns, whose last panel lies wholly past N; (48,
+# 272): K below one chunk, N 16 columns into the forward's third 128-wide
+# tile; M 256: fewer tiles than SMs
+@pytest.mark.parametrize("K,N,M", [(512, 640, 1024), (208, 96, 1024), (1024, 400, 1024),
+                                   (48, 272, 1024), (512, 640, 256)])
+def test_swiglu_kernels_match_plain_on_card(routing, K, N, M):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    lhs, wg, sg = _grouped_inputs(K, N, seed=1)
-    _, wu, su = _grouped_inputs(K, N, seed=2)
-    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    lhs, wg, sg = _grouped_inputs(K, N, seed=1, M=M)
+    _, wu, su = _grouped_inputs(K, N, seed=2, M=M)
+    offs = _grouped_offsets(routing, M)
     before = (gm.swiglu_fwd_launches, gm.swiglu_bwd_launches)
     _poison(lhs.shape[0], N)
     h, g = gm.swiglu_fwd(lhs, wg, wu, sg, su, offs)
@@ -325,22 +346,47 @@ def test_expert_ffn_autograd_on_card(keep_g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
-@pytest.mark.parametrize("K,N,trans", [(2048, 512, False), (1024, 384, True), (8192, 256, True),
-                                       (208, 96, False)])
-def test_gmm_bf16_bank_kernel_matches_plain_on_card(routing, K, N, trans):
+@pytest.mark.parametrize("K,N,trans,M", [(2048, 512, False, 1024), (1024, 384, True, 1024),
+                                         (8192, 256, True, 1024), (208, 96, False, 1024),
+                                         *GMM_EDGES,
+                                         # the serving prefill's two shapes (M 3,072): 128-
+                                         # and 256-wide tiles
+                                         (8192, 2048, False, 3072), (2048, 8192, False, 3072)])
+def test_gmm_bf16_bank_kernel_matches_plain_on_card(routing, K, N, trans, M):
     """The bf16-bank form (``_gmm_a_kernel`` and the unscaled
     ``_gmm_b_kernel``): no scale, either orientation, every row written."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    lhs, q, _ = _grouped_inputs(K, N, trans)
+    lhs, q, _ = _grouped_inputs(K, N, trans, M=M)
     w = (q.float() * 0.01).bfloat16()
-    offs = torch.tensor(GROUPED_OFFSETS[routing], dtype=torch.int32, device="cuda")
+    offs = _grouped_offsets(routing, M)
     before, by_k = gm.gmm_launches, gm.gmm_launches_by_k.get(("bf16", K), 0)
     _poison(lhs.shape[0], N)
     got = gm.gmm(lhs, w, offs, trans)
     torch.cuda.synchronize()
     assert gm.gmm_launches == before + 1 and gm.gmm_launches_by_k[("bf16", K)] == by_k + 1
     _tiles_close(got, gm.gmm_reference(lhs, w, offs, trans))
+
+
+@pytest.mark.gpu
+def test_gmm_schedule_matches_its_python_mirror_on_card():
+    """The tile width and persistent tile order ``csrc/gmm.cu`` takes are
+    the ones ``gmm_tile_width`` and ``tile_order`` mirror (and the CPU
+    tests hold), on this card's SM count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import ctypes
+
+    lib = gm._library("gmm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, n in ((17_408, 2048), (17_408, 8192), (3072, 2048), (3072, 8192), (1024, 272)):
+        assert lib.gmm_tile_width(m, n, sms) == gm.gmm_tile_width(m, n, sms)
+        width = gm.gmm_tile_width(m, n, sms)
+        m_tiles, n_tiles = m // 128, -(-n // width)
+        out = (ctypes.c_int * (2 * m_tiles * n_tiles))()
+        lib.gmm_tile_order(m_tiles, n_tiles, out)
+        got = [(out[2 * t], out[2 * t + 1]) for t in range(m_tiles * n_tiles)]
+        assert got == gm.tile_order(m_tiles, n_tiles)
 
 
 def _tgmm_close(got, want):

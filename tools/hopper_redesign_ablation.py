@@ -1,32 +1,41 @@
 #!/usr/bin/env python3
-"""Where the time of the two Hopper-redesigned kernels goes, on one NVIDIA
-GPU: the flash-attention forward (``csrc/flash_fwd.cu``) and the fused
-SwiGLU backward (``csrc/swiglu_gmm.cu``).
+"""Where the time of the Hopper-redesigned kernels goes, on one NVIDIA GPU:
+the flash-attention forward (``csrc/flash_fwd.cu``), the fused SwiGLU
+forward and backward (``csrc/swiglu_gmm.cu``) and the grouped matmul in
+its four instances (``csrc/gmm.cu``; the last two and the forward share
+``csrc/grouped_sm90.cuh``).
 
-    python3 tools/hopper_redesign_ablation.py [--parent DIR]
+    python3 tools/hopper_redesign_ablation.py [--parent DIR] [--only NAME ...]
 
 Builds edited copies of each source side by side under
 ``build/hopper_ablation/`` and times each by CUDA events at the main
 paths' shapes: flash at the Llama-3-8B (hd 128) and Mixtral-8x1B (hd 64)
-training shapes (B 2, S 4096, 32/8 heads, causal), the SwiGLU backward at
-the Mixtral-8x1B one (M 17,408, K 2048, N 8192, E 8, balanced routing).
+training shapes (B 2, S 4096, 32/8 heads, causal); the SwiGLU kernels at
+the Mixtral-8x1B one (M 17,408, K 2048, N 8192, E 8, balanced routing);
+``gmm`` at the Mixtral-8x1B QLoRA step's int8 shapes, the full
+fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072).
 
 - ``as_built``: the kernel as committed (its tile error against the plain
   version is printed);
 - flash ``no_pingpong``: the two consumer warpgroups issue their products
   without taking turns; ``no_softmax``: the online softmax skipped (P is
   the raw scores); ``no_pv``: the P.V product skipped;
-- SwiGLU ``no_widen``: the int8-to-bf16 pass skipped (the tensor cores
-  read stale shared memory); ``no_epilogue``: the dsilu arithmetic
-  skipped (g and dh are loaded and stored back unchanged); ``no_wgmma``:
-  the product skipped;
-- ``mma_sync``: with ``--parent DIR``, the same kernel from a checkout of
-  the commit before the redesign (its ``mma.sync`` + ``cp.async`` design),
-  timed in turns with ``as_built`` on the same card.
+- grouped kernels ``no_widen``: the int8-to-bf16 pass skipped (the tensor
+  cores read stale shared memory); ``no_epilogue``: the epilogue's
+  arithmetic and stores skipped (the SwiGLU backward still loads g and dh
+  and stores them back unchanged); ``no_wgmma``: the product skipped;
+- persistent grid (``gmm``, SwiGLU forward): ``n_raster`` walks the
+  column blocks of one row tile before the next row tile (groups of one
+  row tile), ``m_raster`` every row tile of a column block before the
+  next; ``bn128`` and ``bn256`` (``gmm``) force the output tile width;
+- ``parent``: with ``--parent DIR``, the same kernel from another checkout
+  (e.g. the commit before a redesign), timed in turns with ``as_built``
+  on the same card (parent, as_built, ..., as_built, parent).
 
-Only ``as_built`` and ``mma_sync`` compute the function; the others are
-timings of broken copies, never loaded by the port. Prints the ptxas
-report of every copy, one JSON line per shape, then the card.
+Only ``as_built``, the width and order copies, and ``parent`` compute
+the function; the others are timings of broken copies, never loaded by the
+port. Prints the ptxas report of every copy, one JSON line per shape,
+then the card.
 """
 
 from __future__ import annotations
@@ -43,60 +52,105 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-FLASH_EDITS = {
-    "no_pingpong": (
-        ("auto my_turn = [&] { sm90::named_sync(2 + cw, 256); };", "auto my_turn = [&] {};"),
-        ("if (cw == 0 || j + 1 < n_tiles) sm90::named_arrive(3 - cw, 256);", "(void)j;"),
-        ("if (cw == 1) sm90::named_arrive(2, 256);", ""),
-    ),
-    "no_softmax": (("softmax(sc, m, l, alpha, p.scale_log2);", "alpha[0] = alpha[1] = 1.f;"),),
-    "no_pv": (("issue_pv<HD>(o, pa, sV(sp));", "sm90::wgmma_commit();"),
-              ("issue_pv<HD>(o, pa, sV(sl));", "sm90::wgmma_commit();")),
-}
-SWIGLU_EDITS = {
-    "no_widen": (("for (int i = first; i < end; i += step) {",
-                  "for (int i = first; i < 0; i += step) {"),),
-    "no_epilogue": (("for (int j = 0; j < kBN / 8; ++j) {", "for (int j = 0; j < 0; ++j) {"),),
-    "no_wgmma": (("for (int k16 = 0; k16 < kBK / 16; ++k16) {", "for (int k16 = 0; k16 < 0; ++k16) {"),),
-}
-SOURCES = {"flash_fwd": FLASH_EDITS, "swiglu_gmm": SWIGLU_EDITS}
+HEADER = "grouped_sm90.cuh"
+NO_WIDEN = (HEADER, "for (int i = first; i < end; i += step)",
+            "for (int i = first; i < 0; i += step)")
+NO_WGMMA = (HEADER, "for (int k16 = 0; k16 < kBK / 16; ++k16) {",
+            "for (int k16 = 0; k16 < 0; ++k16) {")
+N_RASTER = (HEADER, "constexpr int kGroupM = 8;", "constexpr int kGroupM = 1;")
+M_RASTER = (HEADER, "constexpr int kGroupM = 8;", "constexpr int kGroupM = 1 << 20;")
+WIDTH = "return tiles256 < 3LL * sms ? 128 : 256;"
 
 
-def variants(src: str, edits: dict) -> dict[str, str]:
-    out = {"as_built": src}
-    for name, pairs in edits.items():
-        text = src
-        for old, new in pairs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the kernel source no longer holds {old!r}")
-            text = text.replace(old, new)
-        out[name] = text
+# {source: {variant: ((file, old, new), ...)}}; every occurrence of old in
+# its file is replaced, and there must be one
+SOURCES = {
+    "flash_fwd": {
+        "no_pingpong": (
+            ("flash_fwd.cu", "auto my_turn = [&] { sm90::named_sync(2 + cw, 256); };",
+             "auto my_turn = [&] {};"),
+            ("flash_fwd.cu", "if (cw == 0 || j + 1 < n_tiles) sm90::named_arrive(3 - cw, 256);",
+             "(void)j;"),
+            ("flash_fwd.cu", "if (cw == 1) sm90::named_arrive(2, 256);", ""),
+        ),
+        "no_softmax": (("flash_fwd.cu", "softmax(sc, m, l, alpha, p.scale_log2);",
+                        "alpha[0] = alpha[1] = 1.f;"),),
+        "no_pv": (("flash_fwd.cu", "issue_pv<HD>(o, pa, sV(sp));", "sm90::wgmma_commit();"),
+                  ("flash_fwd.cu", "issue_pv<HD>(o, pa, sV(sl));", "sm90::wgmma_commit();")),
+    },
+    "swiglu_gmm": {
+        "no_widen": (NO_WIDEN,),
+        "fwd_no_epilogue": (("swiglu_gmm.cu", "for (int j0 = 0; j0 < kPairs; j0 += 4) {",
+                             "for (int j0 = 0; j0 < 0; j0 += 4) {"),),
+        "fwd_no_wgmma": (NO_WGMMA,),
+        "fwd_n_raster": (N_RASTER,),
+        "fwd_m_raster": (M_RASTER,),
+        "bwd_no_epilogue": (("swiglu_gmm.cu", "for (int j = 0; j < kBN / 8; ++j) {",
+                             "for (int j = 0; j < 0; ++j) {"),),
+        "bwd_no_wgmma": (("swiglu_gmm.cu", "for (int k16 = 0; k16 < kBK / 16; ++k16) {",
+                          "for (int k16 = 0; k16 < 0; ++k16) {"),),
+    },
+    "gmm": {
+        "no_widen": (NO_WIDEN,),
+        "no_epilogue": (("gmm.cu", "for (int j0 = 0; j0 < BN / 8; j0 += 4) {",
+                         "for (int j0 = 0; j0 < 0; j0 += 4) {"),),
+        "no_wgmma": (NO_WGMMA,),
+        "n_raster": (N_RASTER,),
+        "m_raster": (M_RASTER,),
+        "bn128": ((HEADER, WIDTH, "return 128;"),),
+        "bn256": ((HEADER, WIDTH, "return 256;"),),
+    },
+}
+# the copies each timed kernel takes (a source's other copies edit another
+# kernel of it)
+KERNELS = {
+    "flash_fwd": ("flash_fwd", ("no_pingpong", "no_softmax", "no_pv")),
+    "swiglu_fwd": ("swiglu_gmm", ("no_widen", "fwd_no_epilogue", "fwd_no_wgmma", "fwd_n_raster",
+                                  "fwd_m_raster")),
+    "swiglu_bwd": ("swiglu_gmm", ("no_widen", "bwd_no_epilogue", "bwd_no_wgmma")),
+    "gmm": ("gmm", ("no_widen", "no_epilogue", "no_wgmma", "n_raster", "m_raster", "bn128",
+                    "bn256")),
+}
+
+
+def copies(csrc: Path, source: str) -> dict[str, dict[str, str]]:
+    """{variant: {file name: text}} of one source and the headers."""
+    files = {h.name: h.read_text() for h in csrc.glob("*.cuh")}
+    files[f"{source}.cu"] = (csrc / f"{source}.cu").read_text()
+    out = {"as_built": files}
+    for name, edits in SOURCES[source].items():
+        edited = dict(files)
+        for fname, old, new in edits:
+            if old not in edited[fname]:
+                raise RuntimeError(f"{source} {name}: {fname} no longer holds {old!r}")
+            edited[fname] = edited[fname].replace(old, new)
+        out[name] = edited
     return out
 
 
-def build(torch_build, parent: Path | None):
+def build(torch_build, sources, parent: Path | None):
     """{source: {variant: ctypes library}} and the ptxas lines of each."""
     csrc = ROOT / "odh_kubeflow_tpu_torch" / "csrc"
     out = ROOT / "build" / "hopper_ablation"
     procs = {}
-    for source, edits in SOURCES.items():
-        found = variants((csrc / f"{source}.cu").read_text(), edits)
-        dirs = {name: csrc for name in found}
+    for source in sources:
+        found = copies(csrc, source)
         if parent is not None:
             pcsrc = parent / "odh_kubeflow_tpu_torch" / "csrc"
-            found["mma_sync"] = (pcsrc / f"{source}.cu").read_text()
-            dirs["mma_sync"] = pcsrc
-        for name, src in found.items():
+            found["parent"] = {**{h.name: h.read_text() for h in pcsrc.glob("*.cuh")},
+                               f"{source}.cu": (pcsrc / f"{source}.cu").read_text()}
+        for name, files in found.items():
             d = out / source / name
-            d.mkdir(parents=True, exist_ok=True)
-            for header in dirs[name].glob("*.cuh"):
-                shutil.copy(header, d)
-            (d / f"{source}.cu").write_text(src)
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+            for fname, text in files.items():
+                (d / fname).write_text(text)
             procs[(source, name)] = subprocess.Popen(
                 [torch_build._nvcc(), *torch_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
                  str(d / f"{source}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, ptxas = {}, {}
+    P, I = ctypes.c_void_p, ctypes.c_int
     for (source, name), proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -105,14 +159,20 @@ def build(torch_build, parent: Path | None):
             line.strip() for line in log.splitlines()
             if any(w in line for w in ("entry function", "registers", "spill", "C7"))]
         lib = ctypes.CDLL(str(out / source / name / "lib.so"))
-        P, I = ctypes.c_void_p, ctypes.c_int
         if source == "flash_fwd":
             lib.flash_fwd_launch.argtypes = (
                 [P] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 8 + [ctypes.c_float, P])
             lib.flash_fwd_launch.restype = I
-        else:
+        elif source == "swiglu_gmm":
+            lib.swiglu_fwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+            lib.swiglu_fwd_launch.restype = I
             lib.swiglu_bwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
             lib.swiglu_bwd_launch.restype = I
+        else:
+            lib.gmm_launch.argtypes = [P] * 6 + [I] * 5 + [P]
+            lib.gmm_launch.restype = I
+            lib.gmm_bf16_launch.argtypes = [P] * 4 + [I] * 5 + [P]
+            lib.gmm_bf16_launch.restype = I
         libs.setdefault(source, {})[name] = lib
     return libs, ptxas
 
@@ -120,7 +180,9 @@ def build(torch_build, parent: Path | None):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the commit before the redesign, for the mma_sync rows")
+                    help="another checkout (e.g. the commit before the redesign), timed in turns")
+    ap.add_argument("--only", nargs="*", choices=list(KERNELS), default=list(KERNELS),
+                    help="the kernels to time (default: all)")
     args = ap.parse_args()
     import torch
 
@@ -132,7 +194,8 @@ def main() -> int:
     from odh_kubeflow_tpu_torch.ops import flash_attention as fa
     from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 
-    libs, ptxas = build(_build, args.parent)
+    sources = sorted({KERNELS[k][0] for k in args.only})
+    libs, ptxas = build(_build, sources, args.parent)
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
     def time_ms(fn, iters=10, reps=5):
@@ -150,70 +213,129 @@ def main() -> int:
             times.append(start.elapsed_time(end) / iters)
         return statistics.median(times)
 
-    def in_turns(row, fns):
-        """as_built and mma_sync in turns (mma_sync, as_built, as_built,
-        mma_sync), the edited copies once each"""
-        order = list(fns)
-        if "mma_sync" in fns:
-            order = ["mma_sync", "as_built"] + [n for n in fns if n not in ("mma_sync", "as_built")]
-            order += ["as_built", "mma_sync"]
+    def run(kernel, row, make_fn, check):
+        """Time each copy of one kernel, as_built and parent in turns;
+        check(name) gives a computing copy's tile error after its launch."""
+        source, variants = KERNELS[kernel]
+        fns = {name: make_fn(lib) for name, lib in libs[source].items()
+               if name in ("as_built", "parent", *variants)}
+        order = ["as_built", *variants, "as_built"]
+        if "parent" in fns:
+            order = ["parent", *order, "parent"]
         for name in order:
             row.setdefault(name, []).append(time_ms(fns[name]))
+        err = {}
+        for name in ("as_built", "parent", "n_raster", "m_raster", "fwd_n_raster",
+                     "fwd_m_raster", "bn128", "bn256"):
+            if name in fns:
+                if fns[name]() != 0:
+                    raise RuntimeError(f"{kernel} {name}: launch failed")
+                torch.cuda.synchronize()
+                err[name] = check()
+        row["tile_rel_err"] = err
+        print(json.dumps(row), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(71)
     stream = torch.cuda.current_stream().cuda_stream
-    for shape, hd in (("8b_train", 128), ("8x1b_train", 64)):
-        B, S, Hq, Hkv = 2, 4096, 32, 8
-        q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        out = torch.empty_like(q)
-        lse = torch.empty((B, Hq, S), device="cuda")
-        strides = fa._strides(q, k, v, out)
-        fns = {name: (lambda lib=lib: lib.flash_fwd_launch(
-                   q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
-                   lse.data_ptr(), strides, B, S, S, Hq, Hkv, hd, 1, 0, hd**-0.5 * fa.LOG2E,
-                   stream))
-               for name, lib in libs["flash_fwd"].items()}
-        row = {"kernel": "flash_fwd", "shape": shape, "flops": 4 * hd * Hq * B * S * (S + 1) // 2}
-        in_turns(row, fns)
-        err = {}
-        for name in ("as_built", "mma_sync"):
-            if name in fns:
-                if fns[name]() != 0:
-                    raise RuntimeError(f"flash_fwd {name} launch failed")
-                torch.cuda.synchronize()
-                err[name] = fa.tile_rel_err(out, fa.flash_fwd_reference(q, k, v)[0])
-        row["tile_rel_err"] = err
-        print(json.dumps(row), flush=True)
-        del q, k, v, out, lse
+    if "flash_fwd" in args.only:
+        for shape, hd in (("8b_train", 128), ("8x1b_train", 64)):
+            B, S, Hq, Hkv = 2, 4096, 32, 8
+            q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            out = torch.empty_like(q)
+            lse = torch.empty((B, Hq, S), device="cuda")
+            strides = fa._strides(q, k, v, out)
+            want = fa.flash_fwd_reference(q, k, v)[0]
+            run("flash_fwd",
+                {"kernel": "flash_fwd", "shape": shape, "flops": 4 * hd * Hq * B * S * (S + 1) // 2},
+                lambda lib: lambda: lib.flash_fwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
+                    lse.data_ptr(), strides, B, S, S, Hq, Hkv, hd, 1, 0, hd**-0.5 * fa.LOG2E,
+                    stream),
+                lambda: fa.tile_rel_err(out, want))
+            del q, k, v, out, lse, want
+            torch.cuda.empty_cache()
+
+    E, D, F = 8, 2048, 8192
+
+    def balanced(M):
+        return torch.tensor([i * (M // E) // 128 * 128 for i in range(E)] + [M],
+                            dtype=torch.int32, device="cuda")
+
+    def int8_bank(*shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        return q, torch.rand((shape[0], 1, shape[-1]), generator=gen, device="cuda") * 2e-3 + 1e-4
+
+    M = 17_408
+    offs = balanced(M)
+    x = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if {"swiglu_fwd", "swiglu_bwd"} & set(args.only):
+        (wg, sg), (wu, su) = int8_bank(E, D, F), int8_bank(E, D, F)
+        g = torch.randn((M, F), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = torch.randn((M, F), generator=gen, device="cuda").to(torch.bfloat16)
+        a, b = torch.empty_like(g), torch.empty_like(g)
+        label = f"M {M}, K {D}, N {F}, E {E}, balanced"
+        if "swiglu_fwd" in args.only:
+            want = gm.swiglu_fwd_reference(x, wg, wu, sg, su, offs)[0]
+            run("swiglu_fwd", {"kernel": "swiglu_fwd", "shape": label, "flops": 4 * M * D * F},
+                lambda lib: lambda: lib.swiglu_fwd_launch(
+                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(), sg.data_ptr(), su.data_ptr(),
+                    offs.data_ptr(), a.data_ptr(), b.data_ptr(), M, D, F, E, stream),
+                lambda: gm.tile_rel_err(a, want))
+        if "swiglu_bwd" in args.only:
+            want = gm.swiglu_bwd_reference(x, wu, su, g, dh, offs)[0]
+            run("swiglu_bwd", {"kernel": "swiglu_bwd", "shape": label, "flops": 2 * M * D * F},
+                lambda lib: lambda: lib.swiglu_bwd_launch(
+                    x.data_ptr(), wu.data_ptr(), su.data_ptr(), offs.data_ptr(), g.data_ptr(),
+                    dh.data_ptr(), a.data_ptr(), b.data_ptr(), M, D, F, E, stream),
+                lambda: gm.tile_rel_err(a, want))
+        del wg, sg, wu, su, g, dh, a, b, want
         torch.cuda.empty_cache()
 
-    M, K, N, E = 17_408, 2048, 8192, 8
-    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-    wu = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda", dtype=torch.int8)
-    su = torch.rand((E, 1, N), generator=gen, device="cuda") * 2e-3 + 1e-4
-    g = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
-    dh = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
-    offs = torch.tensor([i * (M // E) for i in range(E)] + [M], dtype=torch.int32, device="cuda")
-    dg, du = torch.empty_like(g), torch.empty_like(g)
-    fns = {name: (lambda lib=lib: lib.swiglu_bwd_launch(
-               x.data_ptr(), wu.data_ptr(), su.data_ptr(), offs.data_ptr(), g.data_ptr(),
-               dh.data_ptr(), dg.data_ptr(), du.data_ptr(), M, K, N, E, stream))
-           for name, lib in libs["swiglu_gmm"].items()}
-    row = {"kernel": "swiglu_bwd", "shape": f"M {M}, K {K}, N {N}, E {E}, balanced",
-           "flops": 2 * M * K * N}
-    in_turns(row, fns)
-    err = {}
-    want = gm.swiglu_bwd_reference(x, wu, su, g, dh, offs)[0]
-    for name in ("as_built", "mma_sync"):
-        if name in fns:
-            if fns[name]() != 0:
-                raise RuntimeError(f"swiglu_bwd {name} launch failed")
-            torch.cuda.synchronize()
-            err[name] = gm.tile_rel_err(dg, want)
-    row["tile_rel_err"] = err
-    print(json.dumps(row), flush=True)
+    if "gmm" in args.only:
+        # (bank, M, K, N, trans, what): the main paths' gmm launches
+        shapes = (
+            ("int8", M, F, D, False, "QLoRA down fwd"),
+            ("int8", M, F, D, True, "QLoRA gate/up dlhs"),
+            ("int8", M, D, F, True, "QLoRA down dlhs"),
+            ("bf16", M, D, F, False, "full FT gate/up fwd"),
+            ("bf16", M, D, F, True, "full FT down dlhs"),
+            ("bf16", M, F, D, False, "full FT down fwd"),
+            ("bf16", M, F, D, True, "full FT gate/up dlhs"),
+            ("bf16", 3072, D, F, False, "prefill gate/up"),
+            ("bf16", 3072, F, D, False, "prefill down"),
+        )
+        for bank, m, K, N, trans, what in shapes:
+            lhs = torch.randn((m, K), generator=gen, device="cuda").to(torch.bfloat16)
+            o = balanced(m)
+            shape = (E, N, K) if trans else (E, K, N)
+            if bank == "int8":
+                w, s = int8_bank(*shape)
+            else:
+                w, s = (torch.randn(shape, generator=gen, device="cuda") * K**-0.5).to(
+                    torch.bfloat16), None
+            out = torch.empty((m, N), dtype=torch.bfloat16, device="cuda")
+            scaled = torch.empty_like(lhs)
+            want = gm.gmm_reference(lhs, w, o, trans, s)
+
+            def make(lib, lhs=lhs, w=w, s=s, o=o, out=out, scaled=scaled, m=m, K=K, N=N,
+                     trans=trans):
+                if s is None:
+                    return lambda: lib.gmm_bf16_launch(lhs.data_ptr(), w.data_ptr(), o.data_ptr(),
+                                                       out.data_ptr(), m, K, N, E, int(trans),
+                                                       stream)
+                return lambda: lib.gmm_launch(lhs.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                              o.data_ptr(), out.data_ptr(), scaled.data_ptr(), m,
+                                              K, N, E, int(trans), stream)
+
+            run("gmm", {"kernel": f"gmm {bank}" + (" trans" if trans else ""), "shape": what,
+                        "M": m, "K": K, "N": N, "flops": 2 * m * K * N,
+                        "width": gm.gmm_tile_width(
+                            m, N, torch.cuda.get_device_properties(0).multi_processor_count)},
+                make, lambda out=out, want=want: gm.tile_rel_err(out, want))
+            del lhs, w, s, out, scaled, want
+            torch.cuda.empty_cache()
     print(card_label(), flush=True)
     return 0
 
