@@ -732,6 +732,9 @@ def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
                 main["plain_ms"] = time_ms(torch, plain[name], iters=2, reps=3)
                 main["library_ms"] = library[name]
                 torch.cuda.empty_cache()
+            # the backward pair, the dK/dV row beside SDPA's backward
+            dkv_main = stats["flash_dkv"]["shapes"][-1]
+            dkv_main["flash_bwd_pair_ms"] = stats["flash_dq"]["shapes"][-1]["ms"] + dkv_main["ms"]
             del sdpa, qh, kh, vh
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
@@ -766,6 +769,8 @@ def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
             "library_ms": main["library_ms"],
             "shapes": st["shapes"],
         })
+        if name == "flash_dkv":  # dQ + dK/dV, to stand beside library_ms
+            rows[-1]["flash_bwd_pair_ms"] = main["flash_bwd_pair_ms"]
     return rows
 
 
@@ -2306,7 +2311,8 @@ def main() -> int:
     emit({"phase": "kernels", "int4_dequant_bit_exact": True,
           "shapes_checked": len(kernel["shapes"]),
           "flash": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
-                                        "ms", "plain_ms", "bound_ms", "library_ms")}
+                                        "ms", "plain_ms", "bound_ms", "library_ms",
+                                        "flash_bwd_pair_ms") if k in r}
                     for r in flash_rows]})
     record, int4_rows = int4_matmul_kernels_phase(torch, int4, bw, peak)
     record["card"] = label

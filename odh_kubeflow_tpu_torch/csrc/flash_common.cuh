@@ -1,23 +1,18 @@
-// Shared pieces of the mma.sync kernels (flash_bwd.cu; gmm_common.cuh,
-// tgmm.cu and int4_matmul.cu build on them too): warp-level bf16
-// tensor-core products (mma.sync m16n8k16, f32 accumulate), ldmatrix
-// fragment loads from shared memory, and cp.async tile copies. The
-// Hopper-specific kernels use sm90_common.cuh instead.
+// Shared pieces of the mma.sync kernels (tgmm.cu, through gmm_common.cuh,
+// and int4_matmul.cu): warp-level bf16 tensor-core products (mma.sync
+// m16n8k16, f32 accumulate), ldmatrix fragment loads from shared memory,
+// and cp.async copies. The Hopper kernels (the flash forward and backward,
+// the grouped matmul and the SwiGLU kernels) use sm90_common.cuh instead.
 //
-// Layout conventions. A block owns 64 rows (queries, or keys in dK/dV) and
-// runs 4 warps; warp w owns rows 16w..16w+15 of the block. Tiles of 64 rows
-// by HD columns sit in shared memory row-major with a row stride of
-// HD + kPad elements: the 16-byte pad puts the 8 rows that one ldmatrix
-// phase reads in 8 distinct bank groups.
+// Tiles sit in shared memory row-major with a padded row stride LD (in
+// elements), so that the 8 rows one ldmatrix phase reads fall in 8
+// distinct bank groups.
 //
 // m16n8k16 fragments, for lane l, g = l / 4, t = l % 4:
 //   A (16x16):  a0 = (g, 2t..2t+1)  a1 = (g+8, 2t..)  a2 = (g, 2t+8..)
 //               a3 = (g+8, 2t+8..)
 //   B (16x8):   b0 = (k 2t..2t+1, n g)  b1 = (k 2t+8.., n g)
 //   C (16x8):   c0,c1 = (g, 2t..2t+1)   c2,c3 = (g+8, 2t..2t+1)
-// Two neighbouring C tiles (n 8j and 8j+8) of f32 accumulators are, rounded
-// to bf16, the A fragment of the 16-wide k-chunk j: that is how P and dS
-// feed the next product without a trip through shared memory.
 
 #pragma once
 
@@ -28,15 +23,6 @@
 namespace flash {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kRows = 64;          // rows of a tile
-constexpr int kThreads = 128;      // 4 warps, 16 rows each
-constexpr int kPad = 8;            // shared-memory row padding, elements
-
-// element strides of a [B, S, H, hd] tensor (hd has stride 1)
-struct Strides {
-  long long b, s, h;
-};
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -59,22 +45,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy rows r0..r0+63 of one (batch, head) slice into a shared tile;
-// rows at or past S are zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long row_stride,
-                                          int r0, int S) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool valid = r0 + r < S;
-    const bf16* src = valid ? base + static_cast<long long>(r0 + r) * row_stride + c : base;
-    cp_async16(tile + r * (HD + kPad) + c, src, valid);
-  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -124,22 +94,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment of k-chunk j from the f32 accumulators of n-tiles 2j, 2j+1
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Whether (query q, key k) may attend: inside both sequences, causal, and in
-// one document. Positions are absolute within their sequences.
-__device__ __forceinline__ bool live(int q, int k, int Sq, int Sk, bool causal, int q_offset,
-                                     int qseg, int kseg, bool has_seg) {
-  return q < Sq && k < Sk && (!causal || q + q_offset >= k) && (!has_seg || qseg == kseg);
 }
 
 // Store two neighbouring bf16 values (columns c, c+1) of an output row.

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd.cu, swiglu_gmm.cu, and gmm.cu through grouped_sm90.cuh): TMA
-// tensor maps and bulk tensor copies, mbarriers, wgmma shared-memory
-// descriptors and the wgmma products, the async-proxy fence and register
-// reallocation between warpgroups.
+// (flash_fwd.cu, flash_bwd.cu, swiglu_gmm.cu, and gmm.cu through
+// grouped_sm90.cuh): TMA tensor maps and bulk tensor copies, mbarriers,
+// wgmma shared-memory descriptors and the wgmma products, the async-proxy
+// fence and register reallocation between warpgroups.
 //
 // Shared-memory tiles that wgmma reads use the 128-byte swizzle: rows of
 // 64 bf16 (128 bytes) in atoms of 8 rows (1024 bytes, 1024-byte aligned),
@@ -244,9 +244,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // Register reallocation between warpgroups. The kernel is built for 384
 // threads at one block an SM (168 registers each at launch); the producer
 // warpgroup gives registers back and the consumers take them. Each role
-// must run in its own branch of one if/else to the kernel's end. ptxas
-// still compiles every path within the launch's 168: the reallocation
-// frees the register file, not the code.
+// must run in its own branch of one if/else to the kernel's end; ptxas
+// then compiles the consumer branch within the count it asks for (the
+// flash backward's dK/dV consumers hold 128 accumulators and more without
+// a spill), though its report still reads 168. Fewer threads do not raise
+// the launch's count: 288 threads also get 168, since three warps share a
+// quarter of the SM's registers.
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -316,6 +319,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 

@@ -422,7 +422,8 @@ def flash_attention(
     ``q_offset`` must be a static python int, as in JAX. The block
     arguments are the TPU kernels' VMEM tiling; they are accepted so that
     calls carry over unchanged and change no result here (the CUDA
-    forward kernel tiles by 128 rows, the backward ones by 64)."""
+    forward kernel walks 128-key tiles for 128 queries a block; dQ walks
+    64-key tiles for 128 queries, dK/dV 64-query tiles for 128 keys)."""
     del block_q, block_k, bwd_block_q, bwd_block_k
     if isinstance(q_offset, bool) or not isinstance(q_offset, int):
         raise TypeError(

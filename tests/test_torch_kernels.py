@@ -134,6 +134,13 @@ def _attn_inputs(B, Sq, Sk, Hq, Hkv, hd, seg, seed=0):
         (1, 129, 129, 4, 2, 128, True, 0, False),  # one row past a 128-query tile
         (1, 255, 255, 4, 2, 64, True, 0, False),  # one row short of two tiles
         (1, 200, 392, 4, 2, 128, True, 192, False),  # Sq != Sk, q_offset, ragged tile
+        (1, 127, 127, 4, 2, 128, True, 0, False),  # one key short of a 128-key block
+        (1, 100, 129, 4, 2, 64, True, 29, False),  # one key past a block, Sq != Sk
+        (1, 257, 257, 4, 1, 128, False, 0, True),  # one key past two blocks, segments
+        (1, 203, 203, 4, 2, 64, True, 0, True),  # Sq % 4 != 0 (lse/delta rows), segments
+        (1, 256, 256, 8, 1, 128, True, 0, False),  # GQA group 8
+        (1, 384, 384, 4, 2, 64, True, -150, False),  # key tiles with no live query
+        (2, 300, 300, 4, 2, 64, True, 0, True),  # documents across 128-key blocks
     ],
 )
 def test_flash_kernels_match_plain_on_card(B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, seg):
@@ -162,6 +169,24 @@ def test_flash_kernels_match_plain_on_card(B, Sq, Sk, Hq, Hkv, hd, causal, q_off
     _close(dk, want_dk, fa.TILE_RTOL["flash_dkv"])
     _close(dv, want_dv, fa.TILE_RTOL["flash_dkv"])
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,seg", [(128, False), (64, True)])
+def test_flash_backward_kernels_are_deterministic_on_card(hd, seg):
+    """Each output is written once by one block, with no atomics: two
+    launches on the same inputs give bitwise-equal dQ, dK and dV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, k, v, do, qseg, kseg = _attn_inputs(2, 320, 320, 8, 2, hd, seg, seed=5)
+    out, lse = fa.flash_fwd(q, k, v, qseg, kseg)
+    delta = fa.flash_delta(out, do)
+    args = (q, k, v, lse, delta, do, qseg, kseg)
+    first = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    second = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

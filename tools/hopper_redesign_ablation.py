@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the Hopper-redesigned kernels goes, on one NVIDIA GPU:
-the flash-attention forward (``csrc/flash_fwd.cu``), the fused SwiGLU
+the flash-attention forward (``csrc/flash_fwd.cu``), its dQ and dK/dV
+kernels (``csrc/flash_bwd.cu``), the fused SwiGLU
 forward and backward (``csrc/swiglu_gmm.cu``) and the grouped matmul in
 its four instances (``csrc/gmm.cu``; the last two and the forward share
 ``csrc/grouped_sm90.cuh``).
@@ -10,7 +11,8 @@ its four instances (``csrc/gmm.cu``; the last two and the forward share
 Builds edited copies of each source side by side under
 ``build/hopper_ablation/`` and times each by CUDA events at the main
 paths' shapes: flash at the Llama-3-8B (hd 128) and Mixtral-8x1B (hd 64)
-training shapes (B 2, S 4096, 32/8 heads, causal); the SwiGLU kernels at
+training shapes (B 2, S 4096, 32/8 heads, causal), the backward also on
+the 8B shape packed with documents of 512 tokens; the SwiGLU kernels at
 the Mixtral-8x1B one (M 17,408, K 2048, N 8192, E 8, balanced routing);
 ``gmm`` at the Mixtral-8x1B QLoRA step's int8 shapes, the full
 fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072).
@@ -20,6 +22,11 @@ fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072).
 - flash ``no_pingpong``: the two consumer warpgroups issue their products
   without taking turns; ``no_softmax``: the online softmax skipped (P is
   the raw scores); ``no_pv``: the P.V product skipped;
+- flash backward ``no_exp``: the mask and exp2 pass skipped (P is the raw
+  scores); ``no_dscores``: dS = P (dP - delta) skipped (dS is dP);
+  ``no_dq_product``: dQ's dS.K skipped; ``no_dk_product``: dK/dV's dS^T.Q
+  skipped; ``no_pingpong`` (dQ): the warpgroups issue without taking
+  turns;
 - grouped kernels ``no_widen``: the int8-to-bf16 pass skipped (the tensor
   cores read stale shared memory); ``no_epilogue``: the epilogue's
   arithmetic and stores skipped (the SwiGLU backward still loads g and dh
@@ -78,6 +85,25 @@ SOURCES = {
         "no_pv": (("flash_fwd.cu", "issue_pv<HD>(o, pa, sV(sp));", "sm90::wgmma_commit();"),
                   ("flash_fwd.cu", "issue_pv<HD>(o, pa, sV(sl));", "sm90::wgmma_commit();")),
     },
+    "flash_bwd": {
+        "no_exp": (
+            ("flash_bwd.cu", "if (masked(k0, seg)) dq_mask(st, k0, row, qseg, ks, quad, p, seg);", ""),
+            ("flash_bwd.cu", "dq_probs(st, lse, p.scale_log2);", ""),
+            ("flash_bwd.cu", "if (masked) dkv_mask(st, q0, krow, kseg, s_qseg[s], quad, p, seg);", ""),
+            ("flash_bwd.cu", "dkv_probs(st, s_lse[s], quad, p.scale_log2);", ""),
+        ),
+        "no_dscores": (("flash_bwd.cu", "dq_dscores(dp, st, delta);", ""),
+                       ("flash_bwd.cu", "dkv_dscores(dp, st, s_delta[s], quad);", "")),
+        "no_dq_product": (("flash_bwd.cu", "issue_nn<HD>(dq, dsa, sK(sp));", ""),),
+        "no_dk_product": (("flash_bwd.cu", "issue_nn<HD>(dk, dsa, sQ(s));", ""),),
+        "no_pingpong": (
+            ("flash_bwd.cu", "auto my_turn = [&] { sm90::named_sync(3 + cw, 256); };",
+             "auto my_turn = [&] {};"),
+            ("flash_bwd.cu", "if (cw == 0 || j + 1 < n_tiles) sm90::named_arrive(4 - cw, 256);",
+             "(void)j;"),
+            ("flash_bwd.cu", "if (cw == 1) sm90::named_arrive(3, 256);", ""),
+        ),
+    },
     "swiglu_gmm": {
         "no_widen": (NO_WIDEN,),
         "fwd_no_epilogue": (("swiglu_gmm.cu", "for (int j0 = 0; j0 < kPairs; j0 += 4) {",
@@ -105,6 +131,8 @@ SOURCES = {
 # kernel of it)
 KERNELS = {
     "flash_fwd": ("flash_fwd", ("no_pingpong", "no_softmax", "no_pv")),
+    "flash_dq": ("flash_bwd", ("no_exp", "no_dscores", "no_dq_product", "no_pingpong")),
+    "flash_dkv": ("flash_bwd", ("no_exp", "no_dscores", "no_dk_product")),
     "swiglu_fwd": ("swiglu_gmm", ("no_widen", "fwd_no_epilogue", "fwd_no_wgmma", "fwd_n_raster",
                                   "fwd_m_raster")),
     "swiglu_bwd": ("swiglu_gmm", ("no_widen", "bwd_no_epilogue", "bwd_no_wgmma")),
@@ -163,6 +191,12 @@ def build(torch_build, sources, parent: Path | None):
             lib.flash_fwd_launch.argtypes = (
                 [P] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 8 + [ctypes.c_float, P])
             lib.flash_fwd_launch.restype = I
+        elif source == "flash_bwd":
+            S = ctypes.POINTER(ctypes.c_longlong)
+            lib.flash_dq_launch.argtypes = [P] * 9 + [S] + [I] * 8 + [ctypes.c_float] * 2 + [P]
+            lib.flash_dq_launch.restype = I
+            lib.flash_dkv_launch.argtypes = [P] * 10 + [S] + [I] * 8 + [ctypes.c_float] * 2 + [P]
+            lib.flash_dkv_launch.restype = I
         elif source == "swiglu_gmm":
             lib.swiglu_fwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
             lib.swiglu_fwd_launch.restype = I
@@ -225,8 +259,8 @@ def main() -> int:
         for name in order:
             row.setdefault(name, []).append(time_ms(fns[name]))
         err = {}
-        for name in ("as_built", "parent", "n_raster", "m_raster", "fwd_n_raster",
-                     "fwd_m_raster", "bn128", "bn256"):
+        for name in ("as_built", "parent", "no_pingpong", "n_raster", "m_raster",
+                     "fwd_n_raster", "fwd_m_raster", "bn128", "bn256"):
             if name in fns:
                 if fns[name]() != 0:
                     raise RuntimeError(f"{kernel} {name}: launch failed")
@@ -255,6 +289,48 @@ def main() -> int:
                     stream),
                 lambda: fa.tile_rel_err(out, want))
             del q, k, v, out, lse, want
+            torch.cuda.empty_cache()
+
+    if {"flash_dq", "flash_dkv"} & set(args.only):
+        # the two training shapes, and the 8B one on packed documents of
+        # 512 tokens (segment ids: the mask and the tiles of two documents)
+        for shape, hd, doc in (("8b_train", 128, 0), ("8x1b_train", 64, 0),
+                               ("8b_packed_512", 128, 512)):
+            B, S, Hq, Hkv = 2, 4096, 32, 8
+            q, do = (torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(2))
+            k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            seg = None
+            pairs = Hq * B * S * (S + 1) // 2
+            if doc:
+                seg = (torch.arange(S, device="cuda") // doc).to(torch.int32).expand(B, S)
+                seg = seg.contiguous()
+                pairs = Hq * B * (S // doc) * doc * (doc + 1) // 2
+            out, lse = fa.flash_fwd(q, k, v, seg, seg)
+            delta = fa.flash_delta(out, do)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            ops = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), None if seg is None else seg.data_ptr(),
+                   None if seg is None else seg.data_ptr())
+            tail = (B, S, S, Hq, Hkv, hd, 1, 0, hd**-0.5 * fa.LOG2E, hd**-0.5, stream)
+            if "flash_dq" in args.only:
+                strides = fa._strides(q, k, v, do, dq)
+                want = fa.flash_dq_reference(q, k, v, lse, delta, do, seg, seg)
+                run("flash_dq", {"kernel": "flash_dq", "shape": shape, "flops": 6 * hd * pairs},
+                    lambda lib, strides=strides: lambda: lib.flash_dq_launch(
+                        *ops, dq.data_ptr(), strides, *tail),
+                    lambda want=want: fa.tile_rel_err(dq, want))
+                del want
+            if "flash_dkv" in args.only:
+                strides = fa._strides(q, k, v, do, dk, dv)
+                want_k, want_v = fa.flash_dkv_reference(q, k, v, lse, delta, do, seg, seg)
+                run("flash_dkv", {"kernel": "flash_dkv", "shape": shape, "flops": 8 * hd * pairs},
+                    lambda lib, strides=strides: lambda: lib.flash_dkv_launch(
+                        *ops, dk.data_ptr(), dv.data_ptr(), strides, *tail),
+                    lambda: max(fa.tile_rel_err(dk, want_k), fa.tile_rel_err(dv, want_v)))
+                del want_k, want_v
+            del q, k, v, do, out, lse, delta, dq, dk, dv, seg
             torch.cuda.empty_cache()
 
     E, D, F = 8, 2048, 8192
