@@ -57,7 +57,9 @@ Phases, one JSON line each on stdout:
     3,072 and training M 17,408, both orientations) and ``tgmm`` (both
     bank layouts) per tile on the four routings, with planted faults (a
     wrong expert, a skipped last K chunk or 64-row chunk, an empty group
-    left unwritten), times, bounds, plain and library yardsticks.
+    left unwritten), ``tgmm`` also bitwise equal over two launches
+    (balanced and one expert), times (one expert too), bounds, plain and
+    library yardsticks.
 14. ``moe_serve``: Mixtral-8x1B at full width and depth, bf16 weights,
     dispatch grouped, over HTTP: 4 ragged prompts and one of 700 tokens
     (grouped prefills, exactly 48 ``gmm`` each) and one of 32 (ragged),
@@ -78,13 +80,17 @@ Phases, one JSON line each on stdout:
     fused-dequant matmul and its dX (``int4_mm``, ``int4_dlhs``) against
     their plain versions per 128 x 128 tile into NaN-filled buffers, at
     Llama-3-8B's four projection shapes at M 8,192 (the QLoRA step), 4 and
-    1 (decode), at ragged shapes and group 64; at M 8,192 also against
-    the dequant path; four planted faults each; the lm_head and a float32
-    ``x`` refused; times, bounds, plain, ``torch.matmul`` on a bf16 copy
-    (product only) and the dequant path, per launch and per 8B forward.
+    1 (decode), at ragged shapes (the forward's generic kernel where N % 16
+    != 0, a ragged M on its Hopper kernel), group 64 and group 8, each
+    forward on the instance ``int4_mm_instance`` names; at M 8,192 also
+    against the dequant path; four planted faults each; the lm_head and a
+    float32 ``x`` refused; times, bounds, plain, ``torch.matmul`` on a bf16
+    copy (product only) and the dequant path, per launch and per 8B
+    forward.
 18. ``int4_qlora_proj`` (after it): one 8B layer's seven projections at
-    M 8,192 through ``int4_matmul`` with autograd: exactly 7 + 7 launches
-    and no dequant; dx per tile against the dequant route; peak memory
+    M 8,192 through ``int4_matmul`` with autograd: exactly 7 + 7 launches,
+    every forward on the Hopper kernel, and no dequant; dx per tile
+    against the dequant route (and how many elements differ); peak memory
     and time of both routes.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
@@ -212,12 +218,15 @@ INT4_MM_SHAPES = (
     ("down", 14336, 4096, 32),
 )
 INT4_MM_ROWS = (8192, 4, 1)
-# shapes the contract accepts beyond those: ragged M and N (N % 16 != 0
-# takes the kernel's generic load path) and group 64: (label, M, K, N, group)
+# shapes the contract accepts beyond those: ragged M and N (N % 16 != 0:
+# the forward's generic instance, the dX's generic load path), ragged M on
+# the persistent forward, group 64 and a small group: (label, M, K, N, group)
 INT4_MM_EXTRA = (
     ("ragged", 300, 2048, 200, 128),
     ("ragged decode", 1, 2048, 100, 128),
+    ("ragged M", 300, 4096, 4096, 128),
     ("group 64", 512, 4096, 1024, 64),
+    ("group 8", 512, 4096, 1024, 8),
 )
 # the 8B layer's seven projections at the QLoRA step's rows: (name, K, N)
 INT4_LAYER = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
@@ -782,6 +791,7 @@ def counts(fa, int4) -> dict:
 def zero_counts(fa, int4) -> None:
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = int4.launches = 0
     int4.mm_launches = int4.dlhs_launches = 0
+    int4.mm_launches_by_instance.clear()
 
 
 def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
@@ -1563,6 +1573,13 @@ def moe_bf16_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
             torch.cuda.synchronize()
             rel = checks.check("tgmm", got.view(E * K, N), want.view(E * K, N),
                                f"{label} {rname}")
+            if rname in ("balanced", "one_expert"):
+                # every element written once by one block, no atomics: two
+                # launches agree bit for bit
+                if not torch.equal(got, gm.tgmm(a, d, offs, E)):
+                    raise AssertionError(f"tgmm {label} {rname}: two launches differ")
+                checks.stats["tgmm"].setdefault("bitwise_equal_launches", []).append(
+                    f"{label} {rname}")
             bounds = offs.tolist()
             if rname == "balanced":
                 short = a.clone()
@@ -1625,6 +1642,8 @@ def moe_bf16_kernels_phase(torch, gm, bw: float, peak: float) -> list[dict]:
             "library": main.get("library", "torch._grouped_mm on the bf16 bank"),
             "shapes": st["shapes"],
         })
+        if "bitwise_equal_launches" in st:
+            rows[-1]["bitwise_equal_launches"] = st["bitwise_equal_launches"]
     return rows
 
 
@@ -2090,6 +2109,8 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
                 row = {"shape": label, "M": M, "K": K, "N": N, "group": INT4_GROUP,
                        "launches_per_8b_forward": per_fwd,
                        "tile_rel_err": checks.check(name, got, want, tag)}
+                if name == "int4_mm":
+                    row["instance"] = int4.int4_mm_instance(M, N, True)
                 if M == INT4_MM_ROWS[0]:
                     # the port's current path: the dequant kernel (bit-exact), then
                     # one f32 product: the kernel must see the same bf16 weights
@@ -2133,13 +2154,24 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
             torch.cuda.empty_cache()
 
     # shapes the contract accepts beyond the 8B's: checked, not timed
+    extra = []
     for label, M, K, N, group in INT4_MM_EXTRA:
         q4, s = int4_operands(torch, gen, K, N, group)
         for name, a in (("int4_mm", bf16(M, K)), ("int4_dlhs", bf16(M, N))):
             fn, plain, _ = kinds[name]
             poison(torch, M, N if name == "int4_mm" else K)
+            before = dict(int4.mm_launches_by_instance)
             got = fn(a, q4[0], s[0], group)
-            checks.check(name, got, plain(a, q4[0], s[0]), f"{label} M {M} K {K} N {N} g {group}")
+            rel = checks.check(name, got, plain(a, q4[0], s[0]),
+                               f"{label} M {M} K {K} N {N} g {group}")
+            row = {"kernel": name, "shape": label, "M": M, "K": K, "N": N, "group": group,
+                   "tile_rel_err": rel}
+            if name == "int4_mm":
+                row["instance"] = [k for k, v in int4.mm_launches_by_instance.items()
+                                   if v != before.get(k, 0)]
+                if row["instance"] != [int4.int4_mm_instance(M, N, True)]:
+                    raise AssertionError(f"int4_mm {label}: launched {row['instance']}")
+            extra.append(row)
     # the lm_head (N 128,256) is refused, as by the TPU kernels: callers
     # take the dequant path there; and a float32 x on the card is refused
     lm_q4 = torch.zeros((2048, 128256), dtype=torch.uint8, device="cuda")
@@ -2197,6 +2229,7 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
         })
     record = {"phase": "int4_matmul_kernels",
               "checked": {n: len(st["shapes"]) + len(INT4_MM_EXTRA) for n, st in stats.items()},
+              "extra": extra,
               "refused": refused,
               "int4": [{k: r[k] for k in ("name", "max_abs_err", "tile_rel_err", "planted_fault",
                                           "ms", "plain_ms", "bound_ms", "library_ms",
@@ -2236,6 +2269,11 @@ def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
     }
     want_launches = {"kernel": {"int4_mm": 7, "int4_dlhs": 7, "int4_dequant": 0},
                      "dequant": {"int4_mm": 0, "int4_dlhs": 0, "int4_dequant": 7}}
+    # every forward of the layer on the Hopper TMA kernel
+    want_instances = {}
+    for _, _, N in INT4_LAYER:
+        i = int4.int4_mm_instance(M, N, True)
+        want_instances[i] = want_instances.get(i, 0) + 1
     out = {"phase": "int4_qlora_proj", "M": M, "layer": [list(p) for p in INT4_LAYER]}
     dx = {}
     for route, proj in routes.items():
@@ -2255,7 +2293,12 @@ def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
         if launched != want_launches[route] or others:
             raise AssertionError(f"int4_qlora_proj {route} route launched {launched} {others}, "
                                  f"want {want_launches[route]}")
-        out[route] = {"launches": launched, "fwd_bwd_s": wall,
+        by_instance = {k: v for k, v in int4.mm_launches_by_instance.items() if v}
+        if by_instance != (want_instances if route == "kernel" else {}):
+            raise AssertionError(f"int4_qlora_proj {route} route: forward instances "
+                                 f"{by_instance}, want {want_instances}")
+        out[route] = {"launches": launched, "mm_launches_by_instance": by_instance,
+                      "fwd_bwd_s": wall,
                       "peak_above_weights_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
     if not bool(dx["kernel"].isfinite().all()):
         raise AssertionError("int4_qlora_proj: non-finite dx")
@@ -2299,7 +2342,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {
         n: [line.strip() for line in _build.build_logs.get(n, "").splitlines()
-            if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg", "arning"))]
+            if any(w in line for w in ("Function properties", "registers", "spill", "wgmma",
+                                       "setmaxnreg", "arning"))]
         for n in kernel_names
     }
     emit({"phase": "device", "card": label, "device_name": name,

@@ -1,8 +1,9 @@
-// Shared pieces of the mma.sync kernels (tgmm.cu, through gmm_common.cuh,
-// and int4_matmul.cu): warp-level bf16 tensor-core products (mma.sync
-// m16n8k16, f32 accumulate), ldmatrix fragment loads from shared memory,
-// and cp.async copies. The Hopper kernels (the flash forward and backward,
-// the grouped matmul and the SwiGLU kernels) use sm90_common.cuh instead.
+// The pieces of the port's last mma.sync kernel, int4_matmul.cu's
+// int4_mm_kernel (the int4 input gradient, and the forward at shapes TMA
+// cannot map): warp-level bf16 tensor-core products (mma.sync m16n8k16, f32
+// accumulate), ldmatrix fragment loads from shared memory, and cp.async
+// copies. Every other kernel (flash, the grouped matmul, tgmm, the SwiGLU
+// kernels and the int4 forward) runs on sm90_common.cuh.
 //
 // Tiles sit in shared memory row-major with a padded row stride LD (in
 // elements), so that the 8 rows one ldmatrix phase reads fall in 8

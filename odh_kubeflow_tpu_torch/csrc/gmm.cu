@@ -125,13 +125,14 @@ __global__ void __launch_bounds__(grouped::kThreads, 1)
     gmm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                const GmmEpi<BW, sizeof(W) == 1 && !TRANS> epi, const int* __restrict__ offsets,
                grouped::Sched sched, int K, int N, int E) {
-  grouped::persistent_product<BW, TRANS, W, 1>(tx, tb, tb, epi, offsets, sched, K, N, E);
+  const grouped::BankOps<BW, TRANS, W, 1> ops{&tx, &tb, &tb, offsets, sched, K, N, E};
+  grouped::persistent_product(ops, epi);
 }
 
 template <int BW, bool TRANS, typename W>
 int launch_width(const bf16* lhs, const W* q, const float* scale, const int* offsets, bf16* out,
                  int M, int K, int N, int E, cudaStream_t stream) {
-  constexpr int kSmem = grouped::Cfg<BW, TRANS, W>::kSmem;
+  constexpr int kSmem = grouped::BankOps<BW, TRANS, W, 1>::C::kSmem;
   static int attr = sm90::set_smem(gmm_kernel<BW, TRANS, W>, kSmem);
   if (attr != 0) return attr;
   CUtensorMap tx, tb;

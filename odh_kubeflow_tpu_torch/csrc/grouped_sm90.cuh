@@ -1,9 +1,18 @@
-// The grouped product on Hopper's own machinery (sm90_common.cuh), shared by
-// gmm.cu (gmm_kernel, four instances) and swiglu_gmm.cu (the forward; the
-// backward uses widen_strided and tile_expert): bf16 rows times an expert
-// bank, int8 or bf16, in either orientation, f32 accumulators in registers.
+// The grouped product on Hopper's own machinery (sm90_common.cuh): one
+// persistent, warp-specialised wgmma product, f32 accumulators in
+// registers, shared by
+//   gmm.cu        (gmm_kernel, four instances: bf16 rows times an expert
+//                  bank, int8 or bf16, in either orientation; BankOps),
+//   swiglu_gmm.cu (the forward, BankOps; the backward uses widen_strided
+//                  and tile_expert),
+//   tgmm.cu       (the expert weight gradient lhs^T . dout: TgmmOps, an
+//                  MN-major A operand).
+// Each caller describes its operands with an Ops type (BankOps below) and
+// its epilogue with an Epi type; the ring, the roles and the products are
+// here. int4_matmul.cu's forward uses Sched, rows_map and the launch
+// helpers.
 //
-// Contract (checked by the Python wrappers, ops/grouped_matmul.py):
+// Contract of BankOps (checked by the Python wrappers, ops/grouped_matmul.py):
 //   x       bf16 [M, K] row-major, M % 128 == 0, K % 16 == 0;
 //   bank    W = int8_t or bf16, [E, K, N] (TRANS = false) or [E, N, K]
 //           (TRANS = true), N % 16 == 0;
@@ -12,22 +21,21 @@
 //           exactly one expert's group (empty groups own no tile), and a
 //           block finds that expert itself (tile_expert).
 //
-// Work. An output tile is 128 rows by BN columns. The bank operand of one
-// tile, B, is BW = NB * BN columns wide: NB = 1 for gmm, NB = 2 for the
-// SwiGLU forward, whose B is [gate BN | up BN] of the same columns, so one
-// product gives every thread the gate and the up sums of the same outputs.
-// The grid is persistent: min(tiles, SMs) blocks walk the tiles in the
-// order of Sched, so one tile's epilogue runs while the next tile's chunks
-// load. Every 128-row tile of every column block is visited, the tail past
-// the last real group with expert E-1's weights.
+// Work. An output tile is 128 rows by BN columns. The B operand of one
+// tile is BW = NB * BN columns wide: NB = 1, or 2 for the SwiGLU forward,
+// whose B is [gate BN | up BN] of the same columns, so one product gives
+// every thread the gate and the up sums of the same outputs. The grid is
+// persistent: min(tiles, SMs) blocks walk the tiles in an order the Ops
+// give (Sched, or tgmm's expert-major walk), so one tile's epilogue runs
+// while the next tile's chunks load. A tile's contraction runs in 64-deep
+// chunks; their number may differ by tile (tgmm: an expert's rows) and may
+// be 0 (an empty expert's tile: no product; its epilogue writes zeros).
 //
 // Block: 384 threads, three warpgroups.
-//   - warp 0's first thread TMA-loads, for each 64-deep chunk of K, the x
-//     chunk (128 x 64 bf16, 128-byte swizzle) and the bank chunk into a
-//     ring of kStages stages with full and empty mbarriers. The bank is
-//     mapped as a 3-D tensor, so a chunk past K or a column block past N
-//     zero-fills inside the expert's own matrix. A bf16 chunk lands in the
-//     swizzled layout wgmma reads; an int8 chunk lands raw;
+//   - warp 0's first thread TMA-loads, for each chunk, the A chunk (128 x
+//     64 bf16, 128-byte swizzle) and the B chunk into a ring of kStages
+//     stages with full and empty mbarriers (Ops::load). A bf16 B lands in
+//     the swizzled layout wgmma reads; an int8 B lands raw;
 //   - int8 only: warps 1-3 and the consumers, half each, widen each raw
 //     chunk (exact: |q| <= 127, by byte permutes and one float
 //     subtraction) into the swizzled bf16 layout, one of kWiden buffers
@@ -35,11 +43,14 @@
 //     generic stores to the async proxy, and each warp arrives once;
 //   - two consumer warpgroups of 64 rows issue wgmma m64nBWk16 with one
 //     chunk in flight behind the next, then run the kernel's epilogue on
-//     the accumulators in registers (Epi: each kernel's own), whose
-//     column scales they fetched as the tile started.
-// Orientation: a non-trans bank chunk (64 k-rows x BW columns) is an
-// MN-major B, kept as BW / 64 column panels of 8 KB; a trans bank chunk (BW
-// n-rows x 64 k) is K-major, one panel of BW rows: wgmma's native B.
+//     the accumulators in registers, whose column scales they fetched as
+//     the tile started.
+// Operands. A K-major A chunk (x: 128 rows x 64 k) is one panel of 128
+// rows; an MN-major A chunk (tgmm's lhs^T: 64 k-rows x 128 m) is two
+// 64-column panels, one a consumer warpgroup (wgmma with tnspA). A
+// non-trans B chunk (64 k-rows x BW columns) is MN-major, BW / 64 column
+// panels of 8 KB; a trans B chunk (BW n-rows x 64 k) is K-major, one panel
+// of BW rows: wgmma's native B.
 //
 // Registers: ptxas compiles every path within the launch's 168 a thread
 // (65,536 / 384); setmaxnreg then gives the producer warpgroup 56 and each
@@ -53,36 +64,38 @@ namespace grouped {
 
 using sm90::bf16;
 
-constexpr int kBM = 128;              // rows of a tile: ALIGN
+constexpr int kBM = 128;              // rows of a grouped tile: ALIGN
 constexpr int kBK = 64;               // contraction chunk
 constexpr int kThreads = 384;         // a producer warpgroup and two consumer ones
 constexpr int kWidenThreads = 96;     // warps 1-3
-constexpr int kX = kBM * kBK * 2;     // 16 KB: one swizzled 128-row x chunk
-constexpr int kPanel = kBK * 128;     // 8 KB: 64 k-rows x 64 bf16 columns (MN-major B)
+constexpr int kPanel = kBK * 128;     // 8 KB: 64 k-rows x 64 bf16 columns (MN-major)
 // Rows of tiles walked together before the next column block: a group's
-// x rows (8 x 128 rows) and the bank's columns its tiles read stay in L2
+// x rows (8 row tiles) and the bank's columns its tiles read stay in L2
 // while the persistent blocks sweep them.
 constexpr int kGroupM = 8;
 
-// Ring geometry of a B operand BW columns wide of element type W.
+// Ring geometry of a 128-row tile with a B operand BW columns wide of
+// element type W (int8: widened in shared memory).
 template <int BW, bool TRANS, typename W>
 struct Cfg {
-  static constexpr bool kInt8 = sizeof(W) == 1;
-  static constexpr int kB = kBK * BW * static_cast<int>(sizeof(W));  // bank bytes a stage
+  static constexpr int kBW = BW;
+  static constexpr bool kRaw = sizeof(W) == 1;
+  static constexpr int kX = kBM * kBK * 2;                   // A bytes a stage
+  static constexpr int kB = kBK * BW * static_cast<int>(sizeof(W));  // B bytes a stage
   static constexpr int kStage = kX + kB;
-  static constexpr int kWB = kInt8 ? kBK * BW * 2 : 0;  // one widened chunk
+  static constexpr int kWB = kRaw ? kBK * BW * 2 : 0;  // one widened chunk
   // 4 x 32 + 3 x 32 (int8, BW 256), 6 x 24 + 4 x 16 (int8, 128),
   // 4 x 48 (bf16, 256), 6 x 32 (bf16, 128) KB
   static constexpr int kStages = BW == 256 ? 4 : 6;
-  static constexpr int kWiden = kInt8 ? (BW == 256 ? 3 : 4) : 1;
+  static constexpr int kWiden = kRaw ? (BW == 256 ? 3 : 4) : 1;
   static constexpr int kOffWB = kStages * kStage;
   // + slack to align the base to 1024 bytes
-  static constexpr int kSmem = kOffWB + (kInt8 ? kWiden * kWB : 0) + 1024;
+  static constexpr int kSmem = kOffWB + (kRaw ? kWiden * kWB : 0) + 1024;
   static constexpr int kPieces = kBK * BW / 16;  // 16-byte pieces of a raw int8 chunk
   static constexpr int kAcc = BW / 2;            // f32 accumulators a consumer thread
-  // arrivals that free a stage: 8 consumer warps (x, and a bf16 bank), and
+  // arrivals that free a stage: 8 consumer warps (A, and a bf16 B), and
   // the widening warps (a raw int8 chunk)
-  static constexpr int kEmptyCount = kInt8 ? 8 + kWidenThreads / 32 : 8;
+  static constexpr int kEmptyCount = kRaw ? 8 + kWidenThreads / 32 : 8;
   static_assert(kSmem <= 227 * 1024, "one block an SM");
   static_assert(kStage % 1024 == 0 && kWB % 1024 == 0, "swizzled tiles are 1024-aligned");
 };
@@ -104,6 +117,13 @@ struct Sched {
   }
 };
 
+// One output tile as the Ops describe it: its first row and column, its
+// expert, its number of 64-deep chunks and where its contraction starts
+// (tgmm: the expert's first row)
+struct Tile {
+  int m0, n0, e, chunks, first;
+};
+
 // expert of the 128-row tile starting at row m0: the number of group ends
 // offsets[1..E-1] at or before m0 (searchsorted, side "right")
 __device__ __forceinline__ int tile_expert(const int* offsets, int E, int m0) {
@@ -120,10 +140,11 @@ inline int check_shape(int M, int K, int N, int E) {
   return 0;
 }
 
-// gmm's output tile width for an [M, N] result on `sms` SMs: 256 columns
-// (x read again half as often), unless the grid of such tiles would run
-// under three waves; then 128, so more SMs have work. Mirrored by
-// ops/grouped_matmul.py gmm_tile_width.
+// The output tile width of an [M, N] result of 128-row tiles on `sms` SMs:
+// 256 columns (A read again half as often), unless the grid of such tiles
+// would run under three waves; then 128, so more SMs have work. Mirrored
+// by ops/grouped_matmul.py gmm_tile_width (and tgmm_tile_width, which
+// passes E stacked [K, N] results as M = E * K).
 inline int tile_width(int M, int N, int sms) {
   const long long tiles256 = static_cast<long long>(M / kBM) * ((N + 255) / 256);
   return tiles256 < 3LL * sms ? 128 : 256;
@@ -138,11 +159,12 @@ inline int sm_count() {
   return n;
 }
 
-// a row-major bf16 [rows, cols] matrix in boxes of 128 rows x 64 columns
-inline int rows_map(CUtensorMap* map, const void* base, int rows, int cols) {
+// a row-major bf16 [rows, cols] matrix in boxes of box_rows rows x 64
+// columns, 128-byte swizzled
+inline int rows_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows = kBM) {
   const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
   const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
-  const uint32_t box[2] = {64, kBM};
+  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
   return sm90::make_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
                            CU_TENSOR_MAP_SWIZZLE_128B);
 }
@@ -196,7 +218,7 @@ __device__ __forceinline__ void widen_piece(const unsigned char* raw, unsigned c
   widen4(q.z, w1.x, w1.y);
   widen4(q.w, w1.z, w1.w);
   unsigned r, c;  // row, and 16-column (non-trans) or 16-k (trans) group
-  if constexpr (TRANS) {
+  if constexpr (TRANS) {  // c < 4: the one panel
     r = i / 4u;
     c = i % 4u;
   } else if constexpr (NB == 1) {
@@ -207,7 +229,7 @@ __device__ __forceinline__ void widen_piece(const unsigned char* raw, unsigned c
     r = j / kPer;
     c = i / (kBK * kPer) * kPer + j % kPer;  // the group within B
   }
-  if (!TRANS) wb += (c / 4u) * kPanel;
+  wb += (c / 4u) * kPanel;
   *reinterpret_cast<uint4*>(wb + sm90::swz128(r, (c % 4u) * 2)) = w0;
   *reinterpret_cast<uint4*>(wb + sm90::swz128(r, (c % 4u) * 2 + 1)) = w1;
 }
@@ -246,28 +268,33 @@ __device__ __forceinline__ uint4 quad_transpose(uint32_t (&a)[4]) {
   return make_uint4(a[0], a[1], a[2], a[3]);
 }
 
-// acc (+)= x chunk . B chunk for one consumer warpgroup: four k16 steps
-template <int BW, bool TRANS>
-__device__ __forceinline__ void issue_chunk(float (&acc)[BW / 2], const unsigned char* xs,
-                                            const unsigned char* bs, bool accumulate) {
+// acc (+)= A chunk . B chunk for consumer warpgroup cw: four k16 steps
+// of wgmma m64nBWk16. A K-major: the stage's rows cw * 64..; MN-major: the
+// stage's A panel cw.
+template <class Ops>
+__device__ __forceinline__ void issue_chunk(float (&acc)[Ops::C::kAcc], const unsigned char* as,
+                                            int cw, const unsigned char* bs, bool accumulate) {
+  constexpr int TA = Ops::kTransA ? 1 : 0, TB = Ops::kTransB ? 0 : 1;
   sm90::wgmma_fence();
 #pragma unroll
   for (int k16 = 0; k16 < kBK / 16; ++k16) {
-    const uint64_t da = sm90::desc128(xs + k16 * 32, 16, 1024);
-    const uint64_t db = TRANS ? sm90::desc128(bs + k16 * 32, 16, 1024)
-                              : sm90::desc128(bs + k16 * 16 * 128, kPanel, 1024);
+    const uint64_t da = Ops::kTransA
+                            ? sm90::desc128(as + cw * kPanel + k16 * 16 * 128, kPanel, 1024)
+                            : sm90::desc128(as + cw * 64 * 128 + k16 * 32, 16, 1024);
+    const uint64_t db = Ops::kTransB ? sm90::desc128(bs + k16 * 32, 16, 1024)
+                                     : sm90::desc128(bs + k16 * 16 * 128, kPanel, 1024);
     const int scale_d = accumulate || k16 > 0;
-    if constexpr (BW == 256) {
-      sm90::wgmma_ss_n256<TRANS ? 0 : 1>(acc, da, db, scale_d);
+    if constexpr (Ops::C::kBW == 256) {
+      sm90::wgmma_ss_n256<TB, TA>(acc, da, db, scale_d);
     } else {
-      sm90::wgmma_ss_n128<TRANS ? 0 : 1>(acc, da, db, scale_d);
+      sm90::wgmma_ss_n128<TB, TA>(acc, da, db, scale_d);
     }
   }
   sm90::wgmma_commit();
 }
 
-// Where a consumer thread's accumulators land in its tile: element 4j + e
-// holds row row0 + 8 (e >= 2), column 8j + 2 quad + (e & 1).
+// Where a consumer thread's accumulators land in a 128-row tile: element
+// 4j + e holds row row0 + 8 (e >= 2), column 8j + 2 quad + (e & 1).
 struct Frag {
   int row0;  // row within the tile
   int quad;
@@ -279,37 +306,99 @@ __device__ __forceinline__ Frag frag() {
   return {cw * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2), t & 3};
 }
 
+// The operands of gmm and the SwiGLU forward: 128-row x tiles of one
+// expert times that expert's bank, int8 or bf16, either orientation. tb0,
+// tb1 are the bank maps (tb1: the up bank of the SwiGLU forward, else
+// unused).
+template <int BW, bool TRANS, typename W, int NB>
+struct BankOps {
+  using C = Cfg<BW, TRANS, W>;
+  static constexpr bool kTransA = false, kTransB = TRANS;
+  static_assert(!TRANS || NB == 1, "a trans bank is one operand");
+  const CUtensorMap* tx;
+  const CUtensorMap* tb0;
+  const CUtensorMap* tb1;
+  const int* offsets;
+  Sched sched;
+  int K, N, E;
+
+  __device__ __forceinline__ int tiles() const { return sched.count(); }
+
+  __device__ __forceinline__ Tile tile(int t) const {
+    int mt, nt;
+    sched.coords(t, mt, nt);
+    return {mt * kBM, nt * (BW / NB), tile_expert(offsets, E, mt * kBM),
+            sm90::ceil_div(K, kBK), 0};
+  }
+
+  __device__ __forceinline__ void prefetch() const {
+    sm90::prefetch_map(*tx);
+    sm90::prefetch_map(*tb0);
+    if (NB > 1) sm90::prefetch_map(*tb1);
+  }
+
+  __device__ __forceinline__ void load(unsigned char* st, uint64_t* bar, const Tile& tl,
+                                       int kc) const {
+    const int k0 = kc * kBK;
+    if constexpr (!C::kRaw && !TRANS) {
+      // 64-column panels, the ones wholly past N left out: their products
+      // land in columns the epilogue never stores
+      int bytes = C::kX;
+#pragma unroll
+      for (int p = 0; p < BW / 64; ++p) bytes += tl.n0 + 64 * p < N ? kPanel : 0;
+      sm90::mbar_expect_tx(bar, bytes);
+      sm90::tma_load_2d(st, *tx, bar, k0, tl.m0);
+#pragma unroll
+      for (int p = 0; p < BW / 64; ++p) {
+        if (tl.n0 + 64 * p < N) {
+          sm90::tma_load_3d(st + C::kX + p * kPanel, *tb0, bar, tl.n0 + 64 * p, k0, tl.e);
+        }
+      }
+    } else {
+      sm90::mbar_expect_tx(bar, C::kStage);
+      sm90::tma_load_2d(st, *tx, bar, k0, tl.m0);
+      if constexpr (TRANS) {
+        sm90::tma_load_3d(st + C::kX, *tb0, bar, k0, tl.n0, tl.e);
+      } else {  // raw int8, one box a bank
+        sm90::tma_load_3d(st + C::kX, *tb0, bar, tl.n0, k0, tl.e);
+        if constexpr (NB > 1) {
+          sm90::tma_load_3d(st + C::kX + C::kB / NB, *tb1, bar, tl.n0, k0, tl.e);
+        }
+      }
+    }
+  }
+
+  // int8 pieces first, first + step, ... below end (the scale goes on the
+  // accumulator, in the epilogue)
+  __device__ __forceinline__ void widen(const unsigned char* raw, unsigned char* wb, int first,
+                                        int step, int end) const {
+    widen_strided<BW, TRANS, NB>(raw, wb, first, step, end);
+  }
+};
+
 // The persistent product, the body of a kernel launched with kThreads
-// threads, Cfg<BW, TRANS, W>::kSmem bytes of dynamic shared memory and
-// launch_grid(sched) blocks. tb0, tb1 are the bank maps (tb1: the up bank
-// of the SwiGLU forward, else unused); epi the kernel's epilogue. Each
-// consumer thread t (0..255) calls
+// threads, Ops::C::kSmem bytes of dynamic shared memory and min(tiles,
+// SMs) blocks. Ops gives the tiles (tiles(), tile(t)), loads a chunk
+// (load), and for an int8 B widens it (widen); epi is the kernel's
+// epilogue. Each consumer thread t (0..255) calls
 //   const float v = epi.load(t, n0, e, N);
 // as a tile starts, so the value (a column scale) arrives while the
 // tile's products run, and at its end
 //   epi(acc, m0, n0, e, N, v, cols);
-// with the tile's f32 sums in the accumulator layout above; cols is 256
-// floats of shared memory through which the consumers exchange their v
-// (share_cols).
-template <int BW, bool TRANS, typename W, int NB, typename Epi>
-__device__ __forceinline__ void persistent_product(const CUtensorMap& tx, const CUtensorMap& tb0,
-                                                   const CUtensorMap& tb1, const Epi& epi,
-                                                   const int* __restrict__ offsets,
-                                                   const Sched& sched, int K, int N, int E) {
-  using C = Cfg<BW, TRANS, W>;
-  constexpr int kBN = BW / NB;  // output columns of a tile
-  static_assert(!TRANS || NB == 1, "a trans bank is one operand");
+// with the tile's f32 sums in the accumulator layout above; a tile of no
+// chunk (tgmm's empty expert) leaves them unset, and its epilogue writes
+// zeros without reading them. cols is 256 floats of shared memory through
+// which the consumers exchange their v (share_cols).
+template <class Ops, typename Epi>
+__device__ __forceinline__ void persistent_product(const Ops& ops, const Epi& epi) {
+  using C = typename Ops::C;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[C::kStages], empty[C::kStages], wfull[C::kWiden],
       wempty[C::kWiden];
   __shared__ __align__(16) float cols[256];
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
 
-  const int nk = sm90::ceil_div(K, kBK);
-  const int tiles = sched.count();
-  const int my_tiles = (tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
-  const int total = my_tiles * nk;  // chunks this block runs
-
+  const int tiles = ops.tiles();
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < C::kStages; ++s) {
@@ -325,79 +414,47 @@ __device__ __forceinline__ void persistent_product(const CUtensorMap& tx, const 
   }
   __syncthreads();
 
-  // this block's tile t: its first row and column, and its expert
-  auto tile = [&](int t, int& m0, int& n0, int& e) {
-    int mt, nt;
-    sched.coords(t, mt, nt);
-    m0 = mt * kBM;
-    n0 = nt * kBN;
-    e = tile_expert(offsets, E, m0);
-  };
   auto stage = [&](int it) { return smem + (it % C::kStages) * C::kStage; };
   auto widened = [&](int it) { return smem + C::kOffWB + (it % C::kWiden) * C::kWB; };
 
   const int wg = sm90::warpgroup_idx();
   const int lane = threadIdx.x & 31;
-  // one thread's pieces of chunk it's widening: the consumers take the
+  // one thread's pieces of chunk it widening: the consumers take the
   // first half, warps 1-3 the rest; one arrival a warp
   auto widen = [&](int it, int first, int step, int end) {
-    const int s = it % C::kStages;
-    const int b = it % C::kWiden;
-    sm90::mbar_wait(&full[s], (it / C::kStages) & 1);
-    if (it >= C::kWiden) sm90::mbar_wait(&wempty[b], ((it / C::kWiden) - 1) & 1);
-    widen_strided<BW, TRANS, NB>(stage(it) + kX, widened(it), first, step, end);
-    sm90::fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&wfull[b]);
+    if constexpr (C::kRaw) {
+      const int s = it % C::kStages;
+      const int b = it % C::kWiden;
+      sm90::mbar_wait(&full[s], (it / C::kStages) & 1);
+      if (it >= C::kWiden) sm90::mbar_wait(&wempty[b], ((it / C::kWiden) - 1) & 1);
+      ops.widen(stage(it) + C::kX, widened(it), first, step, end);
+      sm90::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&wfull[b]);
+    }
   };
 
   if (wg == 0) {
     sm90::setmaxnreg_dec<56>();
     if (threadIdx.x == 0) {  // TMA
-      sm90::prefetch_map(tx);
-      sm90::prefetch_map(tb0);
-      if (NB > 1) sm90::prefetch_map(tb1);
+      ops.prefetch();
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        int m0, n0, e;
-        tile(t, m0, n0, e);
-        for (int kc = 0; kc < nk; ++kc, ++it) {
+        const Tile tl = ops.tile(t);
+        for (int kc = 0; kc < tl.chunks; ++kc, ++it) {
           const int s = it % C::kStages;
-          unsigned char* st = stage(it);
           if (it >= C::kStages) sm90::mbar_wait(&empty[s], ((it / C::kStages) - 1) & 1);
-          const int k0 = kc * kBK;
-          if constexpr (!C::kInt8 && !TRANS) {
-            // 64-column panels, the ones wholly past N left out: their
-            // products land in columns the epilogue never stores
-            int bytes = kX;
-#pragma unroll
-            for (int p = 0; p < BW / 64; ++p) bytes += n0 + 64 * p < N ? kPanel : 0;
-            sm90::mbar_expect_tx(&full[s], bytes);
-            sm90::tma_load_2d(st, tx, &full[s], k0, m0);
-#pragma unroll
-            for (int p = 0; p < BW / 64; ++p) {
-              if (n0 + 64 * p < N) {
-                sm90::tma_load_3d(st + kX + p * kPanel, tb0, &full[s], n0 + 64 * p, k0, e);
-              }
-            }
-          } else {
-            sm90::mbar_expect_tx(&full[s], C::kStage);
-            sm90::tma_load_2d(st, tx, &full[s], k0, m0);
-            if constexpr (TRANS) {
-              sm90::tma_load_3d(st + kX, tb0, &full[s], k0, n0, e);
-            } else {  // raw int8, one box a bank
-              sm90::tma_load_3d(st + kX, tb0, &full[s], n0, k0, e);
-              if constexpr (NB > 1) {
-                sm90::tma_load_3d(st + kX + C::kB / NB, tb1, &full[s], n0, k0, e);
-              }
-            }
-          }
+          ops.load(stage(it), &full[s], tl, kc);
         }
       }
-    } else if (C::kInt8 && threadIdx.x >= 32) {  // widening warps
-      for (int it = 0; it < total; ++it) {
-        widen(it, C::kPieces / 2 + threadIdx.x - 32, kWidenThreads, C::kPieces);
-        if (lane == 0) sm90::mbar_arrive(&empty[it % C::kStages]);  // raw reads done
+    } else if (C::kRaw && threadIdx.x >= 32) {  // widening warps
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int chunks = ops.tile(t).chunks;
+        for (int kc = 0; kc < chunks; ++kc, ++it) {
+          widen(it, C::kPieces / 2 + threadIdx.x - 32, kWidenThreads, C::kPieces);
+          if (lane == 0) sm90::mbar_arrive(&empty[it % C::kStages]);  // raw reads done
+        }
       }
     }
   } else {  // two consumer warpgroups of 64 rows
@@ -407,39 +464,43 @@ __device__ __forceinline__ void persistent_product(const CUtensorMap& tx, const 
     auto release = [&](int it) {
       if (lane == 0) {
         sm90::mbar_arrive(&empty[it % C::kStages]);
-        if (C::kInt8) sm90::mbar_arrive(&wempty[it % C::kWiden]);
+        if (C::kRaw) sm90::mbar_arrive(&wempty[it % C::kWiden]);
       }
     };
 
     float acc[C::kAcc];
-    if (C::kInt8 && total > 0) widen(0, t256, 256, C::kPieces / 2);
+    if (C::kRaw && static_cast<int>(blockIdx.x) < tiles) widen(0, t256, 256, C::kPieces / 2);
     int it = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int m0, n0, e;
-      tile(t, m0, n0, e);
-      const float v = epi.load(t256, n0, e, N);
-      for (int kc = 0; kc < nk; ++kc, ++it) {
+      const Tile tl = ops.tile(t);
+      const float v = epi.load(t256, tl.n0, tl.e, ops.N);
+      for (int kc = 0; kc < tl.chunks; ++kc, ++it) {
         const unsigned char* bs;
-        if constexpr (C::kInt8) {
+        if constexpr (C::kRaw) {
           sm90::mbar_wait(&wfull[it % C::kWiden], (it / C::kWiden) & 1);
           bs = widened(it);
         } else {
           sm90::mbar_wait(&full[it % C::kStages], (it / C::kStages) & 1);
-          bs = stage(it) + kX;
+          bs = stage(it) + C::kX;
         }
         sm90::fence_regs(acc);
-        issue_chunk<BW, TRANS>(acc, stage(it) + cw * 64 * 128, bs, kc > 0);
-        // the consumers' share of the next chunk's widening, while this
-        // one is in the tensor cores
-        if (C::kInt8 && it + 1 < total) widen(it + 1, t256, 256, C::kPieces / 2);
+        issue_chunk<Ops>(acc, stage(it), cw, bs, kc > 0);
+        // the consumers' share of the next chunk's widening (this tile's,
+        // or the next tile's first: an int8 bank's tiles all have chunks),
+        // while this one is in the tensor cores
+        if (C::kRaw && (kc + 1 < tl.chunks || t + static_cast<int>(gridDim.x) < tiles)) {
+          widen(it + 1, t256, 256, C::kPieces / 2);
+        }
         sm90::wgmma_wait<1>();  // chunk it - 1's products are done
         sm90::fence_regs(acc);
         if (kc > 0) release(it - 1);
       }
+      // unconditional, so no branch decides whether the epilogue may read
+      // the accumulators; a tile of no chunk has nothing in flight
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
-      release(it - 1);
-      epi(acc, m0, n0, e, N, v, cols);
+      if (tl.chunks > 0) release(it - 1);
+      epi(acc, tl.m0, tl.n0, tl.e, ops.N, v, cols);
     }
   }
 }
@@ -457,9 +518,11 @@ __device__ __forceinline__ void share_cols(float* cols, float v) {
 // grid: one block an SM, or one a tile when there are fewer
 inline Sched schedule(int M, int N, int BN) { return {M / kBM, (N + BN - 1) / BN}; }
 
-inline int launch_grid(const Sched& sched) {
+inline int launch_grid(int tiles) {
   const int sms = sm_count();
-  return sched.count() < sms ? sched.count() : sms;
+  return tiles < sms ? tiles : sms;
 }
+
+inline int launch_grid(const Sched& sched) { return launch_grid(sched.count()); }
 
 }  // namespace grouped

@@ -21,34 +21,54 @@
 // Contract (checked by ops/int4.py, which raises NotImplementedError where
 // _int4_mm_impl (:155-165) and _int4_dlhs_impl (:226-237) do): x / dout bf16
 // row-major, K % 2048 == 0, group a power of two <= 1024, M and N of any size
-// up to 512 and multiples of 512 above. The kernel itself takes any M >= 1
-// and N >= 1 with K % 128 == 0: it masks its ragged edges, and when N is not
-// a multiple of 16 or a base is not 16-byte aligned it loads without cp.async.
+// up to 512 and multiples of 512 above. The kernels themselves take any M >=
+// 1 and N >= 1 with K % 256 == 0 and mask their ragged edges.
 //
 // Bound. At the QLoRA training shape (M 8,192) operations: 2 M K N flops,
 // 0.278 ms for an 8B wq (K = N = 4096) at the H100 SXM's 989 TFLOP/s, against
 // 0.16 GB moved (0.05 ms at 3.35 TB/s). At decode (M 1..4) bytes: the packed
 // weights, 0.5 byte a weight (+ 4/group of scale), 2.66 us for wq.
 //
-// Design. On the TPU the innermost grid axis carries an f32 accumulator in
-// VMEM across grid steps (K chunks for mm, N blocks for dlhs). Blocks here run
-// in no order, so one block owns one output tile and loops over that axis
-// itself: mm a [128, 128] tile of out, over K in 64-wide chunks; dlhs a
-// [128, 128] tile of dx (128 rows of dout, 128 weight rows k), over N in
-// 64-wide chunks. Nothing goes to atomics or a second pass. Each chunk's x or
-// dout tile, packed bytes and scale rows arrive by cp.async in a 3-stage
-// ring; the packed tile is unpacked with its scales into one bf16 tile in
-// shared memory ([64 k][128 n] for mm, [128 k][64 n] for dlhs: the
-// transposed read of the same bank), which ldmatrix feeds to mma.sync
-// m16n8k16 with f32 accumulators (8 warps as 2 x 4, 64 x 32 each). K % 2048
-// == 0 keeps every chunk inside one nibble half. No bf16 copy of W ever
-// reaches device memory: the weights cross it at 0.5 byte each. Known
-// weakness: at M 1..4 a 128-row tile leaves the tensor cores mostly idle
-// and N / 128 (mm) or K / 128 (dlhs) blocks, 32 for a 4096-wide weight,
-// leave most of the 132 SMs idle, so decode runs far from its bytes bound;
-// split-K or a GEMV form is later work.
+// The forward (int4_mm_launch, every shape TMA can map: N % 16 == 0 and
+// 16-byte aligned bases, which ops/int4.py checks before it calls it) is
+// computed transposed, out^T = W^T x^T, so the widened weights are wgmma's
+// A operand straight from registers and never return to shared memory (a
+// first form widened them into shared memory for an SS product, as gmm.cu
+// widens int8; its shared-memory traffic, ~1.3x the tensor time a chunk
+// at 256 x 128 tiles, held it to 0.66 ms at wq/wo against this form's
+// 0.48 on an H100, PERF.md). A persistent block owns 256 weight columns x
+// BT tokens (128, or 16 at decode: tile_rows) and walks K in 64-deep
+// chunks through a TMA ring: the x chunk (wgmma's K-major B, rows past M
+// zero-filled), the packed chunk (64 packed rows of one nibble half, K %
+// 128 == 0, as two 128-byte-swizzled panels) and, at group >= 64, the
+// chunk's one row of scales. Each consumer warpgroup widens its panel: a
+// thread's A fragment rows are chosen as four neighbouring weight columns,
+// so one 32-bit load of a packed row serves them; nibble to f32 exactly
+// (the magic-number trick of widen4), one f32 multiply by the group scale,
+// one rounding to bf16. Fragments are double-buffered by chunk, so the
+// widening of chunk kc + 1 runs under chunk kc's products. The epilogue
+// stores bf16 from registers, four columns of a token a store, rows past M
+// and columns past N masked.
+//
+// The input gradient (int4_dlhs_launch) and the forward at shapes TMA cannot
+// map (int4_mm_generic_launch) stay on the first design, int4_mm_kernel
+// below: one block owns one output tile and loops over the contraction
+// itself, mm a [128, 128] tile of out over K in 64-wide chunks, dlhs a
+// [128, 128] tile of dx (128 rows of dout, 128 weight rows k) over N in
+// 64-wide chunks. Each chunk's x or dout tile, packed bytes and scale rows
+// arrive by cp.async in a 3-stage ring (dlhs with N % 16 == 0 and aligned
+// bases; else element by element); the packed tile is unpacked with its
+// scales into one bf16 tile in shared memory ([64 k][128 n] for mm, [128
+// k][64 n] for dlhs: the transposed read of the same bank), which ldmatrix
+// feeds to mma.sync m16n8k16 with f32 accumulators (8 warps as 2 x 4, 64 x
+// 32 each). No bf16 copy of W ever reaches device memory: the weights cross
+// it at 0.5 byte each. Known weakness: at M 1..4 N / 256 blocks (the
+// forward) or K / 128 (dlhs), 16 or 32 for a 4096-wide weight, leave most
+// of the 132 SMs idle, so decode runs far from its bytes bound; split-K or
+// a GEMV form is later work.
 
 #include "flash_common.cuh"
+#include "grouped_sm90.cuh"
 
 namespace {
 
@@ -332,42 +352,337 @@ int launch(const Args& g, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDlhs>
-int run(const void* a, const void* q4, const void* scale, void* out, long long M, long long K,
-        long long N, long long group, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return 0;
-  // K % 256: whole 128-row dlhs tiles in each nibble half; group a power of
-  // two dividing 1024, so a chunk's scale rows are whole; M within the
-  // grid's y limit
-  if (K % 256 || group <= 0 || group > 1024 || 1024 % group || M > 65535LL * kBM ||
-      K >= (1LL << 31) || N >= (1LL << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The input gradient's checks: K % 256 (whole 128-row dlhs tiles in each
+// nibble half); group a power of two dividing 1024, so a chunk's scale
+// rows are whole; M within the grid's y limit. Also the forward's.
+bool valid_shape(long long M, long long K, long long N, long long group) {
+  return K % 256 == 0 && group > 0 && group <= 1024 && 1024 % group == 0 &&
+         M <= 65535LL * kBM && K < (1LL << 31) && N < (1LL << 31);
+}
+
+Args make_args(const void* a, const void* q4, const void* scale, void* out, long long M,
+               long long K, long long N, long long group) {
+  return {static_cast<const bf16*>(a), static_cast<const uint8_t*>(q4),
+          static_cast<const float*>(scale), static_cast<bf16*>(out), static_cast<int>(M),
+          static_cast<int>(K), static_cast<int>(N), static_cast<int>(group)};
+}
+
+// ---------------------------------------------------------------------------
+// the forward on Hopper (int4_mm_launch): out^T = W^T x^T, W widened into
+// wgmma's A registers
+
+constexpr int kRN = 256;  // weight columns of a tile: 2 consumer warpgroups x 2 m64 blocks
+
+// Tokens of the forward's output tile (the product's N) for M rows of x:
+// 16 at decode (M <= 16: an m64n16 product), else 128. Mirrored by
+// ops/int4.py int4_mm_tile_rows, which the CPU tests hold.
+int tile_rows(int M) { return M <= 16 ? 16 : 128; }
+
+// Ring geometry of a tile of BT tokens: a stage holds the x chunk (BT
+// tokens x 64 k, 128-byte swizzle: wgmma's K-major B), the packed chunk (64
+// packed rows x 256 bytes as two 128-byte-wide swizzled panels, one a
+// consumer warpgroup) and one row of 256 f32 scales.
+template <int BT>
+struct Rs {
+  static constexpr int kX = BT * 128;
+  static constexpr int kQ = grouped::kBK * 128;  // 8 KB: one packed panel
+  static constexpr int kStage = kX + 2 * kQ + kRN * 4;
+  static constexpr int kStages = BT == 128 ? 6 : 10;
+  static constexpr int kSmem = kStages * kStage + 1024;
+  static_assert(kSmem <= 227 * 1024 && kStage % 1024 == 0, "one block an SM, aligned stages");
+};
+
+struct RsArgs {
+  bf16* out;
+  const float* scale;  // [K/group, N]
+  grouped::Sched sched;
+  int M, K, N, gshift;  // group = 1 << gshift
+};
+
+// A fragments of one 64-deep chunk: [k16 step][m64 block][register]
+using Frags = uint32_t[4][2][4];
+
+// Keep registers an asynchronous wgmma reads from being reused until here.
+__device__ __forceinline__ void hold(Frags& a) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][h][i])::"memory");
+    }
   }
-  const Args g{static_cast<const bf16*>(a), static_cast<const uint8_t*>(q4),
-               static_cast<const float*>(scale), static_cast<bf16*>(out),
-               static_cast<int>(M), static_cast<int>(K), static_cast<int>(N),
-               static_cast<int>(group)};
-  const bool vec = N % 16 == 0 && aligned16(a) && aligned16(q4) && aligned16(scale);
-  auto st = static_cast<cudaStream_t>(stream);
-  return vec ? launch<kDlhs, true>(g, st) : launch<kDlhs, false>(g, st);
+}
+
+// The A fragments of k16 step j for both m64 blocks of this thread's
+// warpgroup: rows 16w + g (+ 8) of block h are weight columns 32w + 4g + 2h
+// (+ 1) of the warpgroup's packed panel, so one 32-bit load of a packed row
+// gives the thread its four columns; the contraction rows are the chunk's
+// 16j + 2q, + 1, + 8, + 9 (mma.sync m16n8k16's A layout). Each weight is
+// bf16((nibble - 8) * scale), the nibble made f32 exactly by the magic-number
+// trick of widen4 and its column's scale from `sc` (row r's: sc[r]).
+__device__ __forceinline__ void widen_frag(uint32_t (&a)[2][4], const unsigned char* panel, int j,
+                                           int q, int col, int sh, const float4 (&sc)[4]) {
+  float f[4][4];  // [row r][column b]
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 16 * j + 2 * q + (r & 1) + 8 * (r >> 1);
+    const uint32_t word =
+        *reinterpret_cast<const uint32_t*>(panel + sm90::swz128(row, col >> 4) + (col & 15));
+    const uint32_t nib = (word >> sh) & 0x0F0F0F0Fu;
+    const float s[4] = {sc[r].x, sc[r].y, sc[r].z, sc[r].w};
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[r][b] = (__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540 + b)) - 8388616.f) * s[b];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // (row half i & 1: column 2h + (i & 1); k half i >> 1)
+      const int b = 2 * h + (i & 1), r = 2 * (i >> 1);
+      a[h][i] = sm90::pack_bf16(f[r][b], f[r + 1][b]);
+    }
+  }
+}
+
+template <int BT>
+__device__ __forceinline__ void issue_rs(float (&acc0)[BT / 2], float (&acc1)[BT / 2],
+                                         const uint32_t (&a)[2][4], uint64_t db, int scale_d) {
+  if constexpr (BT == 128) {
+    sm90::wgmma_rs_n128<0>(acc0, a[0], db, scale_d);
+    sm90::wgmma_rs_n128<0>(acc1, a[1], db, scale_d);
+  } else {
+    sm90::wgmma_rs_n16<0>(acc0, a[0], db, scale_d);
+    sm90::wgmma_rs_n16<0>(acc1, a[1], db, scale_d);
+  }
+}
+
+// Block: 384 threads. Warp 0's first thread TMA-loads each chunk into a
+// ring of full and empty mbarriers; two consumer warpgroups of 128 weight
+// columns each widen their packed panel into A registers and issue wgmma
+// m64nBTk16 RS for both m64 blocks. The A fragments are double-buffered by
+// chunk: chunk kc + 1 is widened into one buffer while chunk kc's products
+// read the other, and a buffer is written again only after the wgmma_wait<0>
+// that ends the products reading it (so ptxas need not serialize the
+// products around the widening). The tile's end stores bf16 from
+// registers: a thread holds four neighbouring weight columns of a token,
+// 8 bytes, per token it holds.
+template <int BT>
+__global__ void __launch_bounds__(grouped::kThreads, 1)
+    int4_rs_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap ts, const RsArgs p) {
+  using R = Rs<BT>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[R::kStages], empty[R::kStages];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const int tiles = p.sched.count();
+  const int nk = p.K / grouped::kBK;
+  const int half = p.K / 2;
+  // group >= 64: a chunk's 64 rows share one scale row, which TMA stages
+  // with the chunk; smaller groups are read by __ldg
+  const bool staged = p.gshift >= 6;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < R::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // the consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int it) { return smem + (it % R::kStages) * R::kStage; };
+  const int wg = sm90::warpgroup_idx();
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {  // TMA
+      sm90::prefetch_map(tx);
+      sm90::prefetch_map(tq);
+      if (staged) sm90::prefetch_map(ts);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, nt;
+        p.sched.coords(t, mt, nt);
+        const int m0 = mt * BT, n0 = nt * kRN;
+        const bool two = n0 + 128 < p.N;  // the second panel holds a column
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % R::kStages;
+          if (it >= R::kStages) sm90::mbar_wait(&empty[s], ((it / R::kStages) - 1) & 1);
+          unsigned char* st = stage(it);
+          const int k0 = kc * grouped::kBK;
+          const int p0 = k0 < half ? k0 : k0 - half;
+          sm90::mbar_expect_tx(&full[s], R::kX + (two ? 2 : 1) * R::kQ + (staged ? kRN * 4 : 0));
+          sm90::tma_load_2d(st, tx, &full[s], k0, m0);
+          sm90::tma_load_2d(st + R::kX, tq, &full[s], n0, p0);
+          if (two) sm90::tma_load_2d(st + R::kX + R::kQ, tq, &full[s], n0 + 128, p0);
+          if (staged) sm90::tma_load_2d(st + R::kX + 2 * R::kQ, ts, &full[s], n0, k0 >> p.gshift);
+        }
+      }
+    }
+  } else {  // two consumer warpgroups of 128 weight columns
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, q = lane & 3;
+    const int col = 32 * w + 4 * g;  // the thread's first column in its panel
+    float acc0[BT / 2], acc1[BT / 2];
+    Frags fa, fb;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      p.sched.coords(t, mt, nt);
+      const int m0 = mt * BT, n0 = nt * kRN;
+      const int n = n0 + cw * 128 + col;  // the thread's first weight column
+      // chunk kc of this tile (ring slot it + kc) into a
+      auto widen = [&](Frags& a, int kc) {
+        const int c = it + kc;
+        sm90::mbar_wait(&full[c % R::kStages], (c / R::kStages) & 1);
+        const unsigned char* st = stage(c);
+        const int k0 = kc * grouped::kBK;
+        const int sh = k0 >= half ? 4 : 0;  // the high nibbles hold rows K/2..
+        float4 sc[4];
+        if (staged) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(st + R::kX + 2 * R::kQ + (cw * 128 + col) * 4);
+          sc[0] = sc[1] = sc[2] = sc[3] = v;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!staged) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int row = (k0 + 16 * j + 2 * q + (r & 1) + 8 * (r >> 1)) >> p.gshift;
+              sc[r] = n < p.N ? __ldg(reinterpret_cast<const float4*>(
+                                    p.scale + static_cast<long long>(row) * p.N + n))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+          widen_frag(a[j], st + R::kX + cw * R::kQ, j, q, col, sh, sc);
+        }
+      };
+      // chunk kc's products from a: four k16 steps, one commit group
+      auto issue = [&](Frags& a, int kc) {
+        const unsigned char* st = stage(it + kc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          issue_rs<BT>(acc0, acc1, a[j], sm90::desc128(st + j * 32, 16, 1024), kc > 0 || j > 0);
+        }
+        sm90::wgmma_commit();
+      };
+      // after chunk kc's products: its stage is free, and so is a
+      auto retire = [&](Frags& a, int kc) {
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc0);
+        sm90::fence_regs(acc1);
+        hold(a);
+        if (lane == 0) sm90::mbar_arrive(&empty[(it + kc) % R::kStages]);
+      };
+      widen(fa, 0);
+      for (int kc = 0; kc < nk; kc += 2) {  // nk is a multiple of 4 (K % 256 == 0)
+        issue(fa, kc);
+        widen(fb, kc + 1);
+        retire(fa, kc);
+        issue(fb, kc + 1);
+        if (kc + 2 < nk) widen(fa, kc + 2);
+        retire(fb, kc + 1);
+      }
+      it += nk;
+      // acc_h element 4jj + e: weight column n + 2h + (e >> 1), token
+      // m0 + 8jj + 2q + (e & 1)
+      if (n < p.N) {
+#pragma unroll
+        for (int jj = 0; jj < BT / 8; ++jj) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int tok = m0 + 8 * jj + 2 * q + u;
+            if (tok < p.M) {
+              *reinterpret_cast<uint2*>(p.out + static_cast<long long>(tok) * p.N + n) =
+                  make_uint2(sm90::pack_bf16(acc0[4 * jj + u], acc0[4 * jj + 2 + u]),
+                             sm90::pack_bf16(acc1[4 * jj + u], acc1[4 * jj + 2 + u]));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int BT>
+int launch_rs(const Args& g, cudaStream_t stream) {
+  constexpr int kSmem = Rs<BT>::kSmem;
+  static int attr = sm90::set_smem(int4_rs_kernel<BT>, kSmem);
+  if (attr != 0) return attr;
+  CUtensorMap tx, tq, ts;
+  if (int rc = grouped::rows_map(&tx, g.a, g.M, g.K, BT)) return rc;
+  const uint64_t n = g.N;
+  const uint64_t qdims[2] = {n, static_cast<uint64_t>(g.K / 2)}, qstrides[1] = {n};
+  const uint32_t qbox[2] = {128, grouped::kBK};
+  if (int rc = sm90::make_map<2>(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, g.q4, qdims, qstrides, qbox,
+                                 CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return rc;
+  }
+  const uint64_t sdims[2] = {n, static_cast<uint64_t>(g.K / g.group)}, sstrides[1] = {n * 4};
+  const uint32_t sbox[2] = {kRN, 1};
+  if (int rc = sm90::make_map<2>(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, g.scale, sdims, sstrides,
+                                 sbox, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return rc;
+  }
+  int gshift = 0;
+  while ((1 << gshift) < g.group) ++gshift;
+  const RsArgs p{g.out, g.scale, {sm90::ceil_div(g.M, BT), sm90::ceil_div(g.N, kRN)}, g.M, g.K,
+                 g.N, gshift};
+  int4_rs_kernel<BT><<<grouped::launch_grid(p.sched), grouped::kThreads, kSmem, stream>>>(
+      tx, tq, ts, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both return a CUDA error code (0 on success). The caller has checked
+// Each returns a CUDA error code (0 on success). The caller has checked
 // dtypes (bf16 x / dout, uint8 q4, f32 scale), shapes, contiguity and one
 // device, and allocated the output.
 
-// out [M, N] = x [M, K] @ dequant(q4, scale)
+// out [M, N] = x [M, K] @ dequant(q4, scale), on the persistent product.
+// Only shapes TMA can map: N % 16 == 0 and 16-byte aligned bases (the
+// caller takes int4_mm_generic_launch for the others); else an error.
 extern "C" int int4_mm_launch(const void* x, const void* q4, const void* scale, void* out,
                               long long M, long long K, long long N, long long group,
                               void* stream) {
-  return run<false>(x, q4, scale, out, M, K, N, group, stream);
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (!valid_shape(M, K, N, group) || N % 16 || !aligned16(x) || !aligned16(q4) ||
+      !aligned16(scale) || !aligned16(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args g = make_args(x, q4, scale, out, M, K, N, group);
+  auto st = static_cast<cudaStream_t>(stream);
+  return tile_rows(g.M) == 16 ? launch_rs<16>(g, st) : launch_rs<128>(g, st);
+}
+
+// The same function at any shape the contract takes, on the first design's
+// element-by-element loads (int4_mm_kernel<false, false>): for the shapes
+// TMA cannot map.
+extern "C" int int4_mm_generic_launch(const void* x, const void* q4, const void* scale,
+                                      void* out, long long M, long long K, long long N,
+                                      long long group, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (!valid_shape(M, K, N, group)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, false>(make_args(x, q4, scale, out, M, K, N, group),
+                              static_cast<cudaStream_t>(stream));
 }
 
 // dx [M, K] = dout [M, N] @ dequant(q4, scale)^T
 extern "C" int int4_dlhs_launch(const void* dout, const void* q4, const void* scale, void* dx,
                                 long long M, long long K, long long N, long long group,
                                 void* stream) {
-  return run<true>(dout, q4, scale, dx, M, K, N, group, stream);
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (!valid_shape(M, K, N, group)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args g = make_args(dout, q4, scale, dx, M, K, N, group);
+  const bool vec = N % 16 == 0 && aligned16(dout) && aligned16(q4) && aligned16(scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch<true, true>(g, st) : launch<true, false>(g, st);
 }
+
+// The forward's tokens a tile, for its Python mirror's test on the card.
+extern "C" int int4_mm_tile_rows(long long M) { return tile_rows(static_cast<int>(M)); }

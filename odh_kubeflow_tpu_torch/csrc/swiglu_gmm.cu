@@ -100,15 +100,16 @@ __global__ void __launch_bounds__(grouped::kThreads, 1)
                       const __grid_constant__ CUtensorMap tu, const SwigluFwdEpi epi,
                       const int* __restrict__ offsets, grouped::Sched sched, int K, int N,
                       int E) {
-  grouped::persistent_product<2 * SwigluFwdEpi::kBN, false, int8_t, 2>(tx, tg, tu, epi, offsets,
-                                                                         sched, K, N, E);
+  const grouped::BankOps<2 * SwigluFwdEpi::kBN, false, int8_t, 2> ops{&tx, &tg, &tu, offsets,
+                                                                       sched, K, N, E};
+  grouped::persistent_product(ops, epi);
 }
 
 int swiglu_fwd(const void* x, const void* wg, const void* wu, const void* sg, const void* su,
                const void* offsets, void* h, void* g, int M, int K, int N, int E,
                cudaStream_t stream) {
   constexpr int kBN = SwigluFwdEpi::kBN;
-  constexpr int kSmem = grouped::Cfg<2 * kBN, false, int8_t>::kSmem;
+  constexpr int kSmem = grouped::BankOps<2 * kBN, false, int8_t, 2>::C::kSmem;
   static int attr = sm90::set_smem(swiglu_fwd_kernel, kSmem);
   if (attr != 0) return attr;
   CUtensorMap tx, tg, tu;

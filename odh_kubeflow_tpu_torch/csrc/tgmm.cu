@@ -5,10 +5,10 @@
 //
 //   out[e] = lhs[rows_e]^T @ dout[rows_e]      rows_e = [offsets[e], offsets[e+1])
 //
-// lhs bf16 [M, K], dout bf16 [M, N], out bf16 [E, K, N], f32 sums, zeros for
-// an expert that owns no row. offsets as in gmm.cu: int32 [E + 1],
-// offsets[0] = 0, offsets[E] = M, every entry a multiple of 128, so the
-// tail past the last real group belongs to expert E-1, as in the TPU
+// lhs bf16 [M, K], dout bf16 [M, N], out bf16 [E, K, N], f32 sums rounded
+// once, zeros for an expert that owns no row. offsets as in gmm.cu: int32
+// [E + 1], offsets[0] = 0, offsets[E] = M, every entry a multiple of 128,
+// so the tail past the last real group belongs to expert E-1, as in the TPU
 // kernel's mask rows < offsets[e+1].
 //
 // Bound: tensor-core operations. At the Mixtral-8x1B training shape (M
@@ -19,132 +19,158 @@
 // Design. The TPU kernel walked 512-row tiles x groups as "span pairs" in
 // grid order, masking rows of other groups, carrying an f32 scratch across
 // grid steps, with a singleton pair for an empty group and inert pads. Here
-// blocks run in no order, so a block owns one 128 x 128 tile of one
-// expert's [K, N] (grid K/128 x N/128 x E) and carries the sum over that
-// expert's rows itself: it walks [offsets[e], offsets[e+1]) in 64-row
-// chunks through a 3-stage cp.async ring, both operands stored row-major
-// as they lie in memory ([rows, K] and [rows, N]). The rows are the
-// contraction: lhs^T is the A operand, read from the [rows, K] stage by
-// ldmatrix.trans; dout is the B operand, read as gmm reads a [K, N] bank.
-// Group starts are 128-aligned, so a chunk never straddles two experts and
-// no row is masked. An empty group's blocks write zeros. No atomics: every
-// output element is written once, by one block. With a skewed routing most
-// blocks find an empty group and the few of the busy expert walk all M rows.
+// the kernel is grouped_sm90.cuh's persistent product (TMA ring, wgmma,
+// setmaxnreg; TgmmOps below): an output tile is 128 rows (of K) x BW
+// columns (of N, 256 or 128 by tile_width) of one expert's [K, N], and its
+// contraction is that expert's rows, (offsets[e+1] - offsets[e]) / 64
+// chunks of 64 rows, which the producer and the consumers each count from
+// offsets. A chunk is the lhs rows' 128 columns of the tile, two 64 x 64
+// TMA boxes, each an MN-major A panel of one consumer warpgroup (lhs^T
+// through wgmma's transposed A), and the dout rows' BW columns, 64-column
+// panels as gmm's bf16 bank (an MN-major B). Tiles are walked expert by
+// expert, each expert's in Sched's order (groups of 8 K-tiles, column block
+// by column block), so the blocks sweep one expert's rows of lhs and dout
+// while they sit in L2. An empty expert's tiles issue no product and
+// write zeros. No rows split across blocks and no atomics: every output
+// element is written once, by one block, so two launches agree bit for bit.
+// With all rows on one expert, that expert's K/128 x N/BW tiles still
+// spread over every SM.
 
-#include "gmm_common.cuh"
+#include "grouped_sm90.cuh"
 
 namespace {
 
-using flash::bf16;
+using grouped::bf16;
 
-constexpr int kBT = 128;          // output tile: 128 of K by 128 of N
-constexpr int kRows = 64;         // rows (the contraction) per chunk
-constexpr int kLD = kBT + 8;      // padded pitch, bf16 elements
-constexpr int kThreads = 256;     // 8 warps as 2 (K) x 4 (N), 64 x 32 each
-constexpr int kStages = 3;
-constexpr int kTile = kRows * kLD;                 // bf16 elements of one operand
-constexpr int kSmem = kStages * 2 * kTile * 2;     // bytes
-constexpr int kNT = 4;                              // n8 tiles a warp
+// The operands: lhs^T (A, MN-major) and dout (B, MN-major) chunks of one
+// expert's rows; tiles expert-major, then Sched over (K-tiles, N-tiles).
+template <int BW>
+struct TgmmOps {
+  using C = grouped::Cfg<BW, false, bf16>;
+  static constexpr bool kTransA = true, kTransB = false;
+  const CUtensorMap* tl;  // lhs [M, K] in 64 x 64 boxes
+  const CUtensorMap* td;  // dout [M, N] in 64 x 64 boxes
+  const int* offsets;
+  grouped::Sched sched;  // K-tiles x N-tiles of one expert
+  int K, N, E;
 
-// A fragment of rows m0..m0+15, columns k0..k0+15 of A = S^T, from a tile S
-// stored [k][m] (row-major in the contraction), by transposing loads
-__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* s, int m0, int k0) {
-  const int l = threadIdx.x & 31;
-  flash::ldsm_x4_t(a, s + (k0 + (l & 7) + (l >> 4) * 8) * kLD + m0 + ((l >> 3) & 1) * 8);
-}
+  __device__ __forceinline__ int tiles() const { return E * sched.count(); }
 
-// 64 rows x 128 columns of a row-major [M, C] operand, from column c0;
-// columns at or past C are zeros
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int c0, int C) {
-#pragma unroll
-  for (int i = threadIdx.x; i < kRows * (kBT / 8); i += kThreads) {
-    const int r = i / (kBT / 8);
-    const int c = (i % (kBT / 8)) * 8;
-    const bool valid = c0 + c < C;
-    const bf16* p = src + static_cast<long long>(r0 + r) * C + (valid ? c0 + c : 0);
-    flash::cp_async16(dst + r * kLD + c, p, valid);
+  __device__ __forceinline__ grouped::Tile tile(int t) const {
+    const int per = sched.count();
+    const int e = t / per;
+    int kt, nt;
+    sched.coords(t - e * per, kt, nt);
+    const int start = __ldg(offsets + e);
+    return {kt * grouped::kBM, nt * BW, e, (__ldg(offsets + e + 1) - start) / grouped::kBK,
+            start};
   }
-}
 
-__global__ void __launch_bounds__(kThreads)
-    tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-                const int* __restrict__ offsets, bf16* __restrict__ out, int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sm = reinterpret_cast<bf16*>(smem);
-  const int k0 = blockIdx.x * kBT;
-  const int n0 = blockIdx.y * kBT;
-  const int e = blockIdx.z;
-  const int start = __ldg(offsets + e);
-  const int end = __ldg(offsets + e + 1);
-  const int nc = end > start ? (end - start) / kRows : 0;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
-
-  auto stage_l = [&](int s) { return sm + s * 2 * kTile; };
-  auto stage_d = [&](int s) { return sm + s * 2 * kTile + kTile; };
-  auto load = [&](int s, int chunk) {
-    const int r0 = start + chunk * kRows;
-    load_rows(stage_l(s), lhs, r0, k0, K);
-    load_rows(stage_d(s), dout, r0, n0, N);
-  };
-
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] =
-        acc[mi][ni][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nc) load(s, s);
-    flash::cp_async_commit();
+  __device__ __forceinline__ void prefetch() const {
+    sm90::prefetch_map(*tl);
+    sm90::prefetch_map(*td);
   }
-  for (int c = 0; c < nc; ++c) {
-    flash::cp_async_wait<kStages - 2>();  // chunk c has landed
-    __syncthreads();                      // and chunk c - 1 is consumed
-    const int next = c + kStages - 1;
-    if (next < nc) load(next % kStages, next);
-    flash::cp_async_commit();
-    const bf16* sl = stage_l(c % kStages);
-    const bf16* sd = stage_d(c % kStages);
+
+  // rows first + 64 kc ..: lhs columns m0.. (panels past K left out) and
+  // dout columns n0.. (panels past N left out); the products of a missing
+  // panel land in rows or columns the epilogue never stores
+  __device__ __forceinline__ void load(unsigned char* st, uint64_t* bar, const grouped::Tile& t,
+                                       int kc) const {
+    const int r0 = t.first + kc * grouped::kBK;
+    int bytes = 0;
 #pragma unroll
-    for (int kk = 0; kk < kRows; kk += 16) {
-      uint32_t a[4][4];
+    for (int h = 0; h < 2; ++h) bytes += t.m0 + 64 * h < K ? grouped::kPanel : 0;
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) frag_a_t(a[mi], sl, wm + mi * 16, kk);
+    for (int p = 0; p < BW / 64; ++p) bytes += t.n0 + 64 * p < N ? grouped::kPanel : 0;
+    sm90::mbar_expect_tx(bar, bytes);
 #pragma unroll
-      for (int nj = 0; nj < kNT / 2; ++nj) {
-        uint32_t b[4];
-        flash::frag_b_kn<kLD>(b, sd, kk, wn + nj * 16);
+    for (int h = 0; h < 2; ++h) {
+      if (t.m0 + 64 * h < K) sm90::tma_load_2d(st + h * grouped::kPanel, *tl, bar, t.m0 + 64 * h, r0);
+    }
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          flash::mma(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          flash::mma(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+    for (int p = 0; p < BW / 64; ++p) {
+      if (t.n0 + 64 * p < N) {
+        sm90::tma_load_2d(st + C::kX + p * grouped::kPanel, *td, bar, t.n0 + 64 * p, r0);
+      }
+    }
+  }
+};
+
+// out[e][m0 + row][n0 + col] = bf16(acc), 16 bytes a store
+// (quad_transpose), or zeros for an expert with no row (load tells, as the
+// tile starts: its accumulators were never written); rows past K and
+// columns past N not stored.
+template <int BN>
+struct TgmmEpi {
+  bf16* out;
+  const int* offsets;
+  int K;
+
+  __device__ __forceinline__ float load(int, int, int e, int) const {
+    return __ldg(offsets + e + 1) > __ldg(offsets + e) ? 1.f : 0.f;
+  }
+
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2], int m0, int n0, int e,
+                                             int N, float rows_in, float*) const {
+    const grouped::Frag f = grouped::frag();
+    const int row = m0 + f.row0;
+    const bool empty = rows_in == 0.f;
+    bf16* rows = out + (static_cast<long long>(e) * K + row) * N;
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+      uint32_t w[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          w[r][jj] = empty ? 0u : sm90::pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+      }
+      const int col = n0 + 8 * (j0 + f.quad);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint4 v4 = grouped::quad_transpose(w[r]);
+        if (col < N && row + 8 * r < K) {
+          *reinterpret_cast<uint4*>(rows + static_cast<long long>(8 * r) * N + col) = v4;
         }
       }
     }
   }
-  flash::cp_async_wait<0>();
+};
 
-  bf16* o = out + static_cast<long long>(e) * K * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni) {
-      const int col = gmm::acc_col<kBT>(n0, ni);
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = gmm::acc_row(k0, mi, 2 * h);
-        if (row < K) {
-          flash::store2(o + static_cast<long long>(row) * N + col, acc[mi][ni][2 * h],
-                        acc[mi][ni][2 * h + 1]);
-        }
-      }
-    }
-  }
+template <int BW>
+__global__ void __launch_bounds__(grouped::kThreads, 1)
+    tgmm_kernel(const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap td,
+                const TgmmEpi<BW> epi, const int* __restrict__ offsets, grouped::Sched sched,
+                int K, int N, int E) {
+  const TgmmOps<BW> ops{&tl, &td, offsets, sched, K, N, E};
+  grouped::persistent_product(ops, epi);
+}
+
+// K-tiles x N-tiles of one expert's [K, N] in 128 x BW tiles
+grouped::Sched schedule(int K, int N, int BW) {
+  return {sm90::ceil_div(K, grouped::kBM), sm90::ceil_div(N, BW)};
+}
+
+// the tile width: gmm's rule over the E stacked [K, N] results
+int tile_width(int K, int N, int E, int sms) {
+  return grouped::tile_width(E * sm90::ceil_div(K, grouped::kBM) * grouped::kBM, N, sms);
+}
+
+template <int BW>
+int launch(const bf16* lhs, const bf16* dout, const int* offsets, bf16* out, int M, int K, int N,
+           int E, cudaStream_t stream) {
+  constexpr int kSmem = TgmmOps<BW>::C::kSmem;
+  static int attr = sm90::set_smem(tgmm_kernel<BW>, kSmem);
+  if (attr != 0) return attr;
+  CUtensorMap tl, td;
+  if (int rc = grouped::rows_map(&tl, lhs, M, K, grouped::kBK)) return rc;
+  if (int rc = grouped::rows_map(&td, dout, M, N, grouped::kBK)) return rc;
+  const grouped::Sched sched = schedule(K, N, BW);
+  tgmm_kernel<BW><<<grouped::launch_grid(E * sched.count()), grouped::kThreads, kSmem, stream>>>(
+      tl, td, TgmmEpi<BW>{out, offsets, K}, offsets, sched, K, N, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -155,14 +181,33 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int tgmm_launch(const void* lhs, const void* dout, const void* offsets, void* out,
                            int M, int K, int N, int E, void* stream) {
   if (K <= 0 || N <= 0 || E <= 0) return 0;
-  if (M < 0 || M % gmm::kBM || K % 16 || N % 16 || E > 65535) {
+  if (M < 0 || M % grouped::kBM || K % 16 || N % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static int attr = flash::set_smem(tgmm_kernel, kSmem);
-  if (attr != 0) return attr;
-  const dim3 grid(flash::ceil_div(K, kBT), flash::ceil_div(N, kBT), E);
-  tgmm_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout),
-      static_cast<const int*>(offsets), static_cast<bf16*>(out), K, N);
-  return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  if (M == 0) {  // every expert empty
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(E) * K * N * sizeof(bf16), st));
+  }
+  const auto* l = static_cast<const bf16*>(lhs);
+  const auto* d = static_cast<const bf16*>(dout);
+  const auto* o = static_cast<const int*>(offsets);
+  auto* y = static_cast<bf16*>(out);
+  return tile_width(K, N, E, grouped::sm_count()) == 256
+             ? launch<256>(l, d, o, y, M, K, N, E, st)
+             : launch<128>(l, d, o, y, M, K, N, E, st);
+}
+
+// The schedule tgmm_launch takes, for its Python mirror's test on the card:
+// the output tile width on `sms` SMs, and the persistent tile order,
+// (expert, K-tile, N-tile) of tile t at out[3t..].
+extern "C" int tgmm_tile_width(int K, int N, int E, int sms) { return tile_width(K, N, E, sms); }
+
+extern "C" void tgmm_tile_order(int E, int k_tiles, int n_tiles, int* out) {
+  const grouped::Sched sched{k_tiles, n_tiles};
+  const int per = sched.count();
+  for (int t = 0; t < E * per; ++t) {
+    out[3 * t] = t / per;
+    sched.coords(t % per, out[3 * t + 1], out[3 * t + 2]);
+  }
 }

@@ -16,7 +16,9 @@ and a launch counter:
   scale ``[E, 1, bank-last-axis]``; a persistent grid whose tile width and
   order ``gmm_tile_width`` and ``tile_order`` mirror;
 - ``tgmm`` → ``csrc/tgmm.cu`` (``_tgmm_kernel``): the per-expert weight
-  gradient ``lhs[rows_e]ᵀ · dout[rows_e]`` of a float bank;
+  gradient ``lhs[rows_e]ᵀ · dout[rows_e]`` of a float bank, on the same
+  persistent product with ``lhs`` read transposed; its tile width and
+  expert-major order ``tgmm_tile_width`` and ``tgmm_tile_order`` mirror;
 - ``swiglu_fwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_fwd_kernel``):
   ``h = silu(x·Wg·sg) · (x·Wu·su)`` and ``g`` on int8 banks;
 - ``swiglu_bwd`` → ``csrc/swiglu_gmm.cu`` (``_swiglu_bwd_kernel``):
@@ -91,6 +93,11 @@ def _library(name: str) -> ctypes.CDLL:
         # lhs dout offsets out | M K N E | stream
         lib.tgmm_launch.argtypes = [P] * 4 + [I] * 4 + [P]
         lib.tgmm_launch.restype = I
+        # the schedule, for the mirrors' test on the card
+        lib.tgmm_tile_width.argtypes = [I] * 4
+        lib.tgmm_tile_width.restype = I
+        lib.tgmm_tile_order.argtypes = [I, I, I, P]
+        lib.tgmm_tile_order.restype = None
     else:
         # x wg wu sg su offsets h g | M K N E | stream
         lib.swiglu_fwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
@@ -127,6 +134,29 @@ def tile_order(m_tiles: int, n_tiles: int) -> list[tuple[int, int]]:
         rows = min(m_tiles - first, TILE_GROUP_M)
         order.append((first + within % rows, within // rows))
     return order
+
+
+def tgmm_tile_width(k: int, n: int, num_groups: int, sms: int) -> int:
+    """``tgmm``'s output tile width (``csrc/tgmm.cu`` ``tile_width``):
+    ``gmm_tile_width`` over the ``num_groups`` stacked ``[k, n]`` results,
+    each ``k`` rounded up to whole 128-row tiles."""
+    return gmm_tile_width(num_groups * -(-k // ALIGN) * ALIGN, n, sms)
+
+
+def tgmm_tile_order(num_groups: int, k_tiles: int, n_tiles: int) -> list[tuple[int, int, int]]:
+    """(expert, K-tile, N-tile) of each linear tile index in the order the
+    persistent ``tgmm`` blocks take them: expert by expert, each expert's
+    ``[K, N]`` tiles in ``tile_order``. An empty expert's tiles are in the
+    walk too (they write zeros)."""
+    per = tile_order(k_tiles, n_tiles)
+    return [(e, kt, nt) for e in range(num_groups) for kt, nt in per]
+
+
+def tgmm_tile_rows(offsets: list[int], e: int) -> range:
+    """The rows a ``tgmm`` tile of expert ``e`` sums over, 64 a chunk
+    (``TgmmOps::tile``): ``[offsets[e], offsets[e+1])``, the tail past the
+    last real group included in expert E-1's (``offsets[E] = M``)."""
+    return range(offsets[e], offsets[e + 1], 64)
 
 
 def group_of_tile(m: int, offsets: torch.Tensor) -> torch.Tensor:

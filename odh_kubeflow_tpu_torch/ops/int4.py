@@ -14,7 +14,12 @@ PyTorch version (``*_reference``) on a CPU tensor. There is no fallback
 from one to the other: on the card the kernel runs or the call raises.
 ``launches`` counts the dequant kernel's launches, ``mm_launches`` and
 ``dlhs_launches`` the matmul's, so a run can show that its path went
-through them.
+through them. The forward has two kernels, chosen by shape before the
+launch (``int4_mm_instance``), never by trying one: the Hopper kernel
+(``int4_mm_launch``, at every shape TMA can map; its tile
+``int4_mm_tile_rows`` mirrors) and the first design's element-by-element
+kernel (``int4_mm_generic_launch``); ``mm_launches_by_instance`` counts
+each.
 
 Packing (``models/quant.py``): ``packed`` / ``q4`` is uint8 ``[K/2, N]``
 whose low nibbles hold rows ``[0, K/2)`` and high nibbles rows ``[K/2, K)``,
@@ -36,6 +41,8 @@ from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 launches = 0
 mm_launches = 0
 dlhs_launches = 0
+# the forward's launches by instance ("tma_<tokens>" or "generic")
+mm_launches_by_instance: dict[str, int] = {}
 
 _argtypes_set = False
 _mm_argtypes_set = False
@@ -137,9 +144,9 @@ def int4_dequant(
 # the TPU kernels' blocking (pallas_int4.py MM_BM, MM_BN, MM_BK). The shape
 # contract below raises where _int4_mm_impl and _int4_dlhs_impl do, on both
 # devices, so a caller takes the dequant path on the same shapes in both
-# packages (the lm_head, N = 128256, is one). The CUDA kernels themselves
-# tile by 128 and mask their ragged edges: every shape the contract accepts
-# runs, M and N <= 512 of any size included.
+# packages (the lm_head, N = 128256, is one). The CUDA kernels mask their
+# ragged edges: every shape the contract accepts runs, M and N <= 512 of
+# any size included.
 MM_BM = 512
 MM_BN = 512
 MM_BK = 1024
@@ -157,13 +164,34 @@ def _mm_library() -> ctypes.CDLL:
     global _mm_argtypes_set
     lib = _build.library("int4_matmul")
     if not _mm_argtypes_set:
-        P, L = ctypes.c_void_p, ctypes.c_longlong
-        for fn in (lib.int4_mm_launch, lib.int4_dlhs_launch):
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for fn in (lib.int4_mm_launch, lib.int4_mm_generic_launch, lib.int4_dlhs_launch):
             # x or dout, q4, scale4, out | M K N group | stream
             fn.argtypes = [P] * 4 + [L] * 4 + [P]
-            fn.restype = ctypes.c_int
+            fn.restype = I
+        # the forward's tokens a tile, for the mirror's test on the card
+        lib.int4_mm_tile_rows.argtypes = [L]
+        lib.int4_mm_tile_rows.restype = I
         _mm_argtypes_set = True
     return lib
+
+
+def int4_mm_tile_rows(m: int) -> int:
+    """Tokens of the Hopper forward's output tile for ``m`` rows of ``x``
+    (``csrc/int4_matmul.cu`` ``tile_rows``): 16 at decode (``m <= 16``),
+    else 128; a tile is 256 weight columns wide."""
+    return 16 if m <= 16 else 128
+
+
+def int4_mm_instance(m: int, n: int, aligned: bool) -> str:
+    """Which forward kernel a card launch of an ``[m, n]`` result takes:
+    ``"tma_<tokens>"``, the Hopper kernel (TMA, weights widened into
+    ``wgmma``'s registers), where TMA can map the operands (``n % 16 ==
+    0`` and ``aligned``: 16-byte aligned bases of ``x``, ``q4`` and
+    ``scale4``; the output is a fresh allocation), else ``"generic"``."""
+    if n % 16 or not aligned:
+        return "generic"
+    return f"tma_{int4_mm_tile_rows(m)}"
 
 
 def _check_dtype(name: str, dtype: torch.dtype, on_card: bool) -> None:
@@ -271,8 +299,12 @@ def int4_mm(x: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, group: int 
     if not on_card:
         return int4_matmul_reference(x, q4, scale4)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _launch(_mm_library().int4_mm_launch, x, q4, scale4, out, M, K, N, group)
+    instance = int4_mm_instance(M, N, all(t.data_ptr() % 16 == 0 for t in (x, q4, scale4)))
+    lib = _mm_library()
+    fn = lib.int4_mm_generic_launch if instance == "generic" else lib.int4_mm_launch
+    _launch(fn, x, q4, scale4, out, M, K, N, group)
     mm_launches += 1
+    mm_launches_by_instance[instance] = mm_launches_by_instance.get(instance, 0) + 1
     return out
 
 

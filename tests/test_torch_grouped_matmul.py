@@ -377,3 +377,64 @@ def test_tile_order_walks_row_groups_column_by_column():
     assert order[g : 2 * g] == [(i, 1) for i in range(g)]
     assert order[3 * g : 3 * g + 2] == [(g, 0), (g + 1, 0)]
     assert order[-1] == (9, 2)
+
+
+# tgmm's persistent walk: (K, N, tile width or None for tgmm_tile_width's,
+# M) of each weight gradient's result [8, K, N]
+TGMM_SCHEDULE_SHAPES = {
+    "gate_up_train": (2048, 8192, None, 17_408),
+    "down_train": (8192, 2048, None, 17_408),
+    "small_ragged_k": (208, 272, 128, 1024),
+    "k_under_one_chunk": (48, 512, 128, 1024),
+}
+
+
+@pytest.mark.parametrize("routing", ["balanced", "one_expert", "two_empty", "large_tail"])
+@pytest.mark.parametrize("shape", list(TGMM_SCHEDULE_SHAPES))
+def test_tgmm_schedule_writes_every_tile_once(shape, routing):
+    """Every (expert, K-tile, N-tile) is taken exactly once, by one block
+    of a grid of min(tiles, SMs), the blocks' shares within one tile of
+    each other; an empty expert's tiles too (they sum no row and write
+    zeros). Each tile sums exactly its expert's rows, 64 a chunk, so every
+    row, the tail past the last real group included, reaches every
+    (K-tile, N-tile) of one expert: the one whose group holds it."""
+    k, n, width, m = TGMM_SCHEDULE_SHAPES[shape]
+    E = 8
+    width = width or gm.tgmm_tile_width(k, n, E, H100_SMS)
+    k_tiles, n_tiles = -(-k // gm.ALIGN), -(-n // width)
+    order = gm.tgmm_tile_order(E, k_tiles, n_tiles)
+    assert sorted(order) == [(e, i, j) for e in range(E) for i in range(k_tiles)
+                             for j in range(n_tiles)]
+    assert order[: k_tiles * n_tiles] == [(0, kt, nt) for kt, nt in gm.tile_order(k_tiles, n_tiles)]
+    grid = min(len(order), H100_SMS)
+    shares = [len(order[b::grid]) for b in range(grid)]
+    assert max(shares) - min(shares) <= 1 and sum(shares) == len(order)
+    offs = _offsets(m, _routing_counts(m, routing)).tolist()
+    experts = gm.group_of_tile(m, torch.tensor(offs)).tolist()
+    summed = {}  # (K-tile, N-tile) -> {64-row chunk start: expert}
+    for e, kt, nt in order:
+        rows = gm.tgmm_tile_rows(offs, e)
+        assert len(rows) == (offs[e + 1] - offs[e]) // 64  # 0 for an empty expert
+        for r in rows:
+            assert (r, kt, nt) not in summed
+            summed[(r, kt, nt)] = e
+    for kt in range(k_tiles):
+        for nt in range(n_tiles):
+            assert [summed[(r, kt, nt)] for r in range(0, m, 64)] == [
+                experts[r // gm.ALIGN] for r in range(0, m, 64)]
+
+
+def test_tgmm_tile_width_follows_the_waves_of_the_card():
+    """256-wide tiles at the training shapes (4,096 tiles of 8 experts);
+    128 where 256-wide tiles of every expert's [K, N] would fill fewer
+    than three waves of 132 SMs."""
+    assert gm.tgmm_tile_width(2048, 8192, 8, H100_SMS) == 256
+    assert gm.tgmm_tile_width(8192, 2048, 8, H100_SMS) == 256
+    assert gm.tgmm_tile_width(256, 512, 4, H100_SMS) == 128  # 8 tiles
+    assert gm.tgmm_tile_width(48, 272, 4, H100_SMS) == 128
+    for k in (16, 48, 128, 208, 2048):
+        for n in (16, 272, 2048, 8192):
+            for e in (1, 4, 8):
+                tiles256 = e * -(-k // 128) * -(-n // 256)
+                assert gm.tgmm_tile_width(k, n, e, H100_SMS) == (
+                    256 if tiles256 >= 3 * H100_SMS else 128)

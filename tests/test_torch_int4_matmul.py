@@ -239,3 +239,47 @@ def test_int4_tile_rel_err_holds_each_128_by_128_tile_to_its_own_scale():
     got = want.clone()
     got[0, 0] += 1e-2  # the same error in a large tile
     assert int4.tile_rel_err(got, want) < 1e-4
+
+
+def test_int4_mm_tile_rows_mirror_the_kernels_rule():
+    """The Hopper forward's tile (``csrc/int4_matmul.cu`` ``tile_rows``):
+    256 weight columns x 128 tokens at the QLoRA step's M 8,192 and any M
+    past 16 (ragged M included); x 16 tokens (an m64n16 product) at decode."""
+    for m in (17, 129, 300, 512, 8192):
+        assert int4.int4_mm_tile_rows(m) == 128
+    for m in (1, 4, 16):
+        assert int4.int4_mm_tile_rows(m) == 16
+
+
+@pytest.mark.parametrize("m,n,aligned,want", [
+    (8192, 4096, True, "tma_128"),
+    (8192, 1024, True, "tma_128"),
+    (1, 4096, True, "tma_16"),
+    (4, 14336, True, "tma_16"),
+    (300, 208, True, "tma_128"),
+    (300, 200, True, "generic"),  # N % 16 != 0: TMA cannot map q4's rows
+    (1, 100, True, "generic"),
+    (128, 2048, False, "generic"),  # a base not 16-byte aligned
+])
+def test_int4_mm_instance_follows_the_shape(m, n, aligned, want):
+    """The wrapper's choice of forward kernel, made before the launch from
+    the shape alone: the Hopper TMA kernel wherever TMA can map the
+    operands, the first design's generic kernel elsewhere."""
+    assert int4.int4_mm_instance(m, n, aligned) == want
+
+
+def test_int4_widening_arithmetic_gives_the_dequant_bits():
+    """The forward's widening in f32 as the Hopper kernel does it: a nibble
+    in the low mantissa bits of 2^23, minus 2^23 + 8 (exact), one f32
+    multiply by its group's scale, one rounding to bf16: the bits of
+    ``int4_dequant_reference``, on every nibble and both halves."""
+    rng = np.random.default_rng(11)
+    K, N, group = 256, 64, 32
+    q4 = torch.from_numpy(rng.integers(0, 256, (K // 2, N), dtype=np.uint8))
+    scale = torch.from_numpy((rng.random((K // group, N)) * 0.02 + 1e-4).astype(np.float32))
+    p = q4.to(torch.int32)
+    nib = torch.cat([p & 0xF, (p >> 4) & 0xF])  # rows k < K/2 low, then high
+    magic = (nib | 0x4B000000).to(torch.int32).view(torch.float32)
+    w = (magic - 8388616.0) * scale.repeat_interleave(group, 0)
+    assert torch.equal((magic - 8388616.0), (nib - 8).float())
+    assert torch.equal(w.to(torch.bfloat16), int4.int4_dequant_reference(q4, scale))

@@ -415,16 +415,56 @@ def test_gmm_schedule_matches_its_python_mirror_on_card():
 
 
 def _tgmm_close(got, want):
-    """Per 128-row tile of the ``[E·K, N]`` view (K % 128 == 0, so a tile
-    lies in one expert's block; an empty expert's want is zero)."""
+    """Per 128-row tile of the ``[E·K, N]`` view (where K % 128 == 0 a
+    tile lies in one expert's block; an empty expert's want is zero)."""
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     rel = gm.tile_rel_err(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
     assert rel <= gm.TILE_RTOL, rel
 
 
 @pytest.mark.gpu
+def test_tgmm_schedule_matches_its_python_mirror_on_card():
+    """The tile width and expert-major tile order ``csrc/tgmm.cu`` takes
+    are the ones ``tgmm_tile_width`` and ``tgmm_tile_order`` mirror (and
+    the CPU tests hold), on this card's SM count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import ctypes
+
+    lib = gm._library("tgmm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, n, e in ((2048, 8192, 8), (8192, 2048, 8), (256, 512, 4), (48, 272, 4), (384, 208, 4)):
+        assert lib.tgmm_tile_width(k, n, e, sms) == gm.tgmm_tile_width(k, n, e, sms)
+        width = gm.tgmm_tile_width(k, n, e, sms)
+        k_tiles, n_tiles = -(-k // 128), -(-n // width)
+        out = (ctypes.c_int * (3 * e * k_tiles * n_tiles))()
+        lib.tgmm_tile_order(e, k_tiles, n_tiles, out)
+        got = [tuple(out[3 * t : 3 * t + 3]) for t in range(e * k_tiles * n_tiles)]
+        assert got == gm.tgmm_tile_order(e, k_tiles, n_tiles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["balanced", "one_expert"])
+def test_tgmm_kernel_is_deterministic_on_card(routing):
+    """No rows split across blocks and no atomics: two launches agree bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    lhs = torch.from_numpy(rng.standard_normal((2048, 512)).astype(np.float32)).cuda().bfloat16()
+    dout = torch.from_numpy(rng.standard_normal((2048, 768)).astype(np.float32)).cuda().bfloat16()
+    offs = _grouped_offsets(routing, 2048)
+    first = gm.tgmm(lhs, dout, offs, 4)
+    second = gm.tgmm(lhs, dout, offs, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _tgmm_close(first, gm.tgmm_reference(lhs, dout, offs, 4))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("routing", list(GROUPED_OFFSETS))
-@pytest.mark.parametrize("K,N", [(256, 512), (512, 128), (384, 208)])
+@pytest.mark.parametrize("K,N", [(256, 512), (512, 128), (384, 208), (48, 272), (208, 96),
+                                 (1024, 1024)])
 def test_tgmm_kernel_matches_plain_on_card(routing, K, N):
     """``_tgmm_kernel``'s port: ``[E, K, N]`` per-expert sums over each
     group's rows, the tail with the last expert, zeros for an empty
@@ -574,6 +614,12 @@ def _int4_tiles_close(got, want):
         (300, 2048, 200, 128),  # ragged M; N % 16 != 0: the generic load path
         (1, 2048, 100, 1024),
         (512, 6144, 1536, 256),  # three 1024-chunks a nibble half
+        (300, 4096, 1024, 128),  # ragged M on the persistent forward
+        (129, 2048, 512, 8),  # one row past a 128-row tile; a small group
+        (4, 2048, 512, 1),  # a scale row a weight row
+        (512, 2048, 208, 64),  # a tile's second 128-column panel wholly past N
+        (17, 2048, 400, 128),  # 17 tokens: the 128-token tile; N not a multiple of 256
+        (16, 4096, 1024, 32),  # the 16-token decode tile, unstaged scales
     ],
 )
 def test_int4_matmul_kernels_match_plain_on_card(M, K, N, group):
@@ -589,6 +635,30 @@ def test_int4_matmul_kernels_match_plain_on_card(M, K, N, group):
     assert (int4.mm_launches, int4.dlhs_launches) == (before[0] + 1, before[1] + 1)
     _int4_tiles_close(got, int4.int4_matmul_reference(x, q4, s))
     _int4_tiles_close(dx, int4.int4_dlhs_reference(d, q4, s))
+
+
+@pytest.mark.gpu
+def test_int4_mm_instance_choice_matches_its_cuda_mirror_on_card():
+    """The forward's tile is the one ``int4_mm_tile_rows`` mirrors; the
+    wrapper takes the Hopper TMA kernel where it can map the operands and
+    counts it, the generic one elsewhere, and the TMA entry point itself
+    refuses the shapes the wrapper sends to the generic one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    lib = int4._mm_library()
+    for m in (1, 4, 16, 17, 128, 129, 300, 512, 8192):
+        assert lib.int4_mm_tile_rows(m) == int4.int4_mm_tile_rows(m)
+    for (M, N), want in (((8192, 1024), "tma_128"), ((4, 1024), "tma_16"), ((300, 200), "generic")):
+        x, _, q4, s = _int4_mm_inputs(M, 2048, N, 128)
+        before = dict(int4.mm_launches_by_instance)
+        out = int4.int4_mm(x, q4, s)
+        torch.cuda.synchronize()
+        assert int4.mm_launches_by_instance[want] == before.get(want, 0) + 1
+        _int4_tiles_close(out, int4.int4_matmul_reference(x, q4, s))
+        if want == "generic":
+            rc = lib.int4_mm_launch(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                    M, 2048, N, 128, torch.cuda.current_stream().cuda_stream)
+            assert rc != 0
 
 
 @pytest.mark.gpu
@@ -612,7 +682,9 @@ def test_int4_matmul_autograd_and_misaligned_view_on_card():
     flat = torch.zeros(1 + 128 * 2048, dtype=torch.bfloat16, device="cuda")
     view = flat[1:].view(128, 2048)  # contiguous, data_ptr % 16 == 2
     view.copy_(x.detach())
+    generic = int4.mm_launches_by_instance.get("generic", 0)
     _int4_tiles_close(int4.int4_mm(view, q4, s), int4.int4_matmul_reference(view, q4, s))
+    assert int4.mm_launches_by_instance["generic"] == generic + 1
 
 
 @pytest.mark.gpu

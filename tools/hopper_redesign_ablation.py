@@ -2,9 +2,11 @@
 """Where the time of the Hopper-redesigned kernels goes, on one NVIDIA GPU:
 the flash-attention forward (``csrc/flash_fwd.cu``), its dQ and dK/dV
 kernels (``csrc/flash_bwd.cu``), the fused SwiGLU
-forward and backward (``csrc/swiglu_gmm.cu``) and the grouped matmul in
-its four instances (``csrc/gmm.cu``; the last two and the forward share
-``csrc/grouped_sm90.cuh``).
+forward and backward (``csrc/swiglu_gmm.cu``), the grouped matmul in
+its four instances (``csrc/gmm.cu``), the expert weight gradient
+(``csrc/tgmm.cu``) and the int4 fused-dequant forward
+(``csrc/int4_matmul.cu`` ``int4_mm_launch``); the last four and the SwiGLU
+forward share ``csrc/grouped_sm90.cuh``.
 
     python3 tools/hopper_redesign_ablation.py [--parent DIR] [--only NAME ...]
 
@@ -15,7 +17,12 @@ training shapes (B 2, S 4096, 32/8 heads, causal), the backward also on
 the 8B shape packed with documents of 512 tokens; the SwiGLU kernels at
 the Mixtral-8x1B one (M 17,408, K 2048, N 8192, E 8, balanced routing);
 ``gmm`` at the Mixtral-8x1B QLoRA step's int8 shapes, the full
-fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072).
+fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072);
+``tgmm`` at the full fine-tune's two weight gradients ([8, 2048, 8192] and
+[8, 8192, 2048] from M 17,408 rows), balanced and with every row on one
+expert; ``int4_mm`` at Llama-3-8B's four int4 projection shapes (group
+128) at M 8,192 and at decode (M 4 and 1, the weights read cold from
+rotating copies, as ``chip_smoke.py`` times them).
 
 - ``as_built``: the kernel as committed (its tile error against the plain
   version is printed);
@@ -31,15 +38,19 @@ fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072).
   cores read stale shared memory); ``no_epilogue``: the epilogue's
   arithmetic and stores skipped (the SwiGLU backward still loads g and dh
   and stores them back unchanged); ``no_wgmma``: the product skipped;
-- persistent grid (``gmm``, SwiGLU forward): ``n_raster`` walks the
-  column blocks of one row tile before the next row tile (groups of one
-  row tile), ``m_raster`` every row tile of a column block before the
-  next; ``bn128`` and ``bn256`` (``gmm``) force the output tile width;
+- persistent grid (``gmm``, SwiGLU forward, ``tgmm``, ``int4_mm``):
+  ``n_raster`` walks the column blocks of one row tile before the next
+  row tile (groups of one row tile), ``m_raster`` every row tile of a
+  column block before the next; ``bn128`` and ``bn256`` (``gmm``,
+  ``tgmm``) force the output tile width, ``t16`` and ``t128`` (``int4_mm``)
+  the tokens of a tile; ``no_widen`` (``int4_mm``) skips the nibble unpack
+  into registers, ``no_wgmma`` the product, ``ldg_scales`` reads the group
+  scales by ``__ldg`` instead of staging them with the chunk;
 - ``parent``: with ``--parent DIR``, the same kernel from another checkout
   (e.g. the commit before a redesign), timed in turns with ``as_built``
   on the same card (parent, as_built, ..., as_built, parent).
 
-Only ``as_built``, the width and order copies, and ``parent`` compute
+Only ``as_built``, the width, tile and order copies, and ``parent`` compute
 the function; the others are timings of broken copies, never loaded by the
 port. Prints the ptxas report of every copy, one JSON line per shape,
 then the card.
@@ -67,6 +78,10 @@ NO_WGMMA = (HEADER, "for (int k16 = 0; k16 < kBK / 16; ++k16) {",
 N_RASTER = (HEADER, "constexpr int kGroupM = 8;", "constexpr int kGroupM = 1;")
 M_RASTER = (HEADER, "constexpr int kGroupM = 8;", "constexpr int kGroupM = 1 << 20;")
 WIDTH = "return tiles256 < 3LL * sms ? 128 : 256;"
+ROWS = "int tile_rows(int M) {"
+WIDEN_FRAG = "widen_frag(a[j], st + R::kX + cw * R::kQ, j, q, col, sh, sc);"
+ISSUE_RS = ("issue_rs<BT>(acc0, acc1, a[j], sm90::desc128(st + j * 32, 16, 1024), kc > 0 || "
+            "j > 0);")
 
 
 # {source: {variant: ((file, old, new), ...)}}; every occurrence of old in
@@ -126,6 +141,26 @@ SOURCES = {
         "bn128": ((HEADER, WIDTH, "return 128;"),),
         "bn256": ((HEADER, WIDTH, "return 256;"),),
     },
+    "tgmm": {
+        "no_epilogue": (("tgmm.cu", "for (int j0 = 0; j0 < BN / 8; j0 += 4) {",
+                         "for (int j0 = 0; j0 < 0; j0 += 4) {"),),
+        "no_wgmma": (NO_WGMMA,),
+        "n_raster": (N_RASTER,),
+        "m_raster": (M_RASTER,),
+        "bn128": ((HEADER, WIDTH, "return 128;"),),
+        "bn256": ((HEADER, WIDTH, "return 256;"),),
+    },
+    "int4_matmul": {
+        "no_widen": (("int4_matmul.cu", WIDEN_FRAG, ""),),
+        "no_wgmma": (("int4_matmul.cu", ISSUE_RS, ""),),
+        "n_raster": (N_RASTER,),
+        "m_raster": (M_RASTER,),
+        "t16": (("int4_matmul.cu", ROWS + " return M <= 16 ? 16 : 128; }", ROWS + " return 16; }"),),
+        "t128": (("int4_matmul.cu", ROWS + " return M <= 16 ? 16 : 128; }",
+                  ROWS + " return 128; }"),),
+        "ldg_scales": (("int4_matmul.cu", "const bool staged = p.gshift >= 6;",
+                        "const bool staged = false;"),),
+    },
 }
 # the copies each timed kernel takes (a source's other copies edit another
 # kernel of it)
@@ -138,6 +173,9 @@ KERNELS = {
     "swiglu_bwd": ("swiglu_gmm", ("no_widen", "bwd_no_epilogue", "bwd_no_wgmma")),
     "gmm": ("gmm", ("no_widen", "no_epilogue", "no_wgmma", "n_raster", "m_raster", "bn128",
                     "bn256")),
+    "tgmm": ("tgmm", ("no_epilogue", "no_wgmma", "n_raster", "m_raster", "bn128", "bn256")),
+    "int4_mm": ("int4_matmul", ("no_widen", "no_wgmma", "n_raster", "m_raster", "t16", "t128",
+                                "ldg_scales")),
 }
 
 
@@ -202,6 +240,13 @@ def build(torch_build, sources, parent: Path | None):
             lib.swiglu_fwd_launch.restype = I
             lib.swiglu_bwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
             lib.swiglu_bwd_launch.restype = I
+        elif source == "tgmm":
+            lib.tgmm_launch.argtypes = [P] * 4 + [I] * 4 + [P]
+            lib.tgmm_launch.restype = I
+        elif source == "int4_matmul":
+            L = ctypes.c_longlong
+            lib.int4_mm_launch.argtypes = [P] * 4 + [L] * 4 + [P]
+            lib.int4_mm_launch.restype = I
         else:
             lib.gmm_launch.argtypes = [P] * 6 + [I] * 5 + [P]
             lib.gmm_launch.restype = I
@@ -260,7 +305,8 @@ def main() -> int:
             row.setdefault(name, []).append(time_ms(fns[name]))
         err = {}
         for name in ("as_built", "parent", "no_pingpong", "n_raster", "m_raster",
-                     "fwd_n_raster", "fwd_m_raster", "bn128", "bn256"):
+                     "fwd_n_raster", "fwd_m_raster", "bn128", "bn256", "t16", "t128",
+                     "ldg_scales"):
             if name in fns:
                 if fns[name]() != 0:
                     raise RuntimeError(f"{kernel} {name}: launch failed")
@@ -412,6 +458,65 @@ def main() -> int:
                 make, lambda out=out, want=want: gm.tile_rel_err(out, want))
             del lhs, w, s, out, scaled, want
             torch.cuda.empty_cache()
+
+    if "tgmm" in args.only:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        one = torch.tensor([0] * 4 + [M] * 5, dtype=torch.int32, device="cuda")
+        for K, N, what in ((D, F, "full FT gate/up dW"), (F, D, "full FT down dW")):
+            lhs = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            dout = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+            out = torch.empty((E, K, N), dtype=torch.bfloat16, device="cuda")
+            for routing, o in (("balanced", offs), ("one_expert", one)):
+                want = gm.tgmm_reference(lhs, dout, o, E)
+                run("tgmm", {"kernel": "tgmm", "shape": f"{what} [{E}, {K}, {N}]",
+                             "routing": routing, "M": M, "K": K, "N": N,
+                             "flops": 2 * M * K * N, "width": gm.tgmm_tile_width(K, N, E, sms)},
+                    lambda lib, o=o, K=K, N=N: lambda: lib.tgmm_launch(
+                        lhs.data_ptr(), dout.data_ptr(), o.data_ptr(), out.data_ptr(), M, K, N,
+                        E, stream),
+                    lambda want=want: gm.tile_rel_err(out.view(-1, out.shape[-1]),
+                                                      want.view(-1, want.shape[-1])))
+                del want
+            del lhs, dout, out
+            torch.cuda.empty_cache()
+
+    if "int4_mm" in args.only:
+        from odh_kubeflow_tpu_torch.ops import int4
+
+        group = 128
+        for rows in (8192, 4, 1):
+            for label, K, N in (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                                ("gate/up", 4096, 14336), ("down", 14336, 4096)):
+                wbytes = K * N // 2 + K // group * N * 4
+                # at decode, enough weights that each launch reads its own cold
+                copies = 1 if rows > 512 else min(32, max(1, -(-200_000_000 // wbytes)))
+                q4 = [torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
+                                    dtype=torch.int32).to(torch.uint8) for _ in range(copies)]
+                sc = [torch.rand((K // group, N), generator=gen, device="cuda") * 0.02 + 1e-4
+                      for _ in range(copies)]
+                x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
+                out = torch.empty((rows, N), dtype=torch.bfloat16, device="cuda")
+                turn = [0]
+
+                def make(lib, x=x, q4=q4, sc=sc, out=out, rows=rows, K=K, N=N, turn=turn):
+                    def launch():
+                        i = turn[0] % len(q4)
+                        turn[0] += 1
+                        return lib.int4_mm_launch(x.data_ptr(), q4[i].data_ptr(),
+                                                  sc[i].data_ptr(), out.data_ptr(), rows, K, N,
+                                                  group, stream)
+                    return launch
+
+                def check(x=x, q4=q4, sc=sc, out=out, turn=turn):
+                    i = (turn[0] - 1) % len(q4)  # the copy the last launch read
+                    return int4.tile_rel_err(out, int4.int4_matmul_reference(x, q4[i], sc[i]))
+
+                run("int4_mm", {"kernel": "int4_mm", "shape": f"{label} M {rows}", "M": rows,
+                                "K": K, "N": N, "flops": 2 * rows * K * N,
+                                "instance": int4.int4_mm_instance(rows, N, True)},
+                    make, check)
+                del q4, sc, x, out
+                torch.cuda.empty_cache()
     print(card_label(), flush=True)
     return 0
 

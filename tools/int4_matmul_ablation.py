@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the int4 matmul kernels' time goes, on one NVIDIA GPU.
+"""Where the int4 matmul's input gradient (dX, ``int4_dlhs_launch``) spends
+its time, on one NVIDIA GPU. It is the first design's kernel
+(``int4_mm_kernel``, ``mma.sync``); the forward runs on the persistent
+product and is ablated by ``tools/hopper_redesign_ablation.py --only int4_mm``.
 
     python3 tools/int4_matmul_ablation.py      # from the root of a checkout
 
 Builds edited copies of ``odh_kubeflow_tpu_torch/csrc/int4_matmul.cu``
-side by side under ``build/int4_ablation/`` and times each, forward (mm)
-and dX (dlhs), by CUDA events at Llama-3-8B's wq/wo and gate/up shapes (M
-8,192) and at decode (M 1):
+side by side under ``build/int4_ablation/`` and times each dX by CUDA
+events at Llama-3-8B's wq/wo and gate/up shapes (M 8,192) and at decode
+(M 1):
 
 - ``as_built``: the kernel as committed;
 - ``no_launch_bound``: without ``__launch_bounds__(256, 2)`` (ptxas then
@@ -59,7 +62,8 @@ def build(torch_build) -> tuple[dict[str, ctypes.CDLL], dict[str, list[str]]]:
     for name, src in variants((csrc / "int4_matmul.cu").read_text()).items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        shutil.copy(csrc / "flash_common.cuh", d)
+        for h in csrc.glob("*.cuh"):
+            shutil.copy(h, d)
         (d / "int4_matmul.cu").write_text(src)
         procs[name] = subprocess.Popen(
             [torch_build._nvcc(), *torch_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
@@ -73,9 +77,9 @@ def build(torch_build) -> tuple[dict[str, ctypes.CDLL], dict[str, list[str]]]:
         regs[name] = [line.strip() for line in log.splitlines()
                       if "entry function" in line or "registers" in line or "spill" in line]
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        for fn in (lib.int4_mm_launch, lib.int4_dlhs_launch):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        lib.int4_dlhs_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+        lib.int4_dlhs_launch.restype = ctypes.c_int
         libs[name] = lib
     return libs, regs
 
@@ -110,27 +114,22 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(93)
     stream = torch.cuda.current_stream().cuda_stream
     for M, K, N in SHAPES:
-        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
         d = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
         q4 = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
                            dtype=torch.int32).to(torch.uint8)
         s = torch.rand((K // 128, N), generator=gen, device="cuda") * 0.02 + 1e-4
-        out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
         dx = torch.empty((M, K), dtype=torch.bfloat16, device="cuda")
         row = {"M": M, "K": K, "N": N}
         for name, lib in libs.items():
-            mm = (lambda lib=lib: lib.int4_mm_launch(x.data_ptr(), q4.data_ptr(), s.data_ptr(),
-                                                     out.data_ptr(), M, K, N, 128, stream))
             dl = (lambda lib=lib: lib.int4_dlhs_launch(d.data_ptr(), q4.data_ptr(), s.data_ptr(),
                                                        dx.data_ptr(), M, K, N, 128, stream))
-            row[name] = {"mm_ms": time_ms(mm), "dlhs_ms": time_ms(dl)}
+            row[name] = {"dlhs_ms": time_ms(dl)}
             if name == "as_built":
-                if mm() != 0 or dl() != 0:
-                    raise RuntimeError("int4 matmul launch failed")
+                if dl() != 0:
+                    raise RuntimeError("int4 dlhs launch failed")
                 torch.cuda.synchronize()
-                row[name]["tile_rel_err"] = [
-                    int4.tile_rel_err(out, int4.int4_matmul_reference(x, q4, s)),
-                    int4.tile_rel_err(dx, int4.int4_dlhs_reference(d, q4, s))]
+                row[name]["tile_rel_err"] = int4.tile_rel_err(
+                    dx, int4.int4_dlhs_reference(d, q4, s))
         print(json.dumps(row), flush=True)
     print(card_label(), flush=True)
     return 0
