@@ -80,18 +80,19 @@ Phases, one JSON line each on stdout:
     fused-dequant matmul and its dX (``int4_mm``, ``int4_dlhs``) against
     their plain versions per 128 x 128 tile into NaN-filled buffers, at
     Llama-3-8B's four projection shapes at M 8,192 (the QLoRA step), 4 and
-    1 (decode), at ragged shapes (the forward's generic kernel where N % 16
-    != 0, a ragged M on its Hopper kernel), group 64 and group 8, each
-    forward on the instance ``int4_mm_instance`` names; at M 8,192 also
-    against the dequant path; four planted faults each; the lm_head and a
-    float32 ``x`` refused; times, bounds, plain, ``torch.matmul`` on a bf16
-    copy (product only) and the dequant path, per launch and per 8B
-    forward.
+    1 (decode), at ragged shapes (both directions' generic kernels where
+    N % 16 != 0, a ragged M on the Hopper kernels), group 64 and group 8,
+    each launch on the instance ``int4_mm_instance`` /
+    ``int4_dlhs_instance`` names; every dX launched twice, bitwise equal;
+    at M 8,192 also against the dequant path; four planted faults each;
+    the lm_head and a float32 ``x`` refused; times, bounds, plain,
+    ``torch.matmul`` on a bf16 copy (product only) and the dequant path,
+    per launch and per 8B forward.
 18. ``int4_qlora_proj`` (after it): one 8B layer's seven projections at
     M 8,192 through ``int4_matmul`` with autograd: exactly 7 + 7 launches,
-    every forward on the Hopper kernel, and no dequant; dx per tile
-    against the dequant route (and how many elements differ); peak memory
-    and time of both routes.
+    every forward and every dX on the Hopper kernels, and no dequant; dx
+    per tile against the dequant route (and how many elements differ);
+    peak memory and time of both routes.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -219,8 +220,8 @@ INT4_MM_SHAPES = (
 )
 INT4_MM_ROWS = (8192, 4, 1)
 # shapes the contract accepts beyond those: ragged M and N (N % 16 != 0:
-# the forward's generic instance, the dX's generic load path), ragged M on
-# the persistent forward, group 64 and a small group: (label, M, K, N, group)
+# both directions' generic instances), ragged M on the Hopper kernels,
+# group 64 and a small group (scales by __ldg): (label, M, K, N, group)
 INT4_MM_EXTRA = (
     ("ragged", 300, 2048, 200, 128),
     ("ragged decode", 1, 2048, 100, 128),
@@ -792,6 +793,7 @@ def zero_counts(fa, int4) -> None:
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = int4.launches = 0
     int4.mm_launches = int4.dlhs_launches = 0
     int4.mm_launches_by_instance.clear()
+    int4.dlhs_launches_by_instance.clear()
 
 
 def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
@@ -2091,6 +2093,13 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
         "int4_mm": (int4.int4_mm, int4.int4_matmul_reference, lambda w: w),
         "int4_dlhs": (int4.int4_dlhs, int4.int4_dlhs_reference, lambda w: w.t()),
     }
+    # name: (the instance rule, its launch counts by instance)
+    instances = {"int4_mm": (int4.int4_mm_instance, int4.mm_launches_by_instance),
+                 "int4_dlhs": (int4.int4_dlhs_instance, int4.dlhs_launches_by_instance)}
+
+    def launched_instances(name, before):
+        counts = instances[name][1]
+        return [k for k, v in counts.items() if v != before.get(k, 0)]
     for label, K, N, per_fwd in INT4_MM_SHAPES:
         for M in INT4_MM_ROWS:
             wbytes = K * N // 2 + K // INT4_GROUP * N * 4
@@ -2103,14 +2112,25 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
                 fn, plain, orient = kinds[name]
                 tag = f"{label} M {M}"
                 poison(torch, M, N if name == "int4_mm" else K)
+                before = dict(instances[name][1])
                 got = fn(a, q4[0], s[0])
                 want = plain(a, q4[0], s[0])
                 torch.cuda.synchronize()
                 row = {"shape": label, "M": M, "K": K, "N": N, "group": INT4_GROUP,
                        "launches_per_8b_forward": per_fwd,
-                       "tile_rel_err": checks.check(name, got, want, tag)}
-                if name == "int4_mm":
-                    row["instance"] = int4.int4_mm_instance(M, N, True)
+                       "tile_rel_err": checks.check(name, got, want, tag),
+                       "instance": launched_instances(name, before)}
+                if row["instance"] != [instances[name][0](M, N, True)]:
+                    raise AssertionError(f"{name} {tag}: launched {row['instance']}")
+                if name == "int4_dlhs":
+                    # no atomics, a fixed order of sums: a second launch
+                    # gives the same bits
+                    poison(torch, M, K)
+                    again = fn(a, q4[0], s[0])
+                    row["bitwise_equal_relaunch"] = bool(torch.equal(got, again))
+                    if not row["bitwise_equal_relaunch"]:
+                        raise AssertionError(f"int4_dlhs {tag}: two launches differ")
+                    del again
                 if M == INT4_MM_ROWS[0]:
                     # the port's current path: the dequant kernel (bit-exact), then
                     # one f32 product: the kernel must see the same bf16 weights
@@ -2160,17 +2180,14 @@ def int4_matmul_kernels_phase(torch, int4, bw: float, peak: float) -> tuple[dict
         for name, a in (("int4_mm", bf16(M, K)), ("int4_dlhs", bf16(M, N))):
             fn, plain, _ = kinds[name]
             poison(torch, M, N if name == "int4_mm" else K)
-            before = dict(int4.mm_launches_by_instance)
+            before = dict(instances[name][1])
             got = fn(a, q4[0], s[0], group)
             rel = checks.check(name, got, plain(a, q4[0], s[0]),
                                f"{label} M {M} K {K} N {N} g {group}")
             row = {"kernel": name, "shape": label, "M": M, "K": K, "N": N, "group": group,
-                   "tile_rel_err": rel}
-            if name == "int4_mm":
-                row["instance"] = [k for k, v in int4.mm_launches_by_instance.items()
-                                   if v != before.get(k, 0)]
-                if row["instance"] != [int4.int4_mm_instance(M, N, True)]:
-                    raise AssertionError(f"int4_mm {label}: launched {row['instance']}")
+                   "tile_rel_err": rel, "instance": launched_instances(name, before)}
+            if row["instance"] != [instances[name][0](M, N, True)]:
+                raise AssertionError(f"{name} {label}: launched {row['instance']}")
             extra.append(row)
     # the lm_head (N 128,256) is refused, as by the TPU kernels: callers
     # take the dequant path there; and a float32 x on the card is refused
@@ -2269,11 +2286,12 @@ def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
     }
     want_launches = {"kernel": {"int4_mm": 7, "int4_dlhs": 7, "int4_dequant": 0},
                      "dequant": {"int4_mm": 0, "int4_dlhs": 0, "int4_dequant": 7}}
-    # every forward of the layer on the Hopper TMA kernel
-    want_instances = {}
+    # every forward and every dX of the layer on the Hopper TMA kernels
+    want_instances = {"mm": {}, "dlhs": {}}
     for _, _, N in INT4_LAYER:
-        i = int4.int4_mm_instance(M, N, True)
-        want_instances[i] = want_instances.get(i, 0) + 1
+        for d, rule in (("mm", int4.int4_mm_instance), ("dlhs", int4.int4_dlhs_instance)):
+            i = rule(M, N, True)
+            want_instances[d][i] = want_instances[d].get(i, 0) + 1
     out = {"phase": "int4_qlora_proj", "M": M, "layer": [list(p) for p in INT4_LAYER]}
     dx = {}
     for route, proj in routes.items():
@@ -2293,11 +2311,13 @@ def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
         if launched != want_launches[route] or others:
             raise AssertionError(f"int4_qlora_proj {route} route launched {launched} {others}, "
                                  f"want {want_launches[route]}")
-        by_instance = {k: v for k, v in int4.mm_launches_by_instance.items() if v}
-        if by_instance != (want_instances if route == "kernel" else {}):
-            raise AssertionError(f"int4_qlora_proj {route} route: forward instances "
+        by_instance = {d: {k: v for k, v in counts.items() if v} for d, counts in
+                       (("mm", int4.mm_launches_by_instance),
+                        ("dlhs", int4.dlhs_launches_by_instance))}
+        if by_instance != (want_instances if route == "kernel" else {"mm": {}, "dlhs": {}}):
+            raise AssertionError(f"int4_qlora_proj {route} route: instances "
                                  f"{by_instance}, want {want_instances}")
-        out[route] = {"launches": launched, "mm_launches_by_instance": by_instance,
+        out[route] = {"launches": launched, "launches_by_instance": by_instance,
                       "fwd_bwd_s": wall,
                       "peak_above_weights_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
     if not bool(dx["kernel"].isfinite().all()):
@@ -2366,6 +2386,7 @@ def main() -> int:
     record["card"] = label
     emit(record)
     proj_launches = record["kernel"]["launches"]
+    proj_instances = record["kernel"]["launches_by_instance"]
     moe_rows = moe_kernels_phase(torch, gm, bw, peak)
     bf16_rows = moe_bf16_kernels_phase(torch, gm, bw, peak)
     emit({"phase": "moe_kernels", "card": label,
@@ -2454,6 +2475,7 @@ def main() -> int:
     for row in int4_rows:
         row["launches_by_path"] = {"int4_qlora_proj": proj_launches[row["name"]]}
         row["launches"] = proj_launches[row["name"]]
+        row["launches_by_instance"] = proj_instances[row["name"].removeprefix("int4_")]
     emit({"kernels": [kernel, *flash_rows, *moe_rows, *bf16_rows, *int4_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

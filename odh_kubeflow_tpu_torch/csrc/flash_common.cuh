@@ -1,9 +1,9 @@
 // The pieces of the port's last mma.sync kernel, int4_matmul.cu's
-// int4_mm_kernel (the int4 input gradient, and the forward at shapes TMA
-// cannot map): warp-level bf16 tensor-core products (mma.sync m16n8k16, f32
-// accumulate), ldmatrix fragment loads from shared memory, and cp.async
-// copies. Every other kernel (flash, the grouped matmul, tgmm, the SwiGLU
-// kernels and the int4 forward) runs on sm90_common.cuh.
+// int4_mm_kernel (both int4 matmul directions at shapes TMA cannot map):
+// warp-level bf16 tensor-core products (mma.sync m16n8k16, f32 accumulate)
+// and ldmatrix fragment loads from shared memory. Every other kernel
+// (flash, the grouped matmul, tgmm, the SwiGLU kernels and both int4 matmul
+// directions at the shapes TMA maps) runs on sm90_common.cuh.
 //
 // Tiles sit in shared memory row-major with a padded row stride LD (in
 // elements), so that the 8 rows one ldmatrix phase reads fall in 8
@@ -29,23 +29,6 @@ __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / 
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; when !valid the destination is zero-filled
-// and nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -92,20 +75,9 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Store two neighbouring bf16 values (columns c, c+1) of an output row.
 __device__ __forceinline__ void store2(bf16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 }  // namespace flash

@@ -1,6 +1,6 @@
 // int4 fused-dequant matmul and its input gradient for Hopper (sm_90a): the
-// weights stay packed in device memory and are unpacked tile by tile in
-// shared memory.
+// weights stay packed in device memory and are widened chunk by chunk
+// straight into the tensor cores' registers.
 //
 // Replaces two kernels of odh_kubeflow_tpu/ops/pallas_int4.py, both behind
 // int4_matmul (:268-297, a jax.custom_vjp differentiable in x only):
@@ -29,43 +29,56 @@
 // 0.16 GB moved (0.05 ms at 3.35 TB/s). At decode (M 1..4) bytes: the packed
 // weights, 0.5 byte a weight (+ 4/group of scale), 2.66 us for wq.
 //
-// The forward (int4_mm_launch, every shape TMA can map: N % 16 == 0 and
-// 16-byte aligned bases, which ops/int4.py checks before it calls it) is
-// computed transposed, out^T = W^T x^T, so the widened weights are wgmma's
-// A operand straight from registers and never return to shared memory (a
-// first form widened them into shared memory for an SS product, as gmm.cu
-// widens int8; its shared-memory traffic, ~1.3x the tensor time a chunk
-// at 256 x 128 tiles, held it to 0.66 ms at wq/wo against this form's
-// 0.48 on an H100, PERF.md). A persistent block owns 256 weight columns x
-// BT tokens (128, or 16 at decode: tile_rows) and walks K in 64-deep
-// chunks through a TMA ring: the x chunk (wgmma's K-major B, rows past M
-// zero-filled), the packed chunk (64 packed rows of one nibble half, K %
-// 128 == 0, as two 128-byte-swizzled panels) and, at group >= 64, the
-// chunk's one row of scales. Each consumer warpgroup widens its panel: a
-// thread's A fragment rows are chosen as four neighbouring weight columns,
-// so one 32-bit load of a packed row serves them; nibble to f32 exactly
-// (the magic-number trick of widen4), one f32 multiply by the group scale,
-// one rounding to bf16. Fragments are double-buffered by chunk, so the
-// widening of chunk kc + 1 runs under chunk kc's products. The epilogue
-// stores bf16 from registers, four columns of a token a store, rows past M
-// and columns past N masked.
+// Both directions run, at every shape TMA can map (N % 16 == 0 and 16-byte
+// aligned bases, which ops/int4.py checks before it calls them), one form:
+// a persistent, warp-specialised wgmma RS product whose A operand is the
+// weights, widened from packed nibbles into registers, never back in shared
+// memory (a first forward widened them into shared memory for an SS
+// product, as gmm.cu widens int8; its shared-memory traffic, ~1.3x the
+// tensor time a chunk at 256 x 128 tiles, held it to 0.66 ms at wq/wo
+// against this form's 0.48 on an H100, PERF.md). The activations are a
+// K-major B, TMA-loaded 128-byte swizzled, rows past M zero-filled. A block
+// of 384 threads: one producer thread keeps a ring of chunks in flight (full
+// and empty mbarriers), two consumer warpgroups widen and multiply. A nibble
+// becomes f32 exactly (the magic-number trick of widen4), one f32 multiply
+// by its group scale, one rounding to bf16. Fragments are double-buffered by
+// chunk: the widening of chunk kc + 1 runs under chunk kc's products, and a
+// buffer is rewritten only after the wgmma_wait<0> that ends the products
+// reading it. A tile covers BT tokens: 128, or 16 at decode (tile_rows).
 //
-// The input gradient (int4_dlhs_launch) and the forward at shapes TMA cannot
-// map (int4_mm_generic_launch) stay on the first design, int4_mm_kernel
-// below: one block owns one output tile and loops over the contraction
-// itself, mm a [128, 128] tile of out over K in 64-wide chunks, dlhs a
-// [128, 128] tile of dx (128 rows of dout, 128 weight rows k) over N in
-// 64-wide chunks. Each chunk's x or dout tile, packed bytes and scale rows
-// arrive by cp.async in a 3-stage ring (dlhs with N % 16 == 0 and aligned
-// bases; else element by element); the packed tile is unpacked with its
-// scales into one bf16 tile in shared memory ([64 k][128 n] for mm, [128
-// k][64 n] for dlhs: the transposed read of the same bank), which ldmatrix
-// feeds to mma.sync m16n8k16 with f32 accumulators (8 warps as 2 x 4, 64 x
-// 32 each). No bf16 copy of W ever reaches device memory: the weights cross
-// it at 0.5 byte each. Known weakness: at M 1..4 N / 256 blocks (the
-// forward) or K / 128 (dlhs), 16 or 32 for a 4096-wide weight, leave most
-// of the 132 SMs idle, so decode runs far from its bytes bound; split-K or
-// a GEMV form is later work.
+// The forward (int4_mm_launch), out^T = W^T x^T: a tile is 256 weight
+// columns; the contraction K runs in 64-deep chunks, each 64 packed rows of
+// one nibble half (K % 128 == 0) as two 128-byte-swizzled panels and, at
+// group >= 64, the chunk's one row of scales. A thread's A fragment rows are
+// four neighbouring weight columns, so one 32-bit load of a packed row
+// serves them. The epilogue stores bf16 from registers, four columns of a
+// token a store, rows past M and columns past N masked.
+//
+// The input gradient (int4_dlhs_launch), dx^T = W dout^T: a tile is 128
+// packed rows, so 256 weight rows in two runs of 128 columns of dx (rows p0..
+// and K/2 + p0..); the contraction N runs in 64-deep chunks (an even count:
+// dlhs_chunks; TMA reads zeros past N). A consumer warpgroup owns 64 packed
+// rows and both m64 blocks of them: block 0 their low nibbles, block 1 their
+// high, so one 16-bit load of a packed row (64-byte swizzled) gives a
+// column pair's nibbles for both. The scales vary along the contraction: at
+// group >= 64 a warpgroup's 64 low rows share one scale row and so do its
+// high rows (p0 % 64 == 0, K/2 % group == 0), and TMA stages those four rows
+// of 64 scales with the chunk; smaller groups are read by __ldg, in an
+// instance of their own (one kernel choosing at run time ran 8-10% slower
+// at decode on an H100, PERF.md). The accumulators hold dx^T: the epilogue transposes them into shared memory
+// by stmatrix, four 64-column panels of [tokens][k], 128-byte swizzled, and
+// TMA stores the two runs, clipping rows past M. No atomics: two launches
+// are bitwise equal.
+//
+// At shapes TMA cannot map, both directions take the first design's
+// element-by-element kernel (int4_mm_generic_launch, int4_dlhs_generic_launch:
+// int4_mm_kernel below): one block owns one [128, 128] output tile and loops
+// over the contraction in 64-wide chunks, each loaded and unpacked straight
+// from device memory into bf16 tiles in shared memory that ldmatrix feeds to
+// mma.sync m16n8k16 with f32 accumulators. Known weakness: at decode (M
+// 1..4) the forward has N / 256 tiles and the input gradient K / 256, 16 for
+// a 4096-wide weight, which leaves most of the 132 SMs idle; split-K is
+// later work.
 
 #include "flash_common.cuh"
 #include "grouped_sm90.cuh"
@@ -74,18 +87,16 @@ namespace {
 
 using flash::bf16;
 
+// ---------------------------------------------------------------------------
+// the first design, for shapes TMA cannot map
+
 constexpr int kBM = 128;       // rows of x / dout per block
 constexpr int kBN = 128;       // output columns per block
 constexpr int kBK = 64;        // contraction chunk
 constexpr int kThreads = 256;  // 8 warps, 2 (rows) x 4 (columns)
-constexpr int kStages = 3;
 constexpr int kPad = 8;        // bf16 row padding (16 bytes)
-constexpr int kLDA = kBK + kPad;     // pitch of the x / dout tile [128][64]
-constexpr int kLDWmm = kBN + kPad;   // pitch of mm's weight tile [64 k][128 n]
-constexpr int kLDWdl = kBK + kPad;   // pitch of dlhs's weight tile [128 k][64 n]
+constexpr int kLDA = kBK + kPad;  // pitch of the x / dout tile [128][64]
 constexpr int kABytes = kBM * kLDA * 2;
-constexpr int kPBytes = kBK * kBN;   // packed bytes a chunk, both kernels
-constexpr int kMaxScaleBytes = 128 * kBK * 4;  // group 1: a scale row per weight row
 
 // Geometry of one kernel: weight rows and columns of a chunk's tile.
 // mm: [64 k][128 n] per K chunk; dlhs: [128 k][64 n] per N chunk.
@@ -93,19 +104,8 @@ template <bool kDlhs>
 struct Geo {
   static constexpr int kRowsW = kDlhs ? kBN : kBK;  // weight rows k in a tile
   static constexpr int kColsW = kDlhs ? kBK : kBN;  // weight columns n in a tile
-  static constexpr int kLDW = kDlhs ? kLDWdl : kLDWmm;
-  static constexpr int kWBytes = kRowsW * kLDW * 2;
-  // scale rows a tile spans: one when group >= the tile's rows
-  __host__ __device__ static int scale_rows(int group) {
-    return group >= kRowsW ? 1 : kRowsW / group;
-  }
-  __host__ __device__ static int stage_bytes(int group) {
-    return kABytes + kPBytes + scale_rows(group) * kColsW * 4;
-  }
-  __host__ static int smem_bytes(int group, bool vec) {
-    return vec ? kStages * stage_bytes(group) + kWBytes : kABytes + kWBytes;
-  }
-  static constexpr int kMaxSmem = kStages * (kABytes + kPBytes + kMaxScaleBytes) + kWBytes;
+  static constexpr int kLDW = kColsW + kPad;
+  static constexpr int kSmem = kABytes + kRowsW * kLDW * 2;  // under 48 KB
 };
 
 struct Args {
@@ -121,81 +121,10 @@ __device__ __forceinline__ float weight(uint32_t byte, bool hi, float s) {
   return static_cast<float>(nib - 8) * s;
 }
 
-// Start the cp.async copies of one chunk (vec path: N % 16 == 0, aligned
-// bases). mm: x[m0.., k0..k0+63], q4 rows p0..p0+63 x columns n0..n0+127,
-// scale rows of k0..k0+63. dlhs: dout[m0.., c0..c0+63], q4 rows p0..p0+127 x
-// columns c0..c0+63, scale rows of k0..k0+127. Out-of-range copies zero-fill.
-template <bool kDlhs>
-__device__ __forceinline__ void load_chunk(unsigned char* stage, const Args& g, int m0, int k0,
-                                           int p0, int n0) {
-  using G = Geo<kDlhs>;
-  bf16* sA = reinterpret_cast<bf16*>(stage);
-  uint8_t* sP = stage + kABytes;
-  float* sS = reinterpret_cast<float*>(stage + kABytes + kPBytes);
-  const int lda = kDlhs ? g.N : g.K;       // row pitch of x / dout
-  const int a_col0 = kDlhs ? n0 : k0;      // contraction offset of this chunk
-#pragma unroll
-  for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8);
-    const int c = (i % (kBK / 8)) * 8;
-    const bool valid = m0 + r < g.M && a_col0 + c < lda;
-    const bf16* src = valid ? g.a + static_cast<long long>(m0 + r) * lda + a_col0 + c : g.a;
-    flash::cp_async16(sA + r * kLDA + c, src, valid);
-  }
-  // packed bytes: kRowsW rows of kColsW bytes, 16 a copy
-#pragma unroll
-  for (int i = threadIdx.x; i < G::kRowsW * (G::kColsW / 16); i += kThreads) {
-    const int r = i / (G::kColsW / 16);
-    const int c = (i % (G::kColsW / 16)) * 16;
-    const bool valid = n0 + c < g.N;
-    const uint8_t* src = valid ? g.q4 + static_cast<long long>(p0 + r) * g.N + n0 + c : g.q4;
-    flash::cp_async16(sP + r * G::kColsW + c, src, valid);
-  }
-  // scale rows: 4 floats a copy
-  const int srows = G::scale_rows(g.group);
-  const int s0 = k0 / g.group;
-  for (int i = threadIdx.x; i < srows * (G::kColsW / 4); i += kThreads) {
-    const int r = i / (G::kColsW / 4);
-    const int c = (i % (G::kColsW / 4)) * 4;
-    const bool valid = n0 + c < g.N;
-    const float* src = valid ? g.scale + static_cast<long long>(s0 + r) * g.N + n0 + c : g.scale;
-    flash::cp_async16(sS + r * G::kColsW + c, src, valid);
-  }
-}
-
-// Unpack a staged chunk into the bf16 weight tile, 16 weights a unit:
-// sW[r][c] = bf16((nibble - 8) * scale[(k0 + r) / group][c]).
-template <bool kDlhs>
-__device__ __forceinline__ void unpack_staged(bf16* sW, const unsigned char* stage, int k0, bool hi,
-                                              int group) {
-  using G = Geo<kDlhs>;
-  const uint8_t* sP = stage + kABytes;
-  const float* sS = reinterpret_cast<const float*>(stage + kABytes + kPBytes);
-  const int s0 = k0 / group;
-#pragma unroll
-  for (int u = threadIdx.x; u < G::kRowsW * (G::kColsW / 16); u += kThreads) {
-    const int r = u / (G::kColsW / 16);
-    const int c = (u % (G::kColsW / 16)) * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(sP + r * G::kColsW + c);
-    const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
-    const float* s = sS + ((k0 + r) / group - s0) * G::kColsW + c;
-    uint32_t packed[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t word = w4[j >> 1];
-      const int sh = 16 * (j & 1);
-      packed[j] = flash::pack_bf16(weight((word >> sh) & 0xFFu, hi, s[2 * j]),
-                                   weight((word >> (sh + 8)) & 0xFFu, hi, s[2 * j + 1]));
-    }
-    bf16* dst = sW + r * G::kLDW + c;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-  }
-}
-
-// Generic path (N % 16 != 0 or a misaligned base): load one chunk's x / dout
-// tile and unpack its weights straight from device memory, element by
-// element, zeros outside the operands.
+// Load one chunk's x / dout tile and unpack its weights straight from
+// device memory, element by element, zeros outside the operands. mm:
+// x[m0.., k0..k0+63] and weight rows k0..k0+63 x columns n0..n0+127; dlhs:
+// dout[m0.., n0..n0+63] and weight rows k0..k0+127 x columns n0..n0+63.
 template <bool kDlhs>
 __device__ __forceinline__ void load_direct(bf16* sA, bf16* sW, const Args& g, int m0, int k0,
                                             int p0, int n0, bool hi) {
@@ -254,18 +183,16 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[4][4][4], const bf16* sA,
 // K. dlhs: blockIdx.x walks K (the weight rows), the block loops over N.
 // Two blocks an SM, so at most 128 registers a thread: unbounded, ptxas gave
 // the mm kernel 174 and it ran 1.3x slower at one block an SM (H100).
-template <bool kDlhs, bool kVec>
+template <bool kDlhs>
 __global__ void __launch_bounds__(kThreads, 2) int4_mm_kernel(Args g) {
   using G = Geo<kDlhs>;
   extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sW = reinterpret_cast<bf16*>(smem + kABytes);
   const int m0 = blockIdx.y * kBM;
   const int c0 = blockIdx.x * kBN;  // first output column: n (mm) or k (dlhs)
   const int K2 = g.K / 2;
   const int nk = kDlhs ? (g.N + kBK - 1) / kBK : g.K / kBK;
-  // the chunk's first weight row k, packed row and nibble half; a dlhs
-  // block keeps its 128 weight rows through the loop (K/2 % 128 == 0)
-  auto k_of = [&](int kc) { return kDlhs ? c0 : kc * kBK; };
-  auto n_of = [&](int kc) { return kDlhs ? kc * kBK : c0; };
 
   float acc[4][4][4];
 #pragma unroll
@@ -274,40 +201,15 @@ __global__ void __launch_bounds__(kThreads, 2) int4_mm_kernel(Args g) {
     for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] =
         acc[mi][ni][3] = 0.f;
 
-  if constexpr (kVec) {
-    const int stage_bytes = G::stage_bytes(g.group);
-    bf16* sW = reinterpret_cast<bf16*>(smem + kStages * stage_bytes);
-    auto stage = [&](int s) { return smem + s * stage_bytes; };
-    auto fetch = [&](int kc) {
-      const int k0 = k_of(kc);
-      load_chunk<kDlhs>(stage(kc % kStages), g, m0, k0, k0 < K2 ? k0 : k0 - K2, n_of(kc));
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nk) fetch(s);
-      flash::cp_async_commit();
-    }
-    for (int kc = 0; kc < nk; ++kc) {
-      flash::cp_async_wait<kStages - 2>();  // chunk kc has landed
-      __syncthreads();                      // and chunk kc - 1 is consumed
-      if (kc + kStages - 1 < nk) fetch(kc + kStages - 1);
-      flash::cp_async_commit();
-      const int k0 = k_of(kc);
-      unpack_staged<kDlhs>(sW, stage(kc % kStages), k0, k0 >= K2, g.group);
-      __syncthreads();
-      mma_chunk<kDlhs>(acc, reinterpret_cast<const bf16*>(stage(kc % kStages)), sW);
-    }
-    flash::cp_async_wait<0>();
-  } else {
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sW = reinterpret_cast<bf16*>(smem + kABytes);
-    for (int kc = 0; kc < nk; ++kc) {
-      const int k0 = k_of(kc);
-      __syncthreads();  // the previous chunk is consumed
-      load_direct<kDlhs>(sA, sW, g, m0, k0, k0 < K2 ? k0 : k0 - K2, n_of(kc), k0 >= K2);
-      __syncthreads();
-      mma_chunk<kDlhs>(acc, sA, sW);
-    }
+  for (int kc = 0; kc < nk; ++kc) {
+    // the chunk's first weight row k, packed row and nibble half; a dlhs
+    // block keeps its 128 weight rows through the loop (K/2 % 128 == 0)
+    const int k0 = kDlhs ? c0 : kc * kBK;
+    __syncthreads();  // the previous chunk is consumed
+    load_direct<kDlhs>(sA, sW, g, m0, k0, k0 < K2 ? k0 : k0 - K2, kDlhs ? kc * kBK : c0,
+                       k0 >= K2);
+    __syncthreads();
+    mma_chunk<kDlhs>(acc, sA, sW);
   }
 
   // epilogue: one rounding to bf16; rows past M and columns past the output
@@ -341,23 +243,26 @@ __global__ void __launch_bounds__(kThreads, 2) int4_mm_kernel(Args g) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-template <bool kDlhs, bool kVec>
-int launch(const Args& g, cudaStream_t stream) {
-  using G = Geo<kDlhs>;
-  static int attr = flash::set_smem(int4_mm_kernel<kDlhs, kVec>, G::kMaxSmem);
-  if (attr != 0) return attr;
+template <bool kDlhs>
+int launch_generic(const Args& g, cudaStream_t stream) {
   const int width = kDlhs ? g.K : g.N;
   const dim3 grid(flash::ceil_div(width, kBN), flash::ceil_div(g.M, kBM));
-  int4_mm_kernel<kDlhs, kVec><<<grid, kThreads, G::smem_bytes(g.group, kVec), stream>>>(g);
+  int4_mm_kernel<kDlhs><<<grid, kThreads, Geo<kDlhs>::kSmem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The input gradient's checks: K % 256 (whole 128-row dlhs tiles in each
+// Both directions' checks: K % 256 (whole 128-row dlhs tiles in each
 // nibble half); group a power of two dividing 1024, so a chunk's scale
-// rows are whole; M within the grid's y limit. Also the forward's.
+// rows are whole; M within the generic grid's y limit.
 bool valid_shape(long long M, long long K, long long N, long long group) {
   return K % 256 == 0 && group > 0 && group <= 1024 && 1024 % group == 0 &&
          M <= 65535LL * kBM && K < (1LL << 31) && N < (1LL << 31);
+}
+
+// the shapes the Hopper kernels take: what TMA can map
+bool tma_shape(const Args& g) {
+  return g.N % 16 == 0 && aligned16(g.a) && aligned16(g.q4) && aligned16(g.scale) &&
+         aligned16(g.out);
 }
 
 Args make_args(const void* a, const void* q4, const void* scale, void* out, long long M,
@@ -367,15 +272,21 @@ Args make_args(const void* a, const void* q4, const void* scale, void* out, long
           static_cast<int>(K), static_cast<int>(N), static_cast<int>(group)};
 }
 
+int group_shift(int group) {
+  int s = 0;
+  while ((1 << s) < group) ++s;
+  return s;
+}
+
 // ---------------------------------------------------------------------------
 // the forward on Hopper (int4_mm_launch): out^T = W^T x^T, W widened into
 // wgmma's A registers
 
 constexpr int kRN = 256;  // weight columns of a tile: 2 consumer warpgroups x 2 m64 blocks
 
-// Tokens of the forward's output tile (the product's N) for M rows of x:
-// 16 at decode (M <= 16: an m64n16 product), else 128. Mirrored by
-// ops/int4.py int4_mm_tile_rows, which the CPU tests hold.
+// Tokens of an output tile (the product's N) for M rows of x or dout, in
+// both directions: 16 at decode (M <= 16: an m64n16 product), else 128.
+// Mirrored by ops/int4.py int4_mm_tile_rows, which the CPU tests hold.
 int tile_rows(int M) { return M <= 16 ? 16 : 128; }
 
 // Ring geometry of a tile of BT tokens: a stage holds the x chunk (BT
@@ -629,12 +540,290 @@ int launch_rs(const Args& g, cudaStream_t stream) {
                                  sbox, CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return rc;
   }
-  int gshift = 0;
-  while ((1 << gshift) < g.group) ++gshift;
   const RsArgs p{g.out, g.scale, {sm90::ceil_div(g.M, BT), sm90::ceil_div(g.N, kRN)}, g.M, g.K,
-                 g.N, gshift};
+                 g.N, group_shift(g.group)};
   int4_rs_kernel<BT><<<grouped::launch_grid(p.sched), grouped::kThreads, kSmem, stream>>>(
       tx, tq, ts, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the input gradient on Hopper (int4_dlhs_launch): dx^T = W dout^T, W
+// widened into wgmma's A registers
+
+constexpr int kDK = 256;  // weight rows of a tile: 128 packed rows, both nibble halves
+
+// 64-deep chunks of a dX tile's contraction N, rounded up to an even count:
+// the consumers take them two at a time, and a chunk wholly past N reads
+// zeros (TMA fills what lies outside an operand). Mirrored by ops/int4.py
+// int4_dlhs_chunks, which the CPU tests hold.
+__host__ __device__ int dlhs_chunks(int N) { return 2 * ((N + 127) / 128); }
+
+// Ring geometry of a dX tile of BT tokens: a stage holds the dout chunk (BT
+// tokens x 64 n, 128-byte swizzle: wgmma's K-major B), the packed chunk
+// (128 packed rows x 64 bytes, 64-byte swizzle) and four rows of 64 scales
+// (the low and the high rows of each consumer warpgroup); after the ring,
+// the epilogue's four panels of dx (BT tokens x 64 k, 128-byte swizzle).
+template <int BT>
+struct Dl {
+  static constexpr int kD = BT * 128;
+  static constexpr int kQ = 128 * grouped::kBK;  // 8 KB
+  static constexpr int kS = 4 * grouped::kBK * 4;
+  static constexpr int kStage = kD + kQ + kS;
+  static constexpr int kStages = BT == 128 ? 6 : 16;
+  static constexpr int kPanel = BT * 128;
+  static constexpr int kSmem = kStages * kStage + 4 * kPanel + 1024;
+  static_assert(kSmem <= 227 * 1024 && kStage % 1024 == 0, "one block an SM, aligned stages");
+};
+
+struct DlArgs {
+  const float* scale;    // [K/group, N]
+  grouped::Sched sched;  // token tiles x tiles of 128 packed rows
+  int M, K, N, gshift;   // group = 1 << gshift
+};
+
+// byte offset of (row, 16-byte chunk) in a panel of 64-byte rows as TMA
+// writes it under CU_TENSOR_MAP_SWIZZLE_64B: address bits 4-5 XOR bits 7-8
+__device__ __forceinline__ uint32_t swz64(int row, int chunk) {
+  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// Four 8 x 8 bf16 matrices from registers to shared memory, transposed:
+// register i holds matrix i as mma.sync's C fragment (lane l: row l / 4,
+// columns 2 (l % 4), + 1); lane l gives the address of the 16 bytes that
+// receive column l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix_t(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                           uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   sm90::smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// The A fragments of k16 step j for both m64 blocks of this thread's
+// warpgroup. A row r of either block is the warpgroup's packed row r:
+// block 0 its low nibbles (weight row p), block 1 its high (row p + K/2);
+// the contraction is the chunk's columns n. A thread holds rows row (+ 8)
+// at columns 16j + 2q (+ 1) and 16j + 2q + 8 (+ 9) (mma.sync m16n8k16's A
+// layout), so one 16-bit load of a packed row gives a column pair's four
+// nibbles, two for each block. Each weight is bf16((nibble - 8) * scale);
+// sc(rh, c) gives the scales of row half rh at chunk columns c and c + 1,
+// {low row's two, high row's two}.
+template <typename Scales>
+__device__ __forceinline__ void widen_dlhs(uint32_t (&a)[2][4], const unsigned char* packed,
+                                           int j, int q, int row, const Scales& sc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // row half i & 1, column half i >> 1
+    const int rh = i & 1, c = 16 * j + 2 * q + 8 * (i >> 1);
+    const uint32_t pair =
+        *reinterpret_cast<const uint16_t*>(packed + swz64(row + 8 * rh, j) + (c & 15));
+    // bytes: low nibble of n, of n + 1, high nibble of n, of n + 1
+    const uint32_t nib = (pair | (pair << 12)) & 0x0F0F0F0Fu;
+    const float4 s4 = sc(rh, c);
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = (__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540 + b)) - 8388616.f) * s[b];
+    }
+    a[0][i] = sm90::pack_bf16(f[0], f[1]);
+    a[1][i] = sm90::pack_bf16(f[2], f[3]);
+  }
+}
+
+// Block: 384 threads, as int4_rs_kernel. Warp 0's first thread TMA-loads
+// each chunk into the ring; two consumer warpgroups of 64 packed rows each
+// widen them into A registers (both nibble halves) and issue wgmma
+// m64nBTk16 RS for both m64 blocks, with the forward's double-buffered
+// fragments. At a tile's end each warpgroup transposes its accumulators
+// into its two panels by stmatrix and one of its threads TMA-stores them:
+// 64 columns of dx in the low run and 64 in the high.
+template <int BT, bool kStaged>
+__global__ void __launch_bounds__(grouped::kThreads, 1)
+    int4_dlhs_kernel(const __grid_constant__ CUtensorMap td, const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap ts, const __grid_constant__ CUtensorMap tdx,
+                     const DlArgs p) {
+  using D = Dl<BT>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[D::kStages], empty[D::kStages];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const int tiles = p.sched.count();
+  const int nk = dlhs_chunks(p.N);
+  const int half = p.K / 2;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < D::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // the consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int it) { return smem + (it % D::kStages) * D::kStage; };
+  const int wg = sm90::warpgroup_idx();
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {  // TMA
+      sm90::prefetch_map(td);
+      sm90::prefetch_map(tq);
+      if (kStaged) sm90::prefetch_map(ts);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, kt;
+        p.sched.coords(t, mt, kt);
+        const int m0 = mt * BT, p0 = kt * 128;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % D::kStages;
+          if (it >= D::kStages) sm90::mbar_wait(&empty[s], ((it / D::kStages) - 1) & 1);
+          unsigned char* st = stage(it);
+          const int n0 = kc * grouped::kBK;
+          sm90::mbar_expect_tx(&full[s], D::kD + D::kQ + (kStaged ? D::kS : 0));
+          sm90::tma_load_2d(st, td, &full[s], n0, m0);
+          sm90::tma_load_2d(st + D::kD, tq, &full[s], n0, p0);
+          if (kStaged) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {  // warpgroup r / 2's low (r even) or high rows
+              const int k = p0 + 64 * (r >> 1) + (r & 1) * half;
+              sm90::tma_load_2d(st + D::kD + D::kQ + r * grouped::kBK * 4, ts, &full[s], n0,
+                                k >> p.gshift);
+            }
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups of 64 packed rows
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, q = lane & 3;
+    const int row = 64 * cw + 16 * w + g;  // the thread's first packed row in the tile
+    const bool leader = (threadIdx.x & 127) == 0;
+    // the warpgroup's panels: 64 columns of the low run, then of the high
+    unsigned char* panel0 = smem + D::kStages * D::kStage + cw * D::kPanel;
+    unsigned char* panel1 = panel0 + 2 * D::kPanel;
+    float acc0[BT / 2], acc1[BT / 2];
+    Frags fa, fb;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, kt;
+      p.sched.coords(t, mt, kt);
+      const int m0 = mt * BT, p0 = kt * 128;
+      // chunk kc of this tile (ring slot it + kc) into a
+      auto widen = [&](Frags& a, int kc) {
+        const int c = it + kc;
+        sm90::mbar_wait(&full[c % D::kStages], (c / D::kStages) & 1);
+        const unsigned char* st = stage(c);
+        if constexpr (kStaged) {
+          const float* ss = reinterpret_cast<const float*>(st + D::kD + D::kQ) + cw * 128;
+          auto sc = [&](int, int col) {
+            const float2 lo = *reinterpret_cast<const float2*>(ss + col);
+            const float2 hi = *reinterpret_cast<const float2*>(ss + 64 + col);
+            return make_float4(lo.x, lo.y, hi.x, hi.y);
+          };
+#pragma unroll
+          for (int j = 0; j < 4; ++j) widen_dlhs(a[j], st + D::kD, j, q, row, sc);
+        } else {
+          const int n0 = kc * grouped::kBK;
+          auto sc = [&](int rh, int col) {
+            const int n = n0 + col;
+            if (n >= p.N) return make_float4(0.f, 0.f, 0.f, 0.f);
+            const int k = p0 + row + 8 * rh;
+            const float2 lo = __ldg(reinterpret_cast<const float2*>(
+                p.scale + static_cast<long long>(k >> p.gshift) * p.N + n));
+            const float2 hi = __ldg(reinterpret_cast<const float2*>(
+                p.scale + static_cast<long long>((k + half) >> p.gshift) * p.N + n));
+            return make_float4(lo.x, lo.y, hi.x, hi.y);
+          };
+#pragma unroll
+          for (int j = 0; j < 4; ++j) widen_dlhs(a[j], st + D::kD, j, q, row, sc);
+        }
+      };
+      // chunk kc's products from a: four k16 steps, one commit group
+      auto issue = [&](Frags& a, int kc) {
+        const unsigned char* st = stage(it + kc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          issue_rs<BT>(acc0, acc1, a[j], sm90::desc128(st + j * 32, 16, 1024), kc > 0 || j > 0);
+        }
+        sm90::wgmma_commit();
+      };
+      // after chunk kc's products: its stage is free, and so is a
+      auto retire = [&](Frags& a, int kc) {
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc0);
+        sm90::fence_regs(acc1);
+        hold(a);
+        if (lane == 0) sm90::mbar_arrive(&empty[(it + kc) % D::kStages]);
+      };
+      widen(fa, 0);
+      for (int kc = 0; kc < nk; kc += 2) {  // nk is even (dlhs_chunks)
+        issue(fa, kc);
+        widen(fb, kc + 1);
+        retire(fa, kc);
+        issue(fb, kc + 1);
+        if (kc + 2 < nk) widen(fa, kc + 2);
+        retire(fb, kc + 1);
+      }
+      it += nk;
+      // Epilogue. acc_h element 4jj + e: A row 16w + g + 8 (e >> 1) (weight
+      // row h K/2 + p0 + 64 cw + that row), token m0 + 8jj + 2q + (e & 1).
+      // Matrix i of a store is the warp's rows 8 (i & 1) .. + 7 at tokens
+      // 8 (jj + i / 2) ..; a panel row is a token, and its 16-byte chunk
+      // 2w + (i & 1) receives those 8 weight rows.
+      if (leader) sm90::tma_store_wait_read();  // the last tile's stores have read the panels
+      sm90::named_sync(1 + cw, 128);
+      const int mi = lane >> 3;
+#pragma unroll
+      for (int jj = 0; jj < BT / 8; jj += 2) {
+        const uint32_t off = sm90::swz128(8 * (jj + (mi >> 1)) + (lane & 7), 2 * w + (mi & 1));
+        stmatrix_t(panel0 + off, sm90::pack_bf16(acc0[4 * jj], acc0[4 * jj + 1]),
+                   sm90::pack_bf16(acc0[4 * jj + 2], acc0[4 * jj + 3]),
+                   sm90::pack_bf16(acc0[4 * jj + 4], acc0[4 * jj + 5]),
+                   sm90::pack_bf16(acc0[4 * jj + 6], acc0[4 * jj + 7]));
+        stmatrix_t(panel1 + off, sm90::pack_bf16(acc1[4 * jj], acc1[4 * jj + 1]),
+                   sm90::pack_bf16(acc1[4 * jj + 2], acc1[4 * jj + 3]),
+                   sm90::pack_bf16(acc1[4 * jj + 4], acc1[4 * jj + 5]),
+                   sm90::pack_bf16(acc1[4 * jj + 6], acc1[4 * jj + 7]));
+      }
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + cw, 128);
+      if (leader) {
+        sm90::tma_store_2d(tdx, panel0, p0 + 64 * cw, m0);
+        sm90::tma_store_2d(tdx, panel1, half + p0 + 64 * cw, m0);
+        sm90::tma_store_commit();
+      }
+    }
+    if (leader) sm90::tma_store_wait_read();
+  }
+}
+
+template <int BT, bool kStaged>
+int launch_dlhs(const Args& g, cudaStream_t stream) {
+  constexpr int kSmem = Dl<BT>::kSmem;
+  static int attr = sm90::set_smem(int4_dlhs_kernel<BT, kStaged>, kSmem);
+  if (attr != 0) return attr;
+  CUtensorMap td, tq, ts, tdx;
+  if (int rc = grouped::rows_map(&td, g.a, g.M, g.N, BT)) return rc;     // dout [M, N]
+  if (int rc = grouped::rows_map(&tdx, g.out, g.M, g.K, BT)) return rc;  // dx [M, K]
+  const uint64_t n = g.N;
+  const uint64_t qdims[2] = {n, static_cast<uint64_t>(g.K / 2)}, qstrides[1] = {n};
+  const uint32_t qbox[2] = {grouped::kBK, 128};
+  if (int rc = sm90::make_map<2>(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, g.q4, qdims, qstrides, qbox,
+                                 CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return rc;
+  }
+  const uint64_t sdims[2] = {n, static_cast<uint64_t>(g.K / g.group)}, sstrides[1] = {n * 4};
+  const uint32_t sbox[2] = {grouped::kBK, 1};
+  if (int rc = sm90::make_map<2>(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, g.scale, sdims, sstrides,
+                                 sbox, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return rc;
+  }
+  const DlArgs p{g.scale, {sm90::ceil_div(g.M, BT), g.K / kDK}, g.M, g.K, g.N,
+                 group_shift(g.group)};
+  int4_dlhs_kernel<BT, kStaged>
+      <<<grouped::launch_grid(p.sched), grouped::kThreads, kSmem, stream>>>(td, tq, ts, tdx, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,38 +840,53 @@ extern "C" int int4_mm_launch(const void* x, const void* q4, const void* scale, 
                               long long M, long long K, long long N, long long group,
                               void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
-  if (!valid_shape(M, K, N, group) || N % 16 || !aligned16(x) || !aligned16(q4) ||
-      !aligned16(scale) || !aligned16(out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const Args g = make_args(x, q4, scale, out, M, K, N, group);
+  if (!valid_shape(M, K, N, group) || !tma_shape(g)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   return tile_rows(g.M) == 16 ? launch_rs<16>(g, st) : launch_rs<128>(g, st);
 }
 
-// The same function at any shape the contract takes, on the first design's
-// element-by-element loads (int4_mm_kernel<false, false>): for the shapes
-// TMA cannot map.
+// dx [M, K] = dout [M, N] @ dequant(q4, scale)^T, on the persistent product.
+// Only shapes TMA can map, as int4_mm_launch (else int4_dlhs_generic_launch).
+extern "C" int int4_dlhs_launch(const void* dout, const void* q4, const void* scale, void* dx,
+                                long long M, long long K, long long N, long long group,
+                                void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  const Args g = make_args(dout, q4, scale, dx, M, K, N, group);
+  if (!valid_shape(M, K, N, group) || !tma_shape(g)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  // group >= 64: each warpgroup's low rows share a scale row, and so do its
+  // high rows, and TMA stages the four with the chunk; smaller groups are
+  // read by __ldg (an instance of their own: the staged one carries no
+  // registers for it)
+  const bool scales_staged = g.group >= 64;
+  if (tile_rows(g.M) == 16) {
+    return scales_staged ? launch_dlhs<16, true>(g, st) : launch_dlhs<16, false>(g, st);
+  }
+  return scales_staged ? launch_dlhs<128, true>(g, st) : launch_dlhs<128, false>(g, st);
+}
+
+// The same two functions at any shape the contract takes, on the first
+// design's element-by-element kernel: for the shapes TMA cannot map.
 extern "C" int int4_mm_generic_launch(const void* x, const void* q4, const void* scale,
                                       void* out, long long M, long long K, long long N,
                                       long long group, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   if (!valid_shape(M, K, N, group)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<false, false>(make_args(x, q4, scale, out, M, K, N, group),
+  return launch_generic<false>(make_args(x, q4, scale, out, M, K, N, group),
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int int4_dlhs_generic_launch(const void* dout, const void* q4, const void* scale,
+                                        void* dx, long long M, long long K, long long N,
+                                        long long group, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (!valid_shape(M, K, N, group)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_generic<true>(make_args(dout, q4, scale, dx, M, K, N, group),
                               static_cast<cudaStream_t>(stream));
 }
 
-// dx [M, K] = dout [M, N] @ dequant(q4, scale)^T
-extern "C" int int4_dlhs_launch(const void* dout, const void* q4, const void* scale, void* dx,
-                                long long M, long long K, long long N, long long group,
-                                void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return 0;
-  if (!valid_shape(M, K, N, group)) return static_cast<int>(cudaErrorInvalidValue);
-  const Args g = make_args(dout, q4, scale, dx, M, K, N, group);
-  const bool vec = N % 16 == 0 && aligned16(dout) && aligned16(q4) && aligned16(scale);
-  auto st = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true, true>(g, st) : launch<true, false>(g, st);
-}
-
-// The forward's tokens a tile, for its Python mirror's test on the card.
+// The tiles' rules, for their Python mirrors' test on the card: tokens a
+// tile (both directions), and the dX's chunks of its contraction.
 extern "C" int int4_mm_tile_rows(long long M) { return tile_rows(static_cast<int>(M)); }
+extern "C" int int4_dlhs_chunks(long long N) { return dlhs_chunks(static_cast<int>(N)); }

@@ -65,6 +65,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a context current on the calling thread. A
+// thread on which this library has made no runtime call yet may have none
+// (autograd runs a backward on a thread of its own), and the encoder then
+// fails with CUDA_ERROR_INVALID_CONTEXT; cudaFree(nullptr) frees nothing
+// and binds the runtime's context, once a thread.
+inline void bind_context() {
+  thread_local const cudaError_t bound = cudaFree(nullptr);
+  (void)bound;
+}
+
 // A tiled map of a RANK-dim tensor: dims innermost first (elements),
 // strides of dims 1.. in bytes (multiples of 16), box in elements.
 // Elements outside the tensor read as zero; a store skips them.
@@ -75,6 +85,7 @@ int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
              const uint32_t (&box)[RANK], CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  bind_context();
   cuuint64_t d[RANK], s[RANK > 1 ? RANK - 1 : 1];
   cuuint32_t b[RANK], e[RANK];
   for (int i = 0; i < RANK; ++i) {

@@ -14,12 +14,13 @@ PyTorch version (``*_reference``) on a CPU tensor. There is no fallback
 from one to the other: on the card the kernel runs or the call raises.
 ``launches`` counts the dequant kernel's launches, ``mm_launches`` and
 ``dlhs_launches`` the matmul's, so a run can show that its path went
-through them. The forward has two kernels, chosen by shape before the
-launch (``int4_mm_instance``), never by trying one: the Hopper kernel
-(``int4_mm_launch``, at every shape TMA can map; its tile
-``int4_mm_tile_rows`` mirrors) and the first design's element-by-element
-kernel (``int4_mm_generic_launch``); ``mm_launches_by_instance`` counts
-each.
+through them. Each direction has two kernels, chosen by shape before the
+launch (``int4_mm_instance``, ``int4_dlhs_instance``), never by trying
+one: the Hopper kernel (``int4_mm_launch``, ``int4_dlhs_launch``, at every
+shape TMA can map; ``int4_mm_tile_rows`` and ``int4_dlhs_chunks`` mirror
+its tiles) and the first design's element-by-element kernel
+(``int4_mm_generic_launch``, ``int4_dlhs_generic_launch``);
+``mm_launches_by_instance`` and ``dlhs_launches_by_instance`` count each.
 
 Packing (``models/quant.py``): ``packed`` / ``q4`` is uint8 ``[K/2, N]``
 whose low nibbles hold rows ``[0, K/2)`` and high nibbles rows ``[K/2, K)``,
@@ -41,8 +42,9 @@ from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 launches = 0
 mm_launches = 0
 dlhs_launches = 0
-# the forward's launches by instance ("tma_<tokens>" or "generic")
+# launches by instance ("tma_<tokens>" or "generic"): the forward's, the dX's
 mm_launches_by_instance: dict[str, int] = {}
+dlhs_launches_by_instance: dict[str, int] = {}
 
 _argtypes_set = False
 _mm_argtypes_set = False
@@ -165,22 +167,33 @@ def _mm_library() -> ctypes.CDLL:
     lib = _build.library("int4_matmul")
     if not _mm_argtypes_set:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn in (lib.int4_mm_launch, lib.int4_mm_generic_launch, lib.int4_dlhs_launch):
+        for fn in (lib.int4_mm_launch, lib.int4_mm_generic_launch, lib.int4_dlhs_launch,
+                   lib.int4_dlhs_generic_launch):
             # x or dout, q4, scale4, out | M K N group | stream
             fn.argtypes = [P] * 4 + [L] * 4 + [P]
             fn.restype = I
-        # the forward's tokens a tile, for the mirror's test on the card
-        lib.int4_mm_tile_rows.argtypes = [L]
-        lib.int4_mm_tile_rows.restype = I
+        # the tiles' rules, for the mirrors' test on the card
+        for fn in (lib.int4_mm_tile_rows, lib.int4_dlhs_chunks):
+            fn.argtypes = [L]
+            fn.restype = I
         _mm_argtypes_set = True
     return lib
 
 
 def int4_mm_tile_rows(m: int) -> int:
-    """Tokens of the Hopper forward's output tile for ``m`` rows of ``x``
-    (``csrc/int4_matmul.cu`` ``tile_rows``): 16 at decode (``m <= 16``),
-    else 128; a tile is 256 weight columns wide."""
+    """Tokens of a Hopper kernel's output tile for ``m`` rows of ``x`` or
+    ``dout`` (``csrc/int4_matmul.cu`` ``tile_rows``, both directions): 16 at
+    decode (``m <= 16``), else 128. A forward tile is 256 weight columns
+    wide, a dX tile 256 weight rows (128 packed rows, both nibble halves)."""
     return 16 if m <= 16 else 128
+
+
+def int4_dlhs_chunks(n: int) -> int:
+    """64-deep chunks of a Hopper dX tile's contraction ``n``
+    (``csrc/int4_matmul.cu`` ``dlhs_chunks``): rounded up to an even
+    count, as the consumers take them two at a time; a chunk wholly past
+    ``n`` reads zeros."""
+    return 2 * -(-n // 128)
 
 
 def int4_mm_instance(m: int, n: int, aligned: bool) -> str:
@@ -192,6 +205,16 @@ def int4_mm_instance(m: int, n: int, aligned: bool) -> str:
     if n % 16 or not aligned:
         return "generic"
     return f"tma_{int4_mm_tile_rows(m)}"
+
+
+def int4_dlhs_instance(m: int, n: int, aligned: bool) -> str:
+    """Which dX kernel a card launch for ``dout [m, n]`` takes: the
+    forward's rule (``int4_mm_instance``) on the contraction ``n``, which
+    is the packed weights' row length: ``"tma_<tokens>"``, the Hopper kernel
+    (``dxᵀ = W·doutᵀ``, weights widened into ``wgmma``'s registers), where
+    ``n % 16 == 0`` and ``aligned`` (16-byte aligned bases of ``dout``,
+    ``q4`` and ``scale4``), else ``"generic"``."""
+    return int4_mm_instance(m, n, aligned)
 
 
 def _check_dtype(name: str, dtype: torch.dtype, on_card: bool) -> None:
@@ -321,8 +344,12 @@ def int4_dlhs(dout: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor,
     if not on_card:
         return int4_dlhs_reference(dout, q4, scale4)
     dx = torch.empty((M, 2 * K2), dtype=dout.dtype, device=dout.device)
-    _launch(_mm_library().int4_dlhs_launch, dout, q4, scale4, dx, M, 2 * K2, N, group)
+    instance = int4_dlhs_instance(M, N, all(t.data_ptr() % 16 == 0 for t in (dout, q4, scale4)))
+    lib = _mm_library()
+    fn = lib.int4_dlhs_generic_launch if instance == "generic" else lib.int4_dlhs_launch
+    _launch(fn, dout, q4, scale4, dx, M, 2 * K2, N, group)
     dlhs_launches += 1
+    dlhs_launches_by_instance[instance] = dlhs_launches_by_instance.get(instance, 0) + 1
     return dx
 
 

@@ -283,3 +283,150 @@ def test_int4_widening_arithmetic_gives_the_dequant_bits():
     w = (magic - 8388616.0) * scale.repeat_interleave(group, 0)
     assert torch.equal((magic - 8388616.0), (nib - 8).float())
     assert torch.equal(w.to(torch.bfloat16), int4.int4_dequant_reference(q4, scale))
+
+
+@pytest.mark.parametrize("m,n,aligned,want", [
+    (8192, 4096, True, "tma_128"),
+    (8192, 14336, True, "tma_128"),
+    (8192, 1024, True, "tma_128"),
+    (1, 4096, True, "tma_16"),
+    (4, 14336, True, "tma_16"),
+    (16, 192, True, "tma_16"),
+    (17, 192, True, "tma_128"),
+    (300, 200, True, "generic"),  # N % 16 != 0: TMA cannot map q4's rows
+    (1, 100, True, "generic"),
+    (128, 2048, False, "generic"),  # a base not 16-byte aligned
+])
+def test_int4_dlhs_instance_follows_the_shape(m, n, aligned, want):
+    """The wrapper's choice of dX kernel, made before the launch from the
+    shape alone (``n`` is dout's width, the contraction): the Hopper
+    kernel wherever TMA can map the operands, the generic one elsewhere."""
+    assert int4.int4_dlhs_instance(m, n, aligned) == want
+
+
+@pytest.mark.parametrize("n", [16, 64, 80, 100, 128, 192, 208, 400, 512, 1024, 4096, 14336])
+def test_int4_dlhs_chunks_mirror_the_kernels_rule(n):
+    """The Hopper dX's 64-deep chunks of its contraction
+    (``csrc/int4_matmul.cu`` ``dlhs_chunks``): an even count (the
+    consumers take two at a time) that covers ``n``, with at most one
+    chunk wholly past it; the 8B shapes need no padding."""
+    c = int4.int4_dlhs_chunks(n)
+    assert c % 2 == 0 and 64 * c >= n and 64 * (c - 2) < n
+    assert c - -(-n // 64) in (0, 1)
+    if n % 128 == 0:
+        assert c == n // 64
+
+
+def test_int4_dlhs_on_the_cpu_counts_no_instance():
+    x, q4, s = _small()
+    before = dict(int4.dlhs_launches_by_instance)
+    int4.int4_dlhs(torch.ones(4, 64), q4, s)
+    assert int4.dlhs_launches_by_instance == before
+
+
+def _swizzle(addr, bits):
+    """TMA's swizzle of a shared-memory byte address (an involution):
+    address bits 4.. (``bits`` of them) XOR the same number of bits from
+    bit 7 (CU_TENSOR_MAP_SWIZZLE_64B: 2, _128B: 3)."""
+    return addr ^ (((addr >> 7) & ((1 << bits) - 1)) << 4)
+
+
+def _swz64(row, chunk):  # csrc/int4_matmul.cu swz64
+    return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4)
+
+
+def _swz128(row, chunk):  # csrc/sm90_common.cuh swz128
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+@pytest.mark.parametrize("group", [64, 256, 8])
+def test_int4_dlhs_fragment_arithmetic_rebuilds_the_dequant_weights(group):
+    """The Hopper dX's index arithmetic (``csrc/int4_matmul.cu``
+    ``int4_dlhs_kernel``, ``widen_dlhs``) replayed on the CPU: each chunk
+    of 128 packed rows x 64 columns laid out as TMA's 64-byte swizzle
+    writes it; every consumer thread's A fragments read through ``swz64``
+    (A row r of warpgroup cw is packed row 64 cw + r, block 0 its low
+    nibble and block 1 its high), widened with the scales it picks (the
+    four TMA-staged rows at group >= 64, ``__ldg`` of its own row below);
+    each accumulator row then placed by the epilogue's ``stmatrix``
+    transpose into a 128-byte-swizzled panel and un-swizzled as TMA's
+    store reads it, into the low or the high run of dx columns. The
+    weights so placed are ``int4_dequant_reference``'s, bit for bit (the
+    product's A is W, rows k), and every accumulator lands on its own
+    token and weight row. N 80 leaves the second chunk mostly past N: TMA
+    reads zeros there."""
+    rng = np.random.default_rng(group)
+    K, N = 512, 80
+    half, gshift = K // 2, group.bit_length() - 1
+    q4 = rng.integers(0, 256, (half, N), dtype=np.uint8)
+    scale = (rng.random((K // group, N)) * 0.02 + 1e-4).astype(np.float32)
+    want = int4.int4_dequant_reference(torch.from_numpy(q4), torch.from_numpy(scale))
+    got = torch.full((K, N), float("nan"), dtype=torch.bfloat16)
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    staged = gshift >= 6
+    for kt in range(K // 256):
+        p0 = 128 * kt
+        for kc in range(int4.int4_dlhs_chunks(N)):
+            n0 = 64 * kc
+            # the stage as TMA fills it: packed box {64, 128}, four scale rows
+            box = np.zeros((128, 64), np.uint8)
+            cols = max(0, min(64, N - n0))
+            box[:, :cols] = q4[p0:p0 + 128, n0:n0 + cols]
+            smem = np.zeros(128 * 64, np.uint8)
+            smem[_swizzle(np.arange(128 * 64), 2)] = box.reshape(-1)
+            ss = np.zeros((4, 64), np.float32)
+            for r in range(4):
+                ss[r, :cols] = scale[(p0 + 64 * (r >> 1) + (r & 1) * half) >> gshift, n0:n0 + cols]
+            for cw in range(2):
+                for w in range(4):
+                    row = 64 * cw + 16 * w + g
+                    for j in range(4):
+                        for i in range(4):
+                            rh, c = i & 1, 16 * j + 2 * q + 8 * (i >> 1)
+                            addr = _swz64(row + 8 * rh, j) + (c & 15)
+                            pair = smem[addr].astype(np.uint32) | smem[addr + 1].astype(
+                                np.uint32) << 8
+                            nib = (pair | (pair << 12)) & 0x0F0F0F0F
+                            if staged:
+                                s4 = [ss[2 * cw, c], ss[2 * cw, c + 1], ss[2 * cw + 1, c],
+                                      ss[2 * cw + 1, c + 1]]
+                            else:
+                                k = p0 + row + 8 * rh
+                                n = np.minimum(n0 + c, N - 2)
+                                live = n0 + c < N
+                                s4 = [np.where(live, scale[kk >> gshift, n + e], 0)
+                                      for kk in (k, k + half) for e in (0, 1)]
+                            magic = np.stack([(nib >> (8 * b)) & 0xFF for b in range(4)])
+                            f = torch.from_numpy(
+                                ((magic | 0x4B000000).astype(np.int32).view(np.float32)
+                                 - np.float32(8388616.0)) * np.stack(s4).astype(np.float32))
+                            col = 16 * w + 8 * rh + g  # the epilogue's (checked below)
+                            for h in range(2):  # block h: the low run, then the high
+                                k_out = h * half + p0 + 64 * cw + col
+                                for e in range(2):
+                                    n = n0 + c + e
+                                    live = n < N
+                                    got[k_out[live], n[live]] = f[2 * h + e][live].to(
+                                        torch.bfloat16)
+    assert torch.equal(got, want)
+
+    # The epilogue: the stmatrix of step jj stores matrix mi = lane >> 3 of
+    # every lane's registers, register mi = 2 (jj' - jj) + rh holding the
+    # thread's accumulator pair (e & 1 = 0, 1) of row 16w + g + 8rh at tokens
+    # 8jj' + 2q, + 1; fragment element (g, cc) of matrix mi goes to byte 2g of
+    # the 16 bytes lane 8 mi + cc addresses. Un-swizzled as TMA's store reads
+    # the panel, each lands on its token's row and its weight row's column.
+    for w in range(4):
+        for jj1 in range(128 // 8):  # jj' (BT 128)
+            jj = jj1 & ~1
+            for rh in range(2):
+                mi = 2 * (jj1 - jj) + rh
+                for e1 in range(2):
+                    cc = 2 * q + e1  # fragment column of lane (g, q)'s element
+                    lane_addr = 8 * mi + cc
+                    off = _swz128(8 * (jj + (lane_addr >> 3 >> 1)) + (lane_addr & 7),
+                                  2 * w + ((lane_addr >> 3) & 1))
+                    logical = _swizzle(off + 2 * g, 3)
+                    assert (logical // 128 == 8 * jj1 + 2 * q + e1).all()
+                    assert ((logical % 128) // 2 == 16 * w + 8 * rh + g).all()

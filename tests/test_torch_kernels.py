@@ -662,9 +662,38 @@ def test_int4_mm_instance_choice_matches_its_cuda_mirror_on_card():
 
 
 @pytest.mark.gpu
+def test_int4_dlhs_instance_choice_chunks_and_determinism_on_card():
+    """The dX's chunk count is the one ``int4_dlhs_chunks`` mirrors; the
+    wrapper takes the Hopper kernel where TMA can map the operands and the
+    generic one elsewhere, and counts each; the TMA entry point refuses
+    the generic's shapes; two launches of either give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    lib = int4._mm_library()
+    for n in (16, 64, 100, 128, 192, 208, 400, 1024, 14336):
+        assert lib.int4_dlhs_chunks(n) == int4.int4_dlhs_chunks(n)
+    for (M, N), want in (((8192, 1024), "tma_128"), ((4, 1024), "tma_16"), ((1, 192), "tma_16"),
+                         ((300, 200), "generic")):
+        _, d, q4, s = _int4_mm_inputs(M, 2048, N, 128)
+        before = dict(int4.dlhs_launches_by_instance)
+        _poison(M, 2048)
+        dx = int4.int4_dlhs(d, q4, s)
+        torch.cuda.synchronize()
+        assert int4.dlhs_launches_by_instance[want] == before.get(want, 0) + 1
+        _int4_tiles_close(dx, int4.int4_dlhs_reference(d, q4, s))
+        _poison(M, 2048)
+        assert torch.equal(int4.int4_dlhs(d, q4, s), dx)
+        if want == "generic":
+            rc = lib.int4_dlhs_launch(d.data_ptr(), q4.data_ptr(), s.data_ptr(), dx.data_ptr(),
+                                      M, 2048, N, 128, torch.cuda.current_stream().cuda_stream)
+            assert rc != 0
+
+
+@pytest.mark.gpu
 def test_int4_matmul_autograd_and_misaligned_view_on_card():
     """``int4_matmul``'s backward launches the dlhs kernel once; a view
-    whose start is not 16-byte aligned takes the generic load path."""
+    whose start is not 16-byte aligned takes the generic kernel, in both
+    directions."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     x, d, q4, s = _int4_mm_inputs(128, 2048, 256, 128)
@@ -685,6 +714,36 @@ def test_int4_matmul_autograd_and_misaligned_view_on_card():
     generic = int4.mm_launches_by_instance.get("generic", 0)
     _int4_tiles_close(int4.int4_mm(view, q4, s), int4.int4_matmul_reference(view, q4, s))
     assert int4.mm_launches_by_instance["generic"] == generic + 1
+    dview = flat[1:1 + 128 * 256].view(128, 256)
+    dview.copy_(d)
+    generic = int4.dlhs_launches_by_instance.get("generic", 0)
+    _int4_tiles_close(int4.int4_dlhs(dview, q4, s), int4.int4_dlhs_reference(dview, q4, s))
+    assert int4.dlhs_launches_by_instance["generic"] == generic + 1
+
+
+@pytest.mark.gpu
+def test_int4_matmul_kernels_launch_from_a_fresh_thread_on_card():
+    """The Hopper kernels encode their TMA maps on the calling thread,
+    which needs a current context: a thread that has made no CUDA call
+    yet (autograd runs a backward on one of its own) launches them too,
+    after the main thread already has."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import threading
+
+    x, d, q4, s = _int4_mm_inputs(128, 2048, 256, 128)
+    want = int4.int4_matmul_reference(x, q4, s), int4.int4_dlhs_reference(d, q4, s)
+    int4.int4_mm(x, q4, s), int4.int4_dlhs(d, q4, s)  # the main thread first
+    got = []
+    worker = threading.Thread(target=lambda: got.extend(
+        (int4.int4_mm(x, q4, s), int4.int4_dlhs(d, q4, s))))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    torch.cuda.synchronize()
+    assert len(got) == 2
+    _int4_tiles_close(got[0], want[0])
+    _int4_tiles_close(got[1], want[1])
 
 
 @pytest.mark.gpu

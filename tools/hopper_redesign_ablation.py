@@ -4,9 +4,10 @@ the flash-attention forward (``csrc/flash_fwd.cu``), its dQ and dK/dV
 kernels (``csrc/flash_bwd.cu``), the fused SwiGLU
 forward and backward (``csrc/swiglu_gmm.cu``), the grouped matmul in
 its four instances (``csrc/gmm.cu``), the expert weight gradient
-(``csrc/tgmm.cu``) and the int4 fused-dequant forward
-(``csrc/int4_matmul.cu`` ``int4_mm_launch``); the last four and the SwiGLU
-forward share ``csrc/grouped_sm90.cuh``.
+(``csrc/tgmm.cu``) and the int4 fused-dequant forward and input gradient
+(``csrc/int4_matmul.cu`` ``int4_mm_launch``, ``int4_dlhs_launch``); the
+grouped ones, the int4 kernels' schedule and the SwiGLU forward share
+``csrc/grouped_sm90.cuh``.
 
     python3 tools/hopper_redesign_ablation.py [--parent DIR] [--only NAME ...]
 
@@ -20,9 +21,9 @@ the Mixtral-8x1B one (M 17,408, K 2048, N 8192, E 8, balanced routing);
 fine-tune's bf16 ones (M 17,408) and the serving prefill's (M 3,072);
 ``tgmm`` at the full fine-tune's two weight gradients ([8, 2048, 8192] and
 [8, 8192, 2048] from M 17,408 rows), balanced and with every row on one
-expert; ``int4_mm`` at Llama-3-8B's four int4 projection shapes (group
-128) at M 8,192 and at decode (M 4 and 1, the weights read cold from
-rotating copies, as ``chip_smoke.py`` times them).
+expert; ``int4_mm`` and ``int4_dlhs`` at Llama-3-8B's four int4
+projection shapes (group 128) at M 8,192 and at decode (M 4 and 1, the
+weights read cold from rotating copies, as ``chip_smoke.py`` times them).
 
 - ``as_built``: the kernel as committed (its tile error against the plain
   version is printed);
@@ -38,21 +39,26 @@ rotating copies, as ``chip_smoke.py`` times them).
   cores read stale shared memory); ``no_epilogue``: the epilogue's
   arithmetic and stores skipped (the SwiGLU backward still loads g and dh
   and stores them back unchanged); ``no_wgmma``: the product skipped;
-- persistent grid (``gmm``, SwiGLU forward, ``tgmm``, ``int4_mm``):
-  ``n_raster`` walks the column blocks of one row tile before the next
-  row tile (groups of one row tile), ``m_raster`` every row tile of a
-  column block before the next; ``bn128`` and ``bn256`` (``gmm``,
-  ``tgmm``) force the output tile width, ``t16`` and ``t128`` (``int4_mm``)
-  the tokens of a tile; ``no_widen`` (``int4_mm``) skips the nibble unpack
-  into registers, ``no_wgmma`` the product, ``ldg_scales`` reads the group
-  scales by ``__ldg`` instead of staging them with the chunk;
+- persistent grid (``gmm``, SwiGLU forward, ``tgmm``, ``int4_mm``,
+  ``int4_dlhs``): ``n_raster`` walks the column blocks of one row tile
+  before the next row tile (groups of one row tile), ``m_raster`` every row
+  tile of a column block before the next; ``bn128`` and ``bn256`` (``gmm``,
+  ``tgmm``) force the output tile width, ``t16`` and ``t128`` (int4) the
+  tokens of a tile; ``no_widen`` (int4) skips the nibble unpack into
+  registers, ``no_wgmma`` the product, ``ldg_scales`` reads the group scales
+  by ``__ldg`` instead of staging them with the chunk, ``no_epilogue``
+  (``int4_dlhs``) skips the transpose through shared memory (behind a
+  test of the accumulators that never holds, so the products stay) and
+  the TMA stores, ``one_scale_path`` (``int4_dlhs``) compiles the staged
+  and the ``__ldg`` scales into one kernel, chosen at run time (an edit of one int4 kernel's code may touch the other's too: each
+  copy times one kernel);
 - ``parent``: with ``--parent DIR``, the same kernel from another checkout
   (e.g. the commit before a redesign), timed in turns with ``as_built``
   on the same card (parent, as_built, ..., as_built, parent).
 
-Only ``as_built``, the width, tile and order copies, and ``parent`` compute
-the function; the others are timings of broken copies, never loaded by the
-port. Prints the ptxas report of every copy, one JSON line per shape,
+Only ``as_built``, the width, tile, order and scale-path copies, and
+``parent`` compute the function (their tile error is printed); the others
+are timings of broken copies, never loaded by the port. Prints the ptxas report of every copy, one JSON line per shape,
 then the card.
 """
 
@@ -80,6 +86,7 @@ M_RASTER = (HEADER, "constexpr int kGroupM = 8;", "constexpr int kGroupM = 1 << 
 WIDTH = "return tiles256 < 3LL * sms ? 128 : 256;"
 ROWS = "int tile_rows(int M) {"
 WIDEN_FRAG = "widen_frag(a[j], st + R::kX + cw * R::kQ, j, q, col, sh, sc);"
+WIDEN_DLHS = "widen_dlhs(a[j], st + D::kD, j, q, row, sc);"
 ISSUE_RS = ("issue_rs<BT>(acc0, acc1, a[j], sm90::desc128(st + j * 32, 16, 1024), kc > 0 || "
             "j > 0);")
 
@@ -151,7 +158,8 @@ SOURCES = {
         "bn256": ((HEADER, WIDTH, "return 256;"),),
     },
     "int4_matmul": {
-        "no_widen": (("int4_matmul.cu", WIDEN_FRAG, ""),),
+        "no_widen": (("int4_matmul.cu", WIDEN_FRAG, ""),
+                     ("int4_matmul.cu", WIDEN_DLHS, "(void)sc;")),
         "no_wgmma": (("int4_matmul.cu", ISSUE_RS, ""),),
         "n_raster": (N_RASTER,),
         "m_raster": (M_RASTER,),
@@ -159,7 +167,22 @@ SOURCES = {
         "t128": (("int4_matmul.cu", ROWS + " return M <= 16 ? 16 : 128; }",
                   ROWS + " return 128; }"),),
         "ldg_scales": (("int4_matmul.cu", "const bool staged = p.gshift >= 6;",
-                        "const bool staged = false;"),),
+                        "const bool staged = false;"),
+                       ("int4_matmul.cu", "const bool scales_staged = g.group >= 64;",
+                        "const bool scales_staged = false;")),
+        # the accumulators stay live (else the products are dead code)
+        "no_epilogue": (("int4_matmul.cu", "for (int jj = 0; jj < BT / 8; jj += 2) {",
+                         "for (int jj = 0; jj < BT / 8 && acc0[0] == 1.5f && acc1[0] == 1.5f; "
+                         "jj += 2) {"),
+                        ("int4_matmul.cu", "sm90::tma_store_2d(tdx, panel0, p0 + 64 * cw, m0);", ""),
+                        ("int4_matmul.cu", "sm90::tma_store_2d(tdx, panel1, half + p0 + 64 * cw, m0);",
+                         "")),
+        # the first build: staged and __ldg scales chosen at run time in one kernel
+        "one_scale_path": (("int4_matmul.cu", "if constexpr (kStaged) {", "if (p.gshift >= 6) {"),
+                           ("int4_matmul.cu", "if (kStaged) sm90::prefetch_map(ts);",
+                            "if (p.gshift >= 6) sm90::prefetch_map(ts);"),
+                           ("int4_matmul.cu", "(kStaged ? D::kS : 0)", "(p.gshift >= 6 ? D::kS : 0)"),
+                           ("int4_matmul.cu", "if (kStaged) {", "if (p.gshift >= 6) {")),
     },
 }
 # the copies each timed kernel takes (a source's other copies edit another
@@ -176,6 +199,8 @@ KERNELS = {
     "tgmm": ("tgmm", ("no_epilogue", "no_wgmma", "n_raster", "m_raster", "bn128", "bn256")),
     "int4_mm": ("int4_matmul", ("no_widen", "no_wgmma", "n_raster", "m_raster", "t16", "t128",
                                 "ldg_scales")),
+    "int4_dlhs": ("int4_matmul", ("no_widen", "no_wgmma", "no_epilogue", "n_raster", "m_raster",
+                                  "t16", "t128", "ldg_scales", "one_scale_path")),
 }
 
 
@@ -245,8 +270,9 @@ def build(torch_build, sources, parent: Path | None):
             lib.tgmm_launch.restype = I
         elif source == "int4_matmul":
             L = ctypes.c_longlong
-            lib.int4_mm_launch.argtypes = [P] * 4 + [L] * 4 + [P]
-            lib.int4_mm_launch.restype = I
+            for fn in (lib.int4_mm_launch, lib.int4_dlhs_launch):
+                fn.argtypes = [P] * 4 + [L] * 4 + [P]
+                fn.restype = I
         else:
             lib.gmm_launch.argtypes = [P] * 6 + [I] * 5 + [P]
             lib.gmm_launch.restype = I
@@ -306,7 +332,7 @@ def main() -> int:
         err = {}
         for name in ("as_built", "parent", "no_pingpong", "n_raster", "m_raster",
                      "fwd_n_raster", "fwd_m_raster", "bn128", "bn256", "t16", "t128",
-                     "ldg_scales"):
+                     "ldg_scales", "one_scale_path"):
             if name in fns:
                 if fns[name]() != 0:
                     raise RuntimeError(f"{kernel} {name}: launch failed")
@@ -480,7 +506,8 @@ def main() -> int:
             del lhs, dout, out
             torch.cuda.empty_cache()
 
-    if "int4_mm" in args.only:
+    int4_kernels = [k for k in ("int4_mm", "int4_dlhs") if k in args.only]
+    if int4_kernels:
         from odh_kubeflow_tpu_torch.ops import int4
 
         group = 128
@@ -494,28 +521,38 @@ def main() -> int:
                                     dtype=torch.int32).to(torch.uint8) for _ in range(copies)]
                 sc = [torch.rand((K // group, N), generator=gen, device="cuda") * 0.02 + 1e-4
                       for _ in range(copies)]
-                x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
-                out = torch.empty((rows, N), dtype=torch.bfloat16, device="cuda")
-                turn = [0]
+                for kernel in int4_kernels:
+                    dlhs = kernel == "int4_dlhs"
+                    # x [rows, K] -> out [rows, N], or dout [rows, N] -> dx [rows, K]
+                    a = torch.randn((rows, N if dlhs else K), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    out = torch.empty((rows, K if dlhs else N), dtype=torch.bfloat16,
+                                      device="cuda")
+                    plain = int4.int4_dlhs_reference if dlhs else int4.int4_matmul_reference
+                    rule = int4.int4_dlhs_instance if dlhs else int4.int4_mm_instance
+                    turn = [0]
 
-                def make(lib, x=x, q4=q4, sc=sc, out=out, rows=rows, K=K, N=N, turn=turn):
-                    def launch():
-                        i = turn[0] % len(q4)
-                        turn[0] += 1
-                        return lib.int4_mm_launch(x.data_ptr(), q4[i].data_ptr(),
-                                                  sc[i].data_ptr(), out.data_ptr(), rows, K, N,
-                                                  group, stream)
-                    return launch
+                    def make(lib, a=a, q4=q4, sc=sc, out=out, rows=rows, K=K, N=N, turn=turn,
+                             dlhs=dlhs):
+                        fn = lib.int4_dlhs_launch if dlhs else lib.int4_mm_launch
 
-                def check(x=x, q4=q4, sc=sc, out=out, turn=turn):
-                    i = (turn[0] - 1) % len(q4)  # the copy the last launch read
-                    return int4.tile_rel_err(out, int4.int4_matmul_reference(x, q4[i], sc[i]))
+                        def launch():
+                            i = turn[0] % len(q4)
+                            turn[0] += 1
+                            return fn(a.data_ptr(), q4[i].data_ptr(), sc[i].data_ptr(),
+                                      out.data_ptr(), rows, K, N, group, stream)
+                        return launch
 
-                run("int4_mm", {"kernel": "int4_mm", "shape": f"{label} M {rows}", "M": rows,
-                                "K": K, "N": N, "flops": 2 * rows * K * N,
-                                "instance": int4.int4_mm_instance(rows, N, True)},
-                    make, check)
-                del q4, sc, x, out
+                    def check(a=a, q4=q4, sc=sc, out=out, turn=turn, plain=plain):
+                        i = (turn[0] - 1) % len(q4)  # the copy the last launch read
+                        return int4.tile_rel_err(out, plain(a, q4[i], sc[i]))
+
+                    run(kernel, {"kernel": kernel, "shape": f"{label} M {rows}", "M": rows,
+                                 "K": K, "N": N, "flops": 2 * rows * K * N,
+                                 "instance": rule(rows, N, True)},
+                        make, check)
+                    del a, out
+                del q4, sc
                 torch.cuda.empty_cache()
     print(card_label(), flush=True)
     return 0
