@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, MoE training and MoE
-serving paths and its int4 fused-dequant matmul on one NVIDIA GPU and
-check them.
+serving paths, its serving engine and its int4 fused-dequant matmul on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -93,6 +93,32 @@ Phases, one JSON line each on stdout:
     every forward and every dX on the Hopper kernels, and no dequant; dx
     per tile against the dequant route (and how many elements differ);
     peak memory and time of both routes.
+19. ``engine`` (after ``profile``, on the 8B int4 parameters of
+    ``slice``): ``CompletionService(engine_slots=8)`` (chunk 8, 256-token
+    prefill parts, 4 prefix entries) over HTTP: 16 staggered SSE streams
+    of 64 tokens (aggregate tok/s, tokens per decode step, TTFT and
+    burst-gap ITL p50/p95, dequant launches per request, peak memory)
+    against the serial one-shot path (8 of them, a seed takes it), with
+    first-step logits and greedy tokens held to the one-shot path's;
+    mixed sampling and eos in one chunk; a 1,000-token admission behind
+    4 streams in parts and whole (the longest stall); a shared 256-token
+    prefix (a miss, then a hit, their TTFT). The greedy and sampling
+    chunks are captured as CUDA graphs (1,800 dequants a chunk).
+20. ``spec``: the 8B int4 target with a Llama-3.2-1B int4 draft, k 4:
+    single-stream ``speculative_generate`` and the engine's speculative
+    chunk (a graph) against the target alone; acceptance, target passes
+    per token, ms per round, the host's wait at each round's sync.
+21. ``w8a8``: Llama-3-8B int8, W8A8 decode against the dequant path
+    (greedy agreement over 32 tokens, ms per decode step at 1, 4 and 8
+    rows, eager and in the engine's replayed chunk; ``_int8_matmul`` at
+    those rows bit-equal to its CPU path).
+22. ``moe_engine`` (after ``moe_profile``): Mixtral-8x1B bf16 through the
+    engine: 4 ragged prompts and one of 700 tokens (one grouped prefill,
+    48 ``gmm``, on the engine thread), greedy against the one-shot path.
+23. ``engine_graphs``: ms per decode step at 1, 4 and 8 active slots,
+    the chunk replayed as a graph and run eagerly, for both models, peak
+    memory of each; a replayed chunk against the eager one from one state
+    (bit-identical for the dense model; reported for Mixtral).
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -2333,6 +2359,663 @@ def int4_qlora_proj_phase(torch, fa, int4, gm) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving engine (slice 7): continuous batching, chunked prefill, the
+# prefix cache, speculative decoding, W8A8, the decode chunk as a CUDA graph
+
+# the engine of the main path: 8 slots over a 2,048-token cache, 8-step
+# chunks, the service's prompt buckets, 256-token prefill parts, 4 prefix
+# entries (prefix buckets 256 and 512)
+ENGINE_SLOTS, ENGINE_MAX_LEN = 8, 2048
+ENGINE_KW = {"chunk": 8, "prefill_chunk": 256, "prefix_cache_entries": 4}
+ENGINE_REQUESTS, ENGINE_NEW_TOKENS, ENGINE_SERIAL = 16, 64, 8
+# engine_graphs: ms per decode step over chunks where exactly n slots are
+# active (the first two such chunks skipped), GRAPH_CHUNKS chunks a run
+GRAPH_SLOTS, GRAPH_CHUNKS = (1, 4, 8), 6
+SPEC_K, SPEC_NEW_TOKENS = 4, 32
+W8A8_ROWS, W8A8_NEW_TOKENS = (1, 4, 8), 32
+
+
+def pctl(xs, q):
+    """The loadtest's percentile (``loadtest/continuous_batching.py``)."""
+    xs = sorted(xs)
+    if not xs:
+        return 0.0
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def latency_stats(ttfts, itls) -> dict:
+    """TTFT and burst-gap ITL percentiles by the reference loadtest's rules
+    (``loadtest/continuous_batching.py`` ``latency_stats``): ITL counts the
+    gaps over 1 ms (the pauses a streaming client sees), ``stall_max_ms``
+    the longest gap."""
+    gaps = [g for g in itls if g > 1e-3]
+    return {"ttft_p50_s": pctl(ttfts, 0.5), "ttft_p95_s": pctl(ttfts, 0.95),
+            "itl_p50_ms": pctl(gaps, 0.5) * 1e3, "itl_p95_ms": pctl(gaps, 0.95) * 1e3,
+            "stall_max_ms": max(itls, default=0.0) * 1e3}
+
+
+def sse(base: str, body: dict) -> tuple[list, list]:
+    """One streamed completion over HTTP: (frames, the client's arrival time
+    of each), the POST's send time first."""
+    t0 = time.monotonic()
+    req = urllib.request.Request(
+        base + "/v1/completions", data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    frames, times = [], [t0]
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if r.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError(f"stream answered {r.status} {r.read()[:200]!r}")
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                frames.append(json.loads(line[len("data: "):]))
+                times.append(time.monotonic())
+    return frames, times
+
+
+def step_ms(eng, variant: str, n: int) -> float:
+    """Median host ms per decode step over the engine's chunks of
+    ``variant`` with exactly ``n`` active slots, the first two skipped."""
+    times = [t for v, a, t in eng.chunk_times if v == variant and a == n][2:]
+    if not times:
+        raise AssertionError(f"no {variant} chunk ran with {n} active slots")
+    per = eng.spec_rounds_per_call if variant == "spec" else eng.chunk
+    return statistics.median(times) / per * 1e3
+
+
+def first_step_spy(engine_mod, eng):
+    """Record each admission's first-step logits (the prefill's last real
+    position) on the engine thread, keyed by prompt; returns (dict, undo)."""
+    got, current = {}, {}
+    real_tail, real_sample = eng._prefill_tail, engine_mod.sample_logits_rowwise
+
+    def tail(slot, rem, start, bucket, req):
+        current["req"] = req
+        return real_tail(slot, rem, start, bucket, req)
+
+    def sample(logits, *a):
+        req = current.pop("req", None)
+        if req is not None:  # a prefill (eager), never a captured chunk; no sync
+            got[tuple(req.prompt)] = logits[0].float().clone()
+        return real_sample(logits, *a)
+
+    eng._prefill_tail = tail
+    engine_mod.sample_logits_rowwise = sample
+
+    def undo():
+        del eng._prefill_tail
+        engine_mod.sample_logits_rowwise = real_sample
+
+    return got, undo
+
+
+def one_shot_with_margins(gen_mod, service, prompt, n):
+    """The one-shot path's greedy completion of one prompt (a seed forces
+    it) and each step's logits' top-2 margin; step 0's logits too."""
+    margins, first = [], []
+    real = gen_mod.sample_logits
+
+    def spy(logits, generator, **kw):
+        # kept on the card: a read-back here would sync every step
+        top = logits.topk(2, dim=-1).values
+        margins.append(top[0, 0] - top[0, 1])
+        if not first:
+            first.append(logits[0].float().clone())
+        return real(logits, generator, **kw)
+
+    gen_mod.sample_logits = spy
+    try:
+        out = service.complete([prompt], max_tokens=n, seed=0)
+    finally:
+        gen_mod.sample_logits = real
+    if out["usage"].get("engine"):
+        raise AssertionError("a seeded request took the engine")
+    return out["completions"][0], torch_list(margins), first[0]
+
+
+def torch_list(scalars) -> list:
+    """Device scalars as floats, one transfer."""
+    import torch
+
+    return torch.stack(scalars).float().tolist() if scalars else []
+
+
+def greedy_parity(got, want, margins, fail=True) -> dict:
+    """Greedy tokens of the engine against the one-shot path's: equal up to
+    the first step whose one-shot top-2 margin is under GREEDY_FLIP_MARGIN
+    (a bf16 near-tie the engine's other batch shape may flip)."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None and len(got) == len(want):
+        return {"identical": True}
+    i = min(len(got), len(want)) if i is None else i
+    margin = margins[i] if i < len(margins) else float("inf")
+    if fail and margin >= GREEDY_FLIP_MARGIN:
+        raise AssertionError(f"greedy tokens differ at step {i} with a top-2 margin of {margin}")
+    return {"identical": False, "first_difference": i, "top2_margin_there": margin,
+            "cut_at_near_tie": margin < GREEDY_FLIP_MARGIN}
+
+
+def engine_prompts(torch, V: int) -> list:
+    """ENGINE_REQUESTS prompts of 17 to 240 tokens (buckets 64 and 256)."""
+    gen = torch.Generator().manual_seed(23)
+    lengths = torch.randint(17, 241, (ENGINE_REQUESTS,), generator=gen).tolist()
+    return [torch.randint(1, V, (n,), generator=gen).tolist() for n in lengths]
+
+
+def engine_phase(torch, int4, cfg, params) -> tuple[dict, object]:
+    """Llama-3-8B int4 through ``CompletionService(engine_slots=8)`` and its
+    HTTP surface. Returns the record and the service (its engine is reused
+    by ``engine_graphs``)."""
+    import importlib
+    import threading
+
+    from odh_kubeflow_tpu_torch.models.serve import CompletionService, serve
+
+    engine_mod = importlib.import_module("odh_kubeflow_tpu_torch.models.engine")
+    gen_mod = importlib.import_module("odh_kubeflow_tpu_torch.models.generate")
+    V = cfg.vocab_size
+    prompts = engine_prompts(torch, V)
+    gen = torch.Generator().manual_seed(29)
+
+    def prompt(n):
+        return torch.randint(1, V, (n,), generator=gen).tolist()
+
+    service = CompletionService(params, cfg, engine_slots=ENGINE_SLOTS,
+                                engine_max_len=ENGINE_MAX_LEN, device="cuda", **ENGINE_KW)
+    eng = service.engine
+    httpd = serve(service, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    record = {"phase": "engine",
+              "config": "llama3_8b int4 (group 128), 32 layers, random weights (seed 0); "
+                        f"engine {ENGINE_SLOTS} slots, max_len {ENGINE_MAX_LEN}, {ENGINE_KW}, "
+                        "prompt buckets (64, 256, 1024), prefix buckets (256, 512)"}
+    t_phase = time.perf_counter()
+    try:
+        # warm-up: the greedy and the sampling chunk each run once eagerly,
+        # then are captured and replayed; a chunked (256-wide) admission
+        for body in ({"prompt": [prompt(40)], "max_tokens": 25},
+                     {"prompt": [prompt(40)], "max_tokens": 25, "temperature": 0.8},
+                     {"prompt": [prompt(300)], "max_tokens": 2}):
+            code, out = post(base, body)
+            if code != 200 or not out["usage"].get("engine"):
+                raise AssertionError(f"warm-up: HTTP {code}: {out}")
+        if set(eng._graphs) != {"greedy", "sample"}:
+            raise AssertionError(f"captured graphs {sorted(eng._graphs)}")
+        record["captured_dequant_launches_per_chunk"] = {
+            v: eng._graph_launches[v][0] for v in eng._graphs}
+        if eng._graph_launches["greedy"][0] != LAUNCHES_PER_FORWARD * eng.chunk:
+            raise AssertionError(f"a greedy chunk captured {eng._graph_launches['greedy'][0]} "
+                                 f"dequants, not {LAUNCHES_PER_FORWARD} x {eng.chunk}")
+
+        # 16 staggered streams over HTTP (SSE), 64 new tokens each: the main
+        # path's launches are counted here, with only the engine thread on
+        # the card (the HTTP threads only wait)
+        first, undo = first_step_spy(engine_mod, eng)
+        results = [None] * ENGINE_REQUESTS
+        errors = []
+
+        def client(i):
+            try:
+                results[i] = sse(base, {"prompt": prompts[i], "max_tokens": ENGINE_NEW_TOKENS})
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{i}: {type(e).__name__}: {e}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.decode_steps = eng.tokens_emitted = 0
+        int4.launches = 0  # the engine path's count starts here
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(ENGINE_REQUESTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+            time.sleep(0.05)  # staggered arrivals
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        engine_launches = int4.launches
+        undo()
+        # a prefill a request (none is chunked: every prompt is under 256
+        # tokens) and a forward a decode step, 225 dequants each
+        want = LAUNCHES_PER_FORWARD * (ENGINE_REQUESTS + eng.decode_steps)
+        if engine_launches != want:
+            raise AssertionError(f"the engine launched {engine_launches} dequants, not {want}")
+        if errors or any(r is None for r in results):
+            raise AssertionError(f"streams failed: {errors}")
+        completions, ttfts, itls = [], [], []
+        for frames, times in results:
+            toks = [f["token"] for f in frames[:-1]]
+            if frames[-1] != {"done": True, "tokens": toks} or len(toks) != ENGINE_NEW_TOKENS:
+                raise AssertionError(f"SSE frames end {frames[-1]} after {len(toks)} tokens")
+            if not all(0 <= t < V for t in toks):
+                raise AssertionError(f"tokens out of range: {toks}")
+            completions.append(toks)
+            ttfts.append(times[1] - times[0])
+            itls += [b - a for a, b in zip(times[1:-1], times[2:-1])]
+        tokens = ENGINE_REQUESTS * ENGINE_NEW_TOKENS
+        record["staggered"] = {
+            "requests": ENGINE_REQUESTS, "new_tokens": ENGINE_NEW_TOKENS, "stagger_s": 0.05,
+            "wall_s": wall, "aggregate_tok_s": tokens / wall,
+            "tokens_per_decode_step": eng.tokens_emitted / eng.decode_steps,
+            "decode_steps": eng.decode_steps, **latency_stats(ttfts, itls),
+            "sse_frames_per_stream": ENGINE_NEW_TOKENS + 1,
+            "dequant_launches": engine_launches,
+            "dequant_launches_per_request": engine_launches / ENGINE_REQUESTS,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        }
+
+        # the serial one-shot path on the same service (a seed takes it),
+        # one request at a time: its rate, and greedy parity per request
+        t_serial, parity, cut = 0.0, [], 0
+        for i in range(ENGINE_SERIAL):
+            t0 = time.perf_counter()
+            want, margins, logits0 = one_shot_with_margins(gen_mod, service, prompts[i],
+                                                           ENGINE_NEW_TOKENS)
+            t_serial += time.perf_counter() - t0
+            lk = first[tuple(prompts[i])]
+            rel = ((lk - logits0).norm() / logits0.norm()).item()
+            if not rel <= SERVE_LOGITS_RTOL:
+                raise AssertionError(f"request {i}: first-step logits rel err {rel}")
+            p = greedy_parity(completions[i], want, margins)
+            cut += bool(p.get("cut_at_near_tie"))
+            parity.append({"first_step_logits_rel_err": rel, **p})
+        serial_tok_s = ENGINE_SERIAL * ENGINE_NEW_TOKENS / t_serial
+        record["serial_one_shot"] = {"requests": ENGINE_SERIAL, "tok_s": serial_tok_s,
+                                     "request_s": t_serial / ENGINE_SERIAL}
+        record["staggered"]["aggregate_vs_serial"] = tokens / wall / serial_tok_s
+        record["parity_vs_one_shot"] = {
+            "first_step_logits_rtol": SERVE_LOGITS_RTOL, "greedy_flip_margin": GREEDY_FLIP_MARGIN,
+            "requests": parity, "cut_at_near_tie": cut}
+
+        # mixed sampling settings and eos in one chunk
+        g = completions[0]
+        eos = g[2]
+        hs = [eng.submit(prompts[0], max_tokens=16),
+              eng.submit(prompts[1], max_tokens=16, temperature=1.0, top_k=50),
+              eng.submit(prompts[2], max_tokens=16, temperature=0.7, top_p=0.9),
+              eng.submit(prompts[0], max_tokens=16, eos_id=eos)]
+        outs = [h.result(timeout=300) for h in hs]
+        if [len(o) for o in outs[:3]] != [16] * 3 or outs[3] != g[: g.index(eos) + 1]:
+            raise AssertionError(f"mixed chunk: {outs}")
+        if outs[0] != g[:16]:
+            raise AssertionError("a greedy stream changed beside sampled ones")
+        record["mixed_sampling_and_eos"] = {
+            "greedy_equals_its_staggered_run": True, "eos_stream_tokens": len(outs[3]),
+            "sampled_in_range": all(0 <= t < V for o in outs[1:3] for t in o)}
+
+        # a 1,000-token admission behind 4 decoding streams, in parts and whole
+        stalls = {}
+        for label, chunked in (("prefill_chunk_256", 256), ("whole_prompt", None)):
+            eng.prefill_chunk = chunked
+            streams = [eng.submit(prompt(32), max_tokens=96, stream=True) for _ in range(4)]
+            for s in streams:
+                while len(s.tokens) < 9:
+                    if s.done.wait(0.01):
+                        break
+            t_long = time.monotonic()
+            long = eng.submit(prompt(1000), max_tokens=8)
+            long.result(timeout=300)
+            for s in streams:
+                s.result(timeout=300)
+            gaps = [b - a for s in streams for a, b in zip(s.times, s.times[1:]) if b > t_long]
+            stalls[label] = {"stall_max_ms": max(gaps) * 1e3,
+                             "long_ttft_s": long.ttft(), **latency_stats([], gaps)}
+        eng.prefill_chunk = ENGINE_KW["prefill_chunk"]
+        record["long_admission_behind_4_streams"] = stalls
+
+        # a shared 256-token system prompt: a miss, then a hit
+        system = prompt(256)
+        hits0, misses0 = eng.prefix_hits, eng.prefix_misses
+        a = eng.submit(system + prompt(32), max_tokens=4)
+        a.result(timeout=300)
+        b = eng.submit(system + prompt(32), max_tokens=4)
+        b.result(timeout=300)
+        if (eng.prefix_hits - hits0, eng.prefix_misses - misses0) != (1, 1):
+            raise AssertionError(f"prefix hits {eng.prefix_hits - hits0}, misses "
+                                 f"{eng.prefix_misses - misses0}")
+        record["prefix_cache"] = {"hits": 1, "misses": 1, "ttft_miss_s": a.ttft(),
+                                  "ttft_hit_s": b.ttft()}
+        record["seconds"] = time.perf_counter() - t_phase
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return record, service
+
+
+def _replayed_equals_eager(torch, eng, prompts) -> dict:
+    """One greedy chunk from the same admitted state, eager and as the
+    replayed graph (the engine's thread stopped; this thread drives it on
+    the engine's stream): which outputs are bit-identical."""
+    from odh_kubeflow_tpu_torch.models.engine import _Request
+
+    eng.stop()
+    st = eng._state
+    keys = [k for k in st if k not in ("cache", "dcache")]
+
+    def snap():
+        out = {k: st[k].clone() for k in keys}
+        out.update({f"cache_{kv}": st["cache"][kv].clone() for kv in ("k", "v")})
+        out["tokens"] = eng._out_toks.clone()
+        return out
+
+    with torch.no_grad(), torch.cuda.stream(eng._stream):
+        eng._slot_req = [None] * eng.n_slots
+        for p in prompts:
+            eng._admit(_Request(prompt=p, max_tokens=64, temperature=0.0, top_k=0, top_p=0.0,
+                                eos_id=-1))
+        eng._pending_first.clear()
+        start = snap()
+        eng.cuda_graphs = False
+        eng._run_chunk("greedy")
+        eager = snap()
+        for k in keys:
+            st[k].copy_(start[k])
+        for kv in ("k", "v"):
+            st["cache"][kv].copy_(start[f"cache_{kv}"])
+        eng.cuda_graphs = True
+        eng._run_chunk("greedy")
+        graph = snap()
+    torch.cuda.synchronize()
+    return {k: torch.equal(eager[k], graph[k]) for k in eager}
+
+
+def slot_step_ms(eng, prompts) -> dict:
+    """{n: ms per greedy decode step with n active slots} for n in
+    GRAPH_SLOTS: n requests of GRAPH_CHUNKS chunks at once."""
+    ms = {}
+    for n in GRAPH_SLOTS:
+        eng.chunk_times.clear()
+        hs = [eng.submit(p, max_tokens=1 + eng.chunk * GRAPH_CHUNKS) for p in prompts[:n]]
+        for h in hs:
+            h.result(timeout=600)
+        ms[n] = step_ms(eng, "greedy", n)
+    return ms
+
+
+def engine_graphs_model(torch, eng, prompts, label: str, dense: bool) -> dict:
+    """ms per decode step at 1, 4 and 8 active slots, the chunk replayed as
+    a graph and run eagerly, peak memory of each; then replayed against
+    eager from one state (must be bit-identical for the dense model)."""
+    out = {"model": label}
+    for mode in ("graph", "eager"):
+        eng.cuda_graphs = mode == "graph"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[mode] = {"decode_step_ms": slot_step_ms(eng, prompts),
+                     "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+    out["graph_over_eager"] = {n: out["eager"]["decode_step_ms"][n]
+                               / out["graph"]["decode_step_ms"][n] for n in GRAPH_SLOTS}
+    # the graphs' pools stay reserved beyond the eager peak
+    out["graph_pool_gb"] = {v: b / 2**30 for v, b in eng.graph_pool_bytes.items()}
+    same = _replayed_equals_eager(torch, eng, prompts[:4])
+    out["replayed_equals_eager"] = same
+    if dense and not all(same.values()):
+        raise AssertionError(f"{label}: a replayed chunk differs from the eager one: {same}")
+    out["replay_profile"] = replay_profile(torch, eng)
+    return out
+
+
+def replay_profile(torch, eng, chunks: int = 2) -> dict:
+    """The device's busy share while the greedy graph replays (the engine
+    stopped, its 4 admitted slots from ``_replayed_equals_eager``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), torch.cuda.stream(eng._stream):
+        eng._run_chunk("greedy")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(chunks):
+                eng._run_chunk("greedy")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / (chunks * eng.chunk)
+    kernels = device_kernels(prof)
+    device_ms = sum(t for t, _ in kernels.values()) / 1e3 / (chunks * eng.chunk)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"profiled_step_wall_ms": wall_ms,
+            "device_kernel_ms_per_step": device_ms if kernels else "not measured",
+            "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+            "top_kernels_ms_per_step": [
+                {"kernel": k, "ms": t / 1e3 / (chunks * eng.chunk),
+                 "launches": c // (chunks * eng.chunk)} for k, (t, c) in top]}
+
+
+def spec_phase(torch, int4, cfg, params) -> dict:
+    """Llama-3-8B int4 target, Llama-3.2-1B int4 draft (both random, from
+    seeds), k 4: single-stream ``speculative_generate`` and the engine's
+    speculative chunk, each against the target decoding alone."""
+    import importlib
+
+    from odh_kubeflow_tpu_torch.models.engine import DecodeEngine
+    from odh_kubeflow_tpu_torch.models.generate import GenerateConfig, generate
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
+    from odh_kubeflow_tpu_torch.models.spec_decode import SpecDecodeConfig, speculative_generate
+    from odh_kubeflow_tpu_torch.utils import prometheus
+
+    gen_mod = importlib.import_module("odh_kubeflow_tpu_torch.models.generate")
+    t_phase = time.perf_counter()
+    dcfg = LlamaConfig.llama3_1b()
+    dparams = streaming_quantized_init(dcfg, 1, bits=4, device="cuda")
+    prompt = engine_prompts(torch, cfg.vocab_size)[3][:48]
+    toks = torch.tensor([prompt + [0] * (64 - len(prompt))], device="cuda")
+    lens = torch.tensor([len(prompt)], device="cuda")
+    N = SPEC_NEW_TOKENS
+
+    margins = []
+    real = gen_mod.sample_logits
+
+    def spy(logits, generator, **kw):
+        top = logits.topk(2, dim=-1).values
+        margins.append(top[0, 0] - top[0, 1])
+        return real(logits, generator, **kw)
+
+    gen_mod.sample_logits = spy
+    try:
+        alone = generate(params, toks, cfg, GenerateConfig(max_new_tokens=N),
+                         prompt_lengths=lens)["tokens"][0].tolist()
+    finally:
+        gen_mod.sample_logits = real
+    margins = torch_list(margins)
+
+    before = int4.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = speculative_generate(params, cfg, dparams, dcfg, toks,
+                               SpecDecodeConfig(max_new_tokens=N, num_draft_tokens=SPEC_K),
+                               prompt_lengths=lens)
+    got = out["tokens"][0].tolist()
+    wall = time.perf_counter() - t0
+    rounds = out["rounds"]
+    single = {
+        "new_tokens": N, "rounds": rounds, "accepted_drafts": out["accepted_drafts"],
+        "acceptance_rate": out["accepted_drafts"] / (rounds * SPEC_K),
+        "target_passes_per_token": rounds / N, "ms_per_round": wall / rounds * 1e3,
+        "sync_wait_ms_per_round": out["sync_s"] / rounds * 1e3,
+        "dequant_launches": int4.launches - before,
+        "vs_target_alone": greedy_parity(got, alone, margins),
+    }
+
+    eng = DecodeEngine(params, cfg, n_slots=4, max_len=ENGINE_MAX_LEN, draft_params=dparams,
+                       draft_cfg=dcfg, spec_k=SPEC_K, device="cuda",
+                       metrics_registry=prometheus.Registry())
+    try:
+        eng.submit(prompt, max_tokens=2 * SPEC_K * eng.spec_rounds_per_call).result(600)
+        if "spec" not in eng._graphs:
+            raise AssertionError("the speculative chunk was not captured")
+        eng.chunk_times.clear()
+        eng.spec_rounds = eng.tokens_emitted = 0
+        got_e = eng.submit(prompt, max_tokens=N).result(timeout=600)
+        engine_rec = {
+            "spec_rounds": eng.spec_rounds,
+            "tokens_per_round": eng.tokens_emitted / eng.spec_rounds,
+            "ms_per_round": statistics.median(t for v, _, t in eng.chunk_times if v == "spec")
+            / eng.spec_rounds_per_call * 1e3,
+            "captured_dequant_launches_per_call": eng._graph_launches["spec"][0],
+            "vs_target_alone": greedy_parity(got_e, alone, margins),
+        }
+    finally:
+        eng.stop()
+    return {"phase": "spec",
+            "config": "target llama3_8b int4 (seed 0), draft llama3_1b int4 (seed 1), k 4",
+            "note": "random weights: the draft and the target agree by chance only, so "
+                    "acceptance is about 0 and this is no speed-up",
+            "single_stream": single, "engine": engine_rec,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def decode_step_ms(torch, cfg, params, batch: int, steps: int = 8) -> float:
+    """Mean ms of one cached decode step of ``batch`` rows (CUDA events)."""
+    from odh_kubeflow_tpu_torch.models.generate import family_forward, init_cache
+
+    cache_cfg, fwd = family_forward(cfg)
+    S = 64
+    L = S + steps + 1
+    cache = init_cache(cache_cfg, batch, L, device="cuda")
+    mask = torch.zeros((batch, L), dtype=torch.bool, device="cuda")
+    mask[:, :S] = True
+    tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        fwd(params, tok.expand(batch, S), cfg, cache, 0,
+            positions=torch.arange(S, device="cuda").expand(batch, S), kv_mask=mask)
+
+        def step(i):
+            mask[:, S + i] = True
+            fwd(params, tok, cfg, cache, S + i,
+                positions=torch.full((batch, 1), S + i, device="cuda"), kv_mask=mask)
+
+        step(0)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(1, steps + 1):
+            step(i)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def w8a8_phase(torch) -> dict:
+    """Llama-3-8B int8 (random, seed 0): W8A8 decode against the dequant
+    path: greedy agreement, ms per decode step at 1, 4 and 8 rows, and
+    ``_int8_matmul`` at those rows (``torch._int_mm``, rows padded to
+    ``llama.INT_MM_MIN_ROWS``) bit-equal to its CPU path."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import llama
+    from odh_kubeflow_tpu_torch.models.engine import DecodeEngine
+    from odh_kubeflow_tpu_torch.models.generate import GenerateConfig, generate
+    from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
+    from odh_kubeflow_tpu_torch.utils import prometheus
+
+    t_phase = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    w8 = dataclasses.replace(cfg, w8a8_decode=True)
+    params = streaming_quantized_init(cfg, 0, bits=8, device="cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    gen = torch.Generator().manual_seed(31)
+    int_mm = {}
+    for M in W8A8_ROWS:
+        x = torch.randn((M, cfg.hidden_size), generator=gen).to(torch.bfloat16)
+        w = {k: v[0].contiguous() for k, v in params["layers"]["wk"].items()}
+        got = llama._int8_matmul(x.cuda(), w)
+        want = llama._int8_matmul(x, {k: v.cpu() for k, v in w.items()})
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"_int8_matmul at {M} rows differs from its CPU path")
+        int_mm[M] = "bit-equal to the CPU path"
+    prompt = engine_prompts(torch, cfg.vocab_size)[5][:40]
+    toks = torch.tensor([prompt + [0] * (64 - len(prompt))], device="cuda")
+    lens = torch.tensor([len(prompt)], device="cuda")
+    outs = {}
+    for label, c in (("dequant", cfg), ("w8a8", w8)):
+        outs[label] = generate(params, toks, c, GenerateConfig(max_new_tokens=W8A8_NEW_TOKENS),
+                               prompt_lengths=lens)["tokens"][0].tolist()
+    agree = sum(a == b for a, b in zip(outs["dequant"], outs["w8a8"])) / W8A8_NEW_TOKENS
+    first = next((i for i, (a, b) in enumerate(zip(outs["dequant"], outs["w8a8"])) if a != b),
+                 None)
+    ms = {label: {M: decode_step_ms(torch, c, params, M) for M in W8A8_ROWS}
+          for label, c in (("dequant", cfg), ("w8a8", w8))}
+    # where an eager 8-row step's device time goes, both paths
+    profiles = {label: profile_phase(torch, c, params, ENGINE_SLOTS)
+                for label, c in (("dequant", cfg), ("w8a8", w8))}
+    # the same steps inside the engine's graph-replayed chunk (no host time)
+    graphed = {}
+    prompts = engine_prompts(torch, cfg.vocab_size)
+    for label, c in (("dequant", cfg), ("w8a8", w8)):
+        eng = DecodeEngine(params, c, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                           chunk=ENGINE_KW["chunk"], device="cuda",
+                           metrics_registry=prometheus.Registry())
+        try:
+            eng.submit(prompt, max_tokens=1 + 3 * eng.chunk).result(timeout=600)  # captures
+            graphed[label] = slot_step_ms(eng, prompts)
+        finally:
+            eng.stop()
+    return {"phase": "w8a8", "config": "llama3_8b int8 per-channel, random weights (seed 0)",
+            "resident_params_gb": resident, "int8_matmul_on_card": int_mm,
+            "int_mm_min_rows": llama.INT_MM_MIN_ROWS,
+            "greedy_agreement": agree, "first_difference": first,
+            "decode_step_ms_eager": ms, "engine_graph_step_ms": graphed,
+            "profile_8_rows": profiles,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def moe_engine_phase(torch, fa, int4, gm, cfg, params, served) -> tuple[dict, object]:
+    """Mixtral-8x1B bf16 through ``CompletionService(engine_slots=8)``: 4
+    ragged prompts (ragged path: below 2,048 assignments) and one of 700
+    tokens (bucket 1,024: the grouped prefill, 48 ``gmm`` on the engine
+    thread); greedy against the one-shot service's completions (served by
+    ``moe_serve``), TTFT and the decode step. Returns the record and the
+    service (its engine is reused by ``engine_graphs``)."""
+    import importlib
+
+    from odh_kubeflow_tpu_torch.models.serve import CompletionService
+
+    gen_mod = importlib.import_module("odh_kubeflow_tpu_torch.models.generate")
+    t_phase = time.perf_counter()
+    prompts = moe_serve_requests(torch, cfg.vocab_size)
+    service = CompletionService(params, cfg, engine_slots=ENGINE_SLOTS,
+                                engine_max_len=ENGINE_MAX_LEN, device="cuda",
+                                chunk=ENGINE_KW["chunk"])
+    eng = service.engine
+    # warm-up: the engine thread's first grouped prefill (timed: it once
+    # cost seconds in a bring-up run), and a chunk run eagerly, then captured
+    t0 = time.perf_counter()
+    eng.submit(prompts["long"][0], max_tokens=2).result(timeout=600)
+    first_grouped_s = time.perf_counter() - t0
+    eng.submit(prompts["short"][0], max_tokens=25).result(timeout=600)
+    torch.cuda.synchronize()
+    zero_moe_counts(fa, int4, gm)  # the MoE engine path's count starts here
+    eng.chunk_times.clear()
+    rows = prompts["ragged4"] + prompts["long"]
+    hs = [eng.submit(p, max_tokens=32) for p in rows]
+    got = [h.result(timeout=600) for h in hs]
+    launched = moe_counts(fa, gm)
+    if launched["gmm"] != MOE_SERVE_PREFILL["gmm"] or launched["gmm_bf16_k2048"] != 32:
+        raise AssertionError(f"launches {launched}: one grouped prefill (the 700-token one)")
+    parity = []
+    for i, p in enumerate(rows):
+        want, margins, _ = one_shot_with_margins(gen_mod, service, p, 32)
+        parity.append(greedy_parity(got[i], want, margins, fail=False))
+    served_rows = served["ragged4"] + served["long"]
+    record = {"phase": "moe_engine",
+              "config": "mixtral_8x1b bf16, 16 layers, dispatch grouped, random (seed 0); engine "
+                        f"{ENGINE_SLOTS} slots, chunk {ENGINE_KW['chunk']}",
+              "first_grouped_prefill_request_s": first_grouped_s,
+              "launches": launched, "gmm_per_request": launched["gmm"] / len(rows),
+              "ttft_s": [h.ttft() for h in hs],
+              "decode_step_ms": statistics.median(t for v, _, t in eng.chunk_times)
+              / eng.chunk * 1e3,
+              "greedy_vs_one_shot": parity,
+              "equal_to_moe_serve_completions": [g == s for g, s in zip(got, served_rows)],
+              "note": "routing is discontinuous: a bf16 difference of the engine's batch shape "
+                      "may flip an expert and the tokens after it; reported, not failed",
+              "seconds": time.perf_counter() - t_phase}
+    return record, service
+
+
 def main() -> int:
     import torch
 
@@ -2411,7 +3094,25 @@ def main() -> int:
     emit(parity_phase(torch, int4, cfg, params, served))
     emit({"phase": "profile", "card": label,
           "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
+
+    # the serving engine (slice 7) on the same 8B int4 parameters
+    record, service = engine_phase(torch, int4, cfg, params)
+    record["card"] = label
+    emit(record)
+    engine_launches = record["staggered"]["dequant_launches"]
+    t0 = time.perf_counter()
+    graphs = [engine_graphs_model(torch, service.engine, engine_prompts(torch, cfg.vocab_size),
+                                  "llama3_8b int4", dense=True)]
+    graphs_s = time.perf_counter() - t0
+    del service
+    record = spec_phase(torch, int4, cfg, params)
+    record["card"] = label
+    emit(record)
     del params
+    torch.cuda.empty_cache()
+    record = w8a8_phase(torch)
+    record["card"] = label
+    emit(record)
     torch.cuda.empty_cache()
 
     # training (slice 2)
@@ -2450,7 +3151,18 @@ def main() -> int:
     emit(moe_serve_parity_phase(torch, fa, gm, cfg, params, served))
     emit({"phase": "moe_profile", "card": label,
           "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
-    del params
+    record, service = moe_engine_phase(torch, fa, int4, gm, cfg, params, served)
+    record["card"] = label
+    emit(record)
+    moe_engine_launches = record["launches"]
+    t0 = time.perf_counter()
+    graphs.append(engine_graphs_model(torch, service.engine,
+                                      engine_prompts(torch, cfg.vocab_size),
+                                      "mixtral_8x1b bf16", dense=False))
+    emit({"phase": "engine_graphs", "card": label, "chunk": ENGINE_KW["chunk"],
+          "chunks_per_run": GRAPH_CHUNKS, "models": graphs,
+          "seconds": graphs_s + time.perf_counter() - t0})
+    del service, params
     torch.cuda.empty_cache()
 
     # the MoE full fine-tune (slice 4): trainable bf16 banks
@@ -2463,11 +3175,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(moe_full_train_parity_phase(torch, fa, int4, gm))
 
-    kernel["launches"] = serve_launches + train_launches["int4_dequant"]
-    kernel["launches_by_path"] = {"serve": serve_launches,
+    kernel["launches"] = serve_launches + engine_launches + train_launches["int4_dequant"]
+    kernel["launches_by_path"] = {"serve": serve_launches, "engine": engine_launches,
                                   "train": train_launches["int4_dequant"], "moe_train": 0}
     paths = {"train": train_launches, "moe_train": moe_launches,
-             "moe_serve": moe_serve_launches, "moe_full_train": full_launches}
+             "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
+             "moe_full_train": full_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

@@ -16,3 +16,13 @@ from odh_kubeflow_tpu_torch.models.lora import (  # noqa: F401
     init_lora_params,
     merge_lora,
 )
+from odh_kubeflow_tpu_torch.models.engine import DecodeEngine  # noqa: F401,E402
+from odh_kubeflow_tpu_torch.models.spec_decode import (  # noqa: F401,E402
+    SpecDecodeConfig,
+    speculative_generate,
+)
+from odh_kubeflow_tpu_torch.models.engine import DecodeEngine  # noqa: F401,E402
+from odh_kubeflow_tpu_torch.models.spec_decode import (  # noqa: F401,E402
+    SpecDecodeConfig,
+    speculative_generate,
+)

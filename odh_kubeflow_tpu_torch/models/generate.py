@@ -63,28 +63,49 @@ def init_cache(
 def filter_logits(
     logits: torch.Tensor,  # [B, V] float32
     *,
-    temperature: float,
-    top_k: Optional[int] = None,
-    top_p: Optional[float] = None,
+    temperature,
+    top_k=None,
+    top_p=None,
 ) -> torch.Tensor:
-    """Temperature, then top-k, then top-p: the logits ``sample_logits``
-    draws from, with ``-inf`` outside the kept set."""
+    """Temperature, then top-k, then top-p: the logits a sampler draws
+    from, with ``-inf`` outside the kept set.
+
+    Each knob is a number shared by every row (``generate``) or a ``[B]``
+    tensor, one value a row (the engine's slots, JAX's
+    ``sample_logits_rowwise``): there a temperature <= 0 divides by 1, a
+    top-k <= 0 and a top-p outside (0, 1) are off for that row."""
+    V = logits.shape[-1]
+    if isinstance(temperature, torch.Tensor):
+        temperature = torch.where(temperature > 0, temperature, 1.0)[:, None]
     logits = logits / temperature
-    if top_k is not None and top_k > 0:
+    if isinstance(top_k, torch.Tensor):
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        kth = sorted_desc.gather(1, torch.clamp(top_k - 1, 0, V - 1)[:, None])
+        logits = torch.where((top_k[:, None] > 0) & (logits < kth), float("-inf"), logits)
+    elif top_k is not None and top_k > 0:
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
-    if top_p is not None and top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_logits, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
-        # keep the smallest prefix whose mass reaches top_p (the token
-        # that crosses the threshold is included, per nucleus sampling)
-        keep = cum - probs < top_p
-        cutoff = torch.where(keep, sorted_logits, float("inf")).amin(
-            dim=-1, keepdim=True
-        )
-        logits = torch.where(logits < cutoff, float("-inf"), logits)
-    return logits
+    if isinstance(top_p, torch.Tensor):
+        # off rows keep every token: no prefix mass reaches 2
+        top_p = torch.where((top_p > 0) & (top_p < 1), top_p, 2.0)[:, None]
+    elif top_p is None or top_p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # keep the smallest prefix whose mass reaches top_p (the token that
+    # crosses the threshold is included, per nucleus sampling)
+    keep = cum - probs < top_p
+    cutoff = torch.where(keep, sorted_logits, float("inf")).amin(dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, float("-inf"), logits)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Gumbel noise from ``generator``: argmax(logits + noise) is a draw
+    from softmax(logits), as ``jax.random.categorical`` samples."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
 
 
 def sample_logits(
@@ -102,14 +123,7 @@ def sample_logits(
     logits = filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
     if generator is None:
         raise ValueError("sampling at temperature > 0 needs a torch.Generator")
-    # Gumbel-max: argmax(logits + Gumbel noise) is a draw from
-    # softmax(logits), as jax.random.categorical samples
-    u = torch.rand(
-        logits.shape, generator=generator, dtype=torch.float32, device=logits.device
-    )
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-    return torch.argmax(logits + gumbel, dim=-1)
+    return torch.argmax(logits + gumbel_noise(logits.shape, generator, logits.device), dim=-1)
 
 
 def family_forward(cfg):

@@ -14,7 +14,9 @@ Quantized leaves (int8 ``{"q","scale"}``, int4 ``{"q4","scale4"}``)
 dequantize inside each layer, inside its rematerialised region, so only
 one layer's float weights exist at a time and the backward recomputes
 them from the quantized tree; the int4 dequant is the hand-written
-kernel on the card.
+kernel on the card. With ``w8a8_decode`` the cached forward keeps int8
+matmul weights packed and runs them as s8×s8→s32 products on
+per-token-quantized activations (W8A8).
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ class LlamaConfig:
     remat_policy: str = "dots"
     remat_pin_layers: Optional[int] = None
     remat_prefix_policy: str = "none"
-    # decode-path W8A8 arrives with the serving-engine slice
+    # the cached forward (prefill and decode) runs int8 matmul weights as
+    # s8×s8 products on int8-quantized activations; training ignores it
     w8a8_decode: bool = False
 
     @staticmethod
@@ -221,9 +224,58 @@ def init_from_shapes(shapes: Params, seed: int, dtype, *, device="cuda") -> Para
 # forward
 
 
-def _maybe_lora(name: str, x: torch.Tensor, w: torch.Tensor, lora_layer) -> torch.Tensor:
-    """x @ w, plus the low-rank LoRA delta when an adapter is attached."""
-    y = x @ w.to(x.dtype)
+# torch._int_mm on the card needs more than 16 rows, so a decode step's
+# rows (one a slot, at most 16) pad to 32; above that, to a multiple of 8
+INT_MM_MIN_ROWS = 32
+
+
+def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 activation quant → (xq, scale). Split out
+    of ``_int8_matmul`` so projections that share an input (wq/wk/wv,
+    gate/up) quantize it once."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(amax.to(torch.float32), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def _int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` of int8 operands, summed exactly in int32:
+    ``torch._int_mm`` (cuBLASLt) on the card, an int32 product on the CPU.
+    The reference computes it as an XLA dot, outside any Pallas kernel."""
+    if not a.is_cuda:
+        return a.to(torch.int32) @ b.to(torch.int32)
+    M = a.shape[0]
+    rows = max(INT_MM_MIN_ROWS, -(-M // 8) * 8)
+    if rows != M:
+        a = torch.cat([a, a.new_zeros((rows - M, a.shape[1]))])
+    return torch._int_mm(a, b)[:M]
+
+
+def _int8_matmul_pre(
+    xq: torch.Tensor, sx: torch.Tensor, w: dict, out_dtype
+) -> torch.Tensor:
+    """s8×s8 product on a pre-quantized activation, rescaled by the
+    activation scale times the per-channel weight scale."""
+    acc = _int8_product(xq.reshape(-1, xq.shape[-1]), w["q"])
+    acc = acc.reshape(*xq.shape[:-1], acc.shape[-1])
+    return (acc.to(torch.float32) * sx * w["scale"][0][None, :]).to(out_dtype)
+
+
+def _int8_matmul(x: torch.Tensor, w: dict, out_dtype=None) -> torch.Tensor:
+    """W8A8: per-token activation quant → s8×s8 product → rescale."""
+    xq, sx = _quant_act(x)
+    return _int8_matmul_pre(xq, sx, w, out_dtype or x.dtype)
+
+
+def _maybe_lora(name: str, x: torch.Tensor, w, lora_layer, xq_sx=None) -> torch.Tensor:
+    """x @ w, plus the low-rank LoRA delta when an adapter is attached.
+    ``w`` may be an int8 leaf kept packed (the W8A8 path); ``xq_sx`` then
+    optionally carries x already quantized (shared across projections)."""
+    if isinstance(w, dict):
+        y = _int8_matmul_pre(*xq_sx, w, x.dtype) if xq_sx is not None else _int8_matmul(x, w)
+    else:
+        y = x @ w.to(x.dtype)
     if lora_layer is not None and name in lora_layer:
         a = lora_layer[name]["a"].to(x.dtype)  # [D, r]
         b = lora_layer[name]["b"].to(x.dtype)  # [r, out]
@@ -232,17 +284,18 @@ def _maybe_lora(name: str, x: torch.Tensor, w: torch.Tensor, lora_layer) -> torc
     return y
 
 
-def _maybe_dequant(tree: Params, dtype) -> Params:
+def _maybe_dequant(tree: Params, dtype, keep_int8_matmuls: bool = False) -> Params:
     """Dequantize any {"q","scale"} (int8) or {"q4","scale4"} (int4)
     leaves one level down (the shape a per-layer slice of a quantized
-    param tree has)."""
+    param tree has). ``keep_int8_matmuls`` leaves int8 leaves packed for
+    the W8A8 path (int4 always dequantizes)."""
     from odh_kubeflow_tpu_torch.models.quant import dequantize_tensor
 
     out = {}
     for k, v in tree.items():
-        if isinstance(v, dict) and (
-            set(v) == {"q", "scale"} or set(v) == {"q4", "scale4"}
-        ):
+        if isinstance(v, dict) and set(v) == {"q", "scale"}:
+            out[k] = v if keep_int8_matmuls else dequantize_tensor(v, dtype)
+        elif isinstance(v, dict) and set(v) == {"q4", "scale4"}:
             out[k] = dequantize_tensor(v, dtype)
         else:
             out[k] = v
@@ -277,15 +330,19 @@ def _decoder_layer(
     attends densely over the whole cache; ``attention_fn`` serves the
     no-cache forward only."""
     # quantized frozen weights dequantize here, inside the layer: only
-    # this layer's float copy ever exists
-    layer = _maybe_dequant(layer, cfg.dtype)
+    # this layer's float copy ever exists. W8A8 (cache path only) keeps
+    # the int8 matmul weights packed
+    keep = cache_layer is not None and cfg.w8a8_decode
+    layer = _maybe_dequant(layer, cfg.dtype, keep_int8_matmuls=keep)
     x, cache_layer = attention_block(
         cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
         cache_layer, cache_index, kv_mask, save_names,
     )
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer), "mlp_g", save_names)
-    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer)
+    # W8A8: gate and up share the MLP input, quantized once
+    hq = _quant_act(h) if isinstance(layer["w_gate"], dict) else None
+    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer, hq), "mlp_g", save_names)
+    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer, hq)
     x = x + _maybe_lora(
         "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer
     )
@@ -307,12 +364,14 @@ def attention_block(
     save_names=(),
 ):
     """The attention half of a decoder layer, shared with the MoE family:
-    ``x + wo(attention(rope(q), rope(k), v))``; returns ``(x, cache_layer)``."""
+    ``x + wo(attention(rope(q), rope(k), v))``; returns ``(x, cache_layer)``.
+    Packed int8 projections (W8A8) share one quantization of their input."""
     B, S, D = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-    q = _maybe_lora("wq", h, layer["wq"], lora_layer)
-    kk = _maybe_lora("wk", h, layer["wk"], lora_layer)
-    vv = _maybe_lora("wv", h, layer["wv"], lora_layer)
+    hq = _quant_act(h) if isinstance(layer["wq"], dict) else None
+    q = _maybe_lora("wq", h, layer["wq"], lora_layer, hq)
+    kk = _maybe_lora("wk", h, layer["wk"], lora_layer, hq)
+    vv = _maybe_lora("wv", h, layer["wv"], lora_layer, hq)
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     kk = kk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     vv = vv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -418,11 +477,6 @@ def causal_attention_fn(impl: str) -> Callable:
 
 def _check_supported(cfg: LlamaConfig) -> None:
     resolved_attention_impl(cfg)
-    if cfg.w8a8_decode:
-        raise NotImplementedError(
-            "w8a8_decode arrives with the serving-engine slice of the port "
-            "(continuous batching, speculative decoding and W8A8)"
-        )
 
 
 class _BF16ProductF32Out(torch.autograd.Function):
@@ -667,4 +721,8 @@ def forward_with_cache(
         )
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if cfg.w8a8_decode and isinstance(head, dict) and set(head) == {"q", "scale"}:
+        # the largest decode product (D × V) as W8A8, float32 logits
+        return _int8_matmul(x, head, out_dtype=torch.float32), cache
     return _logits(x, lm_head_weight(params, cfg), cfg.dtype), cache

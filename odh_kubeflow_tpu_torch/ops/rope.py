@@ -19,8 +19,10 @@ def rope_angles(
     freq_exponents = (
         torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     )
+    # theta filled on the device, not copied from the host: a copy would
+    # sync, which a CUDA graph capture (the engine's decode chunk) refuses
     inv_freq = torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=positions.device),
+        torch.full((), theta, dtype=torch.float32, device=positions.device),
         -freq_exponents,
     )  # [hd/2]
     angles = positions.to(torch.float32)[..., None] * inv_freq  # [B, S, hd/2]

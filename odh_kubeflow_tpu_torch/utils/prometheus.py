@@ -1,18 +1,20 @@
-"""Prometheus histograms for the trainer (the port's own copy of the part
-of the JAX package's ``utils/prometheus.py`` that ``Trainer`` needs).
+"""Prometheus metrics for the trainer and the serving engine (the port's
+own copy of the part of the JAX package's ``utils/prometheus.py`` that
+``Trainer`` and ``DecodeEngine`` need).
 
 ``Registry`` gets-or-creates metric families by name and renders the
-Prometheus text exposition; ``Histogram`` keeps cumulative ``le``
-buckets ending in ``+Inf`` plus ``_sum``/``_count``. Exemplars (trace
-ids) and the other metric kinds stay with the JAX package's platform
-side.
+Prometheus text exposition; ``Counter`` and ``Gauge`` keep one value per
+label set (an unlabelled one exposes 0 from registration); ``Histogram``
+keeps cumulative ``le`` buckets ending in ``+Inf`` plus
+``_sum``/``_count``. Exemplars (trace ids), OpenMetrics and the
+``/metrics`` server stay with the JAX package's platform side.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, Optional, Sequence, Union
 
 # client_golang's DefBuckets: latency-shaped, seconds
 DEFAULT_BUCKETS = (
@@ -34,6 +36,59 @@ def _fmt_labels(labels: dict[str, str]) -> str:
 def _fmt_value(v: float) -> str:
     f = float(v)
     return str(int(f)) if f.is_integer() else repr(f)
+
+
+def _escape_help(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _key(labels: Optional[dict[str, str]]) -> tuple:
+    return tuple(sorted((labels or {}).items()))
+
+
+class _Value:
+    """A counter or gauge family: one float per label set."""
+
+    type = ""
+
+    def __init__(self, name: str, help_: str, labelnames: Sequence[str] = ()):
+        self.name = name
+        self.help = help_
+        self.labelnames = tuple(labelnames)
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, labels: Optional[dict[str, str]] = None, by: float = 1.0) -> None:
+        with self._lock:
+            key = _key(labels)
+            self._values[key] = self._values.get(key, 0.0) + by
+
+    def value(self, labels: Optional[dict[str, str]] = None) -> float:
+        with self._lock:
+            return self._values.get(_key(labels), 0.0)
+
+    def collect(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {_escape_help(self.help)}"
+        yield f"# TYPE {self.name} {self.type}"
+        with self._lock:
+            if not self._values and not self.labelnames:
+                # unlabelled: the zero value shows from registration; a
+                # labelled family starts empty (no phantom series)
+                yield f"{self.name} 0"
+            for key, value in sorted(self._values.items()):
+                yield f"{self.name}{_fmt_labels(dict(key))} {_fmt_value(value)}"
+
+
+class Counter(_Value):
+    type = "counter"
+
+
+class Gauge(_Value):
+    type = "gauge"
+
+    def set(self, value: float, labels: Optional[dict[str, str]] = None) -> None:
+        with self._lock:
+            self._values[_key(labels)] = value
 
 
 class Histogram:
@@ -58,15 +113,11 @@ class Histogram:
         self._series: dict[tuple, list] = {}
         self._lock = threading.Lock()
 
-    @staticmethod
-    def _key(labels: Optional[dict[str, str]]) -> tuple:
-        return tuple(sorted((labels or {}).items()))
-
     def observe(self, value: float, labels: Optional[dict[str, str]] = None) -> None:
         value = float(value)
         with self._lock:
             st = self._series.setdefault(
-                self._key(labels), [[0] * (len(self.buckets) + 1), 0.0, 0]
+                _key(labels), [[0] * (len(self.buckets) + 1), 0.0, 0]
             )
             st[0][bisect.bisect_left(self.buckets, value)] += 1
             st[1] += value
@@ -75,16 +126,16 @@ class Histogram:
     def value(self, labels: Optional[dict[str, str]] = None) -> float:
         """Observation count."""
         with self._lock:
-            st = self._series.get(self._key(labels))
+            st = self._series.get(_key(labels))
             return float(st[2]) if st is not None else 0.0
 
     def sum(self, labels: Optional[dict[str, str]] = None) -> float:
         with self._lock:
-            st = self._series.get(self._key(labels))
+            st = self._series.get(_key(labels))
             return float(st[1]) if st is not None else 0.0
 
     def collect(self) -> Iterable[str]:
-        yield f"# HELP {self.name} {self.help}"
+        yield f"# HELP {self.name} {_escape_help(self.help)}"
         yield f"# TYPE {self.name} histogram"
         with self._lock:
             series = sorted((k, [list(st[0]), st[1], st[2]]) for k, st in self._series.items())
@@ -102,25 +153,38 @@ class Histogram:
             yield f"{self.name}_count{_fmt_labels(labels)} {count}"
 
 
+Metric = Union[Counter, Gauge, Histogram]
+
+
 class Registry:
     def __init__(self):
-        self._by_name: dict[str, Histogram] = {}
+        self._by_name: dict[str, Metric] = {}
         self._lock = threading.Lock()
 
-    def register(self, metric: Histogram) -> Histogram:
-        """Get-or-create by name; a second registration with other
-        buckets or labels raises instead of silently mis-bucketing."""
+    def register(self, metric: Metric) -> Metric:
+        """Get-or-create by name; a second registration of another kind,
+        with other labels or other buckets raises instead of silently
+        mis-recording."""
         with self._lock:
             existing = self._by_name.get(metric.name)
             if existing is None:
                 self._by_name[metric.name] = metric
                 return metric
-            if (existing.buckets, existing.labelnames) != (metric.buckets, metric.labelnames):
+            if (existing.type, existing.labelnames, getattr(existing, "buckets", None)) != (
+                metric.type, metric.labelnames, getattr(metric, "buckets", None)
+            ):
                 raise ValueError(
-                    f"histogram {metric.name!r} already registered with buckets "
-                    f"{existing.buckets} and labels {existing.labelnames}"
+                    f"metric {metric.name!r} already registered as {existing.type} with "
+                    f"labels {existing.labelnames}"
+                    + (f" and buckets {existing.buckets}" if existing.type == "histogram" else "")
                 )
             return existing
+
+    def counter(self, name: str, help_: str, labelnames: Sequence[str] = ()) -> Counter:
+        return self.register(Counter(name, help_, labelnames))
+
+    def gauge(self, name: str, help_: str, labelnames: Sequence[str] = ()) -> Gauge:
+        return self.register(Gauge(name, help_, labelnames))
 
     def histogram(
         self,
@@ -131,11 +195,11 @@ class Registry:
     ) -> Histogram:
         return self.register(Histogram(name, help_, buckets, labelnames))
 
-    def metric(self, name: str) -> Optional[Histogram]:
+    def metric(self, name: str) -> Optional[Metric]:
         with self._lock:
             return self._by_name.get(name)
 
-    def metrics(self) -> list[Histogram]:
+    def metrics(self) -> list[Metric]:
         with self._lock:
             return list(self._by_name.values())
 

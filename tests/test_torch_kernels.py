@@ -759,3 +759,125 @@ def test_int4_matmul_kernels_refuse_what_they_do_not_take():
         int4.int4_matmul(x, q4.cpu(), s)  # two devices
     with pytest.raises(NotImplementedError):
         int4.int4_matmul(x[:, :1024].contiguous(), q4[:512], s[:8])  # K % 2048
+
+
+# ---------------------------------------------------------------------------
+# the serving engine on the card: its thread, its CUDA graphs, W8A8
+
+
+def _tiny_card_model(int4_attention=True, moe_cfg=None):
+    """A tiny bf16 model on the card (dense, or the MoE ``moe_cfg`` with
+    bf16 banks and grouped dispatch), its attention projections int4 so
+    every layer runs the dequant kernel."""
+    from odh_kubeflow_tpu_torch.models import llama, moe, quant
+
+    if moe_cfg is None:
+        cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16)
+        params = llama.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
+    else:
+        cfg = moe_cfg
+        params = moe.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
+    if int4_attention:
+        for name in ("wq", "wk", "wv", "wo"):
+            w = params["layers"][name]
+            parts = [quant.quantize_tensor4(w[i]) for i in range(w.shape[0])]
+            params["layers"][name] = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    return cfg, params
+
+
+def _engine(params, cfg, **kw):
+    from odh_kubeflow_tpu_torch.models.engine import DecodeEngine
+    from odh_kubeflow_tpu_torch.utils import prometheus
+
+    return DecodeEngine(params, cfg, device="cuda", metrics_registry=prometheus.Registry(),
+                        **kw)
+
+
+@pytest.mark.gpu
+def test_engine_thread_launches_dequant_and_bf16_gmm_on_card():
+    """The engine's loop is a fresh thread: its prefill launches the int4
+    dequant and, for a prompt of 1,000 tokens (1,024-wide bucket, 2,048
+    assignments), the bf16 grouped matmul (TMA) of every layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from odh_kubeflow_tpu_torch.models import moe
+
+    cfg, params = _tiny_card_model(moe_cfg=moe.MoeConfig.mixtral_tiny(dispatch="grouped"))
+    eng = _engine(params, cfg, n_slots=2, max_len=1040, prompt_buckets=(16, 1024))
+    try:
+        dq, g = int4.launches, gm.gmm_launches
+        prompt = [(7 * i) % 250 + 1 for i in range(1000)]
+        toks = eng.submit(prompt, max_tokens=4).result(timeout=300)
+        assert len(toks) == 4 and all(0 <= t < cfg.vocab_size for t in toks)
+        assert gm.gmm_launches - g == 3 * cfg.base.num_layers
+        assert int4.launches - dq >= 4 * cfg.base.num_layers
+        assert eng.failure is None
+    finally:
+        eng.stop()
+
+
+def _graph_vs_eager(eng, prompts):
+    """One greedy decode chunk from the same admitted state, eager and as
+    the replayed graph; returns both ``(tokens, state, cache)``."""
+    from odh_kubeflow_tpu_torch.models.engine import _Request
+
+    eng.stop()  # drive the chunks from this thread
+    st = eng._state
+    keys = [k for k in st if k not in ("cache", "dcache")]
+
+    def snap():
+        out = {k: st[k].clone() for k in keys}
+        out.update({f"cache_{kv}": st["cache"][kv].clone() for kv in ("k", "v")})
+        out["toks"] = eng._out_toks.clone()
+        return out
+
+    with torch.no_grad(), torch.cuda.stream(eng._stream):
+        for p in prompts:
+            eng._admit(_Request(prompt=p, max_tokens=64, temperature=0.0, top_k=0, top_p=0.0,
+                                eos_id=-1))
+        eng._pending_first.clear()
+        start = snap()
+        eng.cuda_graphs = False
+        eng._run_chunk("greedy")
+        eager = snap()
+        for k in keys:
+            st[k].copy_(start[k])
+        for kv in ("k", "v"):
+            st["cache"][kv].copy_(start[f"cache_{kv}"])
+        eng.cuda_graphs = True
+        eng._run_chunk("greedy")  # captured now, then replayed
+        graph = snap()
+    torch.cuda.synchronize()
+    return eager, graph
+
+
+@pytest.mark.gpu
+def test_graph_replayed_decode_chunk_equals_eager_bit_for_bit_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    cfg, params = _tiny_card_model()
+    eng = _engine(params, cfg, n_slots=4, max_len=128, chunk=4, prompt_buckets=(16,))
+    eager, graph = _graph_vs_eager(eng, [[5, 9, 13], [7] * 10, list(range(3, 15))])
+    assert set(eng._graphs) == {"greedy"}
+    assert eng._graph_launches["greedy"][0] == 4 * (4 * cfg.num_layers)  # dequants
+    for k in eager:
+        assert torch.equal(eager[k], graph[k]), k
+    assert not torch.equal(eager["cache_k"], torch.zeros_like(eager["cache_k"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 33])
+def test_int8_matmul_on_card_equals_cpu_path(M):
+    """``torch._int_mm`` (rows padded to ``llama.INT_MM_MIN_ROWS``) against
+    the CPU's int32 product: the integer sums are exact on both, the
+    quantization and rescale are the same float32 steps, so bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from odh_kubeflow_tpu_torch.models import llama, quant
+
+    gen = torch.Generator().manual_seed(M)
+    x = torch.randn((M, 4096), generator=gen).to(torch.bfloat16)
+    w = quant.quantize_tensor(torch.randn((4096, 1024), generator=gen) * 0.02)
+    got = llama._int8_matmul(x.cuda(), {k: v.cuda() for k, v in w.items()})
+    want = llama._int8_matmul(x, w)
+    assert torch.equal(got.cpu(), want)
