@@ -120,6 +120,20 @@ Phases, one JSON line each on stdout:
     memory of each; a replayed chunk against the eager one from one state
     (bit-identical for the dense model; reported for Mixtral).
 
+24. ``mesh_train`` (after ``train_parity_on_card``): the ``train`` phase's
+    8B QLoRA step through ``Trainer(mesh=build_mesh(MeshConfig()))`` on an
+    NCCL group of one rank: 1 warm-up and 3 steps whose losses must equal
+    the ``train`` phase's bit for bit, the exact launches per step, step
+    time and peak memory against it; then one ``run_elastic`` step (its
+    gang all-gather over NCCL).
+25. ``ring_on_card``: ring attention's block schedule with the flash
+    kernels through the loopback driver (4 virtual ranks) at Llama-3-8B
+    attention width (Hq 32, Hkv 8, hd 128), batch 1, seq 16,384, plain and
+    zigzag, causal, forward and backward: per 64-position tile against the
+    same schedule on the plain versions and against one whole-sequence
+    call of each kernel (``flash_attention.TILE_RTOL``), flash launches
+    equal to the live block pairs, ms against the whole-sequence call.
+
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without the last line. Without a GPU it exits
@@ -839,7 +853,7 @@ def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
     steps, warmup = 3, 1
     torch.cuda.reset_peak_memory_stats()
     zero_counts(fa, int4)  # the training path's count starts here
-    bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    bench, step_losses = benchmark_with_losses(trainer, B, S, steps, warmup)
     launched = counts(fa, int4)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     expected = {k: n * (steps + warmup) for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
@@ -865,12 +879,201 @@ def train_phase(torch, fa, int4, peak: float) -> tuple[dict, object]:
         "model_flops_per_step": bench["model_flops_per_step"],
         "strict_mfu": bench["flops_per_s"] / peak,
         "train_equiv_mfu": bench["train_equiv_flops_per_s"] / peak,
-        "peak_flops": peak, "loss_benchmark": bench["loss"],
+        "peak_flops": peak, "loss_benchmark": bench["loss"], "step_losses": step_losses,
         "loss_after": loss, "grad_norm_after": gnorm,
         "launches": launched, "launches_per_step": TRAIN_LAUNCHES_PER_STEP,
         "adapter_b_max_abs": moved,
     }
     return record, trainer
+
+
+def benchmark_with_losses(trainer, B: int, S: int, steps: int, warmup: int):
+    """``Trainer.benchmark`` and the loss of each of its steps (kept as
+    device tensors while it runs: no extra synchronisation)."""
+    losses = []
+    step = trainer.train_step
+
+    def recording(batch):
+        metrics = step(batch)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = recording
+    try:
+        bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    finally:
+        del trainer.train_step  # back to the class's method
+    return bench, [float(x) for x in losses]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train_phase(torch, fa, int4, train_record: dict) -> tuple[dict, dict]:
+    """The ``train`` phase's 8B QLoRA step through ``Trainer(mesh=)`` on an
+    NCCL process group of one rank, ``MeshConfig()`` all ones (one card: a
+    size-1 axis issues no collective), and one ``run_elastic`` step whose
+    gang all-gather runs over NCCL."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from odh_kubeflow_tpu_torch.train import CheckpointManager, TrainConfig, Trainer
+    from odh_kubeflow_tpu_torch.train import elastic
+
+    B, S = TRAIN_SHAPE
+    steps, warmup = 3, 1
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshConfig(), device="cuda")
+        cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4",
+                          mesh=mesh, precompile_batch=(B, S))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa, int4)  # the mesh path's count starts here
+        bench, step_losses = benchmark_with_losses(trainer, B, S, steps, warmup)
+        launched = counts(fa, int4)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        expected = {k: n * (steps + warmup) for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+        if launched != expected:
+            raise AssertionError(f"mesh training launches {launched}, expected {expected}")
+        want = train_record["step_losses"]
+        if step_losses != want:
+            raise AssertionError(f"mesh step losses {step_losses} != one-device {want}")
+        gathers = []
+        all_gather = dist.all_gather
+        dist.all_gather = lambda *a, **k: gathers.append(1) or all_gather(*a, **k)
+        ckpt = os.path.join("build", "chip_smoke_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)  # the step must not resume from a stale one
+        try:
+            with CheckpointManager(ckpt, save_interval_steps=10**6) as mgr:
+                t0 = time.perf_counter()
+                result = elastic.run_elastic(
+                    trainer, mgr, [trainer.make_fake_batch(B, S)], total_steps=trainer.step + 1)
+                elastic_s = time.perf_counter() - t0
+        finally:
+            dist.all_gather = all_gather
+        if result["preempted"] or result["step"] != steps + warmup + 1 or not gathers:
+            raise AssertionError(f"run_elastic {result}, {len(gathers)} gang all-gathers")
+    finally:
+        dist.destroy_process_group()
+    record = {
+        "phase": "mesh_train",
+        "config": "the train phase's: llama3_8b QLoRA int4, LoRA r16, remat attn, 32 "
+                  "layers; Trainer(mesh=build_mesh(MeshConfig())) on an NCCL group of 1",
+        "batch": B, "seq": S, "steps": steps, "warmup": warmup, "init_s": init_s,
+        "step_time_s": bench["step_time_s"],
+        "train_step_time_s": train_record["step_time_s"],
+        "step_time_ratio": bench["step_time_s"] / train_record["step_time_s"],
+        "peak_memory_gb": peak_gb, "train_peak_memory_gb": train_record["peak_memory_gb"],
+        "step_losses": step_losses, "losses_equal_train_bitwise": True,
+        "launches": launched, "launches_per_step": TRAIN_LAUNCHES_PER_STEP,
+        "elastic": dict(result, seconds=elastic_s, gang_all_gathers=len(gathers)),
+    }
+    return record, launched
+
+
+# ring attention on the card: Llama-3-8B attention width, one sequence of
+# 16,384 tokens over 4 loopback ranks (blocks of 4,096)
+RING_SHAPE = (1, 16_384, 32, 8, 128)
+RING_RANKS = 4
+
+
+def ring_on_card_phase(torch, fa) -> tuple[dict, dict]:
+    """The ring's block schedule with its kernels (``flash_fwd``,
+    ``flash_dq``, ``flash_dkv`` per live block pair) through the loopback
+    driver, plain and zigzag layouts, causal, forward and backward: per
+    64-position tile against the plain ring (the same schedule on the
+    plain versions) and against one whole-sequence call of each kernel;
+    launches against the live block pairs; ms against the whole call."""
+    from odh_kubeflow_tpu_torch.parallel import ring_attention as ra
+
+    B, S, Hq, Hkv, hd = RING_SHAPE
+    C = RING_RANKS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = bf16(B, S, Hq, hd), bf16(B, S, Hkv, hd), bf16(B, S, Hkv, hd), bf16(B, S, Hq, hd)
+
+    def whole_call(_=None):
+        o, lse = fa.flash_fwd(q, k, v, causal=True)
+        d = fa.flash_delta(o, do)
+        return (o, fa.flash_dq(q, k, v, lse, d, do, causal=True),
+                *fa.flash_dkv(q, k, v, lse, d, do, causal=True))
+
+    whole = whole_call()  # the whole sequence in one call of each kernel
+    whole_ms = time_ms(torch, whole_call, 2)
+    names = ("out", "dq", "dk", "dv")
+    kernel_of = {"out": "flash_fwd", "dq": "flash_dq", "dk": "flash_dkv", "dv": "flash_dkv"}
+    layouts, launched = {}, {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for layout in ("plain", "zigzag"):
+        zig = layout == "zigzag"
+        perm = (lambda x: ra.zigzag_permute(x, C)) if zig else (lambda x: x)
+        unperm = (lambda x: ra.zigzag_unpermute(x, C)) if zig else (lambda x: x)
+        ins = [perm(x).contiguous() for x in (q, k, v, do)]
+
+        def ring(plain=False):
+            qq, kk, vv = (x.detach().requires_grad_() for x in ins[:3])
+            out = ra.loopback_ring_attention(qq, kk, vv, num_ranks=C, layout=layout,
+                                             plain=plain)
+            return (out, *torch.autograd.grad(out, (qq, kk, vv), ins[3]))
+
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 2**30
+        got = ring()
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30 - base_gb
+        n = {"flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
+             "flash_dkv": fa.dkv_launches}
+        live = ra.live_pairs(C, layout, causal=True)
+        if n != dict.fromkeys(n, live):
+            raise AssertionError(f"ring {layout}: launches {n}, live block pairs {live}")
+        for key in launched:
+            launched[key] += n[key]
+        plain = ring(plain=True)
+        errs = {}
+        for name, g, p, w in zip(names, got, plain, whole):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"ring {layout} {name}: non-finite values")
+            errs[name] = {"vs_plain": fa.tile_rel_err(g, p),
+                          "vs_whole_flash": fa.tile_rel_err(unperm(g), w),
+                          "max_abs_err_vs_plain": (g.float() - p.float()).abs().max().item()}
+        del plain
+        torch.cuda.empty_cache()
+        ring_ms = time_ms(torch, lambda _: ring(), 2)
+        layouts[layout] = {"launches": n, "live_block_pairs": live, "tile_rel_err": errs,
+                           "ring_fwd_bwd_ms": ring_ms, "ring_over_whole": ring_ms / whole_ms,
+                           "peak_memory_gb_above_inputs": peak_gb}
+        for name, e in errs.items():
+            tol = fa.TILE_RTOL[kernel_of[name]]
+            if e["vs_plain"] > tol or e["vs_whole_flash"] > tol:
+                raise AssertionError(f"ring {layout} {name}: {e} over {tol}; {layouts}")
+    record = {
+        "phase": "ring_on_card",
+        "shape": {"batch": B, "seq": S, "q_heads": Hq, "kv_heads": Hkv, "head_dim": hd,
+                  "ranks": C, "causal": True, "dtype": "bfloat16"},
+        "input_mib": {"q": q.numel() * 2 / 2**20, "k": k.numel() * 2 / 2**20,
+                      "v": v.numel() * 2 / 2**20},
+        "whole_flash_fwd_bwd_ms": whole_ms, "tile_rtol": fa.TILE_RTOL, "layouts": layouts,
+    }
+    return record, launched
 
 
 def train_parity_phase(torch, fa, int4) -> dict:
@@ -3119,11 +3322,23 @@ def main() -> int:
     record, trainer = train_phase(torch, fa, int4, peak)
     record["card"] = label
     emit(record)
+    train_record = record
     train_launches = record["launches"]
     emit(train_profile_phase(torch, trainer))
     del trainer
     torch.cuda.empty_cache()
     emit(train_parity_phase(torch, fa, int4))
+
+    # multi-device training (slice 8, part 1) at world size 1, and the
+    # ring's block schedule through the loopback driver
+    record, mesh_launches = mesh_train_phase(torch, fa, int4, train_record)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
+    record, ring_launches = ring_on_card_phase(torch, fa)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -3175,12 +3390,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(moe_full_train_parity_phase(torch, fa, int4, gm))
 
-    kernel["launches"] = serve_launches + engine_launches + train_launches["int4_dequant"]
     kernel["launches_by_path"] = {"serve": serve_launches, "engine": engine_launches,
-                                  "train": train_launches["int4_dequant"], "moe_train": 0}
+                                  "train": train_launches["int4_dequant"], "moe_train": 0,
+                                  "mesh_train": mesh_launches["int4_dequant"]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
-             "moe_full_train": full_launches}
+             "moe_full_train": full_launches, "mesh_train": mesh_launches,
+             "ring_on_card": ring_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

@@ -17,6 +17,13 @@ them from the quantized tree; the int4 dequant is the hand-written
 kernel on the card. With ``w8a8_decode`` the cached forward keeps int8
 matmul weights packed and runs them as s8×s8→s32 products on
 per-token-quantized activations (W8A8).
+
+Under a mesh (``forward(mesh=)``, ``parallel/mesh.py``) each rank holds
+its shards of the tree (``param_specs``): every layer's weights are
+all-gathered over ``fsdp`` inside its rematerialised region, the
+projections are Megatron tensor-parallel over ``tensor`` (wq/wk/wv and
+the gate/up columns, wo and w_down rows summed), the embedding and head
+are vocab-parallel, and with ``context > 1`` attention is the ring.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ from odh_kubeflow_tpu_torch.ops.attention import dense_attention
 from odh_kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from odh_kubeflow_tpu_torch.ops.norms import rms_norm
 from odh_kubeflow_tpu_torch.ops.rope import apply_rope, rope_angles
+from odh_kubeflow_tpu_torch.parallel import collectives as col
+from odh_kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_CONTEXT,
+    AXIS_FSDP,
+    AXIS_TENSOR,
+    P,
+)
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -54,8 +68,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
-    # "auto" resolves to "flash" on the card and "dense" on the CPU;
-    # "ring" arrives with the multi-device slice
+    # "auto" resolves to "ring" under a mesh with context > 1, else to
+    # "flash" on the card and "dense" on the CPU
     attention_impl: str = "auto"
     # training-side rematerialisation (``forward``; the serving path has
     # no backward pass): "none", "dots", "attn", "attn_mlp"
@@ -189,35 +203,72 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 
 def init_params(
-    seed: int, cfg: LlamaConfig, dtype=torch.float32, *, device="cuda"
+    seed: int, cfg: LlamaConfig, dtype=torch.float32, *, device="cuda", keep=None
 ) -> Params:
     """Random weights in the JAX package's layout, drawn from one
-    ``torch.Generator`` seeded with ``seed`` (not JAX's random bits)."""
-    return init_from_shapes(param_shapes(cfg), seed, dtype, device=device)
+    ``torch.Generator`` seeded with ``seed`` (not JAX's random bits).
+    ``keep`` selects each rank's shard (``init_from_shapes``)."""
+    return init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep)
 
 
-def init_from_shapes(shapes: Params, seed: int, dtype, *, device="cuda") -> Params:
+def init_from_shapes(
+    shapes: Params, seed: int, dtype, *, device="cuda", keep=None
+) -> Params:
     """A ``param_shapes``-style tree of ``(shape, fan_in)`` leaves made
-    real: ``normal · fan_in^-0.5``, ones where ``fan_in`` is None."""
+    real: ``normal · fan_in^-0.5``, ones where ``fan_in`` is None, each
+    leaf drawn whole, in order, from one generator.
+
+    ``keep(path, tensor, per_layer)``, when given, returns the part of
+    each drawn leaf to keep (``per_layer`` is False here): every rank of a
+    mesh draws the same values and keeps its shard, so the shards are
+    exactly the single-device init's and a rank holds at most one whole
+    leaf beside its shards."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    keep = keep or (lambda path, t, per_layer: t)
 
-    def build(tree):
+    def build(tree, path):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = build(v)
+                out[k] = build(v, path + (k,))
                 continue
             shape, fan_in = v
             if fan_in is None:
-                out[k] = torch.ones(shape, dtype=dtype, device=dev)
+                t = torch.ones(shape, dtype=dtype, device=dev)
             else:
                 w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-                out[k] = (w * fan_in**-0.5).to(dtype)
+                t = (w * fan_in**-0.5).to(dtype)
+            out[k] = keep(path + (k,), t, False)
         return out
 
-    return build(shapes)
+    return build(shapes, ())
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The sharding of ``init_params``'s tree, spec for spec the JAX
+    package's: model dims split over (fsdp, tensor), the layer axis
+    replicated; the embedding vocab-sharded over (tensor, fsdp), tensor
+    major."""
+    specs: Params = {
+        "embed": P((AXIS_TENSOR, AXIS_FSDP), None),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, AXIS_FSDP, AXIS_TENSOR),
+            "wk": P(None, AXIS_FSDP, AXIS_TENSOR),
+            "wv": P(None, AXIS_FSDP, AXIS_TENSOR),
+            "wo": P(None, AXIS_TENSOR, AXIS_FSDP),
+            "mlp_norm": P(None, None),
+            "w_gate": P(None, AXIS_FSDP, AXIS_TENSOR),
+            "w_up": P(None, AXIS_FSDP, AXIS_TENSOR),
+            "w_down": P(None, AXIS_TENSOR, AXIS_FSDP),
+        },
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(AXIS_FSDP, AXIS_TENSOR)
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -268,19 +319,42 @@ def _int8_matmul(x: torch.Tensor, w: dict, out_dtype=None) -> torch.Tensor:
     return _int8_matmul_pre(xq, sx, w, out_dtype or x.dtype)
 
 
-def _maybe_lora(name: str, x: torch.Tensor, w, lora_layer, xq_sx=None) -> torch.Tensor:
+# tensor-parallel roles of the projections: a column-parallel product
+# splits its output columns over ``tensor``, a row-parallel one its input
+# rows, and sums its partial products over ``tensor``
+COLUMN_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up")
+ROW_PARALLEL = ("wo", "w_down")
+
+
+def _maybe_lora(
+    name: str, x: torch.Tensor, w, lora_layer, xq_sx=None, tp=None
+) -> torch.Tensor:
     """x @ w, plus the low-rank LoRA delta when an adapter is attached.
     ``w`` may be an int8 leaf kept packed (the W8A8 path); ``xq_sx`` then
-    optionally carries x already quantized (shared across projections)."""
+    optionally carries x already quantized (shared across projections).
+
+    ``tp`` is the tensor-parallel group (None: one rank). A
+    column-parallel product takes its replicated input through
+    ``copy_to_group`` (the backward sums the input's gradient over the
+    group), and so does its adapter's ``x @ a``; a row-parallel one sums
+    its partial product, and its adapter's, with ``all_reduce``."""
+    row = tp is not None and name in ROW_PARALLEL
     if isinstance(w, dict):
         y = _int8_matmul_pre(*xq_sx, w, x.dtype) if xq_sx is not None else _int8_matmul(x, w)
+    elif row:
+        y = col.all_reduce(x @ w.to(x.dtype), tp)
     else:
-        y = x @ w.to(x.dtype)
+        y = col.copy_to_group(x, tp) @ w.to(x.dtype)
     if lora_layer is not None and name in lora_layer:
         a = lora_layer[name]["a"].to(x.dtype)  # [D, r]
         b = lora_layer[name]["b"].to(x.dtype)  # [r, out]
         scale = lora_layer[name]["scale"].to(x.dtype)
-        y = y + ((x @ a) @ b) * scale
+        if row:
+            y = y + (col.all_reduce(x @ a, tp) @ b) * scale
+        elif tp is not None:
+            y = y + (col.copy_to_group(x @ a, tp) @ b) * col.copy_to_group(scale, tp)
+        else:
+            y = y + ((x @ a) @ b) * scale
     return y
 
 
@@ -311,6 +385,94 @@ def _layer_slice(tree, i: int):
     return tree[i]
 
 
+class Sharding:
+    """What ``forward`` needs of a mesh: the fsdp, tensor and context
+    groups (None where the axis has size 1) and this rank's place."""
+
+    def __init__(self, mesh, cfg: LlamaConfig):
+        t = mesh.sizes[AXIS_TENSOR]
+        if cfg.num_kv_heads % t or cfg.intermediate_size % t or cfg.vocab_size % t:
+            raise ValueError(
+                f"tensor={t} must divide the KV heads ({cfg.num_kv_heads}), the MLP "
+                f"width ({cfg.intermediate_size}) and the vocabulary ({cfg.vocab_size})"
+            )
+        self.dtype = cfg.dtype
+        self.fsdp = mesh.group(AXIS_FSDP)
+        self.tp = mesh.group(AXIS_TENSOR)
+        self.context_index = mesh.coords[AXIS_CONTEXT]
+
+    def weight(self, name: str, w):
+        """One layer's projection weight as this rank computes with it:
+        gathered over fsdp (its shard of the tensor split stays). An int4
+        row-parallel weight under tensor > 1 is gathered whole, packed,
+        then dequantized and sliced: its split-halves packing puts two K
+        ranges in each packed row shard."""
+        dim = 1 if name in ROW_PARALLEL else 0
+        if not isinstance(w, dict):
+            return col.all_gather(w, self.fsdp, dim)
+        codes = "q4" if "q4" in w else "q"
+        scale = "scale4" if codes == "q4" else "scale"
+        out = {
+            codes: col.gather_dim(w[codes], self.fsdp, dim),
+            # the scale's contracted axis is replicated
+            scale: col.gather_dim(w[scale], self.fsdp, 1) if dim else w[scale],
+        }
+        if codes == "q4" and dim and self.tp is not None:
+            from odh_kubeflow_tpu_torch.models.quant import dequantize_tensor
+
+            out["q4"] = col.gather_dim(out["q4"], self.tp, 0)
+            full = dequantize_tensor(out, self.dtype)
+            return full.chunk(col.group_size(self.tp), 0)[col.group_rank(self.tp)]
+        return out
+
+    def layer(self, layer: Params, lora_layer):
+        """A layer's local shards made ready for its computation."""
+        layer = {
+            k: self.weight(k, v) if k in COLUMN_PARALLEL + ROW_PARALLEL else v
+            for k, v in layer.items()
+        }
+        if lora_layer is not None:
+            lora_layer = {k: self._adapter(k, ab) for k, ab in lora_layer.items()}
+        return layer, lora_layer
+
+    def _adapter(self, name: str, ab: dict) -> dict:
+        a = col.all_gather(ab["a"], self.fsdp, 0)  # [in, r]
+        b = ab["b"]  # [r, out / tensor]
+        if name in ROW_PARALLEL:
+            # the input is split over tensor: its rows of a; the output is
+            # replicated: all of b
+            a = col.scatter_to_group(a, self.tp, 0)
+            b = col.gather_to_replicated(b, self.tp, 1)
+        return {"a": a, "b": b, "scale": ab["scale"]}
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Vocab-parallel lookup: the table's rows are split over (tensor,
+        fsdp); the fsdp gather leaves this rank's tensor range, whose
+        masked lookups sum over tensor."""
+        table = col.all_gather(table, self.fsdp, 0)
+        if self.tp is None:
+            return table[tokens]
+        v0 = col.group_rank(self.tp) * table.shape[0]
+        local = tokens - v0
+        hit = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * hit[..., None].to(table.dtype)
+        return col.all_reduce(x, self.tp)
+
+    def head(self, params: Params, cfg: LlamaConfig) -> torch.Tensor:
+        """``[D, V / tensor]``: this rank's vocab columns of the head."""
+        if cfg.tie_embeddings:
+            return col.all_gather(params["embed"], self.fsdp, 0).T
+        head = params["lm_head"]
+        if isinstance(head, dict):
+            head = _maybe_dequant({"lm_head": self.weight("lm_head", head)}, cfg.dtype)
+            return head["lm_head"]
+        return col.all_gather(head, self.fsdp, 0)
+
+    def vocab_start(self, cfg: LlamaConfig) -> int:
+        """The first vocab id of this rank's head columns."""
+        return col.group_rank(self.tp) * (cfg.vocab_size // col.group_size(self.tp))
+
+
 def _decoder_layer(
     cfg: LlamaConfig,
     attention_fn: Optional[Callable],
@@ -324,11 +486,15 @@ def _decoder_layer(
     cache_index=None,  # int or [B] tensor: write offset into the cache
     kv_mask=None,  # [B, S_max] bool: which cache slots are valid
     save_names=(),  # activations a remat policy pins (see _tag)
+    par: Optional[Sharding] = None,  # under a mesh: the layer's slices are shards
 ):
     """Returns ``(x, cache_layer)``. On the KV-cache path this step's
     keys and values are written into ``cache_layer`` in place and it
     attends densely over the whole cache; ``attention_fn`` serves the
     no-cache forward only."""
+    if par is not None:  # the gathers run inside the remat region
+        layer, lora_layer = par.layer(layer, lora_layer)
+    tp = None if par is None else par.tp
     # quantized frozen weights dequantize here, inside the layer: only
     # this layer's float copy ever exists. W8A8 (cache path only) keeps
     # the int8 matmul weights packed
@@ -336,15 +502,16 @@ def _decoder_layer(
     layer = _maybe_dequant(layer, cfg.dtype, keep_int8_matmuls=keep)
     x, cache_layer = attention_block(
         cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
-        cache_layer, cache_index, kv_mask, save_names,
+        cache_layer, cache_index, kv_mask, save_names, tp,
     )
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     # W8A8: gate and up share the MLP input, quantized once
     hq = _quant_act(h) if isinstance(layer["w_gate"], dict) else None
-    gate = _tag(_maybe_lora("w_gate", h, layer["w_gate"], lora_layer, hq), "mlp_g", save_names)
-    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer, hq)
+    gate = _maybe_lora("w_gate", h, layer["w_gate"], lora_layer, hq, tp)
+    gate = _tag(gate, "mlp_g", save_names)
+    up = _maybe_lora("w_up", h, layer["w_up"], lora_layer, hq, tp)
     x = x + _maybe_lora(
-        "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer
+        "w_down", torch.nn.functional.silu(gate) * up, layer["w_down"], lora_layer, tp=tp
     )
     return x, cache_layer
 
@@ -362,6 +529,7 @@ def attention_block(
     cache_index=None,
     kv_mask=None,
     save_names=(),
+    tp=None,  # the tensor-parallel group: this rank's heads only
 ):
     """The attention half of a decoder layer, shared with the MoE family:
     ``x + wo(attention(rope(q), rope(k), v))``; returns ``(x, cache_layer)``.
@@ -369,12 +537,12 @@ def attention_block(
     B, S, D = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
     hq = _quant_act(h) if isinstance(layer["wq"], dict) else None
-    q = _maybe_lora("wq", h, layer["wq"], lora_layer, hq)
-    kk = _maybe_lora("wk", h, layer["wk"], lora_layer, hq)
-    vv = _maybe_lora("wv", h, layer["wv"], lora_layer, hq)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    kk = kk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    vv = vv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _maybe_lora("wq", h, layer["wq"], lora_layer, hq, tp)
+    kk = _maybe_lora("wk", h, layer["wk"], lora_layer, hq, tp)
+    vv = _maybe_lora("wv", h, layer["wv"], lora_layer, hq, tp)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    kk = kk.reshape(B, S, -1, cfg.head_dim)
+    vv = vv.reshape(B, S, -1, cfg.head_dim)
     q = _tag(apply_rope(q, sin, cos), "q_rope", save_names)
     kk = _tag(apply_rope(kk, sin, cos), "k_rope", save_names)
     vv = _tag(vv, "v_proj", save_names)
@@ -384,8 +552,8 @@ def attention_block(
         )
     else:
         attn = attention_fn(q, kk, vv, segment_ids=segment_ids)
-    attn = _tag(attn, "attn_out", save_names).reshape(B, S, cfg.q_dim)
-    return x + _maybe_lora("wo", attn, layer["wo"], lora_layer), cache_layer
+    attn = _tag(attn, "attn_out", save_names).reshape(B, S, -1)
+    return x + _maybe_lora("wo", attn, layer["wo"], lora_layer, tp=tp), cache_layer
 
 
 def cache_write_and_attend(
@@ -441,33 +609,37 @@ def cache_write_and_attend(
     return attn, {"k": ck, "v": cv}
 
 
-def resolved_attention_impl(cfg: LlamaConfig, device=None) -> str:
-    """"auto" is "flash" for a forward on the card and "dense" on the CPU
-    (the JAX package's backend rule: flash on the accelerator, dense
-    where the kernel would only be emulated). An explicit "flash" on CPU
-    tensors runs the kernels' plain versions through the same custom ops
-    and autograd."""
+def resolved_attention_impl(cfg: LlamaConfig, device=None, mesh=None) -> str:
+    """"auto" is "ring" under a mesh whose context axis is > 1 (any other
+    attention would compute block-diagonal attention over the shards),
+    else "flash" for a forward on the card and "dense" on the CPU (the JAX
+    package's backend rule: flash on the accelerator, dense where the
+    kernel would only be emulated). An explicit "flash" on CPU tensors
+    runs the kernels' plain versions through the same custom ops and
+    autograd; an explicit "ring" without a context axis is the
+    single-device attention."""
     if cfg.attention_impl == "auto":
+        if mesh is not None and mesh.sizes[AXIS_CONTEXT] > 1:
+            return "ring"
         on_card = device is not None and torch.device(device).type == "cuda"
         return "flash" if on_card else "dense"
-    if cfg.attention_impl in ("dense", "flash"):
+    if cfg.attention_impl in ("dense", "flash", "ring"):
         return cfg.attention_impl
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' arrives with the multi-device slice of "
-            "the port (context-parallel ring attention over NCCL)"
-        )
     raise ValueError(
         f"unknown attention_impl {cfg.attention_impl!r}; "
         "expected 'dense', 'flash', or 'ring'"
     )
 
 
-def causal_attention_fn(impl: str) -> Callable:
+def causal_attention_fn(impl: str, mesh=None) -> Callable:
     """``fn(q, k, v, segment_ids=None)``: causal attention of the resolved
-    implementation, "flash" or "dense"."""
+    implementation, "flash", "dense" or "ring" (over ``mesh``)."""
     if impl == "flash":
         return functools.partial(flash_attention, causal=True)
+    if impl == "ring":
+        from odh_kubeflow_tpu_torch.parallel.ring_attention import ring_attention
+
+        return functools.partial(ring_attention, mesh=mesh, causal=True)
 
     def attention_fn(q, k, v, segment_ids=None):
         return dense_attention(q, k, v, causal=True, segment_ids=segment_ids)
@@ -571,21 +743,23 @@ def _remat_plan(policy: str, impl: str):
     )
 
 
-def _make_layer_fn(cfg: LlamaConfig, impl: str, attention_fn: Callable, policy: str):
+def _make_layer_fn(
+    cfg: LlamaConfig, impl: str, attention_fn: Callable, policy: str, par=None
+):
     """``fn(x, layer, lora_layer, sin, cos, segment_ids) -> x``, wrapped in
     ``torch.utils.checkpoint`` per the policy when ``cfg.remat``. The
     layer's slices are views of the stacked trees and the dequant runs
     inside the region, so the recompute re-dequantizes from the
     quantized leaves instead of saving a float copy of the model."""
     if not cfg.remat:
-        return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest)[0]
+        return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest, par=par)[0]
     plan = _remat_plan(policy, impl)
     names = () if plan is None else plan[1]
 
     def body(x, layer, lora_layer, sin, cos, segment_ids):
         return _decoder_layer(
             cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
-            save_names=names,
+            save_names=names, par=par,
         )[0]
 
     return remat_wrap(body, plan)
@@ -626,9 +800,16 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Returns logits [B, S, V] in float32, or with ``return_hidden`` the
     final-norm hidden states [B, S, D] (the chunked loss runs the head).
+
+    Under ``mesh`` the params are this rank's shards (``param_specs``) and
+    ``tokens`` its block of the batch (``batch_spec``); the logits are
+    this rank's vocab columns (``Sharding.vocab_start``), and the hidden
+    states enter the vocab-parallel head through ``copy_to_group``.
+    Positions default to those of this rank's context block.
 
     Attention is ``resolved_attention_impl`` of the tokens' device. With
     ``cfg.remat`` each layer is a checkpointed region under
@@ -636,22 +817,25 @@ def forward(
     ``L - n`` layers ``remat_prefix_policy`` and the last ``n`` the named
     policy, as JAX's two scans do."""
     _check_supported(cfg)
+    par = None if mesh is None else Sharding(mesh, cfg)
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        start = 0 if par is None else par.context_index * S
+        positions = (start + torch.arange(S, device=tokens.device)).expand(B, S)
     sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
-    x = params["embed"][tokens].to(cfg.dtype)
+    table = params["embed"]
+    x = (table[tokens] if par is None else par.embed(table, tokens)).to(cfg.dtype)
 
-    impl = resolved_attention_impl(cfg, tokens.device)
-    attention_fn = causal_attention_fn(impl)
+    impl = resolved_attention_impl(cfg, tokens.device, mesh)
+    attention_fn = causal_attention_fn(impl, mesh)
 
     L = cfg.num_layers
     policies = [cfg.remat_policy] * L
     pin = cfg.remat_pin_layers
     if cfg.remat and cfg.remat_policy != "none" and pin is not None and 0 < pin < L:
         policies[: L - pin] = [cfg.remat_prefix_policy] * (L - pin)
-    fns = {p: _make_layer_fn(cfg, impl, attention_fn, p) for p in set(policies)}
+    fns = {p: _make_layer_fn(cfg, impl, attention_fn, p, par) for p in set(policies)}
 
     lora_layers = lora["layers"] if lora is not None else None
     for i in range(L):
@@ -665,9 +849,12 @@ def forward(
         )
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if par is not None:
+        x = col.copy_to_group(x, par.tp)  # into the vocab-parallel head
     if return_hidden:
         return x
-    return _logits(x, lm_head_weight(params, cfg), cfg.dtype)
+    head = lm_head_weight(params, cfg) if par is None else par.head(params, cfg)
+    return _logits(x, head, cfg.dtype)
 
 
 def lm_head_weight(params: Params, cfg: LlamaConfig) -> torch.Tensor:

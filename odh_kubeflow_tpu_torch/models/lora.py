@@ -14,6 +14,7 @@ from typing import Any, Sequence
 import torch
 
 from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+from odh_kubeflow_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TENSOR, P
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -69,6 +70,20 @@ def init_lora_params(
             "a": (a * fan_in**-0.5).to(dtype),
             "b": torch.zeros((L, lora.rank, fan_out), dtype=dtype, device=dev),
             "scale": torch.full((L,), lora.scale, dtype=torch.float32, device=dev),
+        }
+    return {"layers": layers}
+
+
+def lora_specs(cfg: LlamaConfig, lora: LoraConfig) -> Params:
+    """The adapters' sharding, the JAX package's: ``a [L, in, r]`` over
+    fsdp on ``in``, ``b [L, r, out]`` over tensor on ``out``."""
+    del cfg  # the specs do not depend on the widths
+    layers: Params = {}
+    for name in lora.targets:
+        layers[name] = {
+            "a": P(None, AXIS_FSDP, None),
+            "b": P(None, None, AXIS_TENSOR),
+            "scale": P(None),
         }
     return {"layers": layers}
 

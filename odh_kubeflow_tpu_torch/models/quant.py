@@ -21,6 +21,7 @@ from typing import Any
 import torch
 
 from odh_kubeflow_tpu_torch.ops import int4 as int4_ops
+from odh_kubeflow_tpu_torch.parallel.mesh import P
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -130,6 +131,33 @@ def dequantize_params(qparams: Params, dtype=torch.bfloat16) -> Params:
     return walk(qparams)
 
 
+def quantized_param_specs(specs: Params, bits: int = 8) -> Params:
+    """A spec tree mapped to the tree ``quantize_params`` gives: each
+    quantized leaf's spec becomes ``{"q": spec, "scale": spec'}`` (int4:
+    ``q4``/``scale4``), where ``spec'`` replicates the contracted
+    (next-to-last) axis, whose scales are ``[..., 1 or groups, N]``."""
+
+    def scale_spec(spec):
+        parts = list(spec)
+        if len(parts) >= 2:
+            parts[-2] = None
+        return P(*parts)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in _QUANT_LEAVES:
+                codes, scale = ("q", "scale") if bits == 8 else ("q4", "scale4")
+                out[k] = {codes: v, scale: scale_spec(v)}
+            else:
+                out[k] = v
+        return out
+
+    return walk(specs)
+
+
 def _leaf_seed(seed: int, path: tuple, name: str) -> int:
     # crc32, not hash(): python's hash is salted per process, so two
     # processes would draw different "random" weights for one seed
@@ -144,6 +172,7 @@ def streaming_quantized_init(
     *,
     bits: int = 8,
     device="cuda",
+    keep=None,
 ) -> Params:
     """Build an int8 (``bits=8``) or int4 (``bits=4``) param tree leaf by
     leaf on the device, with random weights (serving smoke and demo use).
@@ -158,6 +187,11 @@ def streaming_quantized_init(
     in bf16, as in the JAX package. ``cfg`` may be a ``LlamaConfig`` or a
     ``MoeConfig``: expert banks ``[L, E, K, N]`` quantize like any other
     matmul weight, a per-channel scale ``[L, E, 1, N]`` per expert.
+
+    ``keep(path, tensor, per_layer)``, when given, returns the part of
+    each drawn leaf, or of each quantized layer of a stacked one
+    (``per_layer``), to keep: a rank of a mesh keeps its shard of exactly
+    the single-device values.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -168,16 +202,20 @@ def streaming_quantized_init(
     dev = resolve_device(device)
     qt = quantize_tensor if bits == 8 else quantize_tensor4
 
+    keep = keep or (lambda path, t, per_layer: t)
+
     def leaf(path, name, shape):
         gen = torch.Generator(device=dev)
         gen.manual_seed(_leaf_seed(seed, path, name))
+        where = path + (name,)
         if name not in _QUANT_LEAVES:
             w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-            return (w * scale).to(torch.bfloat16)
+            return keep(where, (w * scale).to(torch.bfloat16), False)
         w = torch.randn(shape, generator=gen, dtype=torch.bfloat16, device=dev) * scale
         if w.ndim == 2:
-            return qt(w)
-        parts = [qt(w[i]) for i in range(w.shape[0])]
+            return {k: keep(where + (k,), t, False) for k, t in qt(w).items()}
+        parts = [{k: keep(where + (k,), t, True) for k, t in qt(w[i]).items()}
+                 for i in range(w.shape[0])]
         del w
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 

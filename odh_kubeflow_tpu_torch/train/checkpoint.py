@@ -10,7 +10,9 @@ base weights are not saved). ``save`` copies the tensors to host memory
 at once and, with ``async_save``, writes the file on a background thread
 while training goes on; a step directory appears only when its file is
 complete (write to a temporary name, then rename). At most
-``max_to_keep`` steps are kept, the oldest removed first.
+``max_to_keep`` steps are kept, the oldest removed first. A trainer
+under a mesh saves its state gathered whole from rank 0 and restores it
+onto any mesh (``Trainer.save_checkpoint``, ``restore_checkpoint``).
 """
 
 from __future__ import annotations
@@ -97,9 +99,11 @@ class CheckpointManager:
         except Exception as e:  # noqa: BLE001 — surfaced by wait_until_finished
             self._error = e
 
-    def restore(self, state_like: Params, step: Optional[int] = None) -> Params:
+    def restore(self, state_like: Optional[Params], step: Optional[int] = None) -> Params:
         """The saved tree at ``step`` (the latest by default), each tensor
-        on the device and in the dtype of its ``state_like`` leaf."""
+        on the device and in the dtype of its ``state_like`` leaf, or as
+        saved (on the CPU) when ``state_like`` is None: a trainer under a
+        mesh reshards the whole tree onto its own mesh."""
         self.wait_until_finished()
         if step is None:
             step = self.latest_step()
@@ -108,7 +112,7 @@ class CheckpointManager:
         loaded = torch.load(
             os.path.join(self._path(step), _FILE), map_location="cpu", weights_only=True
         )
-        return _like(loaded, state_like)
+        return loaded if state_like is None else _like(loaded, state_like)
 
     def all_steps(self) -> list[int]:
         return sorted(

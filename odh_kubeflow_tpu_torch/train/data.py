@@ -7,6 +7,8 @@
   that zeroes padding and each piece's last token. The same greedy
   packing, bit for bit, as the JAX package's Python path; the JAX
   package's native packer is not part of the port.
+- :func:`shard_batch` cuts a global batch to one rank's block of a mesh:
+  batch rows over (data, fsdp, expert), the sequence over context.
 - :func:`prefetch_to_device` keeps ``buffer_size`` batches in flight:
   each is copied to pinned host memory and sent with a non-blocking copy,
   so the transfer overlaps the current step on the card.
@@ -110,6 +112,21 @@ def _emit(rows, seq_len: int, pad_id: int) -> Batch:
         "segment_ids": segment_ids,
         "loss_mask": loss_mask,
     }
+
+
+def shard_batch(batch: Batch, mesh) -> Batch:
+    """This rank's block of a global ``[B, S]`` batch (numpy or tensors)
+    by ``parallel.mesh.batch_spec``, as tensors. Without ``targets`` the
+    next-token targets are made first, by shifting the whole sequence:
+    shifted after the split, each context block's last token would lose
+    its target."""
+    from odh_kubeflow_tpu_torch.parallel.mesh import batch_spec, local_shard
+
+    batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+             for k, v in batch.items()}
+    if "targets" not in batch:
+        batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
+    return {k: local_shard(v, mesh, batch_spec()) for k, v in batch.items()}
 
 
 def prefetch_to_device(

@@ -13,6 +13,16 @@ assigns the attribute. The optimizer is the optax chain of
 on the card), or for a ``MoeConfig`` ``models/moe.py`` ``forward``, whose
 router aux loss is added to the LM loss; sequences longer than 2048 take
 the chunked loss, which never builds ``[B, S, V]`` logits.
+
+Under a mesh (``Trainer(mesh=build_mesh(...))``, one process per card)
+each rank initialises, holds and updates only its shards of the params,
+the adapters and the Adam moments (the JAX package's specs), trains on
+its block of the batch (``train/data.py`` ``shard_batch``), and the
+model code issues the collectives (``models/llama.py``). The loss is
+the mean over the global count of target tokens; each gradient is summed
+over the data, fsdp, expert and context axes it is not sharded over (a
+sharded leaf's fsdp sum is its gather's reduce-scatter); the global norm
+sums each leaf's squares over its shards once.
 """
 
 from __future__ import annotations
@@ -24,13 +34,20 @@ import time
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from odh_kubeflow_tpu_torch.models import llama
 from odh_kubeflow_tpu_torch.models import lora as lora_lib
 from odh_kubeflow_tpu_torch.models import moe as moe_lib
-from odh_kubeflow_tpu_torch.models.quant import streaming_quantized_init
+from odh_kubeflow_tpu_torch.models.quant import (
+    quantized_param_specs,
+    streaming_quantized_init,
+)
 from odh_kubeflow_tpu_torch.ops import _build
+from odh_kubeflow_tpu_torch.parallel import collectives as col
+from odh_kubeflow_tpu_torch.parallel import mesh as mesh_lib
+from odh_kubeflow_tpu_torch.train.data import shard_batch
 from odh_kubeflow_tpu_torch.utils import prometheus
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
@@ -72,16 +89,39 @@ def cross_entropy_loss(
     return (nll * m).sum() / m.sum().clamp(min=1.0)
 
 
-def _chunk_nll(h, head, t, m, z_loss: float):
-    """One chunk's (sum of masked nll, sum of mask)."""
+def _vocab_logsumexp(logits: torch.Tensor, tp) -> torch.Tensor:
+    """logsumexp over the vocab, whose columns are split over ``tp``: the
+    max and the sum of exponentials all-reduced (the sum's backward is
+    the identity: every rank computes the same loss)."""
+    if tp is None:
+        return torch.logsumexp(logits, dim=-1)
+    m = col.all_reduce_max(logits.amax(-1), tp)
+    return torch.log(col.all_reduce(torch.exp(logits - m[..., None]).sum(-1), tp)) + m
+
+
+def _local_targets(t: torch.Tensor, v0: int, n: int):
+    """Targets as indices into this rank's ``n`` vocab columns from
+    ``v0`` (clamped) and whether each lies there."""
+    local = t - v0
+    return local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+
+def _chunk_nll(h, head, t, m, z_loss: float, tp=None, v0: int = 0):
+    """One chunk's (sum of masked nll, sum of mask). Under ``tp`` the head
+    holds this rank's vocab columns from ``v0``."""
     logits = llama.f32_product(h, head.to(h.dtype))  # [B, c, V] f32
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _vocab_logsumexp(logits, tp)
     # the target logit from a gather of head columns and a row-wise dot,
     # not from the [B, c, V] logits; the columns are rounded to the
     # activation dtype first, as the logits' head is, so nll is not biased
+    if tp is not None:
+        t, hit = _local_targets(t, v0, head.shape[1])
     ht = head.index_select(1, t.reshape(-1)).to(h.dtype)  # [D, B*c]
     ht = ht.T.reshape(h.shape).to(torch.float32)
-    nll = logz - (h.to(torch.float32) * ht).sum(-1)
+    target = (h.to(torch.float32) * ht).sum(-1)
+    if tp is not None:
+        target = col.all_reduce(target * hit, tp)
+    nll = logz - target
     if z_loss:
         nll = nll + z_loss * logz.square()
     m = m.to(torch.float32)
@@ -101,6 +141,14 @@ def chunked_cross_entropy(
     under ``torch.utils.checkpoint``, so its logits are recomputed in the
     backward and peak memory is one ``[B, chunk, V]`` block. ``chunk``
     must divide S."""
+    nll_sum, mask_sum = chunked_nll_sums(hidden, head, targets, loss_mask, z_loss, chunk)
+    return nll_sum / torch.clamp(mask_sum, min=1.0)
+
+
+def chunked_nll_sums(hidden, head, targets, loss_mask=None, z_loss=0.0, chunk=1024,
+                     tp=None, v0: int = 0):
+    """``chunked_cross_entropy``'s (sum of masked nll, sum of mask); under
+    ``tp`` the head holds this rank's vocab columns from ``v0``."""
     B, S, _ = hidden.shape
     if S % chunk:
         raise ValueError(f"chunk {chunk} must divide sequence length {S}")
@@ -109,14 +157,29 @@ def chunked_cross_entropy(
     nll_sum = mask_sum = 0.0
     for i in range(S // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        args = (hidden[:, sl], head, targets[:, sl].long(), loss_mask[:, sl], z_loss)
+        args = (hidden[:, sl], head, targets[:, sl].long(), loss_mask[:, sl], z_loss, tp, v0)
         if torch.is_grad_enabled():
             a, b = checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
             a, b = _chunk_nll(*args)
         nll_sum = nll_sum + a
         mask_sum = mask_sum + b
-    return nll_sum / torch.clamp(mask_sum, min=1.0)
+    return nll_sum, mask_sum
+
+
+def nll_sums(logits, targets, loss_mask=None, z_loss=0.0, tp=None, v0: int = 0):
+    """``cross_entropy_loss``'s (sum of masked nll, sum of mask) on this
+    rank's vocab columns of the logits (from ``v0``) under ``tp``."""
+    logz = _vocab_logsumexp(logits, tp)
+    t, hit = _local_targets(targets.long(), v0, logits.shape[-1])
+    target = logits.gather(-1, t[..., None])[..., 0]
+    if tp is not None:
+        target = col.all_reduce(target * hit, tp)
+    nll = logz - target
+    if z_loss:
+        nll = nll + z_loss * logz.square()
+    m = torch.ones_like(nll) if loss_mask is None else loss_mask.to(torch.float32)
+    return (nll * m).sum(), m.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +224,24 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.to(torch.float32).square().sum() for t in tensors))
 
 
+def sharded_global_norm(tensors, specs, mesh) -> torch.Tensor:
+    """The global norm of the whole gradients whose local shards are
+    ``tensors``: each leaf's squares summed over the ranks it is sharded
+    across, once; a leaf replicated across a group counts once."""
+    keys = []
+    for spec in specs:
+        axes = tuple(a for a in mesh_lib.AXIS_ORDER if a in mesh_lib.spec_axes(spec))
+        keys.append(axes if mesh.group(axes) is not None else ())
+    if not any(keys):
+        return global_norm(tensors)  # nothing sharded: the one-device sum
+    buckets: dict = {}
+    for t, axes in zip(tensors, keys):
+        buckets.setdefault(axes, []).append(t.to(torch.float32).square().sum())
+    total = sum(col.all_reduce_sum(sum(sqs), mesh.group(axes))
+                for axes, sqs in sorted(buckets.items()))
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
 def apply_optimizer(
     cfg: TrainConfig, trainable: Params, grads: list, gnorm: torch.Tensor, state: dict
@@ -187,14 +268,42 @@ def apply_optimizer(
 # ---------------------------------------------------------------------------
 
 
+def _world_group():
+    """The default group, or None for a single process."""
+    return dist.group.WORLD if dist.get_world_size() > 1 else None
+
+
+def _grad_axes(spec) -> tuple:
+    """The axes a gradient sums over after the backward: the token axes
+    its leaf is not sharded over (a sharded leaf's fsdp sum is its
+    gather's reduce-scatter; tensor-replicated leaves see equal
+    gradients on every tensor rank)."""
+    sharded = mesh_lib.spec_axes(spec)
+    return tuple(a for a in mesh_lib.TOKEN_AXES if a not in sharded)
+
+
+def _keep_shard(mesh, specs):
+    """``keep`` for the inits: this rank's shard of a drawn leaf (or of
+    one layer of a ``layers`` leaf, whose spec drops the layer axis)."""
+
+    def keep(path, t, per_layer):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return mesh_lib.local_shard(t, mesh, spec[1:] if per_layer else spec).contiguous()
+
+    return keep
+
+
 class Trainer:
     """Owns the device, the parameters, the optimizer state and the step.
 
     ``lora_cfg=None`` trains every parameter; otherwise the base is frozen
     (float, or int8/int4 with ``quantize_base``) and only the adapters
     train; on a MoE model they attach to the attention projections only.
-    ``device`` stands where the JAX trainer takes a mesh: one device, the
-    card by default."""
+    Without a mesh it trains on ``device``, the card by default; with a
+    ``parallel.mesh.Mesh`` (data, fsdp, tensor and context axes; a Llama
+    config) each rank trains its shards on the mesh's device."""
 
     def __init__(
         self,
@@ -209,16 +318,28 @@ class Trainer:
         *,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh needs multi-device parallelism (DeviceMesh/FSDP2), which the "
-                "port does not have yet; this trainer runs on one device"
-            )
         self.is_moe = isinstance(model_cfg, moe_lib.MoeConfig)
         if not (self.is_moe or isinstance(model_cfg, llama.LlamaConfig)):
             raise TypeError(
                 f"model_cfg must be a LlamaConfig or a MoeConfig, got {type(model_cfg).__name__}"
             )
+        if mesh is not None:
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError(
+                    f"mesh must be a parallel.mesh.Mesh (build_mesh), got {type(mesh).__name__}"
+                )
+            if mesh.sizes[mesh_lib.AXIS_PIPE] > 1:
+                raise NotImplementedError(
+                    "a mesh with pipe > 1 needs pipeline parallelism (GPipe/1F1B), which "
+                    "the port does not have yet"
+                )
+            if self.is_moe:
+                raise NotImplementedError(
+                    "a MoE model under a mesh needs expert parallelism, the part of "
+                    "multi-device parallelism the port does not have yet"
+                )
+            device = mesh.device
+        self.mesh = mesh
         if self.is_moe and lora_cfg is not None:
             bad = set(lora_cfg.targets) - set(lora_lib.ATTENTION_TARGETS)
             if bad:
@@ -254,19 +375,37 @@ class Trainer:
         if precompile_batch is not None:
             self.precompile_async(*precompile_batch)
 
+        self.param_specs = self.train_specs = None
+        keep = None
+        if mesh is not None:
+            self.param_specs = llama.param_specs(model_cfg)
+            if quantize_base:
+                self.param_specs = quantized_param_specs(self.param_specs, self.quant_bits)
+            self.train_specs = (
+                self.param_specs if lora_cfg is None
+                else lora_lib.lora_specs(model_cfg, lora_cfg)
+            )
+            keep = _keep_shard(mesh, self.param_specs)
         if quantize_base:
             # leaf by leaf: the float tree of the model never exists whole
             self.params = streaming_quantized_init(
-                model_cfg, seed, bits=self.quant_bits, device=self.device
+                model_cfg, seed, bits=self.quant_bits, device=self.device, keep=keep
+            )
+        elif self.is_moe:
+            self.params = moe_lib.init_params(
+                seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device
             )
         else:
-            init = moe_lib.init_params if self.is_moe else llama.init_params
-            self.params = init(seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device)
-        self.lora_params = (
-            lora_lib.init_lora_params(seed + 1, self.base_cfg, lora_cfg, device=self.device)
-            if lora_cfg is not None
-            else None
-        )
+            self.params = llama.init_params(
+                seed, model_cfg, dtype=model_cfg.dtype, device=self.device, keep=keep
+            )
+        self.lora_params = None
+        if lora_cfg is not None:
+            self.lora_params = lora_lib.init_lora_params(
+                seed + 1, self.base_cfg, lora_cfg, device=self.device
+            )
+            if mesh is not None:  # adapters are small: drawn whole, then sharded
+                self.lora_params = mesh_lib.shard_tree(self.lora_params, mesh, self.train_specs)
         self.opt_state = init_opt_state(self._trainable())
         self.step = 0
 
@@ -276,7 +415,11 @@ class Trainer:
     # -- loss -----------------------------------------------------------------
 
     def _batch(self, batch: dict) -> dict:
+        """The batch on the device; under a mesh, this rank's block of the
+        global batch."""
         types = {"loss_mask": torch.float32, "segment_ids": torch.int32}
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         return {
             k: torch.as_tensor(v).to(self.device, types.get(k, torch.long), non_blocking=True)
             for k, v in batch.items()
@@ -287,6 +430,8 @@ class Trainer:
             params, lora_params = self.params, trainable
         else:
             params, lora_params = trainable, None
+        if self.mesh is not None:
+            return self._mesh_loss(params, lora_params, batch)
         tokens = batch["tokens"]
         seq_len = tokens.shape[1]
         # long context: never materialise [B, S, V] logits
@@ -309,6 +454,36 @@ class Trainer:
             )
         return loss if aux is None else loss + aux
 
+    def _mesh_loss(self, params: Params, lora_params, batch: dict) -> torch.Tensor:
+        """This rank's share of the global mean loss: its masked nll sum over
+        the global count of target tokens. The ranks' shares sum to the
+        loss, and so do their gradients."""
+        mesh, cfg = self.mesh, self.model_cfg
+        seq_len = batch["tokens"].shape[1] * mesh.sizes[mesh_lib.AXIS_CONTEXT]
+        chunked = seq_len > 2048 and seq_len % 1024 == 0
+        out = llama.forward(
+            params, batch["tokens"], cfg, lora=lora_params,
+            segment_ids=batch.get("segment_ids"), return_hidden=chunked, mesh=mesh,
+        )
+        par = llama.Sharding(mesh, cfg)
+        vocab = dict(tp=par.tp, v0=par.vocab_start(cfg))
+        z = self.train_cfg.z_loss
+        if chunked:
+            nll, count = chunked_nll_sums(
+                out, par.head(params, cfg), batch["targets"], batch.get("loss_mask"), z,
+                **vocab,
+            )
+        else:
+            nll, count = nll_sums(out, batch["targets"], batch.get("loss_mask"), z, **vocab)
+        count = col.all_reduce_sum(count, mesh.group(mesh_lib.TOKEN_AXES))
+        return nll / torch.clamp(count, min=1.0)
+
+    def _reported(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global loss from this rank's share."""
+        if self.mesh is None:
+            return loss
+        return col.all_reduce_sum(loss, self.mesh.group(mesh_lib.TOKEN_AXES))
+
     # -- kernel build ahead of the first step ----------------------------------
 
     def precompile_async(
@@ -330,7 +505,8 @@ class Trainer:
         if self._build_thread is not None or self.device.type != "cuda":
             return
         names = ["int4_dequant"] if self.quant_bits == 4 else []
-        if llama.resolved_attention_impl(self.base_cfg, self.device) == "flash":
+        impl = llama.resolved_attention_impl(self.base_cfg, self.device, self.mesh)
+        if impl in ("flash", "ring"):
             names += ["flash_fwd", "flash_bwd"]
         if self.is_moe and self.model_cfg.dispatch == "grouped":
             names += ["gmm", "swiglu_gmm"]
@@ -364,7 +540,15 @@ class Trainer:
         loss = self._loss_fn(trainable, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-        return loss.detach(), grads
+        if self.mesh is not None:
+            grads = [
+                col.all_reduce_sum(g, self.mesh.group(_grad_axes(spec)))
+                for g, spec in zip(grads, self._train_spec_leaves())
+            ]
+        return self._reported(loss.detach()), grads
+
+    def _train_spec_leaves(self) -> list:
+        return [s for _, s in _leaves(self.train_specs)]
 
     def gradients(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """The loss and ``{path: gradient}`` of every trainable leaf for one
@@ -380,7 +564,10 @@ class Trainer:
         the update and the global norm of the raw gradients."""
         t_start = time.perf_counter()
         loss, grads = self._loss_and_grads(batch)
-        gnorm = global_norm(grads)
+        if self.mesh is None:
+            gnorm = global_norm(grads)
+        else:
+            gnorm = sharded_global_norm(grads, self._train_spec_leaves(), self.mesh)
         apply_optimizer(self.train_cfg, self._trainable(), grads, gnorm, self.opt_state)
         self.step += 1
         self._m_step_time.observe(time.perf_counter() - t_start)
@@ -390,7 +577,7 @@ class Trainer:
     def eval_step(self, batch: dict) -> dict:
         """Loss on a held-out batch: no gradient, no state touched."""
         self._join_build()
-        return {"loss": self._loss_fn(self._trainable(), self._batch(batch))}
+        return {"loss": self._reported(self._loss_fn(self._trainable(), self._batch(batch)))}
 
     # -- checkpoint / resume ----------------------------------------------------
     #
@@ -402,16 +589,40 @@ class Trainer:
     def _checkpoint_state(self) -> dict:
         return {"trainable": self._trainable(), "opt_state": self.opt_state}
 
+    def _checkpoint_specs(self) -> dict:
+        specs = self.train_specs
+        return {"trainable": specs, "opt_state": {"count": None, "mu": specs, "nu": specs}}
+
     def save_checkpoint(self, manager, *, force: bool = False) -> bool:
         """``manager`` is a ``train.checkpoint.CheckpointManager``;
-        ``force=True`` bypasses its save_interval_steps policy."""
-        return manager.save(self.step, self._checkpoint_state(), force=force)
+        ``force=True`` bypasses its save_interval_steps policy. Under a mesh
+        every rank calls it: the state is gathered whole, rank 0 writes it
+        (the call returns when it is written), and any mesh can restore it."""
+        if self.mesh is None:
+            return manager.save(self.step, self._checkpoint_state(), force=force)
+        if not force and self.step % manager.save_interval_steps:
+            return False
+        state = mesh_lib.gather_tree(self._checkpoint_state(), self.mesh,
+                                     self._checkpoint_specs())
+        saved = False
+        if self.mesh.rank == 0:
+            saved = manager.save(self.step, state, force=True)
+            # every rank returns once the step is on disk, so any of them
+            # may restore it next
+            manager.wait_until_finished()
+        flag = torch.tensor([float(saved)], device=self.device)
+        return bool(col.all_reduce_sum(flag, _world_group()).item())
 
     def restore_checkpoint(self, manager, step: Optional[int] = None) -> int:
-        """Restores trainable + optimizer state onto this trainer's device;
+        """Restores trainable + optimizer state onto this trainer's device
+        (under a mesh: this rank's shards of it, whatever mesh wrote it);
         returns the restored step."""
         step = manager.latest_step() if step is None else step
-        state = manager.restore(self._checkpoint_state(), step=step)
+        if self.mesh is None:
+            state = manager.restore(self._checkpoint_state(), step=step)
+        else:
+            state = mesh_lib.shard_tree(manager.restore(None, step=step), self.mesh,
+                                        self._checkpoint_specs())
         if self.lora_cfg is not None:
             self.lora_params = state["trainable"]
         else:

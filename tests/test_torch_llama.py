@@ -220,10 +220,14 @@ def test_later_slices_raise_not_implemented():
     np.testing.assert_allclose(
         llama.forward(tp, toks, flash).numpy(), llama.forward(tp, toks, TCFG).numpy(), **TOL
     )
-    for cfg in (dataclasses.replace(TCFG, attention_impl="ring"),
-                dataclasses.replace(TCFG, remat=True, remat_policy="attn_offload")):
-        with pytest.raises(NotImplementedError):
-            llama.forward(tp, toks, cfg)
+    # ring is ported (slice 8): without a mesh it is the single-device
+    # attention, as JAX's ring_attention is without a context axis
+    ring = dataclasses.replace(TCFG, attention_impl="ring")
+    np.testing.assert_allclose(
+        llama.forward(tp, toks, ring).numpy(), llama.forward(tp, toks, TCFG).numpy(), **TOL
+    )
+    with pytest.raises(NotImplementedError):
+        llama.forward(tp, toks, dataclasses.replace(TCFG, remat=True, remat_policy="attn_offload"))
     # W8A8 decode is ported (tests/test_torch_w8a8.py): the training
     # forward ignores it, as JAX's does
     np.testing.assert_array_equal(

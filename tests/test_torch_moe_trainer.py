@@ -37,6 +37,8 @@ from odh_kubeflow_tpu.train import Trainer as JTrainer
 from odh_kubeflow_tpu_torch import convert
 from odh_kubeflow_tpu_torch.models import llama, lora, moe
 from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
+from odh_kubeflow_tpu_torch.parallel.mesh import Mesh
+from odh_kubeflow_tpu_torch.parallel.mesh import MeshConfig as TMeshConfig
 from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
 from odh_kubeflow_tpu_torch.train import trainer as ttrainer
 from odh_kubeflow_tpu_torch.utils import prometheus
@@ -165,8 +167,9 @@ def test_moe_trainer_refuses_mlp_targets_and_counts_strict_sparse_flops(pair):
     assert out["train_equiv_flops_per_s"] * out["step_time_s"] == pytest.approx(
         3 * JCFG.flops_per_token(512) * tokens)
     assert tt.make_fake_batch(1, 8)["tokens"].max() < TCFG.vocab_size
-    with pytest.raises(NotImplementedError, match="multi-device parallelism"):
-        Trainer(TCFG, lora_cfg=lora.LoraConfig(), mesh=object(), device="cpu")
+    one_rank = Mesh(TMeshConfig(), torch.device("cpu"), None, rank=0)
+    with pytest.raises(NotImplementedError, match="expert parallelism.*multi-device parallelism"):
+        Trainer(TCFG, lora_cfg=lora.LoraConfig(), mesh=one_rank, device="cpu")
 
 
 def test_moe_long_sequence_takes_the_chunked_loss_with_the_aux(monkeypatch):

@@ -27,6 +27,8 @@ from odh_kubeflow_tpu.train import trainer as jtrainer
 from odh_kubeflow_tpu_torch import convert
 from odh_kubeflow_tpu_torch.models import llama, lora
 from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+from odh_kubeflow_tpu_torch.parallel.mesh import Mesh
+from odh_kubeflow_tpu_torch.parallel.mesh import MeshConfig as TMeshConfig
 from odh_kubeflow_tpu_torch.train import CheckpointManager, TrainConfig, Trainer
 from odh_kubeflow_tpu_torch.train import trainer as ttrainer
 from odh_kubeflow_tpu_torch.utils import prometheus
@@ -273,8 +275,11 @@ def test_trainer_refuses_what_jax_refuses_and_later_slices():
         Trainer(TCFG, quantize_base="int8", device="cpu")  # no adapters to train
     with pytest.raises(ValueError):
         Trainer(TCFG, lora_cfg=lora.LoraConfig(), quantize_base="int2", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device parallelism"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Trainer(TCFG, mesh=object(), device="cpu")
+    piped = Mesh(TMeshConfig(pipe=2), torch.device("cpu"), None, rank=0)
+    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
+        Trainer(TCFG, mesh=piped, device="cpu")
     with pytest.raises(TypeError, match="LlamaConfig or a MoeConfig"):
         Trainer(object(), device="cpu")
     if not torch.cuda.is_available():
