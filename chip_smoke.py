@@ -35,7 +35,10 @@ Phases, one JSON line each on stdout:
    kernel per step.
 7. ``train_parity_on_card``: a 2-layer model at 8B width, the loss and
    every adapter gradient with the kernels against the plain versions,
-   on an unpacked and a packed batch; and remat "attn" against "none".
+   on an unpacked and a packed batch (an ``a`` or ``b`` leaf relative to
+   its own norm; a ``scale`` leaf, a cancelling sum, relative to the sum
+   of its terms' magnitudes, both readings reported); and remat "attn"
+   against "none".
 8. ``train_profile``: where one 8B training step's device time goes.
 9. ``moe_kernels`` (right after ``kernels``): the grouped-matmul kernels
    (``gmm``, the fused SwiGLU forward and backward) against their plain
@@ -133,6 +136,20 @@ Phases, one JSON line each on stdout:
     same schedule on the plain versions and against one whole-sequence
     call of each kernel (``flash_attention.TILE_RTOL``), flash launches
     equal to the live block pairs, ms against the whole-sequence call.
+26. ``moe_mesh_train`` (after ``moe_train_parity_on_card``): the
+    ``moe_train`` phase's Mixtral-8x1B QLoRA step through
+    ``Trainer(mesh=build_mesh(MeshConfig()))`` on an NCCL group of one
+    rank: losses equal to ``moe_train``'s bit for bit, the same launches a
+    step, step time and peak memory against it.
+27. ``moe_ep_loopback``: one Mixtral-8x1B MoE layer at B 2 x S 4096
+    through the expert-parallel path's loopback driver (int8 and bf16
+    banks, 2 and 4 expert shards, ``ep_capacity_factor`` None and 1.25):
+    out, dx, the router's and the bf16 banks' gradients per 128-row tile
+    against one whole-batch grouped call, launches equal to shards x the
+    whole call's, dropped assignments, ms and peak memory against the
+    whole call; first each grouped kernel at 1, 2 and 4 local groups (an
+    ``m_loc``-row buffer with its tail, an empty first group) against its
+    plain version per tile.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1076,67 +1093,125 @@ def ring_on_card_phase(torch, fa) -> tuple[dict, dict]:
     return record, launched
 
 
+def llama_with_plain(fa, int4, fn):
+    """``fn()`` with the flash kernels' and the int4 dequant's plain
+    versions in their wrappers' place."""
+    kept = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant)
+    fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_fwd_reference, fa.flash_dq_reference, fa.flash_dkv_reference)
+    int4.int4_dequant = int4.int4_dequant_reference
+    try:
+        return fn()
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant = kept
+
+
+def scale_term_magnitudes(torch, fn):
+    """``fn()`` with each LoRA adapter's ``scale`` gradient replaced by the
+    sum of the magnitudes of its terms: the adapter adds ``z · scale`` with
+    ``z = (x @ a) @ b``, so ``d scale = Σ dy ⊙ z`` over every element, a
+    sum that cancels to 1e-10–1e-6; this run gives ``Σ |dy ⊙ z|`` in its
+    place, every value and every other gradient unchanged."""
+    from odh_kubeflow_tpu_torch.models import llama
+
+    class Magnitudes(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z, scale):
+            ctx.save_for_backward(z, scale)
+            return z * scale
+
+        @staticmethod
+        def backward(ctx, g):
+            z, scale = ctx.saved_tensors
+            terms = (g.float() * z.float()).abs().sum()
+            return g * scale, terms.to(scale.dtype)
+
+    adapted = llama._maybe_lora
+
+    def probed(name, x, w, lora_layer, xq_sx=None, tp=None):
+        if lora_layer is None or name not in lora_layer or tp is not None:
+            return adapted(name, x, w, lora_layer, xq_sx, tp)
+        ab = lora_layer[name]
+        z = (x @ ab["a"].to(x.dtype)) @ ab["b"].to(x.dtype)
+        return adapted(name, x, w, None, xq_sx, tp) + Magnitudes.apply(z, ab["scale"].to(x.dtype))
+
+    llama._maybe_lora = probed
+    try:
+        return fn()
+    finally:
+        llama._maybe_lora = adapted
+
+
+def adapter_grad_readings(torch, fa, int4, trainer, batch) -> dict:
+    """The adapters' gradients with the kernels against the plain versions,
+    leaf by leaf: ``rel`` is ``||kernel - plain|| / ||plain||``; a
+    ``scale`` leaf, whose gradient is a cancelling sum, is read beside it
+    against the sum of its terms' magnitudes from the plain run
+    (``rel_terms``, ``scale_term_magnitudes``), and that is its gated
+    reading; an ``a`` or ``b`` leaf's gated reading is ``rel``."""
+    before = counts(fa, int4)
+    k_loss, kernel = trainer.gradients(batch)
+    mid = counts(fa, int4)
+    if not all(mid[n] > before[n] for n in mid):
+        raise AssertionError(f"a kernel did not launch: {before} -> {mid}")
+    p_loss, plain = llama_with_plain(fa, int4, lambda: trainer.gradients(batch))
+    _, terms = llama_with_plain(
+        fa, int4, lambda: scale_term_magnitudes(torch, lambda: trainer.gradients(batch)))
+    if counts(fa, int4) != mid:
+        raise AssertionError("the plain run launched a kernel")
+    leaves = {}
+    for path, p in plain.items():
+        k = kernel[path]
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"non-finite gradient {path}")
+        diff = (k.float() - p.float()).norm()
+        norm = p.float().norm()
+        r = {"rel": (diff / norm.clamp_min(1e-30)).item(), "plain_norm": norm.item()}
+        if path[-1] == "scale":
+            t = terms[path].float().norm()
+            r.update(terms_norm=t.item(), rel_terms=(diff / t.clamp_min(1e-30)).item())
+            r["gated"] = r["rel_terms"]
+        else:
+            r["gated"] = r["rel"]
+        leaves["/".join(path)] = r
+    worst = max(leaves, key=lambda n: leaves[n]["rel"])
+    gated = max(leaves, key=lambda n: leaves[n]["gated"])
+    k_loss, p_loss = float(k_loss), float(p_loss)
+    return {"loss_kernels": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+            "worst_leaf": worst, "worst_leaf_grad_rel_diff": leaves[worst]["rel"],
+            "worst_gated_leaf": gated, "worst_gated_rel_diff": leaves[gated]["gated"],
+            "leaves": leaves, "grads": kernel}
+
+
 def train_parity_phase(torch, fa, int4) -> dict:
     """A 2-layer model at 8B width: the kernels against the plain versions
-    inside one training step's loss and adapter gradients."""
+    inside one training step's loss and adapter gradients. Each ``a`` and
+    ``b`` leaf is held to ``TRAIN_GRAD_TOL`` relative to its own norm, each
+    ``scale`` leaf (a cancelling sum) to the same bound relative to the sum
+    of its terms' magnitudes; both readings are reported."""
     import dataclasses
 
     from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
-    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
-    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
-    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
-
-    def with_plain(fn):
-        kept = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant)
-        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
-            fa.flash_fwd_reference, fa.flash_dq_reference, fa.flash_dkv_reference)
-        int4.int4_dequant = int4.int4_dequant_reference
-        try:
-            return fn()
-        finally:
-            fa.flash_fwd, fa.flash_dq, fa.flash_dkv, int4.int4_dequant = kept
 
     B, S = TRAIN_SHAPE
     cfg = LlamaConfig.llama3_8b(num_layers=2, remat=True, remat_policy="attn")
-    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4", seed=1)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(9)
-    with torch.no_grad():  # a live adapter: b != 0, so every leaf has a gradient
-        for ab in trainer.lora_params["layers"].values():
-            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01)
-    rng = torch.Generator().manual_seed(10)
-    docs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=rng).tolist()
-            for n in torch.randint(100, 1500, (24,), generator=rng)]
-    packed = next(prefetch_to_device(pack_documents(docs, B, S)))
-    batches = {"unpacked": trainer.make_fake_batch(B, S, seed=2), "packed": packed}
+    trainer = parity_trainer(torch, cfg, seed=1)
+    batches = {"unpacked": trainer.make_fake_batch(B, S, seed=2), "packed": parity_packed(cfg)}
     out = {"phase": "train_parity_on_card", "layers": 2, "batch": B, "seq": S,
-           "grad_tol": f"||kernel - plain|| / ||plain|| <= {TRAIN_GRAD_TOL} per leaf",
+           "grad_tol": f"a, b: ||kernel - plain|| / ||plain|| <= {TRAIN_GRAD_TOL}; scale: "
+                       f"||kernel - plain|| / ||sum of |terms| (plain)|| <= {TRAIN_GRAD_TOL}",
            "loss_rtol": TRAIN_LOSS_RTOL}
     for name, batch in batches.items():
-        before = counts(fa, int4)
-        k_loss, k_grads = trainer.gradients(batch)
-        mid = counts(fa, int4)
-        if not all(mid[n] > before[n] for n in mid):
-            raise AssertionError(f"{name}: a kernel did not launch: {before} -> {mid}")
-        p_loss, p_grads = with_plain(lambda: trainer.gradients(batch))
-        if counts(fa, int4) != mid:
-            raise AssertionError(f"{name}: the plain run launched a kernel")
-        k_loss, p_loss = float(k_loss), float(p_loss)
-        worst = 0.0
-        for path, pg in p_grads.items():
-            kg = k_grads[path]
-            if not bool(torch.isfinite(kg).all()):
-                raise AssertionError(f"{name}: non-finite gradient {path}")
-            rel = ((kg.float() - pg.float()).norm() / pg.float().norm().clamp_min(1e-30)).item()
-            worst = max(worst, rel)
-        out[name] = {"loss_kernels": k_loss, "loss_plain": p_loss,
-                     "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
-                     "worst_leaf_grad_rel_diff": worst, "leaves": len(p_grads)}
-        if not (math.isfinite(k_loss) and out[name]["loss_rel_diff"] <= TRAIN_LOSS_RTOL
-                and worst <= TRAIN_GRAD_TOL):
+        r = adapter_grad_readings(torch, fa, int4, trainer, batch)
+        grads = r.pop("grads")
+        r["leaves"] = len(r["leaves"])
+        out[name] = r
+        if not (math.isfinite(r["loss_kernels"]) and r["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+                and r["worst_gated_rel_diff"] <= TRAIN_GRAD_TOL):
             raise AssertionError(f"train parity {name}: {out[name]}")
         if name == "unpacked":
-            unpacked = (batch, k_grads)
+            unpacked = (batch, grads)
     batch, attn_grads = unpacked
     trainer.model_cfg = dataclasses.replace(cfg, remat_policy="none")
     _, none_grads = trainer.gradients(batch)
@@ -1146,6 +1221,35 @@ def train_parity_phase(torch, fa, int4) -> dict:
     if worst > 1e-3:
         raise AssertionError(f"remat attn vs none gradients differ: {worst}")
     return out
+
+
+def parity_trainer(torch, cfg, seed: int):
+    """The parity model's trainer: int4 base, LoRA r16 whose ``b`` is
+    drawn from seed 9 times 0.01 (a live adapter: every leaf has a
+    gradient)."""
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4", seed=seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    with torch.no_grad():
+        for ab in trainer.lora_params["layers"].values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01)
+    return trainer
+
+
+def parity_packed(cfg):
+    """The parity phase's packed batch: 24 documents of 100–1,500 tokens."""
+    import torch
+
+    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
+
+    B, S = TRAIN_SHAPE
+    rng = torch.Generator().manual_seed(10)
+    docs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=rng).tolist()
+            for n in torch.randint(100, 1500, (24,), generator=rng)]
+    return next(prefetch_to_device(pack_documents(docs, B, S)))
 
 
 def train_profile_phase(torch, trainer) -> dict:
@@ -1538,7 +1642,7 @@ def moe_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
     steps, warmup = 3, 1
     torch.cuda.reset_peak_memory_stats()
     zero_moe_counts(fa, int4, gm)  # the MoE training path's count starts here
-    bench = trainer.benchmark(B, S, steps=steps, warmup=warmup)
+    bench, step_losses = benchmark_with_losses(trainer, B, S, steps, warmup)
     launched = moe_counts(fa, gm)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     expected = {k: n * (steps + warmup) for k, n in MOE_LAUNCHES_PER_STEP.items()}
@@ -1569,12 +1673,306 @@ def moe_train_phase(torch, fa, int4, gm, peak: float) -> tuple[dict, object]:
         "model_flops_per_step": bench["model_flops_per_step"],
         "strict_mfu": bench["flops_per_s"] / peak,
         "train_equiv_mfu": bench["train_equiv_flops_per_s"] / peak,
-        "peak_flops": peak, "loss_benchmark": bench["loss"],
+        "peak_flops": peak, "loss_benchmark": bench["loss"], "step_losses": step_losses,
         "loss_after": loss, "grad_norm_after": gnorm,
         "launches": launched, "launches_per_step": MOE_LAUNCHES_PER_STEP,
         "adapter_b_max_abs": moved,
     }
     return record, trainer
+
+
+def moe_mesh_train_phase(torch, fa, int4, gm, moe_record: dict) -> tuple[dict, dict]:
+    """The ``moe_train`` phase's Mixtral-8x1B QLoRA step through
+    ``Trainer(mesh=build_mesh(MeshConfig()))`` on an NCCL group of one rank
+    (every axis of size 1: the grouped path with no collective): its
+    losses against ``moe_train``'s bit for bit, the same launches a step,
+    step time and peak memory."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    B, S = MOE_TRAIN_SHAPE
+    steps, warmup = 3, 1
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshConfig(), device="cuda")
+        t0 = time.perf_counter()
+        trainer = Trainer(moe_config(), TrainConfig(), LoraConfig(rank=16), quantize_base=True,
+                          mesh=mesh, precompile_batch=(B, S))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_moe_counts(fa, int4, gm)  # the mesh path's count starts here
+        bench, step_losses = benchmark_with_losses(trainer, B, S, steps, warmup)
+        launched = moe_counts(fa, gm)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        dist.destroy_process_group()
+    expected = {k: n * (steps + warmup) for k, n in MOE_LAUNCHES_PER_STEP.items()}
+    if launched != expected or int4.launches:
+        raise AssertionError(f"MoE mesh training launches {launched} (int4 {int4.launches}), "
+                             f"expected {expected}")
+    want = moe_record["step_losses"]
+    if step_losses != want:
+        raise AssertionError(f"MoE mesh step losses {step_losses} != one-device {want}")
+    record = {
+        "phase": "moe_mesh_train",
+        "config": "the moe_train phase's: mixtral_8x1b QLoRA int8, LoRA r16, grouped, remat "
+                  "attn + pin_expert_acts, 16 layers; Trainer(mesh=build_mesh(MeshConfig())) on "
+                  "an NCCL group of 1",
+        "batch": B, "seq": S, "steps": steps, "warmup": warmup, "init_s": init_s,
+        "step_time_s": bench["step_time_s"],
+        "moe_train_step_time_s": moe_record["step_time_s"],
+        "step_time_ratio": bench["step_time_s"] / moe_record["step_time_s"],
+        "peak_memory_gb": peak_gb, "moe_train_peak_memory_gb": moe_record["peak_memory_gb"],
+        "step_losses": step_losses, "losses_equal_moe_train_bitwise": True,
+        "launches": launched, "launches_per_step": MOE_LAUNCHES_PER_STEP,
+    }
+    return record, launched
+
+
+# the expert-parallel MoE on one card: one Mixtral-8x1B layer's router and
+# experts at the training batch, its expert shards run one after another
+EP_SHARDS = (2, 4)
+EP_FACTORS = (None, 1.25)
+
+
+def ep_local_kernel_checks(torch, gm, moe_lib, x, router, floats, banks_q) -> dict:
+    """Each grouped kernel at an expert shard's shapes against its plain
+    version per 128-row tile (``TileChecks``): ``n_local`` = 1, 2 and 4 of
+    the 8 experts (offsets of ``n_local + 1`` entries), an ``m_loc``-row
+    buffer whose last group carries the tail (``route_sorted_ep`` of the
+    phase's tokens at a 1.25 budget, shard 0), and for 2 and 4 groups also
+    a first group left empty (a budget can leave one so); a NaN-filled
+    buffer under each output."""
+    import dataclasses
+
+    B, S, D = x.shape
+    E = router.shape[1]
+    F = floats["moe_gate"].shape[2]
+    cfg = dataclasses.replace(moe_config(), ep_capacity_factor=1.25)
+    logits = moe_lib._router_logits(x, {"router": router}).reshape(B * S, E)
+    ones = torch.ones(B * S, dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+
+    def rows(m, n):
+        return torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+
+    names = ("gmm_int8_down", "gmm_int8_down_trans", "gmm_bf16_gate", "gmm_bf16_gate_trans",
+             "swiglu_fwd", "swiglu_bwd", "tgmm")
+    checks = TileChecks(gm, names)
+    routings = []
+    for n_local in (4, 2, 1):
+        ep = E // n_local
+        m_loc = moe_lib._ep_rows(B * S, cfg, ep, n_local)
+        offs = moe_lib.route_sorted_ep(logits, cfg, 0, n_local, m_loc, ones)[4]
+        sets = {"routed": offs}
+        if n_local > 1:
+            per = (m_loc - n_local * gm.ALIGN) // n_local
+            sets["first_empty"] = grouped_offsets(torch, [0] + [per] * (n_local - 1), m_loc)
+        for label, o in sets.items():
+            routings.append({"groups": n_local, "routing": label, "offsets": o.tolist()})
+            label = f"{n_local} groups, {label}"
+            sl = slice(0, n_local)
+            qd, sd = banks_q["moe_down"]["q"][sl], banks_q["moe_down"]["scale"][sl]
+            qg, sg = banks_q["moe_gate"]["q"][sl], banks_q["moe_gate"]["scale"][sl]
+            qu, su = banks_q["moe_up"]["q"][sl], banks_q["moe_up"]["scale"][sl]
+            wg = floats["moe_gate"][sl]
+            lhs_d, lhs_f = rows(m_loc, D), rows(m_loc, F)
+            calls = {  # name: (kernel, plain version, arguments, output shape)
+                "gmm_int8_down": (gm.gmm, gm.gmm_reference, (lhs_f, qd, o, False, sd), (m_loc, D)),
+                "gmm_int8_down_trans": (gm.gmm, gm.gmm_reference, (lhs_d, qd, o, True, sd),
+                                        (m_loc, F)),
+                "gmm_bf16_gate": (gm.gmm, gm.gmm_reference, (lhs_d, wg, o, False, None),
+                                  (m_loc, F)),
+                "gmm_bf16_gate_trans": (gm.gmm, gm.gmm_reference, (lhs_f, wg, o, True, None),
+                                        (m_loc, D)),
+                # an empty group's weight gradient must be written as zeros
+                "tgmm": (gm.tgmm, gm.tgmm_reference, (lhs_d, lhs_f, o, n_local),
+                         (n_local * D, F)),
+            }
+            for name, (kernel, plain, args, shape) in calls.items():
+                poison(torch, *shape)
+                got, want = kernel(*args), plain(*args)
+                checks.check(name, got.reshape(-1, got.shape[-1]),
+                             want.reshape(-1, want.shape[-1]), label)
+            poison(torch, m_loc, F)
+            h, g = gm.swiglu_fwd(lhs_d, qg, qu, sg, su, o)
+            hw, gw = gm.swiglu_fwd_reference(lhs_d, qg, qu, sg, su, o)
+            checks.check("swiglu_fwd", h, hw, label + " (h)")
+            checks.check("swiglu_fwd", g, gw, label + " (g)")
+            dh = rows(m_loc, F)
+            poison(torch, m_loc, F)
+            dg, du = gm.swiglu_bwd(lhs_d, qu, su, gw, dh, o)
+            dgw, duw = gm.swiglu_bwd_reference(lhs_d, qu, su, gw, dh, o)
+            checks.check("swiglu_bwd", dg, dgw, label + " (dg)")
+            checks.check("swiglu_bwd", du, duw, label + " (du)")
+            del lhs_d, lhs_f, calls
+    torch.cuda.empty_cache()
+    return {"routings": routings,
+            "kernels": {n: {k: v for k, v in st.items() if k != "planted_fault"}
+                        for n, st in checks.stats.items()}}
+
+
+def moe_ep_loopback_phase(torch, fa, int4, gm) -> tuple[dict, dict]:
+    """One Mixtral-8x1B MoE layer (router and experts, B 2 x S 4096, bf16
+    activations) through ``loopback_moe_mlp_grouped_ep``, forward and
+    backward, with int8 banks (QLoRA) and bf16 banks (full fine-tune), at
+    2 and 4 expert shards, with ``ep_capacity_factor`` None and 1.25.
+
+    Each case's out, dx, router gradient and bf16 bank gradients are held
+    per 128-row tile (``TILE_RTOL``) against two whole-batch calls: the
+    grouped path, ``_moe_mlp_grouped``, and the expert-parallel path at one
+    shard (its 17,408 rows are the grouped path's; its combine is
+    ``_CombineWeighted``). The two whole calls round the routing weights'
+    gradient differently (the grouped path's ``y · w`` in bf16, the
+    expert-parallel combine in float32, both as JAX's), which moves
+    dlogits, so against the grouped path the router gradient, a sum that
+    cancels, is held relative to its terms' magnitudes ``|x|ᵀ·|dlogits|``
+    and dx, where that rounding flips the last bit of about a fifth of the
+    elements, is reported; against the one-shard call every tile is held.
+    Also: the assignments a budget drops, each grouped kernel's launches
+    against shards x the whole call's, the time and peak memory of both;
+    first each grouped kernel at 1, 2 and 4 local groups
+    (``ep_local_kernel_checks``)."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.models.quant import quantize_tensor
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_config()
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    D, F = cfg.base.hidden_size, cfg.base.intermediate_size
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    x = randn(B, S, D)
+    dout = randn(B, S, D)
+    router = randn(D, E, scale=D**-0.5)
+    floats = {"moe_gate": randn(E, D, F, scale=D**-0.5), "moe_up": randn(E, D, F, scale=D**-0.5),
+              "moe_down": randn(E, F, D, scale=F**-0.5)}
+    quantized = {n: quantize_tensor(w) for n, w in floats.items()}
+    few_groups = ep_local_kernel_checks(torch, gm, moe_lib, x, router, floats, quantized)
+    logits = moe_lib._router_logits(x, {"router": router}).reshape(B * S, E)
+    ones = torch.ones(B * S, dtype=torch.bool, device="cuda")
+
+    def tiles(v):  # [rows, n] -> per-128-row-tile sums of squares
+        v = v.float().square().sum(-1)
+        return torch.nn.functional.pad(v, (0, -v.shape[0] % gm.ALIGN)).reshape(-1, gm.ALIGN).sum(1)
+
+    kinds, launched = {}, {}
+    for kind in ("int8", "bf16"):
+        banks = quantized if kind == "int8" else floats
+        trained = [floats[n] for n in moe_lib.BANKS] if kind == "bf16" else []
+        names = ("out", "dx", "router") + tuple(f"d{n}" for n in moe_lib.BANKS)[:len(trained)]
+
+        def run(fn, dlogits=None):
+            xx, rr = x.detach().requires_grad_(), router.detach().requires_grad_()
+            ws = [w.detach().requires_grad_() for w in trained]
+            layer = {"router": rr, **banks, **dict(zip(moe_lib.BANKS, ws))}
+            logits_of = moe_lib._router_logits
+            if dlogits is not None:  # keep the router logits' gradient
+
+                def kept(*a):
+                    out = logits_of(*a)
+                    out.register_hook(dlogits.append)
+                    return out
+
+                moe_lib._router_logits = kept
+            try:
+                out, aux = fn(xx, layer)
+            finally:
+                moe_lib._router_logits = logits_of
+            grads = torch.autograd.grad([out, aux], [xx, rr, *ws],
+                                        [dout, torch.ones_like(aux)])
+            return {n: g.reshape(-1, g.shape[-1]) for n, g in zip(names, (out.detach(), *grads))}
+
+        def whole(xx, layer):
+            return moe_lib._moe_mlp_grouped(xx, layer, cfg, keep_g=True)
+
+        zero_moe_counts(fa, int4, gm)
+        dlogits = []
+        want = run(whole, dlogits)
+        torch.cuda.synchronize()
+        per_call = moe_counts(fa, gm)
+        terms = tiles(x.float().abs().reshape(-1, D).T @ dlogits[0].abs().reshape(-1, E))
+        del dlogits
+        one = run(lambda xx, layer: moe_lib.loopback_moe_mlp_grouped_ep(xx, layer, cfg, 1,
+                                                                        keep_g=True))
+        whole_ms = time_ms(torch, lambda _: run(whole), 2)
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 2**30
+        run(whole)
+        whole_gb = torch.cuda.max_memory_allocated() / 2**30 - base_gb
+        cases = {}
+        for ep in EP_SHARDS:
+            for factor in EP_FACTORS:
+                c = dataclasses.replace(cfg, ep_capacity_factor=factor)
+                label = f"ep{ep}_factor{factor}"
+
+                def ep_call(xx, layer, c=c, ep=ep):
+                    return moe_lib.loopback_moe_mlp_grouped_ep(xx, layer, c, ep, keep_g=True)
+
+                zero_moe_counts(fa, int4, gm)  # this case's loopback run
+                torch.cuda.reset_peak_memory_stats()
+                got = run(ep_call)
+                torch.cuda.synchronize()
+                peak_gb = torch.cuda.max_memory_allocated() / 2**30 - base_gb
+                n = moe_counts(fa, gm)
+                if n != {key: ep * v for key, v in per_call.items()}:
+                    raise AssertionError(f"{kind} {label}: launches {n}, whole call {per_call}")
+                for key, v in n.items():
+                    launched[key] = launched.get(key, 0) + v
+                errs, bad = {}, []
+                for name, g in got.items():
+                    if not bool(g.isfinite().all()):
+                        raise AssertionError(f"{kind} {label} {name}: non-finite values")
+                    w = want[name]
+                    e = {"vs_one_shard": gm.tile_rel_err(g, one[name]),
+                         "vs_grouped": gm.tile_rel_err(g, w),
+                         "max_abs_err_vs_grouped": (g.float() - w.float()).abs().max().item()}
+                    if name == "router":
+                        diff = tiles(g.float() - w.float())
+                        e["vs_grouped_over_terms"] = (diff.sqrt() / terms.sqrt()).max().item()
+                    gated = [e["vs_one_shard"]] + (
+                        [] if name == "dx" else
+                        [e["vs_grouped_over_terms"] if name == "router" else e["vs_grouped"]])
+                    if not max(gated) <= gm.TILE_RTOL:
+                        bad.append(name)
+                    errs[name] = e
+                del got
+                torch.cuda.empty_cache()
+                m_loc = moe_lib._ep_rows(B * S, c, ep, E // ep)
+                kept = sum(int(moe_lib.route_sorted_ep(logits, c, s * (E // ep), E // ep, m_loc,
+                                                       ones)[3].sum())
+                           for s in range(ep))
+                ms = time_ms(torch, lambda _: run(ep_call), 2)
+                cases[label] = {"shards": ep, "ep_capacity_factor": factor,
+                                "rows_per_shard_m_loc": m_loc, "rows_all_shards": ep * m_loc,
+                                "dropped_assignments": B * S * k - kept,
+                                "launches": n, "tile_rel_err": errs,
+                                "fwd_bwd_ms": ms, "over_whole": ms / whole_ms,
+                                "peak_memory_gb_above_inputs": peak_gb}
+                if bad:
+                    raise AssertionError(f"{kind} {label}: {bad} over {gm.TILE_RTOL}: {errs}")
+        del want, one
+        kinds[kind] = {"whole_call": {"sorted_rows_M": MOE_M, "launches": per_call,
+                                      "fwd_bwd_ms": whole_ms,
+                                      "peak_memory_gb_above_inputs": whole_gb},
+                       "cases": cases}
+    record = {
+        "phase": "moe_ep_loopback",
+        "shape": {"batch": B, "seq": S, "hidden": D, "ffn": F, "experts": E, "top_k": k,
+                  "dtype": "bfloat16"},
+        "tile_rtol": gm.TILE_RTOL, "few_groups": few_groups, "banks": kinds,
+    }
+    return record, launched
 
 
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name; first match)
@@ -3344,11 +3742,23 @@ def main() -> int:
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
     record["card"] = label
     emit(record)
+    moe_record = record
     moe_launches = record["launches"]
     emit(moe_train_profile_phase(torch, trainer))
     del trainer
     torch.cuda.empty_cache()
     emit(moe_train_parity_phase(torch, fa, int4, gm))
+
+    # expert parallelism (slice 8, part 2a): the MoE step under a mesh at
+    # world size 1, and the expert shards through the loopback driver
+    record, moe_mesh_launches = moe_mesh_train_phase(torch, fa, int4, gm, moe_record)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
+    record, ep_launches = moe_ep_loopback_phase(torch, fa, int4, gm)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
 
     # MoE serving (slice 4): Mixtral-8x1B, bf16 weights, grouped prefill
     from odh_kubeflow_tpu_torch.models import moe as moe_lib
@@ -3397,7 +3807,8 @@ def main() -> int:
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
              "moe_full_train": full_launches, "mesh_train": mesh_launches,
-             "ring_on_card": ring_launches}
+             "ring_on_card": ring_launches, "moe_mesh_train": moe_mesh_launches,
+             "moe_ep_loopback": ep_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

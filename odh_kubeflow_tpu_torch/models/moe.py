@@ -23,14 +23,27 @@ Three dispatches, as in JAX (``MoeConfig.dispatch``):
 
 ``forward`` trains; ``forward_with_cache`` serves (``models/generate.py``,
 ``models/serve.py``), dequantizing each layer whole, banks included, as
-JAX's does. The expert-parallel grouped path, the pipelined stack and
-``param_specs`` wait for the port's multi-device parallelism and raise
-``NotImplementedError`` naming it.
+JAX's does.
+
+Under a mesh (``forward(mesh=)``, ``parallel/mesh.py``) the dense leaves
+shard as the Llama family's (``llama.Sharding``) and the grouped dispatch
+runs expert-parallel over (data, fsdp, expert) (``_moe_mlp_grouped_ep``):
+each rank holds ``E / expert`` whole experts of every bank
+(``param_specs``), all-gathers its (data, fsdp) group's tokens and router
+logits over ``expert``, sorts the assignments of its own experts into a
+local buffer (``route_sorted_ep``), runs the same grouped kernels on its
+local banks, and reduce-scatters the weighted outputs back over
+``expert``. ``loopback_moe_mlp_grouped_ep`` runs the same shards one
+after another on one device. The ragged and einsum dispatches under a
+mesh (JAX gets them from GSPMD) are not ported and raise
+``NotImplementedError`` naming the work; the pipelined stack is not
+ported either (the trainer refuses ``pipe > 1``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -41,6 +54,15 @@ from odh_kubeflow_tpu_torch.models.llama import LlamaConfig, _maybe_dequant, _ta
 from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 from odh_kubeflow_tpu_torch.ops.norms import rms_norm
 from odh_kubeflow_tpu_torch.ops.rope import rope_angles
+from odh_kubeflow_tpu_torch.parallel import collectives as col
+from odh_kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_CONTEXT,
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_TENSOR,
+    P,
+)
 
 Params = dict[str, Any]
 
@@ -62,6 +84,12 @@ class MoeConfig:
     # "ragged" (index tables), "einsum" (GShard one-hot, the reference
     # form) or "grouped" (dropless sorted grouped matmul, the kernels)
     dispatch: str = "ragged"
+    # the expert-parallel grouped path's row budget: each expert shard's
+    # sorted buffer holds ceil(group assignments · factor / expert) rows.
+    # None sizes it for the worst case (every assignment on one shard):
+    # exactly dropless; a factor drops the assignments past the budget
+    # (weight 0), bounded by it
+    ep_capacity_factor: Optional[float] = None
     # with remat on, also keep the grouped path's gate activation g
     # ("moe_g", [B·S·k, F] per layer): with frozen banks the backward then
     # recomputes nothing of the expert forward
@@ -141,16 +169,33 @@ def param_shapes(cfg: MoeConfig) -> Params:
     return shapes
 
 
-def init_params(seed: int, cfg: MoeConfig, dtype=torch.float32, *, device="cuda") -> Params:
-    """Random weights in the JAX package's layout (not its random bits)."""
-    return llama.init_from_shapes(param_shapes(cfg), seed, dtype, device=device)
+def init_params(
+    seed: int, cfg: MoeConfig, dtype=torch.float32, *, device="cuda", keep=None
+) -> Params:
+    """Random weights in the JAX package's layout (not its random bits).
+    ``keep`` selects each rank's shard (``llama.init_from_shapes``)."""
+    return llama.init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep)
 
 
-def param_specs(cfg: MoeConfig):
-    raise NotImplementedError(
-        "MoE param_specs (expert-sharded banks) need multi-device parallelism, "
-        "which the port does not have yet"
-    )
+def param_specs(cfg: MoeConfig) -> Params:
+    """The sharding of ``init_params``'s tree, the JAX package's: the dense
+    leaves as ``llama.param_specs``, the router's D over fsdp. On the
+    grouped dispatch the banks shard over ``expert`` only (the kernels
+    take whole ``[K, N]`` expert blocks); on the others E, D and F split
+    over expert, fsdp and tensor."""
+    specs = llama.param_specs(cfg.base)
+    layers = specs["layers"]
+    for name in ("w_gate", "w_up", "w_down"):
+        del layers[name]
+    layers["router"] = P(None, AXIS_FSDP, None)
+    if cfg.dispatch == "grouped":
+        for name in BANKS:
+            layers[name] = P(None, AXIS_EXPERT, None, None)
+    else:
+        layers["moe_gate"] = P(None, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR)
+        layers["moe_up"] = P(None, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR)
+        layers["moe_down"] = P(None, AXIS_EXPERT, AXIS_TENSOR, AXIS_FSDP)
+    return specs
 
 
 def _is_int8(leaf) -> bool:
@@ -379,12 +424,119 @@ def _moe_mlp_ragged(x, layer, cfg: MoeConfig, token_mask=None, save_names=()):
     return out, aux
 
 
-def _grouped_usable(x: torch.Tensor, cfg: MoeConfig) -> bool:
-    """Enough assignments that the alignment padding is noise; smaller
-    batches (decode steps) take the ragged path at a drop-free capacity.
-    The port runs on one device, so no mesh rule applies."""
+def _mesh_trivial(mesh) -> bool:
+    """No mesh, or one whose token and model axes all have size 1."""
+    return mesh is None or all(
+        mesh.sizes[a] == 1
+        for a in (AXIS_EXPERT, AXIS_TENSOR, AXIS_FSDP, AXIS_DATA, AXIS_CONTEXT)
+    )
+
+
+def _grouped_usable(x: torch.Tensor, cfg: MoeConfig, mesh=None) -> bool:
+    """The one-device grouped path: enough assignments that the alignment
+    padding is noise, and no mesh that shards anything. Smaller batches
+    (decode steps) take the ragged path at a drop-free capacity; a
+    sharded mesh takes the expert-parallel path or raises."""
     B, S, _ = x.shape
-    return B * S * cfg.num_experts_per_tok >= 2048
+    return B * S * cfg.num_experts_per_tok >= 2048 and _mesh_trivial(mesh)
+
+
+def _batch_sizes(mesh) -> dict:
+    return {a: mesh.sizes[a] for a in (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)}
+
+
+def _grouped_ep_usable(x: torch.Tensor, cfg: MoeConfig, mesh) -> bool:
+    """The expert-parallel grouped path: a mesh over (data, fsdp, expert)
+    that shards something, with tensor = context = 1 (the kernels need the
+    whole hidden and expert widths and the whole sequence), the experts
+    dividing over ``expert``, the global batch ``x [B, S, D]`` over the
+    three batch axes, and at least 2048 assignments a (data, fsdp) group."""
+    if mesh is None or mesh.sizes[AXIS_TENSOR] > 1 or mesh.sizes[AXIS_CONTEXT] > 1:
+        return False
+    sizes = _batch_sizes(mesh)
+    if all(v == 1 for v in sizes.values()):
+        return False
+    ep = sizes[AXIS_EXPERT]
+    nbatch = sizes[AXIS_DATA] * sizes[AXIS_FSDP] * ep
+    B, S, _ = x.shape
+    if cfg.num_experts % ep or B % nbatch:
+        return False
+    return (B * S // (nbatch // ep)) * cfg.num_experts_per_tok >= 2048
+
+
+def _grouped_mesh_blocker(x: torch.Tensor, cfg: MoeConfig, mesh) -> Optional[str]:
+    """Why a large-batch grouped dispatch cannot run on ``mesh`` (``x`` the
+    global activation); None when there is no mesh or a (data, fsdp)
+    group's batch is small (the by-design exact ragged path). JAX's texts,
+    for ``moe_mlp``'s explicit error."""
+    if mesh is None:
+        return None
+    sizes = _batch_sizes(mesh)
+    dp = sizes[AXIS_DATA] * sizes[AXIS_FSDP] * sizes[AXIS_EXPERT]
+    group = sizes[AXIS_DATA] * sizes[AXIS_FSDP]
+    B, S, _ = x.shape
+    # the divisor _grouped_ep_usable applies: every batch the EP path would
+    # take but for a real blocker reaches the error below
+    if (B * S // group) * cfg.num_experts_per_tok < 2048:
+        return None
+    if mesh.sizes[AXIS_TENSOR] > 1 or mesh.sizes[AXIS_CONTEXT] > 1:
+        return (
+            "tensor/context-sharded meshes are unsupported (the grouped kernels run "
+            "on full hidden/expert extents per device); keep tensor=context=1 and "
+            "shard over data/fsdp/expert"
+        )
+    ep = sizes[AXIS_EXPERT]
+    if cfg.num_experts % ep:
+        return (
+            f"num_experts={cfg.num_experts} is not divisible by the expert axis "
+            f"extent {ep}"
+        )
+    if B % dp:
+        return f"batch {B} is not divisible by the data×fsdp×expert extent {dp}"
+    return "unsupported mesh for the grouped kernels"
+
+
+def _global_activation(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A storage-free stand-in of shape ``[B, S, D]`` for the global
+    activation whose block this rank holds (``x``, ``batch_spec``)."""
+    if mesh is None:
+        return x
+    B, S, D = x.shape
+    nbatch = math.prod(_batch_sizes(mesh).values())
+    return torch.empty((B * nbatch, S * mesh.sizes[AXIS_CONTEXT], D), device="meta")
+
+
+def dispatch_path(x: torch.Tensor, cfg: MoeConfig, mesh=None) -> str:
+    """The path ``moe_mlp`` takes for the global activation ``x`` (any
+    tensor of its shape, a meta one included) on ``mesh``: "grouped",
+    "grouped_ep", "ragged_exact" (a grouped config's small batch),
+    "ragged" or "einsum". Raises JAX's ``ValueError`` where the grouped
+    dispatch cannot run on the mesh (never a silent fallback), and
+    ``NotImplementedError`` for the ragged and einsum dispatches under a
+    mesh that shards anything."""
+    if cfg.dispatch == "grouped":
+        if _grouped_usable(x, cfg, mesh):
+            return "grouped"
+        if _grouped_ep_usable(x, cfg, mesh):
+            return "grouped_ep"
+        reason = _grouped_mesh_blocker(x, cfg, mesh)
+        if reason is not None:
+            raise ValueError(
+                f"dispatch='grouped': {reason}; use dispatch='ragged' for this configuration"
+            )
+        path = "ragged_exact"
+    elif cfg.dispatch in ("ragged", "einsum"):
+        path = cfg.dispatch
+    else:
+        raise ValueError(
+            f"unknown dispatch {cfg.dispatch!r}; expected 'grouped', 'ragged' or 'einsum'"
+        )
+    if not _mesh_trivial(mesh):
+        raise NotImplementedError(
+            "MoE ragged/einsum dispatch under a mesh (the JAX package's GSPMD "
+            "shards it) is not ported yet; it is queued in ROADMAP.md"
+        )
+    return path
 
 
 def _grouped_expert_ffn(xs, layer, offsets, dtype, save_names=(), keep_g=True):
@@ -426,15 +578,251 @@ def _moe_mlp_grouped(x, layer, cfg: MoeConfig, token_mask=None, save_names=(), k
     return _CombineSorted.apply(contrib, src, inv).reshape(B, S, D), aux
 
 
-def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=True):
+# ---------------------------------------------------------------------------
+# the expert-parallel grouped path
+
+
+def route_sorted_ep(logits, cfg: MoeConfig, first_expert: int, n_local: int, m_loc: int,
+                    token_mask):
+    """``route_sorted``'s counting sort for one expert shard: only the
+    assignments to experts ``[first_expert, first_expert + n_local)`` of
+    one (data, fsdp) group's tokens (``logits [N, E]``, ``token_mask
+    [N]``), packed into an ``m_loc``-row buffer.
+
+    Returns ``(src [m_loc], w_row [m_loc], w_tok [N, k], keep [N, k],
+    offsets [n_local + 1] int32, inv [N, k], (f_sum [E], p_sum [E],
+    mask_sum))``. Masked, non-local and over-budget assignments take no
+    row: ``keep`` is False, ``w_tok`` 0 and ``inv`` 0 for them (the
+    combine weighs at its gather, so they add exactly nothing). Group
+    starts are ``ALIGN``-aligned and ``offsets[n_local]`` is pinned to
+    ``m_loc``: the tail rows compute with the last local expert and carry
+    ``w_row`` 0 and ``src`` 0. ``w_row`` (no gradient) repeats ``w_tok``
+    per row for the combine's backward. The statistics are the group's
+    balance sums, which the caller sums over (data, fsdp) and divides
+    once, so the aux is the global batch's."""
+    N, E = logits.shape
+    dev = logits.device
+    top_p, top_idx, f, p = _routing_stats(logits[None], cfg, token_mask[None])
+    top_p, top_idx = top_p[0], top_idx[0]
+    ms = token_mask.to(torch.float32).sum()
+    denom = ms.clamp_min(1.0)
+    stats = (f * denom, p * denom, ms)
+
+    counts = torch.zeros((n_local,), dtype=torch.long, device=dev)
+    ranks, lsels, locals_ = [], [], []
+    for slot in range(cfg.num_experts_per_tok):
+        e_sel = top_idx[:, slot]
+        local = (e_sel >= first_expert) & (e_sel < first_expert + n_local) & token_mask
+        l_sel = (e_sel - first_expert).clamp(0, n_local - 1)
+        # expert-major, as route_sorted: each scan runs along contiguous memory
+        onehot = (F.one_hot(l_sel, n_local) * local[:, None]).t().contiguous()
+        pos = onehot.cumsum(1) - onehot + counts[:, None]
+        ranks.append(pos.gather(0, l_sel[None, :])[0])
+        lsels.append(l_sel)
+        locals_.append(local)
+        counts = counts + onehot.sum(1)
+
+    aligned = -(-counts // gm.ALIGN) * gm.ALIGN
+    astarts = torch.cat([counts.new_zeros(1), aligned.cumsum(0)])
+    offsets = astarts.clamp(max=m_loc)
+    offsets[-1] = m_loc
+    # one spare row past the buffer takes every dropped assignment's write
+    # (JAX's mode="drop"), then goes
+    src = torch.zeros((m_loc + 1,), dtype=torch.long, device=dev)
+    w_row = torch.zeros((m_loc + 1,), dtype=torch.float32, device=dev)
+    tok_ids = torch.arange(N, device=dev)
+    invs, wtoks, keeps = [], [], []
+    for slot in range(cfg.num_experts_per_tok):
+        dst_raw = astarts[lsels[slot]] + ranks[slot]
+        kept = locals_[slot] & (dst_raw < m_loc)
+        dst = torch.where(kept, dst_raw, m_loc)
+        src[dst] = tok_ids
+        w_row[dst] = top_p[:, slot].detach()
+        invs.append(torch.where(kept, dst_raw, 0))
+        wtoks.append(torch.where(kept, top_p[:, slot], 0.0))
+        keeps.append(kept)
+    return (src[:m_loc], w_row[:m_loc], torch.stack(wtoks, 1), torch.stack(keeps, 1),
+            offsets.to(torch.int32), torch.stack(invs, 1), stats)
+
+
+class _GatherSortedEP(torch.autograd.Function):
+    """``x2d[src]`` with the inverse-table transpose of ``_GatherSorted``;
+    ``keep`` masks the inverse entries of dropped assignments (they point
+    at row 0 and must not pull its cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x2d, src, inv, keep):
+        ctx.save_for_backward(inv, keep)
+        return x2d.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, dxs):
+        inv, keep = ctx.saved_tensors
+        dx = None
+        for j in range(inv.shape[1]):
+            part = torch.where(keep[:, j, None], dxs.index_select(0, inv[:, j]), 0)
+            dx = part if dx is None else dx + part
+        return dx, None, None, None
+
+
+class _CombineWeighted(torch.autograd.Function):
+    """``out[t] = Σ_j w_tok[t, j] · y[inv[t, j]]``: the weight multiplies
+    at the gather, so a dropped assignment (``w_tok`` 0, ``inv`` 0) adds
+    exactly zero. Backward, gathers only: ``dy[r] = dout[src[r]] ·
+    w_row[r]`` (a buffer row holds at most one kept assignment; padding
+    and tail rows have ``w_row`` 0) and ``dw_tok[t, j] = dout[t] ·
+    y[inv[t, j]]`` in float32."""
+
+    @staticmethod
+    def forward(ctx, y, w_tok, src, w_row, inv):
+        ctx.save_for_backward(y, src, w_row, inv)
+        out = None
+        for j in range(inv.shape[1]):
+            part = w_tok[:, j, None].to(y.dtype) * y.index_select(0, inv[:, j])
+            out = part if out is None else out + part
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, src, w_row, inv = ctx.saved_tensors
+        dy = dout.index_select(0, src) * w_row[:, None].to(dout.dtype)
+        dw = None
+        if ctx.needs_input_grad[1]:
+            d32 = dout.to(torch.float32)
+            dw = torch.stack([(d32 * y.index_select(0, inv[:, j]).to(torch.float32)).sum(-1)
+                              for j in range(inv.shape[1])], 1)
+        return dy.to(y.dtype), dw, None, None, None
+
+
+def _ep_rows(n_tokens: int, cfg: MoeConfig, ep: int, n_local: int) -> int:
+    """An expert shard's buffer rows for a group of ``n_tokens``: room for
+    the budget and each local group's alignment padding, rounded up to
+    ``DEFAULT_BM_B``. The budget is every assignment (worst case, exact)
+    without ``ep_capacity_factor``, else ``ceil(N·k·factor / ep)``."""
+    na = n_tokens * cfg.num_experts_per_tok
+    budget = na
+    if cfg.ep_capacity_factor is not None:
+        budget = min(na, int(-(-na * cfg.ep_capacity_factor // ep)))
+    return -(-(budget + n_local * gm.ALIGN) // gm.DEFAULT_BM_B) * gm.DEFAULT_BM_B
+
+
+def _ep_shard(xg, lg, mg, banks, first: int, n_local: int, m_loc: int, cfg: MoeConfig,
+              save_names=(), keep_g=True):
+    """One expert shard's work on its (data, fsdp) group: the group's
+    gathered tokens ``xg [N, D]``, router logits ``lg [N, E]`` and mask
+    ``mg [N]``, and this shard's banks (``[n_local, ...]`` from global
+    expert ``first``) in; ``(out_g [N, D], stats)`` out, where ``out_g``
+    holds the weighted outputs of this shard's experts (the shards' sum is
+    the layer's output) and ``stats`` the group's balance sums."""
+    src, w_row, w_tok, keep, offsets, inv, stats = route_sorted_ep(
+        lg, cfg, first, n_local, m_loc, mg
+    )
+    src, w_row, offsets, inv = (
+        _tag(t, n, save_names) for t, n in zip((src, w_row, offsets, inv), ROUTE_NAMES)
+    )
+    xs = _GatherSortedEP.apply(xg, src, inv, keep)
+    y = _grouped_expert_ffn(xs, banks, offsets, xg.dtype, save_names, keep_g)
+    return _CombineWeighted.apply(y, w_tok, src, w_row, inv), stats
+
+
+def _ep_aux(stats, cfg: MoeConfig, dp_group=None) -> torch.Tensor:
+    """The Switch aux from a group's balance sums, summed over the (data,
+    fsdp) ``dp_group`` first (never over expert: every expert shard of a
+    group holds the same sums). The sum is ``col.psum``: every rank's loss
+    share adds this aux, and the backward sums their gradients."""
+    fs, ps, ms = stats
+    E = fs.shape[0]
+    if dp_group is not None:
+        total = col.psum(torch.cat([fs, ps, ms[None]]), dp_group)
+        fs, ps, ms = total[:E], total[E : 2 * E], total[2 * E]
+    denom = ms.clamp_min(1.0)
+    return E * ((fs / denom) * (ps / denom)).sum() * cfg.router_aux_loss_coef
+
+
+def _expert_slice(bank, first: int, n: int):
+    """Experts ``[first, first + n)`` of a ``[E, ...]`` bank (views)."""
+    if _is_int8(bank):
+        return {k: v[first : first + n] for k, v in bank.items()}
+    return bank[first : first + n]
+
+
+def _moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, token_mask, mesh, save_names=(),
+                        keep_g=True):
+    """The grouped MoE expert-parallel over (data, fsdp, expert), on one
+    rank: ``x [B, S, D]`` is its batch block and ``layer``'s banks its
+    ``[E / expert, ...]`` experts. The group's tokens, logits and mask are
+    all-gathered over ``expert`` (backward: a reduce-scatter, so each
+    token's gradient sums over the shards that took its assignments), the
+    shard runs ``_ep_shard``, and its weighted outputs are
+    reduce-scattered over ``expert`` back to this rank's block (backward:
+    an all-gather). The router's gradient comes back through the gathered
+    logits. JAX stacks the banks of every layer for its scan (its
+    ``bank_base``); the port's loop slices each layer's banks, so a
+    rank's ``[L, E / expert, ...]`` shard already gives them per layer."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    ep = mesh.sizes[AXIS_EXPERT]
+    n_local = E // ep
+    eg = mesh.group(AXIS_EXPERT)
+    logits = _router_logits(x, layer)
+    mask = torch.ones((B, S), dtype=torch.bool, device=x.device) if token_mask is None \
+        else token_mask
+    xg = col.all_gather(x.reshape(B * S, D), eg, 0)
+    lg = col.all_gather(logits.reshape(B * S, E), eg, 0)
+    mg = col.gather_dim(mask.reshape(B * S).to(torch.uint8), eg, 0).bool()
+    banks = {n: layer[n] for n in BANKS}
+    out_g, stats = _ep_shard(
+        xg, lg, mg, banks, mesh.coords[AXIS_EXPERT] * n_local, n_local,
+        _ep_rows(xg.shape[0], cfg, ep, n_local), cfg, save_names, keep_g,
+    )
+    aux = _ep_aux(stats, cfg, mesh.group((AXIS_DATA, AXIS_FSDP)))
+    return col.reduce_scatter(out_g, eg, 0).reshape(B, S, D), aux
+
+
+def loopback_moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, num_shards: int, token_mask=None,
+                                save_names=(), keep_g=True):
+    """``_moe_mlp_grouped_ep`` for one (data, fsdp) group on one device:
+    ``x [B, S, D]`` is the group's batch and ``layer`` holds every expert;
+    ``num_shards`` virtual expert shards run ``_ep_shard`` one after the
+    other on their slices of the banks, and their outputs are summed
+    (what the reduce-scatter sums before it splits the rows). The same
+    sorting, buffers and kernel calls as the ranks'; the aux from the
+    first shard's sums (every shard's are the same)."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    if E % num_shards:
+        raise ValueError(f"num_experts={E} is not divisible by {num_shards} shards")
+    n_local = E // num_shards
+    logits = _router_logits(x, layer)
+    mask = torch.ones((B, S), dtype=torch.bool, device=x.device) if token_mask is None \
+        else token_mask
+    xg, lg, mg = x.reshape(B * S, D), logits.reshape(B * S, E), mask.reshape(B * S)
+    m_loc = _ep_rows(B * S, cfg, num_shards, n_local)
+    out = stats = None
+    for s in range(num_shards):
+        banks = {n: _expert_slice(layer[n], s * n_local, n_local) for n in BANKS}
+        out_g, st = _ep_shard(xg, lg, mg, banks, s * n_local, n_local, m_loc, cfg,
+                              save_names, keep_g)
+        out = out_g if out is None else out + out_g
+        stats = st if stats is None else stats
+    return out.reshape(B, S, D), _ep_aux(stats, cfg)
+
+
+def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=True,
+            mesh=None):
     """``(out [B,S,D], aux)`` through ``cfg.dispatch``. ``layer`` holds
     this layer's ``router [D,E]`` and banks ``[E,...]`` (int8
     ``{"q","scale"}`` banks stay quantized on the grouped path).
     ``keep_g``: the fused expert op keeps g for its backward (see
-    ``ops.grouped_matmul.expert_ffn_op``)."""
-    if cfg.dispatch == "grouped":
-        if _grouped_usable(x, cfg):
-            return _moe_mlp_grouped(x, layer, cfg, token_mask, save_names, keep_g)
+    ``ops.grouped_matmul.expert_ffn_op``). Under ``mesh`` (``x`` this
+    rank's batch block, the router gathered whole, the banks this rank's
+    experts) the path is ``dispatch_path`` of the global activation."""
+    path = dispatch_path(_global_activation(x, mesh), cfg, mesh)
+    if path == "grouped":
+        return _moe_mlp_grouped(x, layer, cfg, token_mask, save_names, keep_g)
+    if path == "grouped_ep":
+        return _moe_mlp_grouped_ep(x, layer, cfg, token_mask, mesh, save_names, keep_g)
+    if path == "ragged_exact":
         # tiny batches: the ragged path at the provably drop-free capacity
         # (per-row capacity = S), exact for any S
         exact = dataclasses.replace(
@@ -442,12 +830,8 @@ def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=
             capacity_factor=max(cfg.capacity_factor, cfg.num_experts / cfg.num_experts_per_tok),
         )
         return _moe_mlp_ragged(x, _maybe_dequant(layer, x.dtype), exact, token_mask, save_names)
-    if cfg.dispatch == "ragged":
+    if path == "ragged":
         return _moe_mlp_ragged(x, layer, cfg, token_mask, save_names)
-    if cfg.dispatch != "einsum":
-        raise ValueError(
-            f"unknown dispatch {cfg.dispatch!r}; expected 'grouped', 'ragged' or 'einsum'"
-        )
     dtype = x.dtype
     dispatch, combine, aux = route_tokens(_router_logits(x, layer), cfg, token_mask)
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x)
@@ -460,12 +844,17 @@ def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=
 
 
 def _decoder_layer(cfg: MoeConfig, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
-                   save_names=(), keep_g=True):
+                   save_names=(), keep_g=True, par=None, mesh=None):
     """``(x, aux)``. LoRA attaches to the attention projections only;
     int8 expert banks stay quantized on the grouped path (the kernels read
     them), every other quantized leaf dequantizes here, inside the remat
-    region."""
+    region. Under a mesh (``par``, ``mesh``) the attention weights and the
+    router are gathered over fsdp here, inside the region, and the banks
+    are this rank's experts."""
     b = cfg.base
+    if par is not None:
+        layer, lora_layer = par.layer(layer, lora_layer)
+        layer["router"] = par.weight("router", layer["router"])
     if cfg.dispatch == "grouped":
         banks = {k: layer[k] for k in BANKS if _is_int8(layer[k])}
         rest = {k: v for k, v in layer.items() if k not in banks}
@@ -473,14 +862,15 @@ def _decoder_layer(cfg: MoeConfig, attention_fn, x, layer, lora_layer, sin, cos,
     else:
         layer = _maybe_dequant(layer, b.dtype)
     x, _ = llama.attention_block(
-        b, attention_fn, x, layer, lora_layer, sin, cos, segment_ids, save_names=save_names
+        b, attention_fn, x, layer, lora_layer, sin, cos, segment_ids, save_names=save_names,
+        tp=None if par is None else par.tp,
     )
     h = rms_norm(x, layer["mlp_norm"], b.rms_norm_eps)
     # packed batches mark padding with segment id 0: those tokens take no
     # expert row and no aux mass
     moe_out, aux = moe_mlp(
         h, layer, cfg, token_mask=None if segment_ids is None else segment_ids > 0,
-        save_names=save_names, keep_g=keep_g,
+        save_names=save_names, keep_g=keep_g, mesh=mesh,
     )
     return x + _tag(moe_out, "moe_out", save_names), aux
 
@@ -506,10 +896,11 @@ def _remat_plan(policy: str, impl: str, pin_acts: bool):
     return ops, names
 
 
-def _make_layer_fn(cfg: MoeConfig, impl: str, attention_fn, policy: str, pin_acts: bool):
+def _make_layer_fn(cfg: MoeConfig, impl: str, attention_fn, policy: str, pin_acts: bool,
+                   par=None, mesh=None):
     b = cfg.base
     if not b.remat:
-        return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest)
+        return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest, par=par, mesh=mesh)
     plan = _remat_plan(policy, impl, pin_acts)
     names = () if plan is None else plan[1]
     # the fused expert op keeps g when the backward would otherwise re-run
@@ -518,7 +909,7 @@ def _make_layer_fn(cfg: MoeConfig, impl: str, attention_fn, policy: str, pin_act
 
     def body(x, layer, lora_layer, sin, cos, segment_ids):
         return _decoder_layer(cfg, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
-                              save_names=names, keep_g=keep_g)
+                              save_names=names, keep_g=keep_g, par=par, mesh=mesh)
 
     return llama.remat_wrap(body, plan)
 
@@ -531,23 +922,32 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
+    mesh=None,
 ):
     """``(logits [B,S,V] f32 — or the final-norm hidden [B,S,D] with
     return_hidden — , total aux loss)``. With ``base.remat`` each layer is
     a checkpointed region; ``remat_pin_layers = n`` keeps the policy
     (and the "moe_g" pin) on the last n layers and gives the others the
     cheap tier, as JAX's two scans do: the policy without "moe_g" when
-    ``pin_expert_acts``, else "none"."""
+    ``pin_expert_acts``, else "none".
+
+    Under ``mesh`` the params are this rank's shards (``param_specs``),
+    ``tokens`` its block of the batch, the logits its vocab columns, as in
+    ``llama.forward(mesh=)``; the aux is the global batch's, the same on
+    every rank."""
     b = cfg.base
     llama._check_supported(b)
+    par = None if mesh is None else llama.Sharding(mesh, b)
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        start = 0 if par is None else par.context_index * S
+        positions = (start + torch.arange(S, device=tokens.device)).expand(B, S)
     sin, cos = rope_angles(positions, b.head_dim, b.rope_theta)
-    x = params["embed"][tokens].to(b.dtype)
+    table = params["embed"]
+    x = (table[tokens] if par is None else par.embed(table, tokens)).to(b.dtype)
 
-    impl = llama.resolved_attention_impl(b, tokens.device)
-    attention_fn = llama.causal_attention_fn(impl)
+    impl = llama.resolved_attention_impl(b, tokens.device, mesh)
+    attention_fn = llama.causal_attention_fn(impl, mesh)
 
     L = b.num_layers
     plans = [(b.remat_policy, cfg.pin_expert_acts)] * L
@@ -555,7 +955,8 @@ def forward(
     if b.remat and b.remat_policy != "none" and pin is not None and 0 < pin < L:
         prefix = (b.remat_policy, False) if cfg.pin_expert_acts else ("none", False)
         plans[: L - pin] = [prefix] * (L - pin)
-    fns = {p: _make_layer_fn(cfg, impl, attention_fn, *p) for p in set(plans)}
+    fns = {p: _make_layer_fn(cfg, impl, attention_fn, *p, par=par, mesh=mesh)
+           for p in set(plans)}
 
     lora_layers = lora["layers"] if lora is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -571,9 +972,12 @@ def forward(
         aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], b.rms_norm_eps)
+    if par is not None:
+        x = col.copy_to_group(x, par.tp)  # into the vocab-parallel head
     if return_hidden:
         return x, aux_total
-    return llama._logits(x, llama.lm_head_weight(params, b), b.dtype), aux_total
+    head = llama.lm_head_weight(params, b) if par is None else par.head(params, b)
+    return llama._logits(x, head, b.dtype), aux_total
 
 
 def forward_with_cache(

@@ -15,6 +15,8 @@ size 1 issues no collective, as GSPMD issues none):
   consumers of the sum are replicated;
 - ``copy_to_group`` (Megatron's f): the identity; backward sums the
   gradients of the group's partitioned consumers;
+- ``psum``: sum; backward sums too, for a total that every rank's loss
+  share reads alike (the MoE aux's balance statistics);
 - ``scatter_to_group``: keep this rank's slice of a replicated tensor;
   backward gathers the slices' gradients;
 - ``ring_exchange``: send to the next rank of the group, receive from the
@@ -120,6 +122,22 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    # the loss is the sum of the ranks' shares and each share reads the
+    # total, so the gradient by one rank's addend is the sum over the
+    # ranks of each share's gradient by the total: an all-reduce again
+    # (``all_reduce``'s identity backward is right only where one share
+    # reads the total, the rest reading copies that carry no gradient)
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -156,6 +174,10 @@ def reduce_scatter(x, group, dim: int = 0):
 
 def all_reduce(x, group):
     return x if group is None else _AllReduce.apply(x, group)
+
+
+def psum(x, group):
+    return x if group is None else _Psum.apply(x, group)
 
 
 def copy_to_group(x, group):

@@ -22,7 +22,11 @@ model code issues the collectives (``models/llama.py``). The loss is
 the mean over the global count of target tokens; each gradient is summed
 over the data, fsdp, expert and context axes it is not sharded over (a
 sharded leaf's fsdp sum is its gather's reduce-scatter); the global norm
-sums each leaf's squares over its shards once.
+sums each leaf's squares over its shards once. A grouped MoE runs
+expert-parallel (``models/moe.py``): its banks shard over ``expert`` and
+sum their gradients over data and fsdp only, and each rank's loss share
+carries its part of the router aux, so the aux enters the summed loss
+once.
 """
 
 from __future__ import annotations
@@ -302,8 +306,9 @@ class Trainer:
     (float, or int8/int4 with ``quantize_base``) and only the adapters
     train; on a MoE model they attach to the attention projections only.
     Without a mesh it trains on ``device``, the card by default; with a
-    ``parallel.mesh.Mesh`` (data, fsdp, tensor and context axes; a Llama
-    config) each rank trains its shards on the mesh's device."""
+    ``parallel.mesh.Mesh`` (data, fsdp, tensor and context axes for a
+    Llama config; data, fsdp and expert for a grouped MoE) each rank
+    trains its shards on the mesh's device."""
 
     def __init__(
         self,
@@ -332,11 +337,6 @@ class Trainer:
                 raise NotImplementedError(
                     "a mesh with pipe > 1 needs pipeline parallelism (GPipe/1F1B), which "
                     "the port does not have yet"
-                )
-            if self.is_moe:
-                raise NotImplementedError(
-                    "a MoE model under a mesh needs expert parallelism, the part of "
-                    "multi-device parallelism the port does not have yet"
                 )
             device = mesh.device
         self.mesh = mesh
@@ -378,12 +378,12 @@ class Trainer:
         self.param_specs = self.train_specs = None
         keep = None
         if mesh is not None:
-            self.param_specs = llama.param_specs(model_cfg)
+            self.param_specs = (moe_lib if self.is_moe else llama).param_specs(model_cfg)
             if quantize_base:
                 self.param_specs = quantized_param_specs(self.param_specs, self.quant_bits)
             self.train_specs = (
                 self.param_specs if lora_cfg is None
-                else lora_lib.lora_specs(model_cfg, lora_cfg)
+                else lora_lib.lora_specs(self.base_cfg, lora_cfg)
             )
             keep = _keep_shard(mesh, self.param_specs)
         if quantize_base:
@@ -393,7 +393,7 @@ class Trainer:
             )
         elif self.is_moe:
             self.params = moe_lib.init_params(
-                seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device
+                seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device, keep=keep
             )
         else:
             self.params = llama.init_params(
@@ -419,6 +419,11 @@ class Trainer:
         global batch."""
         types = {"loss_mask": torch.float32, "segment_ids": torch.int32}
         if self.mesh is not None:
+            if self.is_moe:  # JAX's refusals of the global batch, before the split
+                B, S = batch["tokens"].shape
+                D = self.base_cfg.hidden_size
+                moe_lib.dispatch_path(torch.empty((B, S, D), device="meta"), self.model_cfg,
+                                      self.mesh)
             batch = shard_batch(batch, self.mesh)
         return {
             k: torch.as_tensor(v).to(self.device, types.get(k, torch.long), non_blocking=True)
@@ -456,15 +461,18 @@ class Trainer:
 
     def _mesh_loss(self, params: Params, lora_params, batch: dict) -> torch.Tensor:
         """This rank's share of the global mean loss: its masked nll sum over
-        the global count of target tokens. The ranks' shares sum to the
-        loss, and so do their gradients."""
-        mesh, cfg = self.mesh, self.model_cfg
+        the global count of target tokens, plus, for a MoE model, the aux
+        (the same on every rank) over the number of ranks. The ranks'
+        shares sum to the loss, and so do their gradients."""
+        mesh, cfg = self.mesh, self.base_cfg
         seq_len = batch["tokens"].shape[1] * mesh.sizes[mesh_lib.AXIS_CONTEXT]
         chunked = seq_len > 2048 and seq_len % 1024 == 0
-        out = llama.forward(
-            params, batch["tokens"], cfg, lora=lora_params,
+        model = moe_lib if self.is_moe else llama
+        out = model.forward(
+            params, batch["tokens"], self.model_cfg, lora=lora_params,
             segment_ids=batch.get("segment_ids"), return_hidden=chunked, mesh=mesh,
         )
+        out, aux = out if self.is_moe else (out, None)
         par = llama.Sharding(mesh, cfg)
         vocab = dict(tp=par.tp, v0=par.vocab_start(cfg))
         z = self.train_cfg.z_loss
@@ -476,7 +484,8 @@ class Trainer:
         else:
             nll, count = nll_sums(out, batch["targets"], batch.get("loss_mask"), z, **vocab)
         count = col.all_reduce_sum(count, mesh.group(mesh_lib.TOKEN_AXES))
-        return nll / torch.clamp(count, min=1.0)
+        loss = nll / torch.clamp(count, min=1.0)
+        return loss if aux is None else loss + aux / mesh.size(mesh_lib.TOKEN_AXES)
 
     def _reported(self, loss: torch.Tensor) -> torch.Tensor:
         """The global loss from this rank's share."""

@@ -352,6 +352,53 @@ def test_persistent_schedule_writes_every_tile_once(shape, routing):
         for mt, e in enumerate(experts))
 
 
+@pytest.mark.parametrize("n_local,routing", [(1, "routed"), (2, "routed"), (4, "routed"),
+                                             (2, "first_empty"), (4, "first_empty")])
+def test_schedules_of_an_expert_shard(n_local, routing):
+    """An expert shard's buffer (``models/moe.py`` ``route_sorted_ep``):
+    ``n_local + 1`` offsets over ``m_loc`` rows, the last group running to
+    the end (the tail), at Mixtral-8x1B's widths and a 1.25 budget; a
+    budget may leave a group empty. ``gmm``'s walk takes every 128-row
+    tile once and gives it the one non-empty local group holding it;
+    ``tgmm``'s walks every group, an empty one's tiles too, and sums each
+    64-row chunk of the buffer, the tail included, into exactly one
+    group's (K-tile, N-tile)."""
+    from odh_kubeflow_tpu_torch.models import moe
+
+    cfg = moe.MoeConfig.mixtral_8x1b(dispatch="grouped", ep_capacity_factor=1.25)
+    E, tokens = cfg.num_experts, 8192
+    m_loc = moe._ep_rows(tokens, cfg, E // n_local, n_local)
+    logits = torch.from_numpy(np.random.default_rng(3).standard_normal((tokens, E)))
+    offs = moe.route_sorted_ep(logits.float(), cfg, 0, n_local, m_loc,
+                               torch.ones(tokens, dtype=torch.bool))[4]
+    if routing == "first_empty":
+        per = (m_loc - n_local * gm.ALIGN) // n_local
+        offs = _offsets(m_loc, [0] + [per] * (n_local - 1))
+    o = offs.tolist()
+    assert len(o) == n_local + 1 and o[0] == 0 and o[-1] == m_loc
+    assert all(a <= b for a, b in zip(o, o[1:])) and all(a % gm.ALIGN == 0 for a in o)
+    assert (o[1] == 0) == (routing == "first_empty")
+    m_tiles = m_loc // gm.ALIGN
+    experts = gm.group_of_tile(m_loc, offs).tolist()
+    assert all(o[e] <= t * gm.ALIGN < o[e + 1] for t, e in enumerate(experts))
+    for n in (2048, 8192):
+        n_tiles = -(-n // gm.gmm_tile_width(m_loc, n, H100_SMS))
+        order = gm.tile_order(m_tiles, n_tiles)
+        assert sorted(order) == [(i, j) for i in range(m_tiles) for j in range(n_tiles)]
+    for k, n in ((2048, 8192), (8192, 2048)):
+        width = gm.tgmm_tile_width(k, n, n_local, H100_SMS)
+        k_tiles, n_tiles = -(-k // gm.ALIGN), -(-n // width)
+        order = gm.tgmm_tile_order(n_local, k_tiles, n_tiles)
+        assert sorted(order) == [(e, i, j) for e in range(n_local) for i in range(k_tiles)
+                                 for j in range(n_tiles)]
+        summed = {}
+        for e, kt, nt in order:
+            for r in gm.tgmm_tile_rows(o, e):
+                assert (r, kt, nt) not in summed
+                summed[(r, kt, nt)] = e
+        assert len(summed) == (m_loc // 64) * k_tiles * n_tiles
+
+
 def test_gmm_tile_width_follows_the_waves_of_the_card():
     """256-wide tiles at the training shapes; 128 where 256-wide tiles
     would fill fewer than three waves of 132 SMs (the prefill's down

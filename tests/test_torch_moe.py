@@ -314,11 +314,12 @@ def test_param_tree_layout_matches_jax():
 
 
 def test_later_slices_are_refused():
-    """Slice 6's ``param_specs`` and an unknown dispatch raise. The
-    KV-cached forward runs: a prefill and a decode step give the logits of
-    the no-cache forward over the same tokens (a decode step and this
-    short prefill take the drop-free ragged path, so routing is per
-    token)."""
+    """``param_specs`` is JAX's, leaf by leaf, on the grouped dispatch
+    (banks over ``expert`` only) and the others (E, D, F over expert,
+    fsdp, tensor); an unknown dispatch raises. The KV-cached forward runs:
+    a prefill and a decode step give the logits of the no-cache forward
+    over the same tokens (a decode step and this short prefill take the
+    drop-free ragged path, so routing is per token)."""
     _, tp = _params(seed=2)
     cfg = dataclasses.replace(TCFG, dispatch="grouped")
     toks = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 9))).long()
@@ -331,7 +332,13 @@ def test_later_slices_are_refused():
                                          positions=torch.full((2, 1), 8))
     _close(pre, full[:, :8])
     _close(step, full[:, 8:])
-    with pytest.raises(NotImplementedError, match="multi-device parallelism"):
-        moe.param_specs(TCFG)
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa: E731
+    for dispatch in ("grouped", "ragged", "einsum"):
+        jl = jax.tree.leaves_with_path(
+            jmoe.param_specs(dataclasses.replace(JCFG, dispatch=dispatch)), is_leaf=is_spec)
+        tl = ttrainer._leaves(moe.param_specs(dataclasses.replace(TCFG, dispatch=dispatch)))
+        assert [jax.tree_util.keystr(p) for p, _ in jl] == [
+            "".join(f"['{k}']" for k in p) for p, _ in tl]
+        assert [tuple(j) for _, j in jl] == [tuple(t) for _, t in tl], dispatch
     with pytest.raises(ValueError):
         moe.moe_mlp(torch.zeros(1, 4, 64), {}, dataclasses.replace(TCFG, dispatch="nope"))

@@ -167,9 +167,22 @@ def test_moe_trainer_refuses_mlp_targets_and_counts_strict_sparse_flops(pair):
     assert out["train_equiv_flops_per_s"] * out["step_time_s"] == pytest.approx(
         3 * JCFG.flops_per_token(512) * tokens)
     assert tt.make_fake_batch(1, 8)["tokens"].max() < TCFG.vocab_size
+    # a MoE config under a mesh is taken (tests/test_torch_moe_ep.py trains
+    # it); JAX's refusals come at the step, before the batch is split
+    toks = np.zeros((8, 512), np.int32)
+    batch = {"tokens": toks, "targets": toks}
     one_rank = Mesh(TMeshConfig(), torch.device("cpu"), None, rank=0)
-    with pytest.raises(NotImplementedError, match="expert parallelism.*multi-device parallelism"):
-        Trainer(TCFG, lora_cfg=lora.LoraConfig(), mesh=one_rank, device="cpu")
+    assert Trainer(TCFG, lora_cfg=lora.LoraConfig(), mesh=one_rank, device="cpu").mesh is one_rank
+    tensor2 = Mesh(TMeshConfig(data=4, tensor=2), torch.device("cpu"), None, rank=0)
+    tt = Trainer(TCFG, lora_cfg=lora.LoraConfig(), mesh=tensor2, device="cpu",
+                 metrics_registry=prometheus.Registry())
+    with pytest.raises(ValueError, match="dispatch='grouped': tensor/context-sharded meshes"):
+        tt.train_step(batch)
+    fsdp2 = Mesh(TMeshConfig(fsdp=2), torch.device("cpu"), None, rank=0)
+    tt = Trainer(dataclasses.replace(TCFG, dispatch="ragged"), lora_cfg=lora.LoraConfig(),
+                 mesh=fsdp2, device="cpu", metrics_registry=prometheus.Registry())
+    with pytest.raises(NotImplementedError, match="MoE ragged/einsum dispatch under a mesh"):
+        tt.train_step(batch)
 
 
 def test_moe_long_sequence_takes_the_chunked_loss_with_the_aux(monkeypatch):

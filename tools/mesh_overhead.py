@@ -4,7 +4,8 @@
     python3 tools/mesh_overhead.py
 
 1. The Llama-3-8B QLoRA step (int4 base, LoRA r16, remat "attn", batch 2
-   x seq 4096, as ``chip_smoke.py``'s ``train`` phase) without a mesh and
+   x seq 4096, as ``chip_smoke.py``'s ``train`` phase), then the
+   Mixtral-8x1B QLoRA step (``moe_train``'s), each without a mesh and
    through ``Trainer(mesh=build_mesh(MeshConfig()))`` on an NCCL group of
    one rank, in turns: one-device, (the group made) one-device, mesh,
    one-device, mesh; each the mean of 3 steps after one warm-up, host
@@ -48,7 +49,7 @@ def main() -> int:
         print("mesh_overhead: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(["int4_dequant", "flash_fwd", "flash_bwd"])
+    _build.build(["int4_dequant", "flash_fwd", "flash_bwd", "gmm", "swiglu_gmm"])
 
     def profiled(fn) -> dict:
         fn()
@@ -66,38 +67,40 @@ def main() -> int:
                 "top": [{"kernel": k[:70], "ms": t / 1e3, "launches": c}
                         for k, (t, c) in top]}
 
-    B, S = cs.TRAIN_SHAPE
-    cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
-    one = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4")
-    batch = one.make_fake_batch(B, S)
+    models = {"llama3_8b": (LlamaConfig.llama3_8b(remat=True, remat_policy="attn"), "int4",
+                            cs.TRAIN_SHAPE),
+              "mixtral_8x1b": (cs.moe_config(), True, cs.MOE_TRAIN_SHAPE)}
+    for model, (cfg, quantize_base, (B, S)) in models.items():
+        one = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base=quantize_base)
+        batch = one.make_fake_batch(B, S)
 
-    def step_s(trainer, n=3) -> float:
-        float(trainer.train_step(batch)["loss"])
-        t0 = time.perf_counter()
-        for _ in range(n):
-            metrics = trainer.train_step(batch)
-        float(metrics["loss"])
-        return (time.perf_counter() - t0) / n
+        def step_s(trainer, n=3) -> float:
+            float(trainer.train_step(batch)["loss"])
+            t0 = time.perf_counter()
+            for _ in range(n):
+                metrics = trainer.train_step(batch)
+            float(metrics["loss"])
+            return (time.perf_counter() - t0) / n
 
-    turns = {"one_device": step_s(one)}
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{cs.free_port()}",
-                            world_size=1, rank=0)
-    try:
-        turns["one_device_group_made"] = step_s(one)
-        mesh = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4",
-                       mesh=build_mesh(MeshConfig()))
-        turns["mesh_1"] = step_s(mesh)
-        turns["one_device_2"] = step_s(one)
-        turns["mesh_2"] = step_s(mesh)
-        cs.emit({"step_s": turns})
-        cs.emit({"profiled_step": "one_device",
-                 **profiled(lambda: float(one.train_step(batch)["loss"]))})
-        cs.emit({"profiled_step": "mesh",
-                 **profiled(lambda: float(mesh.train_step(batch)["loss"]))})
-    finally:
-        dist.destroy_process_group()
-    del one, mesh
-    torch.cuda.empty_cache()
+        turns = {"one_device": step_s(one)}
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{cs.free_port()}",
+                                world_size=1, rank=0)
+        try:
+            turns["one_device_group_made"] = step_s(one)
+            mesh = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base=quantize_base,
+                           mesh=build_mesh(MeshConfig()))
+            turns["mesh_1"] = step_s(mesh)
+            turns["one_device_2"] = step_s(one)
+            turns["mesh_2"] = step_s(mesh)
+            cs.emit({"model": model, "step_s": turns})
+            cs.emit({"model": model, "profiled_step": "one_device",
+                     **profiled(lambda: float(one.train_step(batch)["loss"]))})
+            cs.emit({"model": model, "profiled_step": "mesh",
+                     **profiled(lambda: float(mesh.train_step(batch)["loss"]))})
+        finally:
+            dist.destroy_process_group()
+        del one, mesh
+        torch.cuda.empty_cache()
 
     Bq, Sq, Hq, Hkv, hd = cs.RING_SHAPE
     gen = torch.Generator(device="cuda")
