@@ -150,6 +150,25 @@ Phases, one JSON line each on stdout:
     whole call; first each grouped kernel at 1, 2 and 4 local groups (an
     ``m_loc``-row buffer with its tail, an empty first group) against its
     plain version per tile.
+28. ``pipe_loopback``: Llama-3-8B QLoRA (int4, LoRA r16, remat "attn", 32
+    layers) at batch 8 x seq 1024 three ways on one set of weights: the
+    unpipelined step, GPipe (4 stages, 8 microbatches) through the
+    loopback driver with autograd, and 1F1B through its loopback driver:
+    ms per step, peak memory above the weights, the exact launches of each
+    flash kernel and the dequant written from the schedule
+    (``PIPE_LAUNCHES``), the device's busy share of an unpipelined and a
+    GPipe step (``torch.profiler``); GPipe against the unpipelined step
+    (loss, adapter a/b gradients), 1F1B against GPipe, 1F1B's peak below
+    GPipe's; then a
+    2-layer 8B-width stack pipelined (2 stages, 2 microbatches), kernels
+    against plain versions as ``train_parity_on_card``.
+29. ``moe_pipe_loopback``: Mixtral-8x1B QLoRA (``moe_train``'s config) the
+    same way, unpipelined and GPipe: the LM loss against the unpipelined
+    step's, the aux against the mean of the per-microbatch auxes, exact
+    launches of every grouped and flash kernel, the device's busy share,
+    the routing flips between the two steps; a 2-layer 8x1B-width stack
+    pipelined, kernels against
+    plain versions on the kernel run's routing (``RoutingTape``).
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1975,6 +1994,495 @@ def moe_ep_loopback_phase(torch, fa, int4, gm) -> tuple[dict, dict]:
     return record, launched
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism (slice 8, part 2b): the pipe stages run one after
+# another on the card through the loopback drivers, with the ranks'
+# arithmetic (parallel/pipeline.py)
+
+PIPE_STAGES, PIPE_MICROBATCHES = 4, 8
+# batch x seq: the train phase's 8,192 tokens, one 1,024-token row a
+# microbatch, so M > S and 1F1B's ring (min(S, M) inputs) shows
+PIPE_SHAPE = (8, 1024)
+# launches per step, written from the schedule before the first run. The 8B
+# QLoRA stack (32 layers, 7 int4 weights a layer, remat "attn", which
+# saves the flash forward's residuals): unpipelined, each layer runs the
+# flash forward once, dQ and dK/dV once, and dequantizes its 7 weights in
+# the forward and again in the recompute, plus one dequant of the lm_head
+# (2 x 224 + 1). GPipe runs every layer once per microbatch, forward and
+# backward: 8 x that. 1F1B runs each stage's forward without grad at F,
+# again with grad at B (the flash forward then saved), then B's backward
+# recomputes each layer (7 dequants): 2 x 256 flash forwards and 3 x 1,792
+# + 1 dequants
+PIPE_LAUNCHES = {
+    "unpipelined": {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32, "int4_dequant": 449},
+    "gpipe": {"flash_fwd": 256, "flash_dq": 256, "flash_dkv": 256, "int4_dequant": 3585},
+    "1f1b": {"flash_fwd": 512, "flash_dq": 256, "flash_dkv": 256, "int4_dequant": 5377},
+}
+# gates, stated before the first run. GPipe against the unpipelined step:
+# the same model, its products on 1,024-row microbatches in place of 8,192
+# rows, so bf16 roundings taken at other points: the loss to
+# TRAIN_LOSS_RTOL, each adapter's a and b gradients to TRAIN_GRAD_TOL of
+# their norm (train_parity_on_card's bars); the scale leaves reported.
+# 1F1B against GPipe: the same per-(stage, microbatch) operations on the
+# same inputs, the layer gradients summed in float32 over the microbatches
+# in the same order; only the 1/M scale moves (a power of two, exact), so
+# they should agree to the last bit where every product is recomputed alike:
+# the loss to 1e-6 relative, each adapter's a and b gradient to 1e-5 of its
+# norm. A scale gradient is a sum that cancels to 1e-10-1e-6 of its terms,
+# so one bf16 rounding of a product the library computes another way when
+# it is recomputed (on the CPU, MKL's path turns on memory alignment) moves
+# it far more than its norm; it is held to the bf16 unit roundoff, 2^-8,
+# of the sum of its terms' magnitudes (scale_term_magnitudes), which bounds
+# what one rounding of each term can move
+PIPE_1F1B_LOSS_RTOL = 1e-6
+PIPE_1F1B_GRAD_TOL = 1e-5
+PIPE_1F1B_SCALE_TERMS_TOL = 2**-8
+# the 2-layer 8B-width and 8x1B-width pipelined stacks, kernels against
+# plain versions: 2 stages of one layer, 2 microbatches of one 1,024-token
+# row (the main path's shapes)
+PIPE_PARITY = dict(stages=2, microbatches=2, batch=(2, 1024))
+# Mixtral-8x1B QLoRA through GPipe: 16 layers in 4 stages of 4, the same
+# batch. A microbatch of 1,024 tokens routes 2,048 assignments: the
+# grouped path, M = round_up(2048 + 8 x 128, 512) = 3,072 sorted rows a
+# call. Per layer and microbatch as moe_train's per layer: the flash
+# forward, the fused SwiGLU and the down product (K 8192) forward; dQ,
+# dK/dV, the down dlhs (K 2048), the SwiGLU backward and the gate and up
+# dlhs (K 8192) backward; remat "attn" + pin_expert_acts saves the rest
+MOE_PIPE_SORTED_ROWS = 3072
+MOE_PIPE_LAUNCHES = {k: PIPE_MICROBATCHES * v for k, v in MOE_LAUNCHES_PER_STEP.items()}
+# the pipelined aux against the mean of the per-microbatch auxes of the
+# unpipelined forward on each microbatch alone: the same 128 float32 terms
+# summed in another order
+MOE_PIPE_AUX_RTOL = 1e-5
+
+
+def live_lora_trainer(torch, cfg, quantize_base, seed: int):
+    """A QLoRA trainer (LoRA r16) whose adapters' ``b`` is drawn from seed
+    9 times 0.01 (a live adapter: every leaf has a gradient)."""
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base=quantize_base,
+                      seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        for ab in trainer.lora_params["layers"].values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01)
+    return trainer
+
+
+def pipe_batch(torch, vocab: int, shape=PIPE_SHAPE, seed: int = 12) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, vocab, shape, generator=gen, device="cuda")
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+
+def microbatch_loss(torch, hidden, head, targets, M: int):
+    """The mean over M row-block microbatches of each one's chunked cross
+    entropy (chunk 1,024): on an unmasked batch, the global mean."""
+    from odh_kubeflow_tpu_torch.train.trainer import chunked_cross_entropy
+
+    total = 0.0
+    for h, t in zip(hidden.chunk(M), targets.chunk(M)):
+        total = total + chunked_cross_entropy(h, head, t, chunk=1024)
+    return total / M
+
+
+class PipelinedGradients:
+    """``Trainer.gradients`` with the trainer's model run through the GPipe
+    loopback (``forward(loopback_stages=)``): the loss and every adapter
+    gradient, the loss the mean of the microbatches' chunked cross
+    entropies (plus the router aux for a MoE model)."""
+
+    def __init__(self, trainer, stages: int, microbatches: int):
+        self.t, self.S, self.M = trainer, stages, microbatches
+
+    def gradients(self, batch: dict):
+        import torch
+
+        from odh_kubeflow_tpu_torch.models import llama
+        from odh_kubeflow_tpu_torch.models import moe as moe_lib
+        from odh_kubeflow_tpu_torch.train.trainer import _leaves
+
+        t = self.t
+        paths, leaves = zip(*_leaves(t.lora_params))
+        for x in leaves:
+            x.requires_grad_(True)
+        model = moe_lib if t.is_moe else llama
+        out = model.forward(t.params, batch["tokens"], t.model_cfg, lora=t.lora_params,
+                            return_hidden=True, loopback_stages=self.S,
+                            pipeline_microbatches=self.M)
+        hidden, aux = out if t.is_moe else (out, 0.0)
+        loss = microbatch_loss(torch, hidden, llama.lm_head_weight(t.params, t.base_cfg),
+                               batch["targets"], self.M) + aux
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(paths, grads))
+
+
+def grad_rel(got: dict, want: dict) -> dict:
+    """``||got - want|| / ||want||`` per leaf path."""
+    return {"/".join(p): ((got[p].float() - w.float()).norm()
+                          / w.float().norm().clamp_min(1e-30)).item() for p, w in want.items()}
+
+
+def pipe_runs(torch, trainer, batch, S: int, M: int) -> dict:
+    """The three ways to take the 8B QLoRA step's loss and adapter
+    gradients on one batch: name -> fn() returning (loss, {path: grad}).
+    GPipe and 1F1B run one stage function (``llama.pipeline_args``) and one
+    head, the final norm and the chunked cross entropy of one microbatch,
+    so they differ only in the order of their work."""
+    from odh_kubeflow_tpu_torch.models import llama
+    from odh_kubeflow_tpu_torch.ops.norms import rms_norm
+    from odh_kubeflow_tpu_torch.ops.rope import rope_angles
+    from odh_kubeflow_tpu_torch.parallel import pipeline
+    from odh_kubeflow_tpu_torch.train.trainer import _leaves, chunked_cross_entropy
+
+    cfg, params, lora = trainer.model_cfg, trainer.params, trainer.lora_params
+    tokens, targets = batch["tokens"], batch["targets"]
+    paths, leaves = zip(*_leaves(lora))
+    for x in leaves:
+        x.requires_grad_(True)
+
+    def unpipelined():
+        hidden = llama.forward(params, tokens, cfg, lora=lora, return_hidden=True)
+        loss = microbatch_loss(torch, hidden, llama.lm_head_weight(params, cfg), targets, M)
+        return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+    def stack():
+        """(embedded tokens, stage function, stage params, per-microbatch
+        aux with the targets, head params, head function)."""
+        B, T = tokens.shape
+        x = params["embed"][tokens].to(cfg.dtype)
+        sin, cos = rope_angles(torch.arange(T, device="cuda").expand(B, T), cfg.head_dim,
+                               cfg.rope_theta)
+        impl = llama.resolved_attention_impl(cfg, tokens.device)
+        layer_fn = llama._make_layer_fn(cfg, impl, llama.causal_attention_fn(impl),
+                                        cfg.remat_policy)
+        stage_fn, stage_params, aux = llama.pipeline_args(
+            layer_fn, params["layers"], lora["layers"], sin, cos, None, M)
+        aux["targets"] = targets.reshape(M, B // M, T)
+        head = {"final_norm": params["final_norm"], "head": llama.lm_head_weight(params, cfg)}
+
+        def head_fn(hp, y, a):
+            h = rms_norm(y, hp["final_norm"], cfg.rms_norm_eps)
+            return chunked_cross_entropy(h, hp["head"], a["targets"], chunk=1024)
+
+        return x, stage_fn, stage_params, aux, head, head_fn
+
+    def gpipe():
+        x, stage_fn, stage_params, aux, head, head_fn = stack()
+        y = pipeline.loopback_pipeline_apply(stage_fn, stage_params, x, num_microbatches=M,
+                                             num_stages=S, aux=aux)
+        total = 0.0
+        for m, y_m in enumerate(y.chunk(M)):
+            total = total + head_fn(head, y_m, pipeline._aux_at(aux, m))
+        loss = total / M
+        return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+    def one_f_one_b():
+        x, stage_fn, stage_params, aux, head, head_fn = stack()
+        loss, dlayers, _, _ = pipeline.loopback_pipeline_train_1f1b(
+            stage_fn, head_fn, stage_params, head, x, num_microbatches=M, num_stages=S, aux=aux)
+        grads = dict(_leaves({"layers": dlayers["lora"]}))
+        return loss, {p: grads[p] for p in paths}
+
+    return {"unpipelined": unpipelined, "gpipe": gpipe, "1f1b": one_f_one_b}
+
+
+def timed_runs(torch, runs: dict, counts_of, expected: dict, rounds: int = 3) -> dict:
+    """Each run ``rounds`` times in turns: its launches each time (held to
+    ``expected``), its peak memory above what was allocated before it, and
+    its ms per step (host clock, synchronised by reading the loss) over the
+    rounds after the first. Returns name -> record with the last result."""
+    out = {name: {"ms": [], "peak_gb": []} for name in runs}
+    for r in range(rounds):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts_of()
+            t0 = time.perf_counter()
+            loss, grads = fn()
+            loss = float(loss)
+            dt = time.perf_counter() - t0
+            after = counts_of()
+            n = {k: after[k] - before[k] for k in expected[name]}
+            if n != expected[name]:
+                raise AssertionError(f"{name}: launches {n}, expected {expected[name]}")
+            out[name]["peak_gb"].append((torch.cuda.max_memory_allocated() - base) / 2**30)
+            if r:
+                out[name]["ms"].append(dt * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"{name}: loss {loss}")
+            out[name].update(loss=loss, grads=grads, launches_per_step=n)
+    for rec in out.values():
+        rec["ms_per_step"] = statistics.mean(rec["ms"])
+        rec["peak_memory_gb_above_weights"] = max(rec.pop("peak_gb"))
+    return out
+
+
+def busy_share(torch, fn) -> dict:
+    """One call of ``fn`` (a run returning (loss, grads)) under
+    ``torch.profiler``, the device's activity only (a pipelined step's
+    hundreds of thousands of host ops would take a minute to collect): its
+    wall ms, the device's kernel ms and busy share, and the kernels
+    launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(fn()[0])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_kernel_ms": "not measured"}
+    device_ms = sum(t for t, _ in kernels.values()) / 1e3
+    return {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernel_launches": sum(c for _, c in kernels.values())}
+
+
+def pipe_loopback_phase(torch, fa, int4) -> tuple[dict, dict]:
+    """Llama-3-8B QLoRA (int4 base, LoRA r16 on wq/wk/wv/wo, remat "attn",
+    32 layers) on batch 8 x seq 1024: the unpipelined step, GPipe through
+    the loopback driver with autograd, and 1F1B through its loopback driver
+    (4 stages of 8 layers, 8 microbatches), on one set of weights and one
+    batch. ms per step, peak memory above the weights, exact launches (all
+    gated); GPipe against the unpipelined step and 1F1B against GPipe;
+    1F1B's peak below GPipe's. Then a 2-layer 8B-width stack pipelined at
+    2 stages and 2 microbatches, kernels against plain versions."""
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+
+    S, M = PIPE_STAGES, PIPE_MICROBATCHES
+    cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
+    t0 = time.perf_counter()
+    trainer = live_lora_trainer(torch, cfg, "int4", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = pipe_batch(torch, cfg.vocab_size)
+    runs = pipe_runs(torch, trainer, batch, S, M)
+    zero_counts(fa, int4)  # the pipelined path's count starts here
+    res = timed_runs(torch, runs, lambda: counts(fa, int4), PIPE_LAUNCHES)
+    launched = counts(fa, int4)
+    # each scale leaf's terms' magnitudes (a GPipe run with the probe), and
+    # a profile of each run: outside the count
+    _, terms = scale_term_magnitudes(torch, runs["gpipe"])
+    profiles = {name: busy_share(torch, runs[name]) for name in ("unpipelined", "gpipe")}
+    u, g, o = res["unpipelined"], res["gpipe"], res["1f1b"]
+    gpipe_vs = grad_rel(g["grads"], u["grads"])
+    ofob_vs = grad_rel(o["grads"], g["grads"])
+    ofob_terms = {"/".join(p): ((o["grads"][p].float() - g["grads"][p].float()).norm()
+                                / terms[p].float().norm().clamp_min(1e-30)).item()
+                  for p in terms if p[-1] == "scale"}
+    is_ab = lambda p: not p.endswith("scale")  # noqa: E731
+    gates = {
+        "gpipe_loss_rel_diff": abs(g["loss"] - u["loss"]) / abs(u["loss"]),
+        "gpipe_worst_ab_grad_rel_diff": max(v for p, v in gpipe_vs.items() if is_ab(p)),
+        "gpipe_worst_scale_grad_rel_diff": max(v for p, v in gpipe_vs.items() if not is_ab(p)),
+        "1f1b_loss_rel_diff": abs(o["loss"] - g["loss"]) / abs(g["loss"]),
+        "1f1b_worst_ab_grad_rel_diff": max(v for p, v in ofob_vs.items() if is_ab(p)),
+        "1f1b_worst_scale_grad_rel_diff": max(v for p, v in ofob_vs.items() if not is_ab(p)),
+        "1f1b_worst_scale_grad_rel_terms": max(ofob_terms.values()),
+        "1f1b_leaves_bit_equal": sum(torch.equal(o["grads"][p], x)
+                                     for p, x in g["grads"].items()),
+    }
+    for rec in res.values():
+        del rec["grads"]
+    record = {
+        "phase": "pipe_loopback",
+        "config": "llama3_8b QLoRA: int4 base (random weights, seed 0), LoRA r16 on "
+                  "wq/wk/wv/wo (b live), remat attn, 32 layers",
+        "batch": PIPE_SHAPE[0], "seq": PIPE_SHAPE[1], "stages": S, "microbatches": M,
+        "init_s": init_s, "runs": res, "profiles": profiles, "gates": gates,
+        "leaves": len(gpipe_vs),
+        "tolerances": {"gpipe_loss_rtol": TRAIN_LOSS_RTOL, "gpipe_ab_grad_tol": TRAIN_GRAD_TOL,
+                       "1f1b_loss_rtol": PIPE_1F1B_LOSS_RTOL,
+                       "1f1b_ab_grad_tol": PIPE_1F1B_GRAD_TOL,
+                       "1f1b_scale_grad_tol_of_terms": PIPE_1F1B_SCALE_TERMS_TOL},
+        "note": "the loopback runs the stages one after another: no bubble, no p2p",
+    }
+    bad = []
+    if gates["gpipe_loss_rel_diff"] > TRAIN_LOSS_RTOL:
+        bad.append("gpipe loss")
+    if gates["gpipe_worst_ab_grad_rel_diff"] > TRAIN_GRAD_TOL:
+        bad.append("gpipe grads")
+    if gates["1f1b_loss_rel_diff"] > PIPE_1F1B_LOSS_RTOL:
+        bad.append("1f1b loss")
+    if gates["1f1b_worst_ab_grad_rel_diff"] > PIPE_1F1B_GRAD_TOL:
+        bad.append("1f1b a/b grads")
+    if gates["1f1b_worst_scale_grad_rel_terms"] > PIPE_1F1B_SCALE_TERMS_TOL:
+        bad.append("1f1b scale grads")
+    if not o["peak_memory_gb_above_weights"] < g["peak_memory_gb_above_weights"]:
+        bad.append("1f1b peak not below gpipe's")
+    del trainer, runs
+    torch.cuda.empty_cache()
+    record["parity"] = pipe_parity(torch, fa, int4, moe=False)
+    if bad:
+        raise AssertionError(f"pipe_loopback: {bad}: {record}")
+    return record, launched
+
+
+def pipe_parity(torch, fa, int4, gm=None, moe: bool = False) -> dict:
+    """A 2-layer stack at 8B (or 8x1B) width pipelined through the GPipe
+    loopback (``PIPE_PARITY``): the loss and every adapter gradient with the
+    kernels against the plain versions, gated as train_parity_on_card's
+    (a MoE model on the kernel run's routing, replayed)."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+
+    p = PIPE_PARITY
+    if moe:
+        cfg = moe_config()
+        cfg = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, num_layers=2))
+        trainer = live_lora_trainer(torch, cfg, True, seed=1)
+    else:
+        cfg = LlamaConfig.llama3_8b(num_layers=2, remat=True, remat_policy="attn")
+        trainer = live_lora_trainer(torch, cfg, "int4", seed=1)
+    shim = PipelinedGradients(trainer, p["stages"], p["microbatches"])
+    batch = pipe_batch(torch, cfg.vocab_size, p["batch"], seed=13)
+    out = {"layers": 2, **{k: v for k, v in p.items() if k != "batch"},
+           "batch": p["batch"][0], "seq": p["batch"][1]}
+    if not moe:
+        r = adapter_grad_readings(torch, fa, int4, shim, batch)
+        r.pop("grads")
+        r["leaves"] = len(r["leaves"])
+        out.update(r, grad_tol=TRAIN_GRAD_TOL, loss_rtol=TRAIN_LOSS_RTOL)
+        ok = r["loss_rel_diff"] <= TRAIN_LOSS_RTOL and r["worst_gated_rel_diff"] <= TRAIN_GRAD_TOL
+    else:
+        tape = RoutingTape(torch, moe_lib)
+        before = moe_counts(fa, gm)
+        k_loss, k_grads = tape.record(lambda: shim.gradients(batch))
+        mid = moe_counts(fa, gm)
+        p_loss, p_grads = moe_with_plain(fa, gm, lambda: tape.replay(lambda: shim.gradients(batch)))
+        if moe_counts(fa, gm) != mid:
+            raise AssertionError("the plain run launched a kernel")
+        used = [n for n, per in MOE_LAUNCHES_PER_STEP.items() if per]
+        if not all(mid[n] > before[n] for n in used):
+            raise AssertionError(f"a kernel did not launch: {before} -> {mid}")
+        rel = grad_rel(k_grads, p_grads)
+        k_loss, p_loss = float(k_loss), float(p_loss)
+        out.update(loss_kernels=k_loss, loss_plain=p_loss,
+                   loss_rel_diff=abs(k_loss - p_loss) / abs(p_loss),
+                   worst_leaf_grad_rel_diff=max(rel.values()), leaves=len(rel),
+                   routing_flips=tape.flip_report(), grad_tol=TRAIN_GRAD_TOL,
+                   loss_rtol=TRAIN_LOSS_RTOL)
+        ok = out["loss_rel_diff"] <= TRAIN_LOSS_RTOL and max(rel.values()) <= TRAIN_GRAD_TOL
+    if not ok:
+        raise AssertionError(f"pipelined parity ({'moe' if moe else 'llama'}): {out}")
+    return out
+
+
+def moe_pipe_loopback_phase(torch, fa, int4, gm) -> tuple[dict, dict]:
+    """Mixtral-8x1B QLoRA (moe_train's config: int8 banks, grouped, remat
+    "attn" + pin_expert_acts, 16 layers) on batch 8 x seq 1024: the
+    unpipelined step and GPipe through the loopback (4 stages of 4 layers,
+    8 microbatches) on one set of weights and one batch. The LM loss of
+    GPipe against the unpipelined step's; its aux against the mean of the
+    per-microbatch auxes of the unpipelined forward on each microbatch alone
+    (JAX's pipelined aux); exact launches; the routings the two steps take
+    compared; then a 2-layer 8x1B-width stack, kernels against plain
+    versions on the kernel run's routing."""
+    from odh_kubeflow_tpu_torch.models import llama
+    from odh_kubeflow_tpu_torch.models import moe as moe_lib
+    from odh_kubeflow_tpu_torch.train.trainer import _leaves
+
+    S, M = PIPE_STAGES, PIPE_MICROBATCHES
+    cfg = moe_config()
+    t0 = time.perf_counter()
+    trainer = live_lora_trainer(torch, cfg, True, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = pipe_batch(torch, cfg.vocab_size)
+    params, lora = trainer.params, trainer.lora_params
+    tokens, targets = batch["tokens"], batch["targets"]
+    paths, leaves = zip(*_leaves(lora))
+    for x in leaves:
+        x.requires_grad_(True)
+    lm_aux = {}
+
+    def step(name, **pipe):
+        def fn():
+            hidden, aux = moe_lib.forward(params, tokens, cfg, lora=lora, return_hidden=True,
+                                          **pipe)
+            lm = microbatch_loss(torch, hidden, llama.lm_head_weight(params, cfg.base), targets, M)
+            grads = torch.autograd.grad(lm + aux, leaves)
+            lm_aux[name] = (lm.item(), aux.item())
+            return (lm + aux).detach(), dict(zip(paths, grads))
+
+        return fn
+
+    runs = {"unpipelined": step("unpipelined"),
+            "gpipe": step("gpipe", loopback_stages=S, pipeline_microbatches=M)}
+    zero_moe_counts(fa, int4, gm)  # the pipelined MoE path's count starts here
+    res = timed_runs(torch, runs, lambda: moe_counts(fa, gm),
+                     {"unpipelined": MOE_LAUNCHES_PER_STEP, "gpipe": MOE_PIPE_LAUNCHES})
+    launched = moe_counts(fa, gm)
+    if int4.launches:
+        raise AssertionError(f"the MoE path launched {int4.launches} int4 dequants")
+    profiles = {name: busy_share(torch, fn) for name, fn in runs.items()}
+    # references, outside the count: each microbatch's own aux, and both
+    # steps' routings (no-grad forwards, recorded in call order)
+    with torch.no_grad():
+        per_mb = [float(moe_lib.forward(params, tokens[m : m + 1], cfg, lora=lora,
+                                        return_hidden=True)[1]) for m in range(M)]
+        tapes = {}
+        for name, pipe in (("unpipelined", {}),
+                           ("gpipe", dict(loopback_stages=S, pipeline_microbatches=M))):
+            tapes[name] = RoutingTape(torch, moe_lib)
+            tapes[name].record(lambda pipe=pipe: moe_lib.forward(
+                params, tokens, cfg, lora=lora, return_hidden=True, **pipe))
+    # the pipelined routings in tick order: stage s runs its layers on
+    # microbatch m at tick s + m; regroup them by layer, microbatches in order
+    per_stage = cfg.base.num_layers // S
+    order = [(s * per_stage + j, t - s) for t in range(M + S - 1) for s in range(S)
+             if 0 <= t - s < M for j in range(per_stage)]
+    by_layer = {}
+    for (layer, m), ids in sorted(zip(order, tapes["gpipe"].ids)):
+        by_layer.setdefault(layer, []).append(ids)
+    regrouped = RoutingTape(torch, moe_lib)
+    regrouped.ids = [torch.cat(by_layer[i]) for i in range(cfg.base.num_layers)]
+    flips = tapes["unpipelined"].differs_from(regrouped)
+    (u_lm, u_aux), (g_lm, g_aux) = lm_aux["unpipelined"], lm_aux["gpipe"]
+    want_aux = sum(per_mb) / M
+    u, g = res["unpipelined"], res["gpipe"]
+    rel = grad_rel(g.pop("grads"), u.pop("grads"))
+    gates = {"lm_loss_rel_diff": abs(g_lm - u_lm) / abs(u_lm),
+             "aux_rel_diff_vs_per_microbatch_mean": abs(g_aux - want_aux) / abs(want_aux)}
+    record = {
+        "phase": "moe_pipe_loopback",
+        "config": "mixtral_8x1b QLoRA: int8 banks (random weights, seed 0), dispatch grouped, "
+                  "remat attn + pin_expert_acts, LoRA r16 on wq/wk/wv/wo (b live), 16 layers",
+        "batch": PIPE_SHAPE[0], "seq": PIPE_SHAPE[1], "stages": S, "microbatches": M,
+        "sorted_rows_per_call": MOE_PIPE_SORTED_ROWS, "init_s": init_s, "runs": res,
+        "profiles": profiles,
+        "lm_loss": {"unpipelined": u_lm, "gpipe": g_lm},
+        "aux": {"unpipelined_whole_batch": u_aux, "gpipe": g_aux,
+                "per_microbatch": per_mb, "per_microbatch_mean": want_aux},
+        "gates": gates,
+        "tolerances": {"lm_loss_rtol": TRAIN_LOSS_RTOL, "aux_rtol": MOE_PIPE_AUX_RTOL},
+        # reported, not gated: the two steps' auxes differ by design
+        "worst_adapter_grad_rel_diff_vs_unpipelined": max(rel.values()),
+        "routing_flips_gpipe_vs_unpipelined": {
+            "routings": len(flips), "flipped_tokens": sum(f["flipped"] for f in flips),
+            "largest_margin": max((f["largest_margin"] for f in flips
+                                   if f["largest_margin"] is not None), default=None)},
+        "note": "the loopback runs the stages one after another: no bubble, no p2p",
+    }
+    bad = []
+    if gates["lm_loss_rel_diff"] > TRAIN_LOSS_RTOL:
+        bad.append("lm loss")
+    if gates["aux_rel_diff_vs_per_microbatch_mean"] > MOE_PIPE_AUX_RTOL:
+        bad.append("aux")
+    del trainer, runs, tapes, regrouped
+    torch.cuda.empty_cache()
+    record["parity"] = pipe_parity(torch, fa, int4, gm, moe=True)
+    if bad:
+        raise AssertionError(f"moe_pipe_loopback: {bad}: {record}")
+    return record, launched
+
+
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name; first match)
     ("tgmm (tgmm.cu)", ("tgmm_kernel",)),
     ("grouped gemm (gmm.cu)", ("gmm_kernel",)),
@@ -3760,6 +4268,17 @@ def main() -> int:
     emit(record)
     torch.cuda.empty_cache()
 
+    # pipeline parallelism (slice 8, part 2b): GPipe and 1F1B over the 8B
+    # and Mixtral-8x1B stacks through the loopback drivers
+    record, pipe_launches = pipe_loopback_phase(torch, fa, int4)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
+    record, moe_pipe_launches = moe_pipe_loopback_phase(torch, fa, int4, gm)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
+
     # MoE serving (slice 4): Mixtral-8x1B, bf16 weights, grouped prefill
     from odh_kubeflow_tpu_torch.models import moe as moe_lib
 
@@ -3802,13 +4321,15 @@ def main() -> int:
 
     kernel["launches_by_path"] = {"serve": serve_launches, "engine": engine_launches,
                                   "train": train_launches["int4_dequant"], "moe_train": 0,
-                                  "mesh_train": mesh_launches["int4_dequant"]}
+                                  "mesh_train": mesh_launches["int4_dequant"],
+                                  "pipe_loopback": pipe_launches["int4_dequant"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
              "moe_full_train": full_launches, "mesh_train": mesh_launches,
              "ring_on_card": ring_launches, "moe_mesh_train": moe_mesh_launches,
-             "moe_ep_loopback": ep_launches}
+             "moe_ep_loopback": ep_launches, "pipe_loopback": pipe_launches,
+             "moe_pipe_loopback": moe_pipe_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

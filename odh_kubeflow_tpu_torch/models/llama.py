@@ -23,7 +23,11 @@ its shards of the tree (``param_specs``): every layer's weights are
 all-gathered over ``fsdp`` inside its rematerialised region, the
 projections are Megatron tensor-parallel over ``tensor`` (wq/wk/wv and
 the gate/up columns, wo and w_down rows summed), the embedding and head
-are vocab-parallel, and with ``context > 1`` attention is the ring.
+are vocab-parallel, and with ``context > 1`` attention is the ring. With
+``pipe > 1`` the decoder stack runs through the GPipe driver
+(``parallel/pipeline.py``, ``_apply_layers_pipelined``): each rank holds
+its stage's layers, and the embedding, the final norm and the head stay
+outside the pipeline.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ from odh_kubeflow_tpu_torch.parallel import collectives as col
 from odh_kubeflow_tpu_torch.parallel.mesh import (
     AXIS_CONTEXT,
     AXIS_FSDP,
+    AXIS_PIPE,
     AXIS_TENSOR,
+    BATCH_AXES,
     P,
 )
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
@@ -203,26 +209,59 @@ def param_shapes(cfg: LlamaConfig) -> Params:
 
 
 def init_params(
-    seed: int, cfg: LlamaConfig, dtype=torch.float32, *, device="cuda", keep=None
+    seed: int, cfg: LlamaConfig, dtype=torch.float32, *, device="cuda", keep=None, layers=None
 ) -> Params:
     """Random weights in the JAX package's layout, drawn from one
     ``torch.Generator`` seeded with ``seed`` (not JAX's random bits).
-    ``keep`` selects each rank's shard (``init_from_shapes``)."""
-    return init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep)
+    ``keep`` selects each rank's shard and ``layers`` a pipeline stage's
+    layers (``init_from_shapes``)."""
+    return init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep,
+                            layers=layers)
+
+
+def _draw_step(shape, dtype, device) -> int:
+    """How far one ``torch.randn(shape, dtype)`` draw moves a CUDA
+    generator's Philox offset (a function of the size, read off a probe)."""
+    probe = torch.Generator(device=device)
+    probe.manual_seed(0)
+    start = probe.get_offset()
+    torch.randn(shape, generator=probe, dtype=dtype, device=device)
+    return probe.get_offset() - start
+
+
+def normal_layers(gen: torch.Generator, shape, num_layers: int, layers, dtype, device):
+    """``(i, torch.randn(shape, dtype))`` for each layer ``i`` in ``layers``
+    of ``num_layers`` drawn one after another from ``gen``. The stream is
+    advanced past the other layers, not re-seeded, so a kept layer is
+    bit-equal to the same layer of the whole draw: on the card by moving
+    the Philox offset (nothing is drawn), on the CPU by drawing and
+    dropping."""
+    step = None
+    for i in range(num_layers):
+        if i in layers:
+            yield i, torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        elif device.type == "cuda":
+            if step is None:
+                step = _draw_step(shape, dtype, device)
+            gen.set_offset(gen.get_offset() + step)
+        else:
+            torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
 def init_from_shapes(
-    shapes: Params, seed: int, dtype, *, device="cuda", keep=None
+    shapes: Params, seed: int, dtype, *, device="cuda", keep=None, layers=None
 ) -> Params:
     """A ``param_shapes``-style tree of ``(shape, fan_in)`` leaves made
     real: ``normal · fan_in^-0.5``, ones where ``fan_in`` is None, each
-    leaf drawn whole, in order, from one generator.
+    leaf in order from one generator; a leaf under ``layers`` (``[L,
+    ...]``) one layer at a time.
 
     ``keep(path, tensor, per_layer)``, when given, returns the part of
-    each drawn leaf to keep (``per_layer`` is False here): every rank of a
-    mesh draws the same values and keeps its shard, so the shards are
-    exactly the single-device init's and a rank holds at most one whole
-    leaf beside its shards."""
+    each drawn leaf (``per_layer`` False) or layer (True) to keep: every
+    rank of a mesh draws the same values and keeps its shard, so the
+    shards are exactly the single-device init's. ``layers`` (a range, all
+    by default) are the layers a pipeline stage builds; the stream skips
+    the others (``normal_layers``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -235,12 +274,20 @@ def init_from_shapes(
                 out[k] = build(v, path + (k,))
                 continue
             shape, fan_in = v
+            where = path + (k,)
+            if path[:1] != ("layers",):
+                t = torch.ones(shape, dtype=dtype, device=dev) if fan_in is None else (
+                    torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+                    * fan_in**-0.5).to(dtype)
+                out[k] = keep(where, t, False)
+                continue
+            kept = range(shape[0]) if layers is None else layers
             if fan_in is None:
-                t = torch.ones(shape, dtype=dtype, device=dev)
+                parts = [torch.ones(shape[1:], dtype=dtype, device=dev) for _ in kept]
             else:
-                w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-                t = (w * fan_in**-0.5).to(dtype)
-            out[k] = keep(path + (k,), t, False)
+                parts = [(w * fan_in**-0.5).to(dtype) for _, w in normal_layers(
+                    gen, shape[1:], shape[0], kept, torch.float32, dev)]
+            out[k] = torch.stack([keep(where, t, True) for t in parts])
         return out
 
     return build(shapes, ())
@@ -801,6 +848,8 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
     mesh=None,
+    pipeline_microbatches: int = 8,
+    loopback_stages: Optional[int] = None,
 ) -> torch.Tensor:
     """Returns logits [B, S, V] in float32, or with ``return_hidden`` the
     final-norm hidden states [B, S, D] (the chunked loss runs the head).
@@ -815,7 +864,14 @@ def forward(
     ``cfg.remat`` each layer is a checkpointed region under
     ``cfg.remat_policy``; ``remat_pin_layers = n`` gives the first
     ``L - n`` layers ``remat_prefix_policy`` and the last ``n`` the named
-    policy, as JAX's two scans do."""
+    policy, as JAX's two scans do.
+
+    Pipelined, when ``mesh`` has ``pipe > 1`` (or, in one process,
+    ``loopback_stages`` stages), the decoder stack runs through GPipe with
+    ``pipeline_microbatches`` microbatches and every layer takes
+    ``cfg.remat_policy``, as JAX's pipelined stack does; under the mesh the
+    params' layers are this rank's stage's and ``tokens`` its block taken
+    microbatch-major (``train.data.shard_batch``)."""
     _check_supported(cfg)
     par = None if mesh is None else Sharding(mesh, cfg)
     B, S = tokens.shape
@@ -830,23 +886,27 @@ def forward(
     impl = resolved_attention_impl(cfg, tokens.device, mesh)
     attention_fn = causal_attention_fn(impl, mesh)
 
-    L = cfg.num_layers
-    policies = [cfg.remat_policy] * L
-    pin = cfg.remat_pin_layers
-    if cfg.remat and cfg.remat_policy != "none" and pin is not None and 0 < pin < L:
-        policies[: L - pin] = [cfg.remat_prefix_policy] * (L - pin)
-    fns = {p: _make_layer_fn(cfg, impl, attention_fn, p, par) for p in set(policies)}
-
     lora_layers = lora["layers"] if lora is not None else None
-    for i in range(L):
-        x = fns[policies[i]](
-            x,
-            _layer_slice(params["layers"], i),
-            _layer_slice(lora_layers, i),
-            sin,
-            cos,
-            segment_ids,
-        )
+    if pipelined(mesh, loopback_stages):
+        layer_fn = _make_layer_fn(cfg, impl, attention_fn, cfg.remat_policy, par)
+        x = _apply_layers_pipelined(layer_fn, params["layers"], lora_layers, x, sin, cos,
+                                    segment_ids, pipeline_microbatches, mesh, loopback_stages)
+    else:
+        L = cfg.num_layers
+        policies = [cfg.remat_policy] * L
+        pin = cfg.remat_pin_layers
+        if cfg.remat and cfg.remat_policy != "none" and pin is not None and 0 < pin < L:
+            policies[: L - pin] = [cfg.remat_prefix_policy] * (L - pin)
+        fns = {p: _make_layer_fn(cfg, impl, attention_fn, p, par) for p in set(policies)}
+        for i in range(L):
+            x = fns[policies[i]](
+                x,
+                _layer_slice(params["layers"], i),
+                _layer_slice(lora_layers, i),
+                sin,
+                cos,
+                segment_ids,
+            )
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if par is not None:
@@ -855,6 +915,81 @@ def forward(
         return x
     head = lm_head_weight(params, cfg) if par is None else par.head(params, cfg)
     return _logits(x, head, cfg.dtype)
+
+
+def pipelined(mesh, loopback_stages: Optional[int]) -> bool:
+    """Whether ``forward`` runs its decoder stack through the pipeline."""
+    return bool(loopback_stages) or (mesh is not None and mesh.sizes[AXIS_PIPE] > 1)
+
+
+def pipeline_args(layer_fn: Callable, layers: Params, lora_layers, sin, cos, segment_ids,
+                  num_microbatches: int, accumulate_aux: bool = False):
+    """``(stage_fn, stage_params, aux)`` for a pipeline driver
+    (``parallel/pipeline.py``) over the decoder stack: ``stage_fn`` runs a
+    stage's layers in order with ``layer_fn`` (and sums the layers' scalar
+    extra, the MoE aux, from a float32 zero with ``accumulate_aux``); the
+    rope angles and segment ids ride ``aux``, split into the microbatches
+    they belong to. Shared by the dense and MoE families."""
+    M = num_microbatches
+    B = sin.shape[0]
+
+    def split(a):
+        return a.reshape(M, B // M, *a.shape[1:])
+
+    aux = {"sin": split(sin), "cos": split(cos)}
+    if segment_ids is not None:
+        aux["segment_ids"] = split(segment_ids)
+    stage_params = {"layers": layers}
+    if lora_layers is not None:
+        stage_params["lora"] = lora_layers
+
+    def stage_fn(stage, x, aux_m):
+        n = stage["layers"]["attn_norm"].shape[0]  # the stage's layers
+        acc = torch.zeros((), dtype=torch.float32, device=x.device) if accumulate_aux else None
+        for i in range(n):
+            out = layer_fn(x, _layer_slice(stage["layers"], i),
+                           _layer_slice(stage.get("lora"), i), aux_m["sin"], aux_m["cos"],
+                           aux_m.get("segment_ids"))
+            if accumulate_aux:
+                x, extra = out
+                acc = acc + extra
+            else:
+                x = out
+        return (x, acc) if accumulate_aux else x
+
+    return stage_fn, stage_params, aux
+
+
+def _apply_layers_pipelined(layer_fn: Callable, layers: Params, lora_layers, x: torch.Tensor,
+                            sin, cos, segment_ids, num_microbatches: int, mesh=None,
+                            loopback_stages: Optional[int] = None, accumulate_aux: bool = False):
+    """The decoder stack through GPipe (counterpart of JAX's
+    ``_apply_layers_pipelined``): on ``mesh``'s pipe group, or
+    ``loopback_stages`` stages in one process. With ``accumulate_aux`` the
+    layers' scalar (the MoE aux) is summed over every (stage, microbatch)
+    pair and returned as ``(y, aux_sum / M)``, the mean of the microbatches'
+    auxes."""
+    from odh_kubeflow_tpu_torch.parallel import pipeline
+
+    M = num_microbatches
+    B = x.shape[0]
+    if B % M:
+        shards = 1 if mesh is None else mesh.size(BATCH_AXES)
+        raise ValueError(f"batch {B * shards} not divisible by pipeline_microbatches={M}")
+    B, S = x.shape[:2]
+    stage_fn, stage_params, aux = pipeline_args(
+        layer_fn, layers, lora_layers, sin.expand(B, S, -1), cos.expand(B, S, -1), segment_ids,
+        M, accumulate_aux)
+    kw = dict(num_microbatches=M, aux=aux, with_aux_out=accumulate_aux)
+    if loopback_stages:
+        out = pipeline.loopback_pipeline_apply(stage_fn, stage_params, x,
+                                               num_stages=loopback_stages, **kw)
+    else:
+        out = pipeline.pipeline_apply(stage_fn, stage_params, x, mesh=mesh, **kw)
+    if accumulate_aux:
+        y, aux_sum = out
+        return y, aux_sum / M
+    return out
 
 
 def lm_head_weight(params: Params, cfg: LlamaConfig) -> torch.Tensor:

@@ -36,8 +36,15 @@ local banks, and reduce-scatters the weighted outputs back over
 ``expert``. ``loopback_moe_mlp_grouped_ep`` runs the same shards one
 after another on one device. The ragged and einsum dispatches under a
 mesh (JAX gets them from GSPMD) are not ported and raise
-``NotImplementedError`` naming the work; the pipelined stack is not
-ported either (the trainer refuses ``pipe > 1``).
+``NotImplementedError`` naming the work.
+
+With ``pipe > 1`` (or ``loopback_stages``) the layer stack runs through
+GPipe as the dense family's does (``llama._apply_layers_pipelined``), the
+expert-parallel path inside each stage on the stage's (data, fsdp,
+expert) groups; the router aux rides the pipeline's scalar channel and is
+the mean of the microbatches' auxes, JAX's pipelined value (the
+load-balancing loss is not linear in the batch, so it is not the
+unpipelined aux).
 """
 
 from __future__ import annotations
@@ -170,11 +177,13 @@ def param_shapes(cfg: MoeConfig) -> Params:
 
 
 def init_params(
-    seed: int, cfg: MoeConfig, dtype=torch.float32, *, device="cuda", keep=None
+    seed: int, cfg: MoeConfig, dtype=torch.float32, *, device="cuda", keep=None, layers=None
 ) -> Params:
     """Random weights in the JAX package's layout (not its random bits).
-    ``keep`` selects each rank's shard (``llama.init_from_shapes``)."""
-    return llama.init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep)
+    ``keep`` selects each rank's shard and ``layers`` a pipeline stage's
+    layers (``llama.init_from_shapes``)."""
+    return llama.init_from_shapes(param_shapes(cfg), seed, dtype, device=device, keep=keep,
+                                  layers=layers)
 
 
 def param_specs(cfg: MoeConfig) -> Params:
@@ -923,6 +932,8 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
     mesh=None,
+    pipeline_microbatches: int = 8,
+    loopback_stages: Optional[int] = None,
 ):
     """``(logits [B,S,V] f32 — or the final-norm hidden [B,S,D] with
     return_hidden — , total aux loss)``. With ``base.remat`` each layer is
@@ -934,7 +945,9 @@ def forward(
     Under ``mesh`` the params are this rank's shards (``param_specs``),
     ``tokens`` its block of the batch, the logits its vocab columns, as in
     ``llama.forward(mesh=)``; the aux is the global batch's, the same on
-    every rank."""
+    every rank. Pipelined as ``llama.forward``'s stack (every layer on
+    ``remat_policy`` with the "moe_g" pin), the aux is the mean over the
+    microbatches of each one's aux."""
     b = cfg.base
     llama._check_supported(b)
     par = None if mesh is None else llama.Sharding(mesh, b)
@@ -949,27 +962,33 @@ def forward(
     impl = llama.resolved_attention_impl(b, tokens.device, mesh)
     attention_fn = llama.causal_attention_fn(impl, mesh)
 
-    L = b.num_layers
-    plans = [(b.remat_policy, cfg.pin_expert_acts)] * L
-    pin = b.remat_pin_layers
-    if b.remat and b.remat_policy != "none" and pin is not None and 0 < pin < L:
-        prefix = (b.remat_policy, False) if cfg.pin_expert_acts else ("none", False)
-        plans[: L - pin] = [prefix] * (L - pin)
-    fns = {p: _make_layer_fn(cfg, impl, attention_fn, *p, par=par, mesh=mesh)
-           for p in set(plans)}
-
     lora_layers = lora["layers"] if lora is not None else None
-    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(L):
-        x, aux = fns[plans[i]](
-            x,
-            llama._layer_slice(params["layers"], i),
-            llama._layer_slice(lora_layers, i),
-            sin,
-            cos,
-            segment_ids,
-        )
-        aux_total = aux_total + aux
+    if llama.pipelined(mesh, loopback_stages):
+        layer_fn = _make_layer_fn(cfg, impl, attention_fn, b.remat_policy, cfg.pin_expert_acts,
+                                  par=par, mesh=mesh)
+        x, aux_total = llama._apply_layers_pipelined(
+            layer_fn, params["layers"], lora_layers, x, sin, cos, segment_ids,
+            pipeline_microbatches, mesh, loopback_stages, accumulate_aux=True)
+    else:
+        L = b.num_layers
+        plans = [(b.remat_policy, cfg.pin_expert_acts)] * L
+        pin = b.remat_pin_layers
+        if b.remat and b.remat_policy != "none" and pin is not None and 0 < pin < L:
+            prefix = (b.remat_policy, False) if cfg.pin_expert_acts else ("none", False)
+            plans[: L - pin] = [prefix] * (L - pin)
+        fns = {p: _make_layer_fn(cfg, impl, attention_fn, *p, par=par, mesh=mesh)
+               for p in set(plans)}
+        aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for i in range(L):
+            x, aux = fns[plans[i]](
+                x,
+                llama._layer_slice(params["layers"], i),
+                llama._layer_slice(lora_layers, i),
+                sin,
+                cos,
+                segment_ids,
+            )
+            aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], b.rms_norm_eps)
     if par is not None:

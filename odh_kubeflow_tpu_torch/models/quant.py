@@ -173,25 +173,30 @@ def streaming_quantized_init(
     bits: int = 8,
     device="cuda",
     keep=None,
+    layers=None,
 ) -> Params:
     """Build an int8 (``bits=8``) or int4 (``bits=4``) param tree leaf by
     leaf on the device, with random weights (serving smoke and demo use).
 
     Initialising the whole model in bf16 and then quantizing would hold
     both trees at once. Here each leaf is drawn from its own
-    ``torch.Generator`` (seeded from ``seed`` and the leaf's path), then
-    quantized one ``[L]`` slice at a time, so the transient is one bf16
-    leaf plus one layer's f32 working set. Quantizing per layer gives
-    the same codes as quantizing the stack: the scales reduce within a
-    layer. Non-matmul leaves (embedding, norms) are ``normal * scale``
-    in bf16, as in the JAX package. ``cfg`` may be a ``LlamaConfig`` or a
-    ``MoeConfig``: expert banks ``[L, E, K, N]`` quantize like any other
-    matmul weight, a per-channel scale ``[L, E, 1, N]`` per expert.
+    ``torch.Generator`` (seeded from ``seed`` and the leaf's path), a
+    stacked ``[L, ...]`` leaf one layer at a time, and each matmul layer
+    quantized as it is drawn, so the transient is one layer's working
+    set. Quantizing per layer gives the same codes as quantizing the
+    stack: the scales reduce within a layer. Non-matmul leaves (embedding,
+    norms) are ``normal * scale`` in bf16, as in the JAX package. ``cfg``
+    may be a ``LlamaConfig`` or a ``MoeConfig``: expert banks ``[L, E, K,
+    N]`` quantize like any other matmul weight, a per-channel scale ``[L,
+    E, 1, N]`` per expert.
 
     ``keep(path, tensor, per_layer)``, when given, returns the part of
     each drawn leaf, or of each quantized layer of a stacked one
     (``per_layer``), to keep: a rank of a mesh keeps its shard of exactly
-    the single-device values.
+    the single-device values. ``layers`` (a range, all by default) are the
+    layers a pipeline stage builds: the other layers are skipped in each
+    leaf's stream (``llama.normal_layers``), never drawn on the card, so a
+    stage of an 8B base draws only its own.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -208,16 +213,23 @@ def streaming_quantized_init(
         gen = torch.Generator(device=dev)
         gen.manual_seed(_leaf_seed(seed, path, name))
         where = path + (name,)
-        if name not in _QUANT_LEAVES:
-            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-            return keep(where, (w * scale).to(torch.bfloat16), False)
-        w = torch.randn(shape, generator=gen, dtype=torch.bfloat16, device=dev) * scale
-        if w.ndim == 2:
-            return {k: keep(where + (k,), t, False) for k, t in qt(w).items()}
-        parts = [{k: keep(where + (k,), t, True) for k, t in qt(w[i]).items()}
-                 for i in range(w.shape[0])]
-        del w
-        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        quant = name in _QUANT_LEAVES
+        draw = torch.bfloat16 if quant else torch.float32
+        if path[:1] != ("layers",):
+            w = torch.randn(shape, generator=gen, dtype=draw, device=dev)
+            if not quant:
+                return keep(where, (w * scale).to(torch.bfloat16), False)
+            return {k: keep(where + (k,), t, False) for k, t in qt(w * scale).items()}
+        kept = range(shape[0]) if layers is None else layers
+        parts = []
+        for _, w in llama.normal_layers(gen, shape[1:], shape[0], kept, draw, dev):
+            if quant:
+                parts.append({k: keep(where + (k,), t, True) for k, t in qt(w * scale).items()})
+            else:
+                parts.append(keep(where, (w * scale).to(torch.bfloat16), True))
+        if quant:
+            return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        return torch.stack(parts)
 
     def build(tree, path=()):
         out = {}

@@ -12,8 +12,11 @@ package:
 - ``tensor``  — Megatron tensor parallelism inside a layer (heads and the
   MLP's intermediate dim split, the row-parallel products summed);
 - ``context`` — sequence parallelism (``parallel/ring_attention.py``);
-- ``expert`` and ``pipe`` — expert and pipeline parallelism, which the
-  port's trainer does not run yet.
+- ``expert`` — expert parallelism: a grouped MoE's banks split by expert
+  (``models/moe.py``), the axis a data axis for the dense layers;
+- ``pipe`` — pipeline parallelism (``parallel/pipeline.py``): the layer
+  stack split into stages, activations passed point to point between a
+  rank and its ``neighbours`` along the axis.
 
 One process drives one device. ``build_mesh`` lays a ``MeshConfig`` over
 the ranks of the default process group row-major in ``AXIS_ORDER`` with
@@ -160,8 +163,8 @@ class Mesh:
         in the order of their coordinates; None when they are only this
         rank (no collective needed). Created on first use: every rank
         asks for the same sets in the same order."""
-        axes = tuple(a for a in AXIS_ORDER if a in entry_axes(axes))
-        if self.size(axes) == 1:
+        axes = tuple(a for a in AXIS_ORDER if a in entry_axes(axes) and self.sizes[a] > 1)
+        if not axes:
             return None
         if axes not in self._groups:
             if len(axes) == 1:
@@ -169,6 +172,22 @@ class Mesh:
             else:
                 self._groups[axes] = _subgroup(self.config, axes)
         return self._groups[axes]
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at coordinate ``index`` of ``axis`` whose other
+        coordinates are this rank's."""
+        coords = dict(self.coords, **{axis: index})
+        r = 0
+        for a in AXIS_ORDER:
+            r = r * self.sizes[a] + coords[a]
+        return r
+
+    def neighbours(self, axis: str) -> tuple[Optional[int], Optional[int]]:
+        """The global ranks before and after this one along ``axis`` (None
+        past either end): a pipeline stage's previous and next stages."""
+        i, n = self.coords[axis], self.sizes[axis]
+        return (self.peer(axis, i - 1) if i > 0 else None,
+                self.peer(axis, i + 1) if i < n - 1 else None)
 
     def __repr__(self) -> str:
         return f"Mesh({self.config}, rank={self.rank}, device={self.device})"

@@ -17,7 +17,7 @@
 from __future__ import annotations
 
 import collections
-from typing import Any, Iterable, Iterator, Sequence
+from typing import Any, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,19 +114,35 @@ def _emit(rows, seq_len: int, pad_id: int) -> Batch:
     }
 
 
-def shard_batch(batch: Batch, mesh) -> Batch:
+def shard_batch(batch: Batch, mesh, microbatches: Optional[int] = None) -> Batch:
     """This rank's block of a global ``[B, S]`` batch (numpy or tensors)
     by ``parallel.mesh.batch_spec``, as tensors. Without ``targets`` the
     next-token targets are made first, by shifting the whole sequence:
     shifted after the split, each context block's last token would lose
-    its target."""
-    from odh_kubeflow_tpu_torch.parallel.mesh import batch_spec, local_shard
+    its target.
+
+    With ``microbatches`` M (a pipelined step) the block is taken
+    microbatch-major: its rows ``[m·mb', (m+1)·mb')`` are this rank's share
+    of the global microbatch ``m``, rows ``[m·B/M, (m+1)·B/M)``, as JAX's
+    pipeline splits the global batch before the batch axes split it."""
+    from odh_kubeflow_tpu_torch.parallel.mesh import BATCH_AXES, batch_spec, local_shard
 
     batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
              for k, v in batch.items()}
     if "targets" not in batch:
         batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
-    return {k: local_shard(v, mesh, batch_spec()) for k, v in batch.items()}
+    if microbatches is None:
+        return {k: local_shard(v, mesh, batch_spec()) for k, v in batch.items()}
+    M = microbatches
+    B = batch["tokens"].shape[0]
+    n = mesh.size(BATCH_AXES)
+    if B % M or (B // M) % n:
+        raise ValueError(
+            f"a microbatch of batch {B} / {M} microbatches does not split over the batch "
+            f"axes (data x fsdp x expert = {n}): each microbatch needs a multiple of {n} rows")
+    spec = (None,) + tuple(batch_spec())
+    return {k: local_shard(v.reshape(M, B // M, *v.shape[1:]), mesh, spec).flatten(0, 1)
+            for k, v in batch.items()}
 
 
 def prefetch_to_device(

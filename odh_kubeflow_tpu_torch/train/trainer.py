@@ -26,7 +26,15 @@ sums each leaf's squares over its shards once. A grouped MoE runs
 expert-parallel (``models/moe.py``): its banks shard over ``expert`` and
 sum their gradients over data and fsdp only, and each rank's loss share
 carries its part of the router aux, so the aux enters the summed loss
-once.
+once. With ``pipe > 1`` each rank also holds only its pipeline stage's
+layers (``_pipe_shard_layer_specs``), initialised alone, and the layer
+stack runs through GPipe (``parallel/pipeline.py``) on
+``TrainConfig.pipeline_microbatches`` microbatches, each rank's block of
+the batch taken microbatch-major. The embedding, final norm and head run
+on every stage, each stage's loss share is divided by the stage count, and
+the replicated leaves' gradients are summed over ``pipe`` as over the
+token axes: the embedding's arrive on stage 0 alone, the head's as equal
+parts on every stage, and every replica takes the same step.
 """
 
 from __future__ import annotations
@@ -74,6 +82,9 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.95
     z_loss: float = 0.0
+    # microbatches per GPipe schedule when the mesh shards `pipe` (the
+    # bubble is (S-1)/(M+S-1)); must divide the batch
+    pipeline_microbatches: int = 8
 
 
 def cross_entropy_loss(
@@ -277,13 +288,33 @@ def _world_group():
     return dist.group.WORLD if dist.get_world_size() > 1 else None
 
 
+# the axes a loss share is taken over: every token axis, and the pipe
+# stages, each of which computes the head on the whole output
+SHARE_AXES = mesh_lib.TOKEN_AXES + (mesh_lib.AXIS_PIPE,)
+
+
 def _grad_axes(spec) -> tuple:
-    """The axes a gradient sums over after the backward: the token axes
+    """The axes a gradient sums over after the backward: the share axes
     its leaf is not sharded over (a sharded leaf's fsdp sum is its
     gather's reduce-scatter; tensor-replicated leaves see equal
-    gradients on every tensor rank)."""
+    gradients on every tensor rank; a replicated leaf sums its stages'
+    parts)."""
     sharded = mesh_lib.spec_axes(spec)
-    return tuple(a for a in mesh_lib.TOKEN_AXES if a not in sharded)
+    return tuple(a for a in SHARE_AXES if a not in sharded)
+
+
+def _pipe_shard_layer_specs(spec_tree):
+    """Every spec under a ``layers`` subtree with its leading (layer) dim
+    over ``pipe``: a rank holds its stage's layers."""
+
+    def walk(tree, in_layers):
+        if isinstance(tree, dict):
+            return {k: walk(v, in_layers or k == "layers") for k, v in tree.items()}
+        if not in_layers:
+            return tree
+        return mesh_lib.P(mesh_lib.AXIS_PIPE, *tuple(tree)[1:])
+
+    return walk(spec_tree, False)
 
 
 def _keep_shard(mesh, specs):
@@ -306,9 +337,10 @@ class Trainer:
     (float, or int8/int4 with ``quantize_base``) and only the adapters
     train; on a MoE model they attach to the attention projections only.
     Without a mesh it trains on ``device``, the card by default; with a
-    ``parallel.mesh.Mesh`` (data, fsdp, tensor and context axes for a
-    Llama config; data, fsdp and expert for a grouped MoE) each rank
-    trains its shards on the mesh's device."""
+    ``parallel.mesh.Mesh`` (data, fsdp, tensor, context and pipe axes for
+    a Llama config; data, fsdp, expert and pipe for a grouped MoE) each
+    rank trains its shards on the mesh's device, with ``pipe > 1`` its
+    pipeline stage's layers."""
 
     def __init__(
         self,
@@ -332,11 +364,6 @@ class Trainer:
             if not isinstance(mesh, mesh_lib.Mesh):
                 raise TypeError(
                     f"mesh must be a parallel.mesh.Mesh (build_mesh), got {type(mesh).__name__}"
-                )
-            if mesh.sizes[mesh_lib.AXIS_PIPE] > 1:
-                raise NotImplementedError(
-                    "a mesh with pipe > 1 needs pipeline parallelism (GPipe/1F1B), which "
-                    "the port does not have yet"
                 )
             device = mesh.device
         self.mesh = mesh
@@ -376,7 +403,8 @@ class Trainer:
             self.precompile_async(*precompile_batch)
 
         self.param_specs = self.train_specs = None
-        keep = None
+        self.stages = 1 if mesh is None else mesh.sizes[mesh_lib.AXIS_PIPE]
+        keep = layers = None
         if mesh is not None:
             self.param_specs = (moe_lib if self.is_moe else llama).param_specs(model_cfg)
             if quantize_base:
@@ -385,20 +413,26 @@ class Trainer:
                 self.param_specs if lora_cfg is None
                 else lora_lib.lora_specs(self.base_cfg, lora_cfg)
             )
+            if self.stages > 1:
+                # stage ownership: every stacked per-layer leaf shards its
+                # layer dim over pipe, and the init builds only the stage's
+                L = self.base_cfg.num_layers
+                if L % self.stages:
+                    raise ValueError(f"layer dim {L} does not divide into {self.stages} stages")
+                self.param_specs = _pipe_shard_layer_specs(self.param_specs)
+                self.train_specs = _pipe_shard_layer_specs(self.train_specs)
+                n = L // self.stages
+                layers = range(mesh.coords[mesh_lib.AXIS_PIPE] * n,
+                               (mesh.coords[mesh_lib.AXIS_PIPE] + 1) * n)
             keep = _keep_shard(mesh, self.param_specs)
+        init = dict(device=self.device, keep=keep, layers=layers)
         if quantize_base:
             # leaf by leaf: the float tree of the model never exists whole
-            self.params = streaming_quantized_init(
-                model_cfg, seed, bits=self.quant_bits, device=self.device, keep=keep
-            )
+            self.params = streaming_quantized_init(model_cfg, seed, bits=self.quant_bits, **init)
         elif self.is_moe:
-            self.params = moe_lib.init_params(
-                seed, model_cfg, dtype=self.base_cfg.dtype, device=self.device, keep=keep
-            )
+            self.params = moe_lib.init_params(seed, model_cfg, dtype=self.base_cfg.dtype, **init)
         else:
-            self.params = llama.init_params(
-                seed, model_cfg, dtype=model_cfg.dtype, device=self.device, keep=keep
-            )
+            self.params = llama.init_params(seed, model_cfg, dtype=model_cfg.dtype, **init)
         self.lora_params = None
         if lora_cfg is not None:
             self.lora_params = lora_lib.init_lora_params(
@@ -419,12 +453,17 @@ class Trainer:
         global batch."""
         types = {"loss_mask": torch.float32, "segment_ids": torch.int32}
         if self.mesh is not None:
-            if self.is_moe:  # JAX's refusals of the global batch, before the split
-                B, S = batch["tokens"].shape
+            B, S = batch["tokens"].shape
+            M = None
+            if self.stages > 1:
+                M = self.train_cfg.pipeline_microbatches
+                if B % M:
+                    raise ValueError(f"batch {B} not divisible by pipeline_microbatches={M}")
+            if self.is_moe:  # JAX's refusals of the global (micro)batch, before the split
                 D = self.base_cfg.hidden_size
-                moe_lib.dispatch_path(torch.empty((B, S, D), device="meta"), self.model_cfg,
-                                      self.mesh)
-            batch = shard_batch(batch, self.mesh)
+                moe_lib.dispatch_path(torch.empty((B // (M or 1), S, D), device="meta"),
+                                      self.model_cfg, self.mesh)
+            batch = shard_batch(batch, self.mesh, microbatches=M)
         return {
             k: torch.as_tensor(v).to(self.device, types.get(k, torch.long), non_blocking=True)
             for k, v in batch.items()
@@ -462,8 +501,10 @@ class Trainer:
     def _mesh_loss(self, params: Params, lora_params, batch: dict) -> torch.Tensor:
         """This rank's share of the global mean loss: its masked nll sum over
         the global count of target tokens, plus, for a MoE model, the aux
-        (the same on every rank) over the number of ranks. The ranks'
-        shares sum to the loss, and so do their gradients."""
+        (the same on every rank) over the number of ranks; with pipe > 1
+        every stage computes the same head, so its share is divided by the
+        stage count. The ranks' shares sum to the loss, and so do their
+        gradients."""
         mesh, cfg = self.mesh, self.base_cfg
         seq_len = batch["tokens"].shape[1] * mesh.sizes[mesh_lib.AXIS_CONTEXT]
         chunked = seq_len > 2048 and seq_len % 1024 == 0
@@ -471,6 +512,7 @@ class Trainer:
         out = model.forward(
             params, batch["tokens"], self.model_cfg, lora=lora_params,
             segment_ids=batch.get("segment_ids"), return_hidden=chunked, mesh=mesh,
+            pipeline_microbatches=self.train_cfg.pipeline_microbatches,
         )
         out, aux = out if self.is_moe else (out, None)
         par = llama.Sharding(mesh, cfg)
@@ -485,13 +527,15 @@ class Trainer:
             nll, count = nll_sums(out, batch["targets"], batch.get("loss_mask"), z, **vocab)
         count = col.all_reduce_sum(count, mesh.group(mesh_lib.TOKEN_AXES))
         loss = nll / torch.clamp(count, min=1.0)
-        return loss if aux is None else loss + aux / mesh.size(mesh_lib.TOKEN_AXES)
+        if aux is not None:
+            loss = loss + aux / mesh.size(mesh_lib.TOKEN_AXES)
+        return loss / self.stages if self.stages > 1 else loss
 
     def _reported(self, loss: torch.Tensor) -> torch.Tensor:
         """The global loss from this rank's share."""
         if self.mesh is None:
             return loss
-        return col.all_reduce_sum(loss, self.mesh.group(mesh_lib.TOKEN_AXES))
+        return col.all_reduce_sum(loss, self.mesh.group(SHARE_AXES))
 
     # -- kernel build ahead of the first step ----------------------------------
 

@@ -277,9 +277,14 @@ def test_trainer_refuses_what_jax_refuses_and_later_slices():
         Trainer(TCFG, lora_cfg=lora.LoraConfig(), quantize_base="int2", device="cpu")
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Trainer(TCFG, mesh=object(), device="cpu")
+    # pipe > 1 trains (tests/test_torch_pipeline_trainer.py); what still
+    # raises is JAX's refusal of a batch the microbatches do not divide
     piped = Mesh(TMeshConfig(pipe=2), torch.device("cpu"), None, rank=0)
-    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
-        Trainer(TCFG, mesh=piped, device="cpu")
+    tt = Trainer(TCFG, TrainConfig(pipeline_microbatches=4), mesh=piped, device="cpu",
+                 metrics_registry=prometheus.Registry())
+    toks = np.zeros((6, 8), np.int32)
+    with pytest.raises(ValueError, match="batch 6 not divisible by pipeline_microbatches=4"):
+        tt.train_step({"tokens": toks, "targets": toks})
     with pytest.raises(TypeError, match="LlamaConfig or a MoeConfig"):
         Trainer(object(), device="cpu")
     if not torch.cuda.is_available():
