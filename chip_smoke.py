@@ -3613,10 +3613,11 @@ def engine_prompts(torch, V: int) -> list:
     return [torch.randint(1, V, (n,), generator=gen).tolist() for n in lengths]
 
 
-def engine_phase(torch, int4, cfg, params) -> tuple[dict, object]:
+def engine_phase(torch, int4, cfg, params) -> tuple[dict, object, list]:
     """Llama-3-8B int4 through ``CompletionService(engine_slots=8)`` and its
-    HTTP surface. Returns the record and the service (its engine is reused
-    by ``engine_graphs``)."""
+    HTTP surface. Returns the record, the service (its engine is reused by
+    ``engine_graphs``) and the greedy completions of the staggered streams
+    (``engine_mesh`` holds its tokens to them)."""
     import importlib
     import threading
 
@@ -3789,7 +3790,7 @@ def engine_phase(torch, int4, cfg, params) -> tuple[dict, object]:
     finally:
         httpd.shutdown()
         httpd.server_close()
-    return record, service
+    return record, service, completions
 
 
 def _replayed_equals_eager(torch, eng, prompts) -> dict:
@@ -4071,13 +4072,14 @@ def w8a8_phase(torch) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
-def moe_engine_phase(torch, fa, int4, gm, cfg, params, served) -> tuple[dict, object]:
+def moe_engine_phase(torch, fa, int4, gm, cfg, params, served) -> tuple[dict, object, list]:
     """Mixtral-8x1B bf16 through ``CompletionService(engine_slots=8)``: 4
     ragged prompts (ragged path: below 2,048 assignments) and one of 700
     tokens (bucket 1,024: the grouped prefill, 48 ``gmm`` on the engine
     thread); greedy against the one-shot service's completions (served by
-    ``moe_serve``), TTFT and the decode step. Returns the record and the
-    service (its engine is reused by ``engine_graphs``)."""
+    ``moe_serve``), TTFT and the decode step. Returns the record, the
+    service (its engine is reused by ``engine_graphs``) and the engine's
+    tokens (``moe_engine_mesh`` holds its tokens to them)."""
     import importlib
 
     from odh_kubeflow_tpu_torch.models.serve import CompletionService
@@ -4122,7 +4124,173 @@ def moe_engine_phase(torch, fa, int4, gm, cfg, params, served) -> tuple[dict, ob
               "note": "routing is discontinuous: a bf16 difference of the engine's batch shape "
                       "may flip an expert and the tokens after it; reported, not failed",
               "seconds": time.perf_counter() - t_phase}
-    return record, service
+    return record, service, got
+
+
+# ---------------------------------------------------------------------------
+# serving under a mesh (slice 8, part 3): the engine with
+# DecodeEngine(mesh=build_mesh(MeshConfig())) on an NCCL group of one rank
+# (one card: every axis has size 1, so no collective is issued and the
+# decode chunk is still captured as a CUDA graph)
+
+MESH_SAMPLED_TOKENS = 16
+
+
+def one_rank_group(torch):
+    """An NCCL process group of one rank and the all-ones mesh over it."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    return build_mesh(MeshConfig(), device="cuda")
+
+
+def serve_engine(cfg, params, mesh, **kw):
+    """A ``DecodeEngine`` as ``CompletionService(engine_slots=8)`` builds it."""
+    from odh_kubeflow_tpu_torch.models.engine import DecodeEngine
+    from odh_kubeflow_tpu_torch.models.serve import DEFAULT_PROMPT_BUCKETS
+    from odh_kubeflow_tpu_torch.utils import prometheus
+
+    return DecodeEngine(params, cfg, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                        prompt_buckets=DEFAULT_PROMPT_BUCKETS, pad_id=0, mesh=mesh,
+                        device="cuda", metrics_registry=prometheus.Registry(), **kw)
+
+
+def engine_mesh_phase(torch, int4, cfg, params, completions, graph_step_ms) -> tuple[dict, int]:
+    """The ``engine`` phase's Llama-3-8B int4 engine (8 slots, ``ENGINE_KW``)
+    under a mesh at world size 1. Its greedy tokens for the 16 engine
+    prompts (64 each, submitted at once) must be bit-equal to the engine
+    phase's: a row's decode never reads another row, so they do not depend
+    on the arrivals. Its sampled tokens must be bit-equal to those of a
+    fresh engine without a mesh that runs the same requests in the same
+    order (the noise a chunk draws depends on the history of the slots).
+    The chunk must be captured, and the 16 prompts must take exactly 225
+    dequants a prefill and a decode step. Returns the record and those
+    launches (counted from 0 just before the 16 prompts)."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    V = cfg.vocab_size
+    gen = torch.Generator().manual_seed(37)
+    warm = [torch.randint(1, V, (40,), generator=gen).tolist() for _ in range(2)]
+    prompts = engine_prompts(torch, V)
+    sampled = [(prompts[0], dict(temperature=1.0, top_k=50)),
+               (prompts[1], dict(temperature=0.7, top_p=0.9)),
+               (prompts[2], dict(temperature=0.8))]
+
+    def warm_and_sample(eng):
+        # the greedy and the sampling chunk each run once eagerly, then are
+        # captured; then the sampled requests, one at a time
+        eng.submit(warm[0], max_tokens=25).result(timeout=600)
+        eng.submit(warm[1], max_tokens=25, temperature=0.8).result(timeout=600)
+        return [eng.submit(p, max_tokens=MESH_SAMPLED_TOKENS, **kw).result(timeout=600)
+                for p, kw in sampled]
+
+    plain = serve_engine(cfg, params, None, **ENGINE_KW)
+    try:
+        want_sampled = warm_and_sample(plain)
+    finally:
+        plain.stop()
+    del plain
+    torch.cuda.empty_cache()
+    mesh = one_rank_group(torch)
+    try:
+        eng = serve_engine(cfg, params, mesh, **ENGINE_KW)
+        try:
+            got_sampled = warm_and_sample(eng)
+            if not eng.cuda_graphs or set(eng._graphs) != {"greedy", "sample"}:
+                raise AssertionError(f"under the mesh the captured graphs are "
+                                     f"{sorted(eng._graphs)}")
+            captured = eng._graph_launches["greedy"][0]
+            if captured != LAUNCHES_PER_FORWARD * eng.chunk:
+                raise AssertionError(f"a greedy chunk captured {captured} dequants")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng.chunk_times.clear()
+            eng.decode_steps = 0
+            int4.launches = 0  # the mesh engine's count starts here
+            t0 = time.perf_counter()
+            hs = [eng.submit(p, max_tokens=ENGINE_NEW_TOKENS) for p in prompts]
+            got = [h.result(timeout=600) for h in hs]
+            wall = time.perf_counter() - t0
+            launched = int4.launches
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            steps = eng.decode_steps
+            step_8 = step_ms(eng, "greedy", ENGINE_SLOTS)
+        finally:
+            eng.stop()
+    finally:
+        dist.destroy_process_group()
+    want = LAUNCHES_PER_FORWARD * (ENGINE_REQUESTS + steps)
+    if launched != want:
+        raise AssertionError(f"the mesh engine launched {launched} dequants, not {want}")
+    if got != completions:
+        i = next(i for i, (a, b) in enumerate(zip(got, completions)) if a != b)
+        raise AssertionError(f"greedy tokens of prompt {i} differ from the engine phase's")
+    if got_sampled != want_sampled:
+        raise AssertionError("sampled tokens under the mesh differ from the engine's without")
+    return {"phase": "engine_mesh",
+            "config": "the engine phase's: llama3_8b int4, 8 slots, "
+                      f"{ENGINE_KW}; DecodeEngine(mesh=build_mesh(MeshConfig())) on an NCCL "
+                      "group of 1",
+            "graphs": sorted(eng._graphs), "captured_dequant_launches_per_chunk": captured,
+            "greedy_equal_engine_phase": True, "greedy_requests": ENGINE_REQUESTS,
+            "sampled_equal_without_mesh": True, "sampled_requests": len(sampled),
+            "dequant_launches": launched, "dequant_launches_per_request": launched
+            / ENGINE_REQUESTS, "decode_steps": steps,
+            "decode_step_ms_8_slots": step_8,
+            "engine_graphs_decode_step_ms_8_slots": graph_step_ms,
+            "wall_s": wall, "peak_memory_gb": peak_gb,
+            "seconds": time.perf_counter() - t_phase}, launched
+
+
+def moe_engine_mesh_phase(torch, fa, int4, gm, cfg, params, moe_engine_tokens,
+                          moe_engine_launches) -> tuple[dict, dict]:
+    """The ``moe_engine`` phase's Mixtral-8x1B bf16 engine under a mesh at
+    world size 1, the same warm-up and rows (4 ragged prompts and the
+    700-token one, 32 tokens each): tokens bit-equal to ``moe_engine``'s,
+    and the same launches (one grouped prefill: 48 bf16 ``gmm``). Returns
+    the record and the launches (counted from 0 just before the rows)."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    prompts = moe_serve_requests(torch, cfg.vocab_size)
+    mesh = one_rank_group(torch)
+    try:
+        eng = serve_engine(cfg, params, mesh, chunk=ENGINE_KW["chunk"])
+        try:
+            eng.submit(prompts["long"][0], max_tokens=2).result(timeout=600)
+            eng.submit(prompts["short"][0], max_tokens=25).result(timeout=600)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng.chunk_times.clear()
+            zero_moe_counts(fa, int4, gm)  # the mesh engine's count starts here
+            hs = [eng.submit(p, max_tokens=32) for p in prompts["ragged4"] + prompts["long"]]
+            got = [h.result(timeout=600) for h in hs]
+            launched = moe_counts(fa, gm)
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            graphs = sorted(eng._graphs)
+            step = statistics.median(t for v, _, t in eng.chunk_times) / eng.chunk * 1e3
+        finally:
+            eng.stop()
+    finally:
+        dist.destroy_process_group()
+    if launched != moe_engine_launches or launched["gmm"] != MOE_SERVE_PREFILL["gmm"]:
+        raise AssertionError(f"launches {launched}, the moe_engine phase's "
+                             f"{moe_engine_launches}")
+    if got != moe_engine_tokens:
+        raise AssertionError("tokens under the mesh differ from the moe_engine phase's")
+    if graphs != ["greedy"]:
+        raise AssertionError(f"captured graphs {graphs}")
+    return {"phase": "moe_engine_mesh",
+            "config": "the moe_engine phase's: mixtral_8x1b bf16, dispatch grouped, 8 slots, "
+                      f"chunk {ENGINE_KW['chunk']}; DecodeEngine(mesh=build_mesh(MeshConfig())) "
+                      "on an NCCL group of 1",
+            "tokens_equal_moe_engine": True, "launches": launched, "graphs": graphs,
+            "decode_step_ms": step, "peak_memory_gb": peak_gb,
+            "seconds": time.perf_counter() - t_phase}, launched
 
 
 def main() -> int:
@@ -4205,7 +4373,7 @@ def main() -> int:
           "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
 
     # the serving engine (slice 7) on the same 8B int4 parameters
-    record, service = engine_phase(torch, int4, cfg, params)
+    record, service, completions = engine_phase(torch, int4, cfg, params)
     record["card"] = label
     emit(record)
     engine_launches = record["staggered"]["dequant_launches"]
@@ -4214,6 +4382,13 @@ def main() -> int:
                                   "llama3_8b int4", dense=True)]
     graphs_s = time.perf_counter() - t0
     del service
+    torch.cuda.empty_cache()
+    # serving under a mesh (slice 8, part 3) at world size 1
+    record, engine_mesh_launches = engine_mesh_phase(
+        torch, int4, cfg, params, completions, graphs[0]["graph"]["decode_step_ms"][ENGINE_SLOTS])
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
     record = spec_phase(torch, int4, cfg, params)
     record["card"] = label
     emit(record)
@@ -4295,7 +4470,8 @@ def main() -> int:
     emit(moe_serve_parity_phase(torch, fa, gm, cfg, params, served))
     emit({"phase": "moe_profile", "card": label,
           "steps": [profile_phase(torch, cfg, params, b) for b in (1, 4)]})
-    record, service = moe_engine_phase(torch, fa, int4, gm, cfg, params, served)
+    record, service, moe_engine_tokens = moe_engine_phase(torch, fa, int4, gm, cfg, params,
+                                                          served)
     record["card"] = label
     emit(record)
     moe_engine_launches = record["launches"]
@@ -4306,7 +4482,13 @@ def main() -> int:
     emit({"phase": "engine_graphs", "card": label, "chunk": ENGINE_KW["chunk"],
           "chunks_per_run": GRAPH_CHUNKS, "models": graphs,
           "seconds": graphs_s + time.perf_counter() - t0})
-    del service, params
+    del service
+    torch.cuda.empty_cache()
+    record, moe_engine_mesh_launches = moe_engine_mesh_phase(
+        torch, fa, int4, gm, cfg, params, moe_engine_tokens, moe_engine_launches)
+    record["card"] = label
+    emit(record)
+    del params
     torch.cuda.empty_cache()
 
     # the MoE full fine-tune (slice 4): trainable bf16 banks
@@ -4320,12 +4502,14 @@ def main() -> int:
     emit(moe_full_train_parity_phase(torch, fa, int4, gm))
 
     kernel["launches_by_path"] = {"serve": serve_launches, "engine": engine_launches,
+                                  "engine_mesh": engine_mesh_launches,
                                   "train": train_launches["int4_dequant"], "moe_train": 0,
                                   "mesh_train": mesh_launches["int4_dequant"],
                                   "pipe_loopback": pipe_launches["int4_dequant"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
+             "moe_engine_mesh": moe_engine_mesh_launches,
              "moe_full_train": full_launches, "mesh_train": mesh_launches,
              "ring_on_card": ring_launches, "moe_mesh_train": moe_mesh_launches,
              "moe_ep_loopback": ep_launches, "pipe_loopback": pipe_launches,

@@ -27,6 +27,28 @@ the libraries and kernels; the second captures. A capture that fails
 raises, it never falls back to eager. Kernel wrappers count their
 launches on the host, so a capture's launches are counted once per
 replay (``_LAUNCH_COUNTERS``). Prefill stays eager.
+
+Under a mesh (``mesh=``, one process a rank, every rank building the
+engine with its shards of the params) the persistent cache shards as
+JAX's ``generate.cache_specs``: each rank holds its (data, fsdp) block of
+the slots, replicated over tensor and expert, and its KV heads. JAX's
+engine is one controller driving the whole mesh; the port's ranks run
+the same loop in lockstep. Rank 0 owns the queue and ``submit``. At the
+top of every loop turn it broadcasts the turn's plan over the world
+group (the requests that arrived, with their prompts and sampling knobs;
+the cancellations; stop), and every rank then takes the same decisions:
+the admissions, the chunked-prefill parts, the decode chunks, so their
+collectives match. A slot's prefill runs on every rank, replicated over
+the batch axes and sharded over tensor; only the rank that owns the slot
+writes its KV into its cache block (the others write a scratch row, and
+keep the same prefix-cache entries). Every rank draws the noise of all
+slots from the same generator state and keeps its rows, so sampled tokens
+are the one-device engine's. After each chunk the emitted tokens and the
+was-active mask are gathered over the batch axes, and every rank keeps
+the same slot bookkeeping. At world size 1 the decode chunk is still
+captured as one graph per variant; under a mesh with any axis > 1 the
+chunks run eagerly (capture with collectives inside is untested), and
+``cuda_graphs=True`` there is refused.
 """
 
 from __future__ import annotations
@@ -39,8 +61,12 @@ import time
 from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from odh_kubeflow_tpu_torch.models.generate import (
+    SERVE_BATCH_AXES,
+    batch_block,
+    check_serving_mesh,
     family_forward,
     filter_logits,
     gumbel_noise,
@@ -48,6 +74,8 @@ from odh_kubeflow_tpu_torch.models.generate import (
 )
 from odh_kubeflow_tpu_torch.ops import grouped_matmul as gm
 from odh_kubeflow_tpu_torch.ops import int4 as int4_ops
+from odh_kubeflow_tpu_torch.parallel import collectives as col
+from odh_kubeflow_tpu_torch.parallel import mesh as mesh_lib
 from odh_kubeflow_tpu_torch.utils import prometheus
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
@@ -77,13 +105,16 @@ def sample_logits_rowwise(
     temperature: torch.Tensor,  # [B] f32; <= 0 → greedy for that row
     top_k: torch.Tensor,  # [B] integer; <= 0 → off
     top_p: torch.Tensor,  # [B] f32; <= 0 or >= 1 → off
+    rows=None,
 ) -> torch.Tensor:
     """Per-row sampling: each slot applies its own request's knobs, with
     ``generate.sample_logits``'s semantics row by row (the filtering is
-    ``generate.filter_logits``). Draws come from ``generator``."""
+    ``generate.filter_logits``). Draws come from ``generator`` (``rows``:
+    a block of a larger batch, see ``generate.gumbel_noise``)."""
     greedy = torch.argmax(logits, dim=-1)
     scaled = filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
-    sampled = torch.argmax(scaled + gumbel_noise(scaled.shape, generator, logits.device), dim=-1)
+    noise = gumbel_noise(scaled.shape, generator, logits.device, rows)
+    sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temperature > 0, sampled, greedy)
 
 
@@ -106,6 +137,10 @@ class _Request:
     # on the host: what a client streaming from this process sees)
     submit_t: float = 0.0
     times: list[float] = dataclasses.field(default_factory=list)
+    # under a mesh: the id rank 0 gave the request, and the cancellation
+    # every rank acts on (broadcast at a turn's start, so all act alike)
+    rid: int = -1
+    cancel_seen: bool = False
 
     def cancel(self) -> None:
         """Abandon the stream (the client went away): the engine frees the
@@ -159,8 +194,11 @@ class _Request:
 class DecodeEngine:
     """Slot-batched continuous decoding over a persistent KV cache, on
     the card unless ``device`` says otherwise. ``cuda_graphs`` (the card
-    only) replays each decode-chunk variant as one CUDA graph; off, the
-    chunks run eagerly (the comparison ``chip_smoke.py`` times)."""
+    only; on by default where it can run) replays each decode-chunk
+    variant as one CUDA graph; off, the chunks run eagerly (the comparison
+    ``chip_smoke.py`` times). ``mesh``: a ``parallel.mesh.Mesh``; every
+    rank builds the engine with its shards of the params
+    (``param_specs``), rank 0 submits (see the module docstring)."""
 
     def __init__(
         self,
@@ -186,12 +224,11 @@ class DecodeEngine:
         metrics_registry: Optional[prometheus.Registry] = None,
         compile_cache_dir: Optional[str] = None,
         device="cuda",
-        cuda_graphs: bool = True,
+        cuda_graphs: Optional[bool] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=) needs multi-device parallelism, which the "
-                "port does not have yet"
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+            raise TypeError(
+                f"mesh must be a parallel.mesh.Mesh (build_mesh), got {type(mesh).__name__}"
             )
         if compile_cache_dir is not None:
             raise NotImplementedError(
@@ -200,6 +237,12 @@ class DecodeEngine:
             )
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params needs draft_cfg")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+            check_serving_mesh(mesh, family_forward(cfg)[0], n_slots)
+            if draft_params is not None:
+                check_serving_mesh(mesh, family_forward(draft_cfg)[0])
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -231,9 +274,34 @@ class DecodeEngine:
             dcache_cfg, self._dfwd = family_forward(draft_cfg)
 
         cache_cfg, self._fwd = family_forward(cfg)
-        S, dev = n_slots, self.device
+        dev = self.device
+        # this rank's block of the slots: rows [row0, row0 + S) of n_slots
+        self._row0, S = 0, n_slots
+        self._rows = None  # the noise rows a sampled step keeps (all of them)
+        self._batch_group = None
+        self._lockstep = False  # the ranks' loops run in lockstep
+        self._decode_kw: dict = {}  # the cached forward's mesh arguments
+        self._admit_kw: dict = {}
+        multi = False
+        if mesh is not None:
+            index, blocks = batch_block(mesh)
+            S = n_slots // blocks
+            self._row0, self._rows = index * S, (index * S, n_slots)
+            # every group the forwards use, made now, on every rank in one
+            # order (a group over several axes is made collectively)
+            for axes in (mesh_lib.AXIS_FSDP, mesh_lib.AXIS_TENSOR, mesh_lib.AXIS_EXPERT,
+                         SERVE_BATCH_AXES):
+                mesh.group(axes)
+            self._batch_group = mesh.group(SERVE_BATCH_AXES)
+            self._lockstep = dist.get_world_size() > 1
+            self._decode_kw = {"mesh": mesh}
+            # an admission's prompt is replicated over the batch axes
+            self._admit_kw = {"mesh": mesh, "batch_axes": ()}
+            multi = mesh.config.num_devices > 1
+        self._rank0 = not self._lockstep or dist.get_rank() == 0
+        self._n_local = S
         self._state = {
-            "cache": init_cache(cache_cfg, S, max_len, cache_dtype, device=dev),
+            "cache": init_cache(cache_cfg, n_slots, max_len, cache_dtype, device=dev, mesh=mesh),
             "kv_mask": torch.zeros((S, max_len), dtype=torch.bool, device=dev),
             "cur_token": torch.zeros((S,), dtype=torch.long, device=dev),
             "write_idx": torch.zeros((S,), dtype=torch.long, device=dev),
@@ -246,7 +314,14 @@ class DecodeEngine:
             "eos": torch.full((S,), -1, dtype=torch.long, device=dev),
         }
         if draft_params is not None:
-            self._state["dcache"] = init_cache(dcache_cfg, S, max_len, cache_dtype, device=dev)
+            self._state["dcache"] = init_cache(dcache_cfg, n_slots, max_len, cache_dtype,
+                                               device=dev, mesh=mesh)
+        # where a prefill of a slot another rank owns writes: one slot's rows
+        self._scratch = None
+        if mesh is not None and S < n_slots:
+            self._scratch = {key: {kv: torch.zeros_like(c[:, :1]) for kv, c in
+                                   self._state[key].items()}
+                             for key in ("cache", "dcache") if key in self._state}
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed)
         self._slots_row = torch.arange(max_len, device=dev)[None, :]
@@ -257,8 +332,13 @@ class DecodeEngine:
         self._out_mask = torch.zeros((S, width), dtype=torch.bool, device=dev)
 
         # CUDA graphs, one a variant, sharing one memory pool (the
-        # variants never run at once)
-        self.cuda_graphs = cuda_graphs and dev.type == "cuda"
+        # variants never run at once); not under a mesh with an axis > 1
+        if cuda_graphs and multi:
+            raise NotImplementedError(
+                "cuda_graphs=True under a mesh with an axis > 1: capturing the decode "
+                "chunk with collectives inside is not supported; its chunks run eagerly"
+            )
+        self.cuda_graphs = cuda_graphs is not False and dev.type == "cuda" and not multi
         self._graphs: dict[str, Any] = {}
         self._graph_launches: dict[str, list] = {}
         # device memory each capture reserved for its pool: what the
@@ -297,13 +377,18 @@ class DecodeEngine:
         self.chunk_times: "collections.deque" = collections.deque(maxlen=4096)
         # set on an unrecoverable device failure; submit() then raises
         self.failure: Optional[Exception] = None
-        self._slot_req: list[Optional[_Request]] = [None] * S
+        self._slot_req: list[Optional[_Request]] = [None] * n_slots
         # (req, device first token, slot): fetched with the next chunk's
         # outputs, so the prefill's first token costs no sync of its own
         self._pending_first: list = []
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._wake = threading.Event()
         self._stopped = False
+        # lockstep: the requests every rank knows, in arrival order, not yet
+        # admitted; the live ones by id; rank 0's next id
+        self._backlog: "collections.deque[_Request]" = collections.deque()
+        self._live: dict[int, _Request] = {}
+        self._next_rid = 0
         if dev.type == "cuda":
             # the state was written on this thread's stream; the engine
             # thread works on its own
@@ -313,16 +398,34 @@ class DecodeEngine:
 
     # -- admission ----------------------------------------------------------
 
+    def _local(self, slot: int) -> Optional[int]:
+        """The slot's row in this rank's block, None where another rank
+        owns it."""
+        r = slot - self._row0
+        return r if 0 <= r < self._n_local else None
+
     def _slot_view(self, slot: int, key: str = "cache") -> Params:
         """The slot's rows of a persistent cache, ``[L, 1, max_len, …]``
-        views: a prefill writes there in place."""
-        c = self._state[key]
-        return {kv: c[kv][:, slot : slot + 1] for kv in ("k", "v")}
+        views: a prefill writes there in place (a slot another rank owns:
+        this rank's scratch row)."""
+        r = self._local(slot)
+        c = self._state[key] if r is not None else self._scratch[key]
+        r = r or 0
+        return {kv: c[kv][:, r : r + 1] for kv in ("k", "v")}
+
+    def _deactivate(self, slot: int) -> None:
+        r = self._local(slot)
+        if r is not None:
+            self._state["active"][r] = False
 
     def _write_slot_state(self, slot: int, first: torch.Tensor, total: int,
                           req: _Request) -> None:
         """Arm ``slot``'s decode fields after its prefill (shared by every
-        admission path, so their semantics cannot drift)."""
+        admission path, so their semantics cannot drift); only its owner
+        holds them."""
+        slot = self._local(slot)
+        if slot is None:
+            return
         st = self._state
         st["kv_mask"][slot] = self._slots_row[0] < total
         st["cur_token"][slot : slot + 1] = first
@@ -352,7 +455,7 @@ class DecodeEngine:
             self.params, toks, self.cfg, self._slot_view(slot), start,
             positions=positions, kv_mask=self._slots_row < total, lora=self.lora,
             # bucket padding is not content: a MoE router must not route it
-            token_mask=torch.arange(bucket, device=dev)[None, :] < len(rem),
+            token_mask=torch.arange(bucket, device=dev)[None, :] < len(rem), **self._admit_kw,
         )
         knobs = (
             torch.tensor([req.temperature], dtype=torch.float32, device=dev),
@@ -374,12 +477,13 @@ class DecodeEngine:
             self._slot_view(slot), start,
             positions=start + torch.arange(width, device=dev)[None, :],
             kv_mask=self._slots_row < start + width, lora=self.lora,
-            token_mask=torch.ones((1, width), dtype=torch.bool, device=dev),
+            token_mask=torch.ones((1, width), dtype=torch.bool, device=dev), **self._admit_kw,
         )
 
     def _seed_prefix(self, slot: int, entry: dict, plen: int) -> None:
+        view = self._slot_view(slot)
         for kv in ("k", "v"):
-            self._state["cache"][kv][:, slot, :plen] = entry[kv]
+            view[kv][:, 0, :plen] = entry[kv]
 
     def _draft_prefill(self, slot: int, prompt: list[int], bucket: int) -> None:
         """Fill the draft's cache rows of a freshly admitted slot over the
@@ -392,7 +496,7 @@ class DecodeEngine:
         self._dfwd(
             self.draft_params, toks, self.draft_cfg, self._slot_view(slot, "dcache"), 0,
             positions=torch.arange(bucket, device=dev)[None, :], kv_mask=kv_mask,
-            token_mask=kv_mask[:, :bucket],
+            token_mask=kv_mask[:, :bucket], **self._admit_kw,
         )
 
     def _match_prefix(self, prompt: list[int]):
@@ -422,7 +526,8 @@ class DecodeEngine:
             key = (pb, tuple(prompt[:pb]))
             if key in self._prefix_cache:
                 return
-            entry = {kv: self._state["cache"][kv][:, slot, :pb].clone() for kv in ("k", "v")}
+            view = self._slot_view(slot)
+            entry = {kv: view[kv][:, 0, :pb].clone() for kv in ("k", "v")}
             while len(self._prefix_cache) >= self.prefix_cache_entries:
                 self._prefix_cache.pop(next(iter(self._prefix_cache)))
             self._prefix_cache[key] = entry
@@ -462,7 +567,8 @@ class DecodeEngine:
         at its write index, so that index parks at the last column, which
         a request's tokens never reach (prompt + max_tokens <= max_len)."""
         slot = self._slot_req.index(None)
-        self._state["write_idx"][slot] = self.max_len - 1
+        if self._local(slot) is not None:
+            self._state["write_idx"][self._local(slot)] = self.max_len - 1
         start = 0
         plen, entry = self._match_prefix(req.prompt)
         if plen is not None:
@@ -479,7 +585,7 @@ class DecodeEngine:
         turn, between decode chunks)."""
         adm = self._admitting
         req, slot = adm["req"], adm["slot"]
-        if req.cancelled:
+        if self._cancelled(req):
             self._admitting = None
             self._slot_req[slot] = None
             req._finish()
@@ -518,14 +624,14 @@ class DecodeEngine:
             st["kv_mask"] |= active[:, None] & (self._slots_row == widx[:, None])
             logits, _ = self._fwd(
                 self.params, st["cur_token"][:, None], self.cfg, st["cache"], widx,
-                positions=pos[:, None], kv_mask=st["kv_mask"], lora=self.lora,
+                positions=pos[:, None], kv_mask=st["kv_mask"], lora=self.lora, **self._decode_kw,
             )
             if greedy:
                 # every active slot is greedy: no full-vocab sorts
                 nxt = torch.argmax(logits[:, 0, :], dim=-1)
             else:
                 nxt = sample_logits_rowwise(
-                    logits[:, 0, :], self._gen, st["temp"], st["top_k"], st["top_p"]
+                    logits[:, 0, :], self._gen, st["temp"], st["top_k"], st["top_p"], self._rows
                 )
             remaining = st["remaining"] - active.long()
             finished = (nxt == st["eos"]) | (remaining <= 0)
@@ -552,7 +658,7 @@ class DecodeEngine:
         the target's own argmax there: the tokens equal plain greedy
         decode. Rejected positions stay in the caches behind ``kv_mask``."""
         st = self._state
-        k, S = self.spec_k, self.n_slots
+        k, S = self.spec_k, self._n_local
         dev = self.device
         rows = torch.arange(S, device=dev)
         steps = torch.arange(k + 1, device=dev)[None, :]
@@ -563,7 +669,7 @@ class DecodeEngine:
                 logits, _ = self._dfwd(
                     self.draft_params, tok[:, None], self.draft_cfg, st["dcache"], widx + i,
                     positions=(pos + i)[:, None],
-                    kv_mask=self._slots_row < (widx + i + 1)[:, None],
+                    kv_mask=self._slots_row < (widx + i + 1)[:, None], **self._decode_kw,
                 )
                 tok = torch.argmax(logits[:, 0, :], dim=-1)
                 props.append(tok)
@@ -572,6 +678,7 @@ class DecodeEngine:
                 self.params, torch.cat([cur[:, None], props], dim=1), self.cfg, st["cache"],
                 widx, positions=pos[:, None] + steps,
                 kv_mask=self._slots_row < (widx + k + 1)[:, None], lora=self.lora,
+                **self._decode_kw,
             )
             targets = torch.argmax(logits_v, dim=-1)  # [S, k+1]
             emit_window = targets[:, :k]
@@ -700,6 +807,10 @@ class DecodeEngine:
             if req is not None:
                 req.error = exc
                 req._finish()
+        while self._backlog:  # lockstep: broadcast, not yet admitted
+            req = self._backlog.popleft()
+            req.error = exc
+            req._finish()
 
     def _loop(self) -> None:
         try:
@@ -714,6 +825,59 @@ class DecodeEngine:
             # thread: it owns _slot_req, so the drain cannot race a chunk
             self._fail_engine(RuntimeError("decode engine stopped"))
 
+    def _cancelled(self, req: _Request) -> bool:
+        """Whether the loop acts on a cancellation: in lockstep, only the
+        one broadcast at the turn's start."""
+        return req.cancel_seen if self._lockstep else req.cancelled
+
+    def _next_request(self) -> Optional[_Request]:
+        """The next queued request (None: the stop sentinel); raises
+        ``queue.Empty``. In lockstep, from the broadcast backlog."""
+        if not self._lockstep:
+            return self._queue.get_nowait()
+        if not self._backlog:
+            raise queue.Empty
+        return self._backlog.popleft()
+
+    def _sync_turn(self) -> bool:
+        """A lockstep turn's start: rank 0 broadcasts the requests that
+        arrived since the last turn (each with an id), the ids of the live
+        requests cancelled since, and whether to stop; every rank appends
+        the new requests to its backlog (mirrors, on the other ranks) and
+        marks the cancellations. Returns the stop flag."""
+        new: list = []
+        msg = None
+        if self._rank0:
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if req is not None:  # stop() also sets _stopped
+                    req.rid, self._next_rid = self._next_rid, self._next_rid + 1
+                    new.append(req)
+            msg = {
+                "new": [(r.rid, r.prompt, r.max_tokens, r.temperature, r.top_k, r.top_p,
+                         r.eos_id) for r in new],
+                "cancel": [rid for rid, r in self._live.items()
+                           if r.cancelled and not r.cancel_seen],
+                "stop": self._stopped,
+            }
+        box = [msg]
+        dist.broadcast_object_list(box, src=0)
+        msg = box[0]
+        if not self._rank0:
+            new = [_Request(prompt=p, max_tokens=m, temperature=t, top_k=k, top_p=tp, eos_id=e,
+                            rid=rid) for rid, p, m, t, k, tp, e in msg["new"]]
+        for req in new:
+            self._live[req.rid] = req
+            self._backlog.append(req)
+        for rid in msg["cancel"]:
+            if rid in self._live:
+                self._live[rid].cancel_seen = True
+        self._live = {rid: r for rid, r in self._live.items() if not r.done.is_set()}
+        return msg["stop"]
+
     def _admit_next(self) -> Optional[int]:
         """Admit queued requests while a slot is free and no chunked
         admission is in flight; returns how many, or None when the stop
@@ -721,12 +885,12 @@ class DecodeEngine:
         admitted = 0
         while self._admitting is None and None in self._slot_req:
             try:
-                req = self._queue.get_nowait()
+                req = self._next_request()
             except queue.Empty:
                 break
             if req is None:
                 return None
-            if req.cancelled:
+            if self._cancelled(req):
                 # the client left while queued: spend no prefill on it
                 req._finish()
                 continue
@@ -743,7 +907,12 @@ class DecodeEngine:
         return admitted
 
     def _run_loop(self) -> None:
-        while not self._stopped:
+        while True:
+            if self._lockstep:
+                if self._sync_turn():
+                    return
+            elif self._stopped:
+                return
             try:
                 admitted = 0
                 if self._admitting is not None:
@@ -770,7 +939,7 @@ class DecodeEngine:
             if not n_active:
                 if self._admitting is not None:
                     continue  # nothing decoding: run parts back to back
-                if not admitted:
+                if not admitted and self._rank0:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                 continue
@@ -784,10 +953,14 @@ class DecodeEngine:
             try:
                 self._run_chunk(variant)
                 pending, self._pending_first = self._pending_first, []
+                toks, mask = self._out_toks, self._out_mask.long()
+                if self._batch_group is not None:  # every rank's slots
+                    both = col.gather_dim(torch.cat([toks, mask], 1), self._batch_group, 0)
+                    toks, mask = both.split(toks.shape[1], 1)
                 # one transfer for the chunk's tokens, its mask and the
                 # first tokens of this turn's admissions
                 flat = torch.cat([
-                    self._out_toks.reshape(-1), self._out_mask.reshape(-1).long(),
+                    toks.reshape(-1), mask.reshape(-1),
                     *(f.reshape(1) for _r, f, _s in pending),
                 ]).tolist()
             except Exception as e:  # noqa: BLE001 — state integrity unknown
@@ -804,7 +977,7 @@ class DecodeEngine:
                 self.tokens_emitted += 1
                 if tok == preq.eos_id:
                     preq._finish()
-                    self._state["active"][pslot] = False
+                    self._deactivate(pslot)
                     self._slot_req[pslot] = None
             if variant == "spec":
                 self.spec_rounds += self.spec_rounds_per_call
@@ -816,9 +989,9 @@ class DecodeEngine:
                     # a mid-admission slot: inactive, no emissions; its
                     # cancellation is _admit_step's job
                     continue
-                if req.cancelled:
+                if self._cancelled(req):
                     # the client abandoned the stream: stop its slot now
-                    self._state["active"][slot] = False
+                    self._deactivate(slot)
                     req._finish()
                     self._slot_req[slot] = None
                     continue
@@ -849,6 +1022,11 @@ class DecodeEngine:
         eos_id: Optional[int] = None,
         stream: bool = False,
     ) -> _Request:
+        if not self._rank0:
+            raise RuntimeError(
+                "a DecodeEngine under a mesh takes requests on rank 0 only; the other "
+                "ranks follow its plan"
+            )
         if self.failure is not None:
             raise RuntimeError(f"decode engine is down: {self.failure!r}")
         if not prompt:
@@ -914,7 +1092,12 @@ class DecodeEngine:
 
     def stop(self) -> None:
         """Signal the loop to exit and wait for it. The loop drains the
-        in-flight requests itself on exit, after any running chunk."""
+        in-flight requests itself on exit, after any running chunk. Under a
+        mesh, rank 0's stop ends every rank's loop at the next turn; on
+        another rank this waits for that."""
+        if not self._rank0:
+            self._thread.join()
+            return
         self._stopped = True
         self._queue.put(None)
         self._wake.set()

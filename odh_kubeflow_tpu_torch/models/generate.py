@@ -14,6 +14,14 @@
 Sampling: greedy, temperature, top-k, and nucleus (top-p), composed in
 that order. Random draws come from the ``torch.Generator`` passed in,
 never from the global generator, so a seed reproduces a completion.
+
+Under a mesh (``generate(mesh=)``, one process a rank) the cache shards as
+JAX's ``cache_specs``: the batch over (data, fsdp), the KV heads over
+tensor. Each rank decodes its block of the prompt batch (replicated over
+tensor and expert) through the sharded cached forward, draws the noise of
+the whole batch from the same generator state and keeps its rows, so the
+tokens are the one-device ones; the tokens and lengths are gathered whole
+on every rank at the end.
 """
 
 from __future__ import annotations
@@ -28,7 +36,21 @@ from odh_kubeflow_tpu_torch.models.llama import (
     Params,
     forward_with_cache,
 )
+from odh_kubeflow_tpu_torch.parallel import collectives as col
+from odh_kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_CONTEXT,
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_PIPE,
+    AXIS_TENSOR,
+    P,
+    local_shard,
+)
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
+
+# the axes the serving batch (the cache's, generate's prompts, the
+# engine's slots) is split over; tensor and expert ranks replicate it
+SERVE_BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +64,36 @@ class GenerateConfig:
     cache_dtype: Any = torch.bfloat16
 
 
+def cache_specs(cfg: LlamaConfig) -> Params:
+    """The sharding of ``init_cache``'s tree, JAX's: the batch over (data,
+    fsdp), the KV heads over tensor (the tensor-split wk/wv produce them,
+    so the cache write needs no collective)."""
+    spec = P(None, SERVE_BATCH_AXES, None, AXIS_TENSOR, None)
+    return {"k": spec, "v": spec}
+
+
+def check_serving_mesh(mesh, cfg: LlamaConfig, batch_size: Optional[int] = None) -> None:
+    """Raise where serving cannot run on ``mesh``: a pipe or context axis
+    (the cached forward runs every layer on the whole sequence), KV heads
+    that do not split over tensor, or a batch that does not split over
+    (data, fsdp)."""
+    for axis in (AXIS_PIPE, AXIS_CONTEXT):
+        if mesh.sizes[axis] > 1:
+            raise ValueError(
+                f"serving under a mesh shards the batch over (data, fsdp) and the heads "
+                f"over tensor; {axis}={mesh.sizes[axis]} is not a serving axis"
+            )
+    t = mesh.sizes[AXIS_TENSOR]
+    if cfg.num_kv_heads % t:
+        raise ValueError(f"{cfg.num_kv_heads} KV heads do not split over tensor={t}")
+    n = mesh.size(SERVE_BATCH_AXES)
+    if batch_size is not None and batch_size % n:
+        raise ValueError(
+            f"batch {batch_size} does not split over data x fsdp = {n}: serving needs a "
+            f"multiple of {n} rows (slots)"
+        )
+
+
 def init_cache(
     cfg: LlamaConfig,
     batch_size: int,
@@ -49,15 +101,29 @@ def init_cache(
     dtype=torch.bfloat16,
     *,
     device="cuda",
+    mesh=None,
 ) -> Params:
     """Preallocated KV cache: ``{"k","v"}: [L, B, S_max, Hkv, hd]``, on the
-    card unless ``device`` says otherwise."""
+    card unless ``device`` says otherwise. Under ``mesh`` it is this rank's
+    block of the global cache by ``cache_specs`` (``batch_size`` is the
+    global batch), on the mesh's device."""
+    shape = [cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim]
+    if mesh is not None:
+        check_serving_mesh(mesh, cfg, batch_size)
+        device = mesh.device
+        shape[1] //= mesh.size(SERVE_BATCH_AXES)
+        shape[3] //= mesh.sizes[AXIS_TENSOR]
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def batch_block(mesh) -> tuple[int, int]:
+    """``(index, count)`` of this rank's block of a serving batch: its
+    (data, fsdp) coordinate and the number of blocks."""
+    return mesh.index(SERVE_BATCH_AXES), mesh.size(SERVE_BATCH_AXES)
 
 
 def filter_logits(
@@ -100,9 +166,15 @@ def filter_logits(
     return torch.where(logits < cutoff, float("-inf"), logits)
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+def gumbel_noise(shape, generator: torch.Generator, device, rows=None) -> torch.Tensor:
     """Gumbel noise from ``generator``: argmax(logits + noise) is a draw
-    from softmax(logits), as ``jax.random.categorical`` samples."""
+    from softmax(logits), as ``jax.random.categorical`` samples. ``rows``,
+    ``(first, total)``: draw the noise of a ``[total, ...]`` batch and keep
+    rows ``[first, first + shape[0])``, so a rank holding a block of the
+    batch draws what one device would draw for those rows."""
+    if rows is not None:
+        first, total = rows
+        return gumbel_noise((total, *shape[1:]), generator, device)[first : first + shape[0]]
     u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(u.clamp(min=tiny)))
@@ -115,15 +187,18 @@ def sample_logits(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    rows=None,
 ) -> torch.Tensor:
     """Sample next-token ids [B] from final-position logits. Greedy
-    ignores ``generator``; sampling draws Gumbel noise from it."""
+    ignores ``generator``; sampling draws Gumbel noise from it (``rows``:
+    see ``gumbel_noise``)."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     logits = filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
     if generator is None:
         raise ValueError("sampling at temperature > 0 needs a torch.Generator")
-    return torch.argmax(logits + gumbel_noise(logits.shape, generator, logits.device), dim=-1)
+    noise = gumbel_noise(logits.shape, generator, logits.device, rows)
+    return torch.argmax(logits + noise, dim=-1)
 
 
 def family_forward(cfg):
@@ -147,6 +222,7 @@ def generate(
     prompt_lengths: Optional[torch.Tensor] = None,  # [B] integer
     lora: Optional[Params] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """Autoregressive generation on ``prompt_tokens``' device.
 
@@ -154,7 +230,21 @@ def generate(
     ``lengths`` counts generated tokens up to and including the first
     ``eos_id`` (or ``max_new_tokens`` when eos never fires); positions
     past a row's eos hold ``pad_id``.
+
+    Under ``mesh`` every rank passes the whole prompt batch and its shards
+    of the params (``param_specs``); it decodes its (data, fsdp) block on
+    the mesh's device and returns the whole result, the same on every rank.
     """
+    rows = None
+    if mesh is not None:
+        check_serving_mesh(mesh, family_forward(cfg)[0], prompt_tokens.shape[0])
+        index, n = batch_block(mesh)
+        total = prompt_tokens.shape[0]
+        rows = (index * (total // n), total)
+        if prompt_lengths is not None:
+            prompt_lengths = local_shard(torch.as_tensor(prompt_lengths), mesh,
+                                         P(SERVE_BATCH_AXES))
+        prompt_tokens = local_shard(prompt_tokens, mesh, P(SERVE_BATCH_AXES)).to(mesh.device)
     dev = prompt_tokens.device
     B, S_prompt = prompt_tokens.shape
     N = gen_cfg.max_new_tokens
@@ -166,11 +256,16 @@ def generate(
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     sample = dict(
-        temperature=gen_cfg.temperature, top_k=gen_cfg.top_k, top_p=gen_cfg.top_p
+        temperature=gen_cfg.temperature, top_k=gen_cfg.top_k, top_p=gen_cfg.top_p, rows=rows
     )
 
     cache_cfg, fwd = family_forward(cfg)
-    cache = init_cache(cache_cfg, B, max_len, gen_cfg.cache_dtype, device=dev)
+    if mesh is None:
+        cache = init_cache(cache_cfg, B, max_len, gen_cfg.cache_dtype, device=dev)
+        sharded = {}
+    else:
+        cache = init_cache(cache_cfg, rows[1], max_len, gen_cfg.cache_dtype, mesh=mesh)
+        sharded = {"mesh": mesh}
     slots = torch.arange(max_len, device=dev)[None, :]  # [1, S_max]
     kv_mask = slots < prompt_lengths[:, None]  # prompt region valid
 
@@ -186,6 +281,7 @@ def generate(
         kv_mask=kv_mask,
         lora=lora,
         token_mask=kv_mask[:, :S_prompt],
+        **sharded,
     )
     # next token comes from each row's last *real* prompt position
     last = logits[torch.arange(B, device=dev), prompt_lengths - 1]
@@ -208,6 +304,7 @@ def generate(
             positions=positions,
             kv_mask=kv_mask,
             lora=lora,
+            **sharded,
         )
         next_token = sample_logits(logits[:, 0, :], generator, **sample)
         emitted.append(torch.where(done, pad, token))
@@ -220,4 +317,7 @@ def generate(
     else:
         tokens = torch.zeros((B, 0), dtype=token.dtype, device=dev)
     lengths = (tokens != gen_cfg.pad_id).sum(dim=1)
+    if mesh is not None:
+        group = mesh.group(SERVE_BATCH_AXES)
+        tokens, lengths = col.gather_dim(tokens, group, 0), col.gather_dim(lengths, group, 0)
     return {"tokens": tokens, "lengths": lengths}

@@ -27,7 +27,9 @@ are vocab-parallel, and with ``context > 1`` attention is the ring. With
 ``pipe > 1`` the decoder stack runs through the GPipe driver
 (``parallel/pipeline.py``, ``_apply_layers_pipelined``): each rank holds
 its stage's layers, and the embedding, the final norm and the head stay
-outside the pipeline.
+outside the pipeline. ``forward_with_cache(mesh=)`` serves under a mesh:
+the same gathers and tensor-parallel products on a rank's block of the
+batch and of the cache (``generate.cache_specs``), the logits gathered.
 """
 
 from __future__ import annotations
@@ -450,11 +452,17 @@ class Sharding:
 
     def weight(self, name: str, w):
         """One layer's projection weight as this rank computes with it:
-        gathered over fsdp (its shard of the tensor split stays). An int4
-        row-parallel weight under tensor > 1 is gathered whole, packed,
-        then dequantized and sliced: its split-halves packing puts two K
-        ranges in each packed row shard."""
-        dim = 1 if name in ROW_PARALLEL else 0
+        gathered over fsdp (its shard of the tensor split stays)."""
+        return self.gather(w, name in ROW_PARALLEL)
+
+    def gather(self, w, row: bool, lead: int = 0):
+        """A ``[..., in, out]`` weight (``lead`` leading dims: an expert
+        bank's E) gathered over fsdp on its fsdp-split dim: ``out`` for a
+        row-parallel weight, else ``in``. An int4 row-parallel weight under
+        tensor > 1 is gathered whole, packed, then dequantized and sliced:
+        its split-halves packing puts two K ranges in each packed row
+        shard."""
+        dim = lead + (1 if row else 0)
         if not isinstance(w, dict):
             return col.all_gather(w, self.fsdp, dim)
         codes = "q4" if "q4" in w else "q"
@@ -462,14 +470,14 @@ class Sharding:
         out = {
             codes: col.gather_dim(w[codes], self.fsdp, dim),
             # the scale's contracted axis is replicated
-            scale: col.gather_dim(w[scale], self.fsdp, 1) if dim else w[scale],
+            scale: col.gather_dim(w[scale], self.fsdp, dim) if row else w[scale],
         }
-        if codes == "q4" and dim and self.tp is not None:
+        if codes == "q4" and row and self.tp is not None:
             from odh_kubeflow_tpu_torch.models.quant import dequantize_tensor
 
-            out["q4"] = col.gather_dim(out["q4"], self.tp, 0)
+            out["q4"] = col.gather_dim(out["q4"], self.tp, lead)
             full = dequantize_tensor(out, self.dtype)
-            return full.chunk(col.group_size(self.tp), 0)[col.group_rank(self.tp)]
+            return full.chunk(col.group_size(self.tp), lead)[col.group_rank(self.tp)]
         return out
 
     def layer(self, layer: Params, lora_layer):
@@ -1015,16 +1023,42 @@ def forward_with_cache(
     lora: Optional[Params] = None,
     token_mask: Optional[torch.Tensor] = None,  # accepted for family-generic
     # callers (the MoE twin routes on it; the dense stack has no router)
+    mesh=None,
+    batch_axes=None,  # the MoE twin's: how the rows split over the mesh
 ) -> tuple[torch.Tensor, Params]:
     """KV-cached forward: returns (logits [B, S, V] float32, cache).
 
     ``generate`` drives both prefill (S = prompt length, cache_index =
     0) and decode steps (S = 1) through here. ``cache`` is updated in
     place and returned.
+
+    Under ``mesh`` the params are this rank's shards (``param_specs``),
+    ``tokens`` and ``cache`` its block (``generate.cache_specs``: its rows,
+    its KV heads): each layer's weights are gathered over fsdp, the
+    projections run tensor-parallel as in ``forward`` and the cache holds
+    the rank's heads; the vocab-parallel logits are gathered over tensor,
+    so every rank returns whole ``[B, S, V]`` logits. W8A8 runs under a mesh
+    whose tensor axis is 1 (the int8 weights gathered over fsdp, the
+    products the one-device ones); under tensor > 1 it is refused: a
+    row-parallel product would quantize its activation by the amax of the
+    rank's columns only, where JAX's GSPMD reads the whole row's.
     """
     _check_supported(cfg)
+    par = None
+    if mesh is not None:
+        from odh_kubeflow_tpu_torch.models.generate import check_serving_mesh
+
+        check_serving_mesh(mesh, cfg)
+        par = Sharding(mesh, cfg)
+        if cfg.w8a8_decode and par.tp is not None:
+            raise NotImplementedError(
+                "w8a8_decode under a mesh with tensor > 1: the row-parallel products' "
+                "activation quantization would read one rank's columns; serve W8A8 "
+                "with tensor=1"
+            )
     sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed"][tokens].to(cfg.dtype)
+    table = params["embed"]
+    x = (table[tokens] if par is None else par.embed(table, tokens)).to(cfg.dtype)
     lora_layers = lora["layers"] if lora is not None else None
 
     for i in range(cfg.num_layers):
@@ -1040,11 +1074,18 @@ def forward_with_cache(
             cache_layer={"k": cache["k"][i], "v": cache["v"][i]},
             cache_index=cache_index,
             kv_mask=kv_mask,
+            par=par,
         )
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if cfg.w8a8_decode and isinstance(head, dict) and set(head) == {"q", "scale"}:
         # the largest decode product (D × V) as W8A8, float32 logits
+        if par is not None:
+            head = par.weight("lm_head", head)
         return _int8_matmul(x, head, out_dtype=torch.float32), cache
-    return _logits(x, lm_head_weight(params, cfg), cfg.dtype), cache
+    head = lm_head_weight(params, cfg) if par is None else par.head(params, cfg)
+    logits = _logits(x, head, cfg.dtype)
+    if par is not None:
+        logits = col.gather_dim(logits, par.tp, logits.ndim - 1)
+    return logits, cache

@@ -34,9 +34,15 @@ logits over ``expert``, sorts the assignments of its own experts into a
 local buffer (``route_sorted_ep``), runs the same grouped kernels on its
 local banks, and reduce-scatters the weighted outputs back over
 ``expert``. ``loopback_moe_mlp_grouped_ep`` runs the same shards one
-after another on one device. The ragged and einsum dispatches under a
-mesh (JAX gets them from GSPMD) are not ported and raise
-``NotImplementedError`` naming the work.
+after another on one device. The ragged and einsum dispatches, and a
+grouped config's small batches, run under a mesh in JAX's GSPMD layout
+(``_moe_mlp_sharded``): the banks' E over expert, D over fsdp (gathered
+in the layer) and F over tensor; each row's sequence gathered over
+context and the rows over expert, every row routed over all E experts,
+the rank's experts' slots run tensor-parallel, and the expert shards'
+outputs reduce-scattered back to the rows. ``forward_with_cache(mesh=)``
+serves under a mesh (``generate.cache_specs``) with the rows replicated
+over expert: the expert shards' outputs are all-reduced instead.
 
 With ``pipe > 1`` (or ``loopback_stages``) the layer stack runs through
 GPipe as the dense family's does (``llama._apply_layers_pipelined``), the
@@ -68,6 +74,7 @@ from odh_kubeflow_tpu_torch.parallel.mesh import (
     AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_TENSOR,
+    BATCH_AXES,
     P,
 )
 
@@ -235,6 +242,17 @@ def _routing_stats(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
     return top_p, top_idx, (first * m).sum((0, 1)) / denom, (probs * m).sum((0, 1)) / denom
 
 
+def _balance_sums(logits: torch.Tensor, cfg: MoeConfig, token_mask: torch.Tensor):
+    """``(top_p, top_idx, (f_sum [E], p_sum [E], mask_sum))``: the top-k
+    choices and the balance statistics summed over the unmasked tokens, the
+    form a sharded caller sums over its peers before ``_ep_aux`` divides
+    once (so the aux is the global batch's)."""
+    top_p, top_idx, f, p = _routing_stats(logits, cfg, token_mask)
+    ms = token_mask.to(torch.float32).sum()
+    denom = ms.clamp_min(1.0)
+    return top_p, top_idx, (f * denom, p * denom, ms)
+
+
 def _routing_topk(logits, cfg: MoeConfig, token_mask=None):
     """``(top_p, top_idx, aux)``; aux is the Switch loss
     ``E · Σ f·p · coef``."""
@@ -250,17 +268,15 @@ def _expert_onehot(e_sel, E, token_mask):
     return onehot
 
 
-def route_tokens(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
-    """``(dispatch [B,S,E,C] bool, combine [B,S,E,C] f32, aux)``: top-k
-    routing with a per-row capacity; overflow and masked tokens are
-    dropped (combine weight 0)."""
-    B, S, E = logits.shape
-    C = cfg.capacity(S)
-    top_p, top_idx, aux = _routing_topk(logits, cfg, token_mask)
-    dispatch = torch.zeros((B, S, E, C), dtype=torch.bool, device=logits.device)
-    combine = torch.zeros((B, S, E, C), dtype=torch.float32, device=logits.device)
-    fill = torch.zeros((B, E), dtype=torch.long, device=logits.device)
-    for slot in range(cfg.num_experts_per_tok):
+def _onehot_routing(top_p, top_idx, C: int, E: int, token_mask=None):
+    """``route_tokens``' dispatch and combine from the top-k choices of
+    ``[B, S]`` tokens, with a per-row capacity ``C``."""
+    B, S = top_idx.shape[:2]
+    dev = top_p.device
+    dispatch = torch.zeros((B, S, E, C), dtype=torch.bool, device=dev)
+    combine = torch.zeros((B, S, E, C), dtype=torch.float32, device=dev)
+    fill = torch.zeros((B, E), dtype=torch.long, device=dev)
+    for slot in range(top_idx.shape[-1]):
         onehot = _expert_onehot(top_idx[..., slot], E, token_mask)  # [B,S,E]
         pos = onehot.cumsum(1) - onehot + fill[:, None, :]
         keep = (pos < C) & (onehot > 0)
@@ -268,23 +284,29 @@ def route_tokens(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
         dispatch = dispatch | (pos_oh > 0)
         combine = combine + pos_oh * top_p[..., slot, None, None] * onehot[..., None]
         fill = fill + onehot.sum(1)
-    return dispatch, combine, aux
+    return dispatch, combine
 
 
-def route_tables(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
-    """``(idx [B,E,C] long, w [B,E,C] f32, aux)``: the index-table form of
-    ``route_tokens`` (same decisions): ``idx[b,e,c]`` is the token of
-    expert e's slot c in row b (-1 when empty), ``w`` its weight."""
+def route_tokens(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
+    """``(dispatch [B,S,E,C] bool, combine [B,S,E,C] f32, aux)``: top-k
+    routing with a per-row capacity; overflow and masked tokens are
+    dropped (combine weight 0)."""
     B, S, E = logits.shape
-    C = cfg.capacity(S)
     top_p, top_idx, aux = _routing_topk(logits, cfg, token_mask)
-    dev = logits.device
+    return (*_onehot_routing(top_p, top_idx, cfg.capacity(S), E, token_mask), aux)
+
+
+def _index_tables(top_p, top_idx, C: int, E: int, token_mask=None):
+    """``route_tables``' index tables from the top-k choices of ``[B, S]``
+    tokens, with a per-row capacity ``C``."""
+    B, S = top_idx.shape[:2]
+    dev = top_p.device
     b_grid = torch.arange(B, device=dev)[:, None].expand(B, S)
     s_grid = torch.arange(S, device=dev).expand(B, S)
     idx = torch.full((B, E, C), -1, dtype=torch.long, device=dev)
     w = torch.zeros((B, E, C), dtype=torch.float32, device=dev)
     fill = torch.zeros((B, E), dtype=torch.long, device=dev)
-    for slot in range(cfg.num_experts_per_tok):
+    for slot in range(top_idx.shape[-1]):
         e_sel = top_idx[..., slot]
         onehot = _expert_onehot(e_sel, E, token_mask)
         pos = onehot.cumsum(1) - onehot + fill[:, None, :]
@@ -297,7 +319,16 @@ def route_tables(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
         idx = idx.index_put(where, torch.where(keep, s_grid + 1, 0), accumulate=True)
         w = w.index_put(where, torch.where(keep, top_p[..., slot], 0.0), accumulate=True)
         fill = fill + onehot.sum(1)
-    return idx, w, aux
+    return idx, w
+
+
+def route_tables(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
+    """``(idx [B,E,C] long, w [B,E,C] f32, aux)``: the index-table form of
+    ``route_tokens`` (same decisions): ``idx[b,e,c]`` is the token of
+    expert e's slot c in row b (-1 when empty), ``w`` its weight."""
+    B, S, E = logits.shape
+    top_p, top_idx, aux = _routing_topk(logits, cfg, token_mask)
+    return (*_index_tables(top_p, top_idx, cfg.capacity(S), E, token_mask), aux)
 
 
 def route_sorted(logits: torch.Tensor, cfg: MoeConfig, token_mask=None):
@@ -405,32 +436,49 @@ def _router_logits(x, layer):
     return llama.f32_product(x, layer["router"].to(x.dtype))
 
 
-def _expert_mlp(xin, layer, dtype):
-    """The expert SwiGLU on ``[E, B, C, D]`` (einsum and ragged paths)."""
+def _expert_mlp(xin, layer, dtype, tp=None):
+    """The expert SwiGLU on ``[E, B, C, D]`` (einsum and ragged paths).
+    ``tp``: the tensor group the banks' MLP width is split over (None: one
+    rank): gate and up are column-parallel (their input enters through
+    ``copy_to_group``), down row-parallel, its partial sums all-reduced."""
+    xin = col.copy_to_group(xin, tp)
     gate = torch.einsum("ebcd,edf->ebcf", xin, layer["moe_gate"].to(dtype))
     up = torch.einsum("ebcd,edf->ebcf", xin, layer["moe_up"].to(dtype))
     h = F.silu(gate) * up
-    return torch.einsum("ebcf,efd->ebcd", h, layer["moe_down"].to(dtype))
+    return col.all_reduce(torch.einsum("ebcf,efd->ebcd", h, layer["moe_down"].to(dtype)), tp)
+
+
+def _ragged_experts(x, idx, w, layer, dtype, tp=None):
+    """The ragged dispatch's data movement around ``_expert_mlp``: the slots
+    ``idx [B, n, C]`` of ``n`` experts (``layer``'s banks) gathered from
+    ``x [B, S, D]``, run, weighted by ``w`` and scatter-added back."""
+    B, S, D = x.shape
+    n, C = idx.shape[1:]
+    flat = idx.reshape(B, n * C)
+    clip = flat.clamp(0, S - 1)
+    gath = x.gather(1, clip[..., None].expand(B, n * C, D)) * (flat >= 0)[..., None].to(dtype)
+    xin = gath.reshape(B, n, C, D).permute(1, 0, 2, 3)
+    out_e = _expert_mlp(xin, layer, dtype, tp)
+    contrib = out_e.permute(1, 0, 2, 3).reshape(B, n * C, D) * w.reshape(B, n * C, 1).to(dtype)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, n * C)
+    return torch.zeros((B, S, D), dtype=dtype, device=x.device).index_put(
+        (rows, clip), contrib, accumulate=True
+    )
 
 
 def _moe_mlp_ragged(x, layer, cfg: MoeConfig, token_mask=None, save_names=()):
-    dtype = x.dtype
-    B, S, D = x.shape
-    E, C = cfg.num_experts, cfg.capacity(S)
     idx, w, aux = route_tables(_router_logits(x, layer), cfg, token_mask)
     idx = _tag(idx, "moe_route_src", save_names)
     w = _tag(w, "moe_route_w", save_names)
-    flat = idx.reshape(B, E * C)
-    clip = flat.clamp(0, S - 1)
-    gath = x.gather(1, clip[..., None].expand(B, E * C, D)) * (flat >= 0)[..., None].to(dtype)
-    xin = gath.reshape(B, E, C, D).permute(1, 0, 2, 3)
-    out_e = _expert_mlp(xin, layer, dtype)
-    contrib = out_e.permute(1, 0, 2, 3).reshape(B, E * C, D) * w.reshape(B, E * C, 1).to(dtype)
-    rows = torch.arange(B, device=x.device)[:, None].expand(B, E * C)
-    out = torch.zeros((B, S, D), dtype=dtype, device=x.device).index_put(
-        (rows, clip), contrib, accumulate=True
+    return _ragged_experts(x, idx, w, layer, x.dtype), aux
+
+
+def _exact(cfg: MoeConfig) -> MoeConfig:
+    """The config at the provably drop-free capacity (per-row capacity =
+    S): a grouped config's small batches take the ragged path with it."""
+    return dataclasses.replace(
+        cfg, capacity_factor=max(cfg.capacity_factor, cfg.num_experts / cfg.num_experts_per_tok)
     )
-    return out, aux
 
 
 def _mesh_trivial(mesh) -> bool:
@@ -505,14 +553,15 @@ def _grouped_mesh_blocker(x: torch.Tensor, cfg: MoeConfig, mesh) -> Optional[str
     return "unsupported mesh for the grouped kernels"
 
 
-def _global_activation(x: torch.Tensor, mesh) -> torch.Tensor:
+def _global_activation(x: torch.Tensor, mesh, batch_axes=BATCH_AXES) -> torch.Tensor:
     """A storage-free stand-in of shape ``[B, S, D]`` for the global
-    activation whose block this rank holds (``x``, ``batch_spec``)."""
+    activation whose block this rank holds (``x``: its rows split over
+    ``batch_axes``, its sequence over ``context``)."""
     if mesh is None:
         return x
     B, S, D = x.shape
-    nbatch = math.prod(_batch_sizes(mesh).values())
-    return torch.empty((B * nbatch, S * mesh.sizes[AXIS_CONTEXT], D), device="meta")
+    return torch.empty((B * mesh.size(batch_axes), S * mesh.sizes[AXIS_CONTEXT], D),
+                       device="meta")
 
 
 def dispatch_path(x: torch.Tensor, cfg: MoeConfig, mesh=None) -> str:
@@ -520,9 +569,7 @@ def dispatch_path(x: torch.Tensor, cfg: MoeConfig, mesh=None) -> str:
     tensor of its shape, a meta one included) on ``mesh``: "grouped",
     "grouped_ep", "ragged_exact" (a grouped config's small batch),
     "ragged" or "einsum". Raises JAX's ``ValueError`` where the grouped
-    dispatch cannot run on the mesh (never a silent fallback), and
-    ``NotImplementedError`` for the ragged and einsum dispatches under a
-    mesh that shards anything."""
+    dispatch cannot run on the mesh (never a silent fallback)."""
     if cfg.dispatch == "grouped":
         if _grouped_usable(x, cfg, mesh):
             return "grouped"
@@ -533,19 +580,12 @@ def dispatch_path(x: torch.Tensor, cfg: MoeConfig, mesh=None) -> str:
             raise ValueError(
                 f"dispatch='grouped': {reason}; use dispatch='ragged' for this configuration"
             )
-        path = "ragged_exact"
-    elif cfg.dispatch in ("ragged", "einsum"):
-        path = cfg.dispatch
-    else:
-        raise ValueError(
-            f"unknown dispatch {cfg.dispatch!r}; expected 'grouped', 'ragged' or 'einsum'"
-        )
-    if not _mesh_trivial(mesh):
-        raise NotImplementedError(
-            "MoE ragged/einsum dispatch under a mesh (the JAX package's GSPMD "
-            "shards it) is not ported yet; it is queued in ROADMAP.md"
-        )
-    return path
+        return "ragged_exact"
+    if cfg.dispatch in ("ragged", "einsum"):
+        return cfg.dispatch
+    raise ValueError(
+        f"unknown dispatch {cfg.dispatch!r}; expected 'grouped', 'ragged' or 'einsum'"
+    )
 
 
 def _grouped_expert_ffn(xs, layer, offsets, dtype, save_names=(), keep_g=True):
@@ -611,11 +651,8 @@ def route_sorted_ep(logits, cfg: MoeConfig, first_expert: int, n_local: int, m_l
     once, so the aux is the global batch's."""
     N, E = logits.shape
     dev = logits.device
-    top_p, top_idx, f, p = _routing_stats(logits[None], cfg, token_mask[None])
+    top_p, top_idx, stats = _balance_sums(logits[None], cfg, token_mask[None])
     top_p, top_idx = top_p[0], top_idx[0]
-    ms = token_mask.to(torch.float32).sum()
-    denom = ms.clamp_min(1.0)
-    stats = (f * denom, p * denom, ms)
 
     counts = torch.zeros((n_local,), dtype=torch.long, device=dev)
     ranks, lsels, locals_ = [], [], []
@@ -756,7 +793,7 @@ def _expert_slice(bank, first: int, n: int):
 
 
 def _moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, token_mask, mesh, save_names=(),
-                        keep_g=True):
+                        keep_g=True, batch_axes=BATCH_AXES):
     """The grouped MoE expert-parallel over (data, fsdp, expert), on one
     rank: ``x [B, S, D]`` is its batch block and ``layer``'s banks its
     ``[E / expert, ...]`` experts. The group's tokens, logits and mask are
@@ -765,27 +802,39 @@ def _moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, token_mask, mesh, save_names=(
     shard runs ``_ep_shard``, and its weighted outputs are
     reduce-scattered over ``expert`` back to this rank's block (backward:
     an all-gather). The router's gradient comes back through the gathered
-    logits. JAX stacks the banks of every layer for its scan (its
-    ``bank_base``); the port's loop slices each layer's banks, so a
-    rank's ``[L, E / expert, ...]`` shard already gives them per layer."""
+    logits. Rows replicated over ``expert`` (``batch_axes`` without it:
+    serving) are not gathered, and the shards' outputs are all-reduced.
+    JAX stacks the banks of every layer for its scan (its ``bank_base``);
+    the port's loop slices each layer's banks, so a rank's ``[L, E /
+    expert, ...]`` shard already gives them per layer."""
     B, S, D = x.shape
     E = cfg.num_experts
     ep = mesh.sizes[AXIS_EXPERT]
     n_local = E // ep
     eg = mesh.group(AXIS_EXPERT)
+    split = AXIS_EXPERT in batch_axes
     logits = _router_logits(x, layer)
     mask = torch.ones((B, S), dtype=torch.bool, device=x.device) if token_mask is None \
         else token_mask
-    xg = col.all_gather(x.reshape(B * S, D), eg, 0)
-    lg = col.all_gather(logits.reshape(B * S, E), eg, 0)
-    mg = col.gather_dim(mask.reshape(B * S).to(torch.uint8), eg, 0).bool()
+    xg, lg, mg = x.reshape(B * S, D), logits.reshape(B * S, E), mask.reshape(B * S)
+    if split:
+        xg, lg = col.all_gather(xg, eg, 0), col.all_gather(lg, eg, 0)
+        mg = col.gather_dim(mg.to(torch.uint8), eg, 0).bool()
     banks = {n: layer[n] for n in BANKS}
     out_g, stats = _ep_shard(
         xg, lg, mg, banks, mesh.coords[AXIS_EXPERT] * n_local, n_local,
         _ep_rows(xg.shape[0], cfg, ep, n_local), cfg, save_names, keep_g,
     )
-    aux = _ep_aux(stats, cfg, mesh.group((AXIS_DATA, AXIS_FSDP)))
-    return col.reduce_scatter(out_g, eg, 0).reshape(B, S, D), aux
+    aux = _ep_aux(stats, cfg, _row_group(mesh, batch_axes))
+    out = col.reduce_scatter(out_g, eg, 0) if split else col.all_reduce(out_g, eg)
+    return out.reshape(B, S, D), aux
+
+
+def _row_group(mesh, batch_axes):
+    """The group of the (data, fsdp) axes the rows are split over: the
+    balance sums' psum (never over expert, whose shards of a group hold
+    the same sums)."""
+    return mesh.group(tuple(a for a in (AXIS_DATA, AXIS_FSDP) if a in batch_axes))
 
 
 def loopback_moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, num_shards: int, token_mask=None,
@@ -817,28 +866,90 @@ def loopback_moe_mlp_grouped_ep(x, layer, cfg: MoeConfig, num_shards: int, token
     return out.reshape(B, S, D), _ep_aux(stats, cfg)
 
 
+def _moe_mlp_sharded(x, layer, cfg: MoeConfig, path: str, token_mask, mesh, batch_axes,
+                     save_names=()):
+    """"ragged", "einsum" and "ragged_exact" on one rank of ``mesh``, in
+    JAX's layout: ``x [B, S, D]`` is this rank's block of the rows (split
+    over ``batch_axes``) and of the sequence (over ``context``);
+    ``layer``'s banks are its ``E / expert`` experts, gathered over fsdp
+    (``shard_layer``), their MLP width split over ``tensor`` (a grouped
+    config's banks split over ``expert`` only).
+
+    Each row's whole sequence is gathered over ``context`` first: the
+    per-row capacity and the position-in-expert cumsum read all of it.
+    Rows split over ``expert`` (training) are gathered over it too; the
+    backward of both gathers is a reduce-scatter, so each token's gradient
+    sums over the ranks that read it. Routing is per row, so routing the
+    gathered rows over all E experts gives the one-device decisions. The
+    rank runs its own experts' slots (gate and up column-parallel over
+    ``tensor``, down row-parallel and all-reduced) and scatter-adds their
+    weighted outputs; the expert shards' partial outputs are
+    reduce-scattered back to the rows over ``expert``, or all-reduced when
+    the rows are replicated over it (serving), and the rank keeps its
+    context block. The aux is the global batch's: the balance sums are
+    psum'd over the (data, fsdp) axes the rows are split over."""
+    E = cfg.num_experts
+    n_local = E // mesh.sizes[AXIS_EXPERT]
+    e0 = mesh.coords[AXIS_EXPERT] * n_local
+    eg, cg = mesh.group(AXIS_EXPERT), mesh.group(AXIS_CONTEXT)
+    split = AXIS_EXPERT in batch_axes
+    dtype = x.dtype
+    B, S_loc, D = x.shape
+    mask = torch.ones((B, S_loc), dtype=torch.bool, device=x.device) if token_mask is None \
+        else token_mask
+    xg, mg = col.all_gather(x, cg, 1), col.gather_dim(mask.to(torch.uint8), cg, 1)
+    if split:
+        xg, mg = col.all_gather(xg, eg, 0), col.gather_dim(mg, eg, 0)
+    mg = mg.bool()
+    tm = None if token_mask is None else mg
+    if path == "ragged_exact":
+        cfg = _exact(cfg)
+        layer = _maybe_dequant(layer, dtype)
+    tp = None if cfg.dispatch == "grouped" else mesh.group(AXIS_TENSOR)
+    C = cfg.capacity(xg.shape[1])
+    top_p, top_idx, stats = _balance_sums(_router_logits(xg, layer), cfg, mg)
+    if path == "einsum":
+        dispatch, combine = _onehot_routing(top_p, top_idx, C, E, tm)
+        dispatch, combine = dispatch[:, :, e0 : e0 + n_local], combine[:, :, e0 : e0 + n_local]
+        out_e = _expert_mlp(torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), xg), layer,
+                            dtype, tp)
+        out = torch.einsum("bsec,ebcd->bsd", combine.to(dtype), out_e)
+    else:
+        idx, w = _index_tables(top_p, top_idx, C, E, tm)
+        idx = _tag(idx[:, e0 : e0 + n_local], "moe_route_src", save_names)
+        w = _tag(w[:, e0 : e0 + n_local], "moe_route_w", save_names)
+        out = _ragged_experts(xg, idx, w, layer, dtype, tp)
+    out = col.reduce_scatter(out, eg, 0) if split else col.all_reduce(out, eg)
+    if cg is not None:
+        out = out.narrow(1, col.group_rank(cg) * S_loc, S_loc)
+    return out, _ep_aux(stats, cfg, _row_group(mesh, batch_axes))
+
+
 def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=True,
-            mesh=None):
+            mesh=None, batch_axes=BATCH_AXES):
     """``(out [B,S,D], aux)`` through ``cfg.dispatch``. ``layer`` holds
     this layer's ``router [D,E]`` and banks ``[E,...]`` (int8
     ``{"q","scale"}`` banks stay quantized on the grouped path).
     ``keep_g``: the fused expert op keeps g for its backward (see
     ``ops.grouped_matmul.expert_ffn_op``). Under ``mesh`` (``x`` this
-    rank's batch block, the router gathered whole, the banks this rank's
-    experts) the path is ``dispatch_path`` of the global activation."""
-    path = dispatch_path(_global_activation(x, mesh), cfg, mesh)
+    rank's block, its rows split over ``batch_axes``: all three batch axes
+    in training, (data, fsdp) or none in serving; the router gathered
+    whole, the banks this rank's experts) the path is ``dispatch_path`` of
+    the global activation, and a mesh that shards anything takes the
+    expert-parallel grouped path or ``_moe_mlp_sharded``."""
+    path = dispatch_path(_global_activation(x, mesh, batch_axes), cfg, mesh)
     if path == "grouped":
         return _moe_mlp_grouped(x, layer, cfg, token_mask, save_names, keep_g)
     if path == "grouped_ep":
-        return _moe_mlp_grouped_ep(x, layer, cfg, token_mask, mesh, save_names, keep_g)
+        return _moe_mlp_grouped_ep(x, layer, cfg, token_mask, mesh, save_names, keep_g,
+                                   batch_axes)
+    if not _mesh_trivial(mesh):
+        return _moe_mlp_sharded(x, layer, cfg, path, token_mask, mesh, batch_axes, save_names)
     if path == "ragged_exact":
         # tiny batches: the ragged path at the provably drop-free capacity
         # (per-row capacity = S), exact for any S
-        exact = dataclasses.replace(
-            cfg,
-            capacity_factor=max(cfg.capacity_factor, cfg.num_experts / cfg.num_experts_per_tok),
-        )
-        return _moe_mlp_ragged(x, _maybe_dequant(layer, x.dtype), exact, token_mask, save_names)
+        return _moe_mlp_ragged(x, _maybe_dequant(layer, x.dtype), _exact(cfg), token_mask,
+                               save_names)
     if path == "ragged":
         return _moe_mlp_ragged(x, layer, cfg, token_mask, save_names)
     dtype = x.dtype
@@ -852,6 +963,19 @@ def moe_mlp(x, layer, cfg: MoeConfig, token_mask=None, *, save_names=(), keep_g=
 # decoder layer and forward
 
 
+def shard_layer(par, cfg: MoeConfig, layer, lora_layer):
+    """A layer's local shards made ready for its computation under a mesh
+    (``par``, a ``llama.Sharding``): the attention weights and the router
+    gathered over fsdp, and, off the grouped dispatch, the banks too (their
+    D dim; E stays split over expert and F over tensor)."""
+    layer, lora_layer = par.layer(layer, lora_layer)
+    layer["router"] = par.weight("router", layer["router"])
+    if cfg.dispatch != "grouped":
+        for n in BANKS:
+            layer[n] = par.gather(layer[n], row=n == "moe_down", lead=1)
+    return layer, lora_layer
+
+
 def _decoder_layer(cfg: MoeConfig, attention_fn, x, layer, lora_layer, sin, cos, segment_ids,
                    save_names=(), keep_g=True, par=None, mesh=None):
     """``(x, aux)``. LoRA attaches to the attention projections only;
@@ -862,8 +986,7 @@ def _decoder_layer(cfg: MoeConfig, attention_fn, x, layer, lora_layer, sin, cos,
     are this rank's experts."""
     b = cfg.base
     if par is not None:
-        layer, lora_layer = par.layer(layer, lora_layer)
-        layer["router"] = par.weight("router", layer["router"])
+        layer, lora_layer = shard_layer(par, cfg, layer, lora_layer)
     if cfg.dispatch == "grouped":
         banks = {k: layer[k] for k in BANKS if _is_int8(layer[k])}
         rest = {k: v for k, v in layer.items() if k not in banks}
@@ -1010,6 +1133,8 @@ def forward_with_cache(
     kv_mask: Optional[torch.Tensor] = None,  # [B, S_max] valid cache slots
     lora: Optional[Params] = None,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] bool; False = pad
+    mesh=None,
+    batch_axes=None,
 ) -> tuple[torch.Tensor, Params]:
     """KV-cached MoE forward: returns (logits [B, S, V] float32, cache),
     the cache updated in place (``llama.forward_with_cache``'s contract).
@@ -1020,26 +1145,51 @@ def forward_with_cache(
     float banks. Without ``token_mask``, a prefill (S > 1) routes only
     the slots ``kv_mask`` marks valid: pads must not take expert rows. A
     decode step always carries a real token. ``lora`` carries
-    attention-projection adapters (the MoE-LoRA targets)."""
+    attention-projection adapters (the MoE-LoRA targets).
+
+    Under ``mesh`` the attention half is the dense family's sharded cache
+    path and the MLP is ``moe_mlp`` under the mesh with the rows replicated
+    over expert: ``batch_axes`` are the axes the rows are split over,
+    ``generate.SERVE_BATCH_AXES`` by default, none for a batch that every
+    rank holds whole (an engine admission). The dispatch is JAX's
+    decision on the global batch: a grouped config's decode steps and
+    small prefills take the exact ragged path, and its large prefills
+    raise JAX's text where the grouped kernels cannot run on the mesh."""
     b = cfg.base
     llama._check_supported(b)
+    par = None
+    if mesh is not None:
+        from odh_kubeflow_tpu_torch.models.generate import SERVE_BATCH_AXES, check_serving_mesh
+
+        check_serving_mesh(mesh, b)
+        par = llama.Sharding(mesh, b)
+        batch_axes = SERVE_BATCH_AXES if batch_axes is None else tuple(batch_axes)
     sin, cos = rope_angles(positions, b.head_dim, b.rope_theta)
-    x = params["embed"][tokens].to(b.dtype)
+    table = params["embed"]
+    x = (table[tokens] if par is None else par.embed(table, tokens)).to(b.dtype)
     S = tokens.shape[1]
     if token_mask is None and kv_mask is not None and S > 1:
         token_mask = kv_mask[:, :S]
     lora_layers = lora["layers"] if lora is not None else None
 
     for i in range(b.num_layers):
-        layer = _maybe_dequant(llama._layer_slice(params["layers"], i), b.dtype)
+        layer = llama._layer_slice(params["layers"], i)
+        lora_layer = llama._layer_slice(lora_layers, i)
+        if par is not None:
+            layer, lora_layer = shard_layer(par, cfg, layer, lora_layer)
+        layer = _maybe_dequant(layer, b.dtype)
         x, _ = llama.attention_block(
-            b, None, x, layer, llama._layer_slice(lora_layers, i), sin, cos, None,
+            b, None, x, layer, lora_layer, sin, cos, None,
             cache_layer={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_index=cache_index, kv_mask=kv_mask,
+            cache_index=cache_index, kv_mask=kv_mask, tp=None if par is None else par.tp,
         )
         h = rms_norm(x, layer["mlp_norm"], b.rms_norm_eps)
-        moe_out, _ = moe_mlp(h, layer, cfg, token_mask=token_mask)
+        moe_out, _ = moe_mlp(h, layer, cfg, token_mask=token_mask, mesh=mesh,
+                             batch_axes=BATCH_AXES if par is None else batch_axes)
         x = x + moe_out
 
     x = rms_norm(x, params["final_norm"], b.rms_norm_eps)
-    return llama._logits(x, llama.lm_head_weight(params, b), b.dtype), cache
+    if par is None:
+        return llama._logits(x, llama.lm_head_weight(params, b), b.dtype), cache
+    logits = llama._logits(x, par.head(params, b), b.dtype)
+    return col.gather_dim(logits, par.tp, logits.ndim - 1), cache

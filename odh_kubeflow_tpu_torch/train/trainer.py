@@ -26,7 +26,8 @@ sums each leaf's squares over its shards once. A grouped MoE runs
 expert-parallel (``models/moe.py``): its banks shard over ``expert`` and
 sum their gradients over data and fsdp only, and each rank's loss share
 carries its part of the router aux, so the aux enters the summed loss
-once. With ``pipe > 1`` each rank also holds only its pipeline stage's
+once. The ragged and einsum dispatches shard their banks over expert,
+fsdp and tensor, as JAX's ``param_specs`` do. With ``pipe > 1`` each rank also holds only its pipeline stage's
 layers (``_pipe_shard_layer_specs``), initialised alone, and the layer
 stack runs through GPipe (``parallel/pipeline.py``) on
 ``TrainConfig.pipeline_microbatches`` microbatches, each rank's block of
@@ -338,9 +339,10 @@ class Trainer:
     train; on a MoE model they attach to the attention projections only.
     Without a mesh it trains on ``device``, the card by default; with a
     ``parallel.mesh.Mesh`` (data, fsdp, tensor, context and pipe axes for
-    a Llama config; data, fsdp, expert and pipe for a grouped MoE) each
-    rank trains its shards on the mesh's device, with ``pipe > 1`` its
-    pipeline stage's layers."""
+    a Llama config; for a MoE the same, plus expert, where JAX's dispatch
+    decisions allow: a grouped MoE's large batches take data, fsdp,
+    expert and pipe) each rank trains its shards on the mesh's device,
+    with ``pipe > 1`` its pipeline stage's layers."""
 
     def __init__(
         self,

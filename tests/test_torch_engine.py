@@ -292,10 +292,11 @@ def test_ttft_itl_metrics_recorded(model):
 
 
 def test_engine_refuses_a_mesh_and_a_compile_cache(model):
-    """The reference's mesh test: the port has no multi-device parallelism
-    yet, so ``mesh=`` raises and names it; a compile cache belongs to the
+    """A mesh that is not the port's (a JAX mesh) is a ``TypeError``, as in
+    ``Trainer(mesh=)`` (the engine under a port mesh:
+    ``tests/test_torch_engine_mesh.py``); a compile cache belongs to the
     platform modules."""
-    with pytest.raises(NotImplementedError, match="multi-device parallelism"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         engine(model, mesh=object())
     with pytest.raises(NotImplementedError, match="compilecache"):
         engine(model, compile_cache_dir="/nonexistent")

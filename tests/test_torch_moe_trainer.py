@@ -178,11 +178,12 @@ def test_moe_trainer_refuses_mlp_targets_and_counts_strict_sparse_flops(pair):
                  metrics_registry=prometheus.Registry())
     with pytest.raises(ValueError, match="dispatch='grouped': tensor/context-sharded meshes"):
         tt.train_step(batch)
+    # the ragged dispatch under fsdp=2 passes JAX's checks of the global batch
+    # and splits it (tests/test_torch_moe_mesh.py steps it on eight ranks)
     fsdp2 = Mesh(TMeshConfig(fsdp=2), torch.device("cpu"), None, rank=0)
     tt = Trainer(dataclasses.replace(TCFG, dispatch="ragged"), lora_cfg=lora.LoraConfig(),
                  mesh=fsdp2, device="cpu", metrics_registry=prometheus.Registry())
-    with pytest.raises(NotImplementedError, match="MoE ragged/einsum dispatch under a mesh"):
-        tt.train_step(batch)
+    assert tt._batch(batch)["tokens"].shape == (4, 512)
 
 
 def test_moe_long_sequence_takes_the_chunked_loss_with_the_aux(monkeypatch):
