@@ -170,6 +170,26 @@ Phases, one JSON line each on stdout:
     pipelined, kernels against
     plain versions on the kernel run's routing (``RoutingTape``).
 
+30. ``long_context_text`` (after ``ring_on_card``): the fine-tune path from
+    text: the port's tokenizer trained on the pinned docs
+    (``tests/data/tokenizer_corpus``) at vocab 512, a document a section,
+    the native packer's first 1 x 16,384 row (segment ids; equal to the
+    Python path's); the flash forward, dQ and dK/dV kernels at the row's
+    shape with its segment ids against their plain versions (one KV head
+    group at a time, ``TILE_RTOL``, lse2 to 1e-3); and the 8B QLoRA step
+    on the row (int8 base, LoRA r16,
+    flash) under remat "none", "attn" and "attn_offload" on one init: the
+    loss and adapter gradients at the init (attn_offload bit-equal to attn,
+    none within ``REMAT_NONE_GRAD_TOL``), exact flash launches (64 / 32 /
+    32 forwards), bytes parked on the host, then per policy 1 warm-up and
+    2 timed steps, peak memory and a profiled step's device busy share
+    (the union of the device's kernel and copy intervals over the wall
+    time) and compute share (kernels alone).
+31. ``moe_offload`` (after ``moe_ep_loopback``): the ``moe_train``
+    configuration's loss and adapter gradients on one batch under "attn"
+    and "attn_offload" from one init, twice in turns, bit for bit, the same
+    launches, the seconds and peak memory of each and the bytes parked.
+
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without the last line. Without a GPU it exits
@@ -242,6 +262,9 @@ TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32,
 # every adapter gradient leaf; relative tolerance on the loss
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_LOSS_RTOL = 2e-3
+# remat "none" against "attn" on one model: the same arithmetic recomputed,
+# max |none - attn| / max |attn| per adapter gradient leaf
+REMAT_NONE_GRAD_TOL = 1e-3
 # the Mixtral-8x1B QLoRA step: (batch, seq); M = round_up(B·S·k + E·128, 512)
 # sorted rows per layer; launches per step. Each of the 16 layers runs, in
 # the forward, the flash forward, the fused SwiGLU and the down projection
@@ -683,6 +706,19 @@ def _live_pairs(B, S, causal, seg):
     return total
 
 
+def flash_work(B, S, Hq, Hkv, hd, pairs) -> dict:
+    """{kernel: (flops, bytes)} of one flash launch over ``pairs`` live
+    (query, key) pairs a query head: each input read once, each output
+    written once."""
+    qb, kb = B * S * Hq * hd * 2, B * S * Hkv * hd * 2
+    rowb = B * Hq * S * 4
+    return {
+        "flash_fwd": (4 * hd * pairs * Hq, 2 * qb + 2 * kb + rowb),
+        "flash_dq": (6 * hd * pairs * Hq, 3 * qb + 2 * kb + 2 * rowb),
+        "flash_dkv": (8 * hd * pairs * Hq, 2 * qb + 4 * kb + 2 * rowb),
+    }
+
+
 def planted_faults(torch, fa, args, wants) -> dict:
     """Three broken kernels, made from the plain versions with segment ids
     and held to the check the real ones pass: a forward and a dQ that skip
@@ -771,13 +807,7 @@ def flash_kernels_phase(torch, fa, bw: float, peak: float) -> list[dict]:
         torch.cuda.empty_cache()
 
         pairs = _live_pairs(B, S, causal, seg)
-        qb, kb = B * S * Hq * hd * 2, B * S * Hkv * hd * 2
-        rowb = B * Hq * S * 4
-        work = {  # (flops, bytes: each input read once, each output written once)
-            "flash_fwd": (4 * hd * pairs * Hq, 2 * qb + 2 * kb + rowb),
-            "flash_dq": (6 * hd * pairs * Hq, 3 * qb + 2 * kb + 2 * rowb),
-            "flash_dkv": (8 * hd * pairs * Hq, 2 * qb + 4 * kb + 2 * rowb),
-        }
+        work = flash_work(B, S, Hq, Hkv, hd, pairs)
         launch = {
             "flash_fwd": lambda i: fa.flash_fwd(q, k, v, seg, seg, **kw),
             "flash_dq": lambda i: fa.flash_dq(*args, **kw),
@@ -1112,6 +1142,314 @@ def ring_on_card_phase(torch, fa) -> tuple[dict, dict]:
     return record, launched
 
 
+# ---------------------------------------------------------------------------
+# the fine-tune path end to end at long context (slice 8): text ->
+# the port's tokenizer -> the native packer -> the 8B QLoRA step at 16k, and
+# remat "attn_offload" for Llama and the MoE
+
+# the reference's hard regime (``bench.py``'s long-context row,
+# ``loadtest/profile_step.py``'s 8b16k): Llama-3-8B, int8 base, one row of
+# 16,384 tokens; here the row is the pinned docs (``tests/data/
+# tokenizer_corpus``) tokenized at vocab 512, a document a section, packed
+LONG_SEQ = 16_384
+LONG_VOCAB = 512
+LONG_CORPUS = ("GUIDE.md", "PARITY.md", "README.md")
+LONG_POLICIES = ("none", "attn", "attn_offload")
+# flash launches per fwd + bwd: each layer's forward once, its backward once;
+# "none" recomputes the layer, the forward kernel with it
+LONG_LAUNCHES = {"none": {"flash_fwd": 64, "flash_dq": 32, "flash_dkv": 32},
+                 "attn": {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32},
+                 "attn_offload": {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32}}
+LONG_STEPS, LONG_WARMUP = 2, 1
+
+
+def flash_residual_bytes(cfg, B: int, S: int) -> int:
+    """What remat "attn" keeps of a Llama stack on the flash path: each
+    layer's ``(out, lse2)``, bf16 ``[B, S, Hq, hd]`` and f32 ``[B, Hq, S]``."""
+    return cfg.num_layers * (B * S * cfg.num_heads * cfg.head_dim * 2 + B * cfg.num_heads * S * 4)
+
+
+def long_context_batch(torch) -> tuple[dict, dict]:
+    """The pinned docs through the port's tokenizer (trained on them at
+    vocab 512) and the native packer: the first ``1 x LONG_SEQ`` batch,
+    with segment ids, on the card."""
+    import os
+
+    from odh_kubeflow_tpu_torch import native
+    from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
+    from odh_kubeflow_tpu_torch.train.tokenizer import corpus_from_files, sections, train_bpe
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "tokenizer_corpus")
+    texts = corpus_from_files([os.path.join(root, n) for n in LONG_CORPUS])
+    t0 = time.perf_counter()
+    tok = train_bpe(texts, vocab_size=LONG_VOCAB)
+    train_s = time.perf_counter() - t0
+    docs = [tok.encode(s, bos=True, eos=True) for t in texts for s in sections(t)]
+    if not native.available():
+        raise AssertionError("the native packer did not build (no C++ compiler)")
+    t0 = time.perf_counter()
+    packed = next(pack_documents(docs, 1, LONG_SEQ, engine="native"))
+    pack_s = time.perf_counter() - t0
+    python = next(pack_documents(docs, 1, LONG_SEQ, engine="python"))
+    if any((packed[k] != python[k]).any() for k in python):
+        raise AssertionError("the native packer's batch differs from the Python path's")
+    seg = packed["segment_ids"][0]
+    info = {"corpus_bytes": sum(len(t.encode()) for t in texts), "vocab": tok.vocab_size,
+            "tokenizer_train_s": train_s, "documents": len(docs),
+            "corpus_ids": sum(len(d) for d in docs), "pack_s": pack_s,
+            "segments_in_row": int(seg.max()), "padding": int((seg == 0).sum()),
+            "loss_tokens": int(packed["loss_mask"].sum())}
+    return next(prefetch_to_device([packed])), info
+
+
+def long_flash_check(torch, fa, cfg, seg) -> dict:
+    """The three flash kernels at the 16k text row's shape (1 x LONG_SEQ,
+    the model's heads, the row's own segment ids) on random bf16 inputs,
+    each held to its plain version as ``flash_kernels_phase`` holds them
+    (``TILE_RTOL`` per tile, lse2 to 1e-3). The plain version runs one KV
+    head and its query group at a time: the whole row's f32 scores would
+    take 32 GiB."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1617)
+    seg = seg.to(torch.int32).contiguous()  # as ``flash_attention`` passes them on
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rnd(h):
+        return torch.randn((1, LONG_SEQ, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(Hq), rnd(Hkv), rnd(Hkv), rnd(Hq)
+    out, lse = fa.flash_fwd(q, k, v, seg, seg)
+    delta = fa.flash_delta(out, do)
+    dq = fa.flash_dq(q, k, v, lse, delta, do, seg, seg)
+    dk, dv = fa.flash_dkv(q, k, v, lse, delta, do, seg, seg)
+    worst = {n: {"max_abs_err": 0.0, "tile_rel_err": 0.0}
+             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+    def close(name, got, want):
+        st = worst[name]
+        st["max_abs_err"] = max(st["max_abs_err"], (got.float() - want.float()).abs().max().item())
+        st["tile_rel_err"] = max(st["tile_rel_err"], fa.tile_rel_err(got, want))
+
+    lse_err, g = 0.0, Hq // Hkv
+    for h in range(Hkv):  # KV head h and its query heads
+        qs, ks = slice(h * g, (h + 1) * g), slice(h, h + 1)
+        args = (q[:, :, qs], k[:, :, ks], v[:, :, ks], lse[:, qs], delta[:, qs], do[:, :, qs],
+                seg, seg)
+        ref_out, ref_lse = fa.flash_fwd_reference(*args[:3], seg, seg)
+        close("flash_fwd", out[:, :, qs], ref_out)
+        lse_err = max(lse_err, (lse[:, qs] - ref_lse).abs().max().item())
+        del ref_out, ref_lse
+        close("flash_dq", dq[:, :, qs], fa.flash_dq_reference(*args))
+        rk, rv = fa.flash_dkv_reference(*args)
+        close("flash_dkv", dk[:, :, ks], rk)
+        close("flash_dkv", dv[:, :, ks], rv)
+        del rk, rv
+        torch.cuda.empty_cache()
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    for name, st in worst.items():
+        if not st["tile_rel_err"] <= fa.TILE_RTOL[name]:
+            raise AssertionError(f"{name} at the 16k text row: tile relative err "
+                                 f"{st['tile_rel_err']} > {fa.TILE_RTOL[name]}")
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"flash_fwd at the 16k text row: lse2 max abs err {lse_err}")
+    return {"shape": f"1 x {LONG_SEQ}, {Hq}/{Hkv} heads, hd {hd}, the row's "
+                     f"{int(seg.max())} segments, random bf16 inputs",
+            "lse2_max_abs_err": lse_err, **worst,
+            "tolerance": {n: f"||kernel - plain|| / ||plain|| <= {fa.TILE_RTOL[n]} in every "
+                             "tile of 64 positions of one row and head" for n in worst}
+                         | {"lse2": "max abs err <= 1e-3"}}
+
+
+def long_context_text_phase(torch, fa, int4, bw: float, peak: float) -> tuple[dict, dict]:
+    """The flash kernels against their plain versions at the packed 16k
+    text row's shape and segments (``long_flash_check``), then the 8B
+    QLoRA step (int8 base, LoRA r16, flash) on the row under remat "none",
+    "attn" and "attn_offload", one init: per
+    policy the loss and adapter gradients at the init (attn_offload's
+    bit-equal to attn's, none's within the train phase's tolerance), exact
+    flash launches, then 1 warm-up and 2 timed steps (host clock, read the
+    loss), peak memory, and a profiled step's device busy share; for
+    attn_offload the bytes parked on the host; each flash kernel's ms a
+    launch in the profiled "attn" step beside its bound over the row's live
+    pairs."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import offload
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+
+    t_phase = time.perf_counter()
+    batch, text = long_context_batch(torch)
+    cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="none")
+    t0 = time.perf_counter()
+    kernel_check = long_flash_check(torch, fa, cfg, batch["segment_ids"])
+    kernel_check["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = live_lora_trainer(torch, cfg, "int8", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    want_parked = flash_residual_bytes(cfg, 1, LONG_SEQ)
+    runs, grads = {}, {}
+    zero_counts(fa, int4)  # the long-context path's count starts here
+    expected = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv", "int4_dequant")}
+    for policy in LONG_POLICIES:  # the loss and gradients at the shared init
+        trainer.model_cfg = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, offload.parked_bytes = counts(fa, int4), 0
+        loss, grads[policy] = trainer.gradients(batch)
+        n = {k: counts(fa, int4)[k] - before[k] for k in LONG_LAUNCHES[policy]}
+        if n != LONG_LAUNCHES[policy]:
+            raise AssertionError(f"{policy}: flash launches {n}, expected {LONG_LAUNCHES[policy]}")
+        parked = offload.parked_bytes
+        if parked != (want_parked if policy == "attn_offload" else 0):
+            raise AssertionError(f"{policy}: {parked} bytes parked, expected {want_parked}")
+        runs[policy] = {"loss": float(loss), "launches_fwd_bwd": n, "parked_bytes": parked,
+                        "grad_peak_memory_gb_above_weights":
+                            (torch.cuda.max_memory_allocated() - resident) / 2**30}
+        for k, v in n.items():
+            expected[k] += v
+    for policy in LONG_POLICIES:  # the steps, timed
+        trainer.model_cfg = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(LONG_WARMUP + LONG_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch)["loss"]))
+            times.append(time.perf_counter() - t0)
+        peak_mem = torch.cuda.max_memory_allocated()
+        busy = busy_share(torch, lambda: (trainer.train_step(batch)["loss"], None),
+                          names=("flash_fwd", "flash_dq", "flash_dkv"))
+        for k, v in LONG_LAUNCHES[policy].items():
+            expected[k] += v * (LONG_WARMUP + LONG_STEPS + 1)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{policy}: step losses {losses}")
+        runs[policy].update(step_s=statistics.mean(times[LONG_WARMUP:]), step_times_s=times,
+                            step_losses=losses, peak_memory_gb=peak_mem / 2**30,
+                            peak_memory_gb_above_weights=(peak_mem - resident) / 2**30,
+                            peak_memory_gb_above_step_start=(peak_mem - base) / 2**30,
+                            tokens_per_s=LONG_SEQ / statistics.mean(times[LONG_WARMUP:]),
+                            profiled_step=busy)
+    launched = counts(fa, int4)
+    if launched != expected:
+        raise AssertionError(f"long-context launches {launched}, expected {expected}")
+    a, o, n = grads["attn"], grads["attn_offload"], grads["none"]
+    bad = [p for p in a if not torch.equal(a[p], o[p])]
+    none_worst = max((n[p] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                     for p, g in a.items())
+    gates = {
+        "attn_offload_loss_equals_attn": runs["attn_offload"]["loss"] == runs["attn"]["loss"],
+        "attn_offload_leaves_bit_equal": len(a) - len(bad), "leaves": len(a),
+        "none_loss_rel_diff": abs(runs["none"]["loss"] - runs["attn"]["loss"])
+                              / abs(runs["attn"]["loss"]),
+        "none_worst_leaf_grad_rel_diff": none_worst,
+        "none_leaves_bit_equal": sum(torch.equal(n[p], g) for p, g in a.items()),
+    }
+    pairs = _live_pairs(1, LONG_SEQ, True, batch["segment_ids"].cpu())
+    prof = runs["attn"]["profiled_step"]
+    flash = {}
+    for name, (flops, nbytes) in flash_work(1, LONG_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                                            cfg.head_dim, pairs).items():
+        ms = prof.get(f"{name}_ms")
+        n = prof.get(f"{name}_launches")
+        flash[name] = {"flops": flops, "bytes": nbytes,
+                       "bound_ms": max(flops / peak, nbytes / bw) * 1e3,
+                       "bound_by": "operations" if flops / peak > nbytes / bw else "bytes",
+                       "ms_per_launch": ms / n if n else "not measured"}
+    record = {
+        "phase": "long_context_text",
+        "config": "llama3_8b QLoRA: int8 base (random weights, seed 0), LoRA r16 on "
+                  "wq/wk/wv/wo (b live), flash, 32 layers; batch 1 x 16,384 packed text",
+        "text": text, "kernels_vs_plain_at_the_row": kernel_check,
+        "init_s": init_s, "resident_params_gb": resident / 2**30,
+        "live_pairs_per_head": pairs, "flash_in_attn_step": flash,
+        "steps": LONG_STEPS, "warmup": LONG_WARMUP, "runs": runs, "gates": gates,
+        "parked_bytes_expected": want_parked,
+        "attn_minus_offload_peak_gb": runs["attn"]["peak_memory_gb"]
+                                       - runs["attn_offload"]["peak_memory_gb"],
+        "tolerances": {"none_loss_rtol": TRAIN_LOSS_RTOL,
+                       "none_grad_tol": f"max |none - attn| / max |attn| per leaf <= "
+                                        f"{REMAT_NONE_GRAD_TOL}",
+                       "attn_offload": "bit-equal to attn"},
+        "launches": launched,
+    }
+    if bad or not gates["attn_offload_loss_equals_attn"]:
+        raise AssertionError(f"attn_offload differs from attn on {len(bad)} leaves: {record}")
+    if gates["none_loss_rel_diff"] > TRAIN_LOSS_RTOL or none_worst > REMAT_NONE_GRAD_TOL:
+        raise AssertionError(f"remat none differs from attn: {record}")
+    del trainer, grads
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return record, launched
+
+
+def moe_offload_phase(torch, fa, int4, gm) -> tuple[dict, dict]:
+    """The ``moe_train`` configuration (Mixtral-8x1B QLoRA, int8 banks,
+    grouped, ``pin_expert_acts``) on one batch, its loss and adapter
+    gradients under remat "attn" and "attn_offload" from one init, twice in
+    turns (the first round warms up): bit for bit, the same launches, the
+    forward and backward's seconds and peak memory of each, the bytes
+    parked."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import offload
+
+    t_phase = time.perf_counter()
+    B, S = MOE_TRAIN_SHAPE
+    cfg = moe_config()
+    trainer = live_lora_trainer(torch, cfg, True, seed=0)
+    batch = trainer.make_fake_batch(B, S, seed=5)
+    resident = torch.cuda.memory_allocated()
+    zero_moe_counts(fa, int4, gm)  # the offloaded MoE path's count starts here
+    runs, grads = {}, {}
+    for r in range(2):  # in turns; the first round warms up (pinned buffers, libraries)
+        for policy in ("attn", "attn_offload"):
+            trainer.model_cfg = dataclasses.replace(
+                cfg, base=dataclasses.replace(cfg.base, remat_policy=policy))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, offload.parked_bytes = moe_counts(fa, gm), 0
+            t0 = time.perf_counter()
+            loss, grads[policy] = trainer.gradients(batch)
+            loss = float(loss)
+            seconds = time.perf_counter() - t0
+            after = moe_counts(fa, gm)
+            n = {k: after[k] - before[k] for k in after}
+            if n != MOE_LAUNCHES_PER_STEP:
+                raise AssertionError(f"moe_offload {policy}: launches {n}")
+            runs.setdefault(policy, {"fwd_bwd_s": []})["fwd_bwd_s"].append(seconds)
+            runs[policy].update(loss=loss, parked_bytes=offload.parked_bytes, launches=n,
+                                peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                                peak_memory_gb_above_weights=(torch.cuda.max_memory_allocated()
+                                                              - resident) / 2**30)
+    launched = moe_counts(fa, gm)
+    a, o = grads["attn"], grads["attn_offload"]
+    bad = [p for p in a if not torch.equal(a[p], o[p])]
+    record = {
+        "phase": "moe_offload",
+        "config": "the moe_train phase's: mixtral_8x1b QLoRA int8 banks, dispatch grouped, "
+                  "pin_expert_acts, LoRA r16 (b live), 16 layers",
+        "batch": B, "seq": S, "runs": runs, "leaves": len(a),
+        "leaves_bit_equal": len(a) - len(bad),
+        "attn_minus_offload_peak_gb": runs["attn"]["peak_memory_gb"]
+                                       - runs["attn_offload"]["peak_memory_gb"],
+        "launches": launched,
+    }
+    if int4.launches:
+        raise AssertionError(f"moe_offload launched the int4 dequant: {record}")
+    if bad or runs["attn_offload"]["loss"] != runs["attn"]["loss"] or \
+            not runs["attn_offload"]["parked_bytes"] or runs["attn"]["parked_bytes"]:
+        raise AssertionError(f"moe attn_offload differs from attn on {len(bad)} leaves: {record}")
+    del trainer, grads
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return record, launched
+
+
 def llama_with_plain(fa, int4, fn):
     """``fn()`` with the flash kernels' and the int4 dequant's plain
     versions in their wrappers' place."""
@@ -1237,7 +1575,7 @@ def train_parity_phase(torch, fa, int4) -> dict:
     worst = max((none_grads[p] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
                 for p, g in attn_grads.items())
     out["attn_vs_none_worst_leaf_grad_rel_diff"] = worst
-    if worst > 1e-3:
+    if worst > REMAT_NONE_GRAD_TOL:
         raise AssertionError(f"remat attn vs none gradients differ: {worst}")
     return out
 
@@ -2221,12 +2559,25 @@ def timed_runs(torch, runs: dict, counts_of, expected: dict, rounds: int = 3) ->
     return out
 
 
-def busy_share(torch, fn) -> dict:
+def _union_us(spans) -> float:
+    """The time covered by ``(start, end)`` spans that may overlap."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def busy_share(torch, fn, names=()) -> dict:
     """One call of ``fn`` (a run returning (loss, grads)) under
     ``torch.profiler``, the device's activity only (a pipelined step's
     hundreds of thousands of host ops would take a minute to collect): its
-    wall ms, the device's kernel ms and busy share, and the kernels
-    launched."""
+    wall ms, the device's summed kernel ms, its busy share (the time in
+    which some kernel or copy ran, over the wall time: a side stream's
+    copies under remat "attn_offload" overlap the kernels, and count once),
+    the same share without copies, and the kernels launched; with
+    ``names``, the ms and launches of the kernels whose names hold each."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2236,10 +2587,19 @@ def busy_share(torch, fn) -> dict:
     kernels = device_kernels(prof)
     if not kernels:
         return {"wall_ms": wall_ms, "device_kernel_ms": "not measured"}
-    device_ms = sum(t for t, _ in kernels.values()) / 1e3
-    return {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms,
-            "kernel_launches": sum(c for _, c in kernels.values())}
+    spans = [(e.time_range.start, e.time_range.end, e.name.startswith("Memcpy"))
+             for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    copy_ms = sum(t for n, (t, _) in kernels.items() if n.startswith("Memcpy")) / 1e3
+    out = {"wall_ms": wall_ms, "device_kernel_ms": sum(t for t, _ in kernels.values()) / 1e3,
+           "device_busy_share": _union_us((a, b) for a, b, _ in spans) / 1e3 / wall_ms,
+           "memcpy_ms": copy_ms,
+           "compute_busy_share": _union_us((a, b) for a, b, c in spans if not c) / 1e3 / wall_ms,
+           "kernel_launches": sum(c for _, c in kernels.values())}
+    for want in names:
+        hits = [(t, c) for n, (t, c) in kernels.items() if want in n]
+        out[f"{want}_ms"] = sum(t for t, _ in hits) / 1e3
+        out[f"{want}_launches"] = sum(c for _, c in hits)
+    return out
 
 
 def pipe_loopback_phase(torch, fa, int4) -> tuple[dict, dict]:
@@ -4420,6 +4780,12 @@ def main() -> int:
     record["card"] = label
     emit(record)
     torch.cuda.empty_cache()
+    # the fine-tune path at long context: tokenizer, native packer, the 8B
+    # step at 16k under remat none / attn / attn_offload
+    record, long_launches = long_context_text_phase(torch, fa, int4, bw, peak)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -4439,6 +4805,10 @@ def main() -> int:
     emit(record)
     torch.cuda.empty_cache()
     record, ep_launches = moe_ep_loopback_phase(torch, fa, int4, gm)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
+    record, moe_offload_launches = moe_offload_phase(torch, fa, int4, gm)
     record["card"] = label
     emit(record)
     torch.cuda.empty_cache()
@@ -4513,7 +4883,8 @@ def main() -> int:
              "moe_full_train": full_launches, "mesh_train": mesh_launches,
              "ring_on_card": ring_launches, "moe_mesh_train": moe_mesh_launches,
              "moe_ep_loopback": ep_launches, "pipe_loopback": pipe_launches,
-             "moe_pipe_loopback": moe_pipe_launches}
+             "moe_pipe_loopback": moe_pipe_launches, "long_context_text": long_launches,
+             "moe_offload": moe_offload_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

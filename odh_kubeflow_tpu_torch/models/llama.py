@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import (
@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from odh_kubeflow_tpu_torch.models import offload
 from odh_kubeflow_tpu_torch.ops.attention import dense_attention
 from odh_kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from odh_kubeflow_tpu_torch.ops.norms import rms_norm
@@ -766,32 +767,39 @@ def _tag(x: torch.Tensor, name: str, save_names) -> torch.Tensor:
     return checkpoint_name(x, name) if name in save_names else x
 
 
-def _remat_plan(policy: str, impl: str):
-    """(ops saved by op identity, activation names saved) of a policy;
-    None for "none" (a plain checkpoint: everything recomputed).
+class RematPlan(NamedTuple):
+    """What a checkpointed layer keeps from its forward: ops saved by op
+    identity, ``_tag`` names saved, and whether they are parked in host
+    memory (``models/offload.py``) instead of kept on the device."""
+
+    ops: tuple
+    names: tuple
+    offload: bool = False
+
+
+def _remat_plan(policy: str, impl: str) -> Optional[RematPlan]:
+    """The plan of a policy; None for "none" (a plain checkpoint:
+    everything recomputed).
 
     - "dots": every matmul without batch dims (``aten.mm``: the
       projections, LoRA and MLP products), plus the flash forward's
       residuals, which JAX's dot policy adds on the flash path;
     - "attn": the flash forward's ``(out, lse2)``, so the backward never
       re-runs the O(S²) kernel; on the dense path, the attention output;
-    - "attn_mlp": "attn" plus the roped q/k, v and the MLP gate.
+    - "attn_mlp": "attn" plus the roped q/k, v and the MLP gate;
+    - "attn_offload": what "attn" keeps, parked in host memory between
+      the layer's forward and its backward.
     """
     flash = (torch.ops.odh_torch.flash_fwd.default,) if impl == "flash" else ()
     if policy == "none":
         return None
     if policy == "dots":
-        return (torch.ops.aten.mm.default, *flash), ()
-    if policy in ("attn", "attn_mlp"):
+        return RematPlan((torch.ops.aten.mm.default, *flash), ())
+    if policy in ("attn", "attn_mlp", "attn_offload"):
         names = () if flash else ("attn_out",)
         if policy == "attn_mlp":
             names += ("q_rope", "k_rope", "v_proj", "mlp_g")
-        return flash, names
-    if policy == "attn_offload":
-        raise NotImplementedError(
-            "remat_policy='attn_offload' (residuals parked in pinned host "
-            "memory) is not ported yet; it is queued in ROADMAP.md"
-        )
+        return RematPlan(flash, names, offload=policy == "attn_offload")
     raise ValueError(
         f"unknown remat_policy {policy!r}; expected 'dots', 'attn', "
         "'attn_mlp', 'attn_offload', or 'none'"
@@ -809,7 +817,7 @@ def _make_layer_fn(
     if not cfg.remat:
         return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest, par=par)[0]
     plan = _remat_plan(policy, impl)
-    names = () if plan is None else plan[1]
+    names = () if plan is None else plan.names
 
     def body(x, layer, lora_layer, sin, cos, segment_ids):
         return _decoder_layer(
@@ -820,23 +828,26 @@ def _make_layer_fn(
     return remat_wrap(body, plan)
 
 
-def remat_wrap(body: Callable, plan) -> Callable:
+def remat_wrap(body: Callable, plan: Optional[RematPlan]) -> Callable:
     """``body`` as a ``torch.utils.checkpoint`` region (with grad on):
-    ``plan`` is ``(ops, names)``: ops saved by identity and ``_tag`` names
-    saved, everything else recomputed in the backward; None recomputes
-    everything."""
+    what ``plan`` keeps is saved (or parked in host memory), everything
+    else recomputed in the backward; None recomputes everything."""
     if plan is None:
         context_fn = None
     else:
-        ops, names = plan
         tagged = torch.ops.odh_torch.checkpoint_name.default
 
+        def kept(op, args) -> bool:
+            return op in plan.ops or (op is tagged and args[1] in plan.names)
+
         def keep(ctx, op, *args, **kwargs):
-            if op in ops or (op is tagged and args[1] in names):
+            if kept(op, args):
                 return CheckpointPolicy.MUST_SAVE
             return CheckpointPolicy.PREFER_RECOMPUTE
 
         context_fn = functools.partial(create_selective_checkpoint_contexts, keep)
+        if plan.offload:
+            context_fn = functools.partial(offload.contexts, kept, context_fn)
 
     def layer_fn(x, *rest):
         if not torch.is_grad_enabled():

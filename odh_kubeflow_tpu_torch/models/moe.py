@@ -1007,15 +1007,15 @@ def _decoder_layer(cfg: MoeConfig, attention_fn, x, layer, lora_layer, sin, cos,
     return x + _tag(moe_out, "moe_out", save_names), aux
 
 
-def _remat_plan(policy: str, impl: str, pin_acts: bool):
-    """(ops saved by identity, names saved) of a policy, None for "none":
-    the dense family's vocabulary with the MoE extras of JAX's
-    ``forward``: every policy keeps the combined output, the expert
-    output (the ``expert_ffn`` op, or "moe_y") and the routing, and with
-    ``pin_acts`` the gate activation "moe_g"."""
+def _remat_plan(policy: str, impl: str, pin_acts: bool) -> Optional[llama.RematPlan]:
+    """The plan of a policy, None for "none": the dense family's
+    vocabulary with the MoE extras of JAX's ``forward``: every policy keeps
+    the combined output, the expert output (the ``expert_ffn`` op, or
+    "moe_y") and the routing, and with ``pin_acts`` the gate activation
+    "moe_g"; "attn_offload" parks all that "attn" keeps in host memory."""
     if policy == "none":
         return None
-    if policy not in ("dots", "attn", "attn_mlp"):
+    if policy not in ("dots", "attn", "attn_mlp", "attn_offload"):
         llama._remat_plan(policy, impl)  # raises, with the dense family's message
     flash = (torch.ops.odh_torch.flash_fwd.default,) if impl == "flash" else ()
     names = ("moe_out", "moe_y") + ROUTE_NAMES + (("moe_g",) if pin_acts else ())
@@ -1025,7 +1025,7 @@ def _remat_plan(policy: str, impl: str, pin_acts: bool):
     ops = flash + (torch.ops.odh_torch.expert_ffn.default,)
     if policy == "dots":
         ops += (torch.ops.aten.mm.default,)
-    return ops, names
+    return llama.RematPlan(ops, names, offload=policy == "attn_offload")
 
 
 def _make_layer_fn(cfg: MoeConfig, impl: str, attention_fn, policy: str, pin_acts: bool,
@@ -1034,7 +1034,7 @@ def _make_layer_fn(cfg: MoeConfig, impl: str, attention_fn, policy: str, pin_act
     if not b.remat:
         return lambda x, *rest: _decoder_layer(cfg, attention_fn, x, *rest, par=par, mesh=mesh)
     plan = _remat_plan(policy, impl, pin_acts)
-    names = () if plan is None else plan[1]
+    names = () if plan is None else plan.names
     # the fused expert op keeps g when the backward would otherwise re-run
     # it: always, except under a saving policy without the "moe_g" pin
     keep_g = plan is None or pin_acts

@@ -51,6 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.distributed as dist
 
+from odh_kubeflow_tpu_torch.models import offload
 from odh_kubeflow_tpu_torch.parallel.mesh import AXIS_PIPE
 
 Params = Any
@@ -327,8 +328,9 @@ class _Runner:
         saved = self.saved.pop((s, m))
         if isinstance(saved, tuple):
             x_d, out, aux_s = saved
-        else:
-            x_d, out, aux_s = self._stage(s, saved, m, grad=True)
+        else:  # its backward follows at once: remat "attn_offload" keeps, as "attn"
+            with offload.held_on_device():
+                x_d, out, aux_s = self._stage(s, saved, m, grad=True)
         outs, cots = [out], [g]
         if aux_s is not None and daux is not None:
             outs.append(aux_s)

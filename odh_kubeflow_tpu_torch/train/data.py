@@ -5,8 +5,9 @@
   ``[B, S]`` windows with ``segment_ids`` walls (the flash kernels' masked
   path keeps tokens from attending across documents) and a ``loss_mask``
   that zeroes padding and each piece's last token. The same greedy
-  packing, bit for bit, as the JAX package's Python path; the JAX
-  package's native packer is not part of the port.
+  packing, bit for bit, as the JAX package's; a materialised list of
+  documents goes through the port's C++ packer (``native/``) when a
+  compiler built it.
 - :func:`shard_batch` cuts a global batch to one rank's block of a mesh:
   batch rows over (data, fsdp, expert), the sequence over context.
 - :func:`prefetch_to_device` keeps ``buffer_size`` batches in flight:
@@ -22,6 +23,7 @@ from typing import Any, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from odh_kubeflow_tpu_torch import native
 from odh_kubeflow_tpu_torch.utils.device import resolve_device
 
 Batch = dict[str, Any]
@@ -41,14 +43,23 @@ def pack_documents(
     row, 0 for padding) and ``loss_mask``.
 
     A document longer than the space left is split across rows, each
-    piece its own segment. ``engine`` is accepted for signature parity:
-    "auto" and "python" pack in Python; "native" raises, the port has no
-    native packer. Not itself a generator: argument errors raise at the
-    call site."""
+    piece its own segment. ``engine``: "auto" uses the native C++ packer
+    (``odh_kubeflow_tpu_torch.native``) when the documents are a list or
+    tuple and a compiler built the library, with output bit-identical to
+    the Python path; "python" and "native" force a path ("native" raises
+    without a compiler or for a generator). Generators always stream
+    through Python: the rows cross the documents' boundaries, so they
+    cannot be packed natively in windows. Not itself a generator:
+    argument errors raise at the call site."""
     if engine not in ("auto", "python", "native"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "native":
-        raise RuntimeError("engine='native': the port packs documents in Python only")
+    if engine != "python" and isinstance(documents, (list, tuple)):
+        if native.available():
+            return _pack_native(documents, batch_size, seq_len, pad_id, drop_remainder)
+        if engine == "native":
+            raise RuntimeError("engine='native' requested but no C++ compiler is available")
+    elif engine == "native":
+        raise RuntimeError("engine='native' needs a materialised list/tuple of documents")
     return _pack(documents, batch_size, seq_len, pad_id, drop_remainder)
 
 
@@ -86,6 +97,24 @@ def _pack(documents, batch_size, seq_len, pad_id, drop_remainder) -> Iterator[Ba
         while len(rows) < batch_size:
             rows.append([])
         yield _emit(rows, seq_len, pad_id)
+
+
+def _pack_native(documents, batch_size, seq_len, pad_id, drop_remainder) -> Iterator[Batch]:
+    """One native pass over the concatenated stream, then ``[B, S]``
+    windows of it; bit-identical to :func:`_pack`."""
+    doc_lens = np.fromiter((len(d) for d in documents), np.int64, count=len(documents))
+    flat = np.concatenate([np.asarray(d, np.int32) for d in documents]
+                          or [np.empty(0, np.int32)])
+    packed = native.pack_rows(flat, doc_lens, seq_len, pad_id=pad_id)
+    n_rows = packed["tokens"].shape[0]
+    full = n_rows // batch_size * batch_size
+    for start in range(0, full, batch_size):
+        yield {k: v[start : start + batch_size] for k, v in packed.items()}
+    if n_rows > full and not drop_remainder:
+        out = _emit([[]] * batch_size, seq_len, pad_id)
+        for k, v in packed.items():
+            out[k][: n_rows - full] = v[full:]
+        yield out
 
 
 def _emit(rows, seq_len: int, pad_id: int) -> Batch:

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from odh_kubeflow_tpu.train import data as jdata
+from odh_kubeflow_tpu_torch import native
 from odh_kubeflow_tpu_torch.models import llama, lora
 from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
 from odh_kubeflow_tpu_torch.train.data import pack_documents, prefetch_to_device
@@ -46,8 +47,19 @@ def test_pack_documents_matches_jax(docs, kw):
 def test_pack_documents_engine_argument():
     with pytest.raises(ValueError):
         pack_documents([[1, 2]], 1, 4, engine="fast")
-    with pytest.raises(RuntimeError):
-        pack_documents([[1, 2]], 1, 4, engine="native")
+    # the native packer is ported (tests/test_torch_native.py): it packs a
+    # list as the Python path does (or, with no C++ compiler, says so), and
+    # refuses a generator
+    if native.available():
+        got = next(pack_documents([[1, 2]], 1, 4, engine="native"))
+        want = next(pack_documents([[1, 2]], 1, 4, engine="python"))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    else:
+        with pytest.raises(RuntimeError, match="compiler"):
+            pack_documents([[1, 2]], 1, 4, engine="native")
+    with pytest.raises(RuntimeError, match="materialised"):
+        pack_documents(iter([[1, 2]]), 1, 4, engine="native")
 
 
 def test_prefetch_keeps_order_and_a_packed_batch_trains():

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package,
 and no kernel toolchain touched at import.
 
-An AST scan of every file of ``odh_kubeflow_tpu_torch/`` and of
+An AST scan of every file of ``odh_kubeflow_tpu_torch/`` (its ``native/``
+packer loader included), of ``tools/dryrun_multichip_torch.py`` and of
 ``chip_smoke.py``, plus a fresh interpreter that imports the whole port
-and must end with no JAX module loaded.
+and must end with no JAX module loaded and no library built or loaded.
 """
 
 import ast
@@ -15,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "odh_kubeflow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "tools" / "dryrun_multichip_torch.py",
+    ROOT / "chip_smoke.py",
 ]
 
 
@@ -65,6 +67,12 @@ def test_port_file_imports_no_jax_and_builds_nothing_at_import(path):
             )
 
 
+def test_the_scan_covers_the_native_loader_the_dryrun_and_chip_smoke():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"odh_kubeflow_tpu_torch/native/__init__.py", "tools/dryrun_multichip_torch.py",
+            "chip_smoke.py"} <= names
+
+
 def test_forbidden_matches_exact_package_names():
     assert _forbidden("odh_kubeflow_tpu")
     assert _forbidden("odh_kubeflow_tpu.models.quant")
@@ -83,6 +91,8 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'odh_kubeflow_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "assert not _build._libs\n"
+        "from odh_kubeflow_tpu_torch import native\n"
+        "assert native._lib is None and not native._load_failed\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -226,8 +226,14 @@ def test_later_slices_raise_not_implemented():
     np.testing.assert_allclose(
         llama.forward(tp, toks, ring).numpy(), llama.forward(tp, toks, TCFG).numpy(), **TOL
     )
-    with pytest.raises(NotImplementedError):
-        llama.forward(tp, toks, dataclasses.replace(TCFG, remat=True, remat_policy="attn_offload"))
+    # remat "attn_offload" is ported (tests/test_torch_remat_offload.py):
+    # the forward's values are those of every other policy
+    np.testing.assert_array_equal(
+        llama.forward(tp, toks, dataclasses.replace(
+            TCFG, remat=True, remat_policy="attn_offload")).detach().numpy(),
+        llama.forward(tp, toks, dataclasses.replace(TCFG, remat=True, remat_policy="attn"))
+        .detach().numpy(),
+    )
     # W8A8 decode is ported (tests/test_torch_w8a8.py): the training
     # forward ignores it, as JAX's does
     np.testing.assert_array_equal(

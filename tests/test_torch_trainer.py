@@ -177,8 +177,13 @@ def test_remat_policy_errors():
     toks = torch.ones((1, 4), dtype=torch.long)
     with pytest.raises(ValueError):
         llama.forward(tt.params, toks, dataclasses.replace(TCFG, remat=True, remat_policy="nope"))
-    with pytest.raises(NotImplementedError):
-        llama.forward(tt.params, toks, dataclasses.replace(TCFG, remat=True, remat_policy="attn_offload"))
+    # "attn_offload" is ported (tests/test_torch_remat_offload.py): it runs
+    # and gives "attn"'s values
+    got = llama.forward(tt.params, toks, dataclasses.replace(TCFG, remat=True,
+                                                             remat_policy="attn_offload"))
+    want = llama.forward(tt.params, toks, dataclasses.replace(TCFG, remat=True,
+                                                              remat_policy="attn"))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("masked", [False, True])
