@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, MoE training and MoE
-serving paths, its serving engine and its int4 fused-dequant matmul on
-one NVIDIA GPU and check them.
+serving paths, its serving engine, its int4 fused-dequant matmul and the
+platform's conformance gate on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -189,6 +189,18 @@ Phases, one JSON line each on stdout:
     configuration's loss and adapter gradients on one batch under "attn"
     and "attn_offload" from one init, twice in turns, bit for bit, the same
     launches, the seconds and peak memory of each and the bytes parked.
+32. ``platform_conformance`` (after ``long_context_text``): the port's
+    platform gate, ``conformance.run_conformance`` on GPU node pools, all
+    eleven transitions (register, spawn, ready, share, quota-reject, cull,
+    restart, preempt, gang-restart, elastic-resume, delete), its step 10
+    on the card: Llama-3-8B QLoRA (``train``'s config and shape) trained 6
+    steps without a preemption, then again preempted at step 3 by
+    ``run_elastic``'s guard, a fresh ``Trainer`` restoring the checkpoint
+    (adapters and optimizer state bit-equal to the preempted trainer's
+    before any step) and training on to step 6 with the uninterrupted
+    run's losses, bit for bit; the scorecard, each step's loss and time,
+    peak memory, and the flash and dequant launches, exactly
+    ``TRAIN_LAUNCHES_PER_STEP`` times the 12 steps taken.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -258,6 +270,9 @@ MAIN_FLASH_SHAPES = ("8b_train", "8x1b_train")
 TRAIN_SHAPE = (2, 4096)
 TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32,
                            "int4_dequant": 2 * 224 + 1}
+# the platform gate's step 10: the steps its three runs take in all (6
+# uninterrupted, then 3 preempted and 3 resumed)
+CONFORMANCE_STEPS = 12
 # the 2-layer parity model: ||kernel - plain|| / ||plain|| <= tol for
 # every adapter gradient leaf; relative tolerance on the loss
 TRAIN_GRAD_TOL = 5e-2
@@ -970,6 +985,52 @@ def benchmark_with_losses(trainer, B: int, S: int, steps: int, warmup: int):
     finally:
         del trainer.train_step  # back to the class's method
     return bench, [float(x) for x in losses]
+
+
+def platform_conformance_phase(torch, fa, int4) -> tuple[dict, dict]:
+    """The port's platform conformance gate, its step 10 training the 8B
+    QLoRA model on the card through ``run_elastic``: preempted at step 3,
+    resumed by a fresh trainer to step 6."""
+    from odh_kubeflow_tpu_torch import conformance
+
+    step10: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, int4)  # the gate's count starts here
+    t0 = time.perf_counter()
+    scorecard = conformance.run_conformance(device="cuda", record=step10)
+    seconds = time.perf_counter() - t0
+    launched = counts(fa, int4)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if list(scorecard) != list(conformance.SCORECARD) or set(scorecard.values()) != {"PASS"}:
+        raise AssertionError(f"conformance scorecard {scorecard}")
+    taken = len(step10["reference_losses"]) + len(step10["step_losses"])
+    expected = {k: n * CONFORMANCE_STEPS for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if taken != CONFORMANCE_STEPS or launched != expected:
+        raise AssertionError(f"conformance launches {launched} over {taken} steps, "
+                             f"expected {expected}")
+    if not step10["resumed_bit_equal"]:
+        raise AssertionError("resumed adapters differ from the preempted trainer's")
+    if step10["step_losses"] != step10["reference_losses"]:
+        raise AssertionError(f"resumed losses {step10['step_losses']} differ from the "
+                             f"uninterrupted run's {step10['reference_losses']}")
+    record = {
+        "phase": "platform_conformance",
+        "config": "conformance.run_conformance on GPU node pools (nvidia-h100-80gb, 8 "
+                  "GPUs a node); step 10: llama3_8b QLoRA int4, LoRA r16, remat attn, "
+                  "flash, 32 layers, 6 steps uninterrupted, then preempted at step 3 "
+                  "and resumed by a fresh Trainer to 6",
+        "scorecard": scorecard, "seconds": seconds, "peak_memory_gb": peak_gb,
+        "batch": step10["batch"], "seq": step10["seq"],
+        "steps_before_resume": step10["first_run"]["step"],
+        "resumed_from": step10["second_run"]["resumed_from"],
+        "steps_after_resume": step10["second_run"]["step"],
+        "resumed_bit_equal": step10["resumed_bit_equal"],
+        "step_losses": step10["step_losses"], "step_s": step10["step_s"],
+        "reference_losses": step10["reference_losses"],
+        "checkpoint_steps": step10["checkpoint_steps"],
+        "launches": launched, "launches_per_step": TRAIN_LAUNCHES_PER_STEP,
+    }
+    return record, launched
 
 
 def free_port() -> int:
@@ -4786,6 +4847,12 @@ def main() -> int:
     record["card"] = label
     emit(record)
     torch.cuda.empty_cache()
+    # the platform's conformance gate on GPU node pools (slice 9), its
+    # elastic-resume step on the 8B QLoRA model
+    record, conformance_launches = platform_conformance_phase(torch, fa, int4)
+    record["card"] = label
+    emit(record)
+    torch.cuda.empty_cache()
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -4875,7 +4942,9 @@ def main() -> int:
                                   "engine_mesh": engine_mesh_launches,
                                   "train": train_launches["int4_dequant"], "moe_train": 0,
                                   "mesh_train": mesh_launches["int4_dequant"],
-                                  "pipe_loopback": pipe_launches["int4_dequant"]}
+                                  "pipe_loopback": pipe_launches["int4_dequant"],
+                                  "platform_conformance":
+                                      conformance_launches["int4_dequant"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -4884,7 +4953,8 @@ def main() -> int:
              "ring_on_card": ring_launches, "moe_mesh_train": moe_mesh_launches,
              "moe_ep_loopback": ep_launches, "pipe_loopback": pipe_launches,
              "moe_pipe_loopback": moe_pipe_launches, "long_context_text": long_launches,
-             "moe_offload": moe_offload_launches}
+             "moe_offload": moe_offload_launches,
+             "platform_conformance": conformance_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}

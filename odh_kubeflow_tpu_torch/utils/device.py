@@ -11,6 +11,8 @@ import subprocess
 
 import torch
 
+from odh_kubeflow_tpu_torch.utils.gpu import peak_bf16_flops
+
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     """``cuda`` unless told otherwise; raises when CUDA is asked for and
@@ -26,28 +28,16 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
-# bf16 dense tensor-core peak, FLOP/s, by the name torch gives the card
-# (NVIDIA data sheets, at the card's full power limit)
-_PEAK_BF16_FLOPS = (
-    ("H100 80GB HBM3", 989e12),  # H100 SXM
-    ("H100 NVL", 835e12),
-    ("H100 PCIe", 756e12),
-    ("H200", 989e12),
-)
-
-
 def peak_flops_per_device(name: str | None = None) -> float:
     """Peak bf16 dense FLOP/s of one card for MFU accounting (the
-    counterpart of ``utils/tpu.py`` ``peak_flops_per_chip``); ``name``
-    defaults to card 0's. 0.0 when the card is unknown or absent."""
+    counterpart of ``utils/tpu.py`` ``peak_flops_per_chip``), from the
+    table of ``utils/gpu.py``; ``name`` defaults to card 0's. 0.0 when
+    the card is unknown or absent."""
     if name is None:
         if not torch.cuda.is_available():
             return 0.0
         name = torch.cuda.get_device_name(0)
-    for key, flops in _PEAK_BF16_FLOPS:
-        if key in name:
-            return flops
-    return 0.0
+    return peak_bf16_flops(name)
 
 
 def card_label() -> str:

@@ -1,12 +1,15 @@
-"""Prometheus metrics for the trainer and the serving engine (the port's
-own copy of the part of the JAX package's ``utils/prometheus.py`` that
-``Trainer`` and ``DecodeEngine`` need).
+"""Prometheus metrics for the trainer, the serving engine and the
+controllers (the port's own copy of the part of the JAX package's
+``utils/prometheus.py`` that ``Trainer``, ``DecodeEngine`` and the
+controller runtime need).
 
 ``Registry`` gets-or-creates metric families by name and renders the
 Prometheus text exposition; ``Counter`` and ``Gauge`` keep one value per
 label set (an unlabelled one exposes 0 from registration); ``Histogram``
 keeps cumulative ``le`` buckets ending in ``+Inf`` plus
-``_sum``/``_count``. Exemplars (trace ids), OpenMetrics and the
+``_sum``/``_count``. ``metric.labels(name=...)`` binds one label set;
+``Registry.register_collector`` adds lines rendered at scrape time.
+Exemplars (trace ids), OpenMetrics and the
 ``/metrics`` server stay with the JAX package's platform side.
 """
 
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Iterable, Optional, Sequence, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 # client_golang's DefBuckets: latency-shaped, seconds
 DEFAULT_BUCKETS = (
@@ -46,6 +49,29 @@ def _key(labels: Optional[dict[str, str]]) -> tuple:
     return tuple(sorted((labels or {}).items()))
 
 
+class _Child:
+    """A metric bound to one label set — ``metric.labels(name="x")``
+    returns one, so hot paths resolve their label dict once."""
+
+    __slots__ = ("_metric", "_labels")
+
+    def __init__(self, metric: "Metric", labels: dict[str, str]):
+        self._metric = metric
+        self._labels = labels
+
+    def inc(self, by: float = 1.0) -> None:
+        self._metric.inc(self._labels, by)
+
+    def set(self, value: float) -> None:
+        self._metric.set(value, self._labels)
+
+    def observe(self, value: float) -> None:
+        self._metric.observe(value, self._labels)
+
+    def value(self) -> float:
+        return self._metric.value(self._labels)
+
+
 class _Value:
     """A counter or gauge family: one float per label set."""
 
@@ -66,6 +92,9 @@ class _Value:
     def value(self, labels: Optional[dict[str, str]] = None) -> float:
         with self._lock:
             return self._values.get(_key(labels), 0.0)
+
+    def labels(self, **labels: str) -> _Child:
+        return _Child(self, labels)
 
     def collect(self) -> Iterable[str]:
         yield f"# HELP {self.name} {_escape_help(self.help)}"
@@ -123,6 +152,9 @@ class Histogram:
             st[1] += value
             st[2] += 1
 
+    def labels(self, **labels: str) -> _Child:
+        return _Child(self, labels)
+
     def value(self, labels: Optional[dict[str, str]] = None) -> float:
         """Observation count."""
         with self._lock:
@@ -159,6 +191,7 @@ Metric = Union[Counter, Gauge, Histogram]
 class Registry:
     def __init__(self):
         self._by_name: dict[str, Metric] = {}
+        self._collect_fns: list[Callable[[], Iterable[str]]] = []
         self._lock = threading.Lock()
 
     def register(self, metric: Metric) -> Metric:
@@ -179,6 +212,12 @@ class Registry:
                     + (f" and buckets {existing.buckets}" if existing.type == "histogram" else "")
                 )
             return existing
+
+    def register_collector(self, fn: Callable[[], Iterable[str]]) -> None:
+        """A custom collector producing exposition lines at scrape time
+        (the notebook controller's live running-notebook gauge)."""
+        with self._lock:
+            self._collect_fns.append(fn)
 
     def counter(self, name: str, help_: str, labelnames: Sequence[str] = ()) -> Counter:
         return self.register(Counter(name, help_, labelnames))
@@ -204,9 +243,13 @@ class Registry:
             return list(self._by_name.values())
 
     def exposition(self) -> str:
+        with self._lock:
+            fns = list(self._collect_fns)
         lines: list[str] = []
         for m in self.metrics():
             lines.extend(m.collect())
+        for fn in fns:
+            lines.extend(fn())
         return "\n".join(lines) + "\n"
 
 
