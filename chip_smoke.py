@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, MoE training and MoE
-serving paths, its serving engine, its int4 fused-dequant matmul and the
-platform's conformance gate on one NVIDIA GPU and check them.
+serving paths, its serving engine, its int4 fused-dequant matmul, the
+platform's conformance gate and its spawn path on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -201,6 +202,27 @@ Phases, one JSON line each on stdout:
     run's losses, bit for bit; the scorecard, each step's loss and time,
     peak memory, and the flash and dequant launches, exactly
     ``TRAIN_LAUNCHES_PER_STEP`` times the 12 steps taken.
+33. ``platform_spawn`` (after ``platform_conformance``): the spawn path on
+    GPU node pools. The port's store with the notebook and PodDefault
+    admission webhooks, the notebook and profile controllers (queueing
+    on), ``SliceScheduler``, the kubelet simulator and the JWA over HTTP
+    on localhost; node pools of H100s (2 zones × 16 nodes × 8, one pool
+    spot) and L4s (8 × 4); 4 profiles with GPU quotas of 128 / 96 / 64 /
+    32. 500 notebooks POSTed through the JWA in a seeded order (GPU counts
+    0 / 1 / 2 / 4 / 8 / 16 at 40 / 25 / 15 / 10 / 7 / 3 %, one in ten GPU
+    notebooks on L4, one in ten interactive), in waves of 25 with a round
+    of the controllers after each; then to the fixed point, where more
+    admission cycles write nothing, no node holds more GPUs than it has,
+    no namespace more than its quota, every gang is bound whole or not at
+    all, every pending Workload has a reason and every GPU pod the
+    GPU-runtime env. POST ms, cycle ms at the full queue, seconds to the
+    fixed point, the counts. Then one interactive 1-GPU H100 notebook's
+    pod env (resolved as a kubelet would, the workspace volume on a fresh
+    directory) runs ``chip_smoke.py --notebook-serve``: Llama-3-8B int4
+    served on the card, one greedy request; cold (the dequant kernel
+    built into the PodDefault's directory), then after a JWA stop and
+    start, warm (nothing built); the same tokens, seconds from process
+    start to the first token.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1031,6 +1053,504 @@ def platform_conformance_phase(torch, fa, int4) -> tuple[dict, dict]:
         "launches": launched, "launches_per_step": TRAIN_LAUNCHES_PER_STEP,
     }
     return record, launched
+
+
+# the platform's spawn path at the scale of the repo's control-plane bench
+# (loadtest/control_plane_bench.py: 500 notebooks over 4 namespaces) on
+# GPU node pools: (pool, GKE accelerator, nodes, GPUs a node, zone, spot)
+SPAWN_POOLS = (
+    ("h100-a", "nvidia-h100-80gb", 16, 8, "zone-a", False),
+    ("h100-b", "nvidia-h100-80gb", 16, 8, "zone-b", True),
+    ("l4", "nvidia-l4", 8, 4, "zone-a", False),
+)
+SPAWN_CPU_NODES = 4
+# requests.nvidia.com/gpu of the four profiles: 320 in all, over the
+# fleet's 288 GPUs, so the pools contend
+SPAWN_QUOTAS = (128, 96, 64, 32)
+SPAWN_NOTEBOOKS = 500
+# the seed of the POST order and of each notebook's draw, and what it
+# gives: the fleet's outcome is the seed's alone (``spawn_fleet``)
+SPAWN_SEED = 0
+SPAWN_OUTCOME = {"admitted": 58, "pending": 224, "quota_rejected": 1, "preempted": 3,
+                 "gpus_placed": 152}
+# a notebook's GPU count and its weight (%); one in ten GPU notebooks on
+# L4 (at most 4 GPUs), one in ten notebooks at the higher priority class
+SPAWN_GPU_COUNTS = ((0, 40), (1, 25), (2, 15), (4, 10), (8, 7), (16, 3))
+SPAWN_L4_SHARE = 0.1
+SPAWN_HIGH_SHARE = 0.1
+SPAWN_HIGH_CLASS = ("interactive", 1000)
+# POSTs arrive in waves; the controllers, the scheduler and the kubelet
+# simulator run one round after each wave
+SPAWN_WAVE = 25
+SPAWN_MAX_ROUNDS = 200
+# admission cycles run at the fixed point (timed; each must write nothing)
+SPAWN_IDLE_CYCLES = 5
+SPAWN_USER = "owner-{}@example.com"
+SPAWN_RUNTIME_ENV = ("TORCH_CPP_LOG_LEVEL", "JAX_COORDINATOR_PORT", "ODH_TORCH_KERNEL_CACHE")
+# the spawned notebook's greedy request: a first token, then 16
+SPAWN_PROMPT = [(i * 7919) % 128_000 + 1 for i in range(32)]
+SPAWN_NEW_TOKENS = 16
+# the spawned notebook's serve: Llama-3-8B int4 at full width and depth
+# (``models/serve.py``'s CLI arguments)
+SPAWN_SERVE_ARGS = ("--config", "llama3_8b", "--int4")
+
+
+def spawn_fleet() -> dict:
+    """Boot the port's platform (store, CRDs, the notebook and PodDefault
+    admission webhooks, the notebook and profile controllers with
+    queueing, ``SliceScheduler``, the kubelet simulator, the JWA over
+    HTTP on localhost), POST ``SPAWN_NOTEBOOKS`` notebooks through the
+    JWA in a seeded order, drive the cluster to its fixed point and check
+    it. Needs no card. Returns the record and the live fleet (for the
+    card step; ``fleet["close"]()`` stops it).
+
+    The seed alone decides the outcome. The store stamps objects one
+    second apart in the order it stamps them (the CPU tests' clock), so
+    creation order, which breaks ties of the admission order, is the
+    POST order and not where a wall-clock second boundary fell; the
+    controllers' clock moves one second a round, so a requeue comes due
+    at the same round in every run."""
+    import itertools
+    import random
+
+    from odh_kubeflow_tpu_torch.machinery import objects
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.controllers.notebook import (
+        NotebookController, NotebookControllerConfig)
+    from odh_kubeflow_tpu_torch.controllers.profile import ProfileController
+    from odh_kubeflow_tpu_torch.controllers.runtime import Manager
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.scheduling.scheduler import SliceScheduler
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+    from odh_kubeflow_tpu_torch.webhooks import (
+        NotebookWebhook, PodDefaultWebhook, gpu_runtime_poddefault)
+
+    stamp = objects.now_rfc3339
+    ticks = itertools.count()
+    epoch = time.time() - 86_400
+    objects.now_rfc3339 = lambda: time.strftime(
+        "%Y-%m-%dT%H:%M:%SZ", time.gmtime(epoch + next(ticks)))
+    clock = {"now": 0.0}
+    api = APIServer()
+    apis.register_crds(api)
+    register_scheduling(api)
+    apis.install_default_cluster_roles(api)
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    cluster = FakeCluster(api)
+    for i in range(SPAWN_CPU_NODES):
+        cluster.add_node(f"cpu-{i}")
+    for name, accel, nodes, per_node, zone, spot in SPAWN_POOLS:
+        cluster.add_gpu_node_pool(name, accel, num_nodes=nodes, gpus_per_node=per_node,
+                                  zone=zone, spot=spot)
+    registry = Registry()
+    mgr = Manager(api, time_fn=lambda: clock["now"], registry=registry)
+    NotebookController(api, NotebookControllerConfig(enable_queueing=True),
+                       registry=registry).register(mgr)
+    ProfileController(api, registry=registry).register(mgr)
+    scheduler = SliceScheduler(api, registry=registry)
+    scheduler.register(mgr)
+    cycles: list[float] = []  # ms of each admission cycle
+    run_cycle = scheduler.run_cycle
+
+    def timed_cycle():
+        t0 = time.perf_counter()
+        result = run_cycle()
+        cycles.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    scheduler.run_cycle = timed_cycle
+    api.create({"apiVersion": "scheduling.k8s.io/v1", "kind": "PriorityClass",
+                "metadata": {"name": SPAWN_HIGH_CLASS[0]}, "value": SPAWN_HIGH_CLASS[1],
+                "globalDefault": False})
+    namespaces = [f"team-{i}" for i in range(len(SPAWN_QUOTAS))]
+    for i, (ns, hard) in enumerate(zip(namespaces, SPAWN_QUOTAS)):
+        api.create({"apiVersion": "kubeflow.org/v1", "kind": "Profile",
+                    "metadata": {"name": ns},
+                    "spec": {"owner": {"kind": "User", "name": SPAWN_USER.format(i)},
+                             "resourceQuotaSpec": {
+                                 "hard": {f"requests.{apis.GPU_RESOURCE}": str(hard)}}}})
+    mgr.drain()
+    for ns in namespaces:
+        api.create(gpu_runtime_poddefault(ns))
+    jwa = JupyterWebApp(api, registry=registry)
+    httpd = jwa.app.serve("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    rng = random.Random(SPAWN_SEED)
+    order = [(i, ns) for i, ns in enumerate(namespaces)
+             for _ in range(SPAWN_NOTEBOOKS // len(namespaces))]
+    rng.shuffle(order)
+    counts, weights = zip(*SPAWN_GPU_COUNTS)
+    plan = []
+    for n, (owner, ns) in enumerate(order):
+        gpus = rng.choices(counts, weights)[0]
+        accel = "nvidia-h100-80gb"
+        if gpus and rng.random() < SPAWN_L4_SHARE:
+            accel, gpus = "nvidia-l4", min(gpus, 4)
+        high = rng.random() < SPAWN_HIGH_SHARE
+        plan.append((f"nb-{n:03d}", owner, ns, accel, gpus, high))
+
+    def post(owner: int, ns: str, body: dict) -> tuple[int, dict]:
+        req = urllib.request.Request(
+            f"{base}/api/namespaces/{ns}/notebooks", method="POST",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json",
+                     "kubeflow-userid": SPAWN_USER.format(owner),
+                     "Cookie": "XSRF-TOKEN=spawn", "X-XSRF-TOKEN": "spawn"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def drive() -> None:
+        clock["now"] += 1.0
+        mgr.drain(max_rounds=SPAWN_MAX_ROUNDS)
+        cluster.step()
+        mgr.drain(max_rounds=SPAWN_MAX_ROUNDS)
+
+    def close() -> None:
+        httpd.shutdown()
+        httpd.server_close()
+        mgr.stop()
+        objects.now_rfc3339 = stamp
+
+    post_ms = []
+    t_first = time.perf_counter()
+    try:
+        for n, (name, owner, ns, accel, gpus, high) in enumerate(plan):
+            body = {"name": name, "cpu": "1", "memory": "4Gi"}
+            if gpus:
+                body["gpus"] = {"accelerator": accel, "count": str(gpus)}
+            t0 = time.perf_counter()
+            code, out = post(owner, ns, body)
+            post_ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 201:
+                raise AssertionError(f"POST {ns}/{name}: HTTP {code}: {out}")
+            if high:  # an admin marks the interactive ones
+                api.patch("Notebook", name, {"metadata": {"annotations": {
+                    "notebooks.kubeflow.org/priority-class": SPAWN_HIGH_CLASS[0]}}}, ns)
+            if (n + 1) % SPAWN_WAVE == 0:
+                drive()
+        full_queue_from = len(cycles)
+        # to the fixed point: a whole round that writes nothing
+        for rounds in range(1, SPAWN_MAX_ROUNDS + 1):
+            rv = api._rv
+            drive()
+            if api._rv == rv:
+                break
+        else:
+            raise AssertionError(f"no fixed point in {SPAWN_MAX_ROUNDS} rounds")
+        fixed_s = time.perf_counter() - t_first
+        # more admission cycles (and kubelet passes) write nothing
+        rv = api._rv
+        for _ in range(SPAWN_IDLE_CYCLES):
+            scheduler.run_cycle()
+            cluster.step()
+        if api._rv != rv:
+            raise AssertionError(f"cycles at the fixed point wrote {api._rv - rv} objects")
+        record = spawn_invariants(api, plan, namespaces)
+        record["preempted"] = sum(
+            int(float(line.rsplit(" ", 1)[1]))
+            for line in registry.exposition().splitlines()
+            if line.startswith("workload_preemptions_total{")
+        )
+        outcome = {k: record[k] for k in SPAWN_OUTCOME}
+        if outcome != SPAWN_OUTCOME:
+            raise AssertionError(f"seed {SPAWN_SEED} gave {outcome}, not {SPAWN_OUTCOME}")
+    except BaseException:
+        close()
+        raise
+    full = cycles[full_queue_from:]  # every GPU notebook's Workload exists
+    record.update({
+        "notebooks": len(plan), "namespaces": dict(zip(namespaces, SPAWN_QUOTAS)),
+        "pools": [{"pool": p[0], "accelerator": p[1], "nodes": p[2], "gpus_per_node": p[3],
+                   "zone": p[4], "spot": p[5]} for p in SPAWN_POOLS],
+        "post_ms": {"p50": pctl(post_ms, 0.5), "p95": pctl(post_ms, 0.95), "max": max(post_ms)},
+        "cycle_ms_full_queue": {"p50": pctl(full, 0.5), "max": max(full), "cycles": len(full),
+                                "workloads": record["gpu_notebooks"]},
+        "cycles": len(cycles), "rounds_after_last_post": rounds,
+        "seconds_to_fixed_point": fixed_s,
+    })
+    fleet = {"api": api, "base": base, "plan": plan, "drive": drive, "close": close}
+    return {"record": record, "fleet": fleet}
+
+
+def spawn_invariants(api, plan, namespaces) -> dict:
+    """The fixed point's invariants; raises on any breach. Returns the
+    counts."""
+    from odh_kubeflow_tpu_torch.apis import GPU_RESOURCE, pod_gpus
+    from odh_kubeflow_tpu_torch.machinery.objects import parse_quantity
+
+    capacity = {n["metadata"]["name"]: int(parse_quantity(
+        n["status"]["allocatable"].get(GPU_RESOURCE, 0))) for n in api.list("Node")}
+    used: dict = {}
+    bound: dict = {}
+    for pod in api.list("Pod"):
+        node = pod["spec"].get("nodeName")
+        gpus = int(pod_gpus(pod))
+        if gpus:
+            env = {e["name"] for e in pod["spec"]["containers"][0].get("env", [])}
+            if not set(SPAWN_RUNTIME_ENV) <= env:
+                raise AssertionError(f"GPU pod {pod['metadata']['name']} lacks the "
+                                     f"GPU-runtime env: {sorted(env)}")
+        if node and pod["status"].get("phase") not in ("Succeeded", "Failed"):
+            used[node] = used.get(node, 0) + gpus
+            wl = pod["metadata"]["labels"].get("scheduling.kubeflow.org/workload")
+            if wl:
+                key = (pod["metadata"]["namespace"], wl)
+                bound[key] = bound.get(key, 0) + 1
+    over = {n: (u, capacity.get(n)) for n, u in used.items() if u > capacity.get(n, 0)}
+    if over:
+        raise AssertionError(f"nodes over their GPUs: {over}")
+    quotas = {q["metadata"]["namespace"]: int(parse_quantity(
+        q["spec"]["hard"][f"requests.{GPU_RESOURCE}"])) for q in api.list("ResourceQuota")}
+    admitted_gpus = dict.fromkeys(namespaces, 0)
+    states: dict = {}
+    reasons: dict = {}
+    for wl in api.list("Workload"):
+        ns, name = wl["metadata"]["namespace"], wl["metadata"]["name"]
+        status = wl.get("status") or {}
+        state = status.get("state", "")
+        states[state] = states.get(state, 0) + 1
+        n = bound.get((ns, name), 0)
+        if n not in (0, wl["spec"]["nodes"]):
+            raise AssertionError(f"gang {ns}/{name} bound {n} of {wl['spec']['nodes']}")
+        if state == "Admitted":
+            if n != wl["spec"]["nodes"]:
+                raise AssertionError(f"admitted gang {ns}/{name} bound {n}")
+            admitted_gpus[ns] += wl["spec"]["gpus"]
+        else:
+            if n or not status.get("reason") or not status.get("message"):
+                raise AssertionError(f"pending {ns}/{name}: bound {n}, status {status}")
+            reasons[status["reason"]] = reasons.get(status["reason"], 0) + 1
+    for ns, gpus in admitted_gpus.items():
+        if gpus > quotas[ns]:
+            raise AssertionError(f"{ns} holds {gpus} GPUs over its quota {quotas[ns]}")
+    gpu_notebooks = sum(1 for p in plan if p[4])
+    if sum(states.values()) != gpu_notebooks:
+        raise AssertionError(f"{sum(states.values())} workloads for {gpu_notebooks} GPU "
+                             "notebooks")
+    cpu_running = sum(1 for p in api.list("Pod") if not pod_gpus(p)
+                      and p["status"].get("phase") == "Running")
+    if cpu_running != len(plan) - gpu_notebooks:
+        raise AssertionError(f"{cpu_running} CPU notebooks running of "
+                             f"{len(plan) - gpu_notebooks}")
+    placed = sum(used.values())
+    return {
+        "gpu_notebooks": gpu_notebooks, "cpu_notebooks_running": cpu_running,
+        "admitted": states.get("Admitted", 0), "pending": states.get("Pending", 0),
+        "pending_reasons": reasons, "quota_rejected": reasons.get("QuotaExhausted", 0),
+        "admitted_gpus": admitted_gpus, "gpus_placed": placed,
+        "gpus_free": sum(capacity.values()) - placed,
+    }
+
+
+def spawn_card_step(fleet: dict) -> dict:
+    """One 1-GPU H100 notebook of the fleet (an interactive one, so that
+    its restart re-admits over the full queue): its Running pod's
+    container env, resolved as a kubelet would and with the workspace
+    volume's mount path on a fresh directory, is the env of a process on
+    the card that serves Llama-3-8B int4 and answers one greedy request
+    (``--notebook-serve``). It runs cold, then after a JWA stop and start
+    of the notebook, warm on the same directory."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+
+    api, plan = fleet["api"], fleet["plan"]
+    pick = None
+    for name, owner, ns, accel, gpus, high in plan:
+        wl = next((w for w in api.list("Workload", namespace=ns)
+                   if w["metadata"]["name"] == name), None)
+        if (accel, gpus, high) == ("nvidia-h100-80gb", 1, True) and wl is not None and (
+                wl.get("status") or {}).get("state") == "Admitted":
+            pick = (name, owner, ns)
+            break
+    if pick is None:
+        raise AssertionError("no admitted interactive 1-GPU H100 notebook in the fleet")
+    name, owner, ns = pick
+    workspace = tempfile.mkdtemp(prefix="spawn-workspace-")
+    scratch = tempfile.mkdtemp(prefix="spawn-logs-")
+
+    def pod_env() -> tuple[dict, str]:
+        pod = api.get("Pod", f"{name}-0", ns)
+        if pod["status"].get("phase") != "Running":
+            raise AssertionError(f"{ns}/{name}-0 is {pod['status'].get('phase')}")
+        container = pod["spec"]["containers"][0]
+        claim = {v["name"]: v.get("persistentVolumeClaim", {}).get("claimName")
+                 for v in pod["spec"].get("volumes", [])}
+        mount = next(m["mountPath"] for m in container["volumeMounts"]
+                     if claim.get(m["name"]) == f"{name}-workspace")
+        env = {k: (workspace + v[len(mount):] if v.startswith(mount) else v)
+               for k, v in container_env(pod).items()}
+        return env, pod["spec"]["nodeName"]
+
+    def run(label: str) -> dict:
+        env, node = pod_env()
+        kernel_dir = env["ODH_TORCH_KERNEL_CACHE"]
+        before = dir_state(kernel_dir)
+        out_path = os.path.join(scratch, f"{label}.out")
+        err_path = os.path.join(scratch, f"{label}.err")
+        t0 = time.time()
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--notebook-serve"],
+                env={**os.environ, **env, "PYTHONPATH": os.path.dirname(
+                    os.path.abspath(__file__))},
+                stdout=out, stderr=err, timeout=600)
+        lines = [x for x in open(out_path).read().splitlines() if x.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"{label} notebook process exit {proc.returncode}: "
+                                 f"{open(err_path).read()[-3000:]}")
+        got = json.loads(lines[-1])
+        after = dir_state(kernel_dir)
+        return {"node": node, "kernel_dir": kernel_dir, "env": env, "before": before,
+                "after": after, "imported_s": got["imported_at"] - t0,
+                "service_s": got["service_at"] - t0,
+                "first_token_s": got["first_token_at"] - t0,
+                "process_s": time.time() - t0, **got}
+
+    def jwa_patch(stopped: bool) -> None:
+        req = urllib.request.Request(
+            f"{fleet['base']}/api/namespaces/{ns}/notebooks/{name}", method="PATCH",
+            data=json.dumps({"stopped": stopped}).encode(),
+            headers={"Content-Type": "application/json",
+                     "kubeflow-userid": SPAWN_USER.format(owner),
+                     "Cookie": "XSRF-TOKEN=spawn", "X-XSRF-TOKEN": "spawn"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            if r.status != 200:
+                raise AssertionError(f"PATCH stopped={stopped}: HTTP {r.status}")
+
+    def drive_until(done, what: str) -> int:
+        for rounds in range(1, SPAWN_MAX_ROUNDS + 1):
+            fleet["drive"]()
+            if done():
+                return rounds
+        raise AssertionError(f"{what}: not reached in {SPAWN_MAX_ROUNDS} rounds")
+
+    def phase_of() -> str:
+        pods = [p for p in api.list("Pod", namespace=ns)
+                if p["metadata"]["name"] == f"{name}-0"]
+        return pods[0]["status"].get("phase", "") if pods else "gone"
+
+    try:
+        cold = run("cold")
+        jwa_patch(True)
+        stop_rounds = drive_until(lambda: phase_of() == "gone", "stopped")
+        jwa_patch(False)
+        start_rounds = drive_until(lambda: phase_of() == "Running", "restarted")
+        warm = run("warm")
+    finally:
+        shutil.rmtree(workspace, ignore_errors=True)
+        shutil.rmtree(scratch, ignore_errors=True)
+    return {"notebook": f"{ns}/{name}", "cold": cold, "warm": warm,
+            "restart_rounds": {"stop": stop_rounds, "start": start_rounds}}
+
+
+def check_spawn_runs(step: dict) -> dict:
+    """The cold run built the dequant kernel into the PodDefault's
+    directory, the warm run built nothing there, both answered the same
+    tokens with the dequant launches of their forwards; returns the
+    phase's card-step record."""
+    cold, warm = step["cold"], step["warm"]
+    lib = [f for f in cold["after"] if f.startswith("libint4_dequant-") and f.endswith(".so")]
+    if cold["before"] or cold["built"] != ["int4_dequant"] or not lib:
+        raise AssertionError(f"cold run: directory before {cold['before']}, built "
+                             f"{cold['built']}, after {sorted(cold['after'])}")
+    if warm["built"] or warm["after"] != warm["before"] or warm["before"] != cold["after"]:
+        raise AssertionError(f"warm run built {warm['built']}: {warm['before']} -> "
+                             f"{warm['after']}")
+    if warm["tokens"] != cold["tokens"] or warm["first"] != cold["first"]:
+        raise AssertionError(f"warm tokens {warm['tokens']} != cold {cold['tokens']}")
+    expected = LAUNCHES_PER_FORWARD * (2 + 1 + SPAWN_NEW_TOKENS)
+    for r in (cold, warm):
+        if r["launches"] != expected or len(r["tokens"]) != SPAWN_NEW_TOKENS:
+            raise AssertionError(f"dequant launches {r['launches']} (expected {expected}), "
+                                 f"{len(r['tokens'])} tokens")
+
+    def summary(r):
+        return {k: r[k] for k in ("node", "imported_s", "service_s", "first_token_s",
+                                  "process_s", "built", "launches", "build_dir", "device")}
+
+    return {
+        "notebook": step["notebook"], "env": cold["env"],
+        "kernel_dir_files": sorted(cold["after"]), "cold": summary(cold),
+        "warm": summary(warm), "tokens": cold["tokens"],
+        "restart_rounds": step["restart_rounds"],
+        "launches": cold["launches"] + warm["launches"],
+    }
+
+
+def dir_state(path: str) -> dict:
+    """File name → (size, mtime) of a directory's files ({} when absent)."""
+    import os
+
+    if not os.path.isdir(path):
+        return {}
+    return {f: (os.path.getsize(os.path.join(path, f)),
+                os.path.getmtime(os.path.join(path, f))) for f in sorted(os.listdir(path))}
+
+
+def notebook_serve_main() -> int:
+    """The spawned notebook's process (``chip_smoke.py --notebook-serve``,
+    in the env its pod would give it): ``models/serve.py``'s service for
+    Llama-3-8B int4 at full width and depth (``build_service``, as
+    ``python -m odh_kubeflow_tpu_torch.models.serve --config llama3_8b
+    --int4`` builds it) on the card, served over HTTP on localhost; one
+    greedy request for a first token, then for ``SPAWN_NEW_TOKENS``.
+    Prints one JSON line: when the imports were done, the service built
+    (the weights on the card) and the first token came, the tokens, the
+    dequant launches, the kernels this process built and where."""
+    from odh_kubeflow_tpu_torch.models.serve import build_service, serve
+    from odh_kubeflow_tpu_torch.ops import _build, int4
+
+    imported_at = time.time()
+    service, args = build_service([*SPAWN_SERVE_ARGS, "--host", "127.0.0.1", "--port", "0"])
+    service_at = time.time()
+    httpd = serve(service, host=args.host, port=args.port)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prompt = [t % service.cfg.vocab_size for t in SPAWN_PROMPT]
+    try:
+        int4.launches = 0
+        code, first = post(base, {"prompt": [prompt], "max_tokens": 1})
+        first_token_at = time.time()
+        code2, out = post(base, {"prompt": [prompt], "max_tokens": SPAWN_NEW_TOKENS})
+        if (code, code2) != (200, 200):
+            raise AssertionError(f"HTTP {code}, {code2}: {first} {out}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    emit({"imported_at": imported_at, "service_at": service_at,
+          "first_token_at": first_token_at, "first": first["completions"][0],
+          "tokens": out["completions"][0], "launches": int4.launches,
+          "built": sorted(_build.build_logs), "build_dir": str(_build.BUILD_DIR),
+          "device": str(service.device)})
+    return 0
+
+
+def platform_spawn_phase() -> tuple[dict, int]:
+    """The spawn path on GPU node pools: the fleet to its fixed point
+    (``spawn_fleet``), then one notebook's serve on the card, cold and
+    warm (``spawn_card_step``)."""
+    t0 = time.perf_counter()
+    out = spawn_fleet()
+    fleet = out["fleet"]
+    try:
+        card = check_spawn_runs(spawn_card_step(fleet))
+    finally:
+        fleet["close"]()
+    record = {"phase": "platform_spawn", **out["record"], "card_step": card,
+              "seconds": time.perf_counter() - t0}
+    return record, card["launches"]
 
 
 def free_port() -> int:
@@ -4853,6 +5373,12 @@ def main() -> int:
     record["card"] = label
     emit(record)
     torch.cuda.empty_cache()
+    # the spawn path (slice 9, part 2): 500 notebooks through the JWA,
+    # the admission webhooks and the gang scheduler on GPU node pools,
+    # then one spawned notebook's serve on the card, cold and warm
+    record, spawn_launches = platform_spawn_phase()
+    record["card"] = label
+    emit(record)
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -4944,7 +5470,8 @@ def main() -> int:
                                   "mesh_train": mesh_launches["int4_dequant"],
                                   "pipe_loopback": pipe_launches["int4_dequant"],
                                   "platform_conformance":
-                                      conformance_launches["int4_dequant"]}
+                                      conformance_launches["int4_dequant"],
+                                  "platform_spawn": spawn_launches}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -4971,4 +5498,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(notebook_serve_main() if sys.argv[1:] == ["--notebook-serve"] else main())

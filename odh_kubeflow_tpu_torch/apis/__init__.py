@@ -32,6 +32,13 @@ LAST_ACTIVITY_CHECK_ANNOTATION = (
     "notebooks.kubeflow.org/last_activity_check_timestamp"
 )
 
+# suspend-to-checkpoint contract (sessions/): SUSPENDED_AT alongside
+# STOP_ANNOTATION means "suspended, resumable" — the session checkpoints
+# kernel state before the GPUs are released, and the JWA shows a
+# suspended row instead of a stopped one
+SUSPENDED_AT_ANNOTATION = "notebooks.kubeflow.org/suspended-at"
+SUSPEND_REASON_ANNOTATION = "notebooks.kubeflow.org/suspend-reason"
+
 # audit trail for duty-cycle-aware culling: the GPU duty sample the
 # culler observed last (value + probe timestamp), stamped every probe so
 # a cull/keep decision is explainable after the fact
@@ -52,6 +59,10 @@ GPU_COUNT_NODE_LABEL = "cloud.google.com/gke-accelerator-count"
 # platform's names, kept as they are)
 GPU_VISIBLE_ENV = "NVIDIA_VISIBLE_DEVICES"
 GPU_NODES_ENV = "NUM_GPU_NODES"
+# pod-label opt-in for the GPU-runtime PodDefault (webhooks/poddefault
+# injects the runtime env into pods carrying it; the JWA stamps it on
+# GPU notebooks)
+GPU_RUNTIME_LABEL = "gpu-runtime"
 
 # The accelerator mapping: each TPU-side name of the JAX package's
 # platform → its GPU counterpart here. Values of the request change
@@ -59,7 +70,8 @@ GPU_NODES_ENV = "NUM_GPU_NODES"
 # GPU count) pair, and a multi-host slice's hosts become
 # ``ceil(gpus / gpus_per_node)`` StatefulSet replicas
 # (``utils/gpu.py``). The libtpu/XLA env becomes NVIDIA_VISIBLE_DEVICES
-# beside the same worker-identity env.
+# beside the same worker-identity env, and the TPU-runtime PodDefault's
+# rows become the GPU-runtime PodDefault's (README.md).
 ACCELERATOR_MAPPING: dict[str, str] = {
     "google.com/tpu": GPU_RESOURCE,
     "requests.google.com/tpu": f"requests.{GPU_RESOURCE}",
@@ -68,6 +80,7 @@ ACCELERATOR_MAPPING: dict[str, str] = {
     "cloud.google.com/gke-tpu-accelerator": GPU_ACCEL_NODE_LABEL,
     "cloud.google.com/gke-tpu-topology": GPU_COUNT_NODE_LABEL,
     "NUM_TPU_HOSTS": GPU_NODES_ENV,
+    "tpu-runtime": GPU_RUNTIME_LABEL,
     "http-tpu-activity": "http-gpu-activity",
     "/api/tpu/activity": "/api/gpu/activity",
 }

@@ -137,6 +137,7 @@ class Controller:
         time_fn: Callable[[], float] = time.monotonic,
         workers: int = 1,
         metrics: Optional[RuntimeMetrics] = None,
+        for_map: Optional[Callable[[str, Obj], list[Request]]] = None,
     ):
         self.name = name
         self.api = api
@@ -176,11 +177,13 @@ class Controller:
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
 
+        # ``for_map`` maps the kind's own events (by default, one request
+        # per object)
         self.watches(
             for_kind,
-            lambda _etype, obj: [
+            for_map or (lambda _etype, obj: [
                 Request(obj_util.namespace_of(obj), obj_util.name_of(obj))
-            ],
+            ]),
         )
 
     # -- wiring -------------------------------------------------------------
@@ -404,6 +407,7 @@ class Manager:
         for_kind: str,
         reconcile: Callable[[Request], Optional[Result]],
         workers: Optional[int] = None,
+        for_map: Optional[Callable[[str, Obj], list[Request]]] = None,
     ) -> Controller:
         if workers is None:
             workers = int(os.environ.get("MAX_CONCURRENT_RECONCILES", "1"))
@@ -415,6 +419,7 @@ class Manager:
             time_fn=self.time_fn,
             workers=workers,
             metrics=self._runtime_metrics,
+            for_map=for_map,
         )
         self.controllers.append(ctrl)
         return ctrl

@@ -18,6 +18,7 @@ after mutations instead of racing a background thread.
 from __future__ import annotations
 
 import itertools
+import re
 from typing import Any, Optional
 
 from odh_kubeflow_tpu_torch.apis import (
@@ -38,6 +39,36 @@ Obj = dict[str, Any]
 ZONE_LABEL = "topology.kubernetes.io/zone"
 SPOT_LABEL = "cloud.google.com/gke-spot"
 ORDINAL_LABEL = "apps.kubernetes.io/pod-index"
+
+
+_FIELD_REF = re.compile(r"metadata\.(labels|annotations)\['([^']+)'\]")
+
+
+def container_env(pod: Obj) -> dict[str, str]:
+    """The environment a kubelet gives the first container of ``pod``:
+    each ``env`` entry's ``value``, or its ``valueFrom.fieldRef`` read
+    off the pod (``metadata.name``/``namespace``/``uid``, a label or
+    annotation by key, ``spec.nodeName``/``serviceAccountName``,
+    ``status.podIP``/``hostIP``). Other sources (ConfigMap and Secret
+    keys, resource fields) raise: nothing the platform injects uses
+    them."""
+    container = obj_util.get_path(pod, "spec", "containers")[0]
+    env: dict[str, str] = {}
+    for entry in container.get("env") or []:
+        name = entry["name"]
+        if "valueFrom" not in entry:
+            env[name] = str(entry.get("value", ""))
+            continue
+        path = obj_util.get_path(entry, "valueFrom", "fieldRef", "fieldPath")
+        if path is None:
+            raise ValueError(f"env {name}: only fieldRef sources are resolved")
+        m = _FIELD_REF.fullmatch(path)
+        if m:
+            value = (obj_util.meta(pod).get(m.group(1)) or {}).get(m.group(2), "")
+        else:
+            value = obj_util.get_path(pod, *path.split("."), default="")
+        env[name] = str(value or "")
+    return env
 
 
 def _is_gated_unbound(pod: Obj) -> bool:
@@ -436,9 +467,14 @@ class FakeCluster:
     def _sync_pod_status(self, pod: Obj) -> None:
         """Drive Pending→Running once scheduled; mark unschedulable.
         Admission-gated pods never reach the per-pod scheduler: they
-        wait for their Workload's admission and then bind as a gang."""
+        wait for their Workload's admission and then bind as a gang.
+
+        A Running pod keeps its status — its IP and its containers'
+        start times — as a kubelet keeps them. (The JAX package's
+        simulator rewrites them on every pass, so its cluster never
+        stops writing; here a settled cluster writes nothing.)"""
         phase = obj_util.get_path(pod, "status", "phase")
-        if phase in ("Succeeded", "Failed"):
+        if phase in ("Succeeded", "Failed", "Running"):
             return
         node = obj_util.get_path(pod, "spec", "nodeName")
         if not node:
@@ -504,10 +540,17 @@ class FakeCluster:
     # -- workload reconciliation --------------------------------------------
 
     def _owned_pods(self, owner: Obj) -> list[Obj]:
+        """The owner's pods. Its pods carry its selector's labels (they
+        are made from its template), so the store filters by the
+        selector before it copies anything: without that, a pass over N
+        StatefulSets copied every pod of their namespaces N times."""
         uid = obj_util.meta(owner).get("uid")
+        selector = obj_util.get_path(owner, "spec", "selector") or None
         return [
             p
-            for p in self.api.list("Pod", namespace=obj_util.namespace_of(owner))
+            for p in self.api.list(
+                "Pod", namespace=obj_util.namespace_of(owner), label_selector=selector
+            )
             if any(
                 r.get("uid") == uid
                 for r in obj_util.meta(p).get("ownerReferences") or []

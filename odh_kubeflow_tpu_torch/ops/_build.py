@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so``
-under the checkout, then loaded with ``ctypes``. The hash covers the
+under the checkout (or into ``$ODH_TORCH_KERNEL_CACHE`` when set: the
+GPU-runtime PodDefault points it at the workspace volume, so a notebook
+restarted on the same volume builds nothing), then loaded with
+``ctypes``. The hash covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds and a stale library
 is never loaded. Nothing builds at import: the first launch of a kernel
@@ -21,7 +24,11 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+KERNEL_CACHE_ENV = "ODH_TORCH_KERNEL_CACHE"
+BUILD_DIR = Path(
+    os.environ.get(KERNEL_CACHE_ENV)
+    or Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -208,16 +208,18 @@ def _subgroup(config: MeshConfig, axes: tuple):
 
 def build_mesh(config: Optional[MeshConfig] = None, device="cuda") -> Mesh:
     """The mesh over the default process group (which the caller
-    initialised: ``utils.distributed.initialize_from_env``, or
-    ``init_process_group`` with its address, world size and rank). On the
+    initialised: ``utils.distributed.launch_local`` (one process a card
+    of each pod), ``initialize_from_env``, or ``init_process_group``
+    with its address, world size and rank). On the
     card each rank drives its current CUDA device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError(
-            "build_mesh needs an initialised process group: call "
-            "utils.distributed.initialize_from_env() or "
-            "torch.distributed.init_process_group first"
+            "build_mesh needs an initialised process group: start the "
+            "pod's processes with utils.distributed.launch_local(fn), or "
+            "call utils.distributed.initialize_from_env(device, local_rank, "
+            "local_processes) or torch.distributed.init_process_group first"
         )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:

@@ -1,6 +1,5 @@
-"""Gang scheduling of GPU notebooks (the port's copy of the parts of the
-JAX package's ``scheduling/__init__.py`` that the notebook controller
-and the kubelet simulator use).
+"""Gang scheduling of GPU notebooks (the port's copy of the JAX
+package's ``scheduling/__init__.py``).
 
 A multi-node GPU notebook is a gang: NCCL needs every worker present, so
 a notebook spanning two nodes bound one of two strands its GPUs. The JAX
@@ -8,11 +7,11 @@ package adds a mini-Kueue for that:
 
 - ``workload``  — derive a gang ``Workload`` object (node count, GPU
   count, accelerator selector, priority) from a Notebook's StatefulSet
-  shape (ported);
-- ``queue``     — per-profile quota pools fed by ``kf-resource-quota`` and
-  a cluster-wide inventory snapshotted from Nodes (not ported yet);
+  shape;
+- ``queue``     — per-profile GPU quota pools fed by ``kf-resource-quota``
+  and a cluster-wide GPU node-pool inventory snapshotted from Nodes;
 - ``scheduler`` — the admission cycle: all-or-nothing fit, priority
-  preemption, requeue with backoff (not ported yet).
+  preemption, requeue with backoff.
 
 The contract with the rest of the platform:
 
@@ -22,7 +21,8 @@ The contract with the rest of the platform:
 - the kubelet sim honors the gate: gated pods stay Pending
   (``SchedulingGated``) until their Workload is admitted, then the
   whole gang binds to the scheduler's node assignment atomically —
-  all pods or none.
+  all pods or none;
+- ``web/jwa`` surfaces queue position and the pending reason.
 """
 
 from typing import Any
@@ -41,6 +41,14 @@ WORKLOAD_LABEL = f"{GROUP}/workload"
 
 # Notebook annotation selecting a PriorityClass (scheduling.k8s.io/v1)
 PRIORITY_CLASS_ANNOTATION = "notebooks.kubeflow.org/priority-class"
+
+# ResourceQuota annotation enabling GPU oversubscription for a quota
+# pool (sessions/ subsystem, NotebookOS-style): committed sessions
+# (running + suspended-to-checkpoint) may hold up to hard × factor
+# GPUs — only the RUNNING ones occupy physical inventory; suspended
+# sessions hold a checkpoint, not GPUs. Without the annotation (or at
+# factor 1) the plain quota semantics hold unchanged.
+OVERSUBSCRIPTION_FACTOR_ANNOTATION = f"{GROUP}/oversubscription-factor"
 
 # Workload status states
 STATE_PENDING = "Pending"

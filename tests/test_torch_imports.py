@@ -2,8 +2,8 @@
 and no kernel toolchain touched at import.
 
 An AST scan of every file of ``odh_kubeflow_tpu_torch/`` (its ``native/``
-packer loader and the platform's apis, machinery, controllers and
-scheduling subpackages included), of ``tools/dryrun_multichip_torch.py`` and of
+packer loader and the platform's apis, machinery, controllers,
+scheduling, webhooks, web and sessions subpackages included), of ``tools/dryrun_multichip_torch.py`` and of
 ``chip_smoke.py``, plus a fresh interpreter that imports the whole port
 and must end with no JAX module loaded and no library built or loaded.
 """
@@ -76,15 +76,21 @@ def test_the_scan_covers_the_native_loader_the_dryrun_and_chip_smoke():
 
 def test_the_scan_covers_the_platform_subpackages():
     """Slice 9's control plane: every module of the port's apis,
-    machinery, controllers and scheduling subpackages, the GPU table and
-    the conformance gate."""
+    machinery, controllers, scheduling, webhooks, web and sessions
+    subpackages, the GPU table and the conformance gate."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     pkg = "odh_kubeflow_tpu_torch"
-    for sub in ("apis", "machinery", "controllers", "scheduling"):
+    for sub in ("apis", "machinery", "controllers", "scheduling", "webhooks", "web",
+                "sessions"):
         files = sorted((ROOT / pkg / sub).glob("*.py"))
         assert files and {str(f.relative_to(ROOT)) for f in files} <= names, sub
     assert {f"{pkg}/conformance.py", f"{pkg}/utils/gpu.py", f"{pkg}/machinery/store.py",
-            f"{pkg}/machinery/kubelet.py", f"{pkg}/controllers/notebook.py"} <= names
+            f"{pkg}/machinery/kubelet.py", f"{pkg}/controllers/notebook.py",
+            f"{pkg}/webhooks/poddefault.py", f"{pkg}/webhooks/notebook.py",
+            f"{pkg}/webhooks/server.py", f"{pkg}/webhooks/certs.py",
+            f"{pkg}/web/microweb.py", f"{pkg}/web/crud_backend.py", f"{pkg}/web/jwa.py",
+            f"{pkg}/sessions/__init__.py", f"{pkg}/scheduling/queue.py",
+            f"{pkg}/scheduling/scheduler.py"} <= names
 
 
 def test_forbidden_matches_exact_package_names():

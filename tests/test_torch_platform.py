@@ -58,9 +58,11 @@ CASES = [
 ]
 CASE_IDS = [str(c) for c in CASES]
 
+# podIP: JAX's kubelet simulator gives a running pod a new IP on every
+# pass, the port's keeps it (test_running_pods_keep_their_status)
 _VOLATILE = {
     "uid", "creationTimestamp", "resourceVersion", "firstReadyAt", "startedAt",
-    "firstTimestamp", "lastTimestamp", "deletionTimestamp",
+    "firstTimestamp", "lastTimestamp", "deletionTimestamp", "podIP",
 }
 _STRING_MAP = sorted(ACCELERATOR_MAPPING.items(), key=lambda kv: -len(kv[0]))
 
@@ -629,3 +631,59 @@ def test_notebook_metrics_match_jax():
     assert lines[True] == lines[False]
     assert lines[True][0] == "notebook_running 1"
     assert "notebook_culling_total 1" in lines[True]
+
+
+def test_running_pods_keep_their_status():
+    """A settled cluster writes nothing: a kubelet pass leaves a Running
+    pod's IP and start times as they were (JAX's simulator reassigns
+    them on every pass), so the notebook controller has nothing to
+    mirror either. Each pod got an IP of its own when it first ran."""
+    side = Side(port=True, case=CASES[1])
+    side.add_pool("pool-a", 2)
+    for name in ("nb1", "nb2"):
+        side.api.create(side.notebook(name))
+    side.settle()
+    pods = side.pods("nb1") + side.pods("nb2")
+    rv = side.api._rv
+    for _ in range(3):
+        side.settle()
+    assert side.api._rv == rv
+    again = side.pods("nb1") + side.pods("nb2")
+    assert [p["status"] for p in again] == [p["status"] for p in pods]
+    assert [p["status"]["phase"] for p in again] == ["Running", "Running"]
+    ips = [p["status"]["podIP"] for p in again]
+    assert all(ips) and len(set(ips)) == len(ips)
+    side.mgr.stop()
+
+
+def test_container_env_resolves_values_and_field_refs():
+    """``kubelet.container_env``: the first container's env as a kubelet
+    gives it, plain values and ``fieldRef`` values read off the pod."""
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+
+    def ref(path):
+        return {"valueFrom": {"fieldRef": {"fieldPath": path}}}
+
+    pod = {
+        "metadata": {"name": "nb1-0", "namespace": NS,
+                     "labels": {"notebook-name": "nb1"}},
+        "spec": {"containers": [
+            {"name": "nb1", "env": [
+                {"name": "PLAIN", "value": "8476"},
+                {"name": "EMPTY"},
+                {"name": "NOTEBOOK", **ref("metadata.labels['notebook-name']")},
+                {"name": "MISSING_LABEL", **ref("metadata.labels['absent']")},
+                {"name": "POD_NAME", **ref("metadata.name")},
+                {"name": "POD_IP", **ref("status.podIP")},
+            ]},
+            {"name": "sidecar", "env": [{"name": "SIDECAR", "value": "1"}]},
+        ]},
+        "status": {"phase": "Running", "podIP": "10.0.0.7"},
+    }
+    assert container_env(pod) == {
+        "PLAIN": "8476", "EMPTY": "", "NOTEBOOK": "nb1", "MISSING_LABEL": "",
+        "POD_NAME": "nb1-0", "POD_IP": "10.0.0.7"}
+    pod["spec"]["containers"][0]["env"] = [
+        {"name": "TOKEN", "valueFrom": {"secretKeyRef": {"name": "s", "key": "k"}}}]
+    with pytest.raises(ValueError, match="only fieldRef"):
+        container_env(pod)
