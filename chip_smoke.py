@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, MoE training and MoE
 serving paths, its serving engine, its int4 fused-dequant matmul, the
-platform's conformance gate and its spawn path on one NVIDIA GPU and
-check them.
+platform's conformance gate, its spawn path and its suspend-to-checkpoint
+sessions and warm starts on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -223,6 +223,20 @@ Phases, one JSON line each on stdout:
     built into the PodDefault's directory), then after a JWA stop and
     start, warm (nothing built); the same tokens, seconds from process
     start to the first token.
+34. ``platform_sessions`` (after ``platform_spawn``): suspend-to-checkpoint
+    sessions and the warm-start subsystem on one H100 pool of 2 nodes × 8
+    GPUs: the notebook controller (queueing, sessions, the compile-cache
+    mount), the ``SessionManager`` as the gang scheduler's suspender, a
+    ``CompileCacheService`` and a WarmPool of one 1-GPU standby. Three
+    ``--notebook-serve`` processes in their pods' envs: the cold standby
+    (``nvcc`` builds ``int4_dequant`` into ``staging_dir("cold")``,
+    ``ingest_dir`` registers it), the notebook a JWA POST handed that
+    standby (its mount filled by ``materialize_dir``; nothing built, the
+    same tokens), and after a JWA suspend (the snapshot's receipt, the
+    GPU to a waiting 8-GPU gang, the quota block's suspended GPU) and a
+    JWA resume (the state restored with an equal digest before ready),
+    the resumed notebook (nothing built, the same tokens); then one
+    flipped byte of the stored artifact stages nothing.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -232,6 +246,7 @@ raises and exits non-zero without the last line. Without a GPU it exits
 
 from __future__ import annotations
 
+import os
 import json
 import math
 import statistics
@@ -1396,28 +1411,8 @@ def spawn_card_step(fleet: dict) -> dict:
 
     def run(label: str) -> dict:
         env, node = pod_env()
-        kernel_dir = env["ODH_TORCH_KERNEL_CACHE"]
-        before = dir_state(kernel_dir)
-        out_path = os.path.join(scratch, f"{label}.out")
-        err_path = os.path.join(scratch, f"{label}.err")
-        t0 = time.time()
-        with open(out_path, "w") as out, open(err_path, "w") as err:
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--notebook-serve"],
-                env={**os.environ, **env, "PYTHONPATH": os.path.dirname(
-                    os.path.abspath(__file__))},
-                stdout=out, stderr=err, timeout=600)
-        lines = [x for x in open(out_path).read().splitlines() if x.startswith("{")]
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"{label} notebook process exit {proc.returncode}: "
-                                 f"{open(err_path).read()[-3000:]}")
-        got = json.loads(lines[-1])
-        after = dir_state(kernel_dir)
-        return {"node": node, "kernel_dir": kernel_dir, "env": env, "before": before,
-                "after": after, "imported_s": got["imported_at"] - t0,
-                "service_s": got["service_at"] - t0,
-                "first_token_s": got["first_token_at"] - t0,
-                "process_s": time.time() - t0, **got}
+        return {"node": node, "env": env,
+                **run_notebook_process(label, env, env["ODH_TORCH_KERNEL_CACHE"], scratch)}
 
     def jwa_patch(stopped: bool) -> None:
         req = urllib.request.Request(
@@ -1551,6 +1546,448 @@ def platform_spawn_phase() -> tuple[dict, int]:
     record = {"phase": "platform_spawn", **out["record"], "card_step": card,
               "seconds": time.perf_counter() - t0}
     return record, card["launches"]
+
+
+# suspend-to-checkpoint sessions and the warm-start subsystem (slice 9,
+# part 3): one H100 pool of 2 nodes × 8 GPUs in one profile namespace
+SESSIONS_POOL = ("h100-s", "nvidia-h100-80gb", 2, 8)
+SESSIONS_NS = "team-s"
+SESSIONS_USER = "owner-s@example.com"
+# requests.nvidia.com/gpu of the profile and its oversubscription factor
+# (the JWA's quota block shows suspended sessions only under a factor)
+SESSIONS_QUOTA = (16, 2)
+# the notebook controller's compile-cache mount: the kernels' build
+# directory of every GPU notebook (it wins over the GPU-runtime
+# PodDefault's workspace directory)
+SESSIONS_MOUNT = "/mnt/compile-cache"
+SESSIONS_IMAGE = "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.7.0"
+SESSIONS_MAX_ROUNDS = 60
+
+
+def sessions_fleet() -> dict:
+    """Boot the platform with the sessions and warm-start subsystems: the
+    store, CRDs, the notebook and PodDefault webhooks (the GPU-runtime
+    PodDefault in the namespace), the notebook controller (queueing,
+    sessions, the compile-cache mount), the ``SessionManager`` (its
+    checkpoint store in a temp dir, the port's default backend) wired as
+    the ``SliceScheduler``'s suspender, a ``CompileCacheService`` rooted
+    in a temp dir, the ``WarmPoolController`` over both, the kubelet
+    simulator and the JWA over HTTP on localhost. Needs no card."""
+    import tempfile
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.controllers.notebook import (
+        NotebookController, NotebookControllerConfig)
+    from odh_kubeflow_tpu_torch.controllers.profile import ProfileController
+    from odh_kubeflow_tpu_torch.controllers.runtime import Manager, Request
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.scheduling import (
+        OVERSUBSCRIPTION_FACTOR_ANNOTATION, register_scheduling)
+    from odh_kubeflow_tpu_torch.scheduling.scheduler import SliceScheduler
+    from odh_kubeflow_tpu_torch.sessions import register_sessions
+    from odh_kubeflow_tpu_torch.sessions.checkpoint import SessionCheckpointStore
+    from odh_kubeflow_tpu_torch.sessions.manager import SessionConfig, SessionManager
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+    from odh_kubeflow_tpu_torch.warmup import register_warmup
+    from odh_kubeflow_tpu_torch.warmup.compilecache import (
+        CompileCacheConfig, CompileCacheService)
+    from odh_kubeflow_tpu_torch.warmup.pool import WarmPoolController
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+    from odh_kubeflow_tpu_torch.webhooks import (
+        NotebookWebhook, PodDefaultWebhook, gpu_runtime_poddefault)
+
+    # on the wall clock (a warm pool stamps lastSyncAt on every resync,
+    # so a clock a second a stamp, as ``spawn_fleet``'s, never settles);
+    # the phase drives the fleet between its creations, so no order ties
+    root = tempfile.mkdtemp(prefix="platform-sessions-")
+    clock = {"now": 0.0}
+    api = APIServer()
+    apis.register_crds(api)
+    register_scheduling(api)
+    register_sessions(api)
+    register_warmup(api)
+    apis.install_default_cluster_roles(api)
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    cluster = FakeCluster(api)
+    name, accel, nodes, per_node = SESSIONS_POOL
+    cluster.add_gpu_node_pool(name, accel, num_nodes=nodes, gpus_per_node=per_node)
+    registry = Registry()
+    mgr = Manager(api, time_fn=lambda: clock["now"], registry=registry)
+    NotebookController(api, NotebookControllerConfig(
+        enable_queueing=True, enable_sessions=True, compile_cache_mount=SESSIONS_MOUNT),
+        registry=registry).register(mgr)
+    ProfileController(api, registry=registry).register(mgr)
+    store = SessionCheckpointStore(os.path.join(root, "checkpoints"))
+    sessions = SessionManager(api, SessionConfig(checkpoint_dir=os.path.join(root,
+                                                                             "checkpoints")),
+                              registry=registry, runtime=cluster.session_runtime, store=store)
+    sessions.register(mgr)
+    scheduler = SliceScheduler(api, registry=registry, suspender=sessions)
+    scheduler.register(mgr)
+    cache = CompileCacheService(api, CompileCacheConfig(cache_dir=os.path.join(root, "cc")),
+                                registry=registry)
+    warm = WarmPoolController(api, registry=registry, session_store=store,
+                              compile_cache=cache)
+    warm.register(mgr)
+    hard, factor = SESSIONS_QUOTA
+    api.create({"apiVersion": "kubeflow.org/v1", "kind": "Profile",
+                "metadata": {"name": SESSIONS_NS},
+                "spec": {"owner": {"kind": "User", "name": SESSIONS_USER}}})
+    mgr.drain()
+    # the profile's quota with its oversubscription factor (an admin's
+    # annotation; the profile controller writes no factor)
+    api.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                "metadata": {"name": "kf-resource-quota", "namespace": SESSIONS_NS,
+                             "annotations": {OVERSUBSCRIPTION_FACTOR_ANNOTATION: str(factor)}},
+                "spec": {"hard": {f"requests.{apis.GPU_RESOURCE}": str(hard)}}})
+    api.create(gpu_runtime_poddefault(SESSIONS_NS))
+    jwa = JupyterWebApp(api, registry=registry)
+    httpd = jwa.app.serve("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def drive() -> None:
+        clock["now"] += 1.0
+        mgr.drain(max_rounds=SPAWN_MAX_ROUNDS)
+        cluster.step()
+        mgr.drain(max_rounds=SPAWN_MAX_ROUNDS)
+        for pool in api.list("WarmPool"):  # the pools' resync tick
+            warm.reconcile(Request(pool["metadata"]["namespace"], pool["metadata"]["name"]))
+
+    def drive_until(done, what: str) -> int:
+        for rounds in range(1, SESSIONS_MAX_ROUNDS + 1):
+            drive()
+            if done():
+                return rounds
+        raise AssertionError(f"{what}: not reached in {SESSIONS_MAX_ROUNDS} rounds")
+
+    def call(method: str, path: str, body=None) -> tuple[int, dict]:
+        req = urllib.request.Request(
+            f"{base}{path}", method=method,
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json", "kubeflow-userid": SESSIONS_USER,
+                     "Cookie": "XSRF-TOKEN=s", "X-XSRF-TOKEN": "s"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def close() -> None:
+        httpd.shutdown()
+        httpd.server_close()
+        mgr.stop()
+        store.close()
+
+    return {"api": api, "cluster": cluster, "jwa": jwa, "call": call, "drive": drive,
+            "drive_until": drive_until, "close": close, "sessions": sessions,
+            "scheduler": scheduler, "cache": cache, "store": store, "registry": registry,
+            "root": root}
+
+
+def run_notebook_process(label: str, env: dict, kernel_dir: str, scratch: str) -> dict:
+    """``chip_smoke.py --notebook-serve`` in ``env`` (a pod's resolved
+    env); the kernel directory's files before and after, and the
+    seconds from process start to each milestone."""
+    import subprocess
+
+    before = dir_state(kernel_dir)
+    out_path = os.path.join(scratch, f"{label}.out")
+    err_path = os.path.join(scratch, f"{label}.err")
+    t0 = time.time()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--notebook-serve"],
+            env={**os.environ, **env, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))},
+            stdout=out, stderr=err, timeout=600)
+    lines = [x for x in open(out_path).read().splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{label} notebook process exit {proc.returncode}: "
+                             f"{open(err_path).read()[-3000:]}")
+    got = json.loads(lines[-1])
+    return {"kernel_dir": kernel_dir, "before": before, "after": dir_state(kernel_dir),
+            "imported_s": got["imported_at"] - t0, "service_s": got["service_at"] - t0,
+            "first_token_s": got["first_token_at"] - t0, "process_s": time.time() - t0, **got}
+
+
+def platform_sessions_phase(run_notebook=run_notebook_process) -> tuple[dict, int]:
+    """The sessions and warm-start subsystems with Llama-3-8B int4 notebooks
+    on the card (``sessions_fleet``; each notebook process is
+    ``--notebook-serve`` in its pod's resolved env, the compile-cache
+    mount on a directory of this host):
+
+    1. cold standby: the WarmPool's Ready standby runs with its kernel
+       directory at ``staging_dir("cold")``; ``nvcc`` builds
+       ``int4_dequant`` there and ``ingest_dir`` registers it (one entry,
+       topology ``sm_90a``, this host's ``nvcc`` and torch);
+    2. warm handout: a JWA POST claims the standby, the template state is
+       restored into the user's pod, ``materialize_dir`` fills its mount
+       and its process builds nothing and serves the same tokens;
+    3. suspend: a state tree (the process's tokens and launches) in the
+       pod's container memory; a JWA stop with suspend snapshots it, the
+       receipt is durable, the StatefulSet scales to zero and the GPU goes
+       to a waiting 8-GPU gang; the quota block shows it suspended;
+    4. resume: the JWA's resume route re-admits the notebook, the state
+       is restored with an equal digest before it reads ready, and the
+       resumed process serves warm with the same tokens;
+    5. a corrupted artifact: ``materialize_dir`` stages nothing.
+
+    ``run_notebook(label, env, kernel_dir, scratch)`` runs one notebook
+    process (``run_notebook_process``)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+    from odh_kubeflow_tpu_torch.warmup import WARM_FROM_ANNOTATION
+    from odh_kubeflow_tpu_torch.warmup.compilecache import (
+        CompileKey, build_target, compiler_version)
+    from odh_kubeflow_tpu_torch.warmup.pool import new_warm_pool
+
+    t_phase = time.perf_counter()
+    fleet = sessions_fleet()
+    api, cluster, jwa, cache = fleet["api"], fleet["cluster"], fleet["jwa"], fleet["cache"]
+    call, drive, drive_until = fleet["call"], fleet["drive"], fleet["drive_until"]
+    ns, (pool_name, accel, _, per_node) = SESSIONS_NS, SESSIONS_POOL
+    scratch = tempfile.mkdtemp(prefix="platform-sessions-logs-")
+    topology, compiler = build_target(), compiler_version()
+
+    def pod(name):
+        pods = [p for p in api.list("Pod", namespace=ns)
+                if p["metadata"]["name"] == f"{name}-0"]
+        return pods[0] if pods else None
+
+    def running(name):
+        p = pod(name)
+        return p is not None and p["status"].get("phase") == "Running"
+
+    def workload(name):
+        return next((w for w in api.list("Workload", namespace=ns)
+                     if w["metadata"]["name"] == name), None)
+
+    def admitted(name):
+        wl = workload(name)
+        return wl is not None and (wl.get("status") or {}).get("state") == "Admitted"
+
+    def ckpt(name):
+        rows = [c for c in api.list("SessionCheckpoint", namespace=ns)
+                if c["metadata"]["name"] == name]
+        return rows[0] if rows else None
+
+    def pod_env(name, kernel_dir):
+        p = pod(name)
+        env = container_env(p)
+        if env.get("ODH_TORCH_KERNEL_CACHE") != SESSIONS_MOUNT:
+            raise AssertionError(f"{name}'s kernel directory {env.get('ODH_TORCH_KERNEL_CACHE')}"
+                                 f" is not the compile-cache mount {SESSIONS_MOUNT}")
+        env["ODH_TORCH_KERNEL_CACHE"] = kernel_dir
+        return env, p["spec"]["nodeName"]
+
+    def gpu_notebook(name, gpus):
+        return {"name": name, "image": SESSIONS_IMAGE, "cpu": "1", "memory": "4Gi",
+                "gpus": {"accelerator": accel, "count": str(gpus)}}
+
+    record: dict = {"pool": {"name": pool_name, "accelerator": accel,
+                             "nodes": SESSIONS_POOL[2], "gpus_per_node": per_node},
+                    "mount": SESSIONS_MOUNT, "topology": topology, "compiler": compiler}
+    try:
+        # node 0 full (two 4-GPU notebooks), so the standby lands on node 1
+        for fill in ("fill-a", "fill-b"):
+            code, out = call("POST", f"/api/namespaces/{ns}/notebooks", gpu_notebook(fill, 4))
+            if code != 201:
+                raise AssertionError(f"POST {fill}: HTTP {code}: {out}")
+        drive_until(lambda: running("fill-a") and running("fill-b"), "fillers running")
+        api.create(new_warm_pool("wp", ns, size=1, accelerator=accel, count="1",
+                                 image=SESSIONS_IMAGE))
+        standby = "wp-standby-0"
+        record["standby_rounds"] = drive_until(
+            lambda: (api.get("WarmPool", "wp", ns).get("status") or {}).get(
+                "readyStandbys") == 1, "standby ready")
+
+        # 1. the cold standby
+        staging = cache.staging_dir("cold")
+        env, node = pod_env(standby, staging)
+        cold = run_notebook(label="cold", env=env, kernel_dir=staging, scratch=scratch)
+        cold["node"] = node
+        ingested = cache.ingest_dir(staging, topology=topology, compiler_ver=compiler)
+        entries = [e["spec"] for e in cache.entries()]
+        libs = [f for f in cold["after"] if f.startswith("libint4_dequant-")
+                and f.endswith(".so")]
+        if cold["before"] or cold["built"] != ["int4_dequant"] or len(libs) != 1:
+            raise AssertionError(f"cold standby: directory before {cold['before']}, built "
+                                 f"{cold['built']}, after {sorted(cold['after'])}")
+        if ingested != 1 or entries != [{"fingerprint": libs[0], "topology": topology,
+                                         "compilerVersion": compiler}]:
+            raise AssertionError(f"ingest_dir registered {ingested}: {entries}")
+
+        # 2. the warm handout
+        code, out = call("POST", f"/api/namespaces/{ns}/notebooks", gpu_notebook("nb-user", 1))
+        if code != 201:
+            raise AssertionError(f"POST nb-user: HTTP {code}: {out}")
+        user = api.get("Notebook", "nb-user", ns)
+        if user["metadata"]["annotations"].get(WARM_FROM_ANNOTATION) != "wp":
+            raise AssertionError(f"nb-user was not handed the standby: "
+                                 f"{user['metadata']['annotations']}")
+        template = fleet["store"].load(f"warmpool-{ns}-wp-template")[0]
+        record["handout_rounds"] = drive_until(
+            lambda: running("nb-user") and (ckpt("nb-user") or {}).get("status", {}).get(
+                "phase") == "Restored", "warm handout restored")
+        restored = cluster.get_session_state(ns, "nb-user")
+        if restored != template:
+            raise AssertionError(f"template state {template} not restored: {restored}")
+        # the pool has served its standby: it keeps none while the rest runs
+        api.patch("WarmPool", "wp", {"spec": {"size": 0}}, ns)
+        drive_until(lambda: not any(n["metadata"]["name"].startswith("wp-standby")
+                                    for n in api.list("Notebook", namespace=ns)), "pool empty")
+        mount_warm = tempfile.mkdtemp(prefix="mount-warm-")
+        staged = cache.materialize_dir(mount_warm, topology=topology, compiler_ver=compiler)
+        env, node = pod_env("nb-user", mount_warm)
+        warm = run_notebook(label="warm", env=env, kernel_dir=mount_warm, scratch=scratch)
+        warm["node"] = node
+        if staged != 1 or warm["built"] or warm["after"] != warm["before"] or \
+                sorted(warm["before"]) != libs:
+            raise AssertionError(f"warm handout: staged {staged}, built {warm['built']}, "
+                                 f"{warm['before']} -> {warm['after']}")
+        if warm["tokens"] != cold["tokens"] or warm["first"] != cold["first"]:
+            raise AssertionError(f"warm tokens {warm['tokens']} != cold {cold['tokens']}")
+
+        # 3. suspend: the GPU goes to a waiting 8-GPU gang
+        user_node = pod("nb-user")["spec"]["nodeName"]
+        api.delete("Notebook", "fill-b", ns)
+        drive_until(lambda: pod("fill-b") is None, "fill-b gone")
+        code, out = call("POST", f"/api/namespaces/{ns}/notebooks", gpu_notebook("nb-gang", 8))
+        if code != 201:
+            raise AssertionError(f"POST nb-gang: HTTP {code}: {out}")
+        drive_until(lambda: (workload("nb-gang") or {}).get("status", {}).get("state")
+                    == "Pending", "gang queued")
+        drive()
+        waiting = workload("nb-gang")["status"]
+        if waiting.get("state") != "Pending":
+            raise AssertionError(f"the 8-GPU gang did not wait: {waiting}")
+        state = {"tokens": warm["tokens"], "launches": warm["launches"]}
+        cluster.set_session_state(ns, "nb-user", state)
+        t0 = time.perf_counter()
+        code, _ = call("PATCH", f"/api/namespaces/{ns}/notebooks/nb-user",
+                       {"stopped": True, "suspend": True})
+        if code != 200:
+            raise AssertionError(f"suspend PATCH: HTTP {code}")
+        suspend_rounds = drive_until(
+            lambda: pod("nb-user") is None and workload("nb-user") is None
+            and api.get("StatefulSet", "nb-user", ns)["spec"]["replicas"] == 0,
+            "suspended and scaled down")
+        suspend_s = time.perf_counter() - t0
+        receipt = ckpt("nb-user")["status"]
+        digest = hashlib.sha256(json.dumps(state, sort_keys=True, separators=(",", ":"))
+                                .encode()).hexdigest()
+        if (receipt.get("phase"), receipt.get("stateCaptured"), receipt.get("digest")) != (
+                "Suspended", True, digest):
+            raise AssertionError(f"suspend receipt {receipt} (state digest {digest})")
+        gang_rounds = drive_until(lambda: admitted("nb-gang"), "gang admitted")
+        gang_nodes = workload("nb-gang")["status"]["assignment"]["nodes"]
+        if gang_nodes != [user_node]:
+            raise AssertionError(f"the gang took {gang_nodes}, not the freed {user_node}")
+        quota = jwa.gpu_quota(ns)
+        if quota.get("suspended") != "1":
+            raise AssertionError(f"the quota block does not show the suspended GPU: {quota}")
+        suspend_row = jwa.notebook_row(api.get("Notebook", "nb-user", ns))["status"]
+
+        # 4. resume: restored with an equal digest before it reads ready
+        t0 = time.perf_counter()
+        code, out = call("POST", f"/api/namespaces/{ns}/notebooks/nb-user/resume")
+        if code != 200 or out.get("resume") != "warm":
+            raise AssertionError(f"resume POST: HTTP {code}: {out}")
+        early_ready = []
+
+        def resumed():
+            row = jwa.notebook_row(api.get("Notebook", "nb-user", ns))["status"]
+            phase = (ckpt("nb-user") or {}).get("status", {}).get("phase")
+            if row["phase"] == "ready" and phase != "Restored":
+                early_ready.append(phase)
+            return row["phase"] == "ready" and phase == "Restored"
+
+        resume_rounds = drive_until(resumed, "resumed and ready")
+        resume_s = time.perf_counter() - t0
+        if early_ready:
+            raise AssertionError(f"ready before the restore (checkpoint {early_ready})")
+        back = cluster.get_session_state(ns, "nb-user")
+        back_digest = hashlib.sha256(json.dumps(back, sort_keys=True, separators=(",", ":"))
+                                     .encode()).hexdigest()
+        if back != state or back_digest != receipt["digest"]:
+            raise AssertionError(f"restored {back} ({back_digest}) != {receipt['digest']}")
+        mount_resumed = tempfile.mkdtemp(prefix="mount-resumed-")
+        cache.materialize_dir(mount_resumed, topology=topology, compiler_ver=compiler)
+        env, node = pod_env("nb-user", mount_resumed)
+        again = run_notebook(label="resumed", env=env, kernel_dir=mount_resumed,
+                             scratch=scratch)
+        again["node"] = node
+        if again["built"] or again["after"] != again["before"] or again["tokens"] != \
+                cold["tokens"]:
+            raise AssertionError(f"resumed process: built {again['built']}, tokens "
+                                 f"{again['tokens']}")
+
+        # 5. a corrupted artifact is never staged
+        key = CompileKey(libs[0], topology, compiler)
+        path = os.path.join(cache.root, f"{key.key_id}.bin")
+        data = bytearray(open(path, "rb").read())
+        data[len(data) // 2] ^= 0x01
+        open(path, "wb").write(bytes(data))
+        mount_bad = tempfile.mkdtemp(prefix="mount-corrupt-")
+        corrupt = {"staged": cache.materialize_dir(mount_bad, topology=topology,
+                                                   compiler_ver=compiler),
+                   "files": sorted(os.listdir(mount_bad)), "entries": cache.stats()["entries"],
+                   "artifact_kept": os.path.exists(path)}
+        if corrupt != {"staged": 0, "files": [], "entries": 0, "artifact_kept": False}:
+            raise AssertionError(f"the corrupted artifact: {corrupt}")
+    finally:
+        fleet["close"]()
+        shutil.rmtree(scratch, ignore_errors=True)
+        shutil.rmtree(fleet["root"], ignore_errors=True)
+
+    metrics = {}
+    for line in fleet["registry"].exposition().splitlines():
+        if line.startswith(("session_", "compile_cache_", "warm_pool_",
+                            "workload_preemptions_total")) and "_bucket" not in line:
+            k, v = line.rsplit(" ", 1)
+            metrics[k] = float(v)
+
+    def summary(r):
+        return {k: r[k] for k in ("node", "imported_s", "service_s", "first_token_s",
+                                  "process_s", "built", "launches", "build_dir", "device")}
+
+    runs = {"cold": cold, "warm": warm, "resumed": again}
+    record.update({
+        "phase": "platform_sessions",
+        "runs": {k: summary(r) for k, r in runs.items()},
+        "nvcc_runs": {k: len(r["built"]) for k, r in runs.items()},
+        "tokens": cold["tokens"],
+        # hits: the cache's digest-verified loads (the two warm mounts);
+        # misses: the processes that ran nvcc; the corrupted artifact's
+        # failed load purged its entry
+        "cache": {"ingested": ingested, "materialized": staged, "entries": entries,
+                  "hits": metrics.get("compile_cache_load_seconds_count", 0.0),
+                  "misses": sum(1 for r in runs.values() if r["built"]),
+                  "corrupt": corrupt},
+        "handout": {"rounds": record.pop("handout_rounds"), "template": template},
+        "suspend": {"request_to_scale_down_s": suspend_s, "rounds": suspend_rounds,
+                    "receipt": {k: receipt[k] for k in ("checkpointStep", "digest",
+                                                        "sizeBytes", "stateCaptured")},
+                    "gang_admitted_rounds": gang_rounds, "gang_nodes": gang_nodes,
+                    "gang_waited": {k: waiting.get(k) for k in ("reason", "message")},
+                    "quota": quota, "row": suspend_row},
+        "resume": {"request_to_ready_s": resume_s, "rounds": resume_rounds,
+                   "warm_resume_histogram_s": {
+                       "count": metrics.get("session_resume_seconds_count"),
+                       "sum": metrics.get("session_resume_seconds_sum")},
+                   "digest_equal": True},
+        "metrics": metrics,
+        "launches": sum(r["launches"] for r in runs.values()),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    for r in runs.values():
+        if r["launches"] != LAUNCHES_PER_FORWARD * (2 + 1 + SPAWN_NEW_TOKENS):
+            raise AssertionError(f"dequant launches {r['launches']}")
+    return record, record["launches"]
 
 
 def free_port() -> int:
@@ -5379,6 +5816,11 @@ def main() -> int:
     record, spawn_launches = platform_spawn_phase()
     record["card"] = label
     emit(record)
+    # suspend-to-checkpoint sessions and the warm-start subsystem (slice
+    # 9, part 3): a cold standby, a warm handout, suspend and resume
+    record, sessions_launches = platform_sessions_phase()
+    record["card"] = label
+    emit(record)
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -5471,7 +5913,8 @@ def main() -> int:
                                   "pipe_loopback": pipe_launches["int4_dequant"],
                                   "platform_conformance":
                                       conformance_launches["int4_dequant"],
-                                  "platform_spawn": spawn_launches}
+                                  "platform_spawn": spawn_launches,
+                                  "platform_sessions": sessions_launches}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,

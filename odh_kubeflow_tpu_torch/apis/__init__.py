@@ -33,11 +33,13 @@ LAST_ACTIVITY_CHECK_ANNOTATION = (
 )
 
 # suspend-to-checkpoint contract (sessions/): SUSPENDED_AT alongside
-# STOP_ANNOTATION means "suspended, resumable" — the session checkpoints
-# kernel state before the GPUs are released, and the JWA shows a
-# suspended row instead of a stopped one
+# STOP_ANNOTATION means "suspended, resumable" — the session manager
+# checkpoints kernel state before the GPUs are released, and the JWA
+# offers resume instead of a cold start. RESUME_REQUESTED stamps when
+# the user reopened, feeding the warm-resume latency histogram.
 SUSPENDED_AT_ANNOTATION = "notebooks.kubeflow.org/suspended-at"
 SUSPEND_REASON_ANNOTATION = "notebooks.kubeflow.org/suspend-reason"
+RESUME_REQUESTED_ANNOTATION = "notebooks.kubeflow.org/resume-requested-at"
 
 # audit trail for duty-cycle-aware culling: the GPU duty sample the
 # culler observed last (value + probe timestamp), stamped every probe so
@@ -90,7 +92,8 @@ def notebook_agent_url(
     notebook, cluster_domain: str = "cluster.local", port: int = 8890
 ) -> str:
     """Base URL of the in-pod agent sidecar family behind the notebook
-    Service (the gpu-activity probe) — ONE
+    Service (the gpu-activity probe, the session snapshot/restore
+    hooks) — ONE
     addressing convention, shared by the culler and the session
     manager so the two can't drift."""
     from odh_kubeflow_tpu_torch.machinery import objects as obj_util

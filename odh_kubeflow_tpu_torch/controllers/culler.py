@@ -15,8 +15,9 @@ websocket silent). The culler therefore also probes
 counterpart of the JAX package's ``/api/tpu/activity``) and treats
 recent GPU duty cycle above a threshold as activity. A multi-node
 notebook is culled atomically — the stop annotation acts on the
-Notebook, never a subset of nodes. The usage meter the JAX culler feeds
-and its suspend-on-cull (the sessions subsystem) are not ported yet.
+Notebook, never a subset of nodes. With ``suspend_on_cull`` a cull is a
+suspend to checkpoint (the sessions subsystem), as JAX's. The usage
+meter the JAX culler feeds is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from odh_kubeflow_tpu_torch.apis import (
     LAST_ACTIVITY_ANNOTATION,
     LAST_ACTIVITY_CHECK_ANNOTATION,
     STOP_ANNOTATION,
+    SUSPEND_REASON_ANNOTATION,
+    SUSPENDED_AT_ANNOTATION,
     notebook_agent_url,
 )
 from odh_kubeflow_tpu_torch.controllers.runtime import Result
@@ -71,6 +74,11 @@ class CullerConfig:
     # port the in-image gpu-activity agent listens on (exposed by the
     # notebook Service for GPU notebooks)
     gpu_agent_port: int = 8890
+    # suspend-to-checkpoint instead of a plain stop: the cull stamps
+    # ``suspended-at`` alongside ``kubeflow-resource-stopped`` so the
+    # session manager snapshots kernel state before the GPUs are
+    # released, and the JWA shows "suspended, resumable" — not "stopped"
+    suspend_on_cull: bool = False
 
 
 class Culler:
@@ -260,11 +268,24 @@ class Culler:
                 self.m_last_cull.set(now)
             # a re-cull of the same notebook (restarted, idled again)
             # bumps the Event count instead of stacking duplicates
-            self.recorder.normal(
-                notebook,
-                "Culled",
-                "Notebook idle beyond threshold; scaling to zero",
-            )
+            if self.config.suspend_on_cull:
+                # suspended, not stopped: a DISTINCT event + the
+                # suspended-at stamp let the JWA (and users) tell
+                # "resumable with warm state" apart from a plain stop
+                obj_util.set_annotation(notebook, SUSPENDED_AT_ANNOTATION, _fmt_time(now))
+                obj_util.set_annotation(notebook, SUSPEND_REASON_ANNOTATION, "cull")
+                self.recorder.normal(
+                    notebook,
+                    "Suspended",
+                    "Notebook idle beyond threshold; suspending session "
+                    "to checkpoint and releasing the GPUs",
+                )
+            else:
+                self.recorder.normal(
+                    notebook,
+                    "Culled",
+                    "Notebook idle beyond threshold; scaling to zero",
+                )
         self._patch_annotations(notebook)
         return Result(requeue_after=period)
 

@@ -21,10 +21,14 @@ On GPU node pools (the JAX package's TPU slices mapped as
 - Culling treats the node group atomically: replicas go nodes→0, never
   partial; a preempted node restarts the whole gang.
 
-Left out of the copy for now (ROADMAP.md): the sessions subsystem's
-suspend hold and checkpoint watch, the warm-pool placement hint and the
-compile-cache mount (warmup), the spawn-trace stamps, the usage meter
-tap and the split-process ``main()``.
+The sessions subsystem's suspend hold and checkpoint watch, the
+warm-pool placement hint and the compile-cache mount are JAX's; the
+mount sets ``ODH_TORCH_KERNEL_CACHE`` (the kernels' build directory,
+``ops/_build.py``) where JAX's sets ``JAX_COMPILATION_CACHE_DIR``, and
+it wins over the GPU-runtime PodDefault's workspace default
+(``webhooks/poddefault.py``). Left out of the copy for now
+(ROADMAP.md): the spawn-trace stamps, the usage meter tap and the
+split-process ``main()``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,9 @@ from odh_kubeflow_tpu_torch.scheduling.workload import (
     workload_from_statefulset,
 )
 from odh_kubeflow_tpu_torch.utils import prometheus
+from odh_kubeflow_tpu_torch.ops._build import KERNEL_CACHE_ENV
 from odh_kubeflow_tpu_torch.utils.gpu import GPU_ACCELERATORS, gpus_in_request, nodes_in_slice
+from odh_kubeflow_tpu_torch.warmup import PREFERRED_POOL_ANNOTATION
 
 Obj = dict[str, Any]
 
@@ -88,6 +94,18 @@ class NotebookControllerConfig:
     # gang admission (scheduling/): GPU notebooks get a Workload +
     # admission-gated pods instead of racing the quota
     enable_queueing: bool = False
+    # suspend-to-checkpoint sessions (sessions/ subsystem): culls become
+    # suspends, the scale-down waits for the kernel snapshot, and
+    # suspended notebooks resume warm instead of starting cold
+    enable_sessions: bool = False
+    # wedge-breaker: a suspend whose snapshot never lands within this
+    # window degrades to a plain stop (losing state beats leaking GPUs)
+    suspend_grace_seconds: float = 600.0
+    # compilation-cache service mount (warmup/ subsystem): when set,
+    # GPU notebook kernels get ODH_TORCH_KERNEL_CACHE pointed at this
+    # cache-service-backed path, so their first launch loads the
+    # fleet's built kernels instead of running nvcc
+    compile_cache_mount: str = ""
 
 # ---------------------------------------------------------------------------
 # GPU request derivation
@@ -198,8 +216,17 @@ class NotebookController:
         ctrl.owns("StatefulSet").owns("Service")
         ctrl.watches("Pod", self._map_pod, predicate=self._pod_predicate)
         ctrl.watches("Event", self._map_event)
+        if self.config.enable_sessions:
+            # the checkpoint turning durable is what releases the held
+            # scale-down — the suspend completes on this watch
+            ctrl.watches("SessionCheckpoint", self._map_checkpoint)
         if self.config.use_istio:
             ctrl.owns("VirtualService")
+
+    @staticmethod
+    def _map_checkpoint(_etype: str, ckpt: Obj) -> list[Request]:
+        name = obj_util.get_path(ckpt, "spec", "notebook", default=obj_util.name_of(ckpt))
+        return [Request(obj_util.namespace_of(ckpt), name)] if name else []
 
     def _pod_predicate(self, _etype: str, pod: Obj) -> bool:
         return "notebook-name" in obj_util.labels_of(pod)
@@ -316,7 +343,18 @@ class NotebookController:
             self._set_condition(notebook, "GPURequestInvalid", str(e))
             return Result()
 
-        sts = self.generate_statefulset(notebook, gpu)
+        # suspend hold: a requested suspend keeps the pods (and the
+        # Workload reservation) alive until the kernel snapshot is
+        # durable — only then does the scale-down release the GPUs
+        suspend_hold = False
+        if self.config.enable_sessions:
+            from odh_kubeflow_tpu_torch import sessions
+
+            suspend_hold = sessions.suspend_pending(
+                self.api, notebook, grace_seconds=self.config.suspend_grace_seconds
+            )
+
+        sts = self.generate_statefulset(notebook, gpu, suspend_hold=suspend_hold)
         try:
             _, created = reconcilehelper.reconcile_object(
                 self.api, sts, owner=notebook
@@ -381,7 +419,14 @@ class NotebookController:
                 "default priority 0",
             )
         desired = workload_from_statefulset(
-            sts, priority=priority, priority_class=pclass
+            sts,
+            priority=priority,
+            priority_class=pclass,
+            # warm-pool handout: the claimed notebook prefers the node
+            # pool its standby just freed (warmup/ subsystem)
+            preferred_pool=obj_util.annotations_of(notebook).get(
+                PREFERRED_POOL_ANNOTATION, ""
+            ),
         )
         try:
             if desired is None:
@@ -476,7 +521,9 @@ class NotebookController:
     def _notebook_prefix(self, notebook: Obj) -> str:
         return f"/notebook/{obj_util.namespace_of(notebook)}/{obj_util.name_of(notebook)}"
 
-    def generate_statefulset(self, notebook: Obj, gpu: Optional[GpuRequest]) -> Obj:
+    def generate_statefulset(
+        self, notebook: Obj, gpu: Optional[GpuRequest], suspend_hold: bool = False
+    ) -> Obj:
         name = obj_util.name_of(notebook)
         ns = obj_util.namespace_of(notebook)
         template = obj_util.deepcopy(
@@ -509,7 +556,7 @@ class NotebookController:
                 "fsGroup", DEFAULT_FSGROUP
             )
 
-        stopped = STOP_ANNOTATION in obj_util.annotations_of(notebook)
+        stopped = STOP_ANNOTATION in obj_util.annotations_of(notebook) and not suspend_hold
         replicas = 0 if stopped else 1
 
         if gpu is not None:
@@ -601,6 +648,11 @@ class NotebookController:
         else:
             set_env({"name": "TPU_WORKER_ID", "value": "0"})
             set_env({"name": "TPU_WORKER_HOSTNAMES", "value": "localhost"})
+        if self.config.compile_cache_mount:
+            # kernels build into (and load from) the cache-service-backed
+            # mount: the fleet's built kernels load instead of rebuilding
+            # (warmup/compilecache.py stages/ingests the directory)
+            set_env({"name": KERNEL_CACHE_ENV, "value": self.config.compile_cache_mount})
 
     def generate_service(
         self, notebook: Obj, gpu: Optional[GpuRequest] = None

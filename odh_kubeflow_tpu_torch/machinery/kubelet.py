@@ -7,9 +7,10 @@ them onto fake nodes honoring GPU nodeSelectors and ``nvidia.com/gpu``
 capacity, enforces the namespace's GPU ResourceQuota at pod creation,
 and drives pod phases — which is what lets the culler, status
 mirroring, and gang scheduling be tested end-to-end with no cluster.
-Left out of the copy (ROADMAP.md): the sessions subsystem's container
-memory hooks, simulated duty-cycle waveforms, simulated image pulls and
-the tracing spans of gang binds and container starts.
+The sessions subsystem's container memory (``SimSessionRuntime``) and
+the warm-start subsystem's simulated image pulls are JAX's. Left out of
+the copy (ROADMAP.md): simulated duty-cycle waveforms and the tracing
+spans of gang binds and container starts.
 
 Deterministic by design: ``step()`` runs one reconcile pass; call it
 after mutations instead of racing a background thread.
@@ -18,7 +19,9 @@ after mutations instead of racing a background thread.
 from __future__ import annotations
 
 import itertools
+import os
 import re
+import time
 from typing import Any, Optional
 
 from odh_kubeflow_tpu_torch.apis import (
@@ -82,13 +85,86 @@ def _is_gated_unbound(pod: Obj) -> bool:
     )
 
 
+class SimSessionRuntime:
+    """The kubelet sim's checkpoint/restore container hooks (the
+    sessions/ subsystem's runtime interface). "Container memory" —
+    kernel state — is keyed by pod UID and lives exactly as long as the
+    pod does: a deleted or Failed pod loses its unsnapshotted state,
+    which is precisely why checkpoint-then-preempt beats a hard kill.
+
+    Tests (and the sim's notebook "kernels") write state with
+    ``write_state``; the SessionManager's suspend path calls
+    ``snapshot`` while the pod is still Running, and its resume path
+    calls ``restore`` into the fresh pod."""
+
+    def __init__(self) -> None:
+        self._memory: dict[str, Obj] = {}  # pod uid → kernel state
+
+    @staticmethod
+    def _uid(pod: Obj) -> str:
+        return obj_util.meta(pod).get("uid", "")
+
+    def write_state(self, pod: Obj, state: Obj) -> None:
+        self._memory[self._uid(pod)] = obj_util.deepcopy(state)
+
+    def read_state(self, pod: Obj) -> Optional[Obj]:
+        state = self._memory.get(self._uid(pod))
+        return obj_util.deepcopy(state) if state is not None else None
+
+    # -- the hooks the SessionManager drives --------------------------------
+
+    def snapshot(self, notebook: Obj, pod: Obj) -> Optional[Obj]:
+        # a live container that never wrote memory has a valid, EMPTY
+        # kernel state — None is reserved for "hook unreachable" (the
+        # manager retries that inside the suspend grace window)
+        return obj_util.deepcopy(self._memory.get(self._uid(pod), {}))
+
+    def restore(self, notebook: Obj, pod: Obj, state: Obj) -> bool:
+        self._memory[self._uid(pod)] = obj_util.deepcopy(state or {})
+        return True
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def drop(self, pod: Obj) -> None:
+        self._memory.pop(self._uid(pod), None)
+
+    def prune(self, live_uids: set[str]) -> None:
+        for uid in list(self._memory):
+            if uid not in live_uids:
+                del self._memory[uid]
+
+
 class FakeCluster:
     def __init__(self, api: APIServer):
         self.api = api
         self._ip_counter = itertools.count(2)
+        # checkpoint/restore container hooks (sessions/ subsystem)
+        self.session_runtime = SimSessionRuntime()
         # per-step() scheduler ledger: used GPUs by node, built once per
         # pass and updated as pods bind (None outside a step)
         self._sched_used: Optional[dict[str, float]] = None
+        # simulated image pulls (warmup/ subsystem): a node that has
+        # never run an image keeps the pod Pending for
+        # SIM_IMAGE_PULL_SECONDS, then remembers it — warm-pool
+        # standbys pre-pull, so claimed sessions skip the wait. 0
+        # (default) preserves the instant-start behavior.
+        self.image_pull_seconds = float(
+            os.environ.get("SIM_IMAGE_PULL_SECONDS", "0") or 0
+        )
+        self._node_images: dict[str, set[str]] = {}
+        self._pull_started: dict[str, float] = {}
+
+    # -- session-state helpers (tests drive these as "the kernel") ----------
+
+    def set_session_state(self, namespace: str, notebook: str, state: Obj) -> None:
+        """Write kernel state into notebook's pod-0 container memory —
+        what a user's running kernel does between our observations."""
+        pod = self.api.get("Pod", f"{notebook}-0", namespace)
+        self.session_runtime.write_state(pod, state)
+
+    def get_session_state(self, namespace: str, notebook: str) -> Optional[Obj]:
+        pod = self.api.get("Pod", f"{notebook}-0", namespace)
+        return self.session_runtime.read_state(pod)
 
     # -- nodes --------------------------------------------------------------
 
@@ -180,6 +256,9 @@ class FakeCluster:
                 continue
             if obj_util.get_path(pod, "status", "phase") in ("Succeeded", "Failed"):
                 continue
+            # container memory dies with the node — unsnapshotted
+            # kernel state on a preempted node is gone
+            self.session_runtime.drop(pod)
             pod.setdefault("status", {})
             pod["status"]["phase"] = "Failed"
             pod["status"]["reason"] = "Preempted"
@@ -512,6 +591,8 @@ class FakeCluster:
                     return
                 pod["spec"]["nodeName"] = target
                 pod = self.api.update(pod)
+        if not self._images_ready(pod):
+            return
         containers = obj_util.get_path(pod, "spec", "containers", default=[]) or []
         pod.setdefault("status", {})
         pod["status"].update(
@@ -536,6 +617,57 @@ class FakeCluster:
             }
         )
         self.api.update_status(pod)
+
+    # -- simulated image pulls (warmup/ subsystem) ---------------------------
+
+    def node_images(self, node: str) -> set[str]:
+        """Images this node has already pulled — its 'warmth'."""
+        return set(self._node_images.get(node, set()))
+
+    def _images_ready(self, pod: Obj) -> bool:
+        """Whether the pod's node holds every container image. A cold
+        node pays SIM_IMAGE_PULL_SECONDS of Pending (reason
+        ContainersNotReady / pulling), then remembers the images; a
+        warm node — one a standby already ran the image on — starts
+        instantly. With the knob at 0 the pull is instantaneous but
+        warmth is still tracked, so tests can observe which nodes a
+        warm pool pre-imaged."""
+        node = obj_util.get_path(pod, "spec", "nodeName")
+        if not node:
+            return True
+        images = {
+            c.get("image", "")
+            for c in obj_util.get_path(pod, "spec", "containers", default=[])
+            or []
+            if c.get("image")
+        }
+        have = self._node_images.setdefault(str(node), set())
+        missing = images - have
+        uid = obj_util.meta(pod).get("uid", "")
+        if not missing:
+            self._pull_started.pop(uid, None)
+            return True
+        if self.image_pull_seconds <= 0:
+            have |= missing
+            return True
+        started = self._pull_started.setdefault(uid, time.time())
+        if time.time() - started < self.image_pull_seconds:
+            pod.setdefault("status", {})
+            pod["status"]["phase"] = "Pending"
+            pod["status"]["conditions"] = [
+                {"type": "PodScheduled", "status": "True"},
+                {
+                    "type": "Ready",
+                    "status": "False",
+                    "reason": "ContainersNotReady",
+                    "message": "pulling image(s) " + ", ".join(sorted(missing)),
+                },
+            ]
+            self.api.update_status(pod)
+            return False
+        have |= missing
+        self._pull_started.pop(uid, None)
+        return True
 
     # -- workload reconciliation --------------------------------------------
 
@@ -693,3 +825,10 @@ class FakeCluster:
         finally:
             self._sched_used = None
         self._mirror_quota_status()
+        # container memory lives and dies with its pod: GC kernel state
+        # for pods that no longer exist (scale-down, eviction, delete);
+        # a cluster whose kernels hold nothing skips the pod list
+        if self.session_runtime._memory:
+            self.session_runtime.prune(
+                {obj_util.meta(p).get("uid", "") for p in self.api.list("Pod")}
+            )

@@ -230,11 +230,13 @@ class DecodeEngine:
             raise TypeError(
                 f"mesh must be a parallel.mesh.Mesh (build_mesh), got {type(mesh).__name__}"
             )
-        if compile_cache_dir is not None:
-            raise NotImplementedError(
-                "compile_cache_dir belongs to the platform modules of the port "
-                "(warmup/compilecache.py), not ported yet; pass None"
-            )
+        # the kernels' build directory (warmup/ subsystem): a staged or
+        # materialized directory turns the first launches' nvcc builds
+        # into loads. Explicit kwarg wins; falls back to
+        # ODH_TORCH_KERNEL_CACHE; no-op when neither is set.
+        from odh_kubeflow_tpu_torch.warmup.compilecache import install_process_cache
+
+        install_process_cache(compile_cache_dir)
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params needs draft_cfg")
         self.mesh = mesh

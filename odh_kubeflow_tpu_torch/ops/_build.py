@@ -11,6 +11,13 @@ source rebuilds and a stale library
 is never loaded. Nothing builds at import: the first launch of a kernel
 builds it (``library``), or ``build`` builds several at once, one
 ``nvcc`` process per source, all started together.
+
+The directory is read from the env at import; ``set_build_dir`` moves it
+later (``warmup.compilecache.install_process_cache``), before the first
+library is loaded. A library whose file name exists counts as built and
+is loaded as it is: a directory staged from the compile cache is
+trusted because ``CompileCacheService.materialize_dir`` writes only
+artifacts whose sha256 matches the cache's receipt.
 """
 
 from __future__ import annotations
@@ -70,7 +77,9 @@ def build(names: list[str]) -> dict[str, Path]:
     nvcc = _nvcc()
     procs = {}
     for n, t in todo.items():
-        tmp = t.with_suffix(f".{os.getpid()}.tmp")
+        # a dot name: a directory scan (the compile cache's ingest_dir)
+        # never takes a library that is still being written
+        tmp = t.parent / f".{t.name}.{os.getpid()}.tmp"
         procs[n] = (
             tmp,
             subprocess.Popen(
@@ -102,3 +111,27 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def set_build_dir(path) -> Path:
+    """Point this process's kernel build directory at ``path`` (created
+    if missing). Raises when the directory cannot be made or written
+    (``OSError``): a configured cache that cannot be used must not turn
+    into a silent cold start. Raises ``RuntimeError`` when a library was
+    already loaded from another directory: the process would then hold
+    kernels from two places."""
+    global BUILD_DIR
+    new = Path(path)
+    new.mkdir(parents=True, exist_ok=True)
+    if not os.access(new, os.W_OK | os.X_OK):
+        raise PermissionError(f"kernel build directory {new} is not writable")
+    with _lock:
+        if new.resolve() == BUILD_DIR.resolve():
+            return BUILD_DIR
+        if _libs:
+            raise RuntimeError(
+                f"kernels {sorted(_libs)} are already loaded from {BUILD_DIR}; "
+                f"the build directory cannot move to {new} in this process"
+            )
+        BUILD_DIR = new
+        return BUILD_DIR

@@ -24,16 +24,19 @@ Kueue-shaped semantics, sized for this platform:
 - **zone awareness** — pools carry their failure domain
   (``topology.kubernetes.io/zone``) and spot class; the fit spreads
   gangs across the least-committed zone and prefers on-demand
-  capacity. ``drain_zone`` evicts every gang placed in the zone and
-  requeues it with the zone excluded; a NodeLost storm (≥
+  capacity. ``drain_zone`` runs checkpoint-then-preempt as
+  **checkpoint-then-migrate**: every gang in the zone suspends to its
+  (zone-replicated) checkpoint, its Workload re-enqueues with the
+  drained zone excluded, and the session resumes in a surviving zone
+  — hard-evict only for non-suspendable gangs. A NodeLost storm (≥
   ``zone_storm_threshold`` gangs losing nodes in one zone in one
   cycle) escalates per-node eviction into exactly that zone drain.
 
-Every preemption and every drain is a hard kill, as the JAX scheduler's
-is without a suspender. Its checkpoint-then-preempt branches (the
-suspender hooks, ``_plan_suspend_reclaim`` and the checkpoint-then-
-migrate half of a drain) come with the ``SessionManager`` (ROADMAP.md),
-as do the usage meter and the admission spans.
+With a ``suspender`` (the ``SessionManager``) preemption is
+checkpoint-then-preempt and an overcommitted pool asks idle sessions to
+yield (``_plan_suspend_reclaim``); without one every preemption and
+every drain is a hard kill, as the JAX scheduler's is. The usage meter
+and the admission spans are not ported yet (ROADMAP.md).
 
 The cycle is a pure function of cluster state: snapshot, charge
 admitted, scan pending, write statuses. Re-running it with no state
@@ -89,6 +92,7 @@ class SliceScheduler:
         api: Any,
         registry: Optional[prometheus.Registry] = None,
         time_fn: Callable[[], float] = time.time,
+        suspender: Optional[Any] = None,
         zone_storm_threshold: int = 2,
         zone_drain_cooldown: float = 60.0,
     ):
@@ -101,9 +105,18 @@ class SliceScheduler:
         # before a zone with live capacity is trusted again
         self.zone_drain_cooldown = zone_drain_cooldown
         # zone → {"trigger": operator|node-storm, "since": ts}; fit
-        # excludes these failure domains and the drain pass evicts
+        # excludes these failure domains and the drain pass migrates
         # everything already placed in them
         self._drained_zones: dict[str, dict[str, Any]] = {}
+        # whether zone-drain suspends may be outstanding — gates the
+        # per-cycle migration scan off the hot path. Starts True: a
+        # restarted scheduler must scan once to pick up suspends a
+        # previous incarnation requested (its memory died with it).
+        self._zone_migrations_pending = True
+        # checkpoint-then-preempt hooks (sessions.manager.SessionManager
+        # duck: is_suspendable / suspend_in_flight / request_suspend).
+        # None → every preemption is a hard kill.
+        self.suspender = suspender
         self.recorder = EventRecorder(api, COMPONENT)
         reg = registry or prometheus.default_registry
         self.m_pending = reg.gauge(
@@ -131,6 +144,10 @@ class SliceScheduler:
             "Zone drains started, by trigger",
             labelnames=("trigger",),
         )
+        self.m_migrations = reg.counter(
+            "zone_migrations_total",
+            "Suspended sessions re-enqueued out of a drained zone",
+        )
         self.m_drained = reg.gauge(
             "drained_zones",
             "Failure domains currently excluded from placement",
@@ -156,6 +173,10 @@ class SliceScheduler:
         ctrl.watches("Node", self._map_cycle)
         ctrl.watches("ResourceQuota", self._map_cycle)
         ctrl.watches("Pod", self._map_cycle, predicate=self._pod_is_relevant)
+        if self.suspender is not None:
+            # a checkpoint turning Suspended frees committed capacity;
+            # a workload waiting on AwaitingSuspend admits on this watch
+            ctrl.watches("SessionCheckpoint", self._map_cycle)
 
     @staticmethod
     def _pod_is_relevant(_etype: str, pod: Obj) -> bool:
@@ -233,7 +254,7 @@ class SliceScheduler:
 
         # zone failure handling BEFORE capacity is charged: a NodeLost
         # storm escalates to a drain, healed storm-drains expire, and
-        # the drain pass evicts gangs still placed in drained zones
+        # the drain pass migrates gangs still placed in drained zones
         self._detect_zone_storms(lost_zones)
         self._expire_storm_drains(inventory, lost_zones)
         if self._drained_zones:
@@ -327,6 +348,12 @@ class SliceScheduler:
             )
         self._known_queues |= set(pending_counts)
 
+        # checkpoint-then-migrate, the resume half: zone-drain suspends
+        # whose checkpoint is durable re-enqueue their Workload (the
+        # scan above — and every later cycle — places them with the
+        # drained zone excluded)
+        migrations_pending = self._advance_zone_migrations()
+
         if any_unadmitted:
             streak = max(self._attempts.values(), default=1)
             return Result(
@@ -334,9 +361,10 @@ class SliceScheduler:
                     _BACKOFF_BASE * (2 ** min(streak - 1, 8)), _BACKOFF_CAP
                 )
             )
-        if self._drained_zones:
-            # storm cooldowns expire with no watch event firing — keep
-            # the cycle coming back while a drain stands
+        if migrations_pending or self._drained_zones:
+            # drains settle asynchronously (snapshots landing, storm
+            # cooldowns expiring) — keep the cycle coming back even
+            # when no watch event fires
             return Result(requeue_after=2.0)
         return Result()
 
@@ -389,10 +417,30 @@ class SliceScheduler:
             return session_ok, quota_ok, fit
 
         session_ok, quota_ok, fit = place()
+        suspends_pending = 0
         if not session_ok or not quota_ok or fit is None:
             victims = self._plan_preemption(wl, inventory, quotas, admitted)
             if victims is not None:
+                hard: list[Obj] = []
+                soft: list[Obj] = []
+                in_flight: list[Obj] = []
                 for victim in victims:
+                    if self.suspender is None:
+                        hard.append(victim)
+                    elif self.suspender.suspend_in_flight(victim):
+                        # its snapshot is being taken NOW — killing the
+                        # pods here would destroy the very state the
+                        # suspend exists to save; its release is coming
+                        in_flight.append(victim)
+                    elif session_ok and self.suspender.is_suspendable(victim):
+                        soft.append(victim)
+                    else:
+                        # hard kill — including when the SESSION CAP is
+                        # the blocker: a suspended victim still counts
+                        # as committed, only eviction (victim requeues
+                        # Pending, holding no checkpoint) frees the cap
+                        hard.append(victim)
+                for victim in hard:
                     self._evict(
                         victim,
                         reason="Preempted",
@@ -403,7 +451,41 @@ class SliceScheduler:
                         metric_reason="evict",
                     )
                     admitted.remove(victim)
+                # checkpoint-then-preempt: suspendable victims keep
+                # their pods until the snapshot is durable — re-charge
+                # their trial release and wait for the suspend to free
+                # the reservation for real
+                for victim in soft + in_flight:
+                    inventory.charge_workload(victim)
+                    quotas.charge(obj_util.namespace_of(victim), wlutil.gpus_of(victim))
+                suspends_pending += len(in_flight)
+                for victim in soft:
+                    if self.suspender.request_suspend(
+                        victim,
+                        f"preempted by higher-priority workload "
+                        f"{ns}/{obj_util.name_of(wl)}; suspending "
+                        "session to checkpoint",
+                    ):
+                        # only a request that actually landed counts as
+                        # a pending release — a failed stamp must fall
+                        # through to the real quota/fit verdict
+                        self.m_preemptions.inc({"reason": "suspend"})
+                        suspends_pending += 1
                 session_ok, quota_ok, fit = place()
+
+        # oversubscription reclaim: still starved with no hard-kill
+        # plan — ask idle suspendable sessions (equal priority allowed;
+        # this is the NotebookOS density move) to yield via checkpoint.
+        # Skipped when the preemption plan above already has releases
+        # in flight (the reclaim would recount those victims) and when
+        # the session cap is the blocker (suspends don't lower it).
+        if (
+            session_ok
+            and (not quota_ok or fit is None)
+            and self.suspender is not None
+            and not suspends_pending
+        ):
+            suspends_pending = self._plan_suspend_reclaim(wl, inventory, quotas, admitted)
 
         if not session_ok:
             cap = quotas.session_cap(ns)
@@ -417,6 +499,8 @@ class SliceScheduler:
                 "resume-and-stop a session, or raise the factor",
             )
         if not quota_ok:
+            if suspends_pending:
+                return self._awaiting_suspend(suspends_pending)
             cap = quotas.cap(ns)
             used = quotas.used.get(ns, 0)
             self.m_attempts.inc({"result": "quota_exhausted"})
@@ -426,6 +510,8 @@ class SliceScheduler:
                 f"used {used}, hard {cap}, need {gpus}",
             )
         if fit is None:
+            if suspends_pending:
+                return self._awaiting_suspend(suspends_pending)
             self.m_attempts.inc({"result": "unschedulable"})
             if not inventory.capacity_exists(accel, count, exclude_zones=exclude):
                 if exclude and inventory.capacity_exists(accel, count):
@@ -450,12 +536,22 @@ class SliceScheduler:
         self._admit(wl, pool, chosen, inventory, quotas)
         return None
 
-    # -- zone drains ----------------------------------------------------------
+    def _awaiting_suspend(self, count: int) -> tuple[str, str]:
+        self.m_attempts.inc({"result": "awaiting_suspend"})
+        return (
+            "AwaitingSuspend",
+            f"waiting for {count} session(s) to suspend to checkpoint "
+            "and release their GPU reservation",
+        )
+
+    # -- zone drains (checkpoint-then-migrate) --------------------------------
 
     def drain_zone(self, zone: str, trigger: str = "operator") -> None:
         """Mark ``zone`` drained and run a cycle: placement excludes it
-        from here on, and every gang already placed there is evicted
-        and requeued for a surviving zone."""
+        from here on, and every gang already placed there migrates —
+        suspendable sessions via checkpoint-then-migrate (suspend,
+        re-enqueue excluding the zone, resume in a surviving zone),
+        the rest via gang eviction + requeue."""
         if zone not in self._drained_zones:
             self._drained_zones[zone] = {
                 "trigger": trigger,
@@ -512,14 +608,31 @@ class SliceScheduler:
                 del self._drained_zones[zone]
 
     def _drain_pass(self, admitted: list[Obj], pending: list[Obj]) -> None:
-        """Evict every gang still placed in a drained zone; each
-        requeues and the scan places it with the zone excluded."""
+        """Migrate every gang still placed in a drained zone. The
+        checkpoint-then-preempt machinery runs as checkpoint-then-
+        migrate: suspendable sessions snapshot first (their pods stay
+        up until the checkpoint is durable, then the Workload deletes
+        and :meth:`_advance_zone_migrations` re-enqueues it with the
+        zone excluded); non-suspendable gangs hard-evict and requeue
+        directly."""
         for wl in list(admitted):
             zone = obj_util.get_path(
                 wl, "status", "assignment", "zone", default=""
             )
             if zone not in self._drained_zones:
                 continue
+            if self.suspender is not None and self.suspender.suspend_in_flight(wl):
+                continue  # snapshot already being taken; release coming
+            if self.suspender is not None and self.suspender.is_suspendable(wl):
+                if self.suspender.request_suspend(
+                    wl,
+                    f"zone {zone} draining; suspending session to "
+                    "checkpoint for migration to a surviving zone",
+                    reason="zone-drain",
+                ):
+                    self.m_preemptions.inc({"reason": "suspend"})
+                    self._zone_migrations_pending = True
+                continue  # stays admitted until its checkpoint lands
             self._evict(
                 wl,
                 reason="ZoneDrained",
@@ -531,6 +644,86 @@ class SliceScheduler:
             )
             admitted.remove(wl)
             pending.append(wl)
+
+    def _advance_zone_migrations(self) -> int:
+        """The resume half of checkpoint-then-migrate: a zone-drain
+        suspend whose checkpoint is durable clears its stop/suspend
+        contract and stamps resume-requested — the notebook controller
+        re-enqueues the Workload, the scan places it with the drained
+        zone excluded, and the SessionManager restores the state
+        digest-checked. Returns how many migrations are still in
+        flight (durable-but-unresumed plus still-snapshotting)."""
+        if self.suspender is None:
+            return 0
+        # hot-path guard: the checkpoint scan only runs while a drain
+        # is active or a zone-drain suspend may still be outstanding
+        # (flag starts True so a restarted scheduler scans once)
+        if not self._drained_zones and not self._zone_migrations_pending:
+            return 0
+        from odh_kubeflow_tpu_torch.apis import (
+            RESUME_REQUESTED_ANNOTATION,
+            STOP_ANNOTATION,
+            SUSPEND_REASON_ANNOTATION,
+            SUSPENDED_AT_ANNOTATION,
+        )
+        from odh_kubeflow_tpu_torch.sessions import checkpoint_durable
+
+        in_flight = 0
+        try:
+            checkpoints = self.api.list("SessionCheckpoint")
+        except NotFound:
+            return 0
+        for ckpt in checkpoints:
+            ns = obj_util.namespace_of(ckpt)
+            name = obj_util.get_path(ckpt, "spec", "notebook", default=obj_util.name_of(ckpt))
+            try:
+                nb = self.api.get("Notebook", name, ns)
+            except NotFound:
+                continue
+            ann = obj_util.annotations_of(nb)
+            if ann.get(SUSPEND_REASON_ANNOTATION) != "zone-drain":
+                continue
+            suspended_at = ann.get(SUSPENDED_AT_ANNOTATION)
+            if not suspended_at:
+                continue
+            in_flight += 1
+            if not checkpoint_durable(ckpt, suspended_at):
+                continue  # snapshot still landing; resume would lose it
+            try:
+                wl = self.api.get("Workload", name, ns)
+                if wlutil.is_admitted(wl):
+                    # the notebook controller hasn't finished the
+                    # scale-down yet — clearing the stop now would
+                    # cancel it and pin the gang in the drained zone
+                    continue
+            except NotFound:
+                pass  # workload deleted: the GPUs are released
+            try:
+                self.api.patch(
+                    "Notebook",
+                    name,
+                    {
+                        "metadata": {
+                            "annotations": {
+                                STOP_ANNOTATION: None,
+                                SUSPENDED_AT_ANNOTATION: None,
+                                SUSPEND_REASON_ANNOTATION: None,
+                                RESUME_REQUESTED_ANNOTATION: obj_util.now_rfc3339(),
+                            }
+                        }
+                    },
+                    ns,
+                )
+            except (Conflict, NotFound):
+                continue  # next cycle retries from fresh state
+            self.m_migrations.inc()
+            self.recorder.normal(
+                nb,
+                "ZoneMigration",
+                "checkpoint durable; re-enqueuing the workload for a surviving zone",
+            )
+        self._zone_migrations_pending = in_flight > 0
+        return in_flight
 
     def _admit(
         self,
@@ -598,8 +791,9 @@ class SliceScheduler:
         None (in which case all trial releases are rolled back).
         Victims: strictly lower priority, contending on quota (same
         namespace) or capacity (assigned pool matches the selector);
-        cheapest first — lowest priority, then youngest admission (it
-        loses the least running work)."""
+        cheapest first — lowest priority, then suspendable (their state
+        survives as a checkpoint — a hard kill loses real work) before
+        hard-kill victims, then youngest admission."""
         ns = obj_util.namespace_of(wl)
         accel, count = _flavor(wl)
         my_priority = wlutil.priority_of(wl)
@@ -613,6 +807,15 @@ class SliceScheduler:
             pool = inventory.pools.get(pool_name)
             return pool is not None and pool.matches(accel, count)
 
+        # cheapest victims first: lowest priority, then — at equal
+        # priority — suspendable (or already-suspending) sessions ahead
+        # of hard-kill victims, then the most recently admitted (loses
+        # the least running work)
+        def yields_via_checkpoint(v: Obj) -> bool:
+            return self.suspender is not None and (
+                self.suspender.suspend_in_flight(v) or self.suspender.is_suspendable(v)
+            )
+
         candidates = sorted(
             (
                 v
@@ -621,6 +824,7 @@ class SliceScheduler:
             ),
             key=lambda v: (
                 wlutil.priority_of(v),
+                0 if yields_via_checkpoint(v) else 1,
                 -obj_util.parse_rfc3339(
                     obj_util.get_path(v, "status", "admittedAt", default="")
                 ),
@@ -674,6 +878,114 @@ class SliceScheduler:
             else:
                 release(victim)
         return chosen
+
+    def _plan_suspend_reclaim(
+        self,
+        wl: Obj,
+        inventory: SliceInventory,
+        quotas: QuotaSnapshot,
+        admitted: list[Obj],
+    ) -> int:
+        """Checkpoint-then-preempt for an overcommitted pool: when
+        ``wl`` is starved and strict-priority preemption found nothing,
+        ask IDLE suspendable sessions (equal or lower priority — the
+        NotebookOS density move) to yield their GPUs via a durable
+        snapshot. Nothing is evicted here: suspends are requested, the
+        releases land asynchronously, and the caller reports
+        ``AwaitingSuspend``. Returns the number of pending releases
+        (new requests + suspends already in flight); every trial
+        release is rolled back before returning."""
+        ns = obj_util.namespace_of(wl)
+        accel, count = _flavor(wl)
+        nodes = wlutil.nodes_of(wl)
+        gpus_per_node = wlutil.gpus_per_node_of(wl)
+        gpus = wlutil.gpus_of(wl)
+        my_priority = wlutil.priority_of(wl)
+
+        def contends(victim: Obj) -> bool:
+            if obj_util.namespace_of(victim) == ns and quotas.cap(ns) is not None:
+                return True
+            pool_name = obj_util.get_path(victim, "status", "assignment", "pool", default="")
+            pool = inventory.pools.get(pool_name)
+            return pool is not None and pool.matches(accel, count)
+
+        def release(victim: Obj) -> None:
+            inventory.release_workload(victim)
+            quotas.release(obj_util.namespace_of(victim), wlutil.gpus_of(victim))
+
+        def charge(victim: Obj) -> None:
+            inventory.charge_workload(victim)
+            quotas.charge(obj_util.namespace_of(victim), wlutil.gpus_of(victim))
+
+        def admits() -> bool:
+            return bool(
+                quotas.fits(ns, gpus)
+                and quotas.fits_sessions(ns, obj_util.name_of(wl), gpus)
+                and inventory.fit(
+                    accel, count, nodes, gpus_per_node,
+                    exclude_zones=set(self._drained_zones),
+                )
+            )
+
+        # releases already on their way (snapshots being taken now)
+        in_flight = [
+            v for v in admitted if contends(v) and self.suspender.suspend_in_flight(v)
+        ]
+        for v in in_flight:
+            release(v)
+        try:
+            if admits():
+                return len(in_flight)
+            candidates = sorted(
+                (
+                    v
+                    for v in admitted
+                    if v not in in_flight
+                    and wlutil.priority_of(v) <= my_priority
+                    and contends(v)
+                    and self.suspender.is_suspendable(v, require_idle=True)
+                ),
+                key=lambda v: (
+                    wlutil.priority_of(v),
+                    -obj_util.parse_rfc3339(
+                        obj_util.get_path(v, "status", "admittedAt", default="")
+                    ),
+                ),
+            )
+            chosen: list[Obj] = []
+            for victim in candidates:
+                release(victim)
+                chosen.append(victim)
+                if admits():
+                    break
+            else:
+                for victim in chosen:
+                    charge(victim)
+                return len(in_flight)
+            # prune greedy extras — every suspend is real user latency
+            for victim in list(chosen):
+                charge(victim)
+                if admits():
+                    chosen.remove(victim)
+                else:
+                    release(victim)
+            requested = 0
+            for victim in chosen:
+                if self.suspender.request_suspend(
+                    victim,
+                    f"idle session yielding its GPUs to "
+                    f"{ns}/{obj_util.name_of(wl)} (pool overcommitted); "
+                    "suspending to checkpoint",
+                ):
+                    self.m_preemptions.inc({"reason": "suspend"})
+                    requested += 1
+            for victim in chosen:
+                charge(victim)
+            # only requests that landed are pending releases
+            return requested + len(in_flight)
+        finally:
+            for v in in_flight:
+                charge(v)
 
     # -- eviction -----------------------------------------------------------
 

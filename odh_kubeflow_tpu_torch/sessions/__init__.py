@@ -12,9 +12,9 @@ oversubscription factor may commit more sessions than its quota.
 The spec keys are the JAX package's renamed as the Workload's are:
 ``chips`` → ``gpus``, ``topology`` → ``acceleratorCount``
 (``checkpoint_chips`` → ``checkpoint_gpus``). The ``SessionManager``,
-which takes the snapshots and drives the state machine, and the
-checkpoint byte store come with ``sessions/{manager,checkpoint}.py``
-(ROADMAP.md).
+which takes the snapshots and drives the state machine, is in
+``sessions/manager.py``; the checkpoint byte store in
+``sessions/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -149,6 +149,24 @@ def committed_checkpoints(api: Any, namespace: Optional[str] = None) -> list[Obj
 
 def checkpoint_gpus(ckpt: Obj) -> int:
     return int(obj_util.get_path(ckpt, "spec", "gpus", default=0) or 0)
+
+
+def checkpoint_spec_of(notebook: Obj, accel: str = "") -> tuple[int, str, str]:
+    """(GPUs, accelerator type, GPUs a node) of the notebook's GPU
+    request — a SessionCheckpoint's spec (the JAX package's chips,
+    accelerator type and topology). Without a valid request: no GPUs,
+    ``accel`` and its node shape (a warm pool's template), or empty."""
+    from odh_kubeflow_tpu_torch.controllers.notebook import gpu_request_of
+    from odh_kubeflow_tpu_torch.utils.gpu import GPU_ACCELERATORS
+
+    try:
+        gpu = gpu_request_of(notebook)
+    except ValueError:
+        gpu = None
+    if gpu is not None:
+        return gpu.gpus, gpu.accelerator_type, str(gpu.node_gpus)
+    known = GPU_ACCELERATORS.get(accel)
+    return 0, accel, str(known.gpus_per_node) if known else ""
 
 
 def new_checkpoint(notebook: Obj, gpus: int, accel: str, accel_count: str) -> Obj:

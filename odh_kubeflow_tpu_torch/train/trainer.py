@@ -357,6 +357,12 @@ class Trainer:
         *,
         device="cuda",
     ):
+        # point the kernels' build directory at the platform's mounted
+        # cache before any kernel loads — no-op unless
+        # ODH_TORCH_KERNEL_CACHE is set (warmup/ subsystem)
+        from odh_kubeflow_tpu_torch.warmup.compilecache import install_process_cache
+
+        install_process_cache()
         self.is_moe = isinstance(model_cfg, moe_lib.MoeConfig)
         if not (self.is_moe or isinstance(model_cfg, llama.LlamaConfig)):
             raise TypeError(

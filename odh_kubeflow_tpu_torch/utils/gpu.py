@@ -25,19 +25,24 @@ class GpuType:
     gpus_per_node: int = 0
     counts: tuple[int, ...] = ()  # GPU counts a notebook may request
     display_name: str = ""  # the spawner's dropdown label
+    # the nvcc target the port's kernels are built for on this card
+    # (the compile cache's topology axis, warmup/compilecache.py)
+    arch: str = ""
 
 
 _TO_64 = (1, 2, 4, 8, 16, 32, 64)
 
 # peaks: NVIDIA data sheets; node shapes: the GKE machine types
 GPU_TYPES: tuple[GpuType, ...] = (
-    GpuType("H100 80GB HBM3", 989e12, "nvidia-h100-80gb", 8, _TO_64, "NVIDIA H100 80GB"),
+    GpuType("H100 80GB HBM3", 989e12, "nvidia-h100-80gb", 8, _TO_64, "NVIDIA H100 80GB",
+            "sm_90a"),
     GpuType("H100 80GB HBM3", 989e12, "nvidia-h100-mega-80gb", 8, (8, 16, 32, 64),
-            "NVIDIA H100 Mega 80GB"),
-    GpuType("H100 NVL", 835e12),
-    GpuType("H100 PCIe", 756e12),
-    GpuType("H200", 989e12, "nvidia-h200-141gb", 8, (8, 16, 32, 64), "NVIDIA H200 141GB"),
-    GpuType("L4", 121e12, "nvidia-l4", 4, (1, 2, 4, 8, 16), "NVIDIA L4"),
+            "NVIDIA H100 Mega 80GB", "sm_90a"),
+    GpuType("H100 NVL", 835e12, arch="sm_90a"),
+    GpuType("H100 PCIe", 756e12, arch="sm_90a"),
+    GpuType("H200", 989e12, "nvidia-h200-141gb", 8, (8, 16, 32, 64), "NVIDIA H200 141GB",
+            "sm_90a"),
+    GpuType("L4", 121e12, "nvidia-l4", 4, (1, 2, 4, 8, 16), "NVIDIA L4", "sm_89"),
 )
 
 # the node-pool view: accelerator label value → its row

@@ -19,11 +19,12 @@ config's types with live node capacity the way the reference's
 annotations the notebook controller consumes plus the ``gpu-runtime``
 opt-in label for the PodDefault webhook.
 
-Left out of the copy (ROADMAP.md), to come with ``sessions/manager.py``
-and ``warmup/``: the resume route and suspend-on-stop, the detail page's
-checkpoint and warm-handout blocks, the warm-pool claim at spawn and the
-usage block; and ``main()``, which needs ``machinery/runner.py``. Serve
-the app in-process with ``JupyterWebApp(api).app.serve(host, port)``.
+Suspend-on-stop and the resume route (the sessions subsystem), the
+detail page's checkpoint and warm-handout blocks and the warm-pool claim
+at spawn (warmup) are JAX's. Left out of the copy (ROADMAP.md): the
+usage block, which waits for ``machinery/usage.py``, and ``main()``,
+which needs ``machinery/runner.py``. Serve the app in-process with
+``JupyterWebApp(api).app.serve(host, port)``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from odh_kubeflow_tpu_torch.apis import (
     GPU_COUNT_ANNOTATION,
     GPU_RESOURCE,
     GPU_RUNTIME_LABEL,
+    RESUME_REQUESTED_ANNOTATION,
     STOP_ANNOTATION,
     SUSPEND_REASON_ANNOTATION,
     SUSPENDED_AT_ANNOTATION,
@@ -49,6 +51,13 @@ from odh_kubeflow_tpu_torch.machinery.store import APIServer, NotFound
 from odh_kubeflow_tpu_torch.scheduling import OVERSUBSCRIPTION_FACTOR_ANNOTATION
 from odh_kubeflow_tpu_torch.sessions import checkpoint_gpus, committed_checkpoints
 from odh_kubeflow_tpu_torch.utils.gpu import GPU_ACCELERATORS
+from odh_kubeflow_tpu_torch.warmup import (
+    CLAIMED_AT_ANNOTATION,
+    PREFERRED_POOL_ANNOTATION,
+    STANDBY_SOURCE_ANNOTATION,
+    WARM_FROM_ANNOTATION,
+    warm_source,
+)
 from odh_kubeflow_tpu_torch.web.crud_backend import (
     CrudBackend,
     failure,
@@ -166,6 +175,17 @@ class JupyterWebApp(CrudBackend):
         registry=None,
     ):
         super().__init__(api, "jupyter-web-app", registry=registry)
+        # without the sessions subsystem a suspend request would stamp
+        # annotations nobody serves — the UI must not promise warm
+        # state that can never exist
+        self.sessions_enabled = (
+            os.environ.get("ENABLE_SESSION_SUSPEND", "true").lower() == "true"
+        )
+        # warm-pool handout (warmup/ subsystem): spawn tries to claim a
+        # pre-admitted standby before the cold path. Harmless without
+        # pools (the claim simply finds none); the flag exists for
+        # operators who want cold spawns even with pools present.
+        self.warm_enabled = os.environ.get("WARM_POOL_ENABLED", "true").lower() == "true"
         self.config_path = config_path
         self._config_mtime: Optional[float] = None
         self._config = copy.deepcopy(DEFAULT_CONFIG)
@@ -328,6 +348,8 @@ class JupyterWebApp(CrudBackend):
                     "pods": pods,
                     "annotations": obj_util.annotations_of(nb),
                     "workload": self._workload_row(nb),
+                    "checkpoint": self._checkpoint_row(nb),
+                    "warm": self._warm_row(nb),
                 }
             })
 
@@ -359,20 +381,45 @@ class JupyterWebApp(CrudBackend):
             stopped = body.get("stopped")
             if stopped is None:
                 return failure("body must set 'stopped': true|false", 400)
+            now = obj_util.now_rfc3339()
             if stopped:
-                annotations: Obj = {STOP_ANNOTATION: obj_util.now_rfc3339()}
+                annotations: Obj = {STOP_ANNOTATION: now}
+                if body.get("suspend") and self.sessions_enabled:
+                    # user-requested suspend: keep the kernel as a
+                    # checkpoint instead of a cold stop. Idempotent —
+                    # a duplicate suspend must NOT open a new epoch
+                    # (that would resurrect the pods and overwrite the
+                    # durable checkpoint with a fresh kernel's nothing)
+                    nb = self.api.get("Notebook", name, namespace)
+                    if SUSPENDED_AT_ANNOTATION not in obj_util.annotations_of(nb):
+                        annotations[SUSPENDED_AT_ANNOTATION] = now
+                        annotations[SUSPEND_REASON_ANNOTATION] = "user"
             else:
-                # start clears the whole stop/suspend contract
-                annotations = {
-                    STOP_ANNOTATION: None,
-                    SUSPENDED_AT_ANNOTATION: None,
-                    SUSPEND_REASON_ANNOTATION: None,
-                }
+                annotations, _ = self._resume_annotations(namespace, name, now)
             self.api.patch(
                 "Notebook", name, {"metadata": {"annotations": annotations}},
                 namespace,
             )
             return success()
+
+        @app.route(
+            "/api/namespaces/<namespace>/notebooks/<name>/resume",
+            methods=["POST"],
+        )
+        def resume_notebook(request, namespace, name):
+            """Explicit resume API (the spawner's CONNECT on a
+            suspended row): clear the stop/suspend contract so the
+            Workload re-enqueues, and stamp resume-requested-at — the
+            session manager's warm-resume histogram measures from this
+            instant to state-restored-in-pod."""
+            self.authorize(request, "update", "notebooks", namespace, "kubeflow.org")
+            annotations, warm = self._resume_annotations(
+                namespace, name, obj_util.now_rfc3339()
+            )
+            self.api.patch(
+                "Notebook", name, {"metadata": {"annotations": annotations}}, namespace
+            )
+            return success({"resume": "warm" if warm else "cold"})
 
         @app.route(
             "/api/namespaces/<namespace>/notebooks/<name>", methods=["DELETE"]
@@ -505,6 +552,68 @@ class JupyterWebApp(CrudBackend):
             )
         except NotFound:  # no workload, or scheduling not installed
             return None
+
+    def _resume_annotations(self, namespace: str, name: str, now: str) -> tuple[Obj, bool]:
+        """The start/resume merge-patch plus whether the resume is
+        warm (one read decides both): clears the stop/suspend contract;
+        a notebook that was suspended (not plain-stopped) additionally
+        gets resume-requested-at so the warm-resume latency is measured
+        from the user's click."""
+        warm = False
+        try:
+            nb = self.api.get("Notebook", name, namespace)
+            warm = SUSPENDED_AT_ANNOTATION in obj_util.annotations_of(nb)
+        except NotFound:
+            pass
+        annotations: Obj = {
+            STOP_ANNOTATION: None,
+            SUSPENDED_AT_ANNOTATION: None,
+            SUSPEND_REASON_ANNOTATION: None,
+        }
+        if warm:
+            annotations[RESUME_REQUESTED_ANNOTATION] = now
+        return annotations, warm
+
+    def _checkpoint_row(self, nb: Obj) -> Optional[Obj]:
+        """The detail page's durability block: where the session's
+        checkpoint bytes live (which zones) and whether replication is
+        degraded — the user-visible half of the zone-replication
+        contract."""
+        try:
+            ck = self.api.get(
+                "SessionCheckpoint", obj_util.name_of(nb), obj_util.namespace_of(nb)
+            )
+        except NotFound:  # never suspended, or sessions not installed
+            return None
+        status = ck.get("status") or {}
+        row: Obj = {
+            "phase": status.get("phase", ""),
+            "digest": status.get("digest", ""),
+            "sizeBytes": status.get("sizeBytes", 0),
+            "suspendedAt": status.get("suspendedAt", ""),
+        }
+        if "zones" in status:
+            row["zones"] = status.get("zones") or []
+            row["replicationDegraded"] = bool(status.get("replicationDegraded"))
+        return row
+
+    def _warm_row(self, nb: Obj) -> Optional[Obj]:
+        """Warm-handout provenance: which pool served this notebook and
+        whether the pre-warmed session state has been restored into it
+        yet (checkpoint phase reaches Restored once the session manager
+        replays the template state)."""
+        src = warm_source(nb)
+        if src is None:
+            return None
+        restored = False
+        try:
+            ck = self.api.get(
+                "SessionCheckpoint", obj_util.name_of(nb), obj_util.namespace_of(nb)
+            )
+            restored = obj_util.get_path(ck, "status", "phase", default="") == "Restored"
+        except NotFound:
+            pass
+        return {**src, "restored": restored}
 
     def _workload_row(self, nb: Obj) -> Optional[Obj]:
         """The detail page's admission block: lifecycle timestamps feed
@@ -642,6 +751,35 @@ class JupyterWebApp(CrudBackend):
                 except Exception as e:  # AlreadyExists → reuse
                     if "exists" not in str(e):
                         raise
+
+        # warm-pool handout (warmup/): claim a ready standby matching
+        # (accelerator, GPU count, image). The claim is an atomic
+        # conditional update — concurrent spawns racing for the last
+        # standby get exactly one winner; a miss falls through to the
+        # ordinary cold spawn. The standby is deleted so its freed GPUs
+        # (pre-pulled image, warm node) are exactly where the new gang
+        # lands via the preferred-pool hint.
+        if self.warm_enabled and accelerator and accelerator != "none":
+            from odh_kubeflow_tpu_torch.warmup.pool import claim_standby
+
+            warm = claim_standby(
+                self.api,
+                namespace,
+                accelerator=accelerator,
+                count=str(gpu.get("count", "") or ""),
+                image=image,
+                claimant=f"{user or 'spawner'}/{name}",
+            )
+            if warm is not None:
+                annotations[WARM_FROM_ANNOTATION] = warm["pool"]
+                annotations[STANDBY_SOURCE_ANNOTATION] = warm["standby"]
+                annotations[CLAIMED_AT_ANNOTATION] = warm["claimedAt"]
+                if warm.get("nodePool"):
+                    annotations[PREFERRED_POOL_ANNOTATION] = warm["nodePool"]
+                try:
+                    self.api.delete("Notebook", warm["standby"], namespace)
+                except NotFound:
+                    pass  # pool controller reaped it first
 
         created = self.api.create(notebook)
         return success({"notebook": obj_util.name_of(created)}, status=201)

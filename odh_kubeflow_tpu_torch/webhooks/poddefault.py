@@ -36,6 +36,15 @@ APPLIED_ANNOTATION_PREFIX = "poddefaults.admission.kubeflow.org/poddefault-"
 KERNEL_CACHE_DIR = "/home/jovyan/.cache/torch_kernels"
 
 
+# env a container's own entry keeps over a PodDefault's: the kernels'
+# build directory. The notebook controller sets it on the container when
+# the platform mounts the compile cache (``compile_cache_mount``); the
+# GPU-runtime PodDefault's value is the default for a pod without one.
+# (JAX's webhook refuses the pod when its TPU-runtime PodDefault and the
+# compile-cache mount both set JAX_COMPILATION_CACHE_DIR.)
+CONTAINER_WINS_ENV = frozenset({KERNEL_CACHE_ENV})
+
+
 class MergeConflict(Denied):
     pass
 
@@ -46,7 +55,7 @@ def _merge_env(existing: list[Obj], extra: list[Obj], source: str) -> list[Obj]:
     for env in extra:
         name = env.get("name")
         if name in by_name:
-            if by_name[name] != env:
+            if by_name[name] != env and name not in CONTAINER_WINS_ENV:
                 raise MergeConflict(
                     f"PodDefault {source}: env {name!r} conflicts with an "
                     "existing, non-identical entry"

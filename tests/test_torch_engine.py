@@ -291,15 +291,17 @@ def test_ttft_itl_metrics_recorded(model):
     assert "serving_queue_depth 0" in reg.exposition()
 
 
-def test_engine_refuses_a_mesh_and_a_compile_cache(model):
+def test_engine_refuses_a_mesh_and_a_compile_cache(model, tmp_path):
     """A mesh that is not the port's (a JAX mesh) is a ``TypeError``, as in
     ``Trainer(mesh=)`` (the engine under a port mesh:
-    ``tests/test_torch_engine_mesh.py``); a compile cache belongs to the
-    platform modules."""
+    ``tests/test_torch_engine_mesh.py``); a compile cache directory that
+    cannot be used raises (JAX's engine would go on with no cache; the
+    accepted case: ``tests/test_torch_warmup.py``)."""
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         engine(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="compilecache"):
-        engine(model, compile_cache_dir="/nonexistent")
+    (tmp_path / "a-file").write_text("")
+    with pytest.raises(OSError):
+        engine(model, compile_cache_dir=str(tmp_path / "a-file" / "cache"))
     if not torch.cuda.is_available():  # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeEngine(model[0], TCFG)

@@ -3,7 +3,8 @@ and no kernel toolchain touched at import.
 
 An AST scan of every file of ``odh_kubeflow_tpu_torch/`` (its ``native/``
 packer loader and the platform's apis, machinery, controllers,
-scheduling, webhooks, web and sessions subpackages included), of ``tools/dryrun_multichip_torch.py`` and of
+scheduling, webhooks, web, sessions and warmup subpackages included),
+of ``tools/dryrun_multichip_torch.py`` and of
 ``chip_smoke.py``, plus a fresh interpreter that imports the whole port
 and must end with no JAX module loaded and no library built or loaded.
 """
@@ -91,6 +92,19 @@ def test_the_scan_covers_the_platform_subpackages():
             f"{pkg}/web/microweb.py", f"{pkg}/web/crud_backend.py", f"{pkg}/web/jwa.py",
             f"{pkg}/sessions/__init__.py", f"{pkg}/scheduling/queue.py",
             f"{pkg}/scheduling/scheduler.py"} <= names
+
+
+def test_the_scan_covers_the_sessions_and_warmup_modules():
+    """Slice 9's suspend-to-checkpoint sessions and warm-start subsystem:
+    the checkpoint store, the session manager, the compile cache and the
+    warm pools."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "odh_kubeflow_tpu_torch"
+    files = sorted((ROOT / pkg / "warmup").glob("*.py"))
+    assert files and {str(f.relative_to(ROOT)) for f in files} <= names
+    assert {f"{pkg}/sessions/checkpoint.py", f"{pkg}/sessions/manager.py",
+            f"{pkg}/warmup/__init__.py", f"{pkg}/warmup/compilecache.py",
+            f"{pkg}/warmup/pool.py", f"{pkg}/ops/_build.py"} <= names
 
 
 def test_forbidden_matches_exact_package_names():

@@ -43,8 +43,8 @@ def web_to_port(obj):
     """JAX's answers carried to the port's: the request fields, the
     runtime PodDefault, the spot toleration group's key and text; the
     trace id JAX's web requests stamp on what they create, and the
-    details page's empty checkpoint / warm-handout / usage blocks, go
-    (the port has no tracing, sessions or warm pools yet)."""
+    details page's empty usage block, go (the port has no tracing or
+    usage meter yet)."""
     obj = runtime_to_gpu(obj)
     if isinstance(obj, dict):
         out = {}
@@ -53,8 +53,8 @@ def web_to_port(obj):
                 v = {a: b for a, b in v.items() if a != TRACE_ANNOTATION}
                 if not v:
                     continue
-            if k in ("checkpoint", "warm", "usage") and v is None:
-                continue  # the details blocks that come with sessions/, warmup/
+            if k == "usage" and v is None:
+                continue  # the details block that comes with machinery/usage.py
             if k == "notebooks.kubeflow.org/tpu-topology":
                 v = str(GPU_POOL[1])
             if k == "tpus":
