@@ -251,6 +251,7 @@ import json
 import math
 import statistics
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -1686,10 +1687,12 @@ def sessions_fleet() -> dict:
             "root": root}
 
 
-def run_notebook_process(label: str, env: dict, kernel_dir: str, scratch: str) -> dict:
-    """``chip_smoke.py --notebook-serve`` in ``env`` (a pod's resolved
-    env); the kernel directory's files before and after, and the
-    seconds from process start to each milestone."""
+def run_notebook_process(label: str, env: dict, kernel_dir: str, scratch: str,
+                         mode: str = "--notebook-serve") -> dict:
+    """``chip_smoke.py <mode>`` (``--notebook-serve`` by default) in
+    ``env`` (a pod's resolved env); the kernel directory's files before
+    and after, and the seconds from process start to each milestone the
+    process stamps (``<name>_at`` → ``<name>_s``)."""
     import subprocess
 
     before = dir_state(kernel_dir)
@@ -1698,7 +1701,7 @@ def run_notebook_process(label: str, env: dict, kernel_dir: str, scratch: str) -
     t0 = time.time()
     with open(out_path, "w") as out, open(err_path, "w") as err:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--notebook-serve"],
+            [sys.executable, os.path.abspath(__file__), mode],
             env={**os.environ, **env, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))},
             stdout=out, stderr=err, timeout=600)
     lines = [x for x in open(out_path).read().splitlines() if x.startswith("{")]
@@ -1706,9 +1709,9 @@ def run_notebook_process(label: str, env: dict, kernel_dir: str, scratch: str) -
         raise AssertionError(f"{label} notebook process exit {proc.returncode}: "
                              f"{open(err_path).read()[-3000:]}")
     got = json.loads(lines[-1])
+    stamps = {k[:-3] + "_s": v - t0 for k, v in got.items() if k.endswith("_at")}
     return {"kernel_dir": kernel_dir, "before": before, "after": dir_state(kernel_dir),
-            "imported_s": got["imported_at"] - t0, "service_s": got["service_at"] - t0,
-            "first_token_s": got["first_token_at"] - t0, "process_s": time.time() - t0, **got}
+            **stamps, "process_s": time.time() - t0, **got}
 
 
 def platform_sessions_phase(run_notebook=run_notebook_process) -> tuple[dict, int]:
@@ -1990,6 +1993,495 @@ def platform_sessions_phase(run_notebook=run_notebook_process) -> tuple[dict, in
     return record, record["launches"]
 
 
+# the observability path (slice 9, part 4): a notebook's profile on the
+# card, served by TensorBoard over its PVC; traces, exemplars and SLOs of
+# the spawn; the dashboard, VWA, TWA and KFAM apps; the exposure
+# controller's lock release. One H100 pool of 2 nodes × 8 GPUs.
+OBSERVE_POOL = ("h100-o", "nvidia-h100-80gb", 2, 8)
+OBSERVE_NS = "team-o"
+OBSERVE_USER = "owner-o@example.com"
+OBSERVE_CONTRIBUTOR = "contrib-o@example.com"
+OBSERVE_OUTSIDER = "outsider-o@example.com"
+OBSERVE_QUOTA = 16
+OBSERVE_PVC = ("trace-pvc", "/home/jovyan/traces")
+OBSERVE_NOTEBOOK = "nb-profile"
+OBSERVE_TENSORBOARD = "gpu-traces"
+OBSERVE_MAX_ROUNDS = 60
+# the spawn trace's milestones, in causal order
+OBSERVE_MILESTONES = ("scheduler.admit", "kubelet.gang_bind", "kubelet.container_start")
+# each counted kernel's device name in a trace (a substring of it)
+PROFILE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_dq": ("flash_dq_kernel",),
+                   "flash_dkv": ("flash_dkv_kernel",),
+                   "int4_dequant": ("dequant_vec", "dequant_scalar")}
+
+
+def observe_fleet() -> dict:
+    """Boot the platform the observability path runs on: the store, CRDs,
+    the PodDefault and notebook admission webhooks (and, ahead of them,
+    the namespace's auth policy: every notebook created in ``OBSERVE_NS``
+    asks for the auth sidecar, as the ODH dashboard's spawner does), the
+    kubelet simulator, the notebook (with the culler, probing a fake
+    Jupyter on localhost), profile, tensorboard and exposure controllers,
+    ``SliceScheduler``, kfam, the JWA, VWA, TWA, kfam app and dashboard
+    over HTTP on localhost, and one ``SpanCollector`` installed as the
+    process's. The PVCs live in a temp directory, one host directory a
+    claim (``pvc_dir``). Needs no card."""
+    import tempfile
+    from http.server import HTTPServer
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.conformance import _IdleJupyter
+    from odh_kubeflow_tpu_torch.controllers.culler import Culler, CullerConfig
+    from odh_kubeflow_tpu_torch.controllers.exposure import ExposureController
+    from odh_kubeflow_tpu_torch.controllers.kfam import KfamService
+    from odh_kubeflow_tpu_torch.controllers.notebook import (
+        NotebookController, NotebookControllerConfig)
+    from odh_kubeflow_tpu_torch.controllers.profile import ProfileController
+    from odh_kubeflow_tpu_torch.controllers.runtime import Manager
+    from odh_kubeflow_tpu_torch.controllers.tensorboard import TensorboardController
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.scheduling.scheduler import SliceScheduler
+    from odh_kubeflow_tpu_torch.utils import tracing
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+    from odh_kubeflow_tpu_torch.web.dashboard import DashboardApp
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+    from odh_kubeflow_tpu_torch.web.kfam_app import KfamApp
+    from odh_kubeflow_tpu_torch.web.twa import TensorboardsWebApp
+    from odh_kubeflow_tpu_torch.web.vwa import VolumesWebApp
+    from odh_kubeflow_tpu_torch.webhooks import NotebookWebhook, PodDefaultWebhook
+    from odh_kubeflow_tpu_torch.webhooks.notebook import INJECT_AUTH_ANNOTATION
+
+    root = tempfile.mkdtemp(prefix="platform-observe-")
+    collector = tracing.SpanCollector()
+    previous = tracing.set_collector(collector)
+    jupyter = HTTPServer(("127.0.0.1", 0), _IdleJupyter)
+    threading.Thread(target=jupyter.serve_forever, daemon=True).start()
+    clock = {"now": 0.0}
+    api = APIServer()
+    apis.register_crds(api)
+    register_scheduling(api)
+    apis.install_default_cluster_roles(api)
+
+    def auth_policy(req):
+        if req.operation == "CREATE" and req.obj["metadata"].get("namespace") == OBSERVE_NS:
+            req.obj["metadata"].setdefault("annotations", {})[INJECT_AUTH_ANNOTATION] = "true"
+            return req.obj
+        return None
+
+    api.register_admission_hook({"Notebook"}, auth_policy, mutating=True,
+                                name="namespace-auth-policy")
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    cluster = FakeCluster(api)
+    name, accel, nodes, per_node = OBSERVE_POOL
+    cluster.add_gpu_node_pool(name, accel, num_nodes=nodes, gpus_per_node=per_node)
+    registry = Registry()
+    mgr = Manager(api, time_fn=lambda: clock["now"], registry=registry)
+    culler = Culler(api, CullerConfig(check_gpu_duty_cycle=False),
+                    base_url_fn=lambda nb: f"http://127.0.0.1:{jupyter.server_port}")
+    NotebookController(api, NotebookControllerConfig(enable_queueing=True, enable_culling=True),
+                       registry=registry, culler=culler).register(mgr)
+    ProfileController(api, registry=registry).register(mgr)
+    TensorboardController(api).register(mgr)
+    ExposureController(api).register(mgr)
+    SliceScheduler(api, registry=registry).register(mgr)
+    kfam = KfamService(api)
+    apps = {"jwa": JupyterWebApp(api, registry=registry), "vwa": VolumesWebApp(api, registry),
+            "twa": TensorboardsWebApp(api, registry), "kfam": KfamApp(api, registry=registry),
+            "dashboard": DashboardApp(api, kfam=kfam, registry=registry)}
+    servers = {k: app.app.serve("127.0.0.1", 0) for k, app in apps.items()}
+
+    def call(app: str, method: str, path: str, body=None, user=OBSERVE_USER):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{servers[app].server_address[1]}{path}", method=method,
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json", "kubeflow-userid": user,
+                     "Cookie": "XSRF-TOKEN=o", "X-XSRF-TOKEN": "o"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def drive() -> None:
+        clock["now"] += 1.0
+        mgr.drain(max_rounds=OBSERVE_MAX_ROUNDS)
+        cluster.step()
+        mgr.drain(max_rounds=OBSERVE_MAX_ROUNDS)
+
+    def drive_until(done, what: str) -> int:
+        for rounds in range(1, OBSERVE_MAX_ROUNDS + 1):
+            drive()
+            if done():
+                return rounds
+        raise AssertionError(f"{what}: not reached in {OBSERVE_MAX_ROUNDS} rounds")
+
+    def pvc_dir(claim: str) -> str:
+        path = os.path.join(root, "pvcs", OBSERVE_NS, claim)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def close() -> None:
+        for server in servers.values():
+            server.shutdown()
+            server.server_close()
+        jupyter.shutdown()
+        jupyter.server_close()
+        mgr.stop()
+        tracing.set_collector(previous)
+
+    return {"api": api, "cluster": cluster, "apps": apps, "call": call, "drive": drive,
+            "drive_until": drive_until, "pvc_dir": pvc_dir, "close": close,
+            "collector": collector, "registry": registry, "root": root}
+
+
+def notebook_profile_main() -> int:
+    """The notebook's process on the card (``chip_smoke.py
+    --notebook-profile``, in the env its pod would give it, its kernel
+    directory warm): the kernel-startup hook first (the profiler's
+    capture server), then the ``train`` phase's step (Llama-3-8B at full
+    width and depth, ``remat_policy="attn"``, int4 base, LoRA r16 on
+    wq/wk/wv/wo, batch 2 × 4096): one step, then one step under
+    ``profiling.capture_trace`` into ``$ODH_TORCH_PROFILER_LOGDIR``. Prints
+    one JSON line: the milestones, both losses, the process's launch
+    counters over the profiled step and the trace's kernels by name, each
+    counted kernel's device ms in the trace, the profiled step's wall
+    time."""
+    from odh_kubeflow_tpu_torch.utils import profiling
+
+    exec(compile(profiling.kernel_startup_snippet(), "<ipython-startup>", "exec"), {})
+    import torch
+
+    from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+    from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+    from odh_kubeflow_tpu_torch.ops import _build, int4
+    from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+    from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    imported_at = time.time()
+    server = None
+    if profiling.server_started():
+        port = profiling._STATE["port"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            server = {"port": port, "healthz": r.status}
+    logdir = os.environ[profiling.LOGDIR_ENV]
+    B, S = TRAIN_SHAPE
+    cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
+    trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4",
+                      precompile_batch=(B, S))
+    torch.cuda.synchronize()
+    trainer_at = time.time()
+    batch = trainer.make_fake_batch(B, S, seed=1)
+    t0 = time.perf_counter()
+    first_loss = float(trainer.train_step(batch)["loss"])
+    first_step_wall_s = time.perf_counter() - t0
+    first_step_at = time.time()
+    before = counts(fa, int4)
+    t0 = time.perf_counter()
+    with profiling.capture_trace(logdir):
+        t1 = time.perf_counter()
+        loss = float(trainer.train_step(batch)["loss"])
+        profiled_step_wall_s = time.perf_counter() - t1
+    capture_wall_s = time.perf_counter() - t0
+    after = counts(fa, int4)
+    events = profiling.latest_trace_events(logdir)
+    kernels = profiling.kernel_events(events)
+    traced, device_ms = {}, {}
+    for name, patterns in PROFILE_KERNELS.items():
+        hits = [e for e in kernels if any(p in e["name"] for p in patterns)]
+        traced[name] = len(hits)
+        device_ms[name] = sum(e["dur"] for e in hits) / 1e3
+    sessions = profiling.trace_sessions(logdir)
+    emit({"imported_at": imported_at, "trainer_at": trainer_at, "first_step_at": first_step_at,
+          "profiled_at": time.time(), "server": server, "first_loss": first_loss,
+          "loss": loss, "first_step_wall_s": first_step_wall_s,
+          "profiled_step_wall_s": profiled_step_wall_s, "capture_wall_s": capture_wall_s,
+          "launched": {k: after[k] - before[k] for k in after}, "launches_total": after,
+          "traced": traced, "device_ms": device_ms,
+          "trace_kernels": len(kernels),
+          "trace_kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
+          "trace_events": len(events), "sessions": sessions,
+          "files": sorted(os.listdir(sessions[-1])) if sessions else [],
+          "built": sorted(_build.build_logs), "build_dir": str(_build.BUILD_DIR),
+          "device": torch.cuda.get_device_name(0)})
+    return 0
+
+
+def run_profile_process(env: dict, scratch: str) -> dict:
+    """``chip_smoke.py --notebook-profile`` in ``env`` (the notebook pod's
+    resolved env)."""
+    return run_notebook_process("profile", env, env["ODH_TORCH_KERNEL_CACHE"], scratch,
+                                mode="--notebook-profile")
+
+
+def platform_observe_phase(run_profile=run_profile_process) -> tuple[dict, dict]:
+    """The observability path (``observe_fleet``), each step timed:
+
+    1. a user creates a workgroup through the dashboard; with the
+       profile's GPU quota (an admin's ``resourceQuotaSpec``), the
+       dashboard's quota panel shows its ``requests.nvidia.com/gpu`` row;
+       the owner adds a contributor through the kfam app, whom the
+       dashboard lists; an outsider gets 403;
+    2. the VWA POSTs ``trace-pvc``;
+    3. the JWA POSTs a 1-GPU notebook mounting it; the auth policy asks
+       for the sidecar, the notebook webhook locks the notebook, the
+       exposure controller releases the lock once the ServiceAccount and
+       secrets exist, and the notebook becomes ready. The POST's trace
+       holds the scheduler's admission and the kubelet's bind and
+       container start, assembles into one tree and ends its milestones
+       in causal order; the OpenMetrics exposition of
+       ``http_request_duration_seconds`` carries its trace id as an
+       exemplar;
+    4. the notebook's process on the card (``run_profile``) profiles an
+       8B QLoRA step into the PVC: its trace counts the step's kernels as
+       the process's launch counters do;
+    5. the TWA POSTs a Tensorboard on ``pvc://trace-pvc/logs``: its
+       Deployment mounts the claim and serves ``/logs/logs``, the kubelet
+       runs it and the TWA lists it ready; its ``/logs`` route reports the
+       claim (not listable, as JAX's), and a second Tensorboard on the
+       PVC's host directory, under ``TWA_LOCAL_LOGS_ROOT``, lists the
+       session's trace;
+    6. the dashboard's ``/api/metrics`` (16 GPUs, 1 in use), ``/api/slo``
+       (every default SLO; ``spawn-ready-p99`` counts the spawn) and
+       ``/api/usage`` (503: no meter).
+
+    ``run_profile(env, scratch)`` runs the notebook's process
+    (``run_profile_process``); returns the record and the process's
+    launches."""
+    import shutil
+    import tempfile
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+    from odh_kubeflow_tpu_torch.machinery.objects import annotations_of
+    from odh_kubeflow_tpu_torch.ops import _build
+    from odh_kubeflow_tpu_torch.utils import profiling, tracing
+    from odh_kubeflow_tpu_torch.utils.prometheus import parse_openmetrics
+    from odh_kubeflow_tpu_torch.utils.slo import default_slos
+    from odh_kubeflow_tpu_torch.webhooks.notebook import LOCK_ANNOTATION
+
+    t_phase = time.perf_counter()
+    fleet = observe_fleet()
+    api, call, drive_until = fleet["api"], fleet["call"], fleet["drive_until"]
+    ns, (pvc, mount) = OBSERVE_NS, OBSERVE_PVC
+    scratch = tempfile.mkdtemp(prefix="platform-observe-logs-")
+    steps: dict = {}
+    record: dict = {"pool": dict(zip(("name", "accelerator", "nodes", "gpus_per_node"),
+                                     OBSERVE_POOL))}
+
+    def ok(code, out, want, what):
+        if code != want:
+            raise AssertionError(f"{what}: HTTP {code}, not {want}: {out}")
+        return out
+
+    def step(name):
+        steps[name] = time.perf_counter() - marks.pop()
+        marks.append(time.perf_counter())
+
+    marks = [time.perf_counter()]
+    saved_root = os.environ.get("TWA_LOCAL_LOGS_ROOT")
+    try:
+        # the SLO engine's first sample: burn rates are differences
+        ok(*call("dashboard", "GET", "/api/slo?tick=1"), 200, "first SLO sample")
+        # 1. the workgroup, its quota panel and a contributor
+        ok(*call("dashboard", "POST", "/api/workgroup/create", {"namespace": ns}), 201,
+           "workgroup create")
+        api.patch("Profile", ns, {"spec": {"resourceQuotaSpec": {"hard": {
+            f"requests.{apis.GPU_RESOURCE}": str(OBSERVE_QUOTA)}}}})
+        drive_until(lambda: any(r["resource"] == f"requests.{apis.GPU_RESOURCE}"
+                                for r in call("dashboard", "GET",
+                                              f"/api/workgroup/quota/{ns}")[1].get("quota", [])),
+                    "quota row")
+        quota = call("dashboard", "GET", f"/api/workgroup/quota/{ns}")[1]["quota"]
+        exists = call("dashboard", "GET", "/api/workgroup/exists")[1]
+        binding = {"user": {"kind": "User", "name": OBSERVE_CONTRIBUTOR},
+                   "referredNamespace": ns,
+                   "roleRef": {"apiGroup": "rbac.authorization.k8s.io", "kind": "ClusterRole",
+                               "name": "kubeflow-edit"}}
+        ok(*call("kfam", "POST", "/kfam/v1/bindings", binding), 201, "kfam binding")
+        bindings = ok(*call("kfam", "GET", f"/kfam/v1/bindings?namespace={ns}"), 200,
+                      "kfam bindings")["bindings"]
+        contributors = ok(*call("dashboard", "GET", f"/api/workgroup/contributors/{ns}"), 200,
+                          "contributors")["contributors"]
+        denied = {"quota": call("dashboard", "GET", f"/api/workgroup/quota/{ns}",
+                                user=OBSERVE_OUTSIDER)[0],
+                  "activities": call("dashboard", "GET", f"/api/activities/{ns}",
+                                     user=OBSERVE_OUTSIDER)[0],
+                  "vwa": call("vwa", "GET", f"/api/namespaces/{ns}/pvcs",
+                              user=OBSERVE_OUTSIDER)[0]}
+        if OBSERVE_CONTRIBUTOR not in contributors or denied != {
+                "quota": 403, "activities": 403, "vwa": 403}:
+            raise AssertionError(f"contributors {contributors}, outsider {denied}")
+        record["workgroup"] = {"exists": exists, "quota": quota, "bindings": len(bindings),
+                               "contributors": contributors, "outsider": denied}
+        step("workgroup")
+
+        # 2. the trace volume
+        ok(*call("vwa", "POST", f"/api/namespaces/{ns}/pvcs", {"pvc": {
+            "metadata": {"name": pvc},
+            "spec": {"accessModes": ["ReadWriteOnce"],
+                     "resources": {"requests": {"storage": "10Gi"}}}}}), 201, "VWA POST")
+        step("volume")
+
+        # 3. the notebook: locked, released, ready; its spawn trace
+        ok(*call("jwa", "POST", f"/api/namespaces/{ns}/notebooks", {
+            "name": OBSERVE_NOTEBOOK, "image": SESSIONS_IMAGE, "cpu": "1", "memory": "4Gi",
+            "gpus": {"accelerator": OBSERVE_POOL[1], "count": "1"},
+            "dataVolumes": [{"mount": mount, "existingSource": {
+                "persistentVolumeClaim": {"claimName": pvc}}}]}), 201, "JWA POST")
+        exposition = fleet["registry"].exposition(openmetrics=True)
+        nb = api.get("Notebook", OBSERVE_NOTEBOOK, ns)
+        tid = tracing.trace_id_of(nb)
+        locked = annotations_of(nb).get(LOCK_ANNOTATION)
+        if not tid or locked != "odh-notebook-controller-lock":
+            raise AssertionError(f"the POSTed notebook: trace {tid}, lock {locked}")
+
+        def ready():
+            sts = [s for s in api.list("StatefulSet", namespace=ns)
+                   if s["metadata"]["name"] == OBSERVE_NOTEBOOK]
+            return bool(sts and (sts[0].get("status") or {}).get("readyReplicas"))
+
+        ready_rounds = drive_until(ready, "notebook ready")
+        nb = api.get("Notebook", OBSERVE_NOTEBOOK, ns)
+        exposure = {
+            "lock_released": LOCK_ANNOTATION not in annotations_of(nb),
+            "service_account": bool(api.list("ServiceAccount", namespace=ns,
+                                             field_matches={"metadata.name": OBSERVE_NOTEBOOK})),
+            "secrets": sorted(s["metadata"]["name"] for s in api.list("Secret", namespace=ns)
+                              if s["metadata"]["name"].startswith(OBSERVE_NOTEBOOK)),
+            "route_backend": api.get("HTTPRoute", OBSERVE_NOTEBOOK, ns)["spec"]["rules"][0][
+                "backendRefs"][0],
+            "network_policies": sorted(p["metadata"]["name"]
+                                       for p in api.list("NetworkPolicy", namespace=ns)),
+            "rounds_to_ready": ready_rounds,
+        }
+        if not exposure["lock_released"] or exposure["route_backend"] != {
+                "name": f"{OBSERVE_NOTEBOOK}-tls", "port": 8443}:
+            raise AssertionError(f"exposure: {exposure}")
+        spans = fleet["collector"].trace(tid)
+        tree = tracing.assemble(spans)
+
+        def size(node):
+            return 1 + sum(size(c) for c in node["children"])
+
+        ends = {}
+        for s in spans:
+            ends[s.name] = max(ends.get(s.name, 0.0), s.end)
+        names = sorted({s.name for s in spans})
+        missing = [m for m in OBSERVE_MILESTONES if m not in ends]
+        order = [ends.get(m) for m in OBSERVE_MILESTONES]
+        exemplars = [ex[0].get("trace_id")
+                     for _, labels, _, ex in parse_openmetrics(exposition)[
+                         "http_request_duration_seconds"]["samples"]
+                     if ex is not None and labels.get("app") == "jupyter-web-app"]
+        trace = {"trace_id": tid, "spans": len(spans), "tree_nodes": size(tree),
+                 "root": tree["span"].name, "names": names,
+                 "milestone_end_offsets_s": {m: ends[m] - tree["span"].start
+                                             for m in OBSERVE_MILESTONES if m in ends},
+                 "causal_order": not missing and order == sorted(order),
+                 "exemplar": tid in exemplars}
+        if missing or not trace["causal_order"] or trace["tree_nodes"] != len(spans) or \
+                not trace["exemplar"]:
+            raise AssertionError(f"the spawn trace: {trace}")
+        record.update(exposure=exposure, trace=trace)
+        step("spawn")
+
+        # 4. the profiled step on the card, in the notebook pod's env
+        pod = api.get("Pod", f"{OBSERVE_NOTEBOOK}-0", ns)
+        env = container_env(pod)
+        trace_dir = fleet["pvc_dir"](pvc)
+        env.update({"ODH_TORCH_KERNEL_CACHE": str(_build.BUILD_DIR),  # warm: built already
+                    profiling.LOGDIR_ENV: os.path.join(trace_dir, "logs"),
+                    profiling.PORT_ENV: str(free_port())})
+        mounts = [m["mountPath"] for m in pod["spec"]["containers"][0]["volumeMounts"]]
+        if mount not in mounts:
+            raise AssertionError(f"the notebook pod mounts {mounts}, not {mount}")
+        run = run_profile(env, scratch)
+        want = TRAIN_LAUNCHES_PER_STEP
+        if run["launched"] != want or run["traced"] != want or not math.isfinite(run["loss"]):
+            raise AssertionError(f"the profiled step: launched {run['launched']}, traced "
+                                 f"{run['traced']}, expected {want}; loss {run['loss']}")
+        if run["built"] or not run["server"]:
+            raise AssertionError(f"the notebook process built {run['built']}, capture server "
+                                 f"{run['server']}")
+        record["notebook_process"] = {k: run[k] for k in (
+            "imported_s", "trainer_s", "first_step_s", "profiled_s", "process_s",
+            "first_step_wall_s", "profiled_step_wall_s", "capture_wall_s", "first_loss", "loss", "launched", "traced", "device_ms",
+            "trace_kernels", "trace_kernel_ms", "trace_events", "files", "server", "built",
+            "device")}
+        step("profile")
+
+        # 5. TensorBoard over the trace volume
+        ok(*call("twa", "POST", f"/api/namespaces/{ns}/tensorboards",
+                 {"name": OBSERVE_TENSORBOARD, "logspath": f"pvc://{pvc}/logs"}), 201,
+           "TWA POST")
+
+        def tb_ready():
+            rows = call("twa", "GET", f"/api/namespaces/{ns}/tensorboards")[1]["tensorboards"]
+            return any(r["name"] == OBSERVE_TENSORBOARD and r["status"]["phase"] == "ready"
+                       for r in rows)
+
+        tb_rounds = drive_until(tb_ready, "tensorboard ready")
+        spec = api.get("Deployment", OBSERVE_TENSORBOARD, ns)["spec"]["template"]["spec"]
+        claims = [v.get("persistentVolumeClaim", {}).get("claimName")
+                  for v in spec.get("volumes", [])]
+        args = spec["containers"][0]["args"]
+        if pvc not in claims or "--logdir=/logs/logs" not in args:
+            raise AssertionError(f"the tensorboard Deployment: volumes {claims}, args {args}")
+        pvc_logs = ok(*call("twa", "GET", f"/api/namespaces/{ns}/tensorboards/"
+                                          f"{OBSERVE_TENSORBOARD}/logs"), 200, "TWA logs")
+        os.environ["TWA_LOCAL_LOGS_ROOT"] = trace_dir
+        local = f"{OBSERVE_TENSORBOARD}-local"
+        ok(*call("twa", "POST", f"/api/namespaces/{ns}/tensorboards",
+                 {"name": local, "logspath": os.path.join(trace_dir, "logs")}), 201,
+           "TWA POST (local)")
+        listing = ok(*call("twa", "GET", f"/api/namespaces/{ns}/tensorboards/{local}/logs"),
+                     200, "TWA logs (local)")
+        listed = [f["path"] for f in listing["files"] if f["path"].endswith(".trace.json.gz")]
+        session = os.path.basename(run["sessions"][-1])
+        if not listing["listable"] or not any(session in p for p in listed) or \
+                pvc_logs.get("claim") != pvc or pvc_logs.get("listable"):
+            raise AssertionError(f"TWA /logs: pvc {pvc_logs}, local {listing}")
+        record["tensorboard"] = {
+            "rounds_to_ready": tb_rounds, "claims": claims, "args": args,
+            "image": spec["containers"][0]["image"],
+            "pvc_logs": {k: pvc_logs[k] for k in ("scheme", "claim", "prefix", "listable")},
+            "listed": listed}
+        step("tensorboard")
+
+        # 6. the dashboard's panels
+        metrics = ok(*call("dashboard", "GET", "/api/metrics"), 200, "/api/metrics")
+        panel = metrics[apis.ACCELERATOR_MAPPING["tpu"]]
+        capacity = {r["accelerator"]: r[apis.ACCELERATOR_MAPPING["capacityChips"]] for r in panel}
+        used = {r["accelerator"]: r[apis.ACCELERATOR_MAPPING["usedChips"]] for r in panel}
+        slo = ok(*call("dashboard", "GET", "/api/slo?tick=1"), 200, "/api/slo")["slos"]
+        usage = call("dashboard", "GET", "/api/usage")
+        spawn_rows = [r for r in slo if r["slo"] == "spawn-ready-p99"]
+        if capacity != {OBSERVE_POOL[1]: OBSERVE_POOL[2] * OBSERVE_POOL[3]} or \
+                used != {OBSERVE_POOL[1]: 1} or \
+                {r["slo"] for r in slo} != {s.name for s in default_slos()} or \
+                not spawn_rows or min(r["total"] for r in spawn_rows) < 1 or usage[0] != 503:
+            raise AssertionError(f"dashboard: metrics {metrics}, slo {slo}, usage {usage}")
+        record["dashboard"] = {"metrics": metrics, "usage_status": usage[0],
+                               "slo": [{k: r[k] for k in ("slo", "window", "total", "bad",
+                                                          "burnRate", "alerting")}
+                                       for r in slo]}
+        step("dashboard")
+    finally:
+        if saved_root is None:
+            os.environ.pop("TWA_LOCAL_LOGS_ROOT", None)
+        else:
+            os.environ["TWA_LOCAL_LOGS_ROOT"] = saved_root
+        fleet["close"]()
+        shutil.rmtree(scratch, ignore_errors=True)
+        shutil.rmtree(fleet["root"], ignore_errors=True)
+    record.update(phase="platform_observe", steps_s=steps,
+                  seconds=time.perf_counter() - t_phase)
+    return record, run["launches_total"]
+
+
 def free_port() -> int:
     import socket
 
@@ -2250,20 +2742,37 @@ def long_flash_check(torch, fa, cfg, seg) -> dict:
         st["tile_rel_err"] = max(st["tile_rel_err"], fa.tile_rel_err(got, want))
 
     lse_err, g = 0.0, Hq // Hkv
+    plain_ms = {n: 0.0 for n in worst}  # summed over the KV head groups
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn()
+        end.record()
+        end.synchronize()
+        plain_ms[name] += start.elapsed_time(end)
+        return got
+
     for h in range(Hkv):  # KV head h and its query heads
         qs, ks = slice(h * g, (h + 1) * g), slice(h, h + 1)
         args = (q[:, :, qs], k[:, :, ks], v[:, :, ks], lse[:, qs], delta[:, qs], do[:, :, qs],
                 seg, seg)
-        ref_out, ref_lse = fa.flash_fwd_reference(*args[:3], seg, seg)
+        ref_out, ref_lse = timed("flash_fwd", lambda: fa.flash_fwd_reference(*args[:3], seg, seg))
         close("flash_fwd", out[:, :, qs], ref_out)
         lse_err = max(lse_err, (lse[:, qs] - ref_lse).abs().max().item())
         del ref_out, ref_lse
-        close("flash_dq", dq[:, :, qs], fa.flash_dq_reference(*args))
-        rk, rv = fa.flash_dkv_reference(*args)
+        close("flash_dq", dq[:, :, qs], timed("flash_dq", lambda: fa.flash_dq_reference(*args)))
+        rk, rv = timed("flash_dkv", lambda: fa.flash_dkv_reference(*args))
         close("flash_dkv", dk[:, :, ks], rk)
         close("flash_dkv", dv[:, :, ks], rv)
         del rk, rv
         torch.cuda.empty_cache()
+    times = long_row_times(torch, fa, q, k, v, do, seg, lse, delta)
+    times["plain_ms"] = plain_ms
+    times["plain_note"] = ("the plain versions one KV head group (4 query heads) at a time, "
+                           "summed over the 8 groups, one pass, no warm-up: the whole row's "
+                           "f32 scores [1, 32, 16384, 16384] take 32 GiB, and its "
+                           "probabilities and their gradient as much again")
     del q, k, v, do, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     for name, st in worst.items():
@@ -2274,10 +2783,64 @@ def long_flash_check(torch, fa, cfg, seg) -> dict:
         raise AssertionError(f"flash_fwd at the 16k text row: lse2 max abs err {lse_err}")
     return {"shape": f"1 x {LONG_SEQ}, {Hq}/{Hkv} heads, hd {hd}, the row's "
                      f"{int(seg.max())} segments, random bf16 inputs",
-            "lse2_max_abs_err": lse_err, **worst,
+            "lse2_max_abs_err": lse_err, **worst, "times": times,
             "tolerance": {n: f"||kernel - plain|| / ||plain|| <= {fa.TILE_RTOL[n]} in every "
                              "tile of 64 positions of one row and head" for n in worst}
                          | {"lse2": "max abs err <= 1e-3"}}
+
+
+def long_row_times(torch, fa, q, k, v, do, seg, lse, delta) -> dict:
+    """At the 16k packed row (``[1, 16384, 32, 128]`` queries, 8 KV heads,
+    the row's segment ids): the three flash kernels' ms a launch, and the
+    library's yardstick, ``F.scaled_dot_product_attention`` with the
+    segment-causal boolean mask (GQA by ``enable_gqa``), forward and
+    forward + backward (dQ, dK, dV together). Device time by CUDA events
+    (``time_ms``)."""
+    import torch.nn.functional as F
+
+    kernels = {
+        "flash_fwd": lambda i: fa.flash_fwd(q, k, v, seg, seg),
+        "flash_dq": lambda i: fa.flash_dq(q, k, v, lse, delta, do, seg, seg),
+        "flash_dkv": lambda i: fa.flash_dkv(q, k, v, lse, delta, do, seg, seg),
+    }
+    out = {"kernel_ms": {n: time_ms(torch, fn, iters=3, reps=3) for n, fn in kernels.items()}}
+    S, group = q.shape[1], q.shape[2] // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = ((seg[0][:, None] == seg[0][None, :]) & (pos[:, None] >= pos[None, :]))[None, None]
+    g = do.transpose(1, 2)
+    # GQA through ``enable_gqa`` first; where no backend takes that with a
+    # mask, the KV heads repeated to the query heads (outside the timing)
+    routes = (("enable_gqa", k, v, {"enable_gqa": True}),
+              ("kv heads repeated", k.repeat_interleave(group, dim=2),
+               v.repeat_interleave(group, dim=2), {}))
+    errors = []
+    for route, kk, vv, kw in routes:
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, vv))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, **kw)
+
+        try:
+            fwd = time_ms(torch, lambda i: sdpa(), iters=3, reps=3)
+            fwd_bwd = time_ms(torch, lambda i: torch.autograd.grad(sdpa(), (qh, kh, vh), g),
+                              iters=3, reps=3)
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            errors.append(f"{route}: {type(e).__name__}: {str(e)[:200]}")
+            continue
+        finally:
+            del qh, kh, vh
+            torch.cuda.empty_cache()
+        out.update(sdpa_route=route, sdpa_fwd_ms=fwd, sdpa_fwd_bwd_ms=fwd_bwd,
+                   sdpa_bwd_ms=fwd_bwd - fwd)
+        break
+    else:
+        out["sdpa_fwd_ms"] = out["sdpa_fwd_bwd_ms"] = "not measured: " + "; ".join(errors)
+    out["sdpa_errors"] = errors
+    del mask, routes
+    torch.cuda.empty_cache()
+    out["kernel_pair_ms"] = out["kernel_ms"]["flash_dq"] + out["kernel_ms"]["flash_dkv"]
+    out["kernel_fwd_bwd_ms"] = out["kernel_ms"]["flash_fwd"] + out["kernel_pair_ms"]
+    return out
 
 
 def long_context_text_phase(torch, fa, int4, bw: float, peak: float) -> tuple[dict, dict]:
@@ -5821,6 +6384,12 @@ def main() -> int:
     record, sessions_launches = platform_sessions_phase()
     record["card"] = label
     emit(record)
+    # the observability path (slice 9, part 4): the notebook's 8B QLoRA
+    # step profiled on the card into its PVC, served by TensorBoard; the
+    # spawn's trace, exemplar and SLOs; the dashboard, VWA, TWA, kfam app
+    record, observe_launches = platform_observe_phase()
+    record["card"] = label
+    emit(record)
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -5914,7 +6483,8 @@ def main() -> int:
                                   "platform_conformance":
                                       conformance_launches["int4_dequant"],
                                   "platform_spawn": spawn_launches,
-                                  "platform_sessions": sessions_launches}
+                                  "platform_sessions": sessions_launches,
+                                  "platform_observe": observe_launches["int4_dequant"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -5924,7 +6494,8 @@ def main() -> int:
              "moe_ep_loopback": ep_launches, "pipe_loopback": pipe_launches,
              "moe_pipe_loopback": moe_pipe_launches, "long_context_text": long_launches,
              "moe_offload": moe_offload_launches,
-             "platform_conformance": conformance_launches}
+             "platform_conformance": conformance_launches,
+             "platform_observe": observe_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}
@@ -5941,4 +6512,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(notebook_serve_main() if sys.argv[1:] == ["--notebook-serve"] else main())
+    sys.exit({"--notebook-serve": notebook_serve_main,
+              "--notebook-profile": notebook_profile_main}.get(
+                  " ".join(sys.argv[1:]), main)())

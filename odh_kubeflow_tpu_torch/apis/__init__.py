@@ -85,6 +85,15 @@ ACCELERATOR_MAPPING: dict[str, str] = {
     "tpu-runtime": GPU_RUNTIME_LABEL,
     "http-tpu-activity": "http-gpu-activity",
     "/api/tpu/activity": "/api/gpu/activity",
+    # the usage ledger's duty-sampled accelerator seconds (the SLO
+    # engine's idle-waste spec reads it; ``machinery/usage.py`` registers it)
+    "tpu_chip_seconds_total": "gpu_seconds_total",
+    # the dashboard's accelerator panel (``/api/metrics``)
+    "tpu": "gpu",
+    "capacityChips": "capacityGpus",
+    "usedChips": "usedGpus",
+    "suspendedChips": "suspendedGpus",
+    "committedChips": "committedGpus",
 }
 
 

@@ -6,9 +6,9 @@ mangling bindings.go:60-77, role-name map :39-46, Create (RoleBinding +
 per-user AuthorizationPolicy) :80-150, owner/admin permission gate
 api_default.go:303 + informer-backed RoleBinding lookup :53-91.
 
-This module is the service's logic; the JAX package's ``web/kfam_app.py``
-wraps it with the HTTP surface (port 8081 in the reference), which the
-port has not taken yet."""
+This module is the service's logic; ``web/kfam_app.py`` wraps it with
+the HTTP surface (port 8081 in the reference), and the dashboard
+(``web/dashboard.py``) asks it who may see a namespace."""
 
 from __future__ import annotations
 

@@ -26,9 +26,12 @@ warm-pool placement hint and the compile-cache mount are JAX's; the
 mount sets ``ODH_TORCH_KERNEL_CACHE`` (the kernels' build directory,
 ``ops/_build.py``) where JAX's sets ``JAX_COMPILATION_CACHE_DIR``, and
 it wins over the GPU-runtime PodDefault's workspace default
-(``webhooks/poddefault.py``). Left out of the copy for now
-(ROADMAP.md): the spawn-trace stamps, the usage meter tap and the
-split-process ``main()``.
+(``webhooks/poddefault.py``). The notebook's spawn trace
+(``utils/tracing.py``) is stamped on its Workload and its pods' template,
+so the scheduler's admission and the kubelet's bind and container start
+join the trace of the request that created it. Left out of the copy
+for now (ROADMAP.md): the usage meter tap and the split-process
+``main()``.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from odh_kubeflow_tpu_torch.scheduling.workload import (
     resolve_priority,
     workload_from_statefulset,
 )
-from odh_kubeflow_tpu_torch.utils import prometheus
+from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 from odh_kubeflow_tpu_torch.ops._build import KERNEL_CACHE_ENV
 from odh_kubeflow_tpu_torch.utils.gpu import GPU_ACCELERATORS, gpus_in_request, nodes_in_slice
 from odh_kubeflow_tpu_torch.warmup import PREFERRED_POOL_ANNOTATION
@@ -428,6 +431,14 @@ class NotebookController:
                 PREFERRED_POOL_ANNOTATION, ""
             ),
         )
+        if desired is not None:
+            # the Workload carries the notebook's spawn trace so the
+            # scheduler's admission span lands in the same tree
+            tid = tracing.trace_id_of(notebook)
+            if tid:
+                desired["metadata"].setdefault("annotations", {})[
+                    tracing.TRACE_ANNOTATION
+                ] = tid
         try:
             if desired is None:
                 try:
@@ -575,6 +586,16 @@ class NotebookController:
 
         labels = {"statefulset": name, "notebook-name": name}
         template.setdefault("metadata", {}).setdefault("labels", {}).update(labels)
+        # propagate the notebook's spawn trace down to its pods: the
+        # kubelet's gang-bind and container-start spans key off the pod
+        # annotation, so the whole spawn assembles into one trace. Part
+        # of the desired template (not a stamp after the fact), so the
+        # reconcilehelper diff never churns on it.
+        tid = tracing.trace_id_of(notebook)
+        if tid:
+            template["metadata"].setdefault("annotations", {}).setdefault(
+                tracing.TRACE_ANNOTATION, tid
+            )
         return {
             "apiVersion": "apps/v1",
             "kind": "StatefulSet",

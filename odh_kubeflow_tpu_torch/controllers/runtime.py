@@ -15,9 +15,11 @@ A from-scratch controller-runtime equivalent:
   pending event/request until quiescent — the envtest idiom without
   sleeps).
 
-Left out of the copy (ROADMAP.md): the shared informer cache, leader
-fencing and namespace sharding, per-reconcile request deadlines,
-reconcile tracing spans and the lock sanitizer.
+Each reconcile runs in a ``reconcile`` span (``utils/tracing.py``) on
+the trace its triggering object carries (the store's CREATE stamp), so
+a web request's spawn assembles into one trace. Left out of the copy
+(ROADMAP.md): the shared informer cache, leader fencing and namespace
+sharding, per-reconcile request deadlines and the lock sanitizer.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Any, Callable, Optional
 
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util
 from odh_kubeflow_tpu_torch.machinery.store import APIServer, Watch
-from odh_kubeflow_tpu_torch.utils import prometheus
+from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 
 log = logging.getLogger("controller-runtime")
 
@@ -171,6 +173,9 @@ class Controller:
         # per-request enqueue instant (workqueue_queue_duration), under
         # _cv with the queue itself
         self._enqueued_at: dict[Request, float] = {}
+        # the trace id carried from the triggering watch object, popped
+        # when the request is processed
+        self._req_trace: dict[Request, str] = {}
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._limiter = _RateLimiter()
@@ -210,8 +215,15 @@ class Controller:
 
     # -- queue --------------------------------------------------------------
 
-    def enqueue(self, req: Request, after: Optional[float] = None) -> None:
+    def enqueue(
+        self,
+        req: Request,
+        after: Optional[float] = None,
+        trace_id: Optional[str] = None,
+    ) -> None:
         with self._cv:
+            if trace_id:
+                self._req_trace[req] = trace_id
             if after:
                 self._delayed.append((self.time_fn() + after, req))
             elif req not in self._queued:
@@ -264,37 +276,46 @@ class Controller:
                 self._cv.wait(timeout=min(waits))
 
     def _process(self, req: Request) -> None:
+        with self._cv:
+            trace_id = self._req_trace.pop(req, None)
         key = f"{req.namespace}/{req.name}"
         start = self.time_fn()
-        try:
-            result = self.reconcile(req) or Result()
-        except Exception:
-            self._m_reconcile_time.observe(self.time_fn() - start)
-            self._m_reconcile_errors.inc()
+        with tracing.span(
+            "reconcile", trace_id=trace_id, controller=self.name, reconcile_key=key
+        ):
+            try:
+                result = self.reconcile(req) or Result()
+            except Exception as e:
+                self._m_reconcile_time.observe(self.time_fn() - start)
+                self._m_reconcile_errors.inc()
+                self.metrics.reconcile_total.inc(
+                    {"controller": self.name, "result": "error"}
+                )
+                # handled here, inside the span: mark it, or the
+                # collector's keep-error-traces rule cannot fire
+                tracing.set_status("error", f"{type(e).__name__}: {e}")
+                log.exception("%s: reconcile %s failed", self.name, req)
+                self._done(req)
+                # the retry is the same unit of work: it keeps the trace
+                self.enqueue(req, after=self._limiter.when(req), trace_id=trace_id)
+                return
+            elapsed = self.time_fn() - start
+            self._m_reconcile_time.observe(elapsed)
             self.metrics.reconcile_total.inc(
-                {"controller": self.name, "result": "error"}
+                {
+                    "controller": self.name,
+                    "result": "requeue_after" if result.requeue_after else "success",
+                }
             )
-            log.exception("%s: reconcile %s failed", self.name, req)
-            self._done(req)
-            self.enqueue(req, after=self._limiter.when(req))
-            return
-        elapsed = self.time_fn() - start
-        self._m_reconcile_time.observe(elapsed)
-        self.metrics.reconcile_total.inc(
-            {
-                "controller": self.name,
-                "result": "requeue_after" if result.requeue_after else "success",
-            }
-        )
-        log.debug(
-            "%s: reconciled %s in %.6fs%s",
-            self.name,
-            key,
-            elapsed,
-            f" (requeue after {result.requeue_after}s)"
-            if result.requeue_after
-            else "",
-        )
+            log.debug(
+                "%s: reconciled %s in %.6fs%s",
+                self.name,
+                key,
+                elapsed,
+                f" (requeue after {result.requeue_after}s)"
+                if result.requeue_after
+                else "",
+            )
         self._done(req)
         self._limiter.forget(req)
         if result.requeue_after:
@@ -314,9 +335,12 @@ class Controller:
     def _handle_event(self, spec: _WatchSpec, etype: str, obj: Obj) -> None:
         if spec.predicate and not spec.predicate(etype, obj):
             return
+        # the store stamps the creating request's trace id onto the
+        # object; carry it so the reconcile joins that trace
+        trace_id = tracing.trace_id_of(obj)
         for req in spec.map_fn(etype, obj):
             if req.name:
-                self.enqueue(req)
+                self.enqueue(req, trace_id=trace_id)
 
     def _pump_once(self, spec_idx: int, timeout: float = 0.0) -> bool:
         """Drain one event from watch ``spec_idx``; returns False if none."""

@@ -8,9 +8,10 @@ capacity, enforces the namespace's GPU ResourceQuota at pod creation,
 and drives pod phases — which is what lets the culler, status
 mirroring, and gang scheduling be tested end-to-end with no cluster.
 The sessions subsystem's container memory (``SimSessionRuntime``) and
-the warm-start subsystem's simulated image pulls are JAX's. Left out of
-the copy (ROADMAP.md): simulated duty-cycle waveforms and the tracing
-spans of gang binds and container starts.
+the warm-start subsystem's simulated image pulls are JAX's, and so are
+the spawn trace's ``kubelet.gang_bind`` and ``kubelet.container_start``
+spans (on the trace a pod's annotation carries). Left out of the copy
+(ROADMAP.md): simulated duty-cycle waveforms.
 
 Deterministic by design: ``step()`` runs one reconcile pass; call it
 after mutations instead of racing a background thread.
@@ -36,6 +37,7 @@ from odh_kubeflow_tpu_torch.scheduling import (
     ADMISSION_GATE_ANNOTATION,
     WORKLOAD_LABEL,
 )
+from odh_kubeflow_tpu_torch.utils import tracing
 
 Obj = dict[str, Any]
 
@@ -437,6 +439,20 @@ class FakeCluster:
         self.api.update_status(pod)
 
     def _bind_gang(self, pod: Obj, workload_name: str) -> bool:
+        """Bind every pod of the gang to the scheduler's assignment, or
+        none — traced as ``kubelet.gang_bind`` in the spawn trace (only
+        the attempt that lands records a span; retries while the gang
+        materialises are discarded, so the tree shows one bind)."""
+        tid = obj_util.annotations_of(pod).get(tracing.TRACE_ANNOTATION)
+        if not tid:
+            return self._bind_gang_inner(pod, workload_name)
+        with tracing.span("kubelet.gang_bind", trace_id=tid, workload=workload_name):
+            bound = self._bind_gang_inner(pod, workload_name)
+            if not bound:
+                tracing.discard()
+            return bound
+
+    def _bind_gang_inner(self, pod: Obj, workload_name: str) -> bool:
         """True only when the whole gang is bound (this pod
         included): the full member set must exist, every assigned node
         must still exist with enough free GPUs, and only then do the
@@ -616,7 +632,15 @@ class FakeCluster:
                 ],
             }
         )
-        self.api.update_status(pod)
+        tid = obj_util.annotations_of(pod).get(tracing.TRACE_ANNOTATION)
+        if tid:
+            # the Pending→Running edge in the spawn trace: its end is
+            # the container-start milestone
+            with tracing.span("kubelet.container_start", trace_id=tid,
+                              pod=obj_util.name_of(pod), node=str(node)):
+                self.api.update_status(pod)
+        else:
+            self.api.update_status(pod)
 
     # -- simulated image pulls (warmup/ subsystem) ---------------------------
 

@@ -21,9 +21,11 @@ every watcher synchronously (read-your-writes). The JAX module's
 durability and scale machinery is not ported here: the write-ahead log
 and its group-commit pipeline, snapshots and recovery, fencing tokens,
 the replication feed, sharded watch dispatch, kube-style pagination
-(``list_chunk``), watch resume from a resourceVersion (the watch cache),
-request deadlines and the tracing stamp on created objects (ROADMAP.md
-lists them).
+(``list_chunk``), watch resume from a resourceVersion (the watch cache)
+and request deadlines (ROADMAP.md lists them). A CREATE made inside a
+traced request stamps the trace id on the object
+(``utils/tracing.TRACE_ANNOTATION``), so the reconciles it triggers
+join the request's trace.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util
+from odh_kubeflow_tpu_torch.utils import tracing
 
 Obj = dict[str, Any]
 
@@ -322,6 +325,20 @@ class APIServer:
                 raise AlreadyExists(f"{kind} {namespace or ''}/{name} exists")
             if dry_run:
                 return obj
+            # stamp the creating request's trace id so the async hop to
+            # the controller (watch event → reconcile) stays in one
+            # trace. CREATE only — updates never rewrite it, so
+            # level-triggered no-op detection is untouched. Excluded:
+            # Events (they'd re-trace every dedupe lookup) and
+            # reconcile-span writes (children a controller creates —
+            # reconcilehelper owns their annotations and would strip
+            # the stamp on the next pass, churning a write).
+            span = tracing.current()
+            if span is not None and kind != "Event" and "controller" not in span.attrs:
+                ann = meta.get("annotations")
+                if not isinstance(ann, dict):
+                    ann = meta["annotations"] = {}
+                ann.setdefault(tracing.TRACE_ANNOTATION, span.trace_id)
             meta["uid"] = str(uuid.uuid4())
             meta["creationTimestamp"] = obj_util.now_rfc3339()
             meta["generation"] = 1

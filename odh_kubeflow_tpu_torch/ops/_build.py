@@ -6,9 +6,12 @@ under the checkout (or into ``$ODH_TORCH_KERNEL_CACHE`` when set: the
 GPU-runtime PodDefault points it at the workspace volume, so a notebook
 restarted on the same volume builds nothing), then loaded with
 ``ctypes``. The hash covers the
-source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source rebuilds and a stale library
-is never loaded. Nothing builds at import: the first launch of a kernel
+source, the shared ``csrc/*.cuh`` headers, the flags and the compiler
+(``compiler_version``: the ``nvcc`` release and the torch build whose
+CUDA runtime loads the library), so an edited source rebuilds, and a
+library that another ``nvcc`` or torch left in a directory that outlived
+its image (the workspace volume) has another name and is never loaded
+here. Nothing builds at import: the first launch of a kernel
 builds it (``library``), or ``build`` builds several at once, one
 ``nvcc`` process per source, all started together.
 
@@ -23,12 +26,15 @@ artifacts whose sha256 matches the cache's receipt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNEL_CACHE_ENV = "ODH_TORCH_KERNEL_CACHE"
@@ -58,19 +64,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+@functools.lru_cache(maxsize=None)
+def compiler_version() -> str:
+    """The compiler identity a library is built by: libraries from one
+    ``nvcc`` (and one torch, whose CUDA runtime loads them) must never
+    serve another. Without ``nvcc`` (a host that builds nothing) the
+    nvcc part reads ``nvcc-absent``."""
+    import torch
+
+    try:
+        out = subprocess.run(
+            [_nvcc(), "--version"], capture_output=True, text=True, check=True
+        ).stdout
+    except RuntimeError:  # no nvcc on this host
+        nvcc = "nvcc-absent"
+    else:
+        m = re.search(r"release [\d.]+, V([\d.]+)", out)
+        nvcc = f"nvcc-{m.group(1) if m else out.strip().splitlines()[-1]}"
+    return f"{nvcc}+torch-{torch.__version__}"
+
+
+def _target(name: str, compiler: Optional[str] = None) -> Path:
+    """The library of ``csrc/<name>.cu`` as ``compiler`` (this process's
+    ``compiler_version()`` by default) builds it."""
     src = CSRC / f"{name}.cu"
     # the shared headers count too: an edited header rebuilds its users
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    ident = compiler if compiler is not None else compiler_version()
+    digest = hashlib.sha256(
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode() + ident.encode()
+    )
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def library_names(compiler: Optional[str] = None) -> set[str]:
+    """The file names of every ``csrc/*.cu`` library as ``compiler``
+    builds them: what a build directory may hold for that compiler."""
+    return {_target(p.stem, compiler).name for p in CSRC.glob("*.cu")}
+
+
+def pending(names: list[str]) -> dict[str, Path]:
+    """The named kernels whose library this process would have to build
+    (none of that name in the build directory)."""
+    return {n: t for n in names if not (t := _target(n)).exists()}
 
 
 def build(names: list[str]) -> dict[str, Path]:
     """Compile every named kernel whose library is missing, all ``nvcc``
     processes at once; raise with the compiler's output on failure."""
     targets = {n: _target(n) for n in names}
-    todo = {n: t for n, t in targets.items() if not t.exists()}
+    todo = pending(names)
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

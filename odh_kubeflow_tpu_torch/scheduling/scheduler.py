@@ -35,8 +35,9 @@ Kueue-shaped semantics, sized for this platform:
 With a ``suspender`` (the ``SessionManager``) preemption is
 checkpoint-then-preempt and an overcommitted pool asks idle sessions to
 yield (``_plan_suspend_reclaim``); without one every preemption and
-every drain is a hard kill, as the JAX scheduler's is. The usage meter
-and the admission spans are not ported yet (ROADMAP.md).
+every drain is a hard kill, as the JAX scheduler's is. An admission of
+a Workload that carries a spawn trace is its ``scheduler.admit`` span.
+The usage meter is not ported yet (ROADMAP.md).
 
 The cycle is a pure function of cluster state: snapshot, charge
 admitted, scan pending, write statuses. Re-running it with no state
@@ -67,7 +68,7 @@ from odh_kubeflow_tpu_torch.scheduling.queue import (
     SliceInventory,
     pending_order,
 )
-from odh_kubeflow_tpu_torch.utils import prometheus
+from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 
 Obj = dict[str, Any]
 
@@ -726,6 +727,30 @@ class SliceScheduler:
         return in_flight
 
     def _admit(
+        self,
+        wl: Obj,
+        pool: str,
+        nodes: list[str],
+        inventory: SliceInventory,
+        quotas: QuotaSnapshot,
+    ) -> None:
+        tid = tracing.trace_id_of(wl)
+        if not tid:
+            self._admit_inner(wl, pool, nodes, inventory, quotas)
+            return
+        # the admission milestone of the spawn trace (the Workload
+        # carries the notebook's trace annotation): forced onto that
+        # trace — the admission-cycle reconcile span is a synthetic
+        # request on its own trace and must not adopt this one
+        with tracing.span(
+            "scheduler.admit", trace_id=tid, workload=obj_util.name_of(wl), pool=pool
+        ):
+            if not self._admit_inner(wl, pool, nodes, inventory, quotas):
+                # the status write lost a conflict: the admission did
+                # not land, the next cycle re-admits (and re-traces)
+                tracing.discard()
+
+    def _admit_inner(
         self,
         wl: Obj,
         pool: str,

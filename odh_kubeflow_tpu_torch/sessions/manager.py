@@ -24,9 +24,9 @@ the SessionCheckpoint state machine:
   durable snapshot instead of a hard kill.
 
 Snapshot/restore IO is blocking (checkpoint writes, HTTP hooks) and
-runs only from reconcile bodies — never under store locks. The JAX
-manager's restore span and its usage-meter marks wait for
-``utils/tracing.py`` and ``machinery/usage.py``, and its split-process
+runs only from reconcile bodies — never under store locks. A restore is
+the ``session.restore`` span of the notebook's trace. The JAX manager's
+usage-meter marks wait for ``machinery/usage.py``, and its split-process
 ``main()`` for ``machinery/runner.py`` (ROADMAP.md).
 """
 
@@ -69,7 +69,7 @@ from odh_kubeflow_tpu_torch.sessions.checkpoint import (
     SessionCheckpointStore,
     parse_zone_spec,
 )
-from odh_kubeflow_tpu_torch.utils import prometheus
+from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 
 Obj = dict[str, Any]
 
@@ -479,58 +479,70 @@ class SessionManager:
             return Result()
 
         uid = obj_util.meta(notebook).get("uid", "")
-        saved_digest = obj_util.get_path(ckpt, "status", "digest", default="")
-        # the receipt digest steers a replicated store to a zone whose
-        # bytes verify (read-from-any-SURVIVING-zone)
-        loaded = self.store.load(uid, expect_digest=saved_digest or None)
-        result = "restored"
-        if loaded is None:
-            result = "empty"
-            self.recorder.warning(
-                notebook,
-                "SessionStateMissing",
-                "no stored session state for this notebook; resuming cold",
-            )
-        else:
-            state, read_digest = loaded
-            if saved_digest and read_digest != saved_digest:
-                result = "corrupt"
+        # the restore milestone of the spawn/resume trace: load, digest
+        # check and the restore hook, a child of the reconcile span
+        # (which carries the notebook's trace). A retry while the agent
+        # is not yet serving is discarded — only the landed restore is
+        # the trace's restore; a cold outcome is an error span, so the
+        # trace is tail-kept for the operator.
+        with tracing.span("session.restore", notebook=obj_util.name_of(notebook)):
+            saved_digest = obj_util.get_path(ckpt, "status", "digest", default="")
+            # the receipt digest steers a replicated store to a zone whose
+            # bytes verify (read-from-any-SURVIVING-zone)
+            loaded = self.store.load(uid, expect_digest=saved_digest or None)
+            result = "restored"
+            if loaded is None:
+                result = "empty"
                 self.recorder.warning(
                     notebook,
-                    "SessionChecksumMismatch",
-                    f"restored bytes digest {read_digest[:12]} != "
-                    f"checkpointed {saved_digest[:12]}; resuming cold",
+                    "SessionStateMissing",
+                    "no stored session state for this notebook; resuming cold",
                 )
-            elif not self.runtime.restore(notebook, pod, state):
-                started = obj_util.get_path(
-                    ckpt, "status", "resumeStartedAt", default=""
-                ) or obj_util.annotations_of(notebook).get(RESUME_REQUESTED_ANNOTATION, "")
-                if (
-                    started
-                    and self.now() - obj_util.parse_rfc3339(started)
-                    < self.config.restore_retry_seconds
-                ):
-                    # pod is Running but the agent inside isn't serving
-                    # yet (normal startup ordering): retry — finalizing
-                    # now would strand an intact, digest-valid
-                    # checkpoint and turn every real resume cold
+            else:
+                state, read_digest = loaded
+                if saved_digest and read_digest != saved_digest:
+                    result = "corrupt"
                     self.recorder.warning(
                         notebook,
-                        "SessionRestoreRetry",
-                        "restore hook not answering yet; retrying with the "
-                        "checkpoint intact",
+                        "SessionChecksumMismatch",
+                        f"restored bytes digest {read_digest[:12]} != "
+                        f"checkpointed {saved_digest[:12]}; resuming cold",
                     )
-                    return Result(requeue_after=2.0)
-                result = "error"
-                self.recorder.warning(
-                    notebook,
-                    "SessionRestoreFailed",
-                    "restore hook rejected the session state; resuming cold",
-                )
-        requested = obj_util.annotations_of(notebook).get(RESUME_REQUESTED_ANNOTATION, "")
-        if requested:
-            self.m_resume.observe(max(self.now() - obj_util.parse_rfc3339(requested), 0.0))
-        self.m_resumes.inc({"result": result})
+                elif not self.runtime.restore(notebook, pod, state):
+                    started = obj_util.get_path(
+                        ckpt, "status", "resumeStartedAt", default=""
+                    ) or obj_util.annotations_of(notebook).get(RESUME_REQUESTED_ANNOTATION, "")
+                    if (
+                        started
+                        and self.now() - obj_util.parse_rfc3339(started)
+                        < self.config.restore_retry_seconds
+                    ):
+                        # pod is Running but the agent inside isn't serving
+                        # yet (normal startup ordering): retry — finalizing
+                        # now would strand an intact, digest-valid
+                        # checkpoint and turn every real resume cold
+                        self.recorder.warning(
+                            notebook,
+                            "SessionRestoreRetry",
+                            "restore hook not answering yet; retrying with the "
+                            "checkpoint intact",
+                        )
+                        tracing.discard()
+                        return Result(requeue_after=2.0)
+                    result = "error"
+                    self.recorder.warning(
+                        notebook,
+                        "SessionRestoreFailed",
+                        "restore hook rejected the session state; resuming cold",
+                    )
+            if result != "restored":
+                tracing.set_status("error", f"cold resume: {result}")
+            requested = obj_util.annotations_of(notebook).get(RESUME_REQUESTED_ANNOTATION, "")
+            if requested:
+                # observed inside the span: the warm-resume histogram's
+                # exemplar carries this trace
+                self.m_resume.observe(max(self.now() - obj_util.parse_rfc3339(requested), 0.0))
+            self.m_resumes.inc({"result": result})
         self._upsert_checkpoint(
             notebook,
             {"phase": PHASE_RESTORED, "resumedAt": obj_util.now_rfc3339()},

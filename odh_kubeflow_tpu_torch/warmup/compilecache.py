@@ -10,7 +10,8 @@ is content-addressed and shared across sessions, trainer runs and
 engine replicas:
 
 - the artifact is ``lib<name>-<hash>.so``; ``ops/_build.py`` names it by
-  a sha256 of the source, the shared headers and the ``nvcc`` flags, so
+  a sha256 of the source, the shared headers, the ``nvcc`` flags and
+  :func:`compiler_version`, so
   its file name is the key's ``fingerprint`` (JAX's is the file name
   its persistent cache derives from the program). The ``topology``
   axis is the accelerator the library was built for (``sm_90a``,
@@ -45,12 +46,9 @@ engine replicas:
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import json
 import os
-import re
-import subprocess
 import tempfile
 import threading
 import time
@@ -62,6 +60,7 @@ from odh_kubeflow_tpu_torch.machinery.store import (
     Conflict,
     NotFound,
 )
+from odh_kubeflow_tpu_torch.ops import _build
 from odh_kubeflow_tpu_torch.sessions.checkpoint import parse_zone_spec
 from odh_kubeflow_tpu_torch.utils import prometheus
 from odh_kubeflow_tpu_torch.warmup import WARMUP_API_VERSION
@@ -76,41 +75,23 @@ def build_target() -> str:
     """The ``topology`` axis of the cache key: the GPU architecture the
     kernels are built for (``code=`` of ``ops/_build.py``'s ``nvcc``
     flags, ``sm_90a``)."""
-    from odh_kubeflow_tpu_torch.ops._build import NVCC_FLAGS
-
-    for flag in NVCC_FLAGS:
+    for flag in _build.NVCC_FLAGS:
         if "code=" in flag:
             return flag.rsplit("code=", 1)[1]
-    raise ValueError(f"no code= target in {NVCC_FLAGS}")
+    raise ValueError(f"no code= target in {_build.NVCC_FLAGS}")
 
 
-@functools.lru_cache(maxsize=None)
-def compiler_version() -> str:
-    """The compiler identity axis of the cache key: libraries from one
-    ``nvcc`` (and one torch, whose CUDA runtime loads them) must never
-    serve another. Without ``nvcc`` (a host that builds nothing) the
-    nvcc part reads ``nvcc-absent``."""
-    import torch
-
-    from odh_kubeflow_tpu_torch.ops import _build
-
-    try:
-        out = subprocess.run(
-            [_build._nvcc(), "--version"], capture_output=True, text=True, check=True
-        ).stdout
-    except RuntimeError:  # _build._nvcc: no nvcc on this host
-        nvcc = "nvcc-absent"
-    else:
-        m = re.search(r"release [\d.]+, V([\d.]+)", out)
-        nvcc = f"nvcc-{m.group(1) if m else out.strip().splitlines()[-1]}"
-    return f"{nvcc}+torch-{torch.__version__}"
+# the compiler identity axis of the key; ``ops/_build.py`` folds the same
+# identity into a library's file name
+compiler_version = _build.compiler_version
 
 
 @dataclasses.dataclass(frozen=True)
 class CompileKey:
     """Content address of one built kernel library. ``fingerprint`` is
     its file name, ``lib<name>-<hash>.so``, whose hash ``ops/_build.py``
-    takes over the source, the shared headers and the ``nvcc`` flags;
+    takes over the source, the shared headers, the ``nvcc`` flags and
+    the compiler identity;
     topology (the GPU architecture) and compiler version complete the
     key — the same source built for another architecture or by another
     ``nvcc`` is a different artifact."""
@@ -685,8 +666,12 @@ class CompileCacheService:
         """Register every library a build directory holds under
         ``path`` (one ``lib<name>-<hash>.so`` per kernel, the file name
         ``ops/_build.py``'s content fingerprint; dot files are builds
-        still being written). Returns how many entered the cache."""
+        still being written). Only the names that ``compiler_ver`` gives
+        a ``csrc/*.cu`` are filed: a library another ``nvcc`` or torch
+        left there is skipped, never filed under this version. Returns
+        how many entered the cache."""
         ver = compiler_version() if compiler_ver is None else compiler_ver
+        ours = _build.library_names(ver)
         count = 0
         try:
             names = sorted(os.listdir(path))
@@ -694,7 +679,7 @@ class CompileCacheService:
             return 0
         for fn in names:
             full = os.path.join(path, fn)
-            if not os.path.isfile(full) or fn.startswith("."):
+            if not os.path.isfile(full) or fn not in ours:
                 continue
             with open(full, "rb") as f:
                 data = f.read()

@@ -128,3 +128,24 @@ class CrudBackend:
             )
         rows.sort(key=lambda e: e["timestamp"], reverse=True)
         return rows
+
+    def find_error_event(self, namespace: str, match) -> Optional[str]:
+        """Latest Warning-event message for a resource — what turns a
+        bare 'waiting' status into an actionable 'warning' one."""
+        message: Optional[str] = None
+        latest = ""
+        for event in self.api.list("Event", namespace=namespace):
+            if event.get("type") != "Warning":
+                continue
+            if not match(event.get("involvedObject", {})):
+                continue
+            # trailing `or ""`: an Event may carry both timestamp fields
+            # explicitly null
+            ts = event.get("lastTimestamp") or event.get("firstTimestamp") or ""
+            # latest by recurrence time, not list position: the store
+            # dedupes repeats in place, so a recurring warning keeps an
+            # early list slot while only its lastTimestamp advances
+            if ts >= latest:
+                latest = ts
+                message = event.get("message", event.get("reason", ""))
+        return message

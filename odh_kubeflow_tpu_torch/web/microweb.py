@@ -8,12 +8,13 @@ path params, JSON request/response, before-request hooks, error
 handlers and CSRF double-submit protection — the surface the CRUD
 backends need.
 
-Left out of the copy (ROADMAP.md), to come with ``machinery/{overload,
-eventloop,zpages}.py`` and ``utils/tracing.py``: the per-request
-deadline scope, the request spans, the ``/debug`` routes and the asyncio
-event-loop front end; and, with the frontends, blueprints and static
-serving. Serving is thread-per-request, and JSON bodies are plain
-``json.dumps``.
+Every request runs in a span (``utils/tracing.py``): a trace root, or a
+child of the caller's ``traceparent``; the latency histogram's exemplar
+is that trace. Left out of the copy (ROADMAP.md), to come with
+``machinery/{overload,eventloop,zpages}.py``: the per-request deadline
+scope, the ``/debug`` routes and the asyncio event-loop front end; and,
+with the frontends, blueprints and static serving. Serving is
+thread-per-request, and JSON bodies are plain ``json.dumps``.
 """
 
 from __future__ import annotations
@@ -215,7 +216,22 @@ class App:
         return Response({"success": False, "log": "not found"}, 404)
 
     def __call__(self, environ, start_response):
+        from odh_kubeflow_tpu_torch.utils import tracing
+
         request = Request(environ)
+        # every web request is a trace root (or joins the caller's via
+        # traceparent): the handler's API writes carry the trace id to
+        # the store and onwards to the reconciles
+        remote = tracing.parse_traceparent(request.headers.get("traceparent"))
+        with tracing.span(
+            f"{self.name}:{request.method} {request.path}",
+            parent=tracing.nested_parent(remote),
+        ):
+            return self._call_traced(request, start_response)
+
+    def _call_traced(self, request: "Request", start_response):
+        from odh_kubeflow_tpu_torch.utils import tracing
+
         t0 = time.perf_counter()
         try:
             response = self._dispatch(request)
@@ -237,7 +253,11 @@ class App:
                     {"success": False, "status": 500, "log": str(e)}, 500
                 )
         finally:
+            # observed inside the request span: the latency histogram's
+            # exemplar is this request's trace id
             self._m_requests.observe(time.perf_counter() - t0)
+        if response.status >= 500:
+            tracing.set_status("error", f"HTTP {response.status}")
         status_line = f"{response.status} {_status_text(response.status)}"
         start_response(status_line, list(response.headers.items()))
         return [response.body]

@@ -64,7 +64,10 @@ _VOLATILE = {
     "uid", "creationTimestamp", "resourceVersion", "firstReadyAt", "startedAt",
     "firstTimestamp", "lastTimestamp", "deletionTimestamp", "podIP",
 }
-_STRING_MAP = sorted(ACCELERATOR_MAPPING.items(), key=lambda kv: -len(kv[0]))
+# bare words (the dashboard's JSON keys: "tpu", "usedChips") rename keys
+# only, never text inside a string
+_STRING_MAP = sorted(((k, v) for k, v in ACCELERATOR_MAPPING.items() if not k.isalpha()),
+                     key=lambda kv: -len(kv[0]))
 
 
 def to_gpu(obj, case: Case):
@@ -109,9 +112,14 @@ def _env_to_gpu(env: list, case: Case) -> list:
     return out
 
 
+# a trace id is random in each package: its place is kept, its value not
+TRACE_ANNOTATION = "odh.kubeflow.org/trace-id"
+
+
 def scrub(obj):
     if isinstance(obj, dict):
-        return {k: scrub(v) for k, v in obj.items() if k not in _VOLATILE}
+        return {k: "<trace>" if k == TRACE_ANNOTATION else scrub(v)
+                for k, v in obj.items() if k not in _VOLATILE}
     if isinstance(obj, list):
         return [scrub(v) for v in obj]
     return obj

@@ -22,6 +22,7 @@ a clock that moves a second a stamp would never let its status settle.
 from __future__ import annotations
 
 import os
+import re
 import threading
 
 import pytest
@@ -236,7 +237,16 @@ def _stage(directory, files: dict):
             f.write(data)
 
 
-LIBS = {"libint4_dequant-aaaa.so": b"dequant cubin", "libflash_fwd-bbbb.so": b"flash cubin"}
+def _lib(name: str, compiler: str = "v1") -> str:
+    """The file name ``ops/_build.py`` gives ``csrc/<name>.cu`` as
+    ``compiler`` builds it."""
+    from odh_kubeflow_tpu_torch.ops import _build
+
+    return _build._target(name, compiler).name
+
+
+DEQUANT = _lib("int4_dequant")
+LIBS = {DEQUANT: b"dequant cubin", _lib("flash_fwd"): b"flash cubin"}
 
 
 def test_ingest_and_materialize_bridge_the_build_directory(tmp_path):
@@ -272,9 +282,9 @@ def test_materialize_never_stages_a_corrupted_artifact(tmp_path):
     whose file exists."""
     def run(svc, api, cc):
         staging = svc.staging_dir("cold")
-        _stage(staging, {"libint4_dequant-aaaa.so": LIBS["libint4_dequant-aaaa.so"]})
+        _stage(staging, {DEQUANT: LIBS[DEQUANT]})
         svc.ingest_dir(staging, topology="sm_90a", compiler_ver="v1")
-        key = cc.CompileKey("libint4_dequant-aaaa.so", "sm_90a", "v1")
+        key = cc.CompileKey(DEQUANT, "sm_90a", "v1")
         path = os.path.join(svc.root, f"{key.key_id}.bin")
         data = bytearray(open(path, "rb").read())
         data[3] ^= 0x01
@@ -329,8 +339,64 @@ def test_compile_key_axes_name_the_build():
     # the key is JAX's: the same three axes digest to the same entry name
     jax_key = cc_mod(False).CompileKey("libx-1.so", "sm_90a", version)
     assert cc.CompileKey("libx-1.so", "sm_90a", version).entry_name == jax_key.entry_name
-    # the fingerprint is the library's own file name
-    assert _build._target("int4_dequant").name.startswith("libint4_dequant-")
+    # the fingerprint is the library's own file name: the kernel's name
+    # and 16 hex digits of the digest that names this process's compiler
+    name = _build._target("int4_dequant").name
+    assert re.fullmatch(r"libint4_dequant-[0-9a-f]{16}\.so", name)
+    assert name == _build._target("int4_dequant", version).name
+    assert name in _build.library_names() and len(_build.library_names()) == len(
+        list(_build.CSRC.glob("*.cu")))
+
+
+def test_another_compiler_names_another_library(monkeypatch):
+    """The compiler is part of a library's name: two compiler versions
+    give the same kernel two file names."""
+    from odh_kubeflow_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "compiler_version", lambda: "nvcc-12.8.93+torch-2.10.0")
+    old = _build._target("int4_dequant")
+    monkeypatch.setattr(_build, "compiler_version", lambda: "nvcc-12.9.86+torch-2.11.0")
+    new = _build._target("int4_dequant")
+    assert old.name != new.name and old.parent == new.parent
+    assert old.name == _lib("int4_dequant", "nvcc-12.8.93+torch-2.10.0")
+    assert _build.library_names("nvcc-12.8.93+torch-2.10.0").isdisjoint(
+        _build.library_names("nvcc-12.9.86+torch-2.11.0"))
+
+
+def test_a_library_of_another_compiler_is_built_again(tmp_path, monkeypatch, build_dir):
+    """A build directory that outlived its image (the workspace volume)
+    holds a library built under another compiler: under this one the
+    kernel is still to build, so the old file is never loaded."""
+    monkeypatch.setattr(build_dir, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build_dir, "compiler_version", lambda: "nvcc-12.8.93+torch-2.10.0")
+    old = build_dir._target("int4_dequant")
+    old.write_bytes(b"a library of the old image")
+    assert build_dir.pending(["int4_dequant", "flash_fwd"]) == {
+        "flash_fwd": build_dir._target("flash_fwd")}
+    monkeypatch.setattr(build_dir, "compiler_version", lambda: "nvcc-12.9.86+torch-2.11.0")
+    todo = build_dir.pending(["int4_dequant"])
+    assert list(todo) == ["int4_dequant"] and todo["int4_dequant"] != old
+    assert not todo["int4_dequant"].exists() and old.exists()
+
+
+def test_ingest_dir_skips_another_compilers_libraries(tmp_path):
+    """``ingest_dir`` files only the names its compiler version gives a
+    kernel: another version's library (and any other file) stays out of
+    the cache, rather than being filed under the ingesting version."""
+    svc, api, cc = cache_service(True, tmp_path)
+    staging = svc.staging_dir("mixed")
+    _stage(staging, {_lib("int4_dequant", "v0"): b"old dequant",
+                     _lib("flash_fwd", "v0"): b"old flash",
+                     "libint4_dequant-0123456789abcdef.so": b"not a name of ours",
+                     "notes.txt": b"x"})
+    assert svc.ingest_dir(staging, topology="sm_90a", compiler_ver="v1") == 0
+    assert entries(api) == {}
+    _stage(staging, {_lib("int4_dequant", "v1"): b"new dequant"})
+    assert svc.ingest_dir(staging, topology="sm_90a", compiler_ver="v1") == 1
+    assert [e["spec"] for e in api.list("CompileCacheEntry")] == [
+        {"fingerprint": _lib("int4_dequant", "v1"), "topology": "sm_90a",
+         "compilerVersion": "v1"}]
+    assert svc.ingest_dir(staging, topology="sm_90a", compiler_ver="v0") == 2
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,6 @@ from test_torch_platform import scrub
 from test_torch_webhooks import runtime_to_gpu
 
 ALICE = "alice@example.com"
-TRACE_ANNOTATION = "odh.kubeflow.org/trace-id"
 NS = "team-a"
 # the spawner's TPU request ↔ the port's GPU request of the same shape
 TPU_POOL = ("tpu-v5-lite-podslice", "2x2")
@@ -42,17 +41,13 @@ FORMS = {
 def web_to_port(obj):
     """JAX's answers carried to the port's: the request fields, the
     runtime PodDefault, the spot toleration group's key and text; the
-    trace id JAX's web requests stamp on what they create, and the
-    details page's empty usage block, go (the port has no tracing or
-    usage meter yet)."""
+    details page's empty usage block goes (the port has no usage meter
+    yet). Both packages stamp the trace id of the web request on what it
+    creates (``scrub`` keeps its place, not its value)."""
     obj = runtime_to_gpu(obj)
     if isinstance(obj, dict):
         out = {}
         for k, v in obj.items():
-            if k == "annotations" and isinstance(v, dict) and TRACE_ANNOTATION in v:
-                v = {a: b for a, b in v.items() if a != TRACE_ANNOTATION}
-                if not v:
-                    continue
             if k == "usage" and v is None:
                 continue  # the details block that comes with machinery/usage.py
             if k == "notebooks.kubeflow.org/tpu-topology":
