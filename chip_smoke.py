@@ -2482,6 +2482,619 @@ def platform_observe_phase(run_profile=run_profile_process) -> tuple[dict, dict]
     return record, run["launches_total"]
 
 
+# -- the metered path (slice 9, part 5) ----------------------------------------
+
+USAGE_POOL = ("h100-u", "nvidia-h100-80gb", 2, 8)
+USAGE_NS = "team-u"
+USAGE_USER = "owner-u@example.com"
+USAGE_NOTEBOOK = "nb-usage"
+USAGE_STEPS = 12  # timed steps after the first
+USAGE_IDLE_S = 25.0  # the process idles this long, holding its weights
+USAGE_SAMPLE_S = 1.0  # the meter's cadence (UsageConfig.sample_seconds)
+USAGE_WINDOW_S = 10.0  # the ledger's windows (UsageConfig.window_seconds)
+USAGE_CULL_IDLE_S = 15.0
+USAGE_AGENT_INTERVAL_S = 1.0  # the agent's sample interval
+USAGE_ACTIVE_RTOL = 0.10  # active GPU-s over the steps vs their event time
+USAGE_CONSERVATION_EPS = 0.05  # GPU-s: allocated == active + idle + unsampled
+USAGE_LEDGER_EPS = 1e-3  # GPU-s: records round to 1e-6, read views to 1e-3
+USAGE_CRASH_AFTER_S = 3.0  # into the idle window
+USAGE_KILL_OP = 2  # WAL IO ops into the crashing flush: its first record's fsync
+USAGE_PROCESS_LIMIT_S = 400
+AGENT_PATH = os.path.join("images", "jupyter-pytorch-cuda", "gpu-activity-agent")
+PROGRESS = "@progress "  # a notebook process's progress line (not its JSON record)
+
+
+def progress(event: str, **kw) -> None:
+    print(PROGRESS + json.dumps({"event": event, "at": time.time(), **kw}), flush=True)
+
+
+def notebook_usage_main() -> int:
+    """The metered notebook's process on the card (``chip_smoke.py
+    --notebook-usage``, in the env its pod would give it, its kernel
+    directory warm): it starts the GPU activity agent as its child
+    (``GPU_AGENT_PORT`` from the env), then the ``train`` phase's model
+    (Llama-3-8B at full width and depth, ``remat_policy="attn"``, int4
+    base, LoRA r16 on wq/wk/wv/wo, batch 2 × 4096): one step, then
+    ``USAGE_STEPS`` steps timed with CUDA events, then ``USAGE_IDLE_S`` of
+    idling with its weights held. A progress line marks each window's
+    end as it happens; the last line is one JSON record: the wall-clock
+    bounds of each window (imports, init, first step, steps, idle), the
+    steps' device ms, the losses and the launch counters over the 13
+    steps."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    started_at = time.time()
+    agent = subprocess.Popen(
+        [sys.executable, os.path.join(here, AGENT_PATH)],
+        env={**os.environ, "GPU_AGENT_INTERVAL": str(USAGE_AGENT_INTERVAL_S)},
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        agent_line = agent.stdout.readline().strip()
+        progress("agent", line=agent_line)
+        agent_at = time.time()
+        import torch
+
+        from odh_kubeflow_tpu_torch.models.llama import LlamaConfig
+        from odh_kubeflow_tpu_torch.models.lora import LoraConfig
+        from odh_kubeflow_tpu_torch.ops import _build, int4
+        from odh_kubeflow_tpu_torch.ops import flash_attention as fa
+        from odh_kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+        imported_at = time.time()
+        progress("imported")
+        B, S = TRAIN_SHAPE
+        cfg = LlamaConfig.llama3_8b(remat=True, remat_policy="attn")
+        trainer = Trainer(cfg, TrainConfig(), LoraConfig(rank=16), quantize_base="int4",
+                          precompile_batch=(B, S))
+        batch = trainer.make_fake_batch(B, S, seed=1)
+        torch.cuda.synchronize()
+        init_at = time.time()
+        progress("init")
+        zero_counts(fa, int4)
+        first_loss = float(trainer.train_step(batch)["loss"])
+        first_step_at = time.time()
+        progress("first_step")
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(USAGE_STEPS)]
+        losses = []
+        for start, end in events:
+            start.record()
+            losses.append(trainer.train_step(batch)["loss"])
+            end.record()
+        torch.cuda.synchronize()
+        steps_at = time.time()
+        progress("steps")
+        launched = counts(fa, int4)
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        losses = [float(x) for x in losses]
+        time.sleep(USAGE_IDLE_S)  # idle, the weights held
+        idle_at = time.time()
+        emit({"started_at": started_at, "agent_at": agent_at, "imported_at": imported_at,
+              "init_at": init_at, "first_step_at": first_step_at, "steps_at": steps_at,
+              "idle_at": idle_at,
+              "windows": {"imports": [agent_at, imported_at], "init": [imported_at, init_at],
+                          "first_step": [init_at, first_step_at],
+                          "steps": [first_step_at, steps_at], "idle": [steps_at, idle_at]},
+              "agent": agent_line, "first_loss": first_loss, "losses": losses,
+              "step_ms": step_ms, "steps_device_s": sum(step_ms) / 1e3,
+              "launched": launched, "built": sorted(_build.build_logs),
+              "device": torch.cuda.get_device_name(0)})
+        return 0
+    finally:
+        agent.terminate()
+        agent.wait(timeout=10)
+
+
+class _Recorder:
+    """A histogram that also keeps every observation (the phase's
+    percentiles; the histogram's buckets are too coarse for a p50)."""
+
+    def __init__(self, hist, sink: list):
+        self.hist, self.sink = hist, sink
+
+    def observe(self, value: float) -> None:
+        self.sink.append(value)
+        self.hist.observe(value)
+
+
+def usage_control_plane(wal_dir: str, agent_url: str, jupyter_url: str, registry, slo_engine,
+                        io=None, first: bool = False) -> dict:
+    """One incarnation of the metered control plane: the store recovered
+    from ``wal_dir`` (through ``io``, a ``KillPointIO`` for the one that
+    dies), the CRDs, the PodDefault and notebook webhooks, the kubelet
+    simulator (``first``: with its ``USAGE_POOL`` nodes), the notebook
+    (queueing, culling), profile controllers, the ``SessionManager`` and
+    the ``SliceScheduler``, one ``UsageMeter`` (1 s samples, 10 s windows)
+    whose ``sample_fn`` GETs the agent at ``agent_url``, the culler
+    (15 s idle, its duty probe on the same agent) — every one of them
+    wired to the meter — and the JWA and dashboard over HTTP on
+    localhost. The registry and the SLO engine are the web tier's, which
+    outlives a store. Each agent answer the meter or the culler reads
+    lands in ``payloads``. Needs no card."""
+    import tempfile
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.controllers.culler import Culler, CullerConfig
+    from odh_kubeflow_tpu_torch.controllers.notebook import (
+        NotebookController, NotebookControllerConfig)
+    from odh_kubeflow_tpu_torch.controllers.profile import ProfileController
+    from odh_kubeflow_tpu_torch.controllers.runtime import Manager
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.machinery.usage import UsageConfig, UsageMeter, register_usage
+    from odh_kubeflow_tpu_torch.machinery.wal import WriteAheadLog
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.scheduling.scheduler import SliceScheduler
+    from odh_kubeflow_tpu_torch.sessions import register_sessions
+    from odh_kubeflow_tpu_torch.sessions.manager import SessionConfig, SessionManager
+    from odh_kubeflow_tpu_torch.web.dashboard import DashboardApp
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+    from odh_kubeflow_tpu_torch.webhooks import NotebookWebhook, PodDefaultWebhook
+
+    t0 = time.perf_counter()
+    wal = WriteAheadLog(wal_dir, io=io)
+    api = APIServer.recover(wal)
+    recovered_s = time.perf_counter() - t0
+    apis.register_crds(api)
+    register_scheduling(api)
+    register_sessions(api)
+    register_usage(api)
+    apis.install_default_cluster_roles(api)
+    api.attach_metrics(registry)
+    acks, batches = [], []
+    api._m_ack = _Recorder(api._m_ack, acks)
+    api._m_batch = _Recorder(api._m_batch, batches)
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    cluster = FakeCluster(api)
+    if first:
+        name, accel, nodes, per_node = USAGE_POOL
+        cluster.add_gpu_node_pool(name, accel, num_nodes=nodes, gpus_per_node=per_node)
+    payloads: list = []
+
+    def get_agent(url: str):
+        try:
+            with urllib.request.urlopen(url, timeout=2.0) as r:
+                got = json.loads(r.read().decode())
+        except (urllib.error.URLError, OSError, ValueError):
+            return None
+        payloads.append((time.time(), got))
+        return got
+
+    def sample_fn(namespace: str, notebook: str):
+        got = get_agent(agent_url)
+        try:
+            return float(got["duty_cycle_pct"]) if isinstance(got, dict) else None
+        except (KeyError, TypeError, ValueError):
+            return None
+
+    meter = UsageMeter(api, UsageConfig(enabled=True, sample_seconds=USAGE_SAMPLE_S,
+                                        window_seconds=USAGE_WINDOW_S),
+                       registry=registry, sample_fn=sample_fn)
+    mgr = Manager(api, registry=registry)
+    culler = Culler(api, CullerConfig(cull_idle_seconds=USAGE_CULL_IDLE_S,
+                                      idleness_check_seconds=USAGE_SAMPLE_S),
+                    base_url_fn=lambda nb: jupyter_url, gpu_url_fn=lambda nb: agent_url,
+                    meter=meter)
+    plain_get = culler._get_json
+    culler._get_json = lambda url: get_agent(url) if url == agent_url else plain_get(url)
+    NotebookController(api, NotebookControllerConfig(enable_queueing=True, enable_culling=True),
+                       registry=registry, culler=culler, meter=meter).register(mgr)
+    ProfileController(api, registry=registry).register(mgr)
+    sessions = SessionManager(api, SessionConfig(checkpoint_dir=tempfile.mkdtemp(
+        prefix="platform-usage-ckpt-")), registry=registry, runtime=cluster.session_runtime,
+        meter=meter)
+    sessions.register(mgr)
+    SliceScheduler(api, registry=registry, suspender=sessions, meter=meter).register(mgr)
+    apps = {"jwa": JupyterWebApp(api, registry=registry, meter=meter),
+            "dashboard": DashboardApp(api, registry=registry, slo_engine=slo_engine,
+                                      meter=meter)}
+    servers = {k: app.app.serve("127.0.0.1", 0) for k, app in apps.items()}
+
+    def call(app: str, method: str, path: str, body=None, user=USAGE_USER):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{servers[app].server_address[1]}{path}", method=method,
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json", "kubeflow-userid": user,
+                     "Cookie": "XSRF-TOKEN=u", "X-XSRF-TOKEN": "u"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def close() -> None:
+        if servers.pop("closed", None) is None:
+            for server in list(servers.values()):
+                server.shutdown()
+                server.server_close()
+            servers["closed"] = True
+            mgr.stop()
+            api.close()
+
+    return {"api": api, "wal": wal, "cluster": cluster, "meter": meter, "mgr": mgr,
+            "culler": culler, "call": call, "close": close, "acks": acks, "batches": batches,
+            "payloads": payloads, "recovered_s": recovered_s}
+
+
+def run_usage_process(env: dict, scratch: str) -> "subprocess.Popen":
+    """``chip_smoke.py --notebook-usage`` in ``env`` (the notebook pod's
+    resolved env), its stdout in ``<scratch>/usage.out``."""
+    import subprocess
+
+    out = open(os.path.join(scratch, "usage.out"), "w")
+    err = open(os.path.join(scratch, "usage.err"), "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--notebook-usage"],
+        env={**os.environ, **env, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))},
+        stdout=out, stderr=err)
+
+
+def attributed_spans(samples, start: float, end: float, gap: float) -> list:
+    """The meter's trailing attribution, straight-line: each sample
+    ``(t, duty)`` after ``start`` covers ``(previous, t]`` when that span
+    is at most ``gap`` long (else it stays unsampled); samples at or
+    before the previous one are stale; none past ``end`` counts."""
+    spans, prev = [], start
+    for t, duty in samples:
+        if t <= prev:
+            continue
+        if t > end:
+            break
+        if t - prev <= gap:
+            spans.append((prev, t, min(max(duty, 0.0), 100.0)))
+        prev = t
+    return spans
+
+
+def window_seconds(spans, a: float, b: float) -> tuple:
+    """(active, sampled) seconds of ``spans`` inside ``[a, b]``."""
+    active = sampled = 0.0
+    for s, e, duty in spans:
+        overlap = max(0.0, min(e, b) - max(s, a))
+        sampled += overlap
+        active += overlap * duty / 100.0
+    return active, sampled
+
+
+def timeline_samples(meter, namespace: str, notebook: str) -> tuple:
+    """The (t, duty) samples and the marks of one notebook's timeline."""
+    rows = [r for r in meter.timelines(namespace, limit=10_000) if r["notebook"] == notebook]
+    events = rows[0]["events"] if rows else []
+    return ([(e["t"], e["value"]) for e in events if e["kind"] == "sample"],
+            [(e["t"], e["value"]) for e in events if e["kind"] == "mark"])
+
+
+def platform_usage_phase(run_process=run_usage_process) -> tuple[dict, dict]:
+    """GPU-second metering on a crash-safe store (``usage_control_plane``):
+
+    1. a user's profile, then the JWA POSTs a 1-GPU notebook; the
+       scheduler admits its Workload and the meter opens a 1-GPU
+       allocation;
+    2. the notebook's process on the card (``run_process``, in the pod's
+       env): the GPU activity agent, the 8B QLoRA first step, 12 steps
+       timed with CUDA events, 25 s idle. Every ``USAGE_SAMPLE_S`` the
+       phase drives the controllers (the culler probes the agent and feeds
+       the meter) and polls the meter (sweep, sample, flush);
+    3. ``USAGE_CRASH_AFTER_S`` into the idle window the store dies at the
+       fsync of a flush's first record (``KillPointIO``); the phase
+       recovers the store from its WAL, a new meter ``recover()``s the
+       ledger, new controllers and web apps take over, and the process
+       runs on;
+    4. the culler stamps activity from the agent's duty through the
+       steps (no Jupyter traffic: busy-but-quiet), stops the notebook once
+       it has idled ``USAGE_CULL_IDLE_S``, and the release closes the
+       allocation;
+    5. the checks: the agent read ``device-metrics`` every time; the active
+       GPU-seconds over the steps equal their event time within 10% ± one
+       sample, the idle window counts as idle; conservation; the records
+       sum to the live totals and to a straight-line sum of the samples
+       (across the crash: nothing lost, nothing counted twice);
+       ``/api/usage`` and the JWA's usage block; ``gpu_seconds_total``'s
+       active phase and ``idle-waste`` above zero; 13 steps' launches.
+
+    ``run_process(env, scratch)`` starts the notebook's process
+    (``run_usage_process``) and returns its ``Popen``; returns the
+    record and the process's launches."""
+    import shutil
+    import tempfile
+    from http.server import HTTPServer
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.conformance import _IdleJupyter
+    from odh_kubeflow_tpu_torch.controllers.culler import _parse_time
+    from odh_kubeflow_tpu_torch.machinery import usage as usage_lib
+    from odh_kubeflow_tpu_torch.machinery.faults import KillPointIO
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+    from odh_kubeflow_tpu_torch.machinery.objects import annotations_of
+    from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
+    from odh_kubeflow_tpu_torch.ops import _build
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+    from odh_kubeflow_tpu_torch.utils.slo import SLOEngine
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="platform-usage-")
+    wal_dir = os.path.join(root, "wal")
+    ns, nb_name = USAGE_NS, USAGE_NOTEBOOK
+    agent_port = free_port()
+    agent_url = f"http://127.0.0.1:{agent_port}" + apis.ACCELERATOR_MAPPING["/api/tpu/activity"]
+    class Kernel(_IdleJupyter):
+        """The notebook's idle kernel: last active when the cell that
+        started the run last printed."""
+
+    Kernel.idle_since = time.time()
+    jupyter = HTTPServer(("127.0.0.1", 0), Kernel)
+    threading.Thread(target=jupyter.serve_forever, daemon=True).start()
+    jupyter_url = f"http://127.0.0.1:{jupyter.server_port}"
+    registry = Registry()
+    slo_engine = SLOEngine(registry)
+    kill_io = KillPointIO(kill_at_op=1 << 62, seed=SPAWN_SEED)
+    plane = usage_control_plane(wal_dir, agent_url, jupyter_url, registry, slo_engine,
+                                io=kill_io, first=True)
+    first_plane = plane
+    planes = [plane]
+    steps: dict = {}
+    record: dict = {"pool": dict(zip(("name", "accelerator", "nodes", "gpus_per_node"),
+                                     USAGE_POOL))}
+    proc = None
+    marks = [time.perf_counter()]
+
+    def step(name):
+        steps[name] = time.perf_counter() - marks.pop()
+        marks.append(time.perf_counter())
+
+    def ok(code, out, want, what):
+        if code != want:
+            raise AssertionError(f"{what}: HTTP {code}, not {want}: {out}")
+        return out
+
+    def tick() -> None:
+        plane["mgr"].drain(max_rounds=OBSERVE_MAX_ROUNDS)
+        plane["cluster"].step()
+        plane["mgr"].drain(max_rounds=OBSERVE_MAX_ROUNDS)
+
+    try:
+        ok(*plane["call"]("dashboard", "GET", "/api/slo?tick=1"), 200, "first SLO sample")
+        plane["api"].create({"apiVersion": "kubeflow.org/v1", "kind": "Profile",
+                             "metadata": {"name": ns},
+                             "spec": {"owner": {"kind": "User", "name": USAGE_USER}}})
+        tick()
+        # 1. the notebook, admitted: the meter opens a 1-GPU allocation
+        ok(*plane["call"]("jwa", "POST", f"/api/namespaces/{ns}/notebooks", {
+            "name": nb_name, "image": SESSIONS_IMAGE, "cpu": "1", "memory": "4Gi",
+            "gpus": {"accelerator": USAGE_POOL[1], "count": "1"}}), 201, "JWA POST")
+        for _ in range(OBSERVE_MAX_ROUNDS):
+            tick()
+            sts = [s for s in plane["api"].list("StatefulSet", namespace=ns)
+                   if s["metadata"]["name"] == nb_name]
+            if sts and (sts[0].get("status") or {}).get("readyReplicas"):
+                break
+        else:
+            raise AssertionError("the metered notebook never became ready")
+        opened = plane["meter"].notebook_usage(ns, nb_name)
+        if not opened["allocated"] or opened["gpus"] != 1:
+            raise AssertionError(f"the meter's allocation at admission: {opened}")
+        admit_t = plane["meter"]._open[(ns, nb_name)].opened_at
+        step("spawn")
+
+        # 2. the notebook's process; the control plane ticks beside it
+        pod = plane["api"].get("Pod", f"{nb_name}-0", ns)
+        env = container_env(pod)
+        env.update({"ODH_TORCH_KERNEL_CACHE": str(_build.BUILD_DIR),  # warm: built already
+                    "GPU_AGENT_PORT": str(agent_port)})
+        scratch = os.path.join(root, "process")
+        os.makedirs(scratch, exist_ok=True)
+        proc = run_process(env, scratch)
+        out_path = os.path.join(scratch, "usage.out")
+        seen: dict = {}
+        crash = None
+        released_t = None
+        deadline = time.time() + USAGE_PROCESS_LIMIT_S
+        next_t = time.time()
+        while True:
+            for line in open(out_path).read().splitlines():
+                if line.startswith(PROGRESS):
+                    ev = json.loads(line[len(PROGRESS):])
+                    if ev["event"] not in seen:
+                        seen[ev["event"]] = ev["at"]
+                        if ev["event"] in ("agent", "imported"):
+                            # the cell that started the run, and its
+                            # first output: the kernel's last activity
+                            Kernel.idle_since = ev["at"]
+            tick()
+            if crash is None and "steps" in seen and \
+                    time.time() >= seen["steps"] + USAGE_CRASH_AFTER_S:
+                # 3. the store dies inside a flush, at its first record's fsync
+                wal_io = plane["wal"].io
+                ops_before = wal_io.ops
+                wal_io.kill_at = ops_before + USAGE_KILL_OP
+                try:
+                    plane["meter"].poll()
+                    raise AssertionError("the flush survived its kill point")
+                except CrashPoint as e:
+                    died_at = time.time()
+                    crash = {"at": died_at, "error": str(e), "wal_ops": wal_io.ops,
+                             "kill_at_op": wal_io.kill_at}
+                dead = plane
+                dead["close"]()
+                t0 = time.perf_counter()
+                plane = usage_control_plane(wal_dir, agent_url, jupyter_url, registry,
+                                            slo_engine)
+                plane["meter"].recover()
+                planes.append(plane)
+                records = plane["api"].list("UsageRecord", namespace=ns)
+                resumed_from = max((r["status"]["flushedThrough"] for r in records),
+                                   default=admit_t)
+                crash.update(recovery_s=time.perf_counter() - t0,
+                             store_recover_s=plane["recovered_s"],
+                             resumed_from=resumed_from, lost_s=died_at - resumed_from,
+                             records_recovered=len(records),
+                             open_after_recover=plane["meter"].notebook_usage(
+                                 ns, nb_name)["allocated"])
+            else:
+                plane["meter"].poll()
+            usage_now = plane["meter"].notebook_usage(ns, nb_name)
+            if released_t is None and crash is not None and not usage_now["allocated"]:
+                released_t = time.time()
+            if proc.poll() is not None and (released_t is not None or
+                                            proc.returncode != 0):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"the metered process ran past {USAGE_PROCESS_LIMIT_S}s")
+            next_t += USAGE_SAMPLE_S
+            time.sleep(max(0.0, next_t - time.time()))
+        lines = [x for x in open(out_path).read().splitlines() if x.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"the metered notebook process exit {proc.returncode}: "
+                                 f"{open(os.path.join(scratch, 'usage.err')).read()[-3000:]}")
+        run = json.loads(lines[-1])
+        if crash is None:
+            raise AssertionError("the store never crashed: the idle window was too short")
+        step("process")
+
+        # 4-5. the ledger, closed
+        meter, api = plane["meter"], plane["api"]
+        meter.flush()
+        end_t = time.time()
+        nb = api.get("Notebook", nb_name, ns)
+        ann = annotations_of(nb)
+        samples1, _ = timeline_samples(first_plane["meter"], ns, nb_name)
+        samples2, marks2 = timeline_samples(meter, ns, nb_name)
+        releases = [t for t, label in marks2 if str(label).startswith("released:")]
+        if apis.STOP_ANNOTATION not in ann or not releases:
+            raise AssertionError(f"the culler did not stop the notebook: {ann}, marks {marks2}")
+        release_t = releases[0]
+        gap = 4.0 * USAGE_SAMPLE_S  # UsageConfig.max_sample_gap
+        resumed_from = crash["resumed_from"]
+        spans = (attributed_spans([s for s in samples1 if s[0] <= resumed_from], admit_t,
+                                  resumed_from, gap)
+                 + attributed_spans(samples2, resumed_from, release_t, gap))
+        longest = max(e - s for s, e, _ in spans)
+        gpus = 1
+        line = {"allocated": gpus * (release_t - admit_t),
+                "active": gpus * sum((e - s) * d / 100.0 for s, e, d in spans),
+                "sampled": gpus * sum(e - s for s, e, _ in spans)}
+        row = [r for r in meter.summary(t=end_t)["namespaces"] if r["namespace"] == ns][0]
+        live = {"allocated": row[usage_lib.ALLOCATED], "active": row[usage_lib.ACTIVE],
+                "idle": row[usage_lib.IDLE], "unsampled": row[usage_lib.UNSAMPLED]}
+        persisted = {"allocated": 0.0, "active": 0.0, "idle": 0.0, "unsampled": 0.0,
+                     "sampled": 0.0}
+        recs = api.list("UsageRecord", namespace=ns)
+        for rec in recs:
+            st = rec["status"]
+            for k, f in (("allocated", usage_lib.ALLOCATED), ("active", usage_lib.ACTIVE),
+                         ("idle", usage_lib.IDLE), ("unsampled", usage_lib.UNSAMPLED),
+                         ("sampled", usage_lib.SAMPLED)):
+                persisted[k] += st[f]
+        sources = sorted({p.get("source") for p0 in planes for _, p in p0["payloads"]
+                          if isinstance(p, dict)})
+        n_payloads = sum(len(p0["payloads"]) for p0 in planes)
+        w = run["windows"]
+        steps_active, steps_sampled = window_seconds(spans, *w["steps"])
+        idle_active, idle_sampled = window_seconds(spans, w["idle"][0], release_t)
+        idle_window = release_t - w["idle"][0]
+
+        def mean_duty(a, b):
+            act, smp = window_seconds(spans, a, b)
+            return 100.0 * act / smp if smp else None
+
+        stop_t = _parse_time(ann[apis.STOP_ANNOTATION])
+        last_busy = max((t for t, d in samples1 + samples2
+                         if d >= 5.0 and t <= release_t), default=None)
+        checks = {
+            "device_metrics_every_sample": sources == ["device-metrics"] and n_payloads > 0,
+            "steps_active": abs(steps_active - run["steps_device_s"])
+                            <= USAGE_ACTIVE_RTOL * run["steps_device_s"] + longest,
+            "idle_active": idle_active <= longest,
+            "idle_counted_idle": abs((idle_sampled - idle_active) - idle_window) <= longest,
+            "conservation": abs(live["allocated"] - live["active"] - live["idle"]
+                                - live["unsampled"]) <= USAGE_CONSERVATION_EPS,
+            "records_sum_to_live": all(abs(persisted[k] - live[k]) <= USAGE_LEDGER_EPS
+                                       for k in live),
+            "straight_line": all(abs(line[k] - persisted[k]) <= USAGE_LEDGER_EPS
+                                 for k in line),
+            "culler_spared_steps": stop_t >= w["steps"][1] + USAGE_CULL_IDLE_S - 1.0,
+            "culler_stopped_idle": stop_t <= w["idle"][1],
+            "release_after_last_busy": last_busy is not None and release_t > last_busy,
+            "launches": run["launched"] == {k: (1 + USAGE_STEPS) * v
+                                            for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
+            "wal_recovered": crash["records_recovered"] > 0 and crash["open_after_recover"],
+        }
+        # the web tier's views of the same ledger
+        code, usage = plane["call"]("dashboard", "GET", "/api/usage")
+        ns_rows = [r for r in (usage.get("usage") or {}).get("namespaces", [])
+                   if r["namespace"] == ns]
+        details = ok(*plane["call"]("jwa", "GET",
+                                    f"/api/namespaces/{ns}/notebooks/{nb_name}/details"),
+                     200, "JWA details")
+        block = details["details"].get("usage") or {}
+        slo_rows = ok(*plane["call"]("dashboard", "GET", "/api/slo?tick=1"), 200,
+                      "/api/slo")["slos"]
+        idle_waste = [r for r in slo_rows if r["slo"] == "idle-waste"]
+        active_counter = meter.m_gpu_seconds.value({"namespace": ns, "phase": "active"})
+        checks.update({
+            "api_usage": code == 200 and bool(ns_rows) and abs(
+                ns_rows[0][usage_lib.ALLOCATED] - live["allocated"]) <= USAGE_LEDGER_EPS,
+            "jwa_usage": abs(block.get(usage_lib.ALLOCATED, -1) - live["allocated"])
+                         <= USAGE_LEDGER_EPS
+                         and abs(block.get(usage_lib.ACTIVE, -1) - live["active"])
+                         <= USAGE_LEDGER_EPS,
+            "gpu_seconds_active": active_counter > 0,
+            "idle_waste": bool(idle_waste) and max(r["total"] for r in idle_waste) > 0
+                          and max(r["bad"] for r in idle_waste) > 0,
+        })
+        wal_stats = {"fsyncs": sum(p["wal"].fsync_total for p in planes),
+                     "records": sum(p["wal"].appended_total for p in planes),
+                     "batches": sum(len(p["batches"]) for p in planes)}
+        acks = sorted(a for p in planes for a in p["acks"])
+        batch_sizes = [b for p in planes for b in p["batches"]]
+        wal_stats.update(
+            mean_batch=statistics.fmean(batch_sizes) if batch_sizes else None,
+            ack_p50_ms=1e3 * acks[len(acks) // 2] if acks else None,
+            ack_p99_ms=1e3 * acks[min(len(acks) - 1, int(0.99 * len(acks)))] if acks else None,
+            acks=len(acks))
+        record.update(
+            process={k: run[k] for k in ("windows", "step_ms", "steps_device_s", "first_loss",
+                                         "losses", "launched", "built", "agent", "device")},
+            step_s=[ms / 1e3 for ms in run["step_ms"]],
+            duty={"imports": mean_duty(*w["imports"]), "init": mean_duty(*w["init"]),
+                  "first_step": mean_duty(*w["first_step"]), "steps": mean_duty(*w["steps"]),
+                  "idle": mean_duty(w["idle"][0], release_t)},
+            steps_window={"active_gpu_s": steps_active, "sampled_gpu_s": steps_sampled,
+                          "event_s": run["steps_device_s"],
+                          "wall_s": w["steps"][1] - w["steps"][0]},
+            idle_window={"active_gpu_s": idle_active,
+                         "idle_gpu_s": idle_sampled - idle_active, "window_s": idle_window},
+            longest_sample_s=longest, samples=len(spans), agent_reads=n_payloads,
+            sources=sources, ledger={"live": live, "persisted": persisted,
+                                     "straight_line": line, "records": len(recs)},
+            culler={"stop_at_after_steps_s": stop_t - w["steps"][1],
+                    "release_after_steps_s": release_t - w["steps"][1],
+                    "last_activity": ann.get(apis.LAST_ACTIVITY_ANNOTATION)},
+            crash=crash, wal=wal_stats, api_usage=ns_rows[0] if ns_rows else None,
+            jwa_usage=block, idle_waste=idle_waste, checks=checks)
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise AssertionError(f"platform_usage checks failed: {failed}: {record}")
+        step("ledger")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for p in planes:
+            try:
+                p["close"]()
+            except Exception:  # noqa: BLE001 — the dead store closes once already
+                pass
+        jupyter.shutdown()
+        jupyter.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    record.update(phase="platform_usage", steps_s=steps,
+                  seconds=time.perf_counter() - t_phase)
+    return record, run["launched"]
+
+
 def free_port() -> int:
     import socket
 
@@ -6390,6 +7003,12 @@ def main() -> int:
     record, observe_launches = platform_observe_phase()
     record["card"] = label
     emit(record)
+    # GPU-second metering on a crash-safe store (slice 9, part 5): the
+    # notebook's 8B QLoRA steps and idle time metered from the GPU
+    # activity agent's NVML duty, across a store crash inside a flush
+    record, usage_launches = platform_usage_phase()
+    record["card"] = label
+    emit(record)
 
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
@@ -6484,7 +7103,8 @@ def main() -> int:
                                       conformance_launches["int4_dequant"],
                                   "platform_spawn": spawn_launches,
                                   "platform_sessions": sessions_launches,
-                                  "platform_observe": observe_launches["int4_dequant"]}
+                                  "platform_observe": observe_launches["int4_dequant"],
+                                  "platform_usage": usage_launches["int4_dequant"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -6495,7 +7115,8 @@ def main() -> int:
              "moe_pipe_loopback": moe_pipe_launches, "long_context_text": long_launches,
              "moe_offload": moe_offload_launches,
              "platform_conformance": conformance_launches,
-             "platform_observe": observe_launches}
+             "platform_observe": observe_launches,
+             "platform_usage": usage_launches}
     for row in flash_rows + moe_rows + bf16_rows:
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}
@@ -6513,5 +7134,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--notebook-serve": notebook_serve_main,
-              "--notebook-profile": notebook_profile_main}.get(
+              "--notebook-profile": notebook_profile_main,
+              "--notebook-usage": notebook_usage_main}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -88,6 +88,19 @@ ACCELERATOR_MAPPING: dict[str, str] = {
     # the usage ledger's duty-sampled accelerator seconds (the SLO
     # engine's idle-waste spec reads it; ``machinery/usage.py`` registers it)
     "tpu_chip_seconds_total": "gpu_seconds_total",
+    # the meter's other families and the ledger's fields
+    # (``machinery/usage.py``: UsageRecord status, ``/api/usage``, the
+    # JWA's usage block)
+    "tpu_allocated_chip_seconds_total": "gpu_allocated_seconds_total",
+    "tpu_duty_cycle_pct": "gpu_duty_cycle_pct",
+    "tpu_pool_utilization_ratio": "gpu_pool_utilization_ratio",
+    "tpu_duty_samples_total": "gpu_duty_samples_total",
+    "allocatedChipSeconds": "allocatedGpuSeconds",
+    "activeChipSeconds": "activeGpuSeconds",
+    "idleChipSeconds": "idleGpuSeconds",
+    "sampledChipSeconds": "sampledGpuSeconds",
+    "unsampledChipSeconds": "unsampledGpuSeconds",
+    "chipHours": "gpuHours",
     # the dashboard's accelerator panel (``/api/metrics``)
     "tpu": "gpu",
     "capacityChips": "capacityGpus",

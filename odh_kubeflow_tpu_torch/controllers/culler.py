@@ -16,8 +16,9 @@ counterpart of the JAX package's ``/api/tpu/activity``) and treats
 recent GPU duty cycle above a threshold as activity. A multi-node
 notebook is culled atomically — the stop annotation acts on the
 Notebook, never a subset of nodes. With ``suspend_on_cull`` a cull is a
-suspend to checkpoint (the sessions subsystem), as JAX's. The usage
-meter the JAX culler feeds is not ported yet.
+suspend to checkpoint (the sessions subsystem), as JAX's. The probed
+duty feeds the shared usage meter (``machinery.usage.UsageMeter``), so
+one probe serves both the cull decision and the GPU-second ledger.
 """
 
 from __future__ import annotations
@@ -90,9 +91,14 @@ class Culler:
         now_fn: Callable[[], float] = time.time,
         cull_counter=None,
         gpu_url_fn: Optional[Callable[[Obj], str]] = None,
+        meter: Optional[Any] = None,
     ):
         self.api = api
         self.config = config or CullerConfig()
+        # shared GPU-second ledger (machinery.usage.UsageMeter duck):
+        # the probed duty sample feeds the meter instead of being
+        # discarded after the threshold comparison
+        self.meter = meter
         self._base_url_fn = base_url_fn or self._default_base_url
         # GPU probe URL: the agent serves on its own port (the Jupyter
         # port can't proxy it). When a test injects base_url_fn only,
@@ -201,10 +207,18 @@ class Culler:
 
     def _observe_duty(self, notebook: Obj, duty: float) -> None:
         """A probed duty sample is evidence, not just a threshold
-        input: stamp the last-observed annotation (rides the
-        reconcile's annotation patch) so the cull decision is
-        auditable."""
+        input: feed it to the shared usage meter and stamp the
+        last-observed annotation (rides the reconcile's annotation
+        patch) so the cull decision is auditable."""
         now = self.now()
+        if self.meter is not None:
+            self.meter.observe_sample(
+                obj_util.namespace_of(notebook),
+                obj_util.name_of(notebook),
+                duty,
+                t=now,
+                source="culler",
+            )
         obj_util.set_annotation(
             notebook,
             # audit trail for operators (kubectl describe)

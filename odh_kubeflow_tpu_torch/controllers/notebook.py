@@ -29,9 +29,10 @@ it wins over the GPU-runtime PodDefault's workspace default
 (``webhooks/poddefault.py``). The notebook's spawn trace
 (``utils/tracing.py``) is stamped on its Workload and its pods' template,
 so the scheduler's admission and the kubelet's bind and container start
-join the trace of the request that created it. Left out of the copy
-for now (ROADMAP.md): the usage meter tap and the split-process
-``main()``.
+join the trace of the request that created it. A ``meter``
+(``machinery.usage.UsageMeter``) is told of the Workload a scale-down or
+suspend deletes: an allocation release the scheduler never sees. Left
+out of the copy for now (ROADMAP.md): the split-process ``main()``.
 """
 
 from __future__ import annotations
@@ -163,10 +164,15 @@ class NotebookController:
         config: Optional[NotebookControllerConfig] = None,
         registry: Optional[prometheus.Registry] = None,
         culler: Optional[Any] = None,
+        meter: Optional[Any] = None,
     ):
         self.api = api
         self.config = config or NotebookControllerConfig()
         self.culler = culler
+        # GPU-second ledger tap: a scale-down/suspend deletes the
+        # Workload here, which is an allocation release the scheduler
+        # never sees (machinery.usage.UsageMeter duck)
+        self.meter = meter
         self.recorder = EventRecorder(api, "notebook-controller")
         reg = registry or prometheus.default_registry
         self.m_create = reg.counter(
@@ -445,6 +451,11 @@ class NotebookController:
                     self.api.delete("Workload", name, ns)
                 except NotFound:
                     pass
+                else:
+                    if self.meter is not None:
+                        self.meter.workload_released(
+                            ns, name, reason="scale-down"
+                        )
                 return
             reconcilehelper.reconcile_object(self.api, desired, owner=notebook)
         except NotFound:

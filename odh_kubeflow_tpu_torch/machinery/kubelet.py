@@ -10,8 +10,9 @@ mirroring, and gang scheduling be tested end-to-end with no cluster.
 The sessions subsystem's container memory (``SimSessionRuntime``) and
 the warm-start subsystem's simulated image pulls are JAX's, and so are
 the spawn trace's ``kubelet.gang_bind`` and ``kubelet.container_start``
-spans (on the trace a pod's annotation carries). Left out of the copy
-(ROADMAP.md): simulated duty-cycle waveforms.
+spans (on the trace a pod's annotation carries), and so are the
+simulated GPU duty-cycle waveforms the usage meter samples in sim mode
+(``set_duty_waveform`` / ``duty_cycle``).
 
 Deterministic by design: ``step()`` runs one reconcile pass; call it
 after mutations instead of racing a background thread.
@@ -145,6 +146,10 @@ class FakeCluster:
         # per-step() scheduler ledger: used GPUs by node, built once per
         # pass and updated as pods bind (None outside a step)
         self._sched_used: Optional[dict[str, float]] = None
+        # simulated GPU duty-cycle waveforms per (namespace, notebook):
+        # fn(t) -> duty_cycle_pct; the usage meter samples these in sim
+        # mode exactly as it would the in-pod activity agent
+        self._waveforms: dict[tuple[str, str], Any] = {}
         # simulated image pulls (warmup/ subsystem): a node that has
         # never run an image keeps the pod Pending for
         # SIM_IMAGE_PULL_SECONDS, then remembers it — warm-pool
@@ -167,6 +172,40 @@ class FakeCluster:
     def get_session_state(self, namespace: str, notebook: str) -> Optional[Obj]:
         pod = self.api.get("Pod", f"{notebook}-0", namespace)
         return self.session_runtime.read_state(pod)
+
+    # -- simulated duty-cycle waveforms -------------------------------------
+
+    def set_duty_waveform(self, namespace: str, notebook: str, fn) -> None:
+        """Pin a deterministic duty-cycle waveform fn(t)->pct for one
+        notebook's container (drills pin known waveforms so the ledger
+        can be reconciled against a hand-computed integral)."""
+        self._waveforms[(namespace, notebook)] = fn
+
+    def duty_cycle(
+        self, namespace: str, notebook: str, t: Optional[float] = None
+    ) -> Optional[float]:
+        """What the in-pod activity agent would report: None unless the
+        notebook's pod-0 is Running (agent unreachable == gap), else the
+        pinned waveform — or a deterministic per-container default
+        (seeded square wave) so every sim container has a stable,
+        distinguishable utilization signature out of the box."""
+        try:
+            pod = self.api.get("Pod", f"{notebook}-0", namespace)
+        except NotFound:
+            return None
+        if obj_util.get_path(pod, "status", "phase") != "Running":
+            return None
+        if t is None:
+            t = time.time()
+        fn = self._waveforms.get((namespace, notebook))
+        if fn is not None:
+            return float(fn(t))
+        import zlib
+
+        seed = zlib.crc32(f"{namespace}/{notebook}".encode())
+        period = 60.0 + (seed % 120)  # 60–180s per container
+        high = 30.0 + (seed % 61)  # 30–90% when "computing"
+        return high if (t % period) < period / 2.0 else 5.0
 
     # -- nodes --------------------------------------------------------------
 

@@ -16,30 +16,49 @@ API-machinery semantics the controllers rely on:
 - status subresource (update_status does not bump generation)
 - Events with dedupe and a bounded retention per namespace
 
-Every mutation applies inline under one re-entrant lock and reaches
-every watcher synchronously (read-your-writes). The JAX module's
-durability and scale machinery is not ported here: the write-ahead log
-and its group-commit pipeline, snapshots and recovery, fencing tokens,
-the replication feed, sharded watch dispatch, kube-style pagination
-(``list_chunk``), watch resume from a resourceVersion (the watch cache)
-and request deadlines (ROADMAP.md lists them). A CREATE made inside a
-traced request stamps the trace id on the object
-(``utils/tracing.TRACE_ANNOTATION``), so the reconciles it triggers
-join the request's trace.
+Without a write-ahead log every mutation applies inline under one
+re-entrant lock and reaches every watcher synchronously
+(read-your-writes). With one (``APIServer(wal=WriteAheadLog(dir))``,
+``machinery/wal.py``) the lock serialises mutation PREPARES (validation,
+admission, rv assignment); prepared records flow through a group-commit
+pipeline: a committer thread covers each batch of concurrent writers
+with one fsync, applies in rv order, and releases each waiter only
+after the fsync that covers its record (ack-after-durable). A failed
+fsync makes the store fail-stop for mutations. Snapshots (every
+``SNAPSHOT_INTERVAL`` records or ``SNAPSHOT_BYTES`` of log) are cut
+under the lock and written off it; ``APIServer.recover(wal)`` rebuilds
+objects, the rv counter, dynamic kind registrations, the Event dedupe
+index and the bounded watch cache, from which ``watch(kind,
+resource_version=)`` resumes (410 ``Expired`` below the retained
+window, never an empty stream). A CREATE made inside a traced request
+stamps the trace id on the object (``utils/tracing.TRACE_ANNOTATION``),
+so the reconciles it triggers join the request's trace.
+
+Not ported here (ROADMAP.md): fencing tokens, the replication feed,
+sharded watch dispatch, kube-style pagination (``list_chunk``), per-kind
+versions and request deadlines. The JAX module builds its locks through
+its lock-order sanitizer; the port uses plain ``threading`` locks.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
+import os
 import queue
 import threading
+import time
 import uuid
-from dataclasses import dataclass
+from collections import deque
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util
+from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util, serialize
 from odh_kubeflow_tpu_torch.utils import tracing
 
 Obj = dict[str, Any]
+
+log = logging.getLogger("apiserver")
 
 
 class APIError(Exception):
@@ -68,10 +87,24 @@ class Denied(APIError):
     code = 403
 
 
+class TooManyRequests(APIError):
+    """Server-side load shedding (kube's APF 429). Carries the
+    Retry-After hint clients must honour before retrying — unlike the
+    other errors, a 429 means the request was never executed, so every
+    verb is safe to retry after the wait."""
+
+    code = 429
+
+    def __init__(self, message: str = "", retry_after: float = 1.0):
+        super().__init__(message)
+        self.retry_after = retry_after
+
+
 class Expired(APIError):
-    """HTTP 410 Gone: the watch cannot go on — the client must relist
-    and watch from the fresh state (kube-apiserver's ``status.reason:
-    Expired`` contract)."""
+    """HTTP 410 Gone: the requested resourceVersion has been compacted
+    out of the watch cache, or the watch fell too far behind. It cannot
+    go on — the client must relist and watch from the fresh state
+    (kube-apiserver's ``status.reason: Expired`` contract)."""
 
     code = 410
 
@@ -98,6 +131,37 @@ class _Hook:
     fn: Callable[[AdmissionRequest], Optional[Obj]]
     mutating: bool = True
     name: str = ""
+
+
+@dataclass
+class _WalEntry:
+    """One mutation in flight through the group-commit pipeline:
+    prepared (validated, rv-stamped) under the store lock, made durable
+    by the committer thread's batched fsync, applied to the in-memory
+    maps in rv order, then acked by releasing ``done``. ``etype`` is the
+    watch event type ("register" entries carry no apply)."""
+
+    record: Obj
+    etype: str
+    kind: str
+    key: Optional[tuple[str, str]]
+    obj: Optional[Obj]
+    rv: int
+    done: threading.Event = field(default_factory=threading.Event)
+    error: Optional[BaseException] = None
+    # prepare instant (monotonic): feeds the commit-pipeline ack-latency
+    # histogram when store metrics are attached
+    prepared_at: float = field(default_factory=time.perf_counter)
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
 
 
 # Kinds every API surface knows about.
@@ -131,6 +195,8 @@ BUILTIN_KINDS: list[tuple[str, str, str, bool]] = [
     ("coordination.k8s.io/v1", "Lease", "leases", True),
     ("scheduling.k8s.io/v1", "PriorityClass", "priorityclasses", False),
 ]
+
+_BUILTIN_KIND_NAMES = frozenset(k for _, k, _, _ in BUILTIN_KINDS)
 
 
 class Watch:
@@ -198,16 +264,79 @@ class Watch:
 
 
 class APIServer:
-    # a watch consumer may fall this many live events behind before it
-    # is closed with 410
+    # retained watch-cache window (events, not seconds): a watch may
+    # resume from any resourceVersion still inside it; older resumes get
+    # 410 Expired, as kube-apiserver's compacted etcd window. A watch
+    # consumer may also fall this many live events behind before it is
+    # closed with 410. The WATCH_CACHE_SIZE env var overrides it per
+    # process.
     WATCH_CACHE_SIZE = 2048
 
     # events per namespace kept after pruning (kube-apiserver expires
     # events by TTL; a bounded ring is the embedded equivalent)
     EVENT_RETENTION = 1000
 
-    def __init__(self):
+    # mutations between WAL snapshots (when a WAL is attached)
+    SNAPSHOT_INTERVAL = 1024
+
+    # byte-based snapshot cadence: cut when the WAL tail exceeds this
+    # many bytes since the last snapshot, whichever threshold trips
+    # first. 0 disables. Env: SNAPSHOT_BYTES.
+    SNAPSHOT_BYTES = 0
+
+    # committer linger per drain round (seconds): how long the group
+    # committer waits for just-released writers to re-enqueue before
+    # fsyncing the batch (postgres commit_delay)
+    GROUP_COMMIT_LINGER = 0.0002
+
+    def __init__(
+        self,
+        wal: Optional[Any] = None,
+        snapshot_interval: Optional[int] = None,
+        snapshot_bytes: Optional[int] = None,
+        group_commit: bool = True,
+    ):
         self._lock = threading.RLock()
+        # durability: with a WriteAheadLog attached, every mutation is
+        # prepared under the store lock, enqueued to the committer thread
+        # which covers whole batches of concurrent writers with ONE fsync,
+        # applied in rv order AFTER the covering fsync, and only then
+        # acked. No WAL (the default) = the in-memory store, inline.
+        self._wal = wal
+        self._wal_broken = False
+        self._wal_dead: Optional[BaseException] = None
+        self._replaying = False
+        # group_commit=False pins the committer to one fsync per record
+        # (semantics identical, batching off)
+        self.group_commit = group_commit
+        self._commitq: "queue.Queue[Optional[_WalEntry]]" = queue.Queue()
+        self._committer: Optional[threading.Thread] = None
+        self._closed = False
+        self._batch_hwm = 1  # committer linger target (last batch size)
+        # commit-pipeline instruments (attach_metrics): None until a
+        # registry is attached, so the bare store pays nothing
+        self._m_batch = None
+        self._m_ack = None
+        self._wal_fsync_seen = 0
+        self._evictions_seen = 0
+        self._wal_metrics_lock = threading.Lock()
+        # records logged-but-not-yet-applied, keyed (kind, key) → newest
+        # in-flight entry. Mutation-path validation reads THROUGH this
+        # overlay (_effective); public reads serve only applied — i.e.
+        # durable — state.
+        self._pending: dict[tuple[str, tuple[str, str]], _WalEntry] = {}
+        # highest APPLIED record rv (== _rv except while records are in
+        # flight through the committer); snapshots are cut at it
+        self._applied_rv = 0
+        if snapshot_interval is not None:
+            self.SNAPSHOT_INTERVAL = int(snapshot_interval)
+        if snapshot_bytes is not None:
+            self.SNAPSHOT_BYTES = int(snapshot_bytes)
+        else:
+            self.SNAPSHOT_BYTES = _env_int("SNAPSHOT_BYTES", type(self).SNAPSHOT_BYTES)
+        self.WATCH_CACHE_SIZE = _env_int("WATCH_CACHE_SIZE", type(self).WATCH_CACHE_SIZE)
+        self.EVENT_RETENTION = _env_int("EVENT_RETENTION", type(self).EVENT_RETENTION)
+        # slow consumers closed with 410
         self.watch_evictions = 0
         self._types: dict[str, TypeInfo] = {}
         self._store: dict[str, dict[tuple[str, str], Obj]] = {}
@@ -218,6 +347,13 @@ class APIServer:
         self._watches: list[Watch] = []
         self._hooks: list[_Hook] = []
         self._event_index: dict[tuple, str] = {}
+        # bounded watch cache: (rv, kind, namespace, etype, frozen obj) —
+        # the resume window behind watch(resource_version=…)
+        self._event_log: deque[tuple[int, str, str, str, Obj]] = deque()
+        # highest rv dropped from the log; resuming BELOW it is Expired
+        # (a gap we can no longer fill) — resuming exactly at it is fine:
+        # that client saw the newest dropped event
+        self._compacted_rv = 0
         for api_version, kind, plural, namespaced in BUILTIN_KINDS:
             self.register_kind(api_version, kind, plural, namespaced)
 
@@ -226,10 +362,39 @@ class APIServer:
     def register_kind(
         self, api_version: str, kind: str, plural: str, namespaced: bool = True
     ) -> None:
+        entry = None
         with self._lock:
+            fresh = kind not in self._types
             self._types[kind] = TypeInfo(api_version, kind, plural, namespaced)
             self._store.setdefault(kind, {})
             self._ns_buckets.setdefault(kind, {})
+            # dynamic (CRD) registrations must survive a restart or the
+            # replay of their objects would hit an unknown kind; builtin
+            # kinds re-register from code, so only log the rest
+            if (
+                fresh
+                and self._wal is not None
+                and not self._replaying
+                and kind not in _BUILTIN_KIND_NAMES
+            ):
+                entry = self._enqueue_entry(
+                    _WalEntry(
+                        record={
+                            "op": "register",
+                            "rv": self._rv,
+                            "apiVersion": api_version,
+                            "kind": kind,
+                            "plural": plural,
+                            "namespaced": namespaced,
+                        },
+                        etype="register",
+                        kind=kind,
+                        key=None,
+                        obj=None,
+                        rv=self._rv,
+                    )
+                )
+        self._await(entry)
 
     def type_info(self, kind: str) -> TypeInfo:
         try:
@@ -292,14 +457,448 @@ class APIServer:
             if not bucket:
                 del self._ns_buckets[kind][key[0]]
 
-    def _apply(self, event_type: str, kind: str, key: tuple[str, str], obj: Obj) -> None:
-        """Apply one mutation to the maps and fan out its watch event
-        (under the store lock)."""
+    # -- durability (group-commit write-ahead log) ---------------------------
+
+    def _check_wal_alive(self) -> None:
+        """Fail fast at prepare time when the WAL can no longer make
+        writes durable: fail-stop after an IO failure, CrashPoint replay
+        after a simulated process death."""
+        from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
+
+        if self._wal_dead is not None:
+            raise CrashPoint(f"process already dead ({self._wal_dead})")
+        if self._closed:
+            raise APIError("store is closed; mutations rejected")
+        if self._wal_broken:
+            raise APIError(
+                "write-ahead log failed earlier; store is fail-stop for mutations"
+            )
+
+    def attach_metrics(self, registry) -> None:
+        """Expose the write path's durability pipeline: ``wal_fsync_total``
+        (one per group-commit batch), ``wal_group_commit_batch_size``
+        (records covered by each fsync) and ``wal_commit_ack_seconds``
+        (prepare → durable ack, the latency every writer waits), plus
+        ``watch_consumers_evicted_total``. The WAL pipeline metrics are a
+        no-op without a WAL."""
+        self._m_evicted = registry.counter(
+            "watch_consumers_evicted_total",
+            "Watch consumers closed with 410 Expired after falling "
+            "more than the bounded backlog behind",
+        )
+        registry.register_collector(self._flush_eviction_counter)
+        if self._wal is None:
+            return
+        self._m_fsync = registry.counter(
+            "wal_fsync_total",
+            "WAL fsyncs issued (one covers a whole group-commit batch)",
+        )
+        self._m_batch = registry.histogram(
+            "wal_group_commit_batch_size",
+            "Records made durable by one group-commit fsync",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+        )
+        self._m_ack = registry.histogram(
+            "wal_commit_ack_seconds",
+            "Commit pipeline latency: mutation prepared to durable ack",
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+        )
+        registry.register_collector(self._flush_wal_counters)
+
+    def _flush_wal_counters(self):
+        wal = self._wal
+        if wal is not None:
+            with self._wal_metrics_lock:
+                n = wal.fsync_total
+                delta = n - self._wal_fsync_seen
+                if delta > 0:
+                    self._m_fsync.inc(by=delta)
+                    self._wal_fsync_seen = n
+        return ()
+
+    def _flush_eviction_counter(self):
+        with self._wal_metrics_lock:
+            n = self.watch_evictions
+            delta = n - self._evictions_seen
+            if delta > 0:
+                self._m_evicted.inc(by=delta)
+                self._evictions_seen = n
+        return ()
+
+    def _enqueue_entry(self, entry: _WalEntry) -> _WalEntry:
+        """Hand a prepared entry to the committer (called under the store
+        lock, so queue order == rv order)."""
+        self._check_wal_alive()
+        if self._committer is None:
+            self._committer = threading.Thread(
+                target=self._committer_loop, name="apiserver-wal-committer", daemon=True
+            )
+            self._committer.start()
+        self._commitq.put(entry)
+        return entry
+
+    def _commit_mutation(
+        self, event_type: str, kind: str, key: tuple[str, str], obj: Obj
+    ) -> Optional[_WalEntry]:
+        """Commit one prepared mutation (under the store lock). With a WAL
+        the record is enqueued to the group committer and the (kind, key)
+        marked pending — later prepares see it through ``_effective``,
+        public reads do not until it is durable AND applied. Without a
+        WAL it applies inline. Returns the entry the caller must
+        ``_await`` after releasing the lock (None when applied inline)."""
+        try:
+            rv = int(obj["metadata"]["resourceVersion"])
+        except (KeyError, TypeError, ValueError):
+            rv = self._rv
+        if self._wal is None or self._replaying:
+            self._apply_record(event_type, kind, key, obj, rv)
+            return None
+        entry = _WalEntry(
+            record={"rv": rv, "etype": event_type, "obj": obj},
+            etype=event_type,
+            kind=kind,
+            key=key,
+            obj=obj,
+            rv=rv,
+        )
+        # enqueue BEFORE marking pending: a dead/fail-stop/closed store
+        # raises here, and a phantom pending entry would make later
+        # validations answer for a record that was never durable
+        self._enqueue_entry(entry)
+        self._pending[(kind, key)] = entry
+        return entry
+
+    def _await(self, entry: Optional[_WalEntry]) -> None:
+        """Block until the entry's covering fsync + apply completed — the
+        ack-after-durable wait. Never called while holding the store lock
+        (the committer needs it to apply)."""
+        if entry is None:
+            return
+        entry.done.wait()
+        if entry.error is not None:
+            raise entry.error
+
+    def _effective(
+        self, kind: str, key: tuple[str, str]
+    ) -> tuple[Optional[Obj], Optional[_WalEntry]]:
+        """The (object, in-flight entry) a mutation-path validation must
+        see: the newest pending record for the key when one exists, else
+        the applied store state."""
+        entry = self._pending.get((kind, key))
+        if entry is not None:
+            return (None if entry.etype == "DELETED" else entry.obj), entry
+        return self._store[kind].get(key), None
+
+    def _iter_effective(self, kind: str) -> list[Obj]:
+        """Every live object of ``kind`` through the pending overlay
+        (mutation-path scans: cascade deletion)."""
+        per_kind = self._store[kind]
+        if not self._pending:
+            return list(per_kind.values())
+        out = []
+        for key, obj in per_kind.items():
+            entry = self._pending.get((kind, key))
+            if entry is None:
+                out.append(obj)
+            elif entry.etype != "DELETED":
+                out.append(entry.obj)
+        for (pkind, key), entry in self._pending.items():
+            if pkind == kind and key not in per_kind and entry.etype != "DELETED":
+                out.append(entry.obj)
+        return out
+
+    def _apply_record(
+        self, event_type: str, kind: str, key: tuple[str, str], obj: Obj, rv: int
+    ) -> None:
+        """Apply one durable record to the maps and fan out its watch
+        event (under the store lock): inline for the in-memory store, on
+        the committer thread (in rv order) for the durable one."""
         if event_type == "DELETED":
             self._drop(kind, key)
         else:
             self._put(kind, key, obj)
-        self._notify(event_type, obj)
+        if rv > self._applied_rv:
+            self._applied_rv = rv
+        self._notify(event_type, obj, rv)
+
+    def _committer_loop(self) -> None:
+        """The group committer: drain every queued entry, cover the batch
+        with ONE fsync (or one per record when ``group_commit`` is off),
+        apply in rv order under the store lock, then release the waiters.
+        IO failure is fail-stop for all current and future mutations;
+        CrashPoint (the drills' simulated process death) is replayed to
+        every waiter."""
+        from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
+
+        while True:
+            entry = self._commitq.get()
+            if entry is None:
+                return
+            batch = [entry]
+
+            def _drain() -> int:
+                n = 0
+                while True:
+                    try:
+                        nxt = self._commitq.get_nowait()
+                    except queue.Empty:
+                        return n
+                    if nxt is None:  # shutdown sentinel: finish batch
+                        self._commitq.put(None)
+                        return n
+                    batch.append(nxt)
+                    n += 1
+
+            _drain()
+            if self.group_commit:
+                # bounded linger: writers just released by the previous
+                # batch need a moment to re-prepare; keep absorbing while
+                # arrivals continue, up to the last batch's size (a lone
+                # serial writer, hwm 1, pays no linger); four empty rounds
+                # in a row mean the writers are gone
+                empty = 0
+                for _ in range(8 + 2 * self._batch_hwm):
+                    if len(batch) >= self._batch_hwm:
+                        break
+                    time.sleep(self.GROUP_COMMIT_LINGER)
+                    if _drain():
+                        empty = 0
+                    else:
+                        empty += 1
+                        if empty >= 4:
+                            break
+                self._batch_hwm = len(batch)
+            groups = [batch] if self.group_commit else [[e] for e in batch]
+            for gi, group in enumerate(groups):
+                try:
+                    with self._wal.io_lock:
+                        for e in group:
+                            self._wal.write_record(e.record)
+                        self._wal.sync()
+                except BaseException as e:  # noqa: BLE001 — incl. CrashPoint
+                    rest = [x for g in groups[gi + 1:] for x in g]
+                    self._commit_failed(group + rest, e)
+                    return
+                with self._lock:
+                    for e in group:
+                        if e.etype != "register":
+                            self._apply_record(e.etype, e.kind, e.key, e.obj, e.rv)
+                        if self._pending.get((e.kind, e.key)) is e:
+                            del self._pending[(e.kind, e.key)]
+                if self._m_batch is not None:
+                    self._m_batch.observe(len(group))
+                ack_t = time.perf_counter()
+                for e in group:
+                    if self._m_ack is not None:
+                        self._m_ack.observe(max(ack_t - e.prepared_at, 0.0))
+                    e.done.set()
+            # snapshot cadence at the batch boundary: every record on disk
+            # is applied here, so the cut covers the whole log. Waiters
+            # were already released — the snapshot delays no ack.
+            try:
+                self._maybe_snapshot()
+            except CrashPoint as e:
+                self._commit_failed([], e)
+                return
+
+    def _commit_failed(self, entries: list[_WalEntry], exc: BaseException) -> None:
+        """Fail every in-flight and queued waiter and stop committing:
+        CrashPoint replays the simulated death to each waiter (and to
+        every later mutation); any other failure is fail-stop with an
+        APIError (the write was never acked)."""
+        from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
+
+        crashed = isinstance(exc, CrashPoint)
+        # stop-the-world flag FIRST (under the lock every enqueue also
+        # holds): after this no new entry can enter the queue, so the
+        # drain below catches every waiter that ever got in
+        with self._lock:
+            if crashed:
+                self._wal_dead = exc
+            else:
+                self._wal_broken = True
+                log.error("WAL append failed; store is now fail-stop: %s", exc)
+        while True:
+            try:
+                queued = self._commitq.get_nowait()
+            except queue.Empty:
+                break
+            if queued is not None:
+                entries = entries + [queued]
+        with self._lock:
+            for e in entries:
+                e.error = exc if crashed else APIError(f"write-ahead log append failed: {exc}")
+                if self._pending.get((e.kind, e.key)) is e:
+                    del self._pending[(e.kind, e.key)]
+        for e in entries:
+            e.done.set()
+
+    def close(self) -> None:
+        """Stop the committer thread and reject later mutations. Joins the
+        thread so in-flight batches finish first — a mutation that slipped
+        in before close still acks durable; one issued after close raises.
+        Flushes nothing: every acked write is already durable."""
+        with self._lock:
+            self._closed = True
+            committer, self._committer = self._committer, None
+        if committer is not None:
+            self._commitq.put(None)
+            committer.join(timeout=30)
+
+    def _maybe_snapshot(self) -> None:
+        """Snapshot cadence check on the committer thread at a batch
+        boundary: SNAPSHOT_INTERVAL records or SNAPSHOT_BYTES of WAL tail,
+        whichever trips first. A failure is logged and retried after
+        another interval: the WAL still holds every acked write."""
+        if self._wal is None or self._replaying or self._wal_broken:
+            return
+        due = (
+            self.SNAPSHOT_INTERVAL > 0
+            and self._wal.records_since_snapshot >= self.SNAPSHOT_INTERVAL
+        ) or (
+            self.SNAPSHOT_BYTES > 0
+            and self._wal.bytes_since_snapshot >= self.SNAPSHOT_BYTES
+        )
+        if not due:
+            return
+        from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
+
+        try:
+            self.snapshot_now()
+        except CrashPoint:
+            raise
+        except Exception as e:  # noqa: BLE001 — disk full, injected fault
+            log.warning("snapshot failed (will retry next interval): %s", e)
+            self._wal.records_since_snapshot = 0
+            self._wal.bytes_since_snapshot = 0
+
+    def _snapshot_cut(self) -> Obj:
+        """A consistent cut of the APPLIED store, collected under the lock
+        as shallow references — stored objects are never mutated in place
+        once written, so the serialization can run OFF the lock."""
+        with self._lock:
+            return {
+                "rv": self._applied_rv,
+                "compacted_rv": self._compacted_rv,
+                "types": [
+                    [t.api_version, t.kind, t.plural, t.namespaced]
+                    for t in self._types.values()
+                    if t.kind not in _BUILTIN_KIND_NAMES
+                ],
+                "objects": [
+                    obj for per_kind in self._store.values() for obj in per_kind.values()
+                ],
+                # the bounded watch cache rides along so rv resumes keep
+                # working across a restart beyond the WAL tail
+                "events": [list(e) for e in self._event_log],
+            }
+
+    def snapshot_now(self) -> None:
+        """Write a full-state snapshot and rotate/GC the WAL. The cut is
+        pointer collection under the store lock; the serialization and
+        the snapshot-file IO run off it (the WAL's max-rv segment GC keeps
+        concurrent appends safe)."""
+        if self._wal is None:
+            raise APIError("no write-ahead log attached")
+        state = self._snapshot_cut()
+        self._wal.snapshot(state, state["rv"])
+
+    @classmethod
+    def recover(
+        cls,
+        wal: Any,
+        snapshot_interval: Optional[int] = None,
+        snapshot_bytes: Optional[int] = None,
+        group_commit: bool = True,
+    ) -> "APIServer":
+        """Rebuild a store from its WAL directory: newest snapshot, then
+        the WAL tail (records with rv above the snapshot), restoring the
+        objects, the rv counter, dynamic kind registrations, the Event
+        dedupe index and the bounded watch cache. ``_compacted_rv`` is
+        raised to the recovered window's floor so rv resumes below it
+        surface 410 Expired — never a silent restart from empty."""
+        snap, records = wal.recover()
+        srv = cls(
+            snapshot_interval=snapshot_interval,
+            snapshot_bytes=snapshot_bytes,
+            group_commit=group_commit,
+        )
+        srv._replaying = True
+        try:
+            snap_rv = 0
+            if snap is not None:
+                snap_rv = int(snap.get("rv", 0))
+                for api_version, kind, plural, namespaced in snap.get("types", []):
+                    srv.register_kind(api_version, kind, plural, namespaced)
+                for obj in snap.get("objects", []):
+                    info = srv.type_info(obj.get("kind", ""))
+                    meta = obj.get("metadata", {})
+                    key = srv._key(
+                        info,
+                        meta.get("namespace") if info.namespaced else None,
+                        meta.get("name", ""),
+                    )
+                    srv._put(info.kind, key, obj)
+                srv._rv = snap_rv
+                srv._compacted_rv = int(snap.get("compacted_rv", 0))
+                for rv, kind, ns, etype, obj in snap.get("events", []):
+                    srv._event_log.append((int(rv), kind, ns, etype, obj_util.freeze(obj)))
+            for rec in records:
+                if rec.get("op") == "register":
+                    srv.register_kind(
+                        rec["apiVersion"],
+                        rec["kind"],
+                        rec["plural"],
+                        bool(rec.get("namespaced", True)),
+                    )
+                    continue
+                rv = int(rec.get("rv", 0))
+                if rv <= snap_rv:
+                    continue  # the snapshot already covers it
+                etype, obj = rec.get("etype", ""), rec.get("obj") or {}
+                kind = obj.get("kind", "")
+                info = srv.type_info(kind)  # loud NotFound on unknown kind
+                meta = obj.get("metadata", {})
+                ns = meta.get("namespace") if info.namespaced else None
+                key = srv._key(info, ns, meta.get("name", ""))
+                if etype == "DELETED":
+                    srv._drop(kind, key)
+                else:
+                    srv._put(kind, key, obj_util.deepcopy(obj))
+                srv._rv = max(srv._rv, rv)
+                srv._event_log.append(
+                    (rv, kind, meta.get("namespace", ""), etype, obj_util.freeze(obj))
+                )
+                while len(srv._event_log) > srv.WATCH_CACHE_SIZE:
+                    srv._compacted_rv = max(srv._compacted_rv, srv._event_log.popleft()[0])
+            # resume-window floor: a resume needs every event after its
+            # rv; below (oldest retained − 1) must 410. An empty window
+            # (fresh log) stays at the snapshot floor; a non-empty history
+            # with no retained events can only resume from the present.
+            if srv._event_log:
+                srv._compacted_rv = max(srv._compacted_rv, srv._event_log[0][0] - 1)
+            elif srv._rv:
+                srv._compacted_rv = max(srv._compacted_rv, srv._rv)
+            # Event dedupe index: rebuilt from the recovered Events so
+            # repeat emissions keep deduping instead of duplicating
+            for ev in srv._store.get("Event", {}).values():
+                inv = ev.get("involvedObject", {})
+                srv._event_index[
+                    (
+                        ev.get("metadata", {}).get("namespace", "default"),
+                        inv.get("kind", ""),
+                        inv.get("name", ""),
+                        inv.get("uid", ""),
+                        ev.get("reason", ""),
+                        ev.get("message", ""),
+                        ev.get("type", "Normal"),
+                    )
+                ] = ev.get("metadata", {}).get("name", "")
+        finally:
+            srv._replaying = False
+        srv._applied_rv = srv._rv
+        srv._wal = wal
+        return srv
 
     # -- CRUD ---------------------------------------------------------------
 
@@ -321,7 +920,8 @@ class APIServer:
             name = meta["name"]
             namespace = meta.get("namespace") if info.namespaced else None
             key = self._key(info, namespace, name)
-            if self._store[kind].get(key) is not None:
+            current, _ = self._effective(kind, key)
+            if current is not None:
                 raise AlreadyExists(f"{kind} {namespace or ''}/{name} exists")
             if dry_run:
                 return obj
@@ -343,8 +943,11 @@ class APIServer:
             meta["creationTimestamp"] = obj_util.now_rfc3339()
             meta["generation"] = 1
             meta["resourceVersion"] = self._next_rv()
-            self._apply("ADDED", kind, key, obj)
-            return obj_util.deepcopy(obj)
+            # durable before applied or acked (log → fsync → apply →
+            # ack); inline apply when no WAL is attached
+            entry = self._commit_mutation("ADDED", kind, key, obj)
+        self._await(entry)
+        return obj_util.deepcopy(obj)
 
     def get(self, kind: str, name: str, namespace: Optional[str] = None) -> Obj:
         info = self.type_info(kind)
@@ -396,7 +999,7 @@ class APIServer:
         namespace = meta.get("namespace") if info.namespaced else None
         with self._lock:
             key = self._key(info, namespace, name)
-            current = self._store[kind].get(key)
+            current, cur_entry = self._effective(kind, key)
             if current is None:
                 raise NotFound(f"{kind} {namespace or ''}/{name} not found")
             sent_rv = meta.get("resourceVersion")
@@ -442,15 +1045,21 @@ class APIServer:
                 return top, m
 
             if _cmp_view(obj) == _cmp_view(current):
-                return obj_util.deepcopy(current)
-            obj["metadata"]["resourceVersion"] = self._next_rv()
-            self._apply("MODIFIED", kind, key, obj)
-            # a finalizer removal may release a pending delete
-            if obj["metadata"].get("deletionTimestamp") and not obj[
-                "metadata"
-            ].get("finalizers"):
-                self._remove(info, obj)
-            return obj_util.deepcopy(obj)
+                result = obj_util.deepcopy(current)
+                # the matched state may itself still be in flight through
+                # the committer: ack only after ITS covering fsync
+                entry = cur_entry
+            else:
+                obj["metadata"]["resourceVersion"] = self._next_rv()
+                entry = self._commit_mutation("MODIFIED", kind, key, obj)
+                # a finalizer removal may release a pending delete
+                if obj["metadata"].get("deletionTimestamp") and not obj[
+                    "metadata"
+                ].get("finalizers"):
+                    entry = self._remove(info, obj) or entry
+                result = obj_util.deepcopy(obj)
+        self._await(entry)
+        return result
 
     def update(self, obj: Obj) -> Obj:
         return self._update_inner(obj, status_only=False)
@@ -466,7 +1075,10 @@ class APIServer:
         namespace: Optional[str] = None,
     ) -> Obj:
         """JSON merge patch as read-merge-write with server-side Conflict
-        retries (the kube-apiserver guaranteedUpdate shape)."""
+        retries (the kube-apiserver guaranteedUpdate shape). Not under one
+        lock hold: the update's ack-after-durable wait never runs under
+        the store lock, so a racing writer surfaces as Conflict and the
+        merge is re-applied to the fresh object."""
 
         def attempt() -> Obj:
             current = self.get(kind, name, namespace)
@@ -487,53 +1099,67 @@ class APIServer:
 
     def delete(self, kind: str, name: str, namespace: Optional[str] = None) -> None:
         with self._lock:
-            self._delete_locked(kind, name, namespace)
+            entry = self._delete_locked(kind, name, namespace)
+        self._await(entry)
 
-    def _delete_locked(self, kind: str, name: str, namespace: Optional[str]) -> None:
+    def _delete_locked(
+        self, kind: str, name: str, namespace: Optional[str]
+    ) -> Optional[_WalEntry]:
         info = self.type_info(kind)
         key = self._key(info, namespace, name)
-        current = self._store[kind].get(key)
+        current, _ = self._effective(kind, key)
         if current is None:
             raise NotFound(f"{kind} {namespace or ''}/{name} not found")
         if current["metadata"].get("finalizers"):
             if not current["metadata"].get("deletionTimestamp"):
+                # on a private copy, so log-then-apply holds: nothing
+                # visible changes if the append fails
                 current = obj_util.deepcopy(current)
                 current["metadata"]["deletionTimestamp"] = obj_util.now_rfc3339()
                 current["metadata"]["resourceVersion"] = self._next_rv()
-                self._apply("MODIFIED", kind, key, current)
-            return
-        self._remove(info, current)
+                return self._commit_mutation("MODIFIED", kind, key, current)
+            return None
+        return self._remove(info, current)
 
-    def _remove(self, info: TypeInfo, current: Obj) -> None:
+    def _remove(self, info: TypeInfo, current: Obj) -> Optional[_WalEntry]:
         key = self._key(
             info,
             current["metadata"].get("namespace") if info.namespaced else None,
             current["metadata"]["name"],
         )
         # a deletion is a new cluster state: stamp a FRESH rv so the
-        # watch cache orders it after the last modification
+        # watch cache orders it after the last modification (on a
+        # private copy: a failed append leaves the stored object as it was)
         current = obj_util.deepcopy(current)
         current["metadata"]["resourceVersion"] = self._next_rv()
-        self._apply("DELETED", info.kind, key, current)
-        self._cascade(current)
+        entry = self._commit_mutation("DELETED", info.kind, key, current)
+        return self._cascade(current) or entry
 
-    def _cascade(self, owner: Obj) -> None:
-        """Foreground GC: delete dependents referencing the owner uid."""
+    def _cascade(self, owner: Obj) -> Optional[_WalEntry]:
+        """Foreground GC: delete dependents referencing the owner uid, at
+        prepare time under the store lock, reading through the pending
+        overlay; returns the last enqueued entry so the outermost verb
+        can await the whole cascade's covering fsync."""
         owner_uid = owner["metadata"].get("uid")
         if not owner_uid:
-            return
+            return None
+        last: Optional[_WalEntry] = None
         for kind in list(self._store):
-            for stored in list(self._store[kind].values()):
+            for stored in self._iter_effective(kind):
                 refs = stored["metadata"].get("ownerReferences") or []
                 if any(r.get("uid") == owner_uid for r in refs):
                     try:
-                        self._delete_locked(
-                            kind,
-                            stored["metadata"]["name"],
-                            stored["metadata"].get("namespace"),
+                        last = (
+                            self._delete_locked(
+                                kind,
+                                stored["metadata"]["name"],
+                                stored["metadata"].get("namespace"),
+                            )
+                            or last
                         )
                     except NotFound:
                         pass
+        return last
 
     # -- watches ------------------------------------------------------------
 
@@ -542,13 +1168,37 @@ class APIServer:
         kind: str,
         namespace: Optional[str] = None,
         send_initial: bool = True,
+        resource_version: Optional[str] = None,
     ) -> Watch:
         """Open a watch stream: an ADDED event for each current object
-        (unless ``send_initial`` is False), then every live event."""
+        (unless ``send_initial`` is False), then every live event.
+        ``resource_version`` resumes from a previously observed rv: the
+        events after it replay from the watch cache, then the stream goes
+        live — no initial dump. A resume point below the retained window
+        raises :class:`Expired` (410); resuming exactly AT the compaction
+        floor is fine. The caller relists on 410."""
         info = self.type_info(kind)
         with self._lock:
             w = Watch(self, kind, namespace)
-            if send_initial:
+            if resource_version is not None:
+                try:
+                    rv = int(resource_version)
+                except (TypeError, ValueError):
+                    raise Invalid(
+                        f"resourceVersion {resource_version!r} is not numeric"
+                    ) from None
+                if rv < self._compacted_rv:
+                    raise Expired(
+                        f"resourceVersion {rv} is too old (oldest resumable "
+                        f"is {self._compacted_rv})"
+                    )
+                for erv, ekind, ens, etype, obj in self._event_log:
+                    if erv <= rv or ekind != kind:
+                        continue
+                    if namespace and ens != namespace:
+                        continue
+                    w._enqueue((etype, obj))
+            elif send_initial:
                 # frozen shared replay: watch consumers are readers
                 if info.namespaced and namespace:
                     items = self._ns_buckets[kind].get(namespace, {}).values()
@@ -557,10 +1207,27 @@ class APIServer:
                 for item in items:
                     w._enqueue(("ADDED", obj_util.freeze(item)))
             # the slow-consumer bound covers the LIVE backlog on top of
-            # whatever the initial dump just queued
+            # whatever the replay/initial dump just queued
             w.maxsize = w._q.qsize() + self.WATCH_CACHE_SIZE
             self._watches.append(w)
             return w
+
+    def applied_rv(self) -> int:
+        """The durable-and-applied rv horizon reads are served at."""
+        with self._lock:
+            return self._applied_rv
+
+    def state_digest(self) -> str:
+        """sha256 over the canonical serialization of every applied object
+        in (kind, key) order: two stores with equal digests serve
+        byte-identical reads."""
+        h = hashlib.sha256()
+        with self._lock:
+            for kind in sorted(self._store):
+                per_kind = self._store[kind]
+                for key in sorted(per_kind):
+                    h.update(serialize.dumps(per_kind[key]))
+        return h.hexdigest()
 
     def _remove_watch(self, w: Watch) -> None:
         with self._lock:
@@ -574,15 +1241,23 @@ class APIServer:
         with self._lock:
             self.watch_evictions += 1
 
-    def _notify(self, event_type: str, obj: Obj) -> None:
+    def _notify(self, event_type: str, obj: Obj, rv: Optional[int] = None) -> None:
         kind = obj.get("kind", "")
         meta = obj.get("metadata", {})
         ns = meta.get("namespace", "")
-        # ONE frozen snapshot per event, shared by every watcher: later
-        # store mutations cannot leak into delivered events, and a reader
-        # that tries to mutate gets FrozenObjectError instead of
-        # corruption
+        if rv is None:
+            try:
+                rv = int(meta.get("resourceVersion", self._rv))
+            except (TypeError, ValueError):
+                rv = self._rv
+        # ONE frozen snapshot per event, shared by every watcher and the
+        # watch cache: later store mutations cannot leak into delivered
+        # events, and a reader that tries to mutate gets
+        # FrozenObjectError instead of corruption
         shared = obj_util.freeze(obj)
+        self._event_log.append((rv, kind, ns, event_type, shared))
+        while len(self._event_log) > self.WATCH_CACHE_SIZE:
+            self._compacted_rv = max(self._compacted_rv, self._event_log.popleft()[0])
         for w in list(self._watches):
             if w.kind == kind and (not w.namespace or w.namespace == ns):
                 w._enqueue((event_type, shared))
@@ -656,6 +1331,7 @@ class APIServer:
         return created
 
     def _prune_events(self, namespace: str) -> None:
+        last: Optional[_WalEntry] = None
         with self._lock:
             info = self.type_info("Event")
             bucket = self._ns_buckets["Event"].get(namespace, {})
@@ -670,13 +1346,19 @@ class APIServer:
             drop = names[: len(names) - self.EVENT_RETENTION]
             for _, name in drop:
                 key = self._key(info, namespace, name)
-                expired = self._store["Event"].get(key)
+                # through the pending overlay: a concurrent emitter's
+                # prune may already have a DELETED in flight for this key
+                expired, entry = self._effective("Event", key)
                 if expired is not None:
-                    # watchers must see the expiry (DELETED, fresh rv)
+                    # watchers must see the expiry (DELETED, fresh rv on a
+                    # private copy)
                     expired = obj_util.deepcopy(expired)
                     expired["metadata"]["resourceVersion"] = self._next_rv()
-                    self._apply("DELETED", "Event", key, expired)
+                    last = self._commit_mutation("DELETED", "Event", key, expired) or last
+                elif entry is None:
+                    self._drop("Event", key)
             dead = {name for _, name in drop}
             self._event_index = {
                 k: v for k, v in self._event_index.items() if v not in dead
             }
+        self._await(last)

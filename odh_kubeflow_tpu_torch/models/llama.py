@@ -330,11 +330,15 @@ def param_specs(cfg: LlamaConfig) -> Params:
 INT_MM_MIN_ROWS = 32
 
 
-def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _quant_act(x: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token symmetric int8 activation quant → (xq, scale). Split out
     of ``_int8_matmul`` so projections that share an input (wq/wk/wv,
-    gate/up) quantize it once."""
+    gate/up) quantize it once. ``tp``: ``x`` holds this rank's columns of
+    each row (a row-parallel product's input), so the per-token amax is
+    the max over the tensor group, the whole row's, as GSPMD reads it."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        amax = col.all_reduce_max(amax, tp)
     sx = torch.clamp(amax.to(torch.float32), min=1e-8) / 127.0
     xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
     return xq, sx
@@ -354,11 +358,15 @@ def _int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_matmul_pre(
-    xq: torch.Tensor, sx: torch.Tensor, w: dict, out_dtype
+    xq: torch.Tensor, sx: torch.Tensor, w: dict, out_dtype, tp=None
 ) -> torch.Tensor:
     """s8×s8 product on a pre-quantized activation, rescaled by the
-    activation scale times the per-channel weight scale."""
+    activation scale times the per-channel weight scale. ``tp``: a
+    row-parallel product's partial int32 sums add over the tensor group
+    before the rescale (exact, as one device's)."""
     acc = _int8_product(xq.reshape(-1, xq.shape[-1]), w["q"])
+    if tp is not None:
+        acc = col.all_reduce_sum(acc, tp)
     acc = acc.reshape(*xq.shape[:-1], acc.shape[-1])
     return (acc.to(torch.float32) * sx * w["scale"][0][None, :]).to(out_dtype)
 
@@ -389,7 +397,9 @@ def _maybe_lora(
     group), and so does its adapter's ``x @ a``; a row-parallel one sums
     its partial product, and its adapter's, with ``all_reduce``."""
     row = tp is not None and name in ROW_PARALLEL
-    if isinstance(w, dict):
+    if isinstance(w, dict) and row:
+        y = _int8_matmul_pre(*_quant_act(x, tp), w, x.dtype, tp)
+    elif isinstance(w, dict):
         y = _int8_matmul_pre(*xq_sx, w, x.dtype) if xq_sx is not None else _int8_matmul(x, w)
     elif row:
         y = col.all_reduce(x @ w.to(x.dtype), tp)
@@ -1048,11 +1058,10 @@ def forward_with_cache(
     its KV heads): each layer's weights are gathered over fsdp, the
     projections run tensor-parallel as in ``forward`` and the cache holds
     the rank's heads; the vocab-parallel logits are gathered over tensor,
-    so every rank returns whole ``[B, S, V]`` logits. W8A8 runs under a mesh
-    whose tensor axis is 1 (the int8 weights gathered over fsdp, the
-    products the one-device ones); under tensor > 1 it is refused: a
-    row-parallel product would quantize its activation by the amax of the
-    rank's columns only, where JAX's GSPMD reads the whole row's.
+    so every rank returns whole ``[B, S, V]`` logits. W8A8 runs under any
+    serving mesh: the int8 weights are gathered over fsdp, a row-parallel
+    product quantizes its input by the whole row's amax (one all-reduce
+    MAX over tensor) and sums its int32 partial products over tensor.
     """
     _check_supported(cfg)
     par = None
@@ -1061,12 +1070,6 @@ def forward_with_cache(
 
         check_serving_mesh(mesh, cfg)
         par = Sharding(mesh, cfg)
-        if cfg.w8a8_decode and par.tp is not None:
-            raise NotImplementedError(
-                "w8a8_decode under a mesh with tensor > 1: the row-parallel products' "
-                "activation quantization would read one rank's columns; serve W8A8 "
-                "with tensor=1"
-            )
     sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     table = params["embed"]
     x = (table[tokens] if par is None else par.embed(table, tokens)).to(cfg.dtype)
@@ -1092,9 +1095,10 @@ def forward_with_cache(
     head = params.get("lm_head")
     if cfg.w8a8_decode and isinstance(head, dict) and set(head) == {"q", "scale"}:
         # the largest decode product (D × V) as W8A8, float32 logits
-        if par is not None:
-            head = par.weight("lm_head", head)
-        return _int8_matmul(x, head, out_dtype=torch.float32), cache
+        if par is None:
+            return _int8_matmul(x, head, out_dtype=torch.float32), cache
+        logits = _int8_matmul(x, par.weight("lm_head", head), out_dtype=torch.float32)
+        return col.gather_dim(logits, par.tp, logits.ndim - 1), cache
     head = lm_head_weight(params, cfg) if par is None else par.head(params, cfg)
     logits = _logits(x, head, cfg.dtype)
     if par is not None:

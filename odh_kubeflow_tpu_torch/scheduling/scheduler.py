@@ -37,7 +37,8 @@ checkpoint-then-preempt and an overcommitted pool asks idle sessions to
 yield (``_plan_suspend_reclaim``); without one every preemption and
 every drain is a hard kill, as the JAX scheduler's is. An admission of
 a Workload that carries a spawn trace is its ``scheduler.admit`` span.
-The usage meter is not ported yet (ROADMAP.md).
+A ``meter`` (``machinery.usage.UsageMeter``) opens an allocation after
+each Admitted write and closes it on every evict path.
 
 The cycle is a pure function of cluster state: snapshot, charge
 admitted, scan pending, write statuses. Re-running it with no state
@@ -96,9 +97,13 @@ class SliceScheduler:
         suspender: Optional[Any] = None,
         zone_storm_threshold: int = 2,
         zone_drain_cooldown: float = 60.0,
+        meter: Optional[Any] = None,
     ):
         self.api = api
         self.now = time_fn
+        # GPU-second ledger tap (machinery.usage.UsageMeter duck:
+        # workload_admitted / workload_released). None → no metering.
+        self.meter = meter
         # gangs losing nodes in ONE zone in ONE cycle before per-node
         # eviction escalates to a full zone drain
         self.zone_storm_threshold = max(int(zone_storm_threshold), 1)
@@ -794,6 +799,8 @@ class SliceScheduler:
         if written:
             self.m_wait.observe(wait)
             self.m_attempts.inc({"result": "admitted"})
+            if self.meter is not None:
+                self.meter.workload_admitted(wl)
             self._record(
                 wl,
                 "Normal",
@@ -1045,6 +1052,11 @@ class SliceScheduler:
                 "queuedAt": obj_util.now_rfc3339(),
             }
         )
+        if self.meter is not None:
+            # the gang pods are already gone whatever happens to the
+            # status write — the allocation ended here (close is
+            # idempotent, so a conflict-retried evict cannot double it)
+            self.meter.workload_released(ns, name, reason=metric_reason)
         if self._write_status(wl):
             self.m_preemptions.inc({"reason": metric_reason})
             self._record(wl, "Warning", reason, message)

@@ -25,9 +25,10 @@ the SessionCheckpoint state machine:
 
 Snapshot/restore IO is blocking (checkpoint writes, HTTP hooks) and
 runs only from reconcile bodies — never under store locks. A restore is
-the ``session.restore`` span of the notebook's trace. The JAX manager's
-usage-meter marks wait for ``machinery/usage.py``, and its split-process
-``main()`` for ``machinery/runner.py`` (ROADMAP.md).
+the ``session.restore`` span of the notebook's trace. Suspend and
+resume mark the usage meter's duty-cycle timeline (``meter``). The JAX
+manager's split-process ``main()`` waits for ``machinery/runner.py``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -174,10 +175,15 @@ class SessionManager:
         runtime: Optional[Any] = None,
         store: Optional[SessionCheckpointStore] = None,
         time_fn: Callable[[], float] = time.time,
+        meter: Optional[Any] = None,
     ):
         self.api = api
         self.config = config or SessionConfig()
         self.now = time_fn
+        # GPU-second ledger (machinery.usage.UsageMeter duck): suspend/
+        # restore transitions annotate the duty-cycle timeline so it
+        # reads alongside the session state machine
+        self.meter = meter
         self.runtime = runtime or HttpSessionRuntime(
             cluster_domain=self.config.cluster_domain, port=self.config.agent_port
         )
@@ -413,6 +419,12 @@ class SessionManager:
             f"{receipt['sizeBytes']} bytes); releasing the GPU reservation",
         )
         self._set_phase(notebook, PHASE_SUSPENDED)
+        if self.meter is not None:
+            self.meter.mark_event(
+                obj_util.namespace_of(notebook),
+                obj_util.name_of(notebook),
+                "suspended",
+            )
         if receipt.get("degraded"):
             self.recorder.warning(
                 notebook,
@@ -556,6 +568,12 @@ class SessionManager:
             else f"session resumed without state ({result})",
         )
         self._set_phase(notebook, "")
+        if self.meter is not None:
+            self.meter.mark_event(
+                obj_util.namespace_of(notebook),
+                obj_util.name_of(notebook),
+                f"resumed:{result}",
+            )
         return Result()
 
     # -- scheduler suspender hooks (checkpoint-then-preempt) ----------------

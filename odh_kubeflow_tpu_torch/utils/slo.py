@@ -27,9 +27,10 @@ The specs read histograms and counters the port registers:
 ``controller_runtime_reconcile_total`` and its errors
 (``controllers/runtime.py``), ``session_resume_seconds``
 (``sessions/manager.py``). ``idle-waste`` reads the usage ledger's GPU
-seconds (``GPU_SECONDS_METRIC``, registered by ``machinery/usage.py``
-once it is ported; ROADMAP.md): until then it has no samples and
-evaluates to zero, as any spec whose metric is not registered does.
+seconds (``GPU_SECONDS_METRIC``, which ``machinery/usage.UsageMeter``
+registers on its registry); on a registry without a meter it has no
+samples and evaluates to zero, as any spec whose metric is not
+registered does.
 """
 
 from __future__ import annotations

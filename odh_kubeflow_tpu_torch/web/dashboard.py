@@ -14,8 +14,10 @@ The JAX package's TPU panel of ``/api/metrics`` is a GPU panel here: it
 reads capacity from each node's ``nvidia.com/gpu`` and accelerator
 label, use from the Running pods' GPU limits, and suspended GPUs from
 the sessions ledger; its JSON keys are the TPU panel's through
-``apis.ACCELERATOR_MAPPING``. Left out of the copy (ROADMAP.md): the
-usage meter (``/api/usage`` answers 503 without one, as JAX's does), the
+``apis.ACCELERATOR_MAPPING``. ``/api/usage`` serves the GPU-second
+ledger's showback from the usage meter (``machinery/usage.py``; 503
+without one, as JAX's does), and the panel's utilization column reads
+the meter's ``utilization()``. Left out of the copy (ROADMAP.md): the
 index-bucket fast path of the pod scan (the informer cache), the static
 frontend and ``main()``. Serve it in-process with
 ``DashboardApp(api).app.serve(host, port)``.
@@ -59,10 +61,9 @@ class DashboardApp:
         self.api = api
         self.kfam = kfam or KfamService(api)
         self.registry = registry or prometheus.default_registry
-        # GPU-hour ledger (machinery/usage.py's UsageMeter, once
-        # ported): feeds the /api/usage showback endpoint and the
-        # occupancy panel's utilization column; None degrades both
-        # (/api/usage answers 503)
+        # GPU-second ledger (machinery.usage.UsageMeter): feeds the
+        # /api/usage showback endpoint and the occupancy panel's
+        # utilization column; None degrades both (/api/usage answers 503)
         self.meter = meter
         # burn-rate rows for /api/slo (utils.slo.SLOEngine); built here
         # when not handed in. NOT started from the constructor — the
@@ -377,7 +378,7 @@ class DashboardApp:
             active/idle split, plus per-zone/pool/accelerator
             utilization — the economics view of the fleet (GPU-hours
             scale with compute demand, not logged-in sessions); 503
-            until a meter is wired (``machinery/usage.py``).
+            without a meter.
             ``flush=1`` forces a metering tick first (tests and ad-hoc
             curls; the serving cadence otherwise samples in the
             background)."""

@@ -21,9 +21,10 @@ opt-in label for the PodDefault webhook.
 
 Suspend-on-stop and the resume route (the sessions subsystem), the
 detail page's checkpoint and warm-handout blocks and the warm-pool claim
-at spawn (warmup) are JAX's. Left out of the copy (ROADMAP.md): the
-usage block, which waits for ``machinery/usage.py``, and ``main()``,
-which needs ``machinery/runner.py``. Serve the app in-process with
+at spawn (warmup) are JAX's, and so is the detail page's usage block,
+fed by the GPU-second ledger (``meter``, ``machinery/usage.py``). Left
+out of the copy (ROADMAP.md): ``main()``, which needs
+``machinery/runner.py``. Serve the app in-process with
 ``JupyterWebApp(api).app.serve(host, port)``.
 """
 
@@ -173,8 +174,12 @@ class JupyterWebApp(CrudBackend):
         api: APIServer,
         config_path: Optional[str] = None,
         registry=None,
+        meter=None,
     ):
         super().__init__(api, "jupyter-web-app", registry=registry)
+        # GPU-second ledger (machinery.usage.UsageMeter): the detail
+        # page's per-notebook usage block; None degrades to no block
+        self.meter = meter
         # without the sessions subsystem a suspend request would stamp
         # annotations nobody serves — the UI must not promise warm
         # state that can never exist
@@ -350,6 +355,11 @@ class JupyterWebApp(CrudBackend):
                     "workload": self._workload_row(nb),
                     "checkpoint": self._checkpoint_row(nb),
                     "warm": self._warm_row(nb),
+                    "usage": (
+                        self.meter.notebook_usage(namespace, name)
+                        if self.meter is not None
+                        else None
+                    ),
                 }
             })
 

@@ -4,8 +4,9 @@ and no kernel toolchain touched at import.
 An AST scan of every file of ``odh_kubeflow_tpu_torch/`` (its ``native/``
 packer loader and the platform's apis, machinery, controllers,
 scheduling, webhooks, web, sessions and warmup subpackages included),
-of ``tools/dryrun_multichip_torch.py`` and of
-``chip_smoke.py``, plus a fresh interpreter that imports the whole port
+of ``tools/dryrun_multichip_torch.py``, of the GPU activity agent
+(``images/jupyter-pytorch-cuda/gpu-activity-agent``, a stdlib script) and
+of ``chip_smoke.py``, plus a fresh interpreter that imports the whole port
 and must end with no JAX module loaded and no library built or loaded.
 """
 
@@ -19,6 +20,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "odh_kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "dryrun_multichip_torch.py",
+    ROOT / "images" / "jupyter-pytorch-cuda" / "gpu-activity-agent",
     ROOT / "chip_smoke.py",
 ]
 
@@ -105,6 +107,16 @@ def test_the_scan_covers_the_sessions_and_warmup_modules():
     assert {f"{pkg}/sessions/checkpoint.py", f"{pkg}/sessions/manager.py",
             f"{pkg}/warmup/__init__.py", f"{pkg}/warmup/compilecache.py",
             f"{pkg}/warmup/pool.py", f"{pkg}/ops/_build.py"} <= names
+
+
+def test_the_scan_covers_the_metering_and_durability_modules():
+    """Slice 9 part 5: the serializer, the write-ahead log, fault
+    injection, the usage meter and the GPU activity agent."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "odh_kubeflow_tpu_torch"
+    assert {f"{pkg}/machinery/serialize.py", f"{pkg}/machinery/wal.py",
+            f"{pkg}/machinery/faults.py", f"{pkg}/machinery/usage.py",
+            "images/jupyter-pytorch-cuda/gpu-activity-agent"} <= names
 
 
 def test_forbidden_matches_exact_package_names():

@@ -1,8 +1,8 @@
 """The port's suspend-to-checkpoint sessions against the JAX package's, on
 the CPU.
 
-Every scenario of JAX's ``tests/test_sessions.py`` but its chaos variant
-(which needs ``machinery/faults.py``) runs through both packages' store,
+Every scenario of JAX's ``tests/test_sessions.py`` runs through both
+packages' store,
 kubelet simulator (its container-memory hooks), notebook controller
 (queueing and sessions on), culler, ``SessionManager`` and the
 suspender-wired ``SliceScheduler``: the checkpoint store's receipts,
@@ -12,7 +12,12 @@ oversubscribed pools, the JWA's suspend / resume surface, the seeded
 suspend / resume property and the metric families. JAX's observations,
 carried across by ``to_port`` (a v5e 2x2 slice is one L4 node of 4
 GPUs), must equal the port's: receipts and digests, checkpoint phases,
-events, suspend and preempt decisions, session state in the pods.
+events, suspend and preempt decisions, session state in the pods. The
+property's chaos variant puts each package's seeded ``FaultInjector``
+(``machinery/faults.py``) between its controllers and its store; the
+faults land on each package's own call sequence, so there each package
+is held to the invariants and both to every session ending admitted
+with its state.
 
 Both packages run on one clock: object timestamps one second apart in
 the order they are stamped, and ``time.time`` half a second after the
@@ -137,7 +142,7 @@ class Env:
                  zones=None, pools_per_zone=1, spot_pool_zone=None, storm_threshold=2,
                  replicated=False, zone_heal_retry_seconds=30.0, warm=False, grace=60.0,
                  compile_cache_mount="", backend="json", suspender=True, sessions=True,
-                 suspend_grace_seconds=600.0):
+                 suspend_grace_seconds=600.0, chaos=None):
         if port:
             from odh_kubeflow_tpu_torch import apis, sessions as sess, warmup
             from odh_kubeflow_tpu_torch.controllers import culler as culler_mod
@@ -177,14 +182,26 @@ class Env:
         def now():  # the shared clock (a default argument bound the real one)
             return time.time()
 
-        api = self.api = store.APIServer()
-        apis.register_crds(api)
-        register_scheduling(api)
-        sess.register_sessions(api)
+        raw = self.api = store.APIServer()
+        apis.register_crds(raw)
+        register_scheduling(raw)
+        sess.register_sessions(raw)
         if warm:
-            warmup.register_warmup(api)
-        self.cluster = FakeCluster(api)
+            warmup.register_warmup(raw)
+        self.cluster = FakeCluster(raw)
         self.registry = Registry()
+        # ``chaos`` (a FaultSchedule factory): the controllers reach the
+        # store through a seeded FaultInjector; the simulator and the
+        # assertions read the store itself
+        self.injector = None
+        if chaos is not None:
+            faults = importlib.import_module(
+                f"{'odh_kubeflow_tpu_torch' if port else 'odh_kubeflow_tpu'}.machinery.faults")
+            self.injector = faults.FaultInjector(raw, seed=SEED, schedule=chaos(faults),
+                                                 registry=self.registry,
+                                                 sleep_fn=lambda _s: None)
+            self.calm_schedule = faults.FaultSchedule.none()
+        api = self.injector or raw
         self.mgr = Manager(api)
         zone_names = list(zones or ())
         if replicated:
@@ -251,7 +268,7 @@ class Env:
             if factor is not None:
                 q["metadata"]["annotations"][
                     sched_pkg.OVERSUBSCRIPTION_FACTOR_ANNOTATION] = str(factor)
-            api.create(q)
+            raw.create(q)
         self.servers: list = []
 
     # -- the cluster, in either package's terms ------------------------------
@@ -300,7 +317,15 @@ class Env:
     def quiesce(self, rounds=4):
         for _ in range(rounds):
             self.cluster.step()
-            self.mgr.drain()
+            try:
+                self.mgr.drain()
+            except (RuntimeError, self.store_mod.APIError):
+                # under chaos a round may not quiesce, and an injected
+                # fault in a watch map function surfaces here; the
+                # level-triggered retriggers and the end state are what
+                # the invariants gate (JAX's harness does the same)
+                if self.injector is None:
+                    raise
             # JAX's harness waits a moment a round, so that short
             # requeues (a zone heal's retry) come due
             _sleep(0.002)
@@ -1115,6 +1140,11 @@ def _suspend_resume_property(env, log):
         env.quiesce(rounds=3)
         check_invariants()
         log(f"step-{step}")
+    if env.injector is not None:  # the weather clears: everything converges
+        env.injector.set_schedule(env.calm_schedule)
+        for _ in range(6):
+            env.quiesce(rounds=2)
+        check_invariants()
     order = sorted(live)
     rng.shuffle(order)
     for name in order:
@@ -1144,6 +1174,37 @@ def test_property_random_suspend_resume_oversubscribed(tmp_path):
         torch.set_num_threads(threads)
     finals = [v for k, v in got.items() if k.startswith("final-")]
     assert finals and all(v[0] == "Admitted" for v in finals)
+
+
+def test_property_random_suspend_resume_under_chaos(tmp_path):
+    """The property with seeded conflicts / 429 / 5xx on the controllers'
+    API path: no session lost, no GPU double-booked, no checkpoint
+    corrupted, in either package; every session resumes admitted with
+    its state."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    finals = []
+    try:
+        for port in (False, True):
+            env, log = Env(port, tmp_path / f"chaos-{port}", quota=8, factor=3, pools=2,
+                           chaos=lambda f: f.FaultSchedule(conflict=0.04,
+                                                           too_many_requests=0.03,
+                                                           server_error=0.02)), {}
+            try:
+                _suspend_resume_property(env, lambda key, value=None, log=log:
+                                         log.__setitem__(key, value))
+            finally:
+                env.close()
+            finals.append(sorted((k, v[0]) for k, v in log.items() if k.startswith("final-")))
+            fired = [line for line in env.registry.exposition().splitlines()
+                     if line.startswith("faults_injected_total{")]
+            assert fired, "the chaos schedule injected nothing"
+    finally:
+        torch.set_num_threads(threads)
+    assert finals[0] and all(state == "Admitted" for f in finals for _, state in f)
+    assert [k for k, _ in finals[1]] == [k for k, _ in finals[0]]
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ warm pools (``warmup/pool.py``): backfill at the negative backfill
 priority, the atomic claim, reaping, zone kills, the JWA's warm handout
 with the template state restored through the resume machinery, the
 kubelet's simulated image pulls and the compile-cache mount. Each runs
-through both packages (JAX's tests ``tests/test_warmup.py`` but those
-that need ``machinery/wal.py``); the port's cache entries, claims,
+through both packages (JAX's tests ``tests/test_warmup.py``, the cache
+index surviving a restart through the write-ahead log and the claim's
+kill-point sweep included); the port's cache entries, claims,
 checkpoints, phases and events must equal JAX's carried across (a v5e
 2x2 slice is one L4 node of 4 GPUs; the template's compile topology,
 JAX's TPU topology, is the L4's ``sm_89``). These run on the wall
@@ -21,6 +22,7 @@ a clock that moves a second a stamp would never let its status settle.
 
 from __future__ import annotations
 
+import importlib
 import os
 import re
 import threading
@@ -224,6 +226,42 @@ def test_replicated_store_zone_loss_and_heal(tmp_path):
     assert got[2]["zones"] == ["zb"] and got[2]["replicationDegraded"]
     assert got[3] == 1 and sorted(got[4]["zones"]) == ["za", "zb"]
     assert got[5] == b"degraded-write" and got[6] == b"replicated-bytes"
+
+
+def test_cache_entries_survive_wal_failover(tmp_path):
+    """The index recovers from the write-ahead log and serves the artifact
+    from the replicated store: no rebuild after a restart."""
+
+    def run(port):
+        store = importlib.import_module(f"{PACKAGES[port]}.machinery.store")
+        wal_mod = importlib.import_module(f"{PACKAGES[port]}.machinery.wal")
+        warmup = importlib.import_module(f"{PACKAGES[port]}.warmup")
+        prom = importlib.import_module(f"{PACKAGES[port]}.utils.prometheus")
+        cc = cc_mod(port)
+        root = tmp_path / PACKAGES[port]
+        d = str(root / "wal")
+        wal = wal_mod.WriteAheadLog(d)
+        api = store.APIServer.recover(wal)
+        warmup.register_warmup(api)
+        cfg = cc.CompileCacheConfig(cache_dir=str(root / "cc"),
+                                    zones=f"za={root / 'za'},zb={root / 'zb'}")
+        svc = cc.CompileCacheService(api, cfg, registry=prom.Registry())
+        key = cc.CompileKey("libflash_fwd-1.so", topology="sm_90a", compiler_version="v")
+        first = svc.get_or_compile(key, lambda: b"survives-failover")
+        api.close()
+        wal.close()
+        rec = store.APIServer.recover(wal_mod.WriteAheadLog(d))
+        svc2 = cc.CompileCacheService(rec, cfg, registry=prom.Registry())
+
+        def must_not_compile():
+            raise AssertionError("a restart must not force a rebuild")
+
+        return [first, svc2.get_or_compile(key, must_not_compile), svc2.stats()["entries"],
+                entries(rec)]
+
+    got = [run(False), run(True)]
+    assert got[1] == got[0]
+    assert got[1][:3] == [b"survives-failover", b"survives-failover", 1]
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +630,101 @@ def test_concurrent_claims_hand_out_exactly_one_standby(tmp_path):
     got = both_warm(scenario, tmp_path)
     assert got["claims"] == [8, 1, "wp", "wp-standby-0", "pool-0"]
     assert got["claimed"] is True and got["late"] is None
+
+
+def _claim_wal_env(port, d, io=None):
+    store = importlib.import_module(f"{PACKAGES[port]}.machinery.store")
+    wal_mod = importlib.import_module(f"{PACKAGES[port]}.machinery.wal")
+    apis = importlib.import_module(f"{PACKAGES[port]}.apis")
+    warmup = importlib.import_module(f"{PACKAGES[port]}.warmup")
+    api = store.APIServer.recover(wal_mod.WriteAheadLog(d, io=io))
+    apis.register_crds(api)
+    warmup.register_warmup(api)
+    return api
+
+
+def _seed_claim_state(port, api):
+    """A pool of one Running standby (JAX's seed, on an L4 node's GPUs
+    for the port)."""
+    apis = importlib.import_module(f"{PACKAGES[port]}.apis")
+    warmup = importlib.import_module(f"{PACKAGES[port]}.warmup")
+    pool_mod = importlib.import_module(f"{PACKAGES[port]}.warmup.pool")
+    objects = importlib.import_module(f"{PACKAGES[port]}.machinery.objects")
+    if port:
+        pool = pool_mod.new_warm_pool("wp", NS, size=1, accelerator=L4, count=str(L4_GPUS),
+                                      image="jax:latest")
+        ann = {apis.GPU_ACCELERATOR_ANNOTATION: L4, apis.GPU_COUNT_ANNOTATION: str(L4_GPUS)}
+    else:
+        pool = pool_mod.new_warm_pool("wp", NS, size=1, accelerator=V5E, topology="2x2",
+                                      image="jax:latest")
+        ann = {apis.TPU_ACCELERATOR_ANNOTATION: V5E, apis.TPU_TOPOLOGY_ANNOTATION: "2x2"}
+    api.create(pool)
+    api.create({"apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+                "metadata": {"name": "wp-standby-0", "namespace": NS,
+                             "labels": {warmup.POOL_LABEL: "wp"},
+                             "annotations": {warmup.STANDBY_ANNOTATION: "true", **ann}},
+                "spec": {"template": {"spec": {"containers": [
+                    {"name": "nb", "image": "jax:latest"}]}}}})
+    pod = api.create({"apiVersion": "v1", "kind": "Pod",
+                      "metadata": {"name": "wp-standby-0-0", "namespace": NS},
+                      "spec": {"containers": []}})
+    pod = objects.mutable(pod)
+    pod["status"] = {"phase": "Running"}
+    api.update_status(pod)
+
+
+@pytest.mark.parametrize("after_op", [False, True], ids=["before_op", "after_op"])
+def test_claim_kill_point_sweep_no_double_handout(tmp_path, after_op):
+    """Process death at every WAL IO op of the claim write (mid-append,
+    pre-fsync, post-fsync pre-ack): after recovery the standby is handed
+    out at most once in all, a claim that reached the log is honored,
+    and the standby ends claimed. The claim's IO ops, and at each kill
+    point what was delivered and what recovered, equal JAX's."""
+
+    def sweep(port):
+        faults = importlib.import_module(f"{PACKAGES[port]}.machinery.faults")
+        wal_mod = importlib.import_module(f"{PACKAGES[port]}.machinery.wal")
+        store = importlib.import_module(f"{PACKAGES[port]}.machinery.store")
+        warmup = importlib.import_module(f"{PACKAGES[port]}.warmup")
+        pool_mod = importlib.import_module(f"{PACKAGES[port]}.warmup.pool")
+        accel = L4 if port else V5E
+        root = tmp_path / PACKAGES[port]
+        probe = faults.KillPointIO(10**9, seed=20260803)
+        api = _claim_wal_env(port, str(root / "probe"), io=probe)
+        _seed_claim_state(port, api)
+        setup_ops = probe.ops
+        assert pool_mod.claim_standby(api, NS, accelerator=accel, claimant="probe") is not None
+        total_ops = probe.ops
+        assert total_ops > setup_ops, "the claim must be WAL IO"
+        rows = []
+        for kill_at in range(setup_ops + 1, total_ops + 1):
+            d = str(root / f"k{kill_at}")
+            io = faults.KillPointIO(kill_at, seed=20260803 * 1000 + kill_at, after_op=after_op)
+            api = _claim_wal_env(port, d, io=io)
+            _seed_claim_state(port, api)
+            delivered = 0
+            try:
+                if pool_mod.claim_standby(api, NS, accelerator=accel,
+                                          claimant="victim") is not None:
+                    delivered += 1
+            except wal_mod.CrashPoint:
+                pass
+            assert io.dead, f"kill@{kill_at}: the crash must fire mid-claim"
+            rec = store.APIServer.recover(wal_mod.WriteAheadLog(d))
+            recovered = warmup.is_claimed(rec.get("Notebook", "wp-standby-0", NS))
+            got = pool_mod.claim_standby(rec, NS, accelerator=accel, claimant="post-recovery")
+            delivered += got is not None
+            assert delivered <= 1, f"kill@{kill_at}: double handout"
+            if recovered:
+                assert got is None, f"kill@{kill_at}: durable claim handed out again"
+            assert warmup.is_claimed(rec.get("Notebook", "wp-standby-0", NS))
+            assert pool_mod.claim_standby(rec, NS, accelerator=accel) is None
+            rows.append((kill_at - setup_ops, delivered))
+        return total_ops - setup_ops, rows
+
+    got = [sweep(False), sweep(True)]
+    assert got[1][0] == got[0][0]
+    assert [r[0] for r in got[1][1]] == [r[0] for r in got[0][1]]
 
 
 def test_claimed_standby_reaped_after_grace_and_backfilled(tmp_path):

@@ -40,16 +40,14 @@ FORMS = {
 
 def web_to_port(obj):
     """JAX's answers carried to the port's: the request fields, the
-    runtime PodDefault, the spot toleration group's key and text; the
-    details page's empty usage block goes (the port has no usage meter
-    yet). Both packages stamp the trace id of the web request on what it
+    runtime PodDefault, the spot toleration group's key and text (the
+    details page's usage block, empty without a meter in both, included).
+    Both packages stamp the trace id of the web request on what it
     creates (``scrub`` keeps its place, not its value)."""
     obj = runtime_to_gpu(obj)
     if isinstance(obj, dict):
         out = {}
         for k, v in obj.items():
-            if k == "usage" and v is None:
-                continue  # the details block that comes with machinery/usage.py
             if k == "notebooks.kubeflow.org/tpu-topology":
                 v = str(GPU_POOL[1])
             if k == "tpus":
