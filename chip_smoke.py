@@ -237,6 +237,24 @@ Phases, one JSON line each on stdout:
     JWA resume (the state restored with an equal digest before ready),
     the resumed notebook (nothing built, the same tokens); then one
     flipped byte of the stored artifact stages nothing.
+35. ``platform_remote`` (after ``platform_usage``): the platform over the
+    wire. This process is the apiserver (the store with a WAL, the REST
+    façade over TLS with bearer tokens on the event loop,
+    ``APF_INFLIGHT_LIMIT`` 32, the admission webhooks, the JWA); the
+    notebook controller, the gang scheduler and the kubelet simulator run
+    in ``chip_smoke.py --platform-controllers``, a client of
+    ``api_from_env()``, shipping its spans to ``/debug/traces/ingest``.
+    A 1-GPU notebook POSTed through the JWA reaches Running over HTTPS;
+    its trace is one tree across both processes; 500 watches add fewer
+    than 10 threads; then, while the spawned notebook's process serves
+    Llama-3-8B int4 warm (225 dequants a forward), ``chip_smoke.py
+    --platform-flood`` sends user reads and writes (0.1 s deadlines, 5%
+    already expired) at 16 threads, at 128 for 12 s with one namespace's
+    reads slowed by 0.04 s (a second notebook POSTed halfway must reach
+    Running in the flood), then at 16 until the throughput is back: no
+    controller-level shed, user sheds at the level ceiling, every expired
+    request a 504 that ran no handler, attempts per logical request at
+    most 1.3, recovery to 95% within 10 s.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -246,6 +264,7 @@ raises and exits non-zero without the last line. Without a GPU it exits
 
 from __future__ import annotations
 
+import gc
 import os
 import json
 import math
@@ -1375,12 +1394,8 @@ def spawn_card_step(fleet: dict) -> dict:
     the card that serves Llama-3-8B int4 and answers one greedy request
     (``--notebook-serve``). It runs cold, then after a JWA stop and start
     of the notebook, warm on the same directory."""
-    import os
     import shutil
-    import subprocess
     import tempfile
-
-    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
 
     api, plan = fleet["api"], fleet["plan"]
     pick = None
@@ -1397,21 +1412,8 @@ def spawn_card_step(fleet: dict) -> dict:
     workspace = tempfile.mkdtemp(prefix="spawn-workspace-")
     scratch = tempfile.mkdtemp(prefix="spawn-logs-")
 
-    def pod_env() -> tuple[dict, str]:
-        pod = api.get("Pod", f"{name}-0", ns)
-        if pod["status"].get("phase") != "Running":
-            raise AssertionError(f"{ns}/{name}-0 is {pod['status'].get('phase')}")
-        container = pod["spec"]["containers"][0]
-        claim = {v["name"]: v.get("persistentVolumeClaim", {}).get("claimName")
-                 for v in pod["spec"].get("volumes", [])}
-        mount = next(m["mountPath"] for m in container["volumeMounts"]
-                     if claim.get(m["name"]) == f"{name}-workspace")
-        env = {k: (workspace + v[len(mount):] if v.startswith(mount) else v)
-               for k, v in container_env(pod).items()}
-        return env, pod["spec"]["nodeName"]
-
     def run(label: str) -> dict:
-        env, node = pod_env()
+        env, node = pod_process_env(api, name, ns, workspace)
         return {"node": node, "env": env,
                 **run_notebook_process(label, env, env["ODH_TORCH_KERNEL_CACHE"], scratch)}
 
@@ -1512,6 +1514,7 @@ def notebook_serve_main() -> int:
     imported_at = time.time()
     service, args = build_service([*SPAWN_SERVE_ARGS, "--host", "127.0.0.1", "--port", "0"])
     service_at = time.time()
+    progress("service")  # the weights are on the card: the requests come next
     httpd = serve(service, host=args.host, port=args.port)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     prompt = [t % service.cfg.vocab_size for t in SPAWN_PROMPT]
@@ -3093,6 +3096,939 @@ def platform_usage_phase(run_process=run_usage_process) -> tuple[dict, dict]:
     record.update(phase="platform_usage", steps_s=steps,
                   seconds=time.perf_counter() - t_phase)
     return record, run["launched"]
+
+
+# the platform over the wire (slice 9, part 6): the apiserver is this
+# process (the store with a WAL, the REST façade over TLS with bearer
+# tokens on the event loop, the admission webhooks, the JWA); the
+# controllers (``--platform-controllers``), a user flood
+# (``--platform-flood``) and the spawned notebook (``--notebook-serve``)
+# are processes of their own, as the manifests deploy them
+REMOTE_POOL = ("h100-r", "nvidia-h100-80gb", 2, 8)
+REMOTE_NAMESPACES = ("team-r0", "team-r1", "team-r2", "team-r3")
+REMOTE_SLOW_NS = "team-r3"  # one of four: its reads carry the injected latency
+REMOTE_USER = "owner-r@example.com"
+REMOTE_TOKENS = {"controller": "remote-controller-token", "flood": "remote-user-token"}
+REMOTE_INFLIGHT_LIMIT = 32  # APF_INFLIGHT_LIMIT
+# level ceilings: controllers may fill 22 of the 32 seats (the drill's
+# 70%, loadtest/overload_drill.py DRILL_ENV), user traffic 4 (12.5%, not
+# the drill's 50%): the façade serves one Python process, whose loop
+# caps the requests a second, so 128 user clients keep only a few
+# handlers in flight at once (a seat is held for a handler's run, not
+# for the wait at the loop), where the drill's workers hold a seat each
+REMOTE_APF_ENV = {"APF_LEVEL_SYSTEM": "100", "APF_LEVEL_CONTROLLER": "70",
+                  "APF_LEVEL_USER": "12.5", "APF_LEVEL_BACKGROUND": "6.25"}
+# the flood clients' breakers on the drill's compressed timescale
+# (overload_drill.py DRILL_ENV: a 0.5 s window of 5 calls, 0.25 s
+# cooldowns), but for its 0.02 s slow-call threshold: the drill's calls
+# take 1 ms in process, a call here a TLS handshake (14-16 ms p50 at the
+# paced baseline on the H100 machine). With the defaults (10 s, 1 s) the
+# breakers kept the flood off the façade for most of it, and the user
+# seats' ceiling shed as few as 8 requests in its 12 s
+REMOTE_FLOOD_BREAKER_ENV = {"BREAKER_WINDOW_SECONDS": "0.5", "BREAKER_MIN_REQUESTS": "5",
+                            "BREAKER_COOLDOWN_SECONDS": "0.25"}
+REMOTE_WORKERS = 64  # WEB_WORKERS: the façade's handler pool
+REMOTE_SEED = 20260807  # the drill's seed
+REMOTE_FLOOD_THREADS = 128  # 4x the inflight limit
+REMOTE_BASE_THREADS = 16  # under the limit: the baseline and the recovery
+# the baseline's and the recovery's users are paced, each one request a
+# period (64/s in all), so that they stay under the limit: closed-loop,
+# 16 users filled the façade (104-244 ok/s on the H100 machine, with
+# 429s at the user seats and client timeouts), and its throughput then
+# read the host's load at that moment, not the façade's health
+REMOTE_USER_PERIOD_S = 0.25
+# the user threads run in this many processes of their own (one Python
+# process cannot open TLS connections fast enough to load the façade)
+REMOTE_FLOOD_PROCESSES = 4
+REMOTE_BASE_S = 2.0
+# "about 10 s": 12, so that the second notebook, POSTed in its middle,
+# has 6 s to reach Running (4.3 s on the H100 machine with 10 s)
+REMOTE_FLOOD_S = 12.0
+REMOTE_WINDOW_S = 1.0  # recovery windows
+REMOTE_RECOVERY_S = 10.0
+REMOTE_USER_DEADLINE_S = 0.1  # overload_drill.py LEVEL_DEADLINES[user]
+REMOTE_USER_PAUSE_S = 0.05  # a user's pause after a refused or failed request
+REMOTE_EXPIRED_SHARE = 0.05
+REMOTE_WRITE_SHARE = 0.2
+REMOTE_LIST_SHARE = 0.2
+REMOTE_OBJECTS = 16  # ConfigMaps per namespace that the flood reads and patches
+REMOTE_INJECTED_LATENCY_S = 0.04  # overload_drill.py INJECTED_LATENCY_S
+REMOTE_WATCHES = 500
+REMOTE_WATCH_THREADS_GATE = 10  # tests/test_webtier.py:418
+REMOTE_ATTEMPTS_GATE = 1.3
+REMOTE_RECOVERY_GATE = 0.95
+REMOTE_STEP_S = 0.1  # the kubelet simulator's pass interval
+REMOTE_RUNNING_LIMIT_S = 60.0
+# the remote spawn trace's milestones, in causal order (first start)
+REMOTE_MILESTONES = ("reconcile", "scheduler.admit", "kubelet.container_start")
+EXPIRED_HEADER = "X-Smoke-Expired"  # marks the flood's already-expired requests
+
+
+class SlowNamespace:
+    """The store as the façade serves it, with ``FaultInjector``'s latency
+    on the reads (get, list, list_chunk) of one namespace; everything else
+    goes straight to the store."""
+
+    def __init__(self, api, injector, namespace: str):
+        self._api, self._injector, self._ns = api, injector, namespace
+
+    def __getattr__(self, name: str):
+        return getattr(self._api, name)
+
+    def _slow(self, namespace) -> None:
+        if namespace == self._ns:
+            self._injector._fault_point("read", mutating=False)
+
+    def get(self, kind, name, namespace=None):
+        self._slow(namespace)
+        return self._api.get(kind, name, namespace)
+
+    def list(self, kind, namespace=None, **kw):
+        self._slow(namespace)
+        return self._api.list(kind, namespace=namespace, **kw)
+
+    def list_chunk(self, kind, namespace=None, **kw):
+        self._slow(namespace)
+        return self._api.list_chunk(kind, namespace=namespace, **kw)
+
+
+def remote_apiserver(root: str) -> dict:
+    """The apiserver process's side of the phase (needs no card): the
+    port's store with a write-ahead log under ``root``, CRDs, the default
+    cluster roles, the notebook and PodDefault admission webhooks with the
+    GPU-runtime PodDefault in each namespace, the user's edit binding, the
+    flood's ConfigMaps; ``httpapi.serve`` over TLS (certificates from
+    ``webhooks/certs.py``) with a ``TokenAuthenticator``, on the event
+    loop, ``APF_INFLIGHT_LIMIT`` 32, one namespace's reads slowed by
+    ``FaultInjector``; the JWA on microweb's event loop. Returns the
+    handles; ``fleet["close"]()`` stops it."""
+    import ssl
+
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.machinery import eventloop, httpapi
+    from odh_kubeflow_tpu_torch.machinery.faults import FaultInjector, FaultSchedule
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.machinery.wal import WriteAheadLog
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.utils import tracing
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+    from odh_kubeflow_tpu_torch.webhooks import (
+        NotebookWebhook, PodDefaultWebhook, gpu_runtime_poddefault)
+    from odh_kubeflow_tpu_torch.webhooks.certs import generate_webhook_certs
+
+    os.makedirs(root, exist_ok=True)
+    cert, key, ca = generate_webhook_certs(dns_names=["localhost"],
+                                           ip_sans=["127.0.0.1"]).write(root)
+    token_file = os.path.join(root, "tokens.csv")
+    with open(token_file, "w") as f:
+        f.write(f"{REMOTE_TOKENS['controller']},system:serviceaccount:kubeflow:"
+                "notebook-controller,uid-c\n")
+        f.write(f"{REMOTE_TOKENS['flood']},{REMOTE_USER},uid-u\n")
+    collector = tracing.SpanCollector()
+    old_collector = tracing.set_collector(collector)
+    api = APIServer(wal=WriteAheadLog(os.path.join(root, "wal")))
+    registry = Registry()
+    api.attach_metrics(registry)
+    apis.register_crds(api)
+    register_scheduling(api)
+    apis.install_default_cluster_roles(api)
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    for ns in REMOTE_NAMESPACES:
+        api.create({"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": ns}})
+        api.create(gpu_runtime_poddefault(ns))
+        api.create({"apiVersion": "rbac.authorization.k8s.io/v1", "kind": "RoleBinding",
+                    "metadata": {"name": "owner-edit", "namespace": ns},
+                    "roleRef": {"apiGroup": "rbac.authorization.k8s.io",
+                                "kind": "ClusterRole", "name": "kubeflow-edit"},
+                    "subjects": [{"kind": "User", "name": REMOTE_USER}]})
+        for i in range(REMOTE_OBJECTS):
+            api.create({"apiVersion": "v1", "kind": "ConfigMap",
+                        "metadata": {"name": f"cm-{i:02d}", "namespace": ns},
+                        "data": {"n": "0"}})
+    injector = FaultInjector(api, seed=REMOTE_SEED, registry=registry, schedule=FaultSchedule(
+        latency=1.0, latency_seconds=REMOTE_INJECTED_LATENCY_S))
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert, key)
+    # WEB_INLINE_THRESHOLD_MS=0: every handler runs in the worker pool,
+    # so the seats the limiter counts are the handlers in flight (a
+    # handler inline on the loop runs alone and never fills a seat)
+    inline = eventloop.INLINE_THRESHOLD_SECONDS
+    eventloop.INLINE_THRESHOLD_SECONDS = 0.0
+    saved = {k: os.environ.get(k) for k in REMOTE_APF_ENV}
+    os.environ.update(REMOTE_APF_ENV)  # read once, when the limiter is built
+    try:
+        _, port, httpd = httpapi.serve(
+            SlowNamespace(api, injector, REMOTE_SLOW_NS), ssl_context=ctx,
+            authenticator=httpapi.TokenAuthenticator.from_file(token_file),
+            metrics_registry=registry, inflight_limit=REMOTE_INFLIGHT_LIMIT,
+            event_loop=True, workers=REMOTE_WORKERS)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rest = httpd._app  # the façade's WSGI app (RestAPI)
+    # REST handler ms by level and time, and handler runs for requests
+    # that arrived with their deadline spent (there must be none)
+    samples: list = []
+    expired_handled = [0]
+    handle, dispatch = rest._handle, rest._dispatch
+    expired_key = "HTTP_" + EXPIRED_HEADER.upper().replace("-", "_")
+
+    def timed_handle(environ, start_response):
+        t0 = time.perf_counter()
+        try:
+            return handle(environ, start_response)
+        finally:
+            controller = ("odh=controller" in environ.get("HTTP_TRACESTATE", "")
+                          or environ.get("HTTP_X_PRIORITY_LEVEL") == "controller")
+            samples.append((time.time(), "controller" if controller else "user",
+                            (time.perf_counter() - t0) * 1e3))
+
+    def counted_dispatch(kind, route, method, qs, environ, start_response):
+        if environ.get(expired_key):
+            expired_handled[0] += 1
+        return dispatch(kind, route, method, qs, environ, start_response)
+
+    rest._handle, rest._dispatch = timed_handle, counted_dispatch
+    jwa_httpd = JupyterWebApp(api, registry=registry).app.serve("127.0.0.1", 0, event_loop=True)
+
+    def close() -> None:
+        jwa_httpd.shutdown()
+        httpd.shutdown()
+        api.close()
+        tracing.set_collector(old_collector)
+        eventloop.INLINE_THRESHOLD_SECONDS = inline
+
+    return {"api": api, "registry": registry, "collector": collector, "injector": injector,
+            "url": f"https://127.0.0.1:{port}", "ca": ca, "root": root,
+            "jwa": f"http://127.0.0.1:{jwa_httpd.server_address[1]}",
+            "rest_ms": samples, "expired_handled": expired_handled, "server": httpd,
+            "close": close}
+
+
+def start_remote_process(fleet: dict, mode: str, env: dict, label: str) -> dict:
+    """``chip_smoke.py <mode>`` in a process of its own with the
+    ``api_from_env`` ladder's env (URL, token file, CA); its stdout lines
+    collected by a reader thread (progress events in ``events``), stdin
+    kept open (closing it stops a process that waits on it), stderr to a
+    file under the fleet's root."""
+    import subprocess
+
+    token = os.path.join(fleet["root"], f"{label}.token")
+    with open(token, "w") as f:
+        f.write(REMOTE_TOKENS[label])
+    err_path = os.path.join(fleet["root"], f"{label}.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+                 "KUBE_API_URL": fleet["url"], "KUBE_API_TOKEN_FILE": token,
+                 "KUBE_API_CA_FILE": fleet["ca"], **env})
+    lines: list = []
+    events: dict = {}
+    history: list = []
+    ready = threading.Event()
+
+    def read() -> None:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            lines.append(line)
+            if line.startswith(PROGRESS):
+                ev = json.loads(line[len(PROGRESS):])
+                events[ev["event"]] = ev
+                history.append(ev)
+                if ev["event"] == "ready":
+                    ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return {"proc": proc, "lines": lines, "events": events, "history": history,
+            "ready": ready, "reader": reader, "err": err_path, "label": label}
+
+
+def stop_remote_process(p: dict, timeout: float = 60.0) -> dict:
+    """Close the process's stdin (its signal to stop), wait for it and
+    return its last JSON line; kill it on a timeout."""
+    import subprocess
+
+    try:
+        p["proc"].stdin.close()
+    except OSError:
+        pass
+    try:
+        p["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p["proc"].kill()
+        p["proc"].wait()
+        raise AssertionError(f"{p['label']} process did not stop in {timeout} s")
+    p["reader"].join(timeout=10)
+    out = [x for x in p["lines"] if x.startswith("{")]
+    if p["proc"].returncode != 0 or not out:
+        raise AssertionError(f"{p['label']} process exit {p['proc'].returncode}: "
+                             f"{open(p['err']).read()[-3000:]}")
+    return json.loads(out[-1])
+
+
+def platform_controllers_main() -> int:
+    """The controller process (``chip_smoke.py --platform-controllers``):
+    its client from ``api_from_env()`` (``KUBE_API_URL``,
+    ``KUBE_API_TOKEN_FILE``, ``KUBE_API_CA_FILE``); through the port's
+    ``Manager`` the notebook controller (queueing on) and the gang
+    scheduler, whose reconcile traffic the façade classifies
+    controller-level by its trace marker; the kubelet simulator on one
+    ``nvidia-h100-80gb`` pool of two nodes, on a second client that
+    declares itself controller-level, a pass every ``REMOTE_STEP_S``;
+    its spans shipped to the apiserver's ``/debug/traces/ingest``. Runs
+    until its stdin closes, then prints one JSON line."""
+    import ssl
+
+    from odh_kubeflow_tpu_torch.controllers.notebook import (
+        NotebookController, NotebookControllerConfig)
+    from odh_kubeflow_tpu_torch.controllers.runtime import Manager
+    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.scheduling.scheduler import SliceScheduler
+    from odh_kubeflow_tpu_torch.utils import tracing
+    from odh_kubeflow_tpu_torch.utils.prometheus import Registry
+
+    api = api_from_env()
+    kube = api_from_env()
+    kube.priority_level = "controller"
+    for client in (api, kube):
+        register_scheduling(client)
+    exporter = tracing.RemoteSpanExporter(
+        os.environ["KUBE_API_URL"], flush_interval=0.2,
+        ssl_context=ssl.create_default_context(cafile=os.environ["KUBE_API_CA_FILE"])).install()
+    registry = Registry()
+    mgr = Manager(api, registry=registry)
+    NotebookController(api, NotebookControllerConfig(enable_queueing=True),
+                       registry=registry).register(mgr)
+    SliceScheduler(api, registry=registry).register(mgr)
+    cluster = FakeCluster(kube)
+    name, accel, nodes, per_node = REMOTE_POOL
+    cluster.add_gpu_node_pool(name, accel, num_nodes=nodes, gpus_per_node=per_node)
+    mgr.start()
+    stop = threading.Event()
+
+    def watch_stdin() -> None:
+        sys.stdin.read()  # returns at EOF: the parent closed it
+        stop.set()
+
+    threading.Thread(target=watch_stdin, daemon=True).start()
+    progress("ready")
+    steps, errors = 0, []
+    while not stop.is_set():
+        try:
+            cluster.step()
+            steps += 1
+        except Exception as e:  # noqa: BLE001 — a failed pass retries on the next one
+            errors.append(f"{type(e).__name__}: {e}"[:200])
+        stop.wait(REMOTE_STEP_S)
+    mgr.stop()
+    exporter.close()
+    reconciles = {}
+    for line in registry.exposition().splitlines():
+        if line.startswith("controller_runtime_reconcile_total{"):
+            labels, value = line.rsplit(" ", 1)
+            reconciles[labels[len("controller_runtime_reconcile_total"):]] = float(value)
+    emit({"kubelet_steps": steps, "kubelet_step_errors": len(errors),
+          "kubelet_errors": errors[:5], "reconciles": reconciles,
+          "spans_shipped": exporter.shipped_total, "spans_dropped": exporter.dropped_total,
+          "reference_modules": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("jax", "odh_kubeflow_tpu"))})
+    return 0
+
+
+def remote_flood_plan(seed: int, n: int) -> list:
+    """The flood's seeded requests: ``(op, namespace, name, expired)``,
+    op "get" / "list" / "patch" at 60 / 20 / 20 %, a seeded
+    ``REMOTE_EXPIRED_SHARE`` sent with their deadline already spent: one
+    at a seeded place in each block of ``1 / REMOTE_EXPIRED_SHARE``, so
+    that a 1 s window of paced users holds as many as the baseline's
+    second (their count drawn at random moved a window's ok count by a
+    few percent against the 95% recovery gate)."""
+    import random
+
+    rng = random.Random(seed)
+    block = round(1 / REMOTE_EXPIRED_SHARE)
+    out = []
+    for k in range(n):
+        if k % block == 0:
+            hit = rng.randrange(block)
+        r = rng.random()
+        op = "list" if r < REMOTE_LIST_SHARE else (
+            "patch" if r < REMOTE_LIST_SHARE + REMOTE_WRITE_SHARE else "get")
+        out.append((op, rng.choice(REMOTE_NAMESPACES),
+                    f"cm-{rng.randrange(REMOTE_OBJECTS):02d}", k % block == hit))
+    return out
+
+
+def flood_schedule() -> list:
+    """The flood processes' stages as (name, threads in all, start offset
+    s, seconds, a user's period s or None for back-to-back requests): the
+    paced baseline, the flood, then the paced recovery windows."""
+    out = [("baseline", REMOTE_BASE_THREADS, 0.0, REMOTE_BASE_S, REMOTE_USER_PERIOD_S),
+           ("flood", REMOTE_FLOOD_THREADS, REMOTE_BASE_S, REMOTE_FLOOD_S, None)]
+    t = REMOTE_BASE_S + REMOTE_FLOOD_S
+    for _ in range(int(REMOTE_RECOVERY_S / REMOTE_WINDOW_S)):
+        out.append(("recovery", REMOTE_BASE_THREADS, t, REMOTE_WINDOW_S, REMOTE_USER_PERIOD_S))
+        t += REMOTE_WINDOW_S
+    return out
+
+
+def platform_flood_main() -> int:
+    """One of the user flood's ``REMOTE_FLOOD_PROCESSES`` processes
+    (``chip_smoke.py --platform-flood``, index ``REMOTE_FLOOD_INDEX``):
+    user-level reads and writes through one ``RemoteAPIServer`` (its
+    breaker, the process's shared retry budget), each under a
+    ``REMOTE_USER_DEADLINE_S`` deadline, from its seeded plan
+    (``REMOTE_FLOOD_SEED`` + index); the plan's expired requests go out
+    raw with ``X-Request-Deadline: 0``. Prints a ready line, waits for
+    ``go <wall-clock start>`` on stdin, then runs its share of the
+    threads of each stage of ``flood_schedule()`` from that start (a paced
+    user sends on its slots, staggered over all processes' users, and
+    skips the slots it missed; a progress line with its ok count at each
+    stage's end), until a second
+    stdin line (the parent saw the recovery) or the schedule's end; one
+    JSON line at the end (each successful request's ms in ``ms``)."""
+    import http.client
+    import itertools
+    import ssl
+
+    from odh_kubeflow_tpu_torch.machinery import overload
+    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+    from odh_kubeflow_tpu_torch.machinery.store import APIError
+
+    os.environ["KUBE_LIST_PAGE_SIZE"] = "0"
+    api = api_from_env()
+    ctx = ssl.create_default_context(cafile=os.environ["KUBE_API_CA_FILE"])
+    token = open(os.environ["KUBE_API_TOKEN_FILE"]).read().strip()
+    index = int(os.environ.get("REMOTE_FLOOD_INDEX", "0"))
+    seed = int(os.environ.get("REMOTE_FLOOD_SEED", REMOTE_SEED)) + index
+    plan = remote_flood_plan(seed, 100_000)
+    cursor = itertools.count()
+    local = threading.local()
+    throttle = api._throttle
+
+    def counted_throttle() -> None:  # runs once for each attempt that goes on the wire
+        local.wire += 1
+        throttle()
+
+    api._throttle = counted_throttle
+    lock = threading.Lock()
+
+    def one(stage: dict, i: int) -> None:
+        op, ns, name, expired = plan[i % len(plan)]
+        if expired:
+            path = f"/api/v1/namespaces/{ns}/configmaps" + ("" if op == "list" else f"/{name}")
+            req = urllib.request.Request(api.base_url + path, headers={
+                "Authorization": f"Bearer {token}", overload.DEADLINE_HEADER: "0.000",
+                EXPIRED_HEADER: "1"})
+            try:
+                with urllib.request.urlopen(req, timeout=10, context=ctx) as r:
+                    code = r.status
+            except urllib.error.HTTPError as e:
+                code = e.code
+            except (OSError, http.client.HTTPException):
+                code = -1
+            with lock:
+                stage["expired_sent"] += 1
+                stage["expired_504"] += code == 504
+            return
+        local.wire = 0
+        t0 = time.perf_counter()
+        err = ""
+        try:
+            with overload.deadline_scope(REMOTE_USER_DEADLINE_S):
+                if op == "get":
+                    api.get("ConfigMap", name, ns)
+                elif op == "list":
+                    api.list("ConfigMap", namespace=ns)
+                else:
+                    api.patch("ConfigMap", name, {"data": {"n": str(i)}}, ns)
+        except (APIError, OSError, ValueError, http.client.HTTPException) as e:
+            err = type(e).__name__
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            stage["logical"] += 1
+            stage["attempts"] += local.wire
+            stage["wired_logical"] += local.wire > 0
+            if err:
+                stage["failed"] += 1
+                stage["errors"][err] = stage["errors"].get(err, 0) + 1
+            else:
+                stage["ok"] += 1
+                stage["ms"].append(round(ms, 3))
+        if err:
+            time.sleep(REMOTE_USER_PAUSE_S)
+
+    def run(name: str, threads: int, everyone: int, start: float, end: float,
+            period) -> dict:
+        stage = {"stage": name, "threads": threads, "ok": 0, "failed": 0, "logical": 0,
+                 "wired_logical": 0, "attempts": 0, "errors": {}, "ms": [],
+                 "expired_sent": 0, "expired_504": 0}
+
+        def worker(user: int) -> None:
+            if period is None:
+                while time.time() < end:
+                    one(stage, next(cursor))
+                return
+            slot = start + period * user / everyone
+            while True:
+                now = time.time()
+                if slot < now:
+                    slot += math.ceil((now - slot) / period) * period
+                if slot >= end:
+                    return
+                time.sleep(slot - now)
+                one(stage, next(cursor))
+                slot += period
+
+        time.sleep(max(start - time.time(), 0))
+        progress(f"{name}_start", threads=threads)
+        ts = [threading.Thread(target=worker, args=(j * share + index,), daemon=True)
+              for j in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        progress(f"{name}_end", ok=stage["ok"])
+        return stage
+
+    progress("ready")
+    line = sys.stdin.readline().split()
+    if not line or line[0] != "go":
+        return 1
+    t0 = float(line[1])
+    stop = threading.Event()  # "stop" on stdin: the recovery has been seen
+
+    def watch_stdin() -> None:
+        sys.stdin.readline()
+        stop.set()
+
+    threading.Thread(target=watch_stdin, daemon=True).start()
+    share = REMOTE_FLOOD_PROCESSES
+    stages = []
+    for name, threads, start, seconds, period in flood_schedule():
+        if stop.is_set():
+            break
+        stages.append(run(name, threads // share + (index < threads % share), threads,
+                          t0 + start, t0 + start + seconds, period))
+    budget = overload.shared_budget()
+    emit({"index": index, "seed": seed, "stages": stages,
+          "budget": {"tokens": budget.tokens(), "spent": budget._m_spent.value(),
+                     "exhausted": budget._m_exhausted.value()},
+          "breaker": api._breaker.state})
+    return 0
+
+
+def pod_process_env(api, name: str, ns: str, workspace: str) -> tuple[dict, str]:
+    """A Running notebook pod's container env, resolved as a kubelet
+    would, with the workspace volume's mount path on ``workspace``; and
+    its node."""
+    from odh_kubeflow_tpu_torch.machinery.kubelet import container_env
+
+    pod = api.get("Pod", f"{name}-0", ns)
+    if pod["status"].get("phase") != "Running":
+        raise AssertionError(f"{ns}/{name}-0 is {pod['status'].get('phase')}")
+    container = pod["spec"]["containers"][0]
+    claim = {v["name"]: v.get("persistentVolumeClaim", {}).get("claimName")
+             for v in pod["spec"].get("volumes", [])}
+    mount = next(m["mountPath"] for m in container["volumeMounts"]
+                 if claim.get(m["name"]) == f"{name}-workspace")
+    env = {k: (workspace + v[len(mount):] if v.startswith(mount) else v)
+           for k, v in container_env(pod).items()}
+    return env, pod["spec"]["nodeName"]
+
+
+def remote_post(fleet: dict, ns: str, name: str) -> float:
+    """POST one 1-GPU H100 notebook through the JWA; returns the POST's
+    wall-clock start."""
+    body = {"name": name, "cpu": "1", "memory": "4Gi",
+            "gpus": {"accelerator": REMOTE_POOL[1], "count": "1"}}
+    req = urllib.request.Request(
+        f"{fleet['jwa']}/api/namespaces/{ns}/notebooks", method="POST",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "kubeflow-userid": REMOTE_USER,
+                 "Cookie": "XSRF-TOKEN=remote", "X-XSRF-TOKEN": "remote"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if r.status != 201:
+            raise AssertionError(f"POST {ns}/{name}: HTTP {r.status}")
+    return t0
+
+
+def wait_running(api, ns: str, name: str, limit: float = REMOTE_RUNNING_LIMIT_S) -> float:
+    """Polls the store until ``<name>-0`` is Running; its wall-clock time."""
+    end = time.time() + limit
+    while time.time() < end:
+        pods = [p for p in api.list("Pod", namespace=ns) if p["metadata"]["name"] == f"{name}-0"]
+        if pods and (pods[0].get("status") or {}).get("phase") == "Running":
+            return time.time()
+        time.sleep(0.02)
+    raise AssertionError(f"{ns}/{name}-0 not Running in {limit} s")
+
+
+def remote_trace(fleet: dict, ns: str, name: str) -> dict:
+    """The spawn's trace as ``/debug/traces?trace=<id>&format=json`` serves
+    it: one tree under the JWA's POST span, the store's CREATE stamp on
+    the notebook, the controller process's spans (arrived through the
+    ingest route) with the milestones in causal order, and the façade's
+    spans of the remote reconcile's calls."""
+    import ssl
+
+    from odh_kubeflow_tpu_torch.utils import tracing
+
+    tid = fleet["api"].get("Notebook", name, ns)["metadata"]["annotations"][
+        tracing.TRACE_ANNOTATION]
+    ctx = ssl.create_default_context(cafile=fleet["ca"])
+    end = time.time() + 10
+    while True:
+        with urllib.request.urlopen(f"{fleet['url']}/debug/traces?trace={tid}&format=json",
+                                    context=ctx, timeout=10) as r:
+            body = json.loads(r.read())
+        spans = [tracing.SpanRecord.from_dict(d) for t in body["traces"] for d in t["spans"]]
+        names = {s.name for s in spans}
+        if all(m in names for m in REMOTE_MILESTONES) or time.time() > end:
+            break
+        time.sleep(0.2)  # the controller process ships every 0.2 s
+    tree = tracing.assemble(spans) if spans else None
+
+    def size(node):
+        return 1 + sum(size(c) for c in node["children"])
+
+    starts: dict = {}
+    for s in spans:
+        starts[s.name] = min(starts.get(s.name, s.start), s.start)
+    missing = [m for m in REMOTE_MILESTONES if m not in starts]
+    order = [starts.get(m) for m in REMOTE_MILESTONES]
+    root = tree["span"] if tree else None
+    record = {
+        "trace_id": tid, "spans": len(spans), "tree_nodes": size(tree) if tree else 0,
+        "root": root.name if root else None, "names": sorted(names),
+        "ingested": sum(s.name in ("reconcile", "scheduler.admit")
+                        or s.name.startswith("kubelet.") for s in spans),
+        "apiserver_spans": sum(s.name == "apiserver" for s in spans),
+        "milestone_start_offsets_s": {m: starts[m] - root.start for m in REMOTE_MILESTONES
+                                      if m in starts and root},
+        "causal_order": not missing and order == sorted(order),
+    }
+    if (missing or not record["causal_order"] or record["tree_nodes"] != len(spans)
+            or not (root and root.name.startswith("jupyter-web-app:POST"))
+            or not record["apiserver_spans"]):
+        raise AssertionError(f"the remote spawn trace: {record}")
+    return record
+
+
+def remote_watches(fleet: dict, n: int = REMOTE_WATCHES) -> dict:
+    """``n`` watches over TLS on raw sockets (no client thread each),
+    every one greeted and then live for one event; the apiserver's thread
+    count at 0 (its handler pool at full size) and at ``n`` watches;
+    every one gone from the store after the close."""
+    import resource
+    import socket
+    import ssl
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = 4 * n + 256  # this process holds both ends of every stream
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE,
+                           (want if hard == resource.RLIM_INFINITY else min(want, hard), hard))
+    api, ns = fleet["api"], REMOTE_NAMESPACES[0]
+    host, port = fleet["url"].rsplit("/", 1)[1].split(":")
+    ctx = ssl.create_default_context(cafile=fleet["ca"])
+    watchers0 = len(api._watches)
+    # the façade's handler pool starts its workers on demand, up to its
+    # fixed REMOTE_WORKERS (it grew by 12 while the watches opened in one
+    # of seven runs on the CPU, with every watch live): all of them are
+    # started first, so that the count reads what the watches add
+    pool = fleet["server"]._pool
+    barrier = threading.Barrier(REMOTE_WORKERS + 1)
+    started = [pool.submit(barrier.wait, 30) for _ in range(REMOTE_WORKERS)]
+    barrier.wait(30)
+    for f in started:
+        f.result()
+    threads0 = threading.active_count()
+    streams = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n):
+            s = ctx.wrap_socket(socket.create_connection((host, int(port)), timeout=30),
+                                server_hostname=host)
+            s.sendall(f"GET /api/v1/namespaces/{ns}/configmaps?watch=true"
+                      "&sendInitialEvents=false HTTP/1.1\r\nHost: t\r\n"
+                      f"Authorization: Bearer {REMOTE_TOKENS['flood']}\r\n\r\n".encode())
+            f = s.makefile("rb")
+            streams.append((s, f))
+            if b"200" not in f.readline():
+                raise AssertionError("watch refused")
+            while f.readline() not in (b"\r\n", b"\n"):
+                pass
+            if b"HEARTBEAT" not in f.readline():
+                raise AssertionError("no watch greeting")
+        open_s = time.perf_counter() - t0
+        threads_n = threading.active_count()
+        api.create({"apiVersion": "v1", "kind": "ConfigMap",
+                    "metadata": {"name": "watch-probe", "namespace": ns}})
+        live = sum(b"watch-probe" in f.readline() for _, f in streams)
+    finally:
+        for s, f in streams:
+            f.close()
+            s.close()
+    end = time.time() + 10
+    while len(api._watches) > watchers0 and time.time() < end:
+        time.sleep(0.05)
+    record = {"watches": n, "threads_at_0": threads0, "threads_at_n": threads_n,
+              "threads_added": threads_n - threads0, "live": live, "open_s": open_s,
+              "store_watchers_left": len(api._watches) - watchers0}
+    if (record["threads_added"] >= REMOTE_WATCH_THREADS_GATE or live != n
+            or record["store_watchers_left"] != 0):
+        raise AssertionError(f"watches: {record}")
+    return record
+
+
+def shed_counts(registry) -> dict:
+    metric = registry.metric("inflight_shed_total")
+    return {f"{labels['level']}/{labels['reason']}": value
+            for labels, value in (metric.samples() if metric is not None else [])}
+
+
+def rest_ms(samples, a: float, b: float) -> dict:
+    """REST handler ms p50 / p99 by level between wall-clock ``a`` and
+    ``b``, and the most handlers of the level in flight at once."""
+    out = {}
+    for level in ("controller", "user"):
+        rows = [(t, ms) for t, lv, ms in samples if a <= t <= b and lv == level]
+        xs = [ms for _, ms in rows]
+        edges = sorted([(t - ms / 1e3, 1) for t, ms in rows] + [(t, -1) for t, _ in rows])
+        peak = depth = 0
+        for _, d in edges:
+            depth += d
+            peak = max(peak, depth)
+        out[level] = {"n": len(xs), "p50": pctl(xs, 0.5), "p99": pctl(xs, 0.99),
+                      "peak_in_flight": peak}
+    return out
+
+
+def run_notebook_thread(env: dict, scratch: str) -> dict:
+    """``run_notebook_process`` on a thread, so that the notebook serves
+    while the flood runs; its record (or its error) lands in the returned
+    dict once ``["thread"]`` has finished."""
+    out: dict = {}
+
+    def target() -> None:
+        try:
+            out.update(run_notebook_process("remote", env, env["ODH_TORCH_KERNEL_CACHE"],
+                                            scratch))
+        except BaseException as e:  # noqa: BLE001 — re-raised by the phase
+            out["error"] = e
+
+    out["thread"] = threading.Thread(target=target, daemon=True)
+    out["thread"].start()
+    return out
+
+
+def flood_stages(outs: list) -> list:
+    """The flood processes' records summed stage by stage: counts, ok per
+    second over the stage's planned seconds, p50 / p99 ms of the
+    successful requests."""
+    rows = []
+    ran = min(len(o["stages"]) for o in outs)
+    for k, (name, threads, start, seconds, period) in enumerate(flood_schedule()[:ran]):
+        parts = [o["stages"][k] for o in outs]
+        row = {"stage": name, "threads": threads, "start_s": start, "seconds": seconds,
+               "period_s": period}
+        for key in ("ok", "failed", "logical", "wired_logical", "attempts", "expired_sent",
+                    "expired_504"):
+            row[key] = sum(p[key] for p in parts)
+        errors: dict = {}
+        for p in parts:
+            for e, n in p["errors"].items():
+                errors[e] = errors.get(e, 0) + n
+        ms = [x for p in parts for x in p["ms"]]
+        row.update(errors=errors, ok_per_s=row["ok"] / seconds, p50_ms=pctl(ms, 0.5),
+                   p99_ms=pctl(ms, 0.99))
+        rows.append(row)
+    return rows
+
+
+def platform_remote_phase(run_notebook=run_notebook_thread, spawn_tokens=None,
+                          seed: int = REMOTE_SEED) -> tuple[dict, int]:
+    """The platform over the wire: the apiserver here; the controllers,
+    the flood and the notebook in processes of their own.
+
+    1. A 1-GPU notebook POSTed through the JWA; the controller process
+       takes it to a Running pod over HTTPS (seconds, no flood).
+    2. Its trace on ``/debug/traces``: one tree, the controller process's
+       spans ingested, milestones in causal order.
+    3. ``REMOTE_WATCHES`` watches over the wire: fewer than
+       ``REMOTE_WATCH_THREADS_GATE`` threads added, all gone after.
+    4. The notebook's process (``run_notebook``, in the pod's env, the
+       dequant library staged in its kernel directory; started before 2
+       and 3) serves Llama-3-8B int4: once its weights are on the card
+       the flood processes run the baseline, the flood (a second
+       notebook POSTed halfway, which must reach Running before the
+       flood ends) and the recovery windows.
+    5. The gates: no controller-level shed, user-level sheds at the level
+       ceiling, every expired request a 504 that ran no handler,
+       attempts per logical request, recovery, the notebook's tokens
+       (equal to ``spawn_tokens`` when given) and dequant launches."""
+    import shutil
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="platform-remote-")
+    fleet = remote_apiserver(root)
+    procs: list = []
+    record: dict = {"phase": "platform_remote"}
+    try:
+        controllers = start_remote_process(fleet, "--platform-controllers", {}, "controller")
+        procs.append(controllers)
+        floods = [start_remote_process(fleet, "--platform-flood",
+                                       {"REMOTE_FLOOD_SEED": str(seed),
+                                        "REMOTE_FLOOD_INDEX": str(i),
+                                        **REMOTE_FLOOD_BREAKER_ENV}, "flood")
+                  for i in range(REMOTE_FLOOD_PROCESSES)]
+        procs += floods
+        for p in procs:
+            if not p["ready"].wait(120) or "ready" not in p["events"]:
+                raise AssertionError(f"{p['label']} process never got ready: "
+                                     f"{open(p['err']).read()[-3000:]}")
+        api, ns = fleet["api"], REMOTE_NAMESPACES[0]
+        # 1. the spawn over the wire
+        t_post = remote_post(fleet, ns, "nb-remote")
+        record["spawn_s"] = wait_running(api, ns, "nb-remote") - t_post
+        # 4a. the notebook's process, warm, starts in its pod's env (its
+        # imports overlap the next two checks)
+        env, node = pod_process_env(api, "nb-remote", ns, os.path.join(root, "workspace"))
+        kernel_dir = env["ODH_TORCH_KERNEL_CACHE"]
+        os.makedirs(kernel_dir, exist_ok=True)
+        lib = _build._target("int4_dequant")
+        if lib.exists():  # built by this process's device phase
+            shutil.copy2(lib, os.path.join(kernel_dir, lib.name))
+        notebook = run_notebook(env, root)
+        # 2. one trace
+        record["trace"] = remote_trace(fleet, ns, "nb-remote")
+        # 3. watches without threads
+        record["watches"] = remote_watches(fleet)
+        # 4b. the flood starts once the notebook's weights are on the
+        # card, so that it runs while the notebook serves
+        out_path = os.path.join(root, "remote.out")
+        end = time.time() + 300
+        while notebook["thread"].is_alive() and time.time() < end:
+            if os.path.exists(out_path) and '"event": "service"' in open(out_path).read():
+                break
+            time.sleep(0.05)
+        t0 = time.time() + 0.5
+        for p in floods:
+            p["proc"].stdin.write(f"go {t0}\n")
+            p["proc"].stdin.flush()
+        flood_t0, flood_t1 = t0 + REMOTE_BASE_S, t0 + REMOTE_BASE_S + REMOTE_FLOOD_S
+        time.sleep(max(flood_t0 + REMOTE_FLOOD_S / 2 - time.time(), 0))
+        second = {"post": remote_post(fleet, REMOTE_NAMESPACES[1], "nb-remote-2")}
+        second["running"] = wait_running(api, REMOTE_NAMESPACES[1], "nb-remote-2")
+        # 5. the recovery windows until one reaches the gate (the ok
+        # counts summed over the flood processes as each stage ends);
+        # closing their stdin then stops the flood processes
+        end = time.time() + REMOTE_RECOVERY_S + 60
+        while time.time() < end and all(p["proc"].poll() is None for p in floods):
+            ends = [[e["ok"] for e in p["history"] if e["event"].endswith("_end")]
+                    for p in floods]
+            oks = [sum(col) for col in zip(*ends)]  # stages every process has ended
+            if len(oks) > 2 and oks[-1] / REMOTE_WINDOW_S >= (
+                    REMOTE_RECOVERY_GATE * oks[0] / REMOTE_BASE_S):
+                break
+            time.sleep(0.05)
+        outs = [stop_remote_process(p, timeout=REMOTE_RECOVERY_S + 60) for p in floods]
+        notebook["thread"].join(timeout=600)
+        if "error" in notebook:
+            raise notebook["error"]
+        if notebook["thread"].is_alive():
+            raise AssertionError("the notebook process did not finish")
+        ctl_out = stop_remote_process(controllers)
+        queues = api.debug_queues()
+    finally:
+        for p in procs:
+            if p["proc"].poll() is None:
+                p["proc"].kill()
+                p["proc"].wait()
+        fleet["close"]()
+        shutil.rmtree(root, ignore_errors=True)
+    stages = flood_stages(outs)
+    base, flood_stage, windows = stages[0], stages[1], stages[2:]
+    recovered = next((k for k, w in enumerate(windows)
+                      if w["ok_per_s"] >= REMOTE_RECOVERY_GATE * base["ok_per_s"]), None)
+    sheds = shed_counts(fleet["registry"])
+    expired = {"sent": sum(s["expired_sent"] for s in stages),
+               "504": sum(s["expired_504"] for s in stages),
+               "handled": fleet["expired_handled"][0]}
+    wire = sum(s["attempts"] for s in stages)
+    on_wire = sum(s["wired_logical"] for s in stages)
+    expected = LAUNCHES_PER_FORWARD * (2 + 1 + SPAWN_NEW_TOKENS)
+
+    def stage_row(s):
+        return {k: s[k] for k in ("threads", "period_s", "seconds", "ok_per_s", "ok", "failed",
+                                  "errors", "p50_ms", "p99_ms")}
+
+    record.update({
+        "notebook": {k: notebook[k] for k in ("imported_s", "service_s", "first_token_s",
+                                              "process_s", "built", "launches", "device")},
+        "notebook_node": node,
+        "first_token_split_s": {"imports": notebook["imported_s"],
+                                "load": notebook["service_s"] - notebook["imported_s"],
+                                "first_token": notebook["first_token_s"] - notebook["service_s"]},
+        "tokens": notebook["tokens"],
+        "rest_ms": {"unloaded": rest_ms(fleet["rest_ms"], t0, flood_t0),
+                    "flood": rest_ms(fleet["rest_ms"], flood_t0, flood_t1)},
+        "shed": sheds, "expired": expired,
+        "attempts_per_logical": wire / max(on_wire, 1),
+        "attempts": {"wire": wire, "logical_on_wire": on_wire,
+                     "logical": sum(s["logical"] for s in stages),
+                     "budgets": [o["budget"] for o in outs],
+                     "breakers": [o["breaker"] for o in outs]},
+        "flood_processes": REMOTE_FLOOD_PROCESSES,
+        "baseline": stage_row(base), "flood": stage_row(flood_stage),
+        "recovery": [stage_row(w) for w in windows],
+        "recovery_s": None if recovered is None else (recovered + 1) * REMOTE_WINDOW_S,
+        "second_notebook": {"post_to_running_s": second["running"] - second["post"],
+                            "posted_into_flood_s": second["post"] - flood_t0,
+                            "running_before_flood_end": second["running"] <= flood_t1},
+        "wal": queues["wal"], "controllers": ctl_out,
+        "injected_latencies": fleet["injector"].m_faults.value({"kind": "latency"}),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    problems = []
+    if spawn_tokens is not None and notebook["tokens"] != spawn_tokens:
+        problems.append(f"tokens {notebook['tokens']} != platform_spawn's {spawn_tokens}")
+    if notebook["launches"] != expected or len(notebook["tokens"]) != SPAWN_NEW_TOKENS:
+        problems.append(f"dequant launches {notebook['launches']} (expected {expected})")
+    if notebook["built"]:
+        problems.append(f"the warm notebook built {notebook['built']}")
+    if any(k.startswith("controller/") and v for k, v in sheds.items()):
+        problems.append(f"controller-level sheds {sheds}")
+    if not sheds.get("user/level"):
+        problems.append(f"no user-level shed at the level ceiling: {sheds}")
+    if not expired["sent"] or expired["504"] != expired["sent"] or expired["handled"]:
+        problems.append(f"expired requests: {expired}")
+    if record["attempts_per_logical"] > REMOTE_ATTEMPTS_GATE:
+        problems.append(f"attempts per logical request {record['attempts_per_logical']}")
+    if not record["second_notebook"]["running_before_flood_end"]:
+        problems.append(f"second notebook: {record['second_notebook']}")
+    if recovered is None:
+        problems.append(f"no recovery to {REMOTE_RECOVERY_GATE} of {base['ok_per_s']}/s in "
+                        f"{REMOTE_RECOVERY_S} s")
+    if problems:
+        raise AssertionError(f"platform_remote: {problems}; {record}")
+    return record, notebook["launches"]
 
 
 def free_port() -> int:
@@ -6980,6 +7916,12 @@ def main() -> int:
     record["card"] = label
     emit(record)
     torch.cuda.empty_cache()
+    # the platform phases time host loops (the meter's 1 s samples, the
+    # culler, the apiserver's event loop) in this process: what the model
+    # phases left on its heap moves out of the cyclic collector's reach,
+    # so that a full collection cannot stall them for seconds
+    gc.collect()
+    gc.freeze()
     # the platform's conformance gate on GPU node pools (slice 9), its
     # elastic-resume step on the 8B QLoRA model
     record, conformance_launches = platform_conformance_phase(torch, fa, int4)
@@ -6992,6 +7934,7 @@ def main() -> int:
     record, spawn_launches = platform_spawn_phase()
     record["card"] = label
     emit(record)
+    spawn_tokens = record["card_step"]["tokens"]
     # suspend-to-checkpoint sessions and the warm-start subsystem (slice
     # 9, part 3): a cold standby, a warm handout, suspend and resume
     record, sessions_launches = platform_sessions_phase()
@@ -7009,7 +7952,15 @@ def main() -> int:
     record, usage_launches = platform_usage_phase()
     record["card"] = label
     emit(record)
+    # the platform over the wire (slice 9, part 6): the controllers in a
+    # process of their own against the REST façade over TLS, 500 watches,
+    # a user flood against the overload defense while the spawned
+    # notebook serves the 8B int4 model on the card
+    record, remote_launches = platform_remote_phase(spawn_tokens=spawn_tokens)
+    record["card"] = label
+    emit(record)
 
+    gc.unfreeze()
     # MoE training (slice 3)
     record, trainer = moe_train_phase(torch, fa, int4, gm, peak)
     record["card"] = label
@@ -7104,7 +8055,8 @@ def main() -> int:
                                   "platform_spawn": spawn_launches,
                                   "platform_sessions": sessions_launches,
                                   "platform_observe": observe_launches["int4_dequant"],
-                                  "platform_usage": usage_launches["int4_dequant"]}
+                                  "platform_usage": usage_launches["int4_dequant"],
+                                  "platform_remote": remote_launches}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -7135,5 +8087,7 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--notebook-serve": notebook_serve_main,
               "--notebook-profile": notebook_profile_main,
-              "--notebook-usage": notebook_usage_main}.get(
+              "--notebook-usage": notebook_usage_main,
+              "--platform-controllers": platform_controllers_main,
+              "--platform-flood": platform_flood_main}.get(
                   " ".join(sys.argv[1:]), main)())

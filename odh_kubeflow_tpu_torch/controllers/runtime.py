@@ -17,9 +17,12 @@ A from-scratch controller-runtime equivalent:
 
 Each reconcile runs in a ``reconcile`` span (``utils/tracing.py``) on
 the trace its triggering object carries (the store's CREATE stamp), so
-a web request's spawn assembles into one trace. Left out of the copy
-(ROADMAP.md): the shared informer cache, leader fencing and namespace
-sharding, per-reconcile request deadlines and the lock sanitizer.
+a web request's spawn assembles into one trace, and under one
+end-to-end deadline (``machinery/overload.py``,
+``REQUEST_DEADLINE_DEFAULT``): an attempt whose deadline expires goes
+to the error-backoff requeue. Left out of the copy (ROADMAP.md): the
+shared informer cache, leader fencing and namespace sharding, and the
+lock sanitizer.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from odh_kubeflow_tpu_torch.machinery import objects as obj_util
+from odh_kubeflow_tpu_torch.machinery import objects as obj_util, overload
 from odh_kubeflow_tpu_torch.machinery.store import APIServer, Watch
 from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 
@@ -284,7 +287,12 @@ class Controller:
             "reconcile", trace_id=trace_id, controller=self.name, reconcile_key=key
         ):
             try:
-                result = self.reconcile(req) or Result()
+                # one reconcile runs under one end-to-end deadline: every
+                # API call it makes carries the remaining budget, so a
+                # wedged apiserver cannot pin a worker forever — the
+                # attempt 504s and the error-backoff requeue takes over
+                with overload.deadline_scope():
+                    result = self.reconcile(req) or Result()
             except Exception as e:
                 self._m_reconcile_time.observe(self.time_fn() - start)
                 self._m_reconcile_errors.inc()

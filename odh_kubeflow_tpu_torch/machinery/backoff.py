@@ -1,7 +1,5 @@
 """Shared retry/backoff policy for every API-path client (the port's
-copy of the JAX package's ``machinery/backoff.py``, without the
-overload subsystem's retry budgets and ambient request deadlines: only
-an explicit ``deadline`` bounds the retries here).
+copy of the JAX package's ``machinery/backoff.py``).
 
 One implementation of "retry with exponential backoff + decorrelated
 jitter, honour Retry-After, cap the attempts" so the remote client,
@@ -15,7 +13,7 @@ exponential-with-jitter it decorrelates competing retriers faster,
 which is exactly what a thundering herd of controllers hitting one
 recovering apiserver needs.
 
-``retry`` takes an injectable ``rng``/``sleep_fn`` so chaos
+Both entry points take an injectable ``rng``/``sleep_fn`` so chaos
 tests are deterministic and sleep-free.
 """
 
@@ -23,7 +21,9 @@ from __future__ import annotations
 
 import random
 import time
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional, Sequence
+
+from odh_kubeflow_tpu_torch.machinery import overload
 
 
 def next_delay(
@@ -38,6 +38,19 @@ def next_delay(
     return min(cap, rng.uniform(base, max(prev * 3.0, base)))
 
 
+def delays(
+    attempts: int,
+    base: float = 0.05,
+    cap: float = 2.0,
+    rng: Any = random,
+) -> Iterator[float]:
+    """The ``attempts - 1`` sleep intervals between ``attempts`` tries."""
+    prev: Optional[float] = None
+    for _ in range(max(attempts - 1, 0)):
+        prev = next_delay(prev, base=base, cap=cap, rng=rng)
+        yield prev
+
+
 def retry(
     fn: Callable[[], Any],
     retryable: Any = (Exception,),
@@ -48,6 +61,7 @@ def retry(
     # None = time.sleep, looked up at CALL time
     sleep_fn: Optional[Callable[[float], None]] = None,
     on_retry: Optional[Callable[[BaseException, int, float], None]] = None,
+    budget: Optional[Any] = None,
     deadline: Optional[float] = None,
 ) -> Any:
     """Call ``fn`` until it succeeds, a non-retryable error escapes, or
@@ -61,9 +75,13 @@ def retry(
     predicate ``(exc) -> bool`` for policies that depend on more than
     the type (the remote client's verb × error table).
 
-    ``deadline`` is an absolute ``time.monotonic()`` bound (None: no
-    bound). A sleep that would outlive the deadline is never taken —
-    the last error surfaces immediately."""
+    Overload defense (machinery.overload): ``budget`` is a
+    :class:`~odh_kubeflow_tpu_torch.machinery.overload.RetryBudget` — each
+    retry must spend a token (a dry bucket surfaces the error instead
+    of amplifying) and each success refills it. ``deadline`` is an
+    absolute ``time.monotonic()`` bound; None consults the ambient
+    request deadline. A sleep that would outlive the deadline is never
+    taken — the last error surfaces immediately."""
     if isinstance(retryable, type):
         types: Any = (retryable,)
         should_retry: Callable[[BaseException], bool] = (
@@ -85,13 +103,24 @@ def retry(
             retry_after = getattr(e, "retry_after", None)
             if retry_after:
                 prev = max(prev, float(retry_after))
-            if deadline is not None and prev >= deadline - time.monotonic():
+            rem = (
+                overload.remaining()
+                if deadline is None
+                else deadline - time.monotonic()
+            )
+            if rem is not None and prev >= rem:
                 # the caller's deadline expires during (or before) the
                 # sleep: the retry could never be observed — surface
+                raise
+            if budget is not None and not budget.try_spend():
+                # fleet retry budget exhausted: retrying now is pure
+                # amplification — surface the error instead
                 raise
             if on_retry is not None:
                 on_retry(e, attempt, prev)
             (sleep_fn or time.sleep)(prev)
         else:
+            if budget is not None:
+                budget.on_success()
             return result
     raise AssertionError("unreachable")  # pragma: no cover

@@ -281,8 +281,10 @@ def match_label_selector(selector: Optional[Obj], labels: dict[str, str]) -> boo
 def parse_selector_string(s: str) -> Obj:
     """'a=b,c!=d,e' → LabelSelector dict (the list-API query form).
 
-    Supports '=', '==', '!=' and bare-key existence; anything else
-    raises rather than silently mis-parsing."""
+    Supports '=', '==', '!=', bare-key existence and kube's '!key'
+    (DoesNotExist, which the gang scheduler's remote lists need; the JAX
+    package's parser has no such form); anything else raises rather
+    than silently mis-parsing."""
     match_labels: dict[str, str] = {}
     exprs: list[Obj] = []
     for part in s.split(","):
@@ -301,6 +303,8 @@ def parse_selector_string(s: str) -> Obj:
             match_labels[k.strip()] = v.strip().lstrip("=")
         elif " " in part or "(" in part:
             raise ValueError(f"unsupported selector segment {part!r}")
+        elif part.startswith("!"):
+            exprs.append({"key": part[1:].strip(), "operator": "DoesNotExist"})
         else:
             exprs.append({"key": part, "operator": "Exists"})
     sel: Obj = {}

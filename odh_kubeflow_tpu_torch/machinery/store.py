@@ -34,15 +34,26 @@ window, never an empty stream). A CREATE made inside a traced request
 stamps the trace id on the object (``utils/tracing.TRACE_ANNOTATION``),
 so the reconciles it triggers join the request's trace.
 
-Not ported here (ROADMAP.md): fencing tokens, the replication feed,
-sharded watch dispatch, kube-style pagination (``list_chunk``), per-kind
-versions and request deadlines. The JAX module builds its locks through
-its lock-order sanitizer; the port uses plain ``threading`` locks.
+Kube-style pagination: ``list_chunk`` serves a page in (namespace,
+name) order with an opaque continue token that pins the first page's rv;
+a token older than the compacted watch-cache window is 410 ``Expired``.
+``Watch.set_notify`` is the event-loop server's wake hook. Under an
+ambient request deadline (``machinery/overload.py``) the group-commit
+ack wait gives up with 504 ``DeadlineExceeded`` (the record stays
+enqueued and may still commit).
+
+Not ported here (ROADMAP.md): fencing tokens (``FencedOut`` and
+``NotLeader`` exist so the REST façade can map them), the replication
+feed, sharded watch dispatch and per-kind versions. The JAX module
+builds its locks through its lock-order sanitizer; the port uses plain
+``threading`` locks.
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
+import json
 import logging
 import os
 import queue
@@ -53,7 +64,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util, serialize
+from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util, overload, serialize
 from odh_kubeflow_tpu_torch.utils import tracing
 
 Obj = dict[str, Any]
@@ -81,10 +92,24 @@ class Invalid(APIError):
     code = 422
 
 
+class BadRequest(APIError):
+    """Malformed request (e.g. body metadata contradicting the URL —
+    kube-apiserver rejects these with 400, not 422)."""
+
+    code = 400
+
+
 class Denied(APIError):
     """Raised by admission (validating webhook semantics)."""
 
     code = 403
+
+
+class Unauthorized(APIError):
+    """Missing/invalid credentials (kube's authn 401 — distinct from
+    the authz 403)."""
+
+    code = 401
 
 
 class TooManyRequests(APIError):
@@ -100,6 +125,19 @@ class TooManyRequests(APIError):
         self.retry_after = retry_after
 
 
+class DeadlineExceeded(APIError):
+    """HTTP 504: the request's end-to-end deadline
+    (``X-Request-Deadline`` / the ``machinery.overload`` contextvar)
+    expired before the work completed — the caller already gave up, so
+    the server sheds instead of finishing dead work. NOT retryable: the
+    time budget is spent. On a mutation path the write may still become
+    durable (the group-commit pipeline does not unwind an enqueued
+    record) — the ack is what timed out, the kube-apiserver 504
+    contract."""
+
+    code = 504
+
+
 class Expired(APIError):
     """HTTP 410 Gone: the requested resourceVersion has been compacted
     out of the watch cache, or the watch fell too far behind. It cannot
@@ -107,6 +145,28 @@ class Expired(APIError):
     (kube-apiserver's ``status.reason: Expired`` contract)."""
 
     code = 410
+
+
+class FencedOut(APIError):
+    """The write carried a fencing token from a deposed lease epoch; the
+    caller must stand down. 403, not 409: an authority failure, not a
+    data race. The port's store raises it once leader election is
+    ported; the REST façade and the client map it already."""
+
+    code = 403
+
+
+class NotLeader(APIError):
+    """A mutation was sent to a read replica; the client must retry the
+    write against the leader, whose URL rides in ``leader_url`` (the
+    REST façade answers with a kube-style 307 + ``Location``). Raised
+    once replication is ported; mapped already."""
+
+    code = 307
+
+    def __init__(self, message: str = "", leader_url: str = ""):
+        super().__init__(message)
+        self.leader_url = leader_url
 
 
 @dataclass
@@ -199,6 +259,52 @@ BUILTIN_KINDS: list[tuple[str, str, str, bool]] = [
 _BUILTIN_KIND_NAMES = frozenset(k for _, k, _, _ in BUILTIN_KINDS)
 
 
+def encode_continue(payload: Obj) -> str:
+    """Opaque kube-style continue token: URL-safe base64 of a JSON
+    payload. Clients must treat it as a black box."""
+    return base64.urlsafe_b64encode(serialize.dumps(payload)).decode()
+
+
+def decode_continue(token: str) -> Obj:
+    """Inverse of :func:`encode_continue`; raises :class:`BadRequest`
+    on garbage (a forged or truncated token is a client error)."""
+    try:
+        out = json.loads(base64.urlsafe_b64decode(token.encode()).decode())
+    except (ValueError, TypeError):
+        raise BadRequest(f"malformed continue token {token!r}") from None
+    if not isinstance(out, dict):
+        raise BadRequest(f"malformed continue token {token!r}")
+    return out
+
+
+def paged_list_all(
+    chunk_fn: Callable[..., tuple[list[Obj], str]],
+    kind: str,
+    page_size: int,
+    fallback_fn: Callable[[], list[Obj]],
+    restarts: int = 3,
+    on_restart: Optional[Callable[[], None]] = None,
+) -> list[Obj]:
+    """Walk a full collection in ``page_size`` chunks via
+    ``chunk_fn(kind, limit=…, continue_token=…)``. A continue token
+    that 410s mid-walk restarts the whole walk (``on_restart`` surfaces
+    it — a metric, a log); after ``restarts`` failed walks
+    ``fallback_fn`` is the last resort."""
+    for _ in range(restarts):
+        out: list[Obj] = []
+        token: Optional[str] = None
+        try:
+            while True:
+                items, token = chunk_fn(kind, limit=page_size, continue_token=token)
+                out.extend(items)
+                if not token:
+                    return out
+        except Expired:
+            if on_restart is not None:
+                on_restart()
+    return fallback_fn()
+
+
 class Watch:
     """A stream of (event_type, obj) with a bounded drain queue.
 
@@ -224,6 +330,26 @@ class Watch:
         self.ended = False
         self.evicted = False
         self.error: Optional[Exception] = None
+        self._notify_cb: Optional[Callable[[], None]] = None
+
+    def set_notify(self, fn: Optional[Callable[[], None]]) -> None:
+        """Register a wake callback fired (from the enqueuing thread)
+        whenever an event or the end/stop sentinel lands: the event-loop
+        server's pump parks on an ``asyncio.Event`` the callback sets via
+        ``call_soon_threadsafe`` instead of pinning a thread on a
+        blocking ``get``. Fired once on registration so events already
+        queued are never missed."""
+        self._notify_cb = fn
+        if fn is not None:
+            self._wake()
+
+    def _wake(self) -> None:
+        cb = self._notify_cb
+        if cb is not None:
+            try:
+                cb()
+            except RuntimeError:
+                pass  # the consumer's event loop is shutting down
 
     def _enqueue(self, event: tuple[str, Obj]) -> None:
         if self._stopped or self.evicted:
@@ -239,13 +365,16 @@ class Watch:
             )
             self.ended = True
             self._q.put(None)
+            self._wake()
             self._server._evict_watch(self)
             return
         self._q.put(event)
+        self._wake()
 
     def stop(self) -> None:
         self._stopped = True
         self._q.put(None)
+        self._wake()
         self._server._remove_watch(self)
 
     def get(self, timeout: Optional[float] = None) -> Optional[tuple[str, Obj]]:
@@ -278,6 +407,9 @@ class APIServer:
 
     # mutations between WAL snapshots (when a WAL is attached)
     SNAPSHOT_INTERVAL = 1024
+
+    # page size of ``list_chunk`` when the caller gives no limit
+    LIST_DEFAULT_LIMIT = 500
 
     # byte-based snapshot cadence: cut when the WAL tail exceeds this
     # many bytes since the last snapshot, whichever threshold trips
@@ -402,6 +534,12 @@ class APIServer:
         except KeyError:
             raise NotFound(f"kind {kind!r} not registered") from None
 
+    def kind_for_plural(self, plural: str) -> str:
+        for kind, info in self._types.items():
+            if info.plural == plural:
+                return kind
+        raise NotFound(f"no kind with plural {plural!r}")
+
     # -- admission ----------------------------------------------------------
 
     def register_admission_hook(
@@ -525,6 +663,40 @@ class APIServer:
                 self._evictions_seen = n
         return ()
 
+    def debug_queues(self) -> Obj:
+        """Live pipeline depths for the /debug/queues zpage. The port's
+        watches are delivered inline at apply time (no dispatch
+        shards)."""
+        with self._lock:
+            pending = len(self._pending)
+            watchers = len(self._watches)
+        out: Obj = {
+            "groupCommit": {
+                "queueDepth": self._commitq.qsize(),
+                "pending": pending,
+                "batchHighWater": self._batch_hwm,
+                "groupCommit": self.group_commit,
+                "failStop": self._wal_broken,
+            },
+            "watchDispatch": {
+                "shards": 0,
+                "queueDepths": [],
+                "watchersPerShard": [],
+                "inlineWatchers": watchers,
+                "evictedTotal": self.watch_evictions,
+            },
+            "wal": None,
+        }
+        wal = self._wal
+        if wal is not None:
+            out["wal"] = {
+                "fsyncTotal": wal.fsync_total,
+                "appendedTotal": wal.appended_total,
+                "recordsSinceSnapshot": wal.records_since_snapshot,
+                "bytesSinceSnapshot": wal.bytes_since_snapshot,
+            }
+        return out
+
     def _enqueue_entry(self, entry: _WalEntry) -> _WalEntry:
         """Hand a prepared entry to the committer (called under the store
         lock, so queue order == rv order)."""
@@ -574,7 +746,19 @@ class APIServer:
         (the committer needs it to apply)."""
         if entry is None:
             return
-        entry.done.wait()
+        if not entry.done.is_set():
+            # the ambient request deadline bounds the wait: a caller that
+            # already timed out gets 504 instead of parking a handler
+            # thread on an ack it will never read (the record stays
+            # enqueued and may still commit — see DeadlineExceeded)
+            rem = overload.remaining()
+            if rem is None:
+                entry.done.wait()
+            elif rem <= 0 or not entry.done.wait(timeout=rem):
+                raise DeadlineExceeded(
+                    "deadline expired awaiting the commit ack (the "
+                    "write may still become durable)"
+                )
         if entry.error is not None:
             raise entry.error
 
@@ -989,6 +1173,78 @@ class APIServer:
                 for stored in candidates
                 if self._matches(stored, label_selector, field_matches)
             ]
+
+    def list_chunk(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Optional[Obj] = None,
+        field_matches: Optional[dict[str, Any]] = None,
+        limit: Optional[int] = None,
+        continue_token: Optional[str] = None,
+    ) -> tuple[list[Obj], str]:
+        """One page of a kube-style paginated list: up to ``limit``
+        matching objects in stable (namespace, name) order plus an
+        opaque ``continue`` token ("" when the list is exhausted).
+
+        The token pins the resourceVersion of the FIRST page; a
+        continuation whose token predates the compacted watch-cache
+        window raises :class:`Expired` (410) — the client restarts from
+        a fresh list (kube-apiserver's continue-token contract). Pages
+        are served from current state, so a walk concurrent with writers
+        is at-least-as-fresh per page, as kube documents."""
+        info = self.type_info(kind)
+        limit = max(int(limit) if limit else self.LIST_DEFAULT_LIMIT, 1)
+        start_after: Optional[tuple[str, str]] = None
+        with self._lock:
+            if continue_token:
+                payload = decode_continue(continue_token)
+                if payload.get("kind") != kind or payload.get("ns", "") != (
+                    namespace or ""
+                ):
+                    raise BadRequest(
+                        "continue token does not match this list's "
+                        f"kind/namespace ({payload.get('kind')}/"
+                        f"{payload.get('ns')} vs {kind}/{namespace or ''})"
+                    )
+                token_rv = int(payload.get("rv", 0))
+                if token_rv < self._compacted_rv:
+                    raise Expired(
+                        f"continue token at resourceVersion {token_rv} "
+                        f"predates the compacted window (oldest resumable "
+                        f"is {self._compacted_rv}); restart the list"
+                    )
+                k = payload.get("k") or []
+                if len(k) != 2:
+                    raise BadRequest("malformed continue token key")
+                start_after = (str(k[0]), str(k[1]))
+            else:
+                token_rv = self._applied_rv
+            if info.namespaced and namespace:
+                src = self._ns_buckets[kind].get(namespace, {})
+            else:
+                src = self._store[kind]
+            out: list[Obj] = []
+            last_key: Optional[tuple[str, str]] = None
+            more = False
+            for key in sorted(src):
+                if start_after is not None and key <= start_after:
+                    continue
+                stored = src[key]
+                if not self._matches(stored, label_selector, field_matches):
+                    continue
+                if len(out) == limit:
+                    more = True
+                    break
+                out.append(obj_util.deepcopy(stored))
+                last_key = key
+            token = ""
+            if more and last_key is not None:
+                token = encode_continue(
+                    {"rv": token_rv, "kind": kind, "ns": namespace or "",
+                     "k": list(last_key)}
+                )
+            return out, token
 
     def _update_inner(self, obj: Obj, status_only: bool) -> Obj:
         kind = obj.get("kind", "")

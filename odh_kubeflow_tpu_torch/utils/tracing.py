@@ -582,7 +582,8 @@ class RemoteSpanExporter:
     in background batches, so split-process components' spans assemble
     into one tree on the apiserver's zpage. Best-effort by design: a
     down endpoint drops batches (counted) — telemetry must never
-    backpressure the traced work."""
+    backpressure the traced work. ``ssl_context`` verifies an HTTPS
+    apiserver (its CA bundle)."""
 
     def __init__(
         self,
@@ -590,8 +591,10 @@ class RemoteSpanExporter:
         flush_interval: float = 1.0,
         max_batch: int = 512,
         max_buffer: int = 8192,
+        ssl_context: Optional[Any] = None,
     ):
         self.base_url = base_url.rstrip("/")
+        self.ssl_context = ssl_context
         self.flush_interval = flush_interval
         self.max_batch = max_batch
         self.max_buffer = max_buffer
@@ -650,7 +653,7 @@ class RemoteSpanExporter:
             method="POST",
             headers={"Content-Type": "application/json"},
         )
-        with urllib.request.urlopen(req, timeout=5) as resp:
+        with urllib.request.urlopen(req, timeout=5, context=self.ssl_context) as resp:
             resp.read()
 
     def close(self) -> None:

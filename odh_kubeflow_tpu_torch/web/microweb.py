@@ -10,15 +10,19 @@ backends need.
 
 Every request runs in a span (``utils/tracing.py``): a trace root, or a
 child of the caller's ``traceparent``; the latency histogram's exemplar
-is that trace. Left out of the copy (ROADMAP.md), to come with
-``machinery/{overload,eventloop,zpages}.py``: the per-request deadline
-scope, the ``/debug`` routes and the asyncio event-loop front end; and,
-with the frontends, blueprints and static serving. Serving is
-thread-per-request, and JSON bodies are plain ``json.dumps``.
+is that trace. Every request also runs under an end-to-end deadline
+(``machinery/overload.py``): the caller's ``X-Request-Deadline``, else
+``REQUEST_DEADLINE_DEFAULT``. Every app mounts the ``/debug`` zpages
+(``machinery/zpages.py``) behind the authenticated user. Serving
+defaults to the asyncio event loop (``machinery/eventloop.py``);
+``WEB_EVENT_LOOP=false`` keeps thread-per-request. Left out of the copy
+(ROADMAP.md), to come with the frontends: blueprints and static
+serving. JSON bodies are plain ``json.dumps``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http
 import json
 import re
@@ -31,6 +35,7 @@ from typing import Any, Callable, Optional
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 from socketserver import ThreadingMixIn
 
+from odh_kubeflow_tpu_torch.machinery import overload
 
 
 class HTTPError(Exception):
@@ -159,6 +164,12 @@ class App:
             "Web request handler latency per app",
             labelnames=("app",),
         ).labels(app=name)
+        # zpages on every web app: /debug/traces, /debug/queues
+        # (workqueue gauges from this app's registry), /debug/locks,
+        # /debug/usage
+        from odh_kubeflow_tpu_torch.machinery import zpages
+
+        zpages.install_debug_routes(self, registry=reg)
 
     # -- registration -------------------------------------------------------
 
@@ -227,7 +238,29 @@ class App:
             f"{self.name}:{request.method} {request.path}",
             parent=tracing.nested_parent(remote),
         ):
-            return self._call_traced(request, start_response)
+            with self._deadline_scope(environ):
+                return self._call_traced(request, start_response)
+
+    @contextlib.contextmanager
+    def _deadline_scope(self, environ):
+        """Every web request runs under an end-to-end deadline: the
+        caller's ``X-Request-Deadline`` when one arrived (malformed
+        values are ignored at this tier — the API tier answers 400),
+        else the ``REQUEST_DEADLINE_DEFAULT`` stamp. API calls the
+        handler makes propagate the remaining budget downstream."""
+        try:
+            deadline = overload.environ_deadline(environ)
+        except ValueError:
+            deadline = None
+        if deadline is not None:
+            tok = overload.set_deadline(deadline)
+            try:
+                yield
+            finally:
+                overload.reset_deadline(tok)
+        else:
+            with overload.deadline_scope():
+                yield
 
     def _call_traced(self, request: "Request", start_response):
         from odh_kubeflow_tpu_torch.utils import tracing
@@ -264,12 +297,31 @@ class App:
 
     # -- serving ------------------------------------------------------------
 
-    def serve(self, host: str = "127.0.0.1", port: int = 0, ssl_context=None):
-        """Start a daemon-thread server, one thread a request.
-        ``ssl_context`` (an ``ssl.SSLContext``) upgrades it to HTTPS —
-        the admission webhook serves AdmissionReview this way, since a
-        real kube-apiserver only calls webhooks over TLS. Returns the
-        server (``server_address``, ``shutdown()``)."""
+    def serve(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        ssl_context=None,
+        event_loop: Optional[bool] = None,
+    ):
+        """Start a daemon-thread server. ``ssl_context`` (an
+        ``ssl.SSLContext``) upgrades it to HTTPS — the admission webhook
+        serves AdmissionReview this way, since a real kube-apiserver
+        only calls webhooks over TLS.
+
+        Serving defaults to the asyncio event-loop front end
+        (``machinery/eventloop.py``): connections multiplex on one loop
+        thread and handler bodies run in a small worker pool instead of
+        a thread per request. ``event_loop=False`` (or
+        ``WEB_EVENT_LOOP=false``) keeps the thread-per-request server.
+        Both return an object with ``server_address`` and
+        ``shutdown()``."""
+        from odh_kubeflow_tpu_torch.machinery import eventloop
+
+        if event_loop is None:
+            event_loop = eventloop.event_loop_enabled()
+        if event_loop:
+            return eventloop.serve_wsgi(self, host, port, ssl_context=ssl_context)
 
         class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
             daemon_threads = True

@@ -119,6 +119,21 @@ def test_the_scan_covers_the_metering_and_durability_modules():
             "images/jupyter-pytorch-cuda/gpu-activity-agent"} <= names
 
 
+def test_the_scan_covers_the_wire_modules():
+    """Slice 9 part 6: the overload defense, the event-loop server, the
+    zpages, the REST façade and its remote client. ``chip_smoke.py`` is
+    scanned whole, its ``--platform-controllers`` and ``--platform-flood``
+    modes included; ``tests/test_torch_platform_remote.py`` runs the
+    first and checks that the process loaded no reference module."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "odh_kubeflow_tpu_torch"
+    assert {f"{pkg}/machinery/{m}.py" for m in (
+        "overload", "eventloop", "zpages", "httpapi", "client")} | {"chip_smoke.py"} <= names
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert {"platform_controllers_main", "platform_flood_main"} <= funcs
+
+
 def test_forbidden_matches_exact_package_names():
     assert _forbidden("odh_kubeflow_tpu")
     assert _forbidden("odh_kubeflow_tpu.models.quant")
