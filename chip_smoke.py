@@ -255,9 +255,33 @@ Phases, one JSON line each on stdout:
     controller-level shed, user sheds at the level ceiling, every expired
     request a 504 that ran no handler, attempts per logical request at
     most 1.3, recovery to 95% within 10 s.
+36. ``platform_failover`` (after ``platform_remote``): the highly available
+    control plane over plain HTTP on localhost. The leader apiserver
+    (``chip_smoke.py --platform-apiserver``: the store with a WAL, the
+    webhooks, a ``LeaderElector`` holding ``control-plane-leader`` whose
+    token the store ships under), a follower (``python -m
+    odh_kubeflow_tpu_torch.machinery.replica`` with the promotion
+    watchdog, a 1 s lease), two notebook controllers and the scheduler
+    (``python -m ...controllers.notebook`` / ``...scheduling.scheduler``
+    through ``runner.run_controller``: leader election, the informer cache
+    fed off the follower, reads spread over "follower,leader" by
+    ``ReplicaFanout``, writes 307'd from the follower to the leader). A
+    notebook reaches Running; the controller holding the lease is
+    SIGKILLed (the standby takes it, the token rises by one, the dead
+    holder's write is 403 ``FencedOut``); the leader apiserver is
+    SIGKILLed (the follower promotes itself under its token + 1 within
+    two lease windows and a poll of the last renewal it saw, every
+    Notebook, StatefulSet, Pod and Workload of the leader's log on it at
+    the same rv, the old epoch fenced); a second notebook reaches Running
+    on the promoted store; meanwhile the first notebook's process serves
+    Llama-3-8B int4 on the card (225 dequants a forward) and answers once
+    more after the promotion; no process loads ``jax`` or
+    ``odh_kubeflow_tpu``; the phase within 60 s.
 
-Then the kernel table (``{"kernels": [...]}``), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+Every phase line carries ``wall_s``, its wall seconds since the previous
+one. Then one ``phase_seconds`` line (each phase's seconds, their sum and
+the script's), the kernel table (``{"kernels": [...]}``), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without the last line. Without a GPU it exits
 2 and prints nothing on stdout.
 """
@@ -274,6 +298,8 @@ import threading
 import time
 import urllib.error
 import urllib.request
+
+_SCRIPT_T0 = time.perf_counter()
 
 # spec memory bandwidth by card (NVIDIA data sheets), bytes/s
 SPEC_BANDWIDTH = (
@@ -412,8 +438,28 @@ INT4_LAYER = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
 INT4_PROJ_RTOL = 1e-2
 
 
+# (phase, wall seconds) of every phase line emitted; a phase line's
+# seconds run from the previous phase line (the first from the start)
+PHASE_SECONDS: list = []
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase record (a dict with ``phase``) is
+    stamped with ``wall_s``, its wall seconds since the previous one."""
+    if isinstance(obj, dict) and "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "wall_s": now - _PHASE_CLOCK[0]}
+        _PHASE_CLOCK[0] = now
+        PHASE_SECONDS.append([obj["phase"], obj["wall_s"]])
     print(json.dumps(obj), flush=True)
+
+
+def phase_seconds_line() -> dict:
+    """The ``phase_seconds`` line: each phase's wall seconds and their
+    sum, and the script's seconds so far."""
+    return {"phase_seconds": PHASE_SECONDS, "sum_s": sum(s for _, s in PHASE_SECONDS),
+            "script_s": time.perf_counter() - _SCRIPT_T0}
 
 
 def spec_bandwidth(name: str) -> float:
@@ -3311,45 +3357,14 @@ def remote_apiserver(root: str) -> dict:
 
 
 def start_remote_process(fleet: dict, mode: str, env: dict, label: str) -> dict:
-    """``chip_smoke.py <mode>`` in a process of its own with the
-    ``api_from_env`` ladder's env (URL, token file, CA); its stdout lines
-    collected by a reader thread (progress events in ``events``), stdin
-    kept open (closing it stops a process that waits on it), stderr to a
-    file under the fleet's root."""
-    import subprocess
-
+    """``chip_smoke.py <mode>`` (``start_process``) with the
+    ``api_from_env`` ladder's env (URL, token file, CA)."""
     token = os.path.join(fleet["root"], f"{label}.token")
     with open(token, "w") as f:
         f.write(REMOTE_TOKENS[label])
-    err_path = os.path.join(fleet["root"], f"{label}.err")
-    with open(err_path, "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), mode], stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, stderr=err, text=True,
-            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
-                 "KUBE_API_URL": fleet["url"], "KUBE_API_TOKEN_FILE": token,
-                 "KUBE_API_CA_FILE": fleet["ca"], **env})
-    lines: list = []
-    events: dict = {}
-    history: list = []
-    ready = threading.Event()
-
-    def read() -> None:
-        for line in proc.stdout:
-            line = line.rstrip("\n")
-            lines.append(line)
-            if line.startswith(PROGRESS):
-                ev = json.loads(line[len(PROGRESS):])
-                events[ev["event"]] = ev
-                history.append(ev)
-                if ev["event"] == "ready":
-                    ready.set()
-        ready.set()
-
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
-    return {"proc": proc, "lines": lines, "events": events, "history": history,
-            "ready": ready, "reader": reader, "err": err_path, "label": label}
+    return start_process(label, [os.path.abspath(__file__), mode],
+                         {"KUBE_API_URL": fleet["url"], "KUBE_API_TOKEN_FILE": token,
+                          "KUBE_API_CA_FILE": fleet["ca"], **env}, fleet["root"])
 
 
 def stop_remote_process(p: dict, timeout: float = 60.0) -> dict:
@@ -4031,12 +4046,767 @@ def platform_remote_phase(run_notebook=run_notebook_thread, spawn_tokens=None,
     return record, notebook["launches"]
 
 
+# ---------------------------------------------------------------------------
+# platform_failover (slice 9, part 7): the highly available control plane
+
+FAILOVER_NS = "team-fo"
+FAILOVER_POOL = ("h100-fo", "nvidia-h100-80gb", 1, 8)
+FAILOVER_USER = "owner-fo@example.com"
+FAILOVER_IDENTITY = "replica-b"  # the follower's watchdog identity (SHARD_IDENTITY)
+FAILOVER_CP_LEASE = "control-plane-leader"  # held by the apiserver in its own store
+FAILOVER_LEASE_NS = "kubeflow"
+# the control-plane lease (the apiserver's elector, the follower's watchdog):
+# whole seconds, the Lease field's unit
+FAILOVER_CP_LEASE_S = 1.0
+FAILOVER_CP_RENEW_S = 0.1  # the apiserver's renew period
+FAILOVER_GRACE_WINDOWS = 1.0  # PROMOTION_GRACE_WINDOWS
+# the controllers' lease: the runner renews it every third of it and
+# retries a failed renewal a quarter later (``runner._lease_periods``: 2 s
+# and 1.5 s), so a renewal that fails while writes have no leader (the
+# apiserver's failover, two control-plane windows and two polls) is
+# tried again 3.5 s later, before the holder's 0.8-lease deadline
+FAILOVER_CTL_LEASE_S = 6.0
+FAILOVER_PHASE_LIMIT_S = 60.0
+# the apiserver is killed once no write but a lease renewal has landed for
+# this long (the standby controller's first reconciles write Events)
+FAILOVER_QUIET_S = 1.0
+FAILOVER_STEP_S = 0.1  # the kubelet simulator's pass interval
+FAILOVER_KINDS = ("Notebook", "StatefulSet", "Pod", "Workload")
+FAILOVER_REFERENCE = ("jax", "odh_kubeflow_tpu")
+FAILOVER_CONTROLLER_ENV = {
+    "LEADER_ELECT": "true", "LEASE_DURATION": str(FAILOVER_CTL_LEASE_S),
+    "INFORMER_CACHE": "true", "ENABLE_GPU_QUEUEING": "true",
+    "ENABLE_SESSION_SUSPEND": "false", "TRACE_EXPORT": "false",
+    "METRICS_HOST": "127.0.0.1",
+}
+
+
+def platform_apiserver_main() -> int:
+    """The leader apiserver process (``chip_smoke.py --platform-apiserver``):
+    the port's store with its write-ahead log under ``$FAILOVER_ROOT/wal``
+    (no snapshots: every acked record stays in the log), the CRDs, the
+    notebook and PodDefault admission webhooks with the GPU-runtime
+    PodDefault in ``FAILOVER_NS``; ``httpapi.serve`` over plain HTTP on
+    127.0.0.1 with the replication routes. A ``LeaderElector`` holds
+    ``control-plane-leader`` in its own store, renewed every
+    ``FAILOVER_CP_RENEW_S``; the store ships under the elector's fencing
+    token (``replication_epoch``). Prints a ``ready`` progress line with
+    its URL and token; a ``report`` line on stdin prints the reference
+    modules loaded, the applied rv and the rv of the last write of any kind
+    but Lease; stdin's EOF stops it."""
+    from odh_kubeflow_tpu_torch import apis
+    from odh_kubeflow_tpu_torch.machinery import httpapi
+    from odh_kubeflow_tpu_torch.machinery.leader import LeaderElector
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.machinery.wal import WriteAheadLog
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.webhooks import (
+        NotebookWebhook, PodDefaultWebhook, gpu_runtime_poddefault)
+
+    root = os.environ["FAILOVER_ROOT"]
+    api = APIServer(wal=WriteAheadLog(os.path.join(root, "wal")), snapshot_interval=0)
+    apis.register_crds(api)
+    register_scheduling(api)
+    apis.install_default_cluster_roles(api)
+    PodDefaultWebhook(api).register()
+    NotebookWebhook(api).register()
+    api.create({"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": FAILOVER_NS}})
+    api.create(gpu_runtime_poddefault(FAILOVER_NS))
+    elector = LeaderElector(api, FAILOVER_CP_LEASE, namespace=FAILOVER_LEASE_NS,
+                            identity="apiserver-a", lease_duration=FAILOVER_CP_LEASE_S,
+                            renew_period=FAILOVER_CP_RENEW_S, retry_period=FAILOVER_CP_RENEW_S)
+    if not elector.acquire(timeout=10):
+        raise AssertionError("the apiserver could not take its own lease")
+    api.replication_epoch = elector.token
+
+    def lost() -> None:
+        print("apiserver: control-plane lease lost; exiting", flush=True)
+        os._exit(1)
+
+    elector.run(on_lost=lost)
+    _, port, httpd = httpapi.serve(api, host="127.0.0.1", port=0)
+
+    def reference() -> list:
+        return sorted(m for m in sys.modules if m.split(".")[0] in FAILOVER_REFERENCE)
+
+    progress("ready", url=f"http://127.0.0.1:{port}", token=elector.token, pid=os.getpid(),
+             reference_modules=reference())
+    for line in sys.stdin:
+        if line.strip() == "report":
+            progress("report", reference_modules=reference(), rv=api.applied_rv(),
+                     non_lease_rv=max(v for k, v in api._kind_rv.items() if k != "Lease"))
+    httpd.shutdown()
+    api.close()
+    emit({"token": elector.token, "rv": api.applied_rv(), "reference_modules": reference()})
+    return 0
+
+
+def notebook_failover_main() -> int:
+    """The notebook's process in ``platform_failover``
+    (``chip_smoke.py --notebook-failover``, in its pod's env): the
+    ``--notebook-serve`` service for Llama-3-8B int4 on the card, one
+    greedy request for a first token and one for ``SPAWN_NEW_TOKENS``;
+    then it waits for a line on stdin (the phase writes it after the
+    promotion) and answers the first request once more. Prints one JSON
+    line: the milestones, the tokens, the dequant launches after each
+    request, the kernels it built and the reference modules loaded."""
+    from odh_kubeflow_tpu_torch.models.serve import build_service, serve
+    from odh_kubeflow_tpu_torch.ops import _build, int4
+
+    imported_at = time.time()
+    service, args = build_service([*SPAWN_SERVE_ARGS, "--host", "127.0.0.1", "--port", "0"])
+    service_at = time.time()
+    progress("service")
+    httpd = serve(service, host=args.host, port=args.port)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prompt = [t % service.cfg.vocab_size for t in SPAWN_PROMPT]
+    stage_launches = []
+    try:
+        int4.launches = 0
+        code, first = post(base, {"prompt": [prompt], "max_tokens": 1})
+        first_token_at = time.time()
+        stage_launches.append(int4.launches)
+        code2, out = post(base, {"prompt": [prompt], "max_tokens": SPAWN_NEW_TOKENS})
+        stage_launches.append(int4.launches)
+        if (code, code2) != (200, 200):
+            raise AssertionError(f"HTTP {code}, {code2}: {first} {out}")
+        progress("served")
+        sys.stdin.readline()  # the phase's go: the apiserver has failed over
+        go_at = time.time()
+        code3, again = post(base, {"prompt": [prompt], "max_tokens": 1})
+        stage_launches.append(int4.launches)
+        if code3 != 200:
+            raise AssertionError(f"HTTP {code3} after the promotion: {again}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    emit({"imported_at": imported_at, "service_at": service_at,
+          "first_token_at": first_token_at, "go_at": go_at, "answered_at": time.time(),
+          "first": first["completions"][0], "tokens": out["completions"][0],
+          "after_promotion": again["completions"][0], "stage_launches": stage_launches,
+          "launches": int4.launches, "built": sorted(_build.build_logs),
+          "device": str(service.device),
+          "reference_modules": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in FAILOVER_REFERENCE)})
+    return 0
+
+
+def reference_poison(root: str) -> str:
+    """A directory that shadows ``jax`` and ``odh_kubeflow_tpu``: a
+    process started in it (``python -m`` puts its working directory first
+    on the path) that imports either writes its pid and the name to
+    ``reference-imports.log`` beside it and gets an ImportError."""
+    path = os.path.join(root, "poison")
+    log = os.path.join(root, "reference-imports.log")
+    for name in FAILOVER_REFERENCE:
+        os.makedirs(os.path.join(path, name), exist_ok=True)
+        with open(os.path.join(path, name, "__init__.py"), "w") as f:
+            f.write(f"import os\nwith open({log!r}, 'a') as f:\n"
+                    f"    f.write(f'{{os.getpid()}} {name}\\n')\n"
+                    f"raise ImportError('{name} is not to be loaded by the port')\n")
+    return path
+
+
+def start_process(label: str, argv: list, env: dict, root: str,
+                  cwd: str | None = None) -> dict:
+    """``python <argv>`` in a process of its own with ``env`` on top of
+    this one's and the checkout on ``PYTHONPATH`` (in ``cwd`` when given);
+    its stdout lines collected by a reader thread (progress events: the
+    last of each name in ``events``, all in ``history``; ``ready`` set on
+    the ``ready`` event or at EOF), stdin kept open (closing it stops a
+    process that waits on it), stderr to ``<root>/<label>.err``."""
+    import subprocess
+
+    err_path = os.path.join(root, f"{label}.err")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, *argv], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err, text=True, cwd=cwd,
+                                env={**os.environ, "PYTHONPATH": here, **env})
+    lines: list = []
+    events: dict = {}
+    history: list = []
+    ready = threading.Event()
+    cond = threading.Condition()
+
+    def read() -> None:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            with cond:
+                lines.append(line)
+                if line.startswith(PROGRESS):
+                    ev = json.loads(line[len(PROGRESS):])
+                    events[ev["event"]] = ev
+                    history.append(ev)
+                    if ev["event"] == "ready":
+                        ready.set()
+                cond.notify_all()
+        ready.set()
+        with cond:
+            cond.notify_all()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return {"label": label, "proc": proc, "lines": lines, "events": events,
+            "history": history, "ready": ready, "cond": cond, "reader": reader,
+            "err": err_path, "started": time.time()}
+
+
+def wait_line(p: dict, pred, limit: float, what: str):
+    """The first stdout line (or progress event, for a string ``pred``)
+    of ``p`` that matches; fails on the process's exit or after ``limit``."""
+    end = time.time() + limit
+    with p["cond"]:
+        while True:
+            if isinstance(pred, str):
+                if pred in p["events"]:
+                    return p["events"][pred]
+            else:
+                for line in p["lines"]:
+                    if pred(line):
+                        return line
+            if p["proc"].poll() is not None and not p["reader"].is_alive():
+                raise AssertionError(f"{p['label']} exited {p['proc'].returncode} before "
+                                     f"{what}: {open(p['err']).read()[-3000:]}")
+            left = end - time.time()
+            if left <= 0:
+                raise AssertionError(f"{p['label']}: no {what} in {limit} s: "
+                                     f"{open(p['err']).read()[-3000:]}")
+            p["cond"].wait(min(left, 0.2))
+
+
+def failover_notebook_process(env: dict, root: str) -> dict:
+    """``chip_smoke.py --notebook-failover`` in the pod's env: returns
+    ``go()`` (the phase's signal after the promotion) and ``result()``
+    (its JSON record, with the seconds from process start to each
+    milestone, ``<name>_at`` → ``<name>_s``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = start_process("notebook", [os.path.abspath(__file__), "--notebook-failover"], env,
+                      root, here)
+
+    def go() -> None:
+        p["proc"].stdin.write("go\n")
+        p["proc"].stdin.flush()
+
+    def result(limit: float = 600.0) -> dict:
+        line = wait_line(p, lambda x: x.startswith("{"), limit, "its record")
+        p["proc"].wait(timeout=60)
+        if p["proc"].returncode != 0:
+            raise AssertionError(f"notebook exit {p['proc'].returncode}: "
+                                 f"{open(p['err']).read()[-3000:]}")
+        got = json.loads(line)
+        return {**{k[:-3] + "_s": v - p["started"] for k, v in got.items()
+                   if k.endswith("_at")}, **got}
+
+    return {"process": p, "go": go, "result": result}
+
+
+def scrape(url: str) -> dict:
+    """``cache_hits_total`` and ``cache_misses_total`` of a ``/metrics``,
+    summed over kinds; and the reconciles by result."""
+    with urllib.request.urlopen(url, timeout=10) as r:
+        text = r.read().decode()
+    out = {"cache_hits": 0.0, "cache_misses": 0.0, "reconciles": {}}
+    for line in text.splitlines():
+        if line.startswith("#") or " " not in line:
+            continue
+        name, value = line.rsplit(" ", 1)
+        if name.startswith("cache_hits_total"):
+            out["cache_hits"] += float(value)
+        elif name.startswith("cache_misses_total"):
+            out["cache_misses"] += float(value)
+        elif name.startswith("controller_runtime_reconcile_total{"):
+            out["reconciles"][name[len("controller_runtime_reconcile_total"):]] = float(value)
+    return out
+
+
+def failover_state(api, procs: dict, kubelet_errors: list) -> dict:
+    """What a stalled step of ``platform_failover`` leaves to read: the
+    objects of ``FAILOVER_KINDS`` on ``api`` with their phases, each
+    process's exit code, last stdout lines and stderr tail, and the
+    kubelet simulator's last errors."""
+    out: dict = {"objects": {}, "processes": {}, "kubelet_errors": kubelet_errors[-5:]}
+    for kind in FAILOVER_KINDS:
+        try:
+            out["objects"][kind] = [
+                [o["metadata"]["name"], o["metadata"].get("resourceVersion"),
+                 (o.get("status") or {}).get("phase")
+                 or (o.get("status") or {}).get("conditions", [])[-1:]]
+                for o in api.list(kind, namespace=FAILOVER_NS)]
+        except Exception as e:  # noqa: BLE001 — a diagnostic, never the failure itself
+            out["objects"][kind] = repr(e)[:200]
+    for label, p in procs.items():
+        with open(p["err"]) as f:
+            err = f.read()[-1500:]
+        out["processes"][label] = {"rc": p["proc"].poll(), "out": list(p["lines"])[-5:],
+                                   "err": err}
+    return out
+
+
+def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens=None,
+                            limit_s: float = FAILOVER_PHASE_LIMIT_S,
+                            scheduling_s: float = 0.0) -> tuple[dict, int]:
+    """The highly available control plane, every process through its
+    normal entry point, plain HTTP on 127.0.0.1:
+
+    - A, the leader apiserver: ``chip_smoke.py --platform-apiserver``;
+    - B, the follower: ``python -m odh_kubeflow_tpu_torch.machinery.replica``
+      (``REPLICA_OF`` A, the promotion watchdog on, a 1 s lease, one
+      grace window);
+    - two notebook controllers and one scheduler: ``python -m
+      odh_kubeflow_tpu_torch.controllers.notebook`` / ``...scheduling.
+      scheduler`` through ``runner.run_controller`` with leader election,
+      ``KUBE_API_URL`` B (which 307s writes to A until it is promoted),
+      ``READ_FROM_REPLICA`` "B,A" (``ReplicaFanout``), the informer cache
+      and ``/metrics``;
+    - the kubelet simulator here, against B; the notebook's process on the
+      card (``run_notebook``, in its pod's env).
+
+    1. B cold-joins (snapshot, then the stream to A's rv). 2. ``nb-fo-1``
+    POSTed through the JWA's ``create_notebook`` reaches Running. 3. The
+    notebook controller holding its lease is SIGKILLed: the standby takes
+    the lease within its duration + a renew period + 1 s, the transitions
+    and the token rise by one, and a write under the dead holder's token
+    is a 403 ``FencedOut`` that applies nothing. 4. Once B holds A's rv,
+    A is SIGKILLed: B's watchdog promotes B under A's token + 1 within
+    (1 + grace) windows and two polls of the last renewal B saw; every
+    Notebook, StatefulSet, Pod and Workload of A's log is on B at its rv
+    (A is killed once no write but a lease renewal has landed for
+    ``FAILOVER_QUIET_S``: replication is asynchronous, so a write acked in
+    the last interval before a crash is lost by design, and this drill
+    does not measure that), the records A acked beyond B are only Leases,
+    and a write or a
+    replicated record under A's epoch is fenced. 5. ``nb-fo-2`` reaches
+    Running on the promoted B; no other process exited. 6. The notebook's
+    8B int4 tokens (equal to ``spawn_tokens`` when given), its answer after
+    the promotion and its dequant launches (225 a forward). 7. No process
+    loaded ``jax`` or ``odh_kubeflow_tpu``. 8. The phase within
+    ``limit_s``. ``scheduling_s`` widens the promotion bound for a host
+    whose other work delays the watchdog's polls (the CPU test's shared
+    cores); the card runs with none."""
+    import shutil
+    import signal
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.machinery.client import RemoteAPIServer
+    from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
+    from odh_kubeflow_tpu_torch.machinery.leader import fenced
+    from odh_kubeflow_tpu_torch.machinery.replica import ReplicaStore
+    from odh_kubeflow_tpu_torch.machinery.runner import _lease_periods
+    from odh_kubeflow_tpu_torch.machinery.store import (APIError, APIServer, FencedOut,
+                                                        NotFound, parse_micro_time)
+    from odh_kubeflow_tpu_torch.machinery.wal import WriteAheadLog
+    from odh_kubeflow_tpu_torch.apis import register_crds
+    from odh_kubeflow_tpu_torch.ops import _build
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
+
+    t_phase = time.perf_counter()
+    ctl_renew_s = _lease_periods(FAILOVER_CTL_LEASE_S)["renew_period"]
+    root = tempfile.mkdtemp(prefix="platform-failover-")
+    poison = reference_poison(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    record: dict = {"phase": "platform_failover",
+                    "leases_s": {"control_plane": FAILOVER_CP_LEASE_S,
+                                 "controllers": FAILOVER_CTL_LEASE_S,
+                                 "grace_windows": FAILOVER_GRACE_WINDOWS}}
+    procs: dict = {}
+    stop_kubelet = threading.Event()
+    kubelet_errors: list = []
+    problems: list = []
+    notebook = None
+
+    def client(url: str, retries: int = 1) -> RemoteAPIServer:
+        c = RemoteAPIServer(url, retries=retries, retry_base=0.02, retry_cap=0.1, timeout=10)
+        register_crds(c)
+        register_scheduling(c)
+        return c
+
+    def served_rv(c) -> int:
+        c.list("Lease", namespace=FAILOVER_LEASE_NS)
+        return int(c.applied_rv() or 0)
+
+    def lease(c, name: str) -> dict:
+        return dict(c.get("Lease", name, FAILOVER_LEASE_NS)["spec"])
+
+    def poll(fn, limit: float, what: str, period: float = 0.02):
+        end = time.time() + limit
+        while True:
+            try:
+                got = fn()
+            except (OSError, APIError):
+                got = None
+            if got:
+                return got
+            if time.time() > end:
+                raise AssertionError(f"platform_failover: no {what} in {limit} s")
+            time.sleep(period)
+
+    def running(c, name: str):
+        pods = [p for p in c.list("Pod", namespace=FAILOVER_NS)
+                if p["metadata"]["name"] == f"{name}-0"]
+        return bool(pods) and (pods[0].get("status") or {}).get("phase") == "Running"
+
+    try:
+        # A, then B's cold join
+        a = start_process("apiserver", [os.path.join(here, "chip_smoke.py"),
+                                        "--platform-apiserver"],
+                          {"FAILOVER_ROOT": root}, root, poison)
+        procs["apiserver"] = a
+        ready = wait_line(a, "ready", 60, "ready line")
+        url_a, token_a = ready["url"], int(ready["token"])
+        api_a = client(url_a)
+        port_b = free_port()
+        url_b = f"http://127.0.0.1:{port_b}"
+        b = start_process("replica", ["-m", "odh_kubeflow_tpu_torch.machinery.replica"], {
+            "REPLICA_OF": url_a, "PROMOTION_WATCHDOG": "true",
+            "LEASE_DURATION": str(FAILOVER_CP_LEASE_S),
+            "PROMOTION_GRACE_WINDOWS": str(FAILOVER_GRACE_WINDOWS),
+            "LEADER_ELECTION_ID": FAILOVER_CP_LEASE,
+            "LEADER_ELECTION_NAMESPACE": FAILOVER_LEASE_NS,
+            "SHARD_IDENTITY": FAILOVER_IDENTITY, "HOST": "127.0.0.1", "PORT": str(port_b)},
+            root, poison)
+        procs["replica"] = b
+        wait_line(b, lambda x: "serving reads on" in x, 60, "its serving line")
+        api_b = client(url_b)
+        target = served_rv(api_a)
+        poll(lambda: served_rv(api_b) >= target, 30, "cold join")
+        record["join_s"] = time.time() - b["started"]
+        with urllib.request.urlopen(url_b + "/metrics", timeout=10) as r:
+            lag = [x for x in r.read().decode().splitlines()
+                   if x.startswith("replica_lag_records ")]
+        record["join_lag_records"] = float(lag[0].split()[1]) if lag else None
+
+        # the controllers, through runner.run_controller
+        common = {**FAILOVER_CONTROLLER_ENV, "KUBE_API_URL": url_b,
+                  "READ_FROM_REPLICA": f"{url_b},{url_a}"}
+        for (label, module), port in zip(
+                (("scheduler", "odh_kubeflow_tpu_torch.scheduling.scheduler"),
+                 ("notebook-1", "odh_kubeflow_tpu_torch.controllers.notebook"),
+                 ("notebook-2", "odh_kubeflow_tpu_torch.controllers.notebook")),
+                listen_ports(3)):
+            procs[label] = start_process(label, ["-m", module],
+                                         {**common, "METRICS_PORT": str(port)}, root, poison)
+        for label in ("scheduler", "notebook-1", "notebook-2"):
+            wait_line(procs[label], lambda x: "waiting for leader lease" in x, 60,
+                      "its election line")
+        holder_line = poll(lambda: [
+            (label, line) for label in ("notebook-1", "notebook-2")
+            for line in list(procs[label]["lines"]) if line.endswith(" running")], 60,
+            "a running notebook controller")
+        for label in ("scheduler",):
+            wait_line(procs[label], lambda x: x.endswith(" running"), 60, "running")
+        holder = holder_line[0][0]
+        standby = "notebook-2" if holder == "notebook-1" else "notebook-1"
+
+        def metrics_url(label: str) -> str:
+            line = wait_line(procs[label], lambda x: "metrics on :" in x, 60, "its metrics line")
+            return f"http://127.0.0.1:{line.split(':')[-1].split('/')[0]}/metrics"
+
+        # the kubelet simulator, here, against B
+        kube = client(url_b, retries=1)
+        kube.priority_level = "controller"
+        cluster = FakeCluster(kube)
+        pool, accel, nodes, per_node = FAILOVER_POOL
+        cluster.add_gpu_node_pool(pool, accel, num_nodes=nodes, gpus_per_node=per_node)
+
+        def kubelet() -> None:
+            while not stop_kubelet.is_set():
+                try:
+                    cluster.step()
+                except Exception as e:  # noqa: BLE001 — the next pass retries
+                    kubelet_errors.append(f"{type(e).__name__}: {e}"[:160])
+                stop_kubelet.wait(FAILOVER_STEP_S)
+
+        kubelet_thread = threading.Thread(target=kubelet, daemon=True)
+        kubelet_thread.start()
+        jwa = JupyterWebApp(client(url_b, retries=4))
+        body = {"name": "", "cpu": "1", "memory": "4Gi",
+                "gpus": {"accelerator": accel, "count": "1"}}
+
+        # 2. the first notebook
+        t0 = time.time()
+        jwa.create_notebook(FAILOVER_NS, {**body, "name": "nb-fo-1"}, FAILOVER_USER)
+        poll(lambda: running(api_b, "nb-fo-1"), 60, "nb-fo-1 Running")
+        record["nb1_post_to_running_s"] = time.time() - t0
+        env, node = pod_process_env(api_b, "nb-fo-1", FAILOVER_NS,
+                                    os.path.join(root, "workspace"))
+        kernel_dir = env["ODH_TORCH_KERNEL_CACHE"]
+        os.makedirs(kernel_dir, exist_ok=True)
+        lib = _build._target("int4_dequant")
+        if lib.exists():  # built by this process's device phase
+            shutil.copy2(lib, os.path.join(kernel_dir, lib.name))
+        notebook = run_notebook(env, root)
+        record["notebook_node"] = node
+        caches = {"holder": scrape(metrics_url(holder)),
+                  "scheduler": scrape(metrics_url("scheduler"))}
+
+        # 3. kill the controller holding notebook-controller-leader
+        ctl_lease = "notebook-controller-leader"
+        before = lease(api_b, ctl_lease)
+        dead_pid = procs[holder]["proc"].pid
+        if not before["holderIdentity"].endswith(f"_{dead_pid}"):
+            raise AssertionError(f"lease holder {before['holderIdentity']} is not {holder} "
+                                 f"(pid {dead_pid})")
+        os.kill(dead_pid, signal.SIGKILL)
+        t_kill = time.time()
+        after = poll(lambda: (lambda s: s if s["holderIdentity"] != before["holderIdentity"]
+                              else None)(lease(api_b, ctl_lease)),
+                     FAILOVER_CTL_LEASE_S + 10, "controller takeover", period=0.01)
+        takeover_s = time.time() - t_kill
+        record["controller_takeover"] = {
+            "s": takeover_s,
+            "limit_s": FAILOVER_CTL_LEASE_S + ctl_renew_s + 1.0,
+            "transitions": [before["leaseTransitions"], after["leaseTransitions"]],
+            "token": [before["fencingToken"], after["fencingToken"]],
+            "new_holder_pid": int(after["holderIdentity"].rsplit("_", 1)[1])}
+        try:
+            with fenced(FAILOVER_LEASE_NS, ctl_lease, int(before["fencingToken"])):
+                client(url_b).create({"apiVersion": "v1", "kind": "ConfigMap",
+                                      "metadata": {"name": "deposed-write",
+                                                   "namespace": FAILOVER_NS}})
+            fenced_out = "applied"
+        except FencedOut:
+            fenced_out = "FencedOut"
+        try:
+            api_a.get("ConfigMap", "deposed-write", FAILOVER_NS)
+            deposed_applied = True
+        except NotFound:
+            deposed_applied = False
+        record["controller_takeover"].update(deposed_write=fenced_out,
+                                             deposed_applied=deposed_applied)
+        caches["standby"] = scrape(metrics_url(standby))
+
+        # 4. kill the leader apiserver once only leases move (the standby's
+        # first reconciles have landed) and B holds A's rv
+        def report_a() -> dict:
+            n = len(a["history"])
+            a["proc"].stdin.write("report\n")
+            a["proc"].stdin.flush()
+            wait_line(a, lambda _x: len(a["history"]) > n, 10, "its report")
+            return a["history"][-1]
+
+        report = report_a()
+        quiet_from = t_quiet = time.time()
+        end = time.time() + 30
+        while time.time() - quiet_from < FAILOVER_QUIET_S:
+            if time.time() > end:
+                raise AssertionError("platform_failover: writes other than leases never "
+                                     f"stopped for {FAILOVER_QUIET_S} s")
+            time.sleep(0.05)
+            again = report_a()
+            if again["non_lease_rv"] != report["non_lease_rv"]:
+                quiet_from = time.time()
+            report = again
+        record["quiet_wait_s"] = time.time() - t_quiet
+        caught = poll(lambda: (lambda ra: ra if served_rv(api_b) == ra else None)(
+            served_rv(api_a)), 30, "B at A's rv", period=0.005)
+        held = {k: sorted((o["metadata"]["namespace"], o["metadata"]["name"],
+                           o["metadata"]["resourceVersion"]) for o in api_a.list(k))
+                for k in FAILOVER_KINDS}
+        os.kill(a["proc"].pid, signal.SIGKILL)
+        t_kill_a = time.time()
+        a["proc"].wait()
+        # the stream's last bytes land, then B is frozen until it promotes
+        time.sleep(0.3)
+        follower_rv = served_rv(api_b)
+        seen = lease(api_b, FAILOVER_CP_LEASE)
+        promoted = poll(lambda: (lambda s: s if s["holderIdentity"] == FAILOVER_IDENTITY
+                                 else None)(lease(api_b, FAILOVER_CP_LEASE)),
+                        30, "promotion", period=0.01)
+        promoted_at = parse_micro_time(promoted["acquireTime"])
+        last_renew = parse_micro_time(seen["renewTime"])
+        # the watchdog polls every third of a lease (``PromotionWatchdog.
+        # run``); step() sees the lease lapsed at most a poll after it
+        # does, counts the grace from that poll, and promotes at the first
+        # poll the grace later: at most one more
+        poll_s = max(FAILOVER_CP_LEASE_S / 3.0, 0.05)
+        bound = ((1 + FAILOVER_GRACE_WINDOWS) * FAILOVER_CP_LEASE_S + 2 * poll_s
+                 + scheduling_s)
+        on_b = {k: sorted((o["metadata"]["namespace"], o["metadata"]["name"],
+                           o["metadata"]["resourceVersion"]) for o in api_b.list(k))
+                for k in FAILOVER_KINDS}
+        wal_a = APIServer.recover(WriteAheadLog(os.path.join(root, "wal")))
+        _, records = WriteAheadLog(os.path.join(root, "wal")).recover()
+        at_kill = {k: sorted((o["metadata"]["namespace"], o["metadata"]["name"],
+                              o["metadata"]["resourceVersion"]) for o in wal_a.list(k))
+                   for k in FAILOVER_KINDS}
+        wal_a.close()
+        lost = {k: sorted(set(at_kill[k]) - set(on_b[k])) for k in FAILOVER_KINDS}
+        beyond: dict = {}
+        beyond_records = []
+        for rec in records:
+            if rec.get("op") != "register" and int(rec.get("rv", 0)) > follower_rv:
+                obj = rec.get("obj") or {}
+                kind = obj.get("kind", "")
+                beyond[kind] = beyond.get(kind, 0) + 1
+                meta = obj.get("metadata") or {}
+                beyond_records.append([rec.get("rv"), kind, rec.get("etype"),
+                                       f"{meta.get('namespace', '')}/{meta.get('name', '')}",
+                                       obj.get("reason")])
+        try:
+            with fenced(FAILOVER_LEASE_NS, FAILOVER_CP_LEASE, token_a):
+                client(url_b).create({"apiVersion": "v1", "kind": "ConfigMap",
+                                      "metadata": {"name": "old-epoch-write",
+                                                   "namespace": FAILOVER_NS}})
+            old_epoch_write = "applied"
+        except FencedOut:
+            old_epoch_write = "FencedOut"
+        with urllib.request.urlopen(url_b + "/replication/snapshot", timeout=30) as r:
+            cut = json.loads(r.read())
+        copy = ReplicaStore()
+        copy.load_snapshot(cut)
+        last = max((r for r in records if r.get("op") != "register"),
+                   key=lambda r: int(r.get("rv", 0)))
+        replay = dict(last["obj"])
+        replay["metadata"] = {**replay["metadata"], "resourceVersion": str(cut["rv"] + 1)}
+        try:
+            copy.apply_replicated(last.get("etype", "MODIFIED"), replay, epoch=token_a)
+            replayed = "applied"
+        except FencedOut:
+            replayed = "FencedOut"
+        record["apiserver_failover"] = {
+            "b_at_a_rv": caught, "follower_rv": follower_rv,
+            "a_wal_rv": wal_a.applied_rv(), "acked_beyond_follower": beyond,
+            "acked_beyond_records": beyond_records[:10],
+            "kill_to_promoted_s": promoted_at - t_kill_a,
+            "renew_to_promoted_s": promoted_at - last_renew, "bound_s": bound,
+            "epoch": [token_a, int(promoted["fencingToken"]), int(cut["epoch"])],
+            "held_at_kill": {k: len(v) for k, v in held.items()},
+            "in_wal_at_kill": {k: len(v) for k, v in at_kill.items()},
+            "lost": lost, "old_epoch_write": old_epoch_write, "old_epoch_replay": replayed}
+
+        # 5. the second notebook on the promoted B, once the controllers
+        # have renewed their leases on it
+        for name in (ctl_lease, "gpu-scheduler-leader"):
+            poll(lambda: parse_micro_time(lease(api_b, name)["renewTime"]) > promoted_at,
+                 FAILOVER_CTL_LEASE_S, f"{name} renewed on the promoted store")
+        t0 = time.time()
+        jwa.create_notebook(FAILOVER_NS, {**body, "name": "nb-fo-2"}, FAILOVER_USER)
+        try:
+            poll(lambda: running(api_b, "nb-fo-2"), 60, "nb-fo-2 Running")
+        except AssertionError as e:
+            raise AssertionError(f"{e}; {failover_state(api_b, procs, kubelet_errors)}") from None
+        record["nb2_post_to_running_s"] = time.time() - t0
+        record["nb2_after_promotion_s"] = time.time() - promoted_at
+        exited = {label: p["proc"].returncode for label, p in procs.items()
+                  if label not in ("apiserver", holder) and p["proc"].poll() is not None}
+
+        # 6. the notebook answers after the promotion
+        notebook["go"]()
+        nb = notebook["result"]()
+        caches["standby_end"] = scrape(metrics_url(standby))
+        caches["scheduler_end"] = scrape(metrics_url("scheduler"))
+        record["caches"] = caches
+    finally:
+        stop_kubelet.set()
+        for label, p in procs.items():
+            if p["proc"].poll() is None:
+                p["proc"].send_signal(signal.SIGINT)
+        for label, p in procs.items():
+            try:
+                p["proc"].wait(timeout=10)
+            except Exception:  # noqa: BLE001 — a process that ignores SIGINT is killed
+                p["proc"].kill()
+                p["proc"].wait()
+        if notebook is not None and notebook["process"]["proc"].poll() is None:
+            notebook["process"]["proc"].kill()
+            notebook["process"]["proc"].wait()
+    poisoned = (open(os.path.join(root, "reference-imports.log")).read().split("\n")
+                if os.path.exists(os.path.join(root, "reference-imports.log")) else [])
+    shutil.rmtree(root, ignore_errors=True)
+    expected = LAUNCHES_PER_FORWARD * (2 + 1 + SPAWN_NEW_TOKENS)
+    launches = nb["stage_launches"]
+    record.update({
+        "notebook": {k: nb.get(k) for k in ("imported_s", "service_s", "first_token_s",
+                                            "go_s", "answered_s", "built", "device",
+                                            "stage_launches", "launches")},
+        "tokens": nb["tokens"], "after_promotion": nb["after_promotion"],
+        "exited": exited, "kubelet_step_errors": len(kubelet_errors),
+        "kubelet_errors": kubelet_errors[:5],
+        "reference": {"imports": [x for x in poisoned if x],
+                      "apiserver": report["reference_modules"],
+                      "notebook": nb["reference_modules"]},
+        "seconds": time.perf_counter() - t_phase,
+    })
+    ct, af = record["controller_takeover"], record["apiserver_failover"]
+    if ct["s"] > ct["limit_s"]:
+        problems.append(f"controller takeover {ct['s']:.2f} s > {ct['limit_s']} s")
+    if ct["transitions"][1] != ct["transitions"][0] + 1 or ct["token"][1] != ct["token"][0] + 1:
+        problems.append(f"takeover transitions {ct['transitions']}, token {ct['token']}")
+    if ct["new_holder_pid"] != procs[standby]["proc"].pid:
+        problems.append(f"the new holder is pid {ct['new_holder_pid']}, not the standby")
+    if ct["deposed_write"] != "FencedOut" or ct["deposed_applied"]:
+        problems.append(f"deposed holder's write: {ct['deposed_write']}, applied "
+                        f"{ct['deposed_applied']}")
+    if af["renew_to_promoted_s"] > af["bound_s"] or af["kill_to_promoted_s"] < 0:
+        problems.append(f"promotion {af['renew_to_promoted_s']:.2f} s after the last renewal "
+                        f"B saw (bound {af['bound_s']:.2f} s)")
+    if af["epoch"] != [token_a, token_a + 1, token_a + 1]:
+        problems.append(f"epochs {af['epoch']} (A's token + 1 expected)")
+    if any(af["lost"].values()):
+        problems.append(f"lost across the promotion: {af['lost']}")
+    if set(af["acked_beyond_follower"]) - {"Lease"}:
+        problems.append(f"A acked beyond B: {af['acked_beyond_follower']}")
+    if af["old_epoch_write"] != "FencedOut" or af["old_epoch_replay"] != "FencedOut":
+        problems.append(f"old epoch: write {af['old_epoch_write']}, replay "
+                        f"{af['old_epoch_replay']}")
+    if exited:
+        problems.append(f"processes exited: {exited}")
+    if spawn_tokens is not None and nb["tokens"] != spawn_tokens:
+        problems.append(f"tokens {nb['tokens']} != platform_spawn's {spawn_tokens}")
+    if nb["after_promotion"] != nb["first"] or nb["go_at"] < promoted_at:
+        problems.append(f"after the promotion: {nb['after_promotion']} vs {nb['first']}")
+    if (launches[1] != expected or launches[2] - launches[1] != launches[0]
+            or launches[0] % LAUNCHES_PER_FORWARD or len(nb["tokens"]) != SPAWN_NEW_TOKENS):
+        problems.append(f"dequant launches {launches} (expected {expected} after the "
+                        f"first two requests, 225 a forward)")
+    if any(record["reference"].values()):
+        problems.append(f"reference modules: {record['reference']}")
+    if record["seconds"] > limit_s:
+        problems.append(f"the phase took {record['seconds']:.1f} s > {limit_s} s")
+    if problems:
+        raise AssertionError(f"platform_failover: {problems}; {record}")
+    return record, nb["launches"]
+
+
 def free_port() -> int:
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def listen_ports(n: int) -> list[int]:
+    """``n`` distinct free ports below the kernel's ephemeral range, for
+    servers that bind long after their port is chosen (a standby
+    controller serves ``/metrics`` only once it holds its lease): a port
+    from ``free_port()`` lies in that range, where any outgoing
+    connection may take it first."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    if low < 4096:  # no room below the range: take the ephemeral ones
+        return [free_port() for _ in range(n)]
+    rng = random.Random()
+    ports: list[int] = []
+    while len(ports) < n:
+        port = rng.randrange(max(2048, low - 16384), low)
+        if port in ports:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+    return ports
 
 
 def mesh_train_phase(torch, fa, int4, train_record: dict) -> tuple[dict, dict]:
@@ -7959,6 +8729,13 @@ def main() -> int:
     record, remote_launches = platform_remote_phase(spawn_tokens=spawn_tokens)
     record["card"] = label
     emit(record)
+    # the highly available control plane (slice 9, part 7): leader
+    # election with fencing, the informer cache, a WAL-shipped follower
+    # promoted by its watchdog; a notebook serves on the card while a
+    # controller and then the leader apiserver are SIGKILLed
+    record, failover_launches = platform_failover_phase(spawn_tokens=spawn_tokens)
+    record["card"] = label
+    emit(record)
 
     gc.unfreeze()
     # MoE training (slice 3)
@@ -8056,7 +8833,8 @@ def main() -> int:
                                   "platform_sessions": sessions_launches,
                                   "platform_observe": observe_launches["int4_dequant"],
                                   "platform_usage": usage_launches["int4_dequant"],
-                                  "platform_remote": remote_launches}
+                                  "platform_remote": remote_launches,
+                                  "platform_failover": failover_launches}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,
@@ -8077,6 +8855,7 @@ def main() -> int:
         row["launches_by_path"] = {"int4_qlora_proj": proj_launches[row["name"]]}
         row["launches"] = proj_launches[row["name"]]
         row["launches_by_instance"] = proj_instances[row["name"].removeprefix("int4_")]
+    emit(phase_seconds_line())
     emit({"kernels": [kernel, *flash_rows, *moe_rows, *bf16_rows, *int4_rows]})
     print(label, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -8089,5 +8868,7 @@ if __name__ == "__main__":
               "--notebook-profile": notebook_profile_main,
               "--notebook-usage": notebook_usage_main,
               "--platform-controllers": platform_controllers_main,
+              "--platform-apiserver": platform_apiserver_main,
+              "--notebook-failover": notebook_failover_main,
               "--platform-flood": platform_flood_main}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -12,8 +12,19 @@ Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; without a GPU they raise rather than fall
 back. On a CPU tensor each kernel wrapper runs its plain PyTorch
 version, which is also the kernel's oracle on the card.
+
+``card_label`` and ``resolve_device`` load ``utils/device.py`` (and so
+``torch``) on first use: the control plane's processes (apiserver,
+replica, controllers) import only host-only modules and never pay
+torch's import.
 """
 
-from odh_kubeflow_tpu_torch.utils.device import card_label, resolve_device
-
 __all__ = ["card_label", "resolve_device"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from odh_kubeflow_tpu_torch.utils import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -38,6 +38,7 @@ out of the copy for now (ROADMAP.md): the split-process ``main()``.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time as _time
 from typing import Any, Optional
 
@@ -82,10 +83,10 @@ GPU_AGENT_PORT = 8890
 
 @dataclasses.dataclass
 class NotebookControllerConfig:
-    """Toggles, names matching the reference
-    (notebook_controller.go:204,472,534,548; culler.go:26-30); reading
-    them from the env (``from_env``) comes with the split-process
-    entrypoint."""
+    """Env-driven toggles, names matching the reference
+    (notebook_controller.go:204,472,534,548; culler.go:26-30); the TPU
+    names of the JAX package's env become GPU names here
+    (``ENABLE_GPU_QUEUEING``, ``CULL_CHECK_GPU_DUTY_CYCLE``)."""
 
     use_istio: bool = False
     istio_gateway: str = "kubeflow/kubeflow-gateway"
@@ -110,6 +111,33 @@ class NotebookControllerConfig:
     # cache-service-backed path, so their first launch loads the
     # fleet's built kernels instead of running nvcc
     compile_cache_mount: str = ""
+    # probe the in-image GPU activity agent before culling (the culler's
+    # ``check_gpu_duty_cycle``)
+    cull_check_gpu_duty_cycle: bool = True
+
+    @staticmethod
+    def from_env() -> "NotebookControllerConfig":
+        env = os.environ
+
+        def flag(name: str, default: str = "false") -> bool:
+            return env.get(name, default).lower() == "true"
+
+        return NotebookControllerConfig(
+            use_istio=flag("USE_ISTIO"),
+            istio_gateway=env.get("ISTIO_GATEWAY", "kubeflow/kubeflow-gateway"),
+            istio_host=env.get("ISTIO_HOST", "*"),
+            cluster_domain=env.get("CLUSTER_DOMAIN", "cluster.local"),
+            add_fsgroup=flag("ADD_FSGROUP", "true"),
+            enable_culling=flag("ENABLE_CULLING"),
+            cull_idle_seconds=float(env.get("CULL_IDLE_TIME", "1440")) * 60.0,
+            idleness_check_seconds=float(env.get("IDLENESS_CHECK_PERIOD", "1")) * 60.0,
+            enable_queueing=flag("ENABLE_GPU_QUEUEING", "true"),
+            enable_sessions=flag("ENABLE_SESSION_SUSPEND", "true"),
+            cull_check_gpu_duty_cycle=flag("CULL_CHECK_GPU_DUTY_CYCLE", "true"),
+            suspend_grace_seconds=float(env.get("SESSION_SUSPEND_GRACE_SECONDS", "600")),
+            compile_cache_mount=env.get("COMPILE_CACHE_MOUNT", ""),
+        )
+
 
 # ---------------------------------------------------------------------------
 # GPU request derivation
@@ -888,3 +916,47 @@ class NotebookController:
             conditions.append(cond)
         reconcilehelper.update_status_level_triggered(self.api, notebook)
 
+
+def main() -> None:
+    """Split-process entrypoint (``python -m
+    odh_kubeflow_tpu_torch.controllers.notebook``): attach to
+    $KUBE_API_URL through ``machinery/runner.run_controller`` (informer
+    cache, replica reads, leader election, ``/metrics``) and run the
+    reconciler + culler forever."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+
+    def register(api, mgr):
+        from odh_kubeflow_tpu_torch.controllers.culler import Culler, CullerConfig
+        from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+        from odh_kubeflow_tpu_torch.sessions import register_sessions
+
+        cfg = NotebookControllerConfig.from_env()
+        if cfg.enable_queueing:
+            register_scheduling(api)  # the remote client needs the kind
+        if cfg.enable_sessions:
+            register_sessions(api)
+        culler = None
+        if cfg.enable_culling:
+            culler = Culler(
+                api,
+                CullerConfig(
+                    cull_idle_seconds=cfg.cull_idle_seconds,
+                    idleness_check_seconds=cfg.idleness_check_seconds,
+                    cluster_domain=cfg.cluster_domain,
+                    suspend_on_cull=cfg.enable_sessions,
+                    check_gpu_duty_cycle=cfg.cull_check_gpu_duty_cycle,
+                ),
+            )
+        # the controller's own counters live on the registry the runner
+        # serves at /metrics, not the process default
+        NotebookController(api, cfg, registry=mgr.metrics_registry, culler=culler).register(mgr)
+        if cfg.enable_sessions:
+            from odh_kubeflow_tpu_torch.sessions.manager import SessionConfig, SessionManager
+
+            SessionManager(api, SessionConfig.from_env(), registry=mgr.metrics_registry).register(mgr)
+
+    run_controller("notebook-controller", register)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,13 +20,21 @@ the trace its triggering object carries (the store's CREATE stamp), so
 a web request's spawn assembles into one trace, and under one
 end-to-end deadline (``machinery/overload.py``,
 ``REQUEST_DEADLINE_DEFAULT``): an attempt whose deadline expires goes
-to the error-backoff requeue. Left out of the copy (ROADMAP.md): the
-shared informer cache, leader fencing and namespace sharding, and the
-lock sanitizer.
+to the error-backoff requeue.
+
+High availability: a Manager built with the shared informer cache
+(``machinery/cache.py``) feeds its controllers through event handlers
+and waits for the cache's sync before reconciling; with a
+``LeaderElector`` or a ``ShardMembership`` (``machinery/leader.py``)
+every reconcile runs inside the holder's fence, a write rejected by
+fencing latches ``fenced_out`` and drops the key (the elector decides
+the stand-down), and a shard member reconciles only the namespaces it
+owns. The JAX module's lock sanitizer is left out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -35,7 +43,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util, overload
-from odh_kubeflow_tpu_torch.machinery.store import APIServer, Watch
+from odh_kubeflow_tpu_torch.machinery.store import (
+    APIServer,
+    FencedOut,
+    NotLeader,
+    Watch,
+)
 from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 
 log = logging.getLogger("controller-runtime")
@@ -143,12 +156,28 @@ class Controller:
         workers: int = 1,
         metrics: Optional[RuntimeMetrics] = None,
         for_map: Optional[Callable[[str, Obj], list[Request]]] = None,
+        informer: Optional[Any] = None,
+        fence_fn: Optional[Callable[[], Any]] = None,
+        shard: Optional[Any] = None,
     ):
         self.name = name
         self.api = api
         self.reconcile = reconcile
         self.for_kind = for_kind
         self.time_fn = time_fn
+        # fence_fn() returns a context manager installing the replica's
+        # current lease epoch around the reconcile body, so every store
+        # write it issues is fencing-token checked (a deposed replica's
+        # in-flight writes are rejected, not applied). None = unfenced.
+        self.fence_fn = fence_fn
+        # shard (machinery.leader.ShardMembership): when set, this
+        # replica only reconciles namespaces it owns under the current
+        # membership — two replicas never reconcile the same object.
+        self.shard = shard
+        # shared informer cache (Manager-owned): kinds it serves feed
+        # this controller through event handlers — one frozen copy per
+        # store event for ALL controllers — instead of a private watch
+        self.informer = informer
         # a standalone Controller gets a private sink registry; the
         # Manager path shares its RuntimeMetrics across controllers
         self.metrics = metrics or RuntimeMetrics(prometheus.Registry())
@@ -184,6 +213,10 @@ class Controller:
         self._limiter = _RateLimiter()
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
+        # latched when a reconcile write is rejected by the fencing
+        # check — the observable trace of a deposed (or stalled-past-
+        # expiry) epoch between the rejection and the elector's verdict
+        self.fenced_out = False
 
         # ``for_map`` maps the kind's own events (by default, one request
         # per object)
@@ -281,6 +314,17 @@ class Controller:
     def _process(self, req: Request) -> None:
         with self._cv:
             trace_id = self._req_trace.pop(req, None)
+        if self.shard is not None and not self.shard.owns(req.namespace):
+            # not ours under the current membership: the owning replica
+            # sees the same watch events and reconciles it. Checked at
+            # process time (not enqueue) so a reshard between the two
+            # re-routes instead of dropping.
+            self.metrics.reconcile_total.inc(
+                {"controller": self.name, "result": "sharded_out"}
+            )
+            self._done(req)
+            self._limiter.forget(req)
+            return
         key = f"{req.namespace}/{req.name}"
         start = self.time_fn()
         with tracing.span(
@@ -291,8 +335,27 @@ class Controller:
                 # API call it makes carries the remaining budget, so a
                 # wedged apiserver cannot pin a worker forever — the
                 # attempt 504s and the error-backoff requeue takes over
-                with overload.deadline_scope():
+                fence = self.fence_fn() if self.fence_fn else contextlib.nullcontext()
+                with fence, overload.deadline_scope():
                     result = self.reconcile(req) or Result()
+            except (FencedOut, NotLeader) as e:
+                self._m_reconcile_time.observe(self.time_fn() - start)
+                self.metrics.reconcile_total.inc(
+                    {"controller": self.name, "result": "fenced_out"}
+                )
+                tracing.set_status("error", f"{type(e).__name__}: {e}")
+                self.fenced_out = True  # recorded for operators/drills
+                log.error(
+                    "%s: reconcile %s rejected by fencing (%s); dropping "
+                    "the key without requeue — the elector owns the "
+                    "stand-down decision",
+                    self.name,
+                    req,
+                    e,
+                )
+                self._done(req)
+                self._limiter.forget(req)
+                return
             except Exception as e:
                 self._m_reconcile_time.observe(self.time_fn() - start)
                 self._m_reconcile_errors.inc()
@@ -338,7 +401,17 @@ class Controller:
 
     def _start_watches(self) -> None:
         for spec in self._watch_specs:
-            self._watches.append(self.api.watch(spec.kind))
+            if self.informer is not None and self.informer.has_kind(spec.kind):
+                # informer-fed: the shared cache pushes events (with an
+                # ADDED replay of current state) — no private watch, no
+                # per-controller event copy
+                self.informer.add_handler(
+                    spec.kind,
+                    lambda etype, obj, _spec=spec: self._handle_event(_spec, etype, obj),
+                )
+                self._watches.append(None)
+            else:
+                self._watches.append(self.api.watch(spec.kind))
 
     def _handle_event(self, spec: _WatchSpec, etype: str, obj: Obj) -> None:
         if spec.predicate and not spec.predicate(etype, obj):
@@ -353,6 +426,8 @@ class Controller:
     def _pump_once(self, spec_idx: int, timeout: float = 0.0) -> bool:
         """Drain one event from watch ``spec_idx``; returns False if none."""
         w = self._watches[spec_idx]
+        if w is None:  # informer-fed spec: events arrive via handler
+            return False
         spec = self._watch_specs[spec_idx]
         item = w.get(timeout=timeout) if timeout else w.try_get()
         if item is None:
@@ -371,6 +446,8 @@ class Controller:
                 self._pump_once(i, timeout=0.2)
 
         for i in range(len(self._watch_specs)):
+            if self._watches[i] is None:
+                continue  # informer-fed: the cache's pump delivers
             t = threading.Thread(target=pump, args=(i,), daemon=True)
             t.start()
             self._threads.append(t)
@@ -388,7 +465,8 @@ class Controller:
     def stop(self) -> None:
         self._stop.set()
         for w in self._watches:
-            w.stop()
+            if w is not None:
+                w.stop()
         with self._cv:
             self._cv.notify_all()
 
@@ -400,6 +478,8 @@ class Controller:
         if not self._watches:
             self._start_watches()
         moved = False
+        if self.informer is not None and self.informer.drain_once():
+            moved = True
         for i in range(len(self._watch_specs)):
             while self._pump_once(i):
                 moved = True
@@ -424,6 +504,9 @@ class Manager:
         api: APIServer,
         time_fn: Callable[[], float] = time.monotonic,
         registry: Optional[prometheus.Registry] = None,
+        cache: Optional[Any] = None,
+        elector: Optional[Any] = None,
+        shard: Optional[Any] = None,
     ):
         self.api = api
         self.time_fn = time_fn
@@ -432,6 +515,40 @@ class Manager:
         # registry (controller-runtime's metrics.Registry equivalent)
         self.metrics_registry = registry or prometheus.Registry()
         self._runtime_metrics = RuntimeMetrics(self.metrics_registry)
+        self.cache = cache
+        self._cache_started = False
+        self.elector = elector
+        self.shard = shard
+        if shard is not None and hasattr(shard, "add_on_change"):
+            shard.add_on_change(self._reshard_resync)
+
+    def _reshard_resync(self, old: list[str], new: list[str]) -> None:
+        """Membership changed: re-enqueue every primary object so keys
+        in namespaces this replica NEWLY owns get reconciled. A peer
+        that expired left no watch event behind; without this resync
+        its slice would sit unreconciled until the next organic event.
+        Keys still owned elsewhere are filtered at process time."""
+        log.info(
+            "shard membership changed %s -> %s; resyncing %d controllers",
+            old,
+            new,
+            len(self.controllers),
+        )
+        for c in self.controllers:
+            try:
+                objs = self.api.list(c.for_kind)
+            except Exception:  # noqa: BLE001 — API blip; next change retries
+                log.exception("reshard resync list %s failed", c.for_kind)
+                continue
+            for obj in objs:
+                c.enqueue(Request(obj_util.namespace_of(obj), obj_util.name_of(obj)))
+
+    def _fence_fn(self) -> Optional[Callable[[], Any]]:
+        if self.shard is not None:
+            return self.shard.fence
+        if self.elector is not None:
+            return self.elector.fence
+        return None
 
     def new_controller(
         self,
@@ -452,22 +569,43 @@ class Manager:
             workers=workers,
             metrics=self._runtime_metrics,
             for_map=for_map,
+            informer=self.cache,
+            fence_fn=self._fence_fn(),
+            shard=self.shard,
         )
         self.controllers.append(ctrl)
         return ctrl
 
+    def _ensure_cache(self, live: bool) -> None:
+        if self.cache is None:
+            return
+        # informer start + sync barrier: controllers must never see a
+        # half-primed cache (controller-runtime's WaitForCacheSync
+        # contract). start() is idempotent and upgrades a drain-mode
+        # cache to live pumps.
+        if not self._cache_started or live:
+            self.cache.start(live=live)
+        if not self._cache_started:
+            self.cache.wait_for_sync()
+            self._cache_started = True
+
     def start(self) -> None:
+        self._ensure_cache(live=True)
         for c in self.controllers:
             c.start()
 
     def stop(self) -> None:
         for c in self.controllers:
             c.stop()
+        if self.cache is not None and self._cache_started:
+            self.cache.stop()
 
     def drain(self, max_rounds: int = 60) -> None:
         """Run controllers synchronously until no controller has pending
         work (the deterministic test idiom — no sleeps, no races)."""
+        self._ensure_cache(live=False)
         for _ in range(max_rounds):
-            if not any(c.drain_once() for c in self.controllers):
+            cache_moved = self.cache.drain_once() if self.cache is not None else False
+            if not any(c.drain_once() for c in self.controllers) and not cache_moved:
                 return
         raise RuntimeError("manager did not quiesce; reconcile livelock?")

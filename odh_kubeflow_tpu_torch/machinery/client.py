@@ -1,8 +1,7 @@
 """HTTP client for the platform API server, duck-typed to
 ``machinery.store.APIServer`` (the port's copy of the JAX package's
-``machinery/client.py``: ``RemoteAPIServer`` and the single-URL
-``api_from_env``; the replica fan-out over several URLs and the fencing
-header come with leader election and read replicas).
+``machinery/client.py``: ``RemoteAPIServer``, the read-spreading
+``ReplicaFanout`` and ``api_from_env``).
 
 Controllers, webhooks, and web backends take an ``APIServer``-shaped
 object; handing them a ``RemoteAPIServer`` instead runs the identical
@@ -48,6 +47,7 @@ from odh_kubeflow_tpu_torch.machinery.store import (
     TooManyRequests,
     TypeInfo,
     Unauthorized,
+    current_fence as store_fence,
     Watch,
 )
 
@@ -125,11 +125,16 @@ class RemoteAPIServer:
         retry_cap: float = 2.0,
         page_size: Optional[int] = None,
         registry: Optional[prometheus.Registry] = None,
+        follow_not_leader: int = 1,
         retry_budget: Optional[overload.RetryBudget] = None,
         breaker: Optional[overload.CircuitBreaker] = None,
         priority_level: Optional[str] = None,
     ):
         self.base_url = base_url.rstrip("/")
+        # 307 NotLeader hops to follow transparently before surfacing
+        # the error: a write sent to a read replica is retried against
+        # the leader its Location names. 0 = surface every redirect.
+        self.follow_not_leader = max(int(follow_not_leader), 0)
         # sent as X-Priority-Level on every call when set (one of
         # overload.LEVEL_NAMES); None lets the server classify
         self.priority_level = priority_level
@@ -319,6 +324,12 @@ class RemoteAPIServer:
                 # so the remote store skips trace-stamping children,
                 # same as the embedded path
                 headers["tracestate"] = "odh=controller"
+        # the caller's fencing epoch (machinery.leader.fenced): the
+        # remote store validates it atomically with the apply
+        fence = store_fence()
+        if fence is not None:
+            ns, lease, token = fence
+            headers["X-Fencing-Token"] = f"{ns}/{lease}/{token}"
         # a self-declared priority level (the APF classification's
         # header): a process whose every call is platform traffic, such
         # as the kubelet, declares "controller"
@@ -371,7 +382,7 @@ class RemoteAPIServer:
             )
 
         return backoff.retry(
-            lambda: self._do_request_once(method, path, body, query),
+            lambda: self._do_request(method, path, body, query),
             retryable=lambda e: self._retry_reason(method, e) is not None,
             attempts=self.retries,
             base=self.retry_base,
@@ -380,6 +391,23 @@ class RemoteAPIServer:
             on_retry=on_retry,
             budget=self._budget,
         )
+
+    def _do_request(
+        self,
+        method: str,
+        path: str,
+        body: Optional[Obj] = None,
+        query: str = "",
+    ) -> Obj:
+        for hop in range(self.follow_not_leader + 1):
+            try:
+                return self._do_request_once(method, path, body, query)
+            except NotLeader as e:
+                if hop >= self.follow_not_leader or not e.leader_url:
+                    raise
+                self._m_retries.inc({"verb": method, "reason": "307"})
+                path = e.leader_url
+        raise AssertionError("unreachable")  # the loop returns or raises
 
     def _do_request_once(
         self,
@@ -405,7 +433,9 @@ class RemoteAPIServer:
                 retry_after=max(self._breaker.retry_after(), 0.05),
             )
         self._throttle()
-        url = self.base_url + path + (f"?{query}" if query else "")
+        url = (
+            path if path.startswith(("http://", "https://")) else self.base_url + path
+        ) + (f"?{query}" if query else "")
         # outbound request body (write path, not a serving response)
         data = (
             json.dumps(body).encode()
@@ -985,6 +1015,288 @@ class RemoteAPIServer:
         return created
 
 
+class ReplicaFanout:
+    """Read-spreading façade over N replica endpoints (the
+    comma-separated ``READ_FROM_REPLICA`` form): each read goes to one
+    endpoint — round-robin for point reads and lists, rendezvous-sticky
+    per (kind, namespace) for watches so a long-lived stream keeps one
+    home — and an endpoint that errors (network, 5xx, 429 shed) is
+    marked down for ``cooldown`` seconds while the call falls through
+    to the next replica. All endpoints down → every endpoint is tried
+    anyway (serving degraded beats failing fast on a blip).
+
+    Pagination is sticky too: every page of one continue-token walk
+    must come from the SAME replica (another replica's horizon may
+    differ, and an offset into a different history silently skips or
+    repeats rows), so ``list_chunk`` homes on the (kind, namespace)
+    endpoint and a mid-walk endpoint failure surfaces as
+    :class:`Expired` — the callers' existing restart-from-fresh-list
+    logic handles it.
+
+    Reads only: the runner hands this to :class:`ReadSplitAPI` as the
+    read arm; writes keep going to the leader. ``applied_rv`` reports
+    the LOWEST horizon any endpoint has served (the conservative
+    bounded-staleness stamp: whichever replica served the rows, its
+    horizon is at least this)."""
+
+    def __init__(self, clients: list["RemoteAPIServer"], cooldown: float = 5.0):
+        if not clients:
+            raise ValueError("ReplicaFanout needs >=1 endpoint")
+        self.clients = list(clients)
+        self.cooldown = cooldown
+        self._next = 0
+        self._down_until: dict[int, float] = {}
+        self._lock = threading.Lock()
+
+    # -- endpoint choice ------------------------------------------------------
+
+    def _breaker_blocking(self, idx: int) -> bool:
+        """True while the endpoint's own circuit breaker would shed a
+        call right now — fanout ranking treats it like a cooldown."""
+        breaker = getattr(self.clients[idx], "_breaker", None)
+        return breaker is not None and breaker.blocking
+
+    def _order(self, sticky_key: Optional[str] = None) -> list[int]:
+        now = time.monotonic()
+        with self._lock:
+            healthy = [
+                i
+                for i in range(len(self.clients))
+                if self._down_until.get(i, 0.0) <= now
+                and not self._breaker_blocking(i)
+            ]
+            if sticky_key is None:
+                self._next += 1
+                rr = self._next
+        if not healthy:
+            healthy = list(range(len(self.clients)))
+        if sticky_key is None:
+            first = healthy[rr % len(healthy)]
+        else:
+            # true rendezvous (highest-random-weight, the SAME
+            # primitive shard/promoter ranking uses): one endpoint
+            # blipping out of the healthy set remaps ONLY the keys it
+            # owned — hash-mod over the dynamic list would tear every
+            # sticky stream down on any membership wobble
+            from odh_kubeflow_tpu_torch.machinery.leader import _hrw_weight
+
+            first = max(
+                healthy,
+                key=lambda i: _hrw_weight(
+                    self.clients[i].base_url, sticky_key
+                ),
+            )
+        ordered = [first] + [i for i in healthy if i != first]
+        ordered += [i for i in range(len(self.clients)) if i not in ordered]
+        return ordered
+
+    def _endpoint_failed(self, e: Exception) -> bool:
+        if isinstance(e, TooManyRequests):
+            return True  # shed load: another replica may have headroom
+        if isinstance(e, APIError):
+            return e.code >= 500
+        return isinstance(e, (OSError, http.client.HTTPException))
+
+    def _mark_down(self, idx: int, e: Exception) -> None:
+        with self._lock:
+            self._down_until[idx] = time.monotonic() + self.cooldown
+        log.warning(
+            "replica endpoint %s failed (%s: %s); trying the next replica",
+            self.clients[idx].base_url, type(e).__name__, e,
+        )
+
+    def _call(self, method: str, *args, sticky_key=None, **kwargs):
+        last: Optional[Exception] = None
+        for idx in self._order(sticky_key):
+            try:
+                return getattr(self.clients[idx], method)(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 — policy-checked below
+                if not self._endpoint_failed(e):
+                    raise
+                last = e
+                self._mark_down(idx, e)
+        assert last is not None
+        raise last
+
+    # -- the read surface -----------------------------------------------------
+
+    def get(self, kind: str, name: str, namespace: Optional[str] = None) -> Obj:
+        return self._call("get", kind, name, namespace)
+
+    def list(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Optional[Obj] = None,
+        field_matches: Optional[dict[str, Any]] = None,
+        limit: Optional[int] = None,
+    ) -> list[Obj]:
+        return self._call(
+            "list",
+            kind,
+            namespace=namespace,
+            label_selector=label_selector,
+            field_matches=field_matches,
+            limit=limit,
+        )
+
+    # marker appended to continue tokens to pin the walk's endpoint:
+    # stickiness via rendezvous alone breaks when a better-ranked
+    # endpoint RECOVERS mid-walk (the winner changes between pages and
+    # the token resumes against a different replica's history)
+    _TOKEN_PIN = "@@replica:"
+
+    def _page_endpoint(
+        self, kind: str, namespace: Optional[str], token: Optional[str]
+    ) -> tuple[int, Optional[str]]:
+        """(endpoint index, unwrapped server token) for one page. A
+        continued walk is pinned to the endpoint recorded in its own
+        token; a fresh walk homes on the healthy rendezvous winner."""
+        if token and self._TOKEN_PIN in token:
+            server_token, _, idx = token.rpartition(self._TOKEN_PIN)
+            try:
+                return int(idx), server_token
+            except ValueError:
+                pass  # foreign token shape: treat as unpinned
+        key = f"list\x00{kind}\x00{namespace or ''}"
+        return self._order(sticky_key=key)[0], token
+
+    def list_chunk(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Optional[Obj] = None,
+        field_matches: Optional[dict[str, Any]] = None,
+        limit: Optional[int] = None,
+        continue_token: Optional[str] = None,
+    ) -> tuple[list[Obj], str]:
+        # EVERY page of one continue walk must come from the same
+        # replica — another endpoint's horizon differs, and an offset
+        # into a different history silently skips/repeats rows — so
+        # the token itself carries the endpoint it belongs to
+        idx, server_token = self._page_endpoint(
+            kind, namespace, continue_token
+        )
+        pinned = bool(continue_token)
+
+        def page(i: int):
+            items, token = self.clients[i].list_chunk(
+                kind,
+                namespace=namespace,
+                label_selector=label_selector,
+                field_matches=field_matches,
+                limit=limit,
+                continue_token=server_token,
+            )
+            return items, (
+                f"{token}{self._TOKEN_PIN}{i}" if token else ""
+            )
+
+        try:
+            return page(idx)
+        except Exception as e:  # noqa: BLE001 — policy-checked below
+            if not self._endpoint_failed(e):
+                raise
+            self._mark_down(idx, e)
+            if pinned:
+                # mid-walk: the token belongs to the dead endpoint's
+                # history — 410 so the caller's existing restart-from-
+                # fresh-list logic takes over (never resume the walk
+                # against a different replica's state)
+                raise Expired(
+                    "replica serving this paginated walk became "
+                    "unavailable; restart from a fresh list"
+                ) from e
+            key = f"list\x00{kind}\x00{namespace or ''}"
+            for other in self._order(sticky_key=key):
+                if other == idx:
+                    continue
+                try:
+                    return page(other)
+                except Exception as e2:  # noqa: BLE001
+                    if not self._endpoint_failed(e2):
+                        raise
+                    self._mark_down(other, e2)
+                    e = e2
+            raise e
+
+    def watch(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        send_initial: bool = True,
+        resource_version: Optional[str] = None,
+        reconnect_window: Optional[float] = None,
+    ) -> Watch:
+        # sticky: the stream (and its resume rv space) lives on ONE
+        # replica; the client pump's own reconnect loop handles blips.
+        # watch() itself never raises (the pump retries forever), so a
+        # dead home would spin unmarked — probe it with a bounded read
+        # first and fail over to the next endpoint like any read. A
+        # home that dies AFTER establishment is bounded too: the
+        # reconnect_window ends the stream so the consumer's relist +
+        # re-watch comes back through this probe and re-homes.
+        key = f"{kind}\x00{namespace or ''}"
+        if reconnect_window is None:
+            reconnect_window = max(3 * self.cooldown, 15.0)
+        last: Optional[Exception] = None
+        for idx in self._order(sticky_key=key):
+            try:
+                self.clients[idx].list(kind, namespace=namespace, limit=1)
+            except Exception as e:  # noqa: BLE001 — policy-checked below
+                if not self._endpoint_failed(e):
+                    raise
+                self._mark_down(idx, e)
+                last = e
+                continue
+            return self.clients[idx].watch(
+                kind,
+                namespace=namespace,
+                send_initial=send_initial,
+                resource_version=resource_version,
+                reconnect_window=reconnect_window,
+            )
+        assert last is not None
+        raise last
+
+    def applied_rv(self) -> Optional[int]:
+        # the MIN observed horizon: conservative — whichever endpoint
+        # actually served the rows has a horizon at least this high,
+        # so the stamp never promises freshness a lagging replica
+        # didn't deliver
+        horizons = [
+            rv
+            for rv in (c.applied_rv() for c in self.clients)
+            if rv is not None
+        ]
+        return min(horizons) if horizons else None
+
+    def register_kind(
+        self,
+        api_version: str,
+        kind: str,
+        plural: str,
+        namespaced: bool = True,
+    ) -> None:
+        for c in self.clients:
+            c.register_kind(api_version, kind, plural, namespaced)
+
+    def type_info(self, kind: str) -> TypeInfo:
+        return self.clients[0].type_info(kind)
+
+    def kind_for_plural(self, plural: str) -> str:
+        return self.clients[0].kind_for_plural(plural)
+
+    def register_admission_hook(self, kinds, fn, mutating=True, name="") -> None:
+        """No-op, same as every remote client."""
+
+    def __getattr__(self, name: str):
+        # anything else (writes should never land here — the runner
+        # pairs this with ReadSplitAPI's leader write arm) delegates
+        # to the first endpoint
+        return getattr(self.clients[0], name)
+
+
 def _retry_after_of(e: urllib.error.HTTPError) -> float:
     """The Retry-After header as seconds (delay-seconds form only —
     the HTTP-date form is overkill for an apiserver hint), default 1s."""
@@ -1061,14 +1373,16 @@ def api_from_env(url: Optional[str] = None) -> Any:
     3. localhost:8001 (`kubectl proxy` posture) for dev.
 
     A comma-separated ``url`` (the multi-replica ``READ_FROM_REPLICA``
-    form) raises ``ValueError``: the replica fan-out comes with read
-    replicas.
+    form) returns a :class:`ReplicaFanout` spreading reads across the
+    endpoints with per-endpoint failure fallback
+    (``REPLICA_FANOUT_COOLDOWN``); a single URL returns the plain
+    :class:`RemoteAPIServer`.
 
-    Registers the platform CRD kinds for path mapping."""
+    Registers the platform CRD kinds for path mapping either way."""
     if url and "," in url:
-        raise ValueError(
-            f"{url!r}: several API URLs need the replica fan-out, which "
-            "this package does not have yet; give one URL"
+        return ReplicaFanout(
+            [api_from_env(part.strip()) for part in url.split(",") if part.strip()],
+            cooldown=float(os.environ.get("REPLICA_FANOUT_COOLDOWN", "5")),
         )
     qps_env = os.environ.get("KUBE_API_QPS", "")
     page_env = os.environ.get("KUBE_LIST_PAGE_SIZE", "500")

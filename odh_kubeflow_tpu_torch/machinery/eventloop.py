@@ -101,6 +101,10 @@ class WatchBody:
     wire line; the serve layer passes the serialized-bytes-cache frame
     so every subscriber of the same event writes the same bytes object.
 
+    ``heartbeat_fn`` (optional) builds each heartbeat line dynamically —
+    the replication stream uses it to ship a CONTROL frame carrying the
+    leader's current rv/epoch/wall-clock, which is what makes follower
+    lag and staleness observable even on an idle stream.
     """
 
     def __init__(
@@ -109,11 +113,18 @@ class WatchBody:
         frame: Callable[[tuple[str, Any]], bytes],
         heartbeat: float,
         heartbeat_line: bytes = b'{"type":"HEARTBEAT"}\n',
+        heartbeat_fn: Optional[Callable[[], bytes]] = None,
     ):
         self.watch = watch
         self.frame = frame
         self.heartbeat = heartbeat
-        self.heartbeat_line = heartbeat_line
+        self._static_heartbeat = heartbeat_line
+        self.heartbeat_fn = heartbeat_fn
+
+    @property
+    def heartbeat_line(self) -> bytes:
+        fn = self.heartbeat_fn
+        return fn() if fn is not None else self._static_heartbeat
 
     def __iter__(self) -> Iterator[bytes]:
         w = self.watch

@@ -28,10 +28,6 @@ calls it); unset means zero overhead — consumers get the raw api.
 
 ``set_offline(True)`` simulates a full partition: every call raises a
 5xx and all live watch streams drop, until ``set_offline(False)``.
-
-The port's store has no paginated list, per-kind versions or sharded
-watch delivery yet, so the injector wraps no ``list_chunk`` and passes
-no ``kind_version`` or ``inline`` through.
 """
 
 from __future__ import annotations
@@ -326,6 +322,7 @@ class FaultInjector:
         except (AttributeError, OSError):
             pass  # duck-typed server without watch bookkeeping
         w._q.put(None)
+        w._wake()  # event-loop consumers parked on set_notify
         self._forget_watch(w)
         self._count("watch_drop")
 
@@ -396,6 +393,25 @@ class FaultInjector:
             field_matches=field_matches,
         )
 
+    def list_chunk(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Optional[Obj] = None,
+        field_matches: Optional[dict[str, Any]] = None,
+        limit: Optional[int] = None,
+        continue_token: Optional[str] = None,
+    ) -> tuple[list[Obj], str]:
+        self._fault_point("list", mutating=False)
+        return self.api.list_chunk(
+            kind,
+            namespace=namespace,
+            label_selector=label_selector,
+            field_matches=field_matches,
+            limit=limit,
+            continue_token=continue_token,
+        )
+
     def update(self, obj: Obj) -> Obj:
         self._fault_point("update", mutating=True)
         return self.api.update(obj)
@@ -420,6 +436,7 @@ class FaultInjector:
         namespace: Optional[str] = None,
         send_initial: bool = True,
         resource_version: Optional[str] = None,
+        inline: bool = True,
     ) -> Watch:
         if self._offline:
             self._count("outage")
@@ -434,12 +451,23 @@ class FaultInjector:
                 f"injected expiry: resourceVersion {resource_version} is "
                 "too old"
             )
-        w = self.api.watch(
-            kind,
-            namespace=namespace,
-            send_initial=send_initial,
-            resource_version=resource_version,
-        )
+        # in-process stores take ``inline``; a wrapped RemoteAPIServer
+        # does not (it always pumps via a reader thread)
+        try:
+            w = self.api.watch(
+                kind,
+                namespace=namespace,
+                send_initial=send_initial,
+                resource_version=resource_version,
+                inline=inline,
+            )
+        except TypeError:
+            w = self.api.watch(
+                kind,
+                namespace=namespace,
+                send_initial=send_initial,
+                resource_version=resource_version,
+            )
         with self._watch_lock:
             self._watches.append(w)
         return w
@@ -479,6 +507,9 @@ class FaultInjector:
 
     def state_digest(self) -> str:
         return self.api.state_digest()
+
+    def kind_version(self, kind: str) -> int:
+        return self.api.kind_version(kind)
 
     # -- everything else (registry, admission, helpers) ---------------------
 

@@ -1,7 +1,5 @@
 """Kubernetes-convention REST façade over the embedded APIServer (the
-port's copy of the JAX package's ``machinery/httpapi.py``, without the
-replication surface and the fencing header, which come with leader
-election and read replicas).
+port's copy of the JAX package's ``machinery/httpapi.py``).
 
 The reference talks to a real kube-apiserver; this module gives the
 embedded store the same wire surface so the platform's components run as
@@ -68,6 +66,8 @@ from odh_kubeflow_tpu_torch.machinery.store import (
     NotFound,
     NotLeader,
     TooManyRequests,
+    reset_fence,
+    set_fence,
 )
 
 Obj = dict[str, Any]
@@ -94,6 +94,10 @@ _STATUS = {
 }
 
 WATCH_HEARTBEAT_SECONDS = 15.0
+
+# the replication stream's CONTROL frame cadence: each frame carries the
+# leader's rv, epoch and wall clock (lag denominator, liveness signal)
+REPLICATION_HEARTBEAT_SECONDS = 1.0
 
 # APF-lite default: per-client concurrent (non-watch) request cap.
 # kube-apiserver's Priority & Fairness rejects excess work with 429 +
@@ -459,6 +463,13 @@ class RestAPI:
             and path == "/apis/authorization.k8s.io/v1/subjectaccessreviews"
         ):
             return self._subject_access_review(environ, start_response)
+        if path.startswith("/replication/"):
+            try:
+                return self._replication(path, method, qs, start_response)
+            except APIError as e:
+                return self._error(
+                    _err_status(e), str(e), start_response, reason=type(e).__name__
+                )
 
         route = _parse_path(path)
         if route is None:
@@ -468,6 +479,30 @@ class RestAPI:
             kind = self._resolve_kind(route.plural)
         except NotFound as e:
             return self._error(404, str(e), start_response)
+
+        # the caller's fencing epoch (namespace/lease/token): a deposed
+        # holder's write is rejected by the store atomically with the apply
+        fence = None
+        raw_fence = environ.get("HTTP_X_FENCING_TOKEN", "")
+        if raw_fence:
+            parts = raw_fence.split("/")
+            if len(parts) != 3:
+                return self._error(
+                    400,
+                    f"malformed X-Fencing-Token {raw_fence!r} "
+                    "(want namespace/lease/token)",
+                    start_response,
+                    reason="BadRequest",
+                )
+            try:
+                fence = (parts[0], parts[1], int(parts[2]))
+            except ValueError:
+                return self._error(
+                    400,
+                    f"non-numeric fencing token in {raw_fence!r}",
+                    start_response,
+                    reason="BadRequest",
+                )
 
         # the propagated end-to-end deadline (X-Request-Deadline,
         # remaining delta-seconds) re-anchors on THIS host's monotonic
@@ -540,9 +575,11 @@ class RestAPI:
                 start_response,
                 reason="DeadlineExceeded",
             )
-        # re-install the parsed deadline on this handler's context so
-        # every downstream stage (the ack wait) sees the same time
-        # budget, same as the embedded path
+        # re-install the parsed fence AND deadline on this handler's
+        # context so the store validates the epoch atomically with the
+        # apply and every downstream stage (the ack wait) sees the same
+        # time budget, same as the embedded path
+        fence_reset = set_fence(fence) if fence is not None else None
         deadline_reset = (
             overload.set_deadline(deadline) if deadline is not None else None
         )
@@ -574,6 +611,8 @@ class RestAPI:
         finally:
             if deadline_reset is not None:
                 overload.reset_deadline(deadline_reset)
+            if fence_reset is not None:
+                reset_fence(fence_reset)
             if client is not None:
                 self.limiter.release(client)
 
@@ -610,6 +649,71 @@ class RestAPI:
             start_response,
         )
 
+
+    def _replication(self, path, method, qs, start_response):
+        """The WAL-shipping surface follower replicas pull from:
+
+        - ``GET /replication/snapshot`` — a consistent full-state cut
+          (rv, types, objects, kind_rv, watch-cache events, epoch) for
+          cold catch-up;
+        - ``GET /replication/stream?from=<rv>`` — committed records of
+          every kind above ``from``, in rv order, as watch-framed JSON
+          lines, interleaved with CONTROL frames carrying the leader's
+          current rv/epoch/wall-clock. A ``from`` below the compacted
+          window answers 410 (catch up from a snapshot instead).
+
+        ``?partition=`` (a partitioned store's per-partition feed) is
+        refused: the partition router is not part of this package yet."""
+        if method != "GET":
+            raise Invalid(f"unsupported {method} on {path}")
+        server = self.server
+        if "partition" in qs:
+            raise Invalid(
+                "?partition= needs a partitioned store, which this package "
+                "does not have yet (partitioned replicas come with the "
+                "partition router, part 8 of the platform port)"
+            )
+        cut_fn = getattr(server, "replication_cut", None)
+        feed_fn = getattr(server, "replication_watch", None)
+        if path == "/replication/snapshot" and cut_fn is not None:
+            return self._json(200, cut_fn(), start_response)
+        if path == "/replication/stream" and feed_fn is not None:
+            try:
+                from_rv = int(qs.get("from", ["0"])[0])
+            except ValueError:
+                raise Invalid("replication 'from' rv must be numeric") from None
+            w = feed_fn(from_rv)  # Expired → the caller's 410 mapping
+            start_response(
+                "200 OK",
+                [("Content-Type", "application/json"), ("X-Stream", "replication")],
+            )
+            return WatchBody(
+                w,
+                self._replication_frame,
+                heartbeat=REPLICATION_HEARTBEAT_SECONDS,
+                heartbeat_fn=lambda: self._replication_control_line(server),
+            )
+        return self._error(404, f"unrecognised path {path}", start_response)
+
+    def _replication_frame(self, item) -> bytes:
+        etype, obj = item
+        if etype == "REGISTER":
+            return b'{"type": "REGISTER", "object": ' + serialize.dumps(obj) + b"}\n"
+        return self.bytes_cache.event_bytes(etype, obj)
+
+    def _replication_control_line(self, server=None) -> bytes:
+        server = self.server if server is None else server
+        return (
+            serialize.dumps(
+                {
+                    "type": "CONTROL",
+                    "rv": server.applied_rv(),
+                    "epoch": getattr(server, "replication_epoch", 0),
+                    "ts": time.time(),
+                }
+            )
+            + b"\n"
+        )
     def _read_body(self, environ) -> Obj:
         length = int(environ.get("CONTENT_LENGTH") or 0)
         raw = environ["wsgi.input"].read(length) if length else b"{}"
@@ -653,11 +757,14 @@ class RestAPI:
                 # Expired resume surfaces as a proper Status response
                 # (raised here → the APIError handler), not a broken
                 # stream
+                # inline=False: HTTP streams are fanned out by the
+                # store's dispatcher shards, never the mutator
                 w = self.server.watch(
                     kind,
                     namespace=ns,
                     send_initial=send_initial,
                     resource_version=rv,
+                    inline=False,
                 )
                 start_response(
                     "200 OK",
@@ -708,6 +815,17 @@ class RestAPI:
                     start_response,
                     headers=rv_hdrs,
                 )
+            ver_fn = getattr(self.server, "kind_version", None)
+            if ver_fn is not None:
+                # whole-list payload cache: a kind's list output is
+                # immutable between bumps of its per-kind version
+                lkey = (kind, ns or "", qs.get("labelSelector", [""])[0], ver_fn(kind))
+                payload = self.bytes_cache.list_payload(lkey)
+                if payload is None:
+                    items = self.server.list(kind, namespace=ns, label_selector=selector)
+                    payload = self.bytes_cache.list_bytes(kind, items)
+                    self.bytes_cache.store_list_payload(lkey, payload)
+                return self._raw(200, payload, start_response, headers=rv_hdrs)
             items = self.server.list(kind, namespace=ns, label_selector=selector)
             # composed from per-object cached bytes: a repeat list of
             # unchanged objects (same rvs) serializes NOTHING — the hot

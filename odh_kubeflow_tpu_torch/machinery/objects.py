@@ -31,12 +31,23 @@ def _py_deepcopy(obj: Obj) -> Obj:
     return copy.deepcopy(obj)
 
 
+deepcopy_calls = 0
+
+
+def deepcopy_count() -> int:
+    """Total ``deepcopy`` invocations since import (monotonic): the
+    informer cache's zero-copy read hits are held to it."""
+    return deepcopy_calls
+
+
 def deepcopy(obj: Obj) -> Obj:
     """Deep copy specialised for JSON-shaped trees (dict/list/scalars
     are the only shapes API objects use); exotic leaves go through
     ``copy.deepcopy``. Frozen trees (``FrozenDict``/``FrozenList``) come
     back as plain mutable dicts/lists (their ``__deepcopy__`` routes
     through ``mutable``)."""
+    global deepcopy_calls
+    deepcopy_calls += 1
     return _py_deepcopy(obj)
 
 

@@ -42,9 +42,19 @@ ambient request deadline (``machinery/overload.py``) the group-commit
 ack wait gives up with 504 ``DeadlineExceeded`` (the record stays
 enqueued and may still commit).
 
-Not ported here (ROADMAP.md): fencing tokens (``FencedOut`` and
-``NotLeader`` exist so the REST façade can map them), the replication
-feed, sharded watch dispatch and per-kind versions. The JAX module
+Fencing: a mutation made under ``set_fence`` (``machinery/leader.py``
+``fenced``, or the façade's ``X-Fencing-Token`` header) is checked
+against the named Lease's current ``fencingToken`` under the store lock,
+atomically with the apply; a deposed epoch raises ``FencedOut``.
+Replication: ``replication_watch`` is the follower feed (every kind, rv
+order, dynamic kind registrations as ``REGISTER`` records) and
+``replication_cut`` the cold catch-up cut; ``replication_epoch`` is the
+epoch the store ships under. Watch delivery: in-process consumers are
+enqueued at apply time (read-your-writes); serving-tier streams
+(``watch(inline=False)``, replication feeds) are fanned out by
+``WATCH_DISPATCH_SHARDS`` dispatcher threads, rendezvous-hashed per
+watcher, so a mutation pays one queue put per shard. ``kind_version`` is
+the per-kind rv the façade's list-payload cache keys on. The JAX module
 builds its locks through its lock-order sanitizer; the port uses plain
 ``threading`` locks.
 """
@@ -52,6 +62,8 @@ builds its locks through its lock-order sanitizer; the port uses plain
 from __future__ import annotations
 
 import base64
+import contextvars
+import datetime
 import hashlib
 import json
 import logging
@@ -70,6 +82,14 @@ from odh_kubeflow_tpu_torch.utils import tracing
 Obj = dict[str, Any]
 
 log = logging.getLogger("apiserver")
+
+# the calling context's fencing token — set by machinery.leader.fenced()
+# around controller work (and by the REST façade from the
+# X-Fencing-Token header), validated by the store on every mutation.
+# (namespace, lease_name, token) — None means the write is unfenced.
+_FENCE: contextvars.ContextVar[Optional[tuple[str, str, int]]] = (
+    contextvars.ContextVar("odh_fence", default=None)
+)
 
 
 class APIError(Exception):
@@ -150,8 +170,7 @@ class Expired(APIError):
 class FencedOut(APIError):
     """The write carried a fencing token from a deposed lease epoch; the
     caller must stand down. 403, not 409: an authority failure, not a
-    data race. The port's store raises it once leader election is
-    ported; the REST façade and the client map it already."""
+    data race."""
 
     code = 403
 
@@ -159,8 +178,7 @@ class FencedOut(APIError):
 class NotLeader(APIError):
     """A mutation was sent to a read replica; the client must retry the
     write against the leader, whose URL rides in ``leader_url`` (the
-    REST façade answers with a kube-style 307 + ``Location``). Raised
-    once replication is ported; mapped already."""
+    REST façade answers with a kube-style 307 + ``Location``)."""
 
     code = 307
 
@@ -259,6 +277,23 @@ BUILTIN_KINDS: list[tuple[str, str, str, bool]] = [
 _BUILTIN_KIND_NAMES = frozenset(k for _, k, _, _ in BUILTIN_KINDS)
 
 
+def current_fence() -> Optional[tuple[str, str, int]]:
+    """The calling context's ``(namespace, lease_name, token)`` fence,
+    or None when the caller is unfenced."""
+    return _FENCE.get()
+
+
+def set_fence(fence: Optional[tuple[str, str, int]]):
+    """Install a fence on the calling context; returns the reset token
+    for ``contextvars.ContextVar.reset``. Use ``machinery.leader.
+    fenced()`` instead of calling this directly."""
+    return _FENCE.set(fence)
+
+
+def reset_fence(token) -> None:
+    _FENCE.reset(token)
+
+
 def encode_continue(payload: Obj) -> str:
     """Opaque kube-style continue token: URL-safe base64 of a JSON
     payload. Clients must treat it as a black box."""
@@ -305,6 +340,16 @@ def paged_list_all(
     return fallback_fn()
 
 
+def parse_micro_time(s: str) -> float:
+    """RFC3339-micro (kube MicroTime, the Lease spec's format) → epoch
+    seconds. Shared with machinery.leader (which writes the format)."""
+    return (
+        datetime.datetime.strptime(s, "%Y-%m-%dT%H:%M:%S.%fZ")
+        .replace(tzinfo=datetime.timezone.utc)
+        .timestamp()
+    )
+
+
 class Watch:
     """A stream of (event_type, obj) with a bounded drain queue.
 
@@ -312,12 +357,13 @@ class Watch:
     semantics): a consumer that falls more than ``maxsize`` events
     behind is CLOSED with 410 Expired (``evicted = True``, ``ended =
     True``, ``error`` set) instead of growing server memory without
-    bound; the consumer relists. 0 disables."""
+    bound; the consumer relists. 0 disables. ``kind`` of ``None`` is the
+    replication feed: every kind, every namespace."""
 
     def __init__(
         self,
         server: "APIServer",
-        kind: str,
+        kind: Optional[str],
         namespace: Optional[str],
         maxsize: int = 0,
     ):
@@ -331,6 +377,11 @@ class Watch:
         self.evicted = False
         self.error: Optional[Exception] = None
         self._notify_cb: Optional[Callable[[], None]] = None
+        # dispatcher shard index (None = inline delivery at apply time)
+        self._shard: Optional[int] = None
+        # burst-dispatch scratch flag, touched only by the one
+        # dispatcher thread that owns this watch's shard
+        self._burst_mark = False
 
     def set_notify(self, fn: Optional[Callable[[], None]]) -> None:
         """Register a wake callback fired (from the enqueuing thread)
@@ -351,7 +402,9 @@ class Watch:
             except RuntimeError:
                 pass  # the consumer's event loop is shutting down
 
-    def _enqueue(self, event: tuple[str, Obj]) -> None:
+    def _enqueue(self, event: tuple[str, Obj], wake: bool = True) -> None:
+        """``wake=False`` defers the notify callback: the dispatch shards
+        deliver bursts and wake each touched consumer once per burst."""
         if self._stopped or self.evicted:
             return
         if self.maxsize and self._q.qsize() >= self.maxsize:
@@ -369,7 +422,8 @@ class Watch:
             self._server._evict_watch(self)
             return
         self._q.put(event)
-        self._wake()
+        if wake:
+            self._wake()
 
     def stop(self) -> None:
         self._stopped = True
@@ -392,6 +446,36 @@ class Watch:
             return None
 
 
+class _WatchShard:
+    """One watch-dispatch shard: a FIFO of applied events and the
+    dispatcher thread that fans them out to this shard's watchers.
+    ``watchers`` is a copy-on-write tuple (replaced under the store
+    lock, read lock-free by the dispatcher) so fanout never contends
+    with registration."""
+
+    __slots__ = ("q", "thread", "watchers")
+
+    def __init__(self):
+        self.q: "queue.Queue[Optional[list]]" = queue.Queue()
+        self.thread: Optional[threading.Thread] = None
+        self.watchers: tuple[Watch, ...] = ()
+
+
+def _rendezvous_shard(token: str, shards: int) -> int:
+    """Highest-random-weight choice of dispatch shard for a watcher —
+    the same rendezvous scheme ``machinery.leader`` uses for namespace
+    ownership, so adding a shard moves only 1/K of the watchers."""
+    best, best_w = 0, -1
+    for i in range(shards):
+        w = int.from_bytes(
+            hashlib.blake2b(f"{token}|{i}".encode(), digest_size=8).digest(),
+            "big",
+        )
+        if w > best_w:
+            best, best_w = i, w
+    return best
+
+
 class APIServer:
     # retained watch-cache window (events, not seconds): a watch may
     # resume from any resourceVersion still inside it; older resumes get
@@ -404,6 +488,20 @@ class APIServer:
     # events per namespace kept after pruning (kube-apiserver expires
     # events by TTL; a bounded ring is the embedded equivalent)
     EVENT_RETENTION = 1000
+
+    # watch-dispatch shards (K dispatcher threads): serving-tier watches
+    # (HTTP streams, replication feeds) are rendezvous-hashed across K
+    # dispatcher threads, so a mutation enqueues at most K items instead
+    # of one per subscriber. In-process consumers (informer caches,
+    # controller tests) stay inline: their synchronous enqueue at apply
+    # is what gives read-your-writes through CachedClient.poke. 0 =
+    # everything inline. Env: WATCH_DISPATCH_SHARDS.
+    WATCH_DISPATCH_SHARDS = 4
+
+    # dispatcher coalescing window (ms): after picking up work, a
+    # dispatch shard sleeps this long so one fanout pass covers the
+    # whole commit burst. 0 disables. Env: WATCH_DISPATCH_COALESCE_MS.
+    WATCH_DISPATCH_COALESCE_MS = 2
 
     # mutations between WAL snapshots (when a WAL is attached)
     SNAPSHOT_INTERVAL = 1024
@@ -468,14 +566,38 @@ class APIServer:
             self.SNAPSHOT_BYTES = _env_int("SNAPSHOT_BYTES", type(self).SNAPSHOT_BYTES)
         self.WATCH_CACHE_SIZE = _env_int("WATCH_CACHE_SIZE", type(self).WATCH_CACHE_SIZE)
         self.EVENT_RETENTION = _env_int("EVENT_RETENTION", type(self).EVENT_RETENTION)
+        self.WATCH_DISPATCH_SHARDS = _env_int(
+            "WATCH_DISPATCH_SHARDS", type(self).WATCH_DISPATCH_SHARDS
+        )
+        self.WATCH_DISPATCH_COALESCE_MS = _env_int(
+            "WATCH_DISPATCH_COALESCE_MS", type(self).WATCH_DISPATCH_COALESCE_MS
+        )
+        # sharded watch dispatch (started lazily on the first
+        # dispatcher-delivered watch); _inline_watches is the subset of
+        # _watches delivered synchronously at apply time. The delivery
+        # buffer batches shard puts across one group-commit apply.
+        self._shards: list[_WatchShard] = []
+        self._inline_watches: list[Watch] = []
+        self._delivery_buffer: Optional[list[tuple]] = None
+        self._watch_seq = 0  # stable per-watch shard-hash token
         # slow consumers closed with 410
         self.watch_evictions = 0
+        # replication: the epoch this store ships under (a promoted
+        # leader's fencing token; 0 = never fenced). Followers reject
+        # streams from a lower epoch (FencedOut).
+        self.replication_epoch = 0
+        # clock for fence-expiry validation; injectable so fake-clock
+        # leader-election tests and the store agree on "now"
+        self.fence_now_fn: Callable[[], float] = time.time
         self._types: dict[str, TypeInfo] = {}
         self._store: dict[str, dict[tuple[str, str], Obj]] = {}
         # kind → namespace → {key: obj}: the same objects as _store,
         # bucketed so namespaced lists touch only their namespace
         self._ns_buckets: dict[str, dict[str, dict[tuple[str, str], Obj]]] = {}
         self._rv = 0
+        # kind → rv of its last mutation (see kind_version): the serving
+        # tier's whole-list-payload cache key
+        self._kind_rv: dict[str, int] = {}
         self._watches: list[Watch] = []
         self._hooks: list[_Hook] = []
         self._event_index: dict[tuple, str] = {}
@@ -500,6 +622,21 @@ class APIServer:
             self._types[kind] = TypeInfo(api_version, kind, plural, namespaced)
             self._store.setdefault(kind, {})
             self._ns_buckets.setdefault(kind, {})
+            # a dynamic registration must also reach follower replicas,
+            # or replicated objects of the kind would hit an unknown
+            # type on apply — same reason the WAL logs it below
+            if fresh and not self._replaying and kind not in _BUILTIN_KIND_NAMES:
+                self._deliver_event(
+                    "REGISTER",
+                    {
+                        "apiVersion": api_version,
+                        "kind": kind,
+                        "plural": plural,
+                        "namespaced": namespaced,
+                    },
+                    kind=None,
+                    ns="",
+                )
             # dynamic (CRD) registrations must survive a restart or the
             # replay of their objects would hit an unknown kind; builtin
             # kinds re-register from code, so only log the rest
@@ -664,12 +801,9 @@ class APIServer:
         return ()
 
     def debug_queues(self) -> Obj:
-        """Live pipeline depths for the /debug/queues zpage. The port's
-        watches are delivered inline at apply time (no dispatch
-        shards)."""
+        """Live pipeline depths for the /debug/queues zpage."""
         with self._lock:
             pending = len(self._pending)
-            watchers = len(self._watches)
         out: Obj = {
             "groupCommit": {
                 "queueDepth": self._commitq.qsize(),
@@ -679,10 +813,10 @@ class APIServer:
                 "failStop": self._wal_broken,
             },
             "watchDispatch": {
-                "shards": 0,
-                "queueDepths": [],
-                "watchersPerShard": [],
-                "inlineWatchers": watchers,
+                "shards": len(self._shards),
+                "queueDepths": [s.q.qsize() for s in self._shards],
+                "watchersPerShard": [len(s.watchers) for s in self._shards],
+                "inlineWatchers": len(self._inline_watches),
                 "evictedTotal": self.watch_evictions,
             },
             "wal": None,
@@ -864,11 +998,20 @@ class APIServer:
                     self._commit_failed(group + rest, e)
                     return
                 with self._lock:
-                    for e in group:
-                        if e.etype != "register":
-                            self._apply_record(e.etype, e.kind, e.key, e.obj, e.rv)
-                        if self._pending.get((e.kind, e.key)) is e:
-                            del self._pending[(e.kind, e.key)]
+                    # buffer sharded watch delivery across the whole batch
+                    # apply: one shard put per batch, not per record
+                    self._delivery_buffer = []
+                    try:
+                        for e in group:
+                            if e.etype != "register":
+                                self._apply_record(e.etype, e.kind, e.key, e.obj, e.rv)
+                            if self._pending.get((e.kind, e.key)) is e:
+                                del self._pending[(e.kind, e.key)]
+                    finally:
+                        buffered = self._delivery_buffer
+                        self._delivery_buffer = None
+                        if buffered:
+                            self._flush_delivery(buffered)
                 if self._m_batch is not None:
                     self._m_batch.observe(len(group))
                 ack_t = time.perf_counter()
@@ -925,9 +1068,15 @@ class APIServer:
         with self._lock:
             self._closed = True
             committer, self._committer = self._committer, None
+            shards, self._shards = self._shards, []
         if committer is not None:
             self._commitq.put(None)
             committer.join(timeout=30)
+        for shard in shards:
+            shard.q.put(None)
+        for shard in shards:
+            if shard.thread is not None:
+                shard.thread.join(timeout=10)
 
     def _maybe_snapshot(self) -> None:
         """Snapshot cadence check on the committer thread at a batch
@@ -963,6 +1112,7 @@ class APIServer:
         with self._lock:
             return {
                 "rv": self._applied_rv,
+                "kind_rv": dict(self._kind_rv),
                 "compacted_rv": self._compacted_rv,
                 "types": [
                     [t.api_version, t.kind, t.plural, t.namespaced]
@@ -1025,6 +1175,7 @@ class APIServer:
                     srv._put(info.kind, key, obj)
                 srv._rv = snap_rv
                 srv._compacted_rv = int(snap.get("compacted_rv", 0))
+                srv._kind_rv = {k: int(v) for k, v in snap.get("kind_rv", {}).items()}
                 for rv, kind, ns, etype, obj in snap.get("events", []):
                     srv._event_log.append((int(rv), kind, ns, etype, obj_util.freeze(obj)))
             for rec in records:
@@ -1050,6 +1201,7 @@ class APIServer:
                 else:
                     srv._put(kind, key, obj_util.deepcopy(obj))
                 srv._rv = max(srv._rv, rv)
+                srv._kind_rv[kind] = rv
                 srv._event_log.append(
                     (rv, kind, meta.get("namespace", ""), etype, obj_util.freeze(obj))
                 )
@@ -1086,6 +1238,50 @@ class APIServer:
 
     # -- CRUD ---------------------------------------------------------------
 
+    # -- fencing -------------------------------------------------------------
+
+    def _check_fence(self, kind: str) -> None:
+        """Reject mutations carrying a deposed lease epoch. Validated
+        under the store lock, atomically with the apply — this closes
+        the leader-election TOCTOU where a paused holder finishes an
+        in-flight write after a peer took the lease over. Lease writes
+        themselves are exempt (acquire/renew/release must work while
+        contested; they are already serialized by optimistic
+        concurrency)."""
+        fence = _FENCE.get()
+        if fence is None or kind == "Lease":
+            return
+        ns, name, token = fence
+        lease = self._store.get("Lease", {}).get((ns, name))
+        if lease is None:
+            raise FencedOut(
+                f"fencing lease {ns}/{name} no longer exists; epoch "
+                f"{token} is deposed"
+            )
+        spec = lease.get("spec") or {}
+        try:
+            current = int(spec.get("fencingToken", -1))
+        except (TypeError, ValueError):
+            current = -1
+        if current != int(token):
+            raise FencedOut(
+                f"fencing token {token} for lease {ns}/{name} is stale "
+                f"(current epoch {current}); the holder was deposed"
+            )
+        renew = spec.get("renewTime")
+        duration = float(spec.get("leaseDurationSeconds") or 0)
+        if renew and duration:
+            try:
+                age = self.fence_now_fn() - parse_micro_time(renew)
+            except ValueError:
+                age = 0.0
+            if age > duration:
+                raise FencedOut(
+                    f"fencing lease {ns}/{name} expired "
+                    f"{age - duration:.3f}s ago; epoch {token} may not "
+                    "write until it re-acquires"
+                )
+
     def create(self, obj: Obj, dry_run: bool = False) -> Obj:
         kind = obj.get("kind", "")
         info = self.type_info(kind)
@@ -1097,6 +1293,7 @@ class APIServer:
         if not meta.get("name"):
             raise Invalid("metadata.name required")
         with self._lock:
+            self._check_fence(kind)
             # admission first: a mutating hook may rewrite name/namespace,
             # and the store key must reflect what admission returns
             obj = self._run_admission(AdmissionRequest("CREATE", obj, None, dry_run))
@@ -1159,7 +1356,19 @@ class APIServer:
         namespace: Optional[str] = None,
         label_selector: Optional[Obj] = None,
         field_matches: Optional[dict[str, Any]] = None,
+        limit: Optional[int] = None,
     ) -> list[Obj]:
+        if limit:
+            # bounded read: the first page of the stable paginated order
+            # (kube's limit-without-continue shape)
+            items, _ = self.list_chunk(
+                kind,
+                namespace=namespace,
+                label_selector=label_selector,
+                field_matches=field_matches,
+                limit=limit,
+            )
+            return items
         info = self.type_info(kind)
         with self._lock:
             if info.namespaced and namespace:
@@ -1254,6 +1463,7 @@ class APIServer:
         name = meta.get("name", "")
         namespace = meta.get("namespace") if info.namespaced else None
         with self._lock:
+            self._check_fence(kind)
             key = self._key(info, namespace, name)
             current, cur_entry = self._effective(kind, key)
             if current is None:
@@ -1362,6 +1572,7 @@ class APIServer:
         self, kind: str, name: str, namespace: Optional[str]
     ) -> Optional[_WalEntry]:
         info = self.type_info(kind)
+        self._check_fence(kind)
         key = self._key(info, namespace, name)
         current, _ = self._effective(kind, key)
         if current is None:
@@ -1425,6 +1636,7 @@ class APIServer:
         namespace: Optional[str] = None,
         send_initial: bool = True,
         resource_version: Optional[str] = None,
+        inline: bool = True,
     ) -> Watch:
         """Open a watch stream: an ADDED event for each current object
         (unless ``send_initial`` is False), then every live event.
@@ -1432,7 +1644,13 @@ class APIServer:
         events after it replay from the watch cache, then the stream goes
         live — no initial dump. A resume point below the retained window
         raises :class:`Expired` (410); resuming exactly AT the compaction
-        floor is fine. The caller relists on 410."""
+        floor is fine. The caller relists on 410.
+
+        ``inline=False`` routes live delivery through the sharded watch
+        dispatcher (the serving tier's posture — the REST façade passes
+        it for every HTTP stream); the replay still runs synchronously
+        under the lock, and shard registration happens under the same
+        hold, so no event can land between them."""
         info = self.type_info(kind)
         with self._lock:
             w = Watch(self, kind, namespace)
@@ -1465,8 +1683,57 @@ class APIServer:
             # the slow-consumer bound covers the LIVE backlog on top of
             # whatever the replay/initial dump just queued
             w.maxsize = w._q.qsize() + self.WATCH_CACHE_SIZE
-            self._watches.append(w)
+            self._register_watch(w, inline=inline)
             return w
+
+    def replication_watch(self, from_rv: int = 0, inline: bool = False) -> Watch:
+        """A follower replica's feed: every committed record of every
+        kind, in rv order — replayed from the watch cache above
+        ``from_rv``, then live. The same 410 contract as a watch resume:
+        ``from_rv`` below the compaction floor raises :class:`Expired`
+        and the follower catches up from a snapshot
+        (``replication_cut``) instead. Dynamic kind registrations arrive
+        as ``("REGISTER", typeinfo)`` records. Delivery is
+        dispatcher-sharded: shipping costs the write path one queue put."""
+        with self._lock:
+            if from_rv < self._compacted_rv:
+                raise Expired(
+                    f"replication resume rv {from_rv} predates the "
+                    f"compacted window (oldest resumable is "
+                    f"{self._compacted_rv}); catch up from a snapshot"
+                )
+            w = Watch(self, None, None)
+            # non-builtin registrations first: replayed objects of a
+            # dynamic kind must find their type registered
+            for t in self._types.values():
+                if t.kind not in _BUILTIN_KIND_NAMES:
+                    w._enqueue(
+                        (
+                            "REGISTER",
+                            {
+                                "apiVersion": t.api_version,
+                                "kind": t.kind,
+                                "plural": t.plural,
+                                "namespaced": t.namespaced,
+                            },
+                        )
+                    )
+            for erv, _kind, _ns, etype, obj in self._event_log:
+                if erv > from_rv:
+                    w._enqueue((etype, obj))
+            w.maxsize = w._q.qsize() + self.WATCH_CACHE_SIZE
+            # inline=True is the deterministic in-process shipper's mode
+            self._register_watch(w, inline=inline)
+            return w
+
+    def replication_cut(self) -> Obj:
+        """A consistent full-state cut for follower cold catch-up — the
+        snapshot shape (``rv``, ``types``, ``objects``, ``kind_rv``,
+        ``compacted_rv``, ``events``) plus the shipping epoch. Pointer
+        collection under the lock; serialization is the caller's."""
+        state = self._snapshot_cut()
+        state["epoch"] = self.replication_epoch
+        return state
 
     def applied_rv(self) -> int:
         """The durable-and-applied rv horizon reads are served at."""
@@ -1485,10 +1752,154 @@ class APIServer:
                     h.update(serialize.dumps(per_kind[key]))
         return h.hexdigest()
 
+
+    @staticmethod
+    def compose_digests(parts: list[tuple[int, str, int]]) -> str:
+        """One fleet digest from per-partition ``(partition, digest,
+        rv)`` tuples: sha256 over their canonical serialization in
+        sorted order. Equal fleet digests mean every partition (and its
+        replicas) serves byte-identical reads at matching horizons."""
+        h = hashlib.sha256()
+        for partition, digest, rv in sorted(parts):
+            h.update(f"{partition}\x00{digest}\x00{rv}\x00".encode())
+        return h.hexdigest()
+
+    # -- identity-preserving writes ------------------------------------------
+    #
+    # Data-plane verbs for moving a namespace between stores whose rv
+    # spaces are independent: they flow through the normal commit
+    # pipeline (durable before acked, watch events emitted, replicated
+    # to followers) but skip the user-facing lifecycle — admission ran
+    # in the source store, and finalizers/cascade belong to whichever
+    # store owns the namespace.
+
+    def import_object(self, obj: Obj) -> Obj:
+        """Upsert ``obj`` preserving its identity (uid, creation
+        timestamp, generation, finalizers, ownerReferences) under a
+        fresh LOCAL resourceVersion."""
+        kind = obj.get("kind", "")
+        info = self.type_info(kind)
+        obj = obj_util.deepcopy(obj)
+        obj.setdefault("apiVersion", info.api_version)
+        meta = obj.setdefault("metadata", {})
+        if not meta.get("name"):
+            raise Invalid("metadata.name required")
+        namespace = meta.get("namespace") if info.namespaced else None
+        with self._lock:
+            self._check_fence(kind)
+            key = self._key(info, namespace, name=meta["name"])
+            current, _ = self._effective(kind, key)
+            meta["resourceVersion"] = self._next_rv()
+            etype = "ADDED" if current is None else "MODIFIED"
+            entry = self._commit_mutation(etype, kind, key, obj)
+        self._await(entry)
+        return obj_util.deepcopy(obj)
+
+    def purge_object(self, kind: str, name: str, namespace: Optional[str] = None) -> bool:
+        """Remove one object directly — no finalizer two-phase, no
+        ownerReference cascade — through the commit pipeline (a DELETED
+        record, durable before acked). Returns False when the object is
+        already gone, so a resumed purge is idempotent."""
+        info = self.type_info(kind)
+        with self._lock:
+            self._check_fence(kind)
+            key = self._key(info, namespace, name)
+            current, _ = self._effective(kind, key)
+            if current is None:
+                return False
+            current = obj_util.deepcopy(current)
+            current["metadata"]["resourceVersion"] = self._next_rv()
+            entry = self._commit_mutation("DELETED", kind, key, current)
+        self._await(entry)
+        return True
+
+    # -- watch dispatch (sharded fanout) ------------------------------------
+
+    def _register_watch(self, w: Watch, inline: bool) -> None:
+        """Called under the store lock. Inline watches join the
+        synchronous fanout; dispatcher watches are rendezvous-hashed onto
+        a shard (started lazily) by a stable per-watch token, their
+        registration ordinal."""
+        self._watches.append(w)
+        if inline or self.WATCH_DISPATCH_SHARDS <= 0:
+            self._inline_watches.append(w)
+            return
+        self._ensure_shards()
+        if not self._shards:
+            # racing close(): no dispatcher will ever run — deliver
+            # inline so the registration degrades cleanly
+            self._inline_watches.append(w)
+            return
+        self._watch_seq += 1
+        sid = _rendezvous_shard(f"w{self._watch_seq}", len(self._shards))
+        w._shard = sid
+        shard = self._shards[sid]
+        shard.watchers = shard.watchers + (w,)
+
+    def _ensure_shards(self) -> None:
+        if self._shards or self._closed:
+            return
+        for i in range(self.WATCH_DISPATCH_SHARDS):
+            shard = _WatchShard()
+            shard.thread = threading.Thread(
+                target=self._dispatch_loop,
+                args=(shard,),
+                name=f"apiserver-watch-dispatch-{i}",
+                daemon=True,
+            )
+            self._shards.append(shard)
+        for shard in self._shards:
+            shard.thread.start()
+
+    def _dispatch_loop(self, shard: _WatchShard) -> None:
+        """One dispatch shard: pop applied events in rv order, fan out
+        to this shard's watchers. No store lock on the fast path — the
+        watcher tuple is copy-on-write and per-watcher queues are
+        thread-safe; eviction of a slow consumer (inside ``_enqueue``)
+        is the only re-entry into the store. Events are drained in
+        bursts and each touched consumer is woken once per burst."""
+        while True:
+            item = shard.q.get()
+            if item is None:
+                return
+            if self.WATCH_DISPATCH_COALESCE_MS:
+                # coalesce: let the commit burst finish landing so one
+                # fanout pass + one wake per consumer covers it all
+                time.sleep(self.WATCH_DISPATCH_COALESCE_MS / 1000.0)
+            burst = [item]  # each item is a LIST of events (one batch)
+            done = False
+            while True:
+                try:
+                    nxt = shard.q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    done = True
+                    break
+                burst.append(nxt)
+            touched: list[Watch] = []
+            for events in burst:
+                for etype, obj, kind, ns in events:
+                    for w in shard.watchers:
+                        if self._watch_match(w, kind, ns):
+                            w._enqueue((etype, obj), wake=False)
+                            if not w._burst_mark:
+                                w._burst_mark = True
+                                touched.append(w)
+            for w in touched:
+                w._burst_mark = False
+                w._wake()
+            if done:
+                return
     def _remove_watch(self, w: Watch) -> None:
         with self._lock:
             if w in self._watches:
                 self._watches.remove(w)
+            if w in self._inline_watches:
+                self._inline_watches.remove(w)
+            if w._shard is not None and w._shard < len(self._shards):
+                shard = self._shards[w._shard]
+                shard.watchers = tuple(x for x in shard.watchers if x is not w)
 
     def _evict_watch(self, w: Watch) -> None:
         """A slow consumer was closed with 410 by its own `_enqueue`;
@@ -1496,6 +1907,15 @@ class APIServer:
         self._remove_watch(w)
         with self._lock:
             self.watch_evictions += 1
+
+    def kind_version(self, kind: str) -> int:
+        """The resourceVersion of the last mutation that touched ``kind``
+        (0 if never touched): the serving tier's list-payload cache key.
+        Per-kind list output is immutable between bumps, so ``(kind,
+        namespace, selector, kind_version)`` identifies a whole
+        serialized list response."""
+        with self._lock:
+            return self._kind_rv.get(kind, 0)
 
     def _notify(self, event_type: str, obj: Obj, rv: Optional[int] = None) -> None:
         kind = obj.get("kind", "")
@@ -1506,6 +1926,10 @@ class APIServer:
                 rv = int(meta.get("resourceVersion", self._rv))
             except (TypeError, ValueError):
                 rv = self._rv
+        # the list-payload cache key moves with the record's OWN rv (the
+        # applied horizon), never self._rv, which may already cover
+        # prepared-but-unapplied records in flight through the committer
+        self._kind_rv[kind] = rv
         # ONE frozen snapshot per event, shared by every watcher and the
         # watch cache: later store mutations cannot leak into delivered
         # events, and a reader that tries to mutate gets
@@ -1514,9 +1938,39 @@ class APIServer:
         self._event_log.append((rv, kind, ns, event_type, shared))
         while len(self._event_log) > self.WATCH_CACHE_SIZE:
             self._compacted_rv = max(self._compacted_rv, self._event_log.popleft()[0])
-        for w in list(self._watches):
-            if w.kind == kind and (not w.namespace or w.namespace == ns):
-                w._enqueue((event_type, shared))
+        self._deliver_event(event_type, shared, kind, ns)
+
+    @staticmethod
+    def _watch_match(w: Watch, kind: Optional[str], ns: str) -> bool:
+        if w.kind is None:
+            return True  # replication feed: every kind, every namespace
+        if kind is None:
+            return False  # control records (REGISTER) are feed-only
+        if w.kind != kind:
+            return False
+        return not w.namespace or w.namespace == ns
+
+    def _deliver_event(
+        self, event_type: str, obj: Obj, kind: Optional[str], ns: str
+    ) -> None:
+        """Fan one applied event out (under the store lock, so delivery
+        order == rv order). Inline watchers are enqueued synchronously;
+        dispatcher-delivered watchers cost the mutator one queue put per
+        nonempty shard — one per shard per BATCH while the group
+        committer applies (``_delivery_buffer``)."""
+        for w in list(self._inline_watches):
+            if self._watch_match(w, kind, ns):
+                w._enqueue((event_type, obj))
+        item = (event_type, obj, kind, ns)
+        if self._delivery_buffer is not None:
+            self._delivery_buffer.append(item)
+        else:
+            self._flush_delivery([item])
+
+    def _flush_delivery(self, items: list[tuple]) -> None:
+        for shard in self._shards:
+            if shard.watchers:
+                shard.q.put(items)
 
     # -- convenience --------------------------------------------------------
 

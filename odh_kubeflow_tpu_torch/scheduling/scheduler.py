@@ -1226,3 +1226,41 @@ class SliceScheduler:
         for key in list(self._attempts):
             if key not in live:
                 del self._attempts[key]
+
+
+def main() -> None:
+    """Split-process entrypoint (``python -m
+    odh_kubeflow_tpu_torch.scheduling.scheduler``): attach to
+    $KUBE_API_URL through ``machinery/runner.run_controller`` and run
+    admission cycles forever."""
+    import os
+
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+
+    def register(api, mgr):
+        register_scheduling(api)
+        suspender = None
+        if os.environ.get("ENABLE_SESSION_SUSPEND", "true").lower() == "true":
+            # the hooks only read/patch through the api — the snapshot
+            # work runs in the notebook-controller process's SessionManager
+            from odh_kubeflow_tpu_torch.sessions import register_sessions
+            from odh_kubeflow_tpu_torch.sessions.manager import SessionConfig, SessionManager
+
+            register_sessions(api)
+            suspender = SessionManager(
+                api, SessionConfig.from_env(), registry=mgr.metrics_registry
+            )
+        SliceScheduler(
+            api,
+            registry=mgr.metrics_registry,
+            suspender=suspender,
+            zone_storm_threshold=int(os.environ.get("ZONE_STORM_THRESHOLD", "2")),
+            zone_drain_cooldown=float(os.environ.get("ZONE_DRAIN_COOLDOWN_SECONDS", "60")),
+        ).register(mgr)
+
+    run_controller("gpu-scheduler", register)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,8 +20,9 @@ when a value landed in the bucket, so a bad latency bucket leads to the
 request that caused it. ``count_le`` / ``count_matching`` /
 ``sum_matching`` are the reads of the SLO engine (``utils/slo.py``);
 ``lint_metric_names`` holds a live registry to the naming conventions
-and ``parse_openmetrics`` reads an exposition back. The ``/metrics``
-server comes with the port's ``machinery/runner.py`` (ROADMAP.md).
+and ``parse_openmetrics`` reads an exposition back. ``serve_metrics``
+serves a registry's ``/metrics`` on a daemon thread (each split-process
+controller's, from ``machinery/runner.py``).
 """
 
 from __future__ import annotations
@@ -341,11 +342,17 @@ class Registry:
     def exposition(self, openmetrics: bool = False) -> str:
         with self._lock:
             fns = list(self._collect_fns)
+        # collectors run FIRST (their lines still render last): some
+        # flush batched hot-path counts into registered families (the
+        # store's evictions, the informer cache's hits and misses), which
+        # must land before those families render
+        collector_lines: list[str] = []
+        for fn in fns:
+            collector_lines.extend(fn())
         lines: list[str] = []
         for m in self.metrics():
             lines.extend(m.collect(openmetrics=openmetrics))
-        for fn in fns:
-            lines.extend(fn())
+        lines.extend(collector_lines)
         if openmetrics:
             lines.append("# EOF")
         return "\n".join(lines) + "\n"
@@ -463,3 +470,48 @@ def parse_openmetrics(text: str) -> dict[str, dict[str, Any]]:
     if not saw_eof:
         raise ValueError("OpenMetrics exposition must end with # EOF")
     return families
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+def metrics_app(registry: Registry):
+    """WSGI app exposing ``registry`` at ``/metrics`` (and ``/``, the
+    scrape-anything posture controller-runtime's metrics listener has).
+    Content-negotiated: an ``Accept`` asking for
+    ``application/openmetrics-text`` gets the exemplar-bearing
+    OpenMetrics dialect; everything else gets byte-stable plain text."""
+
+    def app(environ, start_response):
+        if environ.get("PATH_INFO", "/") not in ("/", "/metrics"):
+            start_response("404 Not Found", [("Content-Type", "text/plain")])
+            return [b"not found"]
+        om = negotiate_openmetrics(environ.get("HTTP_ACCEPT"))
+        payload = registry.exposition(openmetrics=om).encode()
+        start_response(
+            "200 OK",
+            [
+                ("Content-Type", OPENMETRICS_CONTENT_TYPE if om else PLAIN_CONTENT_TYPE),
+                ("Content-Length", str(len(payload))),
+            ],
+        )
+        return [payload]
+
+    return app
+
+
+def serve_metrics(registry: Registry, host: str = "0.0.0.0", port: int = 8080):
+    """Serve ``/metrics`` on a daemon thread (the controller-runtime
+    metrics-bind-address equivalent for split-process components).
+    Returns (thread, bound_port, httpd)."""
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    class _Quiet(WSGIRequestHandler):
+        def log_message(self, *args):  # noqa: D102 — stdlib signature
+            pass
+
+    httpd = make_server(host, port, metrics_app(registry), handler_class=_Quiet)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    return t, httpd.server_address[1], httpd

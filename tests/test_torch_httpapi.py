@@ -232,10 +232,17 @@ def test_client_pages_its_lists(m, served):
 
 
 def test_api_from_env_refuses_several_urls():
-    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+    """Named for the refusal it once pinned; the comma-separated form is
+    no longer refused: like the JAX package's, it builds a ReplicaFanout
+    over one client per URL."""
+    from odh_kubeflow_tpu_torch.machinery.client import ReplicaFanout, api_from_env
 
-    with pytest.raises(ValueError, match="one URL"):
-        api_from_env("http://127.0.0.1:1,http://127.0.0.1:2")
+    api = api_from_env("http://127.0.0.1:1, http://127.0.0.1:2")
+    assert isinstance(api, ReplicaFanout)
+    assert [c.base_url for c in api.clients] == [
+        "http://127.0.0.1:1",
+        "http://127.0.0.1:2",
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -160,3 +160,42 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_the_scan_covers_the_high_availability_slice():
+    """Slice 9 part 7: leader election, the read replica, the promotion
+    watchdog, the split-process runner and the informer cache; and
+    ``chip_smoke.py``'s ``--platform-apiserver`` and
+    ``--notebook-failover`` modes."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "odh_kubeflow_tpu_torch"
+    assert {f"{pkg}/machinery/{m}.py" for m in (
+        "leader", "replica", "promoter", "runner", "cache")} <= names
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert {"platform_apiserver_main", "notebook_failover_main",
+            "platform_failover_phase"} <= funcs
+
+
+def test_control_plane_modules_load_no_torch():
+    """The apiserver, replica, controller and flood processes import only
+    host-only modules: a fresh interpreter that imports the control
+    plane's entry modules ends with no ``torch`` loaded (the package's
+    ``card_label`` / ``resolve_device`` load it on first use)."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('store', 'httpapi', 'client', 'leader', 'replica', 'promoter',\n"
+        "          'runner', 'cache'):\n"
+        "    importlib.import_module('odh_kubeflow_tpu_torch.machinery.' + m)\n"
+        "importlib.import_module('odh_kubeflow_tpu_torch.controllers.notebook')\n"
+        "importlib.import_module('odh_kubeflow_tpu_torch.scheduling.scheduler')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "assert not bad, bad[:5]\n"
+        "import odh_kubeflow_tpu_torch as p\n"
+        "assert callable(p.card_label) and 'torch' in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
