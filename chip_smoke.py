@@ -298,6 +298,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import urllib.parse
 
 _SCRIPT_T0 = time.perf_counter()
 
@@ -4343,6 +4344,37 @@ def failover_state(api, procs: dict, kubelet_errors: list) -> dict:
     return out
 
 
+def http_client(url: str, retries: int = 1):
+    """The port's ``RemoteAPIServer`` at ``url`` over plain HTTP, short
+    retries, the CRD and scheduling kinds registered."""
+    from odh_kubeflow_tpu_torch.apis import register_crds
+    from odh_kubeflow_tpu_torch.machinery.client import RemoteAPIServer
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+
+    c = RemoteAPIServer(url, retries=retries, retry_base=0.02, retry_cap=0.1, timeout=10)
+    register_crds(c)
+    register_scheduling(c)
+    return c
+
+
+def poll_until(fn, limit: float, what: str, period: float = 0.02):
+    """``fn()``'s first truthy value, polled every ``period``; a transport
+    or API error counts as not yet; fails after ``limit`` s."""
+    from odh_kubeflow_tpu_torch.machinery.store import APIError
+
+    end = time.time() + limit
+    while True:
+        try:
+            got = fn()
+        except (OSError, APIError):
+            got = None
+        if got:
+            return got
+        if time.time() > end:
+            raise AssertionError(f"no {what} in {limit} s")
+        time.sleep(period)
+
+
 def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens=None,
                             limit_s: float = FAILOVER_PHASE_LIMIT_S,
                             scheduling_s: float = 0.0) -> tuple[dict, int]:
@@ -4388,17 +4420,14 @@ def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens
     import signal
     import tempfile
 
-    from odh_kubeflow_tpu_torch.machinery.client import RemoteAPIServer
     from odh_kubeflow_tpu_torch.machinery.kubelet import FakeCluster
     from odh_kubeflow_tpu_torch.machinery.leader import fenced
     from odh_kubeflow_tpu_torch.machinery.replica import ReplicaStore
     from odh_kubeflow_tpu_torch.machinery.runner import _lease_periods
-    from odh_kubeflow_tpu_torch.machinery.store import (APIError, APIServer, FencedOut,
+    from odh_kubeflow_tpu_torch.machinery.store import (APIServer, FencedOut,
                                                         NotFound, parse_micro_time)
     from odh_kubeflow_tpu_torch.machinery.wal import WriteAheadLog
-    from odh_kubeflow_tpu_torch.apis import register_crds
     from odh_kubeflow_tpu_torch.ops import _build
-    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
     from odh_kubeflow_tpu_torch.web.jwa import JupyterWebApp
 
     t_phase = time.perf_counter()
@@ -4416,11 +4445,7 @@ def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens
     problems: list = []
     notebook = None
 
-    def client(url: str, retries: int = 1) -> RemoteAPIServer:
-        c = RemoteAPIServer(url, retries=retries, retry_base=0.02, retry_cap=0.1, timeout=10)
-        register_crds(c)
-        register_scheduling(c)
-        return c
+    client = http_client
 
     def served_rv(c) -> int:
         c.list("Lease", namespace=FAILOVER_LEASE_NS)
@@ -4430,17 +4455,7 @@ def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens
         return dict(c.get("Lease", name, FAILOVER_LEASE_NS)["spec"])
 
     def poll(fn, limit: float, what: str, period: float = 0.02):
-        end = time.time() + limit
-        while True:
-            try:
-                got = fn()
-            except (OSError, APIError):
-                got = None
-            if got:
-                return got
-            if time.time() > end:
-                raise AssertionError(f"platform_failover: no {what} in {limit} s")
-            time.sleep(period)
+        return poll_until(fn, limit, f"platform_failover: {what}", period)
 
     def running(c, name: str):
         pods = [p for p in c.list("Pod", namespace=FAILOVER_NS)
@@ -4768,6 +4783,434 @@ def platform_failover_phase(run_notebook=failover_notebook_process, spawn_tokens
     if problems:
         raise AssertionError(f"platform_failover: {problems}; {record}")
     return record, nb["launches"]
+
+
+PARTITIONS_N = 3
+PARTITIONS_NS_PER = 2  # namespaces a partition
+PARTITIONS_NOTEBOOKS = 4  # notebooks a namespace, one of the first namespace's on a GPU
+PARTITIONS_EXTRA = 6  # notebooks created during the follower's merged walk
+PARTITIONS_WALK_LIMIT = 5  # the follower's merged page size
+PARTITIONS_PAGE_LIMIT = 3  # the split JWA's namespace page size
+PARTITIONS_USER = "owner-pp@example.com"
+PARTITIONS_GPU_QUOTA = "8"
+PARTITIONS_GPU = ("nvidia-h100-80gb", "1")
+PARTITIONS_PHASE_LIMIT_S = 45.0
+PARTITIONS_RUNNING_AFTER_UP_S = 10.0  # the GPU pod Running again after "platform up"
+PARTITIONS_CONVERGE_S = 10.0  # the follower's digests equal the platform's again
+PARTITIONS_QUIET_S = 0.5  # no write on any partition for this long before a digest
+PARTITIONS_KINDS = ("Profile", "Notebook", "StatefulSet")
+# the platform process's settings: no sampler, pool or suspender writes on
+# their own clock, so the store is quiet once the notebooks run
+PARTITIONS_PLATFORM_ENV = {
+    "STORE_PARTITIONS": str(PARTITIONS_N), "USAGE_METERING": "false",
+    "WARM_POOL_ENABLED": "false", "ENABLE_SESSION_SUSPEND": "false",
+    "ENABLE_GPU_QUEUEING": "true", "TRACE_EXPORT": "false", "SNAPSHOT_INTERVAL": "0",
+}
+
+
+def partition_namespaces(n: int = PARTITIONS_N, per: int = PARTITIONS_NS_PER) -> list:
+    """``per`` namespaces on each of ``n`` partitions by ``partition_of``
+    (``loadtest/overload_drill.py``'s pick), as [(namespace, partition)]
+    in partition order."""
+    from odh_kubeflow_tpu_torch.machinery.partition import partition_of
+
+    by: dict = {p: [] for p in range(n)}
+    i = 0
+    while any(len(v) < per for v in by.values()):
+        ns = f"team-pp-{i}"
+        p = partition_of(ns, n)
+        if len(by[p]) < per:
+            by[p].append(ns)
+        i += 1
+    return [(ns, p) for p in range(n) for ns in by[p]]
+
+
+def partition_states(url: str, n: int = PARTITIONS_N) -> list:
+    """Each partition's state as ``/replication/snapshot?partition=<i>``
+    serves it: ``[partition, sha256 over its objects, rv]``; the same
+    function reads the platform and its follower."""
+    import hashlib
+
+    out = []
+    for p in range(n):
+        with urllib.request.urlopen(f"{url}/replication/snapshot?partition={p}",
+                                    timeout=30) as r:
+            cut = json.loads(r.read())
+        objs = sorted(cut["objects"], key=lambda o: (
+            o.get("kind", ""), o["metadata"].get("namespace", ""), o["metadata"]["name"]))
+        digest = hashlib.sha256(json.dumps(objs, sort_keys=True).encode()).hexdigest()
+        out.append([p, digest, int(cut["rv"])])
+    return out
+
+
+def follower_gauges(url: str) -> dict:
+    """The partitioned follower's per-partition gauges on its ``/metrics``:
+    ``{name: {partition: value}}``."""
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        text = r.read().decode()
+    out: dict = {}
+    for line in text.splitlines():
+        if line.startswith("replica_") and '{partition="' in line:
+            name, rest = line.split("{", 1)
+            part = int(rest.split('"')[1])
+            out.setdefault(name, {})[part] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def jwa_request(base: str, method: str, path: str, body=None) -> tuple[int, dict]:
+    """One request to a JWA as ``PARTITIONS_USER`` (with the XSRF pair on
+    writes); (status, JSON body), HTTP errors included."""
+    req = urllib.request.Request(base + path, method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "kubeflow-userid": PARTITIONS_USER,
+                                          "Cookie": "XSRF-TOKEN=pp", "X-XSRF-TOKEN": "pp"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def platform_partitions_phase(run_notebook=failover_notebook_process, spawn_tokens=None,
+                              limit_s: float = PARTITIONS_PHASE_LIMIT_S) -> tuple[dict, int]:
+    """The partitioned write path and the all-in-one platform, every
+    process through its normal entry point, plain HTTP on 127.0.0.1:
+
+    - P: ``python -m odh_kubeflow_tpu_torch.platform --sim --sim-gpu-nodes
+      1`` with ``STORE_PARTITIONS=3`` and ``WAL_DIR`` here: three WAL'd
+      partitions behind a ``PartitionRouter``; its controllers and informer
+      cache hold merged watches over the three;
+    - F: ``python -m odh_kubeflow_tpu_torch.machinery.replica`` with
+      ``REPLICA_OF`` P and ``STORE_PARTITIONS=3``: one ``?partition=``-
+      scoped follower a partition behind a reads-only router;
+    - W: ``python -m odh_kubeflow_tpu_torch.web.jwa`` with ``KUBE_API_URL``
+      P and ``READ_FROM_REPLICA`` F;
+    - the notebook's process on the card (``run_notebook``, in its pod's
+      env), started as soon as its pod is Running.
+
+    1. Six namespaces, two a partition; a Profile each (the profile
+    controller in P makes the RoleBindings and ``kf-resource-quota`` on
+    ``requests.nvidia.com/gpu``); 4 notebooks a namespace POSTed through
+    W, one on a GPU: all 24 Running. 2. F's cluster-wide Notebook walk at
+    ``limit=5`` (composite tokens) returns the 24 once each, in order,
+    while 6 more are created; W's namespace walk at ``limit=3`` returns its
+    4 rows with ``servedRvPartitions`` of three entries; the first page's
+    token 410s after a notebook there changed. 3. The notebook's 8B int4
+    tokens (equal to ``spawn_tokens`` when given) at 225 dequant launches
+    a forward. 4. Quiet, then each partition's state on P and F equal; P
+    SIGKILLed and started again on its ``WAL_DIR``: every partition
+    recovers its state, every Profile, Notebook and StatefulSet its uid and
+    rv, the ``--sim`` nodes re-register, the GPU pod is Running within 10
+    s of ``platform up``; F, not restarted, equals P again within 10 s. 5.
+    One more notebook a partition Running through W; the card notebook
+    answers. 6. No process loaded ``jax`` or ``odh_kubeflow_tpu``. 7.
+    The phase within ``limit_s``."""
+    import shutil
+    import signal
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.machinery.partition import is_composite_token
+    from odh_kubeflow_tpu_torch.ops import _build
+    from odh_kubeflow_tpu_torch.webhooks import gpu_runtime_poddefault
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="platform-partitions-")
+    poison = reference_poison(root)
+    api_port, web_port, f_port = listen_ports(3)
+    url_p, url_f = f"http://127.0.0.1:{api_port}", f"http://127.0.0.1:{f_port}"
+    p_argv = ["-m", "odh_kubeflow_tpu_torch.platform", "--sim", "--sim-gpu-nodes", "1",
+              "--host", "127.0.0.1", "--api-port", str(api_port), "--web-port", str(web_port)]
+    p_env = {**PARTITIONS_PLATFORM_ENV, "WAL_DIR": os.path.join(root, "wal")}
+    record: dict = {"phase": "platform_partitions", "partitions": PARTITIONS_N}
+    procs: dict = {}
+    problems: list = []
+    notebook = None
+    namespaces = partition_namespaces()
+    gpu_ns, gpu_nb = namespaces[0][0], "nb-gpu"
+    walked_ns = namespaces[0][0]
+
+    client = http_client
+
+    def poll(fn, limit: float, what: str, period: float = 0.02):
+        return poll_until(fn, limit, f"platform_partitions: {what}", period)
+
+    def pods(c) -> dict:
+        return {(o["metadata"]["namespace"], o["metadata"]["name"][:-2]): o
+                for o in c.list("Pod") if o["metadata"]["name"].endswith("-0")}
+
+    def running(c, want) -> bool:
+        got = pods(c)
+        return all((got.get(k) or {}).get("status", {}).get("phase") == "Running"
+                   for k in want)
+
+    def post(ns: str, name: str, gpu: bool = False) -> float:
+        body = {"name": name, "cpu": "0.5", "memory": "1Gi"}
+        if gpu:
+            body.update(cpu="1", memory="4Gi",
+                        gpus={"accelerator": PARTITIONS_GPU[0], "count": PARTITIONS_GPU[1]})
+        t0 = time.time()
+        code, out = jwa_request(url_w, "POST", f"/api/namespaces/{ns}/notebooks", body)
+        if code != 201:
+            raise AssertionError(f"POST {ns}/{name} through W: HTTP {code} {out}")
+        return t0
+
+    def quiet(c, what: str) -> list:
+        """Waits until no partition's rv moves for ``PARTITIONS_QUIET_S``;
+        returns the rvs."""
+        c.list("Namespace")
+        last, since = c.applied_rvs(), time.time()
+        end = time.time() + 20
+        while time.time() - since < PARTITIONS_QUIET_S:
+            if time.time() > end:
+                raise AssertionError(f"platform_partitions: writes never stopped ({what})")
+            time.sleep(0.05)
+            c.list("Namespace")
+            now = c.applied_rvs()
+            if now != last:
+                last, since = now, time.time()
+        return [last[p] for p in range(PARTITIONS_N)]
+
+    def identities(c) -> dict:
+        return {k: sorted([o["metadata"].get("namespace", ""), o["metadata"]["name"],
+                           o["metadata"]["uid"], o["metadata"]["resourceVersion"]]
+                          for o in c.list(k)) for k in PARTITIONS_KINDS}
+
+    try:
+        # P, then F, then W (W's informer syncs from F)
+        procs["platform"] = start_process("platform", p_argv, p_env, root, poison)
+        wait_line(procs["platform"], lambda x: "platform up" in x, 60, "platform up")
+        record["boot_s"] = time.time() - procs["platform"]["started"]
+        procs["follower"] = start_process(
+            "follower", ["-m", "odh_kubeflow_tpu_torch.machinery.replica"],
+            {"REPLICA_OF": url_p, "STORE_PARTITIONS": str(PARTITIONS_N),
+             "HOST": "127.0.0.1", "PORT": str(f_port)}, root, poison)
+        wait_line(procs["follower"], lambda x: "serving merged reads on" in x, 60,
+                  "its serving line")
+        # W's informer lists every kind P registered: F must hold them first
+        poll(lambda: partition_states(url_f) == partition_states(url_p), 30, "F's cold join")
+        record["follower_join_s"] = time.time() - procs["follower"]["started"]
+        procs["jwa"] = start_process(
+            "jwa", ["-m", "odh_kubeflow_tpu_torch.web.jwa"],
+            {"KUBE_API_URL": url_p, "READ_FROM_REPLICA": url_f, "HOST": "127.0.0.1",
+             "PORT": "0", "TRACE_EXPORT": "false"}, root, poison)
+        api = client(url_p)
+
+        # 1. the tenants, two a partition
+        for ns, _ in namespaces:
+            api.create({"apiVersion": "kubeflow.org/v1", "kind": "Profile",
+                        "metadata": {"name": ns},
+                        "spec": {"owner": {"kind": "User", "name": PARTITIONS_USER},
+                                 "resourceQuotaSpec": {"hard": {
+                                     "requests.nvidia.com/gpu": PARTITIONS_GPU_QUOTA}}}})
+            api.create(gpu_runtime_poddefault(ns))
+        line = wait_line(procs["jwa"], lambda x: "jupyter-web-app on http://" in x, 60,
+                         "its serving line")
+        url_w = "http://127.0.0.1:" + line.rsplit(":", 1)[1].strip()
+        quotas = poll(lambda: (lambda qs: qs if len(qs) == len(namespaces) else None)(
+            [q for q in api.list("ResourceQuota") if q["metadata"]["name"] == "kf-resource-quota"
+             and "requests.nvidia.com/gpu" in q["spec"]["hard"]]), 20, "six GPU quotas")
+        # W authorizes once its cache holds the profile controller's RoleBindings
+        for ns, _ in namespaces:
+            poll(lambda ns=ns: jwa_request(url_w, "GET", f"/api/namespaces/{ns}/notebooks")[0]
+                 == 200, 20, f"W's authorization in {ns}")
+        stable = []
+        t_gpu = post(gpu_ns, gpu_nb, gpu=True)
+        stable.append((gpu_ns, gpu_nb))
+        for ns, _ in namespaces:
+            for j in range(PARTITIONS_NOTEBOOKS - (ns == gpu_ns)):
+                post(ns, f"nb-{j}")
+                stable.append((ns, f"nb-{j}"))
+        stable.sort()
+        poll(lambda: running(api, [(gpu_ns, gpu_nb)]), 30, "the GPU notebook Running")
+        record["gpu_post_to_running_s"] = time.time() - t_gpu
+        env, node = pod_process_env(api, gpu_nb, gpu_ns, os.path.join(root, "workspace"))
+        kernel_dir = env["ODH_TORCH_KERNEL_CACHE"]
+        os.makedirs(kernel_dir, exist_ok=True)
+        lib = _build._target("int4_dequant")
+        if lib.exists():  # built by this process's device phase
+            shutil.copy2(lib, os.path.join(kernel_dir, lib.name))
+        notebook = run_notebook(env, root)
+        record["notebook_node"] = node
+        poll(lambda: running(api, stable), 30, "the 24 notebooks Running")
+        record["all_running_s"] = time.time() - t_gpu
+        record["quotas"] = len(quotas)
+
+        # 2. F's merged walk under writers, then W's namespace pages
+        fc = client(url_f)
+        poll(lambda: len(fc.list("Notebook")) == len(stable), 10, "the 24 on F")
+        extra_ns = [ns for ns, _ in namespaces if ns != walked_ns]
+        extras, seen, token, pages, tokens_composite = [], [], "", 0, True
+        while True:
+            items, token = fc.list_chunk("Notebook", limit=PARTITIONS_WALK_LIMIT,
+                                         continue_token=token or None)
+            pages += 1
+            tokens_composite = tokens_composite and (not token or is_composite_token(token))
+            seen += [(o["metadata"]["namespace"], o["metadata"]["name"]) for o in items]
+            for _ in range(2):
+                if len(extras) < PARTITIONS_EXTRA:
+                    ns = extra_ns[len(extras) % len(extra_ns)]
+                    post(ns, f"zz-{len(extras)}")
+                    extras.append((ns, f"zz-{len(extras)}"))
+            if not token:
+                break
+        record["follower_walk"] = {
+            "pages": pages, "rows": len(seen), "extras_created": len(extras),
+            "extras_seen": len([k for k in seen if k in extras]),
+            "stable_in_order": [k for k in seen if k in stable] == stable,
+            "duplicates": len(seen) - len(set(seen)),
+            "composite_tokens": tokens_composite}
+        poll(lambda: running(api, stable + extras), 30, "the extra notebooks Running")
+        quiet(api, "before W's walk")
+        rows, bodies, token, path = [], [], "", f"/api/namespaces/{walked_ns}/notebooks"
+        while True:
+            q = f"?limit={PARTITIONS_PAGE_LIMIT}" + (
+                "&continue=" + urllib.parse.quote(token, safe="") if token else "")
+            code, body = jwa_request(url_w, "GET", path + q)
+            if code != 200:
+                raise AssertionError(f"W's page: HTTP {code} {body}")
+            bodies.append(body)
+            rows += [r["name"] for r in body["notebooks"]]
+            if not token:
+                first_token = body.get("continue", "")
+            token = body.get("continue", "")
+            if not token:
+                break
+        nb = api.get("Notebook", "nb-0", walked_ns)
+        nb["metadata"].setdefault("labels", {})["walked"] = "true"
+        api.update(nb)
+        stale = poll(lambda: (lambda r: r if r[0] == 410 else None)(jwa_request(
+            url_w, "GET", path + f"?limit={PARTITIONS_PAGE_LIMIT}&continue="
+            + urllib.parse.quote(first_token, safe=""))), 10, "a 410 for the stale token")
+        record["jwa_walk"] = {
+            "namespace": walked_ns, "pages": len(bodies), "rows": sorted(rows),
+            "served_rv_partitions": [sorted(b.get("servedRvPartitions") or {}) for b in bodies],
+            "served_rv": [b.get("servedRv") for b in bodies], "stale_token": stale[0]}
+
+        # 4. quiet; P and F equal; kill P and start it again on its WAL
+        rvs = quiet(api, "before the kill")
+        before = partition_states(url_p)
+        f_before = poll(lambda: (lambda s: s if s == before else None)(
+            partition_states(url_f)), PARTITIONS_CONVERGE_S, "F equal to P before the kill")
+        ids_before = identities(api)
+        gpu_pod = pods(api)[(gpu_ns, gpu_nb)]
+        gauges_before = follower_gauges(url_f)
+        p = procs.pop("platform")
+        os.kill(p["proc"].pid, signal.SIGKILL)
+        t_kill = time.time()
+        p["proc"].wait()
+        procs["platform_killed"] = p
+        procs["platform"] = start_process("platform-2", p_argv, p_env, root, poison)
+        wait_line(procs["platform"], lambda x: "platform up" in x, 60, "platform up again")
+        t_up = time.time()
+        api = client(url_p)
+        after = partition_states(url_p)
+        ids_after = identities(api)
+        poll(lambda: running(api, [(gpu_ns, gpu_nb)]), 30, "the GPU pod Running again")
+        gpu_running_s = time.time() - t_up
+        gpu_pod_after = pods(api)[(gpu_ns, gpu_nb)]
+        f_after = poll(lambda: (lambda s: s if s == partition_states(url_p) else None)(
+            partition_states(url_f)), 30, "F equal to P after the restart")
+        f_converged_s = time.time() - t_up
+        gauges_after = follower_gauges(url_f)
+        snaps = [int(gauges_after["replica_snapshots_loaded"][i]
+                     - gauges_before["replica_snapshots_loaded"][i])
+                 for i in range(PARTITIONS_N)]
+        record["recovery"] = {
+            "quiet_rvs": rvs, "states_before": before, "states_after": after,
+            "follower_before": f_before, "follower_after": f_after,
+            "states_equal": after == before,
+            "identities_equal": ids_after == ids_before,
+            "objects": {k: len(v) for k, v in ids_before.items()},
+            "kill_to_up_s": t_up - t_kill,
+            "gpu_pod_uid_kept": gpu_pod["metadata"]["uid"] == gpu_pod_after["metadata"]["uid"],
+            "gpu_pod_running_after_up_s": gpu_running_s,
+            "follower_converged_after_up_s": f_converged_s,
+            "follower_resumed": ["rv" if s == 0 else "snapshot" for s in snaps],
+            "follower_reconnects": [int(gauges_after["replica_reconnects"][i]
+                                        - gauges_before["replica_reconnects"][i])
+                                    for i in range(PARTITIONS_N)],
+            "follower_pid_kept": procs["follower"]["proc"].poll() is None}
+
+        # 5. one notebook a partition through W, then the card answers
+        t0 = time.time()
+        after_nbs = []
+        for part in range(PARTITIONS_N):
+            ns = next(n for n, q in namespaces if q == part)
+            post(ns, "after")
+            after_nbs.append((ns, "after"))
+        poll(lambda: running(api, after_nbs), 30, "a notebook a partition Running")
+        record["after_recovery_running_s"] = time.time() - t0
+        notebook["go"]()
+        nb_rec = notebook["result"]()
+        exited = {label: p["proc"].returncode for label, p in procs.items()
+                  if label != "platform_killed" and p["proc"].poll() is not None}
+    finally:
+        for label, p in procs.items():
+            if p["proc"].poll() is None:
+                p["proc"].send_signal(signal.SIGINT)
+        for label, p in procs.items():
+            try:
+                p["proc"].wait(timeout=10)
+            except Exception:  # noqa: BLE001 — a process that ignores SIGINT is killed
+                p["proc"].kill()
+                p["proc"].wait()
+        if notebook is not None and notebook["process"]["proc"].poll() is None:
+            notebook["process"]["proc"].kill()
+            notebook["process"]["proc"].wait()
+    log = os.path.join(root, "reference-imports.log")
+    poisoned = open(log).read().split("\n") if os.path.exists(log) else []
+    shutil.rmtree(root, ignore_errors=True)
+    expected = LAUNCHES_PER_FORWARD * (2 + 1 + SPAWN_NEW_TOKENS)
+    launches = nb_rec["stage_launches"]
+    record.update({
+        "notebook": {k: nb_rec.get(k) for k in ("imported_s", "service_s", "first_token_s",
+                                                "go_s", "answered_s", "built", "device",
+                                                "stage_launches", "launches")},
+        "tokens": nb_rec["tokens"], "after_recovery": nb_rec["after_promotion"],
+        "exited": exited,
+        "reference": {"imports": [x for x in poisoned if x],
+                      "notebook": nb_rec["reference_modules"]},
+        "seconds": time.perf_counter() - t_phase,
+    })
+    fw, jw, rc = record["follower_walk"], record["jwa_walk"], record["recovery"]
+    if (not fw["stable_in_order"] or fw["duplicates"] or not fw["composite_tokens"]
+            or fw["extras_created"] != PARTITIONS_EXTRA or fw["pages"] < 2):
+        problems.append(f"follower walk {fw}")
+    if jw["rows"] != sorted(n for ns, n in stable if ns == walked_ns):
+        problems.append(f"W's walk rows {jw['rows']}")
+    if any(len(s) != PARTITIONS_N for s in jw["served_rv_partitions"]) or jw["pages"] < 2:
+        problems.append(f"W's pages: {jw}")
+    if jw["stale_token"] != 410:
+        problems.append(f"stale token answered {jw['stale_token']}")
+    if rc["follower_before"] != rc["states_before"]:
+        problems.append("F differed from P before the kill")
+    if not rc["states_equal"]:
+        problems.append(f"states after the restart {rc['states_after']} != {rc['states_before']}")
+    if not rc["identities_equal"]:
+        problems.append("a Profile, Notebook or StatefulSet changed uid or rv across the restart")
+    if rc["gpu_pod_running_after_up_s"] > PARTITIONS_RUNNING_AFTER_UP_S:
+        problems.append(f"GPU pod Running {rc['gpu_pod_running_after_up_s']:.1f} s after up")
+    if rc["follower_converged_after_up_s"] > PARTITIONS_CONVERGE_S or not rc["follower_pid_kept"]:
+        problems.append(f"follower converged {rc['follower_converged_after_up_s']:.1f} s after "
+                        "up (or restarted)")
+    if exited:
+        problems.append(f"processes exited: {exited}")
+    if spawn_tokens is not None and nb_rec["tokens"] != spawn_tokens:
+        problems.append(f"tokens {nb_rec['tokens']} != platform_spawn's {spawn_tokens}")
+    if nb_rec["after_promotion"] != nb_rec["first"] or nb_rec["go_at"] < t_up:
+        problems.append(f"after the recovery: {nb_rec['after_promotion']} vs {nb_rec['first']}")
+    if (launches[1] != expected or launches[2] - launches[1] != launches[0]
+            or launches[0] % LAUNCHES_PER_FORWARD or len(nb_rec["tokens"]) != SPAWN_NEW_TOKENS):
+        problems.append(f"dequant launches {launches} (expected {expected} after the first two "
+                        "requests, 225 a forward)")
+    if any(record["reference"].values()):
+        problems.append(f"reference modules: {record['reference']}")
+    if record["seconds"] > limit_s:
+        problems.append(f"the phase took {record['seconds']:.1f} s > {limit_s} s")
+    if problems:
+        raise AssertionError(f"platform_partitions: {problems}; {record}")
+    return record, nb_rec["launches"]
 
 
 def free_port() -> int:
@@ -8736,6 +9179,13 @@ def main() -> int:
     record, failover_launches = platform_failover_phase(spawn_tokens=spawn_tokens)
     record["card"] = label
     emit(record)
+    # the partitioned write path and the all-in-one platform (slice 9,
+    # part 8): three WAL'd partitions behind the partition router, a
+    # partitioned follower and the split JWA; the platform is SIGKILLed
+    # and recovers while a notebook serves on the card
+    record, partitions_launches = platform_partitions_phase(spawn_tokens=spawn_tokens)
+    record["card"] = label
+    emit(record)
 
     gc.unfreeze()
     # MoE training (slice 3)
@@ -8834,7 +9284,8 @@ def main() -> int:
                                   "platform_observe": observe_launches["int4_dequant"],
                                   "platform_usage": usage_launches["int4_dequant"],
                                   "platform_remote": remote_launches,
-                                  "platform_failover": failover_launches}
+                                  "platform_failover": failover_launches,
+                                  "platform_partitions": partitions_launches}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     paths = {"train": train_launches, "moe_train": moe_launches,
              "moe_serve": moe_serve_launches, "moe_engine": moe_engine_launches,

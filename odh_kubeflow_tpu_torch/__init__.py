@@ -13,6 +13,12 @@ passes ``device="cpu"``; without a GPU they raise rather than fall
 back. On a CPU tensor each kernel wrapper runs its plain PyTorch
 version, which is also the kernel's oracle on the card.
 
+The platform half (``apis/``, ``machinery/``, ``controllers/``,
+``scheduling/``, ``sessions/``, ``warmup/``, ``webhooks/``, ``web/``)
+schedules notebooks onto GPU node pools; ``python -m
+odh_kubeflow_tpu_torch.platform`` (``platform.py``) boots all of it in one
+process, the JAX package's all-in-one server.
+
 ``card_label`` and ``resolve_device`` load ``utils/device.py`` (and so
 ``torch``) on first use: the control plane's processes (apiserver,
 replica, controllers) import only host-only modules and never pay

@@ -22,8 +22,8 @@ Redesign:
   scales up (notebook_controller.go:94-122). Without this controller
   such a notebook stays at 0 replicas.
 
-The split-process ``main()`` waits for ``machinery/runner.py``
-(ROADMAP.md).
+``main()`` runs the controller in a process of its own through
+``machinery/runner.py``.
 """
 
 from __future__ import annotations
@@ -281,3 +281,25 @@ class ExposureController:
             ns,
         )
 
+
+def main() -> None:
+    """Split-process entrypoint: the second operator watching Notebook
+    (manifests/odh-notebook-controller posture), reads fronted by the
+    runner's informer cache."""
+    import os
+
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+
+    run_controller(
+        "exposure-controller",
+        lambda api, mgr: ExposureController(
+            api,
+            platform_namespace=os.environ.get(
+                "PLATFORM_NAMESPACE", "kubeflow"
+            ),
+        ).register(mgr),
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -13,9 +13,9 @@ default-labels live reload :356-387 + readDefaultLabelsFromFile
 On GPU node pools ``kf-resource-quota`` speaks
 ``requests.nvidia.com/gpu`` (the JAX package's ``requests.google.com/tpu``):
 per-namespace GPU budgeting is the platform's quota story. The plugins
-take injectable IAM clients; the cloud IAM clients that
-``plugins_from_env`` builds, and the split-process ``main()``, are not
-ported yet (ROADMAP.md)."""
+take injectable IAM clients; ``plugins_from_env`` builds the cloud ones
+(``machinery/cloudiam.py``) where the deployment configures them, and
+``main()`` runs the controller in a process of its own."""
 
 from __future__ import annotations
 
@@ -401,3 +401,70 @@ class ProfileController:
             else:
                 plugin.apply(self.api, profile, spec)
 
+
+def plugins_from_env() -> dict[str, ProfilePlugin]:
+    """Real cloud-IAM clients when the deployment configures them
+    (reference behavior: plugin_workload_identity.go calls the Google
+    IAM API, plugin_iam.go edits the AWS trust policy); annotation-only
+    no-op clients otherwise (clusters without egress / tests)."""
+    import os
+
+    plugins: dict[str, ProfilePlugin] = {}
+    if os.environ.get("GCP_IAM_ENABLE", "").lower() == "true":
+        from odh_kubeflow_tpu_torch.machinery.cloudiam import GcpIamClient
+
+        token_path = os.environ.get(
+            "GCP_TOKEN_PATH",
+            "/var/run/secrets/kubernetes.io/serviceaccount/token",
+        )
+
+        def token_fn() -> str:
+            try:
+                with open(token_path) as f:
+                    return f.read().strip()
+            except OSError:
+                return ""
+
+        plugins["WorkloadIdentity"] = GcpWorkloadIdentityPlugin(
+            iam_client=GcpIamClient(token_fn=token_fn)
+        )
+    else:
+        plugins["WorkloadIdentity"] = GcpWorkloadIdentityPlugin()
+
+    oidc_arn = os.environ.get("AWS_OIDC_PROVIDER_ARN", "")
+    if oidc_arn:
+        from odh_kubeflow_tpu_torch.machinery.cloudiam import AwsIamClient
+
+        plugins["AwsIamForServiceAccount"] = AwsIamForServiceAccountPlugin(
+            iam_client=AwsIamClient(
+                oidc_provider_arn=oidc_arn,
+                issuer_host=os.environ.get("AWS_OIDC_ISSUER_HOST", ""),
+                access_key=os.environ.get("AWS_ACCESS_KEY_ID", ""),
+                secret_key=os.environ.get("AWS_SECRET_ACCESS_KEY", ""),
+                session_token=os.environ.get("AWS_SESSION_TOKEN", ""),
+                region=os.environ.get("AWS_REGION", "us-east-1"),
+            )
+        )
+    else:
+        plugins["AwsIamForServiceAccount"] = AwsIamForServiceAccountPlugin()
+    return plugins
+
+
+def main() -> None:
+    """Split-process entrypoint (manifests/profile-controller)."""
+    import os
+
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+
+    run_controller(
+        "profile-controller",
+        lambda api, mgr: ProfileController(
+            api,
+            labels_path=os.environ.get("NAMESPACE_LABELS_PATH"),
+            plugins=plugins_from_env(),
+        ).register(mgr),
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -19,9 +19,9 @@ what let TensorBoard show those traces; ``TENSORBOARD_IMAGE`` overrides
 the image. ``gs://`` logdirs use workload identity (the namespace
 ``default-editor`` KSA from the profile controller) instead of
 mounting a ``user-gcp-sa`` key secret; the reference's secret mount
-remains as a fallback when the annotation asks for it. The
-split-process ``main()`` waits for ``machinery/runner.py``
-(ROADMAP.md).
+remains as a fallback when the annotation asks for it. ``main()``
+runs the controller in a process of its own through
+``machinery/runner.py``.
 """
 
 from __future__ import annotations
@@ -295,3 +295,16 @@ class TensorboardController:
         tb["status"] = status
         reconcilehelper.update_status_level_triggered(self.api, tb)
 
+
+def main() -> None:
+    """Split-process entrypoint (manifests/tensorboard-controller)."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+
+    run_controller(
+        "tensorboard-controller",
+        lambda api, mgr: TensorboardController(api).register(mgr),
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -212,6 +212,9 @@ class RemoteAPIServer:
         # responses: the applied-rv horizon our reads were served at
         # (None until the first response carries the header)
         self._served_rv: Optional[int] = None
+        # a partitioned server's per-partition horizon vector
+        # (X-Served-RV-Partitions), as last stamped
+        self._served_rvs: Optional[dict[int, int]] = None
         self._lock = threading.RLock()
         # LRU-bounded: long-running controllers emit events with dynamic
         # detail; the dedupe cache must not grow with them
@@ -463,6 +466,9 @@ class RemoteAPIServer:
                         self._note_served_rv(int(served))
                     except ValueError:
                         pass
+                vector = r.headers.get("X-Served-RV-Partitions")
+                if vector:
+                    self._note_served_rvs(vector)
                 return json.loads(r.read().decode() or "{}")
         except urllib.error.HTTPError as e:
             # 504 is the CALLER's deadline expiring, not endpoint
@@ -506,6 +512,22 @@ class RemoteAPIServer:
         with self._lock:
             if self._served_rv is None or rv > self._served_rv:
                 self._served_rv = rv
+
+    def _note_served_rvs(self, header: str) -> None:
+        try:
+            vec = {int(p): int(rv) for p, rv in
+                   (part.split("=", 1) for part in header.split(","))}
+        except ValueError:
+            return
+        with self._lock:
+            self._served_rvs = vec
+
+    def applied_rvs(self) -> Optional[dict[int, int]]:
+        """A partitioned server's per-partition horizon vector as its
+        last ``X-Served-RV-Partitions`` header stamped it; None from an
+        unpartitioned server (or before the first response)."""
+        with self._lock:
+            return None if self._served_rvs is None else dict(self._served_rvs)
 
     def applied_rv(self) -> Optional[int]:
         """The server's ``X-Served-RV`` horizon as mirrored onto this

@@ -662,17 +662,26 @@ class RestAPI:
           current rv/epoch/wall-clock. A ``from`` below the compacted
           window answers 410 (catch up from a snapshot instead).
 
-        ``?partition=`` (a partitioned store's per-partition feed) is
-        refused: the partition router is not part of this package yet."""
+        When the serving store is a PartitionRouter, ``?partition=<i>``
+        scopes both endpoints to that partition's own backend — rv
+        spaces are per-partition, so a follower replicates exactly one
+        partition's history."""
         if method != "GET":
             raise Invalid(f"unsupported {method} on {path}")
         server = self.server
         if "partition" in qs:
-            raise Invalid(
-                "?partition= needs a partitioned store, which this package "
-                "does not have yet (partitioned replicas come with the "
-                "partition router, part 8 of the platform port)"
-            )
+            backend_fn = getattr(server, "partition_backend", None)
+            if backend_fn is None:
+                raise Invalid(
+                    "?partition= on an unpartitioned store; remove the "
+                    "parameter or point at the PartitionRouter"
+                )
+            try:
+                server = backend_fn(int(qs["partition"][0]))
+            except ValueError:
+                raise Invalid(
+                    "replication 'partition' must be numeric"
+                ) from None
         cut_fn = getattr(server, "replication_cut", None)
         feed_fn = getattr(server, "replication_watch", None)
         if path == "/replication/snapshot" and cut_fn is not None:
@@ -703,6 +712,12 @@ class RestAPI:
 
     def _replication_control_line(self, server=None) -> bytes:
         server = self.server if server is None else server
+        control_fn = getattr(server, "replication_control", None)
+        if control_fn is not None:
+            # a PartitionRouter's heartbeat: the per-partition
+            # (rv, epoch) vector — one scalar cannot describe N
+            # independent rv spaces
+            return serialize.dumps(control_fn()) + b"\n"
         return (
             serialize.dumps(
                 {
@@ -722,9 +737,17 @@ class RestAPI:
     def _rv_headers(self) -> list[tuple[str, str]]:
         """``X-Served-RV``: the applied-rv horizon this read was served
         at — on a follower, the bounded-staleness contract made
-        visible per response."""
+        visible per response. A partitioned store (whose scalar horizon
+        sums independent rv spaces) also stamps its per-partition vector
+        in ``X-Served-RV-Partitions`` (``0=12,1=9,…``), which a remote
+        client mirrors as ``applied_rvs()``."""
         fn = getattr(self.server, "applied_rv", None)
-        return [("X-Served-RV", str(fn()))] if fn is not None else []
+        out = [("X-Served-RV", str(fn()))] if fn is not None else []
+        vec_fn = getattr(self.server, "applied_rvs", None)
+        if vec_fn is not None:
+            out.append(("X-Served-RV-Partitions",
+                        ",".join(f"{p}={rv}" for p, rv in sorted(vec_fn().items()))))
+        return out
 
     def _await_rv(self, rv) -> None:
         """rv-pinned read against a store that can lag (a follower

@@ -229,7 +229,25 @@ class FakeCluster:
                 "conditions": [{"type": "Ready", "status": "True"}],
             },
         }
-        return self.api.create(node)
+        try:
+            return self.api.create(node)
+        except AlreadyExists:
+            pass
+        # a restarted kubelet re-registers its Node, as a real one does:
+        # the object (uid, rv) stays, and only labels or status that
+        # differ are written (JAX's simulator raises AlreadyExists here,
+        # so its durable --sim platform cannot restart on its WAL)
+        existing = self.api.get("Node", name)
+        want_labels = {**obj_util.labels_of(existing), **(labels or {})}
+        if (obj_util.labels_of(existing) == want_labels
+                and existing.get("status", {}).get("capacity") == capacity
+                and existing.get("status", {}).get("conditions")
+                == node["status"]["conditions"]):
+            return existing
+        existing = obj_util.deepcopy(existing)
+        existing["metadata"]["labels"] = want_labels
+        existing["status"] = {**existing.get("status", {}), **node["status"]}
+        return self.api.update(existing)
 
     def add_gpu_node_pool(
         self,

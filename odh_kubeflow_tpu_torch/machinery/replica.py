@@ -29,10 +29,9 @@ cut shape) and streams from its rv; a follower that falls behind the
 leader's compacted window gets 410 on resume and re-snapshots — the
 same too-old contract watch consumers already live by.
 
-Not in this copy: the partition-aware follower (a comma-separated
-``REPLICA_OF`` or ``STORE_PARTITIONS`` > 1), which needs the partition
-router (part 8 of the platform port); ``serve_replica`` refuses those
-settings rather than serving one partition's reads as the fleet's.
+A comma-separated ``REPLICA_OF`` or ``STORE_PARTITIONS`` > 1 runs the
+partition-aware follower: one follower per partition behind a
+reads-only partition router (``machinery/partition.py``).
 """
 
 from __future__ import annotations
@@ -852,6 +851,14 @@ def serve_replica() -> None:
 
     leader_url = os.environ["REPLICA_OF"]
     if "," in leader_url or int(os.environ.get("STORE_PARTITIONS", "1")) > 1:
+        # partition-aware follower: REPLICA_OF=<url0>,<url1>,... (one
+        # URL per partition leader), or one router URL with
+        # STORE_PARTITIONS=N (?partition=<i>-scoped pulls), runs one
+        # follower per partition behind a PartitionRouter — merged
+        # fleet-wide reads, every mutation 307'd to the owning
+        # partition's leader. Promotion stays per-partition (run a
+        # classic single-URL watchdog follower next to each leader);
+        # this fleet-read shape deliberately does not self-promote.
         _serve_partitioned_replica()
         return
     registry = prometheus.Registry()
@@ -948,17 +955,70 @@ def serve_replica() -> None:
 
 
 def _serve_partitioned_replica() -> None:
-    """The partition-aware arm of :func:`serve_replica`
-    (``REPLICA_OF=<url0>,<url1>,…`` or ``STORE_PARTITIONS`` > 1): one
-    follower per partition leader behind a reads-only partition router.
-    The router is not in this package yet, so the arm refuses to start
-    instead of following one partition as if it were the whole fleet."""
-    raise ValueError(
-        "partitioned replicas (a comma-separated REPLICA_OF or "
-        "STORE_PARTITIONS > 1) need the partition router, which comes "
-        "with part 8 of the platform port; point REPLICA_OF at one "
-        "leader URL"
+    """The ``REPLICA_OF=<url0>,<url1>,…`` arm of :func:`serve_replica`:
+    one follower ReplicaStore per partition leader, assembled into the
+    reads-only PartitionRouter :func:`machinery.partition.
+    replica_router_from_env` builds. Cluster-spanning lists/watches
+    merge across the follower fleet with the same composite-token
+    semantics the leader-side router serves.
+
+    Beyond the JAX arm, ``/metrics`` carries each partition's follower
+    state, labelled ``partition``: ``replica_applied_rv``,
+    ``replica_snapshots_loaded`` (1 after the cold join; one more each
+    time a resume fell below the leader's compaction floor and the
+    follower re-snapshotted) and ``replica_reconnects``."""
+    from odh_kubeflow_tpu_torch.apis import register_crds
+    from odh_kubeflow_tpu_torch.machinery import httpapi
+    from odh_kubeflow_tpu_torch.machinery.partition import replica_router_from_env
+
+    built = replica_router_from_env()
+    assert built is not None  # caller checked for the comma
+    router, clients = built
+    registry = prometheus.Registry()
+    _attach_partition_metrics(registry, clients)
+    # CRD kinds on every partition follower: cold followers answer
+    # empty lists instead of 404ing while the first snapshots land
+    register_crds(router)
+    host = os.environ.get("HOST", "0.0.0.0")
+    port = int(os.environ.get("PORT", "8002"))
+    _, bound, srv = httpapi.serve(
+        router, host=host, port=port, metrics_registry=registry
     )
+    print(
+        f"partitioned replica of {router.partition_count} leaders "
+        f"serving merged reads on :{bound}",
+        flush=True,
+    )
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        for c in clients:
+            c.stop()
+        srv.shutdown()
+
+
+def _attach_partition_metrics(registry: prometheus.Registry, clients: list) -> None:
+    """Per-partition follower gauges, sampled at scrape time."""
+    gauges = {
+        "replica_applied_rv": ("The rv this partition's follower has applied",
+                               lambda c: c.replica.applied_rv() or 0),
+        "replica_snapshots_loaded": ("Snapshots this partition's follower has loaded",
+                                     lambda c: c.snapshots_loaded),
+        "replica_reconnects": ("Stream (re)connects of this partition's follower",
+                               lambda c: c.reconnects),
+    }
+    made = {name: registry.gauge(name, help_, labelnames=("partition",))
+            for name, (help_, _) in gauges.items()}
+
+    def sample():
+        for i, c in enumerate(clients):
+            labels = {"partition": str(i)}
+            for name, (_, read) in gauges.items():
+                made[name].set(float(read(c)), labels)
+        return ()
+
+    registry.register_collector(sample)
 
 
 if __name__ == "__main__":

@@ -12,23 +12,28 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 
 def _partition_leaders(api):
-    """``PARTITION_LEADERS=<url0>,<url1>,…``: client-side routing for a
-    partitioned write path. The partition router is not in this package
-    yet (part 8 of the platform port), so a set value is refused rather
-    than silently sending every write to one endpoint. Unset = the
-    single ``KUBE_API_URL`` endpoint."""
+    """``PARTITION_LEADERS=<url0>,<url1>,…``: client-side routing for
+    a partitioned write path (machinery.partition) — one remote client
+    per partition leader behind a PartitionRouter, so every mutation
+    goes STRAIGHT to its namespace's owning leader instead of paying a
+    307 redirect hop, and cluster-spanning lists/watches merge
+    client-side with composite continue tokens. Unset = the single
+    ``KUBE_API_URL`` endpoint, exactly the old wiring."""
     raw = os.environ.get("PARTITION_LEADERS", "")
     if not raw:
         return api
-    raise ValueError(
-        f"PARTITION_LEADERS={raw!r}: the partitioned write path needs the "
-        "partition router, which comes with part 8 of the platform port; "
-        "unset it and give one KUBE_API_URL"
-    )
+    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+    from odh_kubeflow_tpu_torch.machinery.partition import PartitionRouter
+
+    urls = [u.strip().rstrip("/") for u in raw.split(",") if u.strip()]
+    backends = {i: api_from_env(url=u) for i, u in enumerate(urls)}
+    # owned = every partition: the client routes writes itself; each
+    # backend is that partition's own leader, no redirect needed
+    return PartitionRouter(backends, urls=dict(enumerate(urls)))
 
 
 def _split_reads(api):
@@ -220,16 +225,25 @@ def run_replica(name: str = "replica") -> None:
     serve_replica()
 
 
-def run_web(name: str, default_port: int, build: Callable) -> None:
-    """``build(api)`` returns an object exposing a ``.app`` WSGI app."""
+def run_web(name: str, default_port: int, build: Callable,
+            register: Optional[Callable] = None) -> None:
+    """``build(api)`` returns an object exposing a ``.app`` WSGI app.
+    ``register(api)`` registers on the client the kinds the app reads
+    beyond the CRDs, before the informer cache picks the kinds it
+    mirrors (the JAX runner has no such hook: its split JWA reads
+    Workloads through a client that cannot name them)."""
     from odh_kubeflow_tpu_torch.machinery.client import api_from_env
     from odh_kubeflow_tpu_torch.machinery.faults import maybe_wrap
 
     raw = api_from_env()
     _install_span_exporter(raw)
-    api, cache = _wrap_cached(
-        _split_reads(maybe_wrap(_partition_leaders(raw)))
-    )
+    write = maybe_wrap(_partition_leaders(raw))
+    split = _split_reads(write)
+    if register is not None:
+        register(write)
+        if split is not write:
+            register(split.read_api)
+    api, cache = _wrap_cached(split)
     if cache is not None:
         cache.start(live=True)
         cache.wait_for_sync()

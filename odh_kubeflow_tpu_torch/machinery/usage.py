@@ -48,9 +48,9 @@ Exposure: Prometheus (``gpu_allocated_seconds_total``,
 ``gpu_seconds_total{namespace,phase="active"|"idle"}``,
 ``gpu_duty_cycle_pct``, ``gpu_pool_utilization_ratio``,
 ``gpu_duty_samples_total``), the dashboard's ``GET /api/usage``
-showback endpoint and the JWA's per-notebook usage block. The JAX
-package's ``/debug/usage`` zpage is not ported yet (ROADMAP.md);
-:meth:`UsageMeter.timelines` is its feed. The port's store has no
+showback endpoint, the JWA's per-notebook usage block and the
+``/debug/usage`` zpage (``machinery/zpages.py``), which
+:meth:`UsageMeter.timelines` feeds. The port's store has no
 leader election, so the meter stands down on nothing: the JAX meter's
 ``FencedOut``/``NotLeader`` branches are left out.
 """

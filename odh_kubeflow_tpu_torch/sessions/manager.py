@@ -26,9 +26,9 @@ the SessionCheckpoint state machine:
 Snapshot/restore IO is blocking (checkpoint writes, HTTP hooks) and
 runs only from reconcile bodies — never under store locks. A restore is
 the ``session.restore`` span of the notebook's trace. Suspend and
-resume mark the usage meter's duty-cycle timeline (``meter``). The JAX
-manager's split-process ``main()`` waits for ``machinery/runner.py``
-(ROADMAP.md).
+resume mark the usage meter's duty-cycle timeline (``meter``).
+``main()`` runs the manager in a process of its own through
+``machinery/runner.py``.
 """
 
 from __future__ import annotations
@@ -774,3 +774,24 @@ class SessionManager:
         except NotFound:
             pass
         return Result()
+
+
+def main() -> None:
+    """Split-process entrypoint: attach to $KUBE_API_URL and run the
+    session manager forever (manifests deploy it inside the
+    notebook-controller process by default; this standalone mode exists
+    for dedicated scaling)."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_controller
+    from odh_kubeflow_tpu_torch.sessions import register_sessions
+
+    def register(api, mgr):
+        register_sessions(api)
+        SessionManager(
+            api, SessionConfig.from_env(), registry=mgr.metrics_registry
+        ).register(mgr)
+
+    run_controller("session-manager", register)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,9 @@ the sessions ledger; its JSON keys are the TPU panel's through
 ledger's showback from the usage meter (``machinery/usage.py``; 503
 without one, as JAX's does), and the panel's utilization column reads
 the meter's ``utilization()``. Left out of the copy (ROADMAP.md): the
-index-bucket fast path of the pod scan (the informer cache), the static
-frontend and ``main()``. Serve it in-process with
+index-bucket fast path of the pod scan and the static frontend.
+``main()`` serves it in a process of its own through
+``machinery/runner.py``; in-process,
 ``DashboardApp(api).app.serve(host, port)``.
 """
 
@@ -411,3 +412,25 @@ class DashboardApp:
                 self.registry.exposition(), content_type="text/plain"
             )
 
+
+def main() -> None:
+    """Split-process entrypoint (manifests/web)."""
+    import os
+
+    from odh_kubeflow_tpu_torch.machinery.runner import run_web
+
+    def build(api):
+        dash = DashboardApp(api)
+        # the entrypoint owns the engine lifecycle (mirrors
+        # Platform.start): background sampling so /api/slo has
+        # window history without a ?tick on every request
+        dash.slo_engine.start(
+            interval=float(os.environ.get("SLO_TICK_SECONDS", "15"))
+        )
+        return dash
+
+    run_web("centraldashboard", 8082, build)
+
+
+if __name__ == "__main__":
+    main()

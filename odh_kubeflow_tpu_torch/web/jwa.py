@@ -22,9 +22,10 @@ opt-in label for the PodDefault webhook.
 Suspend-on-stop and the resume route (the sessions subsystem), the
 detail page's checkpoint and warm-handout blocks and the warm-pool claim
 at spawn (warmup) are JAX's, and so is the detail page's usage block,
-fed by the GPU-second ledger (``meter``, ``machinery/usage.py``). Left
-out of the copy (ROADMAP.md): ``main()``, which needs
-``machinery/runner.py``. Serve the app in-process with
+fed by the GPU-second ledger (``meter``, ``machinery/usage.py``). The
+listings go through the CRUD backend's ``listing_response`` (memo,
+degraded serving, ``?limit=&continue=`` pages). ``main()`` serves the
+app in a process of its own through ``machinery/runner.py``; in-process,
 ``JupyterWebApp(api).app.serve(host, port)``.
 """
 
@@ -252,19 +253,31 @@ class JupyterWebApp(CrudBackend):
         def list_notebooks(request, namespace):
             self.authorize(request, "list", "notebooks", namespace, "kubeflow.org")
 
-            # one LAZY event pass shared by the whole listing: ready rows
-            # mine nothing, so an all-ready listing pays none
-            memo: list[dict] = []
+            def build_rows():
+                # one LAZY event pass shared by the whole listing: ready
+                # rows mine nothing, so an all-ready listing pays none
+                memo: list[dict] = []
 
-            def events():
-                if not memo:
-                    memo.append(self._warning_events_by_owner(namespace))
-                return memo[0]
+                def events():
+                    if not memo:
+                        memo.append(self._warning_events_by_owner(namespace))
+                    return memo[0]
 
-            return success({"notebooks": [
-                self.notebook_row(nb, events=events)
-                for nb in self.api.list("Notebook", namespace=namespace)
-            ]})
+                return [
+                    self.notebook_row(nb, events=events)
+                    for nb in self.api.list("Notebook", namespace=namespace)
+                ]
+
+            return self.listing_response(
+                "notebooks",
+                ("notebooks", namespace),
+                build_rows,
+                request,
+                # the full read set: rows derive queue position from
+                # Workloads and warning messages from Events, so the
+                # listing memo must key on their versions too
+                kinds=("Notebook", "Workload", "Event"),
+            )
 
         @app.route("/api/namespaces/<namespace>/notebooks", methods=["POST"])
         def post_notebook(request, namespace):
@@ -444,8 +457,12 @@ class JupyterWebApp(CrudBackend):
         @app.route("/api/namespaces/<namespace>/pvcs")
         def list_pvcs(request, namespace):
             self.authorize(request, "list", "persistentvolumeclaims", namespace)
-            return success(
-                {"pvcs": self.api.list("PersistentVolumeClaim", namespace=namespace)}
+            return self.listing_response(
+                "pvcs",
+                ("pvcs", namespace),
+                lambda: self.api.list("PersistentVolumeClaim", namespace=namespace),
+                request,
+                kinds=("PersistentVolumeClaim",),
             )
 
         @app.route("/api/namespaces/<namespace>/poddefaults")
@@ -1020,3 +1037,38 @@ def _apply_limit_factor(value: str, cfg: Obj) -> str:
     if value.endswith("Mi"):
         return f"{limit / 2**20:.0f}Mi"
     return f"{limit:g}"
+
+
+
+def register_client_kinds(api) -> None:
+    """The kinds a JWA reads beyond the CRDs, on a split process's client:
+    Workloads (a row's queue position; the listing memo keys on their
+    version), SessionCheckpoints (the detail page's checkpoint block) and
+    WarmPools (the warm rows). Without them a remote client cannot name
+    these kinds: the reads come back empty and the informer cache leaves
+    them out, so the listing's pages fall back to a row-count tag."""
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
+    from odh_kubeflow_tpu_torch.sessions import register_sessions
+    from odh_kubeflow_tpu_torch.warmup import register_warmup
+
+    register_scheduling(api)
+    register_sessions(api)
+    register_warmup(api)
+
+
+def main() -> None:
+    """Split-process entrypoint (manifests/web)."""
+    import os
+
+    from odh_kubeflow_tpu_torch.machinery.runner import run_web
+
+    run_web(
+        "jupyter-web-app",
+        5000,
+        lambda api: JupyterWebApp(api, config_path=os.environ.get("UI_CONFIG")),
+        register=register_client_kinds,
+    )
+
+
+if __name__ == "__main__":
+    main()

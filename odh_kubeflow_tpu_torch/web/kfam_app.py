@@ -4,8 +4,8 @@ port's copy of the JAX package's ``web/kfam_app.py``, on
 
 Reference parity: components/access-management/kfam/api_default.go
 :36-43 — /kfam/v1/bindings (GET/POST/DELETE), /kfam/v1/profiles
-(POST/DELETE), /kfam/v1/role/clusteradmin (GET). ``main()`` waits for
-``machinery/runner.py`` (ROADMAP.md); serve it in-process with
+(POST/DELETE), /kfam/v1/role/clusteradmin (GET). ``main()`` serves it
+in a process of its own through ``machinery/runner.py``; in-process,
 ``KfamApp(api).app.serve(host, port)``.
 """
 
@@ -92,3 +92,13 @@ class KfamApp:
             reg = prometheus.default_registry
             return Response(reg.exposition(), content_type="text/plain")
 
+
+def main() -> None:
+    """Split-process entrypoint (manifests/profile-controller kfam)."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_web
+
+    run_web("kfam", 8081, KfamApp)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,9 +5,10 @@ Reference parity: crud-web-apps/tensorboards/backend/app/routes/
 post.py:15-38, app/utils.py:4-38 (the CR and its status parse). The
 ``/logs`` route lists a local logspath under ``TWA_LOCAL_LOGS_ROOT``
 (the profiles ``utils/profiling.py`` writes, as a PVC's host directory
-holds them). Left out of the copy (ROADMAP.md): the listing memo and
-pages that come with the informer cache, and ``main()``, which needs
-``machinery/runner.py``. Serve it in-process with
+holds them). The listing goes through the CRUD backend's
+``listing_response`` (memo, degraded serving, ``?limit=&continue=``
+pages). ``main()`` serves it in a process of its own through
+``machinery/runner.py``; in-process,
 ``TensorboardsWebApp(api).app.serve(host, port)``.
 """
 
@@ -38,10 +39,16 @@ class TensorboardsWebApp(CrudBackend):
             self.authorize(
                 request, "list", "tensorboards", namespace, "tensorboard.kubeflow.org"
             )
-            return success({"tensorboards": [
-                self.tensorboard_row(tb)
-                for tb in self.api.list("Tensorboard", namespace=namespace)
-            ]})
+            return self.listing_response(
+                "tensorboards",
+                ("tensorboards", namespace),
+                lambda: [
+                    self.tensorboard_row(tb)
+                    for tb in self.api.list("Tensorboard", namespace=namespace)
+                ],
+                request,
+                kinds=("Tensorboard", "Event"),
+            )
 
         @app.route("/api/namespaces/<namespace>/tensorboards", methods=["POST"])
         def post_tb(request, namespace):
@@ -216,3 +223,13 @@ def _event_belongs_to_tb(involved: Obj, name: str) -> bool:
         re.fullmatch(r"-\d+-[0-9a-f]{5}", suffix)
     )
 
+
+def main() -> None:
+    """Split-process entrypoint (manifests/web)."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_web
+
+    run_web("tensorboards-web-app", 5000, TensorboardsWebApp)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,10 +4,11 @@ package's ``web/vwa.py``).
 Reference parity: crud-web-apps/volumes/backend/apps/default/routes/
 {get,post,delete}.py + common/utils.py parsing. A PVC's detail page
 lists the pods mounting it (``machinery/cache.list_by_index``, a
-namespace scan on the plain store). Left out of the copy (ROADMAP.md):
-the listing memo and pages that come with the informer cache, and
-``main()``, which needs ``machinery/runner.py``. Serve it in-process
-with ``VolumesWebApp(api).app.serve(host, port)``.
+namespace scan on the plain store). The listing goes through the CRUD
+backend's ``listing_response`` (memo, degraded serving,
+``?limit=&continue=`` pages). ``main()`` serves it in a process of its
+own through ``machinery/runner.py``; in-process,
+``VolumesWebApp(api).app.serve(host, port)``.
 """
 
 from __future__ import annotations
@@ -33,10 +34,16 @@ class VolumesWebApp(CrudBackend):
         @app.route("/api/namespaces/<namespace>/pvcs")
         def list_pvcs(request, namespace):
             self.authorize(request, "list", "persistentvolumeclaims", namespace)
-            return success({"pvcs": [
-                self.pvc_row(pvc)
-                for pvc in self.api.list("PersistentVolumeClaim", namespace=namespace)
-            ]})
+            return self.listing_response(
+                "pvcs",
+                ("pvcs", namespace),
+                lambda: [
+                    self.pvc_row(pvc)
+                    for pvc in self.api.list("PersistentVolumeClaim", namespace=namespace)
+                ],
+                request,
+                kinds=("PersistentVolumeClaim", "Pod", "Event"),
+            )
 
         @app.route("/api/namespaces/<namespace>/pvcs", methods=["POST"])
         def post_pvc(request, namespace):
@@ -178,3 +185,13 @@ class VolumesWebApp(CrudBackend):
             return {"phase": "warning", "message": error}
         return {"phase": "waiting", "message": "Provisioning"}
 
+
+def main() -> None:
+    """Split-process entrypoint (manifests/web)."""
+    from odh_kubeflow_tpu_torch.machinery.runner import run_web
+
+    run_web("volumes-web-app", 5000, VolumesWebApp)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,6 @@
 """Webhook TLS: CA + server certificate generation and bootstrap (the
-port's copy of the JAX package's ``webhooks/certs.py``; its ``main()``,
-which attaches to a cluster through ``machinery/client.py``, comes with
-that module).
+port's copy of the JAX package's ``webhooks/certs.py``; its ``main()``
+attaches to a cluster through ``machinery/client.py``).
 
 A real kube-apiserver only calls webhooks over HTTPS, verifying the
 serving cert against the ``caBundle`` registered in the
@@ -225,3 +224,20 @@ def bootstrap(api, namespace: str = "kubeflow") -> CertBundle:
     bundle = ensure_cert_secret(api, namespace)
     patch_ca_bundle(api, bundle)
     return bundle
+
+
+def main() -> None:
+    """`python -m odh_kubeflow_tpu_torch.webhooks.certs` — the bootstrap job
+    entrypoint (manifests/admission-webhook job)."""
+    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+
+    api = api_from_env()
+    bundle = bootstrap(api, os.environ.get("NAMESPACE", "kubeflow"))
+    cert_dir = os.environ.get("CERT_DIR")
+    if cert_dir:
+        bundle.write(cert_dir)
+    print(f"webhook certs bootstrapped (secret {SECRET_NAME})", flush=True)
+
+
+if __name__ == "__main__":
+    main()

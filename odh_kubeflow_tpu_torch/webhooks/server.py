@@ -8,8 +8,8 @@ mutate functions serve v1 AdmissionReview over HTTP: request object in,
 JSONPatch out — the reference's exact contract
 (admission-webhook/main.go:555-573 builds the same patch response;
 odh notebook_webhook.go:226-265 the same Handle shape). The
-split-process ``main()``, which reads PodDefaults through
-``machinery/client.py``, comes with that module.
+split-process ``main()`` reads PodDefaults through
+``machinery/client.py``.
 """
 
 from __future__ import annotations
@@ -117,3 +117,56 @@ def make_ssl_context(cert_file: str, key_file: str):
     ctx.minimum_version = ssl.TLSVersion.TLSv1_2
     ctx.load_cert_chain(cert_file, key_file)
     return ctx
+
+
+def main() -> None:
+    """Split-process entrypoint (manifests/admission-webhook): serve the
+    PodDefault + Notebook mutators as AdmissionReview endpoints over
+    HTTPS, reading PodDefaults via $KUBE_API_URL. The cert pair comes
+    from the mounted Secret ($CERT_DIR, provisioned by the
+    `webhooks.certs` bootstrap job — reference admission-webhook
+    main.go:625-640 serves the same way); if the mount is absent a
+    self-signed pair is generated so the process still comes up in dev.
+    Set TLS_DISABLE=true to serve plain HTTP (local debugging only)."""
+    import os
+    import time
+
+    from odh_kubeflow_tpu_torch.machinery.client import api_from_env
+    from odh_kubeflow_tpu_torch.webhooks.notebook import NotebookWebhook
+    from odh_kubeflow_tpu_torch.webhooks.poddefault import PodDefaultWebhook
+
+    api = api_from_env()
+    server = AdmissionServer()
+    server.handle("/apply-poddefault", PodDefaultWebhook(api).mutate)
+    server.handle("/mutate-notebook-v1", NotebookWebhook(api).mutate)
+    host = os.environ.get("HOST", "0.0.0.0")
+    port = int(os.environ.get("PORT", "8443"))
+
+    ssl_context = None
+    scheme = "http"
+    if os.environ.get("TLS_DISABLE", "").lower() != "true":
+        from odh_kubeflow_tpu_torch.webhooks.certs import generate_webhook_certs
+
+        cert_dir = os.environ.get("CERT_DIR", "/etc/webhook/certs")
+        cert_file = os.path.join(cert_dir, "tls.crt")
+        key_file = os.path.join(cert_dir, "tls.key")
+        if not (os.path.exists(cert_file) and os.path.exists(key_file)):
+            bundle = generate_webhook_certs()
+            try:
+                cert_file, key_file, _ = bundle.write(cert_dir)
+            except OSError:  # read-only Secret mount without the pair
+                cert_file, key_file, _ = bundle.write("/tmp/webhook-certs")
+        ssl_context = make_ssl_context(cert_file, key_file)
+        scheme = "https"
+
+    httpd = server.app.serve(host, port, ssl_context=ssl_context)
+    print(
+        f"admission-webhook on {scheme}://{host}:{httpd.server_address[1]}",
+        flush=True,
+    )
+    while True:
+        time.sleep(3600)
+
+
+if __name__ == "__main__":
+    main()

@@ -177,16 +177,31 @@ def test_the_scan_covers_the_high_availability_slice():
             "platform_failover_phase"} <= funcs
 
 
+def test_the_scan_covers_the_partitioned_write_path_and_the_platform():
+    """Slice 9 part 8: the partition router, the cloud IAM clients, the
+    all-in-one platform; and ``chip_smoke.py``'s ``platform_partitions``
+    phase."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "odh_kubeflow_tpu_torch"
+    assert {f"{pkg}/machinery/partition.py", f"{pkg}/machinery/cloudiam.py",
+            f"{pkg}/platform.py"} <= names
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert "platform_partitions_phase" in funcs
+
+
 def test_control_plane_modules_load_no_torch():
-    """The apiserver, replica, controller and flood processes import only
-    host-only modules: a fresh interpreter that imports the control
+    """The apiserver, replica, controller and flood processes and the
+    all-in-one platform (with the partition router and the cloud IAM
+    clients) import only host-only modules: a fresh interpreter that imports the control
     plane's entry modules ends with no ``torch`` loaded (the package's
     ``card_label`` / ``resolve_device`` load it on first use)."""
     code = (
         "import sys, importlib\n"
         "for m in ('store', 'httpapi', 'client', 'leader', 'replica', 'promoter',\n"
-        "          'runner', 'cache'):\n"
+        "          'runner', 'cache', 'partition', 'cloudiam'):\n"
         "    importlib.import_module('odh_kubeflow_tpu_torch.machinery.' + m)\n"
+        "importlib.import_module('odh_kubeflow_tpu_torch.platform')\n"
         "importlib.import_module('odh_kubeflow_tpu_torch.controllers.notebook')\n"
         "importlib.import_module('odh_kubeflow_tpu_torch.scheduling.scheduler')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"

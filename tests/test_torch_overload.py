@@ -43,6 +43,17 @@ _MODULES = {
     "notebook": "controllers.notebook",
     "certs": "webhooks.certs",
     "nb_webhook": "webhooks.notebook",
+    "partition": "machinery.partition",
+    "leader": "machinery.leader",
+    "faults": "machinery.faults",
+    "wal": "machinery.wal",
+    "replica": "machinery.replica",
+    "scheduling": "scheduling",
+    "jwa": "web.jwa",
+    "vwa": "web.vwa",
+    "twa": "web.twa",
+    "cloudiam": "machinery.cloudiam",
+    "profile": "controllers.profile",
 }
 
 

@@ -67,30 +67,83 @@ def test_platform_failover_phase_on_cpu():
 
 
 def test_platform_failover_refuses_partitioned_settings(tmp_path):
-    """The partitioned shapes are part 8's: a comma-separated
-    ``REPLICA_OF``, ``STORE_PARTITIONS`` > 1 and ``PARTITION_LEADERS``
-    are refused with a message that names it, never served as one
-    partition."""
+    """The partitioned shapes, refused before the partition router was
+    ported, now serve: a comma-separated ``REPLICA_OF`` (one leader a
+    partition) and ``REPLICA_OF`` at a router with ``STORE_PARTITIONS``
+    (``?partition=``-scoped pulls) each run a follower whose merged
+    Notebook list equals the leaders'; the scheduler's ``main()`` runs
+    over ``PARTITION_LEADERS``. None of the processes loads torch."""
+    import json
     import os
     import subprocess
     import sys
+    import urllib.request
+
+    from odh_kubeflow_tpu_torch.apis import register_crds
+    from odh_kubeflow_tpu_torch.machinery import httpapi
+    from odh_kubeflow_tpu_torch.machinery.partition import build_partitions
+    from odh_kubeflow_tpu_torch.machinery.store import APIServer
+    from odh_kubeflow_tpu_torch.scheduling import register_scheduling
 
     here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    router = build_partitions(2)
+    leaders = [APIServer(), APIServer()]
+    for api in (router, *leaders):
+        register_crds(api)
+        register_scheduling(api)
+    namespaces = [f"team-{i}" for i in range(6)]
+    assert {router.owner_of(ns) for ns in namespaces} == {0, 1}
+    for ns in namespaces:
+        nb = {"apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+              "metadata": {"name": "nb", "namespace": ns},
+              "spec": {"template": {"spec": {"containers": [{"name": "nb"}]}}}}
+        router.create(nb)
+        leaders[router.owner_of(ns)].create(nb)
+    servers = [httpapi.serve(api, host="127.0.0.1", port=0) for api in (router, *leaders)]
+    url_r, url_0, url_1 = (f"http://127.0.0.1:{port}" for _, port, _ in servers)
+    ports = [chip_smoke.free_port(), chip_smoke.free_port()]
     cases = [
-        ({"REPLICA_OF": "http://127.0.0.1:1,http://127.0.0.1:2"},
-         "odh_kubeflow_tpu_torch.machinery.replica"),
-        ({"REPLICA_OF": "http://127.0.0.1:1", "STORE_PARTITIONS": "2"},
-         "odh_kubeflow_tpu_torch.machinery.replica"),
-        ({"PARTITION_LEADERS": "http://127.0.0.1:1", "KUBE_API_URL": "http://127.0.0.1:1"},
-         "odh_kubeflow_tpu_torch.scheduling.scheduler"),
+        ("comma", {"REPLICA_OF": f"{url_0},{url_1}", "PORT": str(ports[0])},
+         "odh_kubeflow_tpu_torch.machinery.replica", "serving merged reads on"),
+        ("router", {"REPLICA_OF": url_r, "STORE_PARTITIONS": "2", "PORT": str(ports[1])},
+         "odh_kubeflow_tpu_torch.machinery.replica", "serving merged reads on"),
+        ("scheduler", {"PARTITION_LEADERS": f"{url_0},{url_1}", "KUBE_API_URL": url_0,
+                       "METRICS_PORT": "0", "ENABLE_SESSION_SUSPEND": "false",
+                       "TRACE_EXPORT": "false"},
+         "odh_kubeflow_tpu_torch.scheduling.scheduler", "gpu-scheduler running"),
     ]
-    for env, module in cases:
-        out = subprocess.run([sys.executable, "-m", module], cwd=str(tmp_path),
-                             env={**os.environ, "PYTHONPATH": here, **env},
-                             capture_output=True, text=True, timeout=60)
-        assert out.returncode != 0, (env, out.stdout)
-        assert "part 8" in out.stderr and "ValueError" in out.stderr, out.stderr[-2000:]
-        assert "torch" not in out.stderr.split("Traceback")[0]
+    procs = {}
+    try:
+        for label, env, module, _ in cases:
+            procs[label] = chip_smoke.start_process(
+                label, ["-m", module, ], {"HOST": "127.0.0.1", **env}, str(tmp_path),
+                str(tmp_path))
+        for label, _, _, line in cases:
+            chip_smoke.wait_line(procs[label], lambda x, line=line: line in x, 60, line)
+        want = sorted(o["metadata"]["namespace"] for o in router.list("Notebook"))
+        for label, port in zip(("comma", "router"), ports):
+            end = time.time() + 30
+            while True:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/apis/kubeflow.org/v1beta1/notebooks",
+                        timeout=10) as r:
+                    got = [o["metadata"]["namespace"] for o in json.loads(r.read())["items"]]
+                if got == want or time.time() > end:
+                    break
+                time.sleep(0.05)
+            assert got == want, (label, got)
+        probe = subprocess.run(
+            [sys.executable, "-c", "import sys, odh_kubeflow_tpu_torch.machinery.replica, "
+             "odh_kubeflow_tpu_torch.scheduling.scheduler; print('torch' in sys.modules)"],
+            env={**os.environ, "PYTHONPATH": here}, capture_output=True, text=True, timeout=60)
+        assert probe.stdout.strip() == "False", probe.stderr
+    finally:
+        for p in procs.values():
+            if p["proc"].poll() is None:
+                p["proc"].kill()
+            p["proc"].wait()
+        for _, _, httpd in servers:
+            httpd.shutdown()
 
 
 def test_platform_apiserver_mode_serves_under_its_own_lease(tmp_path):

@@ -84,12 +84,25 @@ def test_wrap_cached_counters_land_on_the_served_registry(clean_env):
 
 
 def test_partition_leaders_refused_until_part_8(clean_env):
-    m = pkg("torch")
-    api = m.store.APIServer()
-    assert m.runner._partition_leaders(api) is api
-    clean_env.setenv("PARTITION_LEADERS", "http://127.0.0.1:1,http://127.0.0.1:2")
-    with pytest.raises(ValueError, match="part 8"):
-        m.runner._partition_leaders(api)
+    """``PARTITION_LEADERS`` (refused before the partition router was
+    ported) now routes: one remote client per leader behind a
+    ``PartitionRouter`` that owns every partition, as JAX's runner
+    builds it; unset, the api passes through."""
+    shapes = []
+    for name in ("jax", "torch"):
+        m = pkg(name)
+        api = m.store.APIServer()
+        clean_env.delenv("PARTITION_LEADERS", raising=False)
+        assert m.runner._partition_leaders(api) is api
+        clean_env.setenv("PARTITION_LEADERS", "http://127.0.0.1:1/, http://127.0.0.1:2")
+        router = m.runner._partition_leaders(api)
+        assert type(router).__name__ == "PartitionRouter"
+        assert all(type(b).__name__ == "RemoteAPIServer" for b in router.backends.values())
+        shapes.append((router.partition_count, sorted(router.owned), router.urls,
+                       {p: b.base_url for p, b in router.backends.items()},
+                       [router.owner_of(f"team-{i}") for i in range(32)]))
+    assert shapes[0] == shapes[1]
+    assert shapes[1][2] == {0: "http://127.0.0.1:1", 1: "http://127.0.0.1:2"}
 
 
 def test_lease_periods_default_to_the_jax_runner_and_fit_short_leases():
