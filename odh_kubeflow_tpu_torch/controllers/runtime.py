@@ -29,7 +29,8 @@ and waits for the cache's sync before reconciling; with a
 every reconcile runs inside the holder's fence, a write rejected by
 fencing latches ``fenced_out`` and drops the key (the elector decides
 the stand-down), and a shard member reconciles only the namespaces it
-owns. The JAX module's lock sanitizer is left out.
+owns. The rate limiter's and the workqueue's locks come from the
+lock-order sanitizer's factory (``analysis/sanitizer.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from odh_kubeflow_tpu_torch.analysis import sanitizer as _sanitizer
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util, overload
 from odh_kubeflow_tpu_torch.machinery.store import (
     APIServer,
@@ -132,7 +134,10 @@ class _RateLimiter:
         self.base = base
         self.cap = cap
         self.failures: dict[Request, int] = {}
-        self._lock = threading.Lock()
+        # the backoff sleep stays OUT of this critical section; the
+        # sanitizer's blocking-under-lock probe guards the invariant at
+        # runtime (tests/test_torch_schedule.py)
+        self._lock = _sanitizer.new_lock("controller.ratelimiter")
 
     def when(self, req: Request) -> float:
         with self._lock:
@@ -208,7 +213,7 @@ class Controller:
         # the trace id carried from the triggering watch object, popped
         # when the request is processed
         self._req_trace: dict[Request, str] = {}
-        self._lock = threading.Lock()
+        self._lock = _sanitizer.new_lock(f"workqueue.{name}")
         self._cv = threading.Condition(self._lock)
         self._limiter = _RateLimiter()
         self._stop = threading.Event()

@@ -28,9 +28,10 @@ Event handlers let controllers source their watch streams from the
 informer instead of opening private per-controller watches — one
 frozen copy per store event serves the cache AND every controller.
 ``list_by_index`` degrades to a selector list on a plain api, and
-``SerializedBytesCache`` is the REST façade's bytes cache. The JAX
-module's lock-order sanitizer and schedule-explorer hooks are left out;
-the port uses plain ``threading`` locks.
+``SerializedBytesCache`` is the REST façade's bytes cache. Its locks
+come from the lock-order sanitizer's factory (``analysis/sanitizer.py``)
+and the heal carries the schedule explorer's yield markers
+(``analysis/schedule.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable, Iterable, Optional
 
+from odh_kubeflow_tpu_torch.analysis import sanitizer as _sanitizer
+from odh_kubeflow_tpu_torch.analysis import schedule as _schedule
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util
 from odh_kubeflow_tpu_torch.machinery import serialize
 from odh_kubeflow_tpu_torch.machinery.objects import (  # noqa: F401 — public API
@@ -180,7 +183,7 @@ class InformerCache:
             # EXPLICIT kind list stays strict — a typo there is a
             # configuration error the failing watch should surface
             kinds = [k for k in kinds if _kind_registered(api, k)]
-        self._lock = threading.RLock()
+        self._lock = _sanitizer.new_rlock("informer.cache")
         self._kinds: dict[str, _KindCache] = {k: _KindCache() for k in kinds}
         # per-kind heal mutex: stream-loss recovery can be triggered by
         # the pump thread AND read-path pokes at once; only one may
@@ -189,7 +192,7 @@ class InformerCache:
         # design (watch re-open + relist over HTTP on a remote api), and
         # nothing can ever wait on this lock (try-acquire only).
         self._heal_locks: dict[str, Any] = {
-            k: threading.Lock()
+            k: _sanitizer.new_lock("informer.heal", allow_blocking=True)
             for k in self._kinds
         }
         self._handlers: dict[str, list[Handler]] = {}
@@ -245,7 +248,7 @@ class InformerCache:
         self._misses: dict[str, int] = {}
         self._flushed_hits: dict[str, int] = {}
         self._flushed_misses: dict[str, int] = {}
-        self._flush_lock = threading.Lock()
+        self._flush_lock = _sanitizer.new_lock("informer.metrics-flush")
         self._stale_mark: dict[str, float] = {}
         reg.register_collector(self._flush_collector)
 
@@ -533,8 +536,9 @@ class InformerCache:
                 w = self.api.watch(kind, send_initial=False)
             except Exception as e:  # noqa: BLE001 — Expired/APIError/OSError
                 return self._degrade(kind, "watch re-open failed", e)
-            # fresh watch open, relist not yet taken — writes landing
-            # here must arrive as events
+            # explorer yield marker: fresh watch open, relist not yet
+            # taken — writes landing here must arrive as events
+            _schedule.sched_point("informer.heal.relist")
             try:
                 objs = self._list_all(kind)
             except Exception as e:  # noqa: BLE001 — backend still flapping
@@ -543,8 +547,9 @@ class InformerCache:
                 except (APIError, OSError, RuntimeError):
                     pass  # best-effort teardown of the half-opened stream
                 return self._degrade(kind, "relist after stream loss failed", e)
-            # listed snapshot in hand, mirror not yet rebuilt — reads
-            # racing the heal interleave here
+            # explorer yield marker: listed snapshot in hand, mirror
+            # not yet rebuilt — reads racing the heal interleave here
+            _schedule.sched_point("informer.heal.rebuild")
             with self._lock:
                 old = self._watches.get(kind)
                 self._watches[kind] = w
@@ -929,7 +934,7 @@ class SerializedBytesCache:
 
     def __init__(self, capacity: int = 8192):
         self.capacity = capacity
-        self._lock = threading.Lock()
+        self._lock = _sanitizer.new_lock("serialized-bytes-cache")
         self._data: "OrderedDict[tuple, bytes]" = OrderedDict()
         # plain monotonic ints (same posture as the informer's hot-path
         # counters): a lock+label Counter.inc per response would cost

@@ -29,6 +29,7 @@ import urllib.request
 from collections import OrderedDict
 from typing import Any, Optional
 
+from odh_kubeflow_tpu_torch.analysis import sanitizer as _sanitizer
 from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util, overload
 from odh_kubeflow_tpu_torch.utils import prometheus, tracing
 from odh_kubeflow_tpu_torch.machinery.store import (
@@ -215,7 +216,7 @@ class RemoteAPIServer:
         # a partitioned server's per-partition horizon vector
         # (X-Served-RV-Partitions), as last stamped
         self._served_rvs: Optional[dict[int, int]] = None
-        self._lock = threading.RLock()
+        self._lock = _sanitizer.new_rlock("remote-client")
         # LRU-bounded: long-running controllers emit events with dynamic
         # detail; the dedupe cache must not grow with them
         self._event_index: "OrderedDict[tuple, str]" = OrderedDict()
@@ -439,9 +440,8 @@ class RemoteAPIServer:
         url = (
             path if path.startswith(("http://", "https://")) else self.base_url + path
         ) + (f"?{query}" if query else "")
-        # outbound request body (write path, not a serving response)
         data = (
-            json.dumps(body).encode()
+            json.dumps(body).encode()  # dumps-ok: outbound request body
             if body is not None
             else None
         )
@@ -452,6 +452,9 @@ class RemoteAPIServer:
         timeout = (
             self.timeout if rem is None else max(min(self.timeout, rem), 1e-3)
         )
+        # an HTTP round-trip must never run while holding a store/cache
+        # lock (sanitizer probe; no-op when GRAFT_SANITIZE is off)
+        _sanitizer.note_blocking(f"http {method} {path}")
         # endpoint health for the breaker window: server-side failures
         # (5xx, 429 shed, network/timeout) and slow answers count
         # against the endpoint; 4xx are the CALLER's errors and do not
@@ -947,6 +950,7 @@ class RemoteAPIServer:
         # bounded wait (best effort): a down server keeps the pump in
         # its reconnect loop — proceed after the timeout, no worse than
         # the old return-immediately behaviour
+        _sanitizer.note_blocking(f"watch connect {kind}")
         connected.wait(timeout=min(5.0, self.timeout))
         with self._lock:
             self._watches.append(w)
@@ -1068,7 +1072,7 @@ class ReplicaFanout:
         self.cooldown = cooldown
         self._next = 0
         self._down_until: dict[int, float] = {}
-        self._lock = threading.Lock()
+        self._lock = _sanitizer.new_lock("replica-fanout")
 
     # -- endpoint choice ------------------------------------------------------
 

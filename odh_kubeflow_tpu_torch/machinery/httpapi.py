@@ -586,7 +586,7 @@ class RestAPI:
         try:
             return self._dispatch(kind, route, method, qs, environ, start_response)
         except APIError as e:
-            # protocol boundary: FencedOut maps to a 403 +
+            # fencing-ok: protocol boundary — FencedOut maps to a 403 +
             # Status(reason=FencedOut) response; the REMOTE caller is
             # the deposed holder and must stand down, the server keeps
             # serving

@@ -4,8 +4,9 @@ JAX package's ``machinery/objects.py``).
 All API objects of the control plane are plain nested dicts (the
 dynamic-client representation); typed accessors live with the component
 that owns the CRD (``apis/``). These helpers cover the metadata and
-selector semantics every layer shares. The copy keeps the pure-Python
-deep copy only: the native JSON-tree extension is not ported.
+selector semantics every layer shares. ``deepcopy`` and ``mutable`` run
+in the native JSON-tree extension (``native/jsontree.cpp``) where it
+builds, and in Python otherwise.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import time
 from typing import Any, Optional
 
 Obj = dict[str, Any]
+
+_native_copy = None
+_native_tried = False
 
 
 _SCALARS = (str, int, float, bool, type(None))
@@ -40,14 +44,37 @@ def deepcopy_count() -> int:
     return deepcopy_calls
 
 
+def _native():
+    """The native deep copy, probed once (None without a compiler)."""
+    global _native_copy, _native_tried
+    if not _native_tried:
+        _native_tried = True
+        try:
+            from odh_kubeflow_tpu_torch import native
+
+            _native_copy = native.jsontree_deepcopy()
+        except Exception:  # noqa: BLE001 — any native failure → Python
+            _native_copy = None
+    return _native_copy
+
+
+def engine() -> str:
+    """The engine ``deepcopy`` runs on: ``"native"`` or ``"python"``."""
+    return "native" if _native() is not None else "python"
+
+
 def deepcopy(obj: Obj) -> Obj:
     """Deep copy specialised for JSON-shaped trees (dict/list/scalars
-    are the only shapes API objects use); exotic leaves go through
-    ``copy.deepcopy``. Frozen trees (``FrozenDict``/``FrozenList``) come
-    back as plain mutable dicts/lists (their ``__deepcopy__`` routes
-    through ``mutable``)."""
+    are the only shapes API objects use): the native extension where it
+    builds, the tree-specialised Python copy otherwise. Exotic leaves go
+    through ``copy.deepcopy`` on both paths. Frozen trees
+    (``FrozenDict``/``FrozenList``) come back as plain mutable
+    dicts/lists either way."""
     global deepcopy_calls
     deepcopy_calls += 1
+    fn = _native()
+    if fn is not None:
+        return fn(obj)
     return _py_deepcopy(obj)
 
 
@@ -166,9 +193,11 @@ def mutable(obj):
     fully mutable deep copy; anything else passes through UNCHANGED (a
     plain dict from the uncached store is already the caller's private
     copy — re-copying it would pay the tax the cache exists to kill)."""
-    global deepcopy_calls
     if not is_frozen(obj):
         return obj
+    fn = _native()
+    if fn is not None:
+        return fn(obj)
     return _thaw(obj)
 
 

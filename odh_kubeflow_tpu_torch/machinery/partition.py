@@ -51,6 +51,7 @@ import time
 import weakref
 from typing import Any, Callable, Optional
 
+from odh_kubeflow_tpu_torch.analysis import schedule as _schedule
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util, overload
 from odh_kubeflow_tpu_torch.machinery.leader import (
     _hrw_weight,
@@ -1116,7 +1117,7 @@ class PartitionMover:
     """Ship one namespace between partitions, live, with zero lost
     acks — the replicas' snapshot/catch-up protocol as the data plane.
 
-    Protocol:
+    Protocol (sched_point-marked for the schedule explorer):
 
     1. **cut** — a consistent ``replication_cut`` of the source and a
        tail feed (``replication_watch``) opened AT the cut's rv, while
@@ -1243,6 +1244,7 @@ class PartitionMover:
         token = self._acquire_move_token(dst)
         t_start = self.clock()
 
+        _schedule.sched_point("partition.move.cut")
         cut = src.replication_cut()
         cut_rv = int(cut.get("rv", 0))
         feed = src.replication_watch(from_rv=cut_rv, inline=True)
@@ -1252,6 +1254,7 @@ class PartitionMover:
         frozen_ms = 0.0
         try:
             with fenced(MOVE_LEASE_NS, self.lease_name, token):
+                _schedule.sched_point("partition.move.ship")
                 for obj in moving:
                     dst.import_object(obj)
                     shipped += 1
@@ -1274,6 +1277,7 @@ class PartitionMover:
                         if rv == 0:
                             break
 
+                _schedule.sched_point("partition.move.freeze")
                 self.router.freeze(self.namespace)
                 t_freeze = self.clock()
                 try:
@@ -1294,6 +1298,7 @@ class PartitionMover:
                     # be acked past this; drain the feed up to it
                     horizon = int(src.applied_rv())
                     deadline = self.clock() + self.QUIESCE_TIMEOUT
+                    _schedule.sched_point("partition.move.tail")
                     while last_rv < horizon and self.clock() < deadline:
                         n, rv = self._drain_tail(
                             feed, dst, self.TAIL_BUDGET, block=True
@@ -1308,6 +1313,7 @@ class PartitionMover:
                             "aborted before takeover — retry",
                             retry_after=1.0,
                         )
+                    _schedule.sched_point("partition.move.takeover")
                     dst.replication_epoch = (
                         max(
                             int(getattr(dst, "replication_epoch", 0)),
@@ -1319,6 +1325,7 @@ class PartitionMover:
                 finally:
                     self.router.unfreeze(self.namespace)
                     frozen_ms = (self.clock() - t_freeze) * 1000.0
+                    _schedule.sched_point("partition.move.unfreeze")
         finally:
             feed.stop()
 

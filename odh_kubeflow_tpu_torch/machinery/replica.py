@@ -45,6 +45,7 @@ import urllib.error
 import urllib.request
 from typing import Any, Callable, Optional
 
+from odh_kubeflow_tpu_torch.analysis import sanitizer as _sanitizer
 from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util
 from odh_kubeflow_tpu_torch.machinery.store import (
     APIServer,
@@ -544,12 +545,13 @@ class ReplicationClient:
                     type(e).__name__, e, self.replica.applied_rv(),
                 )
             self.reconnects += 1
-            delay = backoff.next_delay(  # the long-lived replication stream MUST reconnect forever — a drained budget silencing replication would be an availability bug
+            delay = backoff.next_delay(  # budget-ok: the long-lived replication stream MUST reconnect forever — a drained budget silencing replication would be an availability bug
                 delay, base=self.reconnect_base, cap=self.reconnect_cap
             )
             self._stop.wait(delay)
 
     def _load_snapshot(self) -> None:
+        _sanitizer.note_blocking("replication snapshot fetch")
         with urllib.request.urlopen(
             self._snapshot_url(), timeout=self.timeout
         ) as r:
@@ -567,6 +569,7 @@ class ReplicationClient:
         url = f"{self.leader_url}/replication/stream?from={from_rv}"
         if self.partition is not None:
             url += f"&partition={self.partition}"
+        _sanitizer.note_blocking("replication stream read")
         resp = None
         try:
             try:

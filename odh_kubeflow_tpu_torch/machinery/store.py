@@ -54,9 +54,11 @@ enqueued at apply time (read-your-writes); serving-tier streams
 (``watch(inline=False)``, replication feeds) are fanned out by
 ``WATCH_DISPATCH_SHARDS`` dispatcher threads, rendezvous-hashed per
 watcher, so a mutation pays one queue put per shard. ``kind_version`` is
-the per-kind rv the façade's list-payload cache keys on. The JAX module
-builds its locks through its lock-order sanitizer; the port uses plain
-``threading`` locks.
+the per-kind rv the façade's list-payload cache keys on. The store lock
+comes from the lock-order sanitizer's factory (``analysis/sanitizer.py``,
+a raw ``RLock`` unless ``GRAFT_SANITIZE=1``), and the commit pipeline and
+snapshot cut carry the schedule explorer's yield markers
+(``analysis/schedule.py``; no-ops outside an exploration).
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from odh_kubeflow_tpu_torch.analysis import sanitizer as _sanitizer
+from odh_kubeflow_tpu_torch.analysis import schedule as _schedule
 from odh_kubeflow_tpu_torch.machinery import backoff, objects as obj_util, overload, serialize
 from odh_kubeflow_tpu_torch.utils import tracing
 
@@ -432,6 +436,11 @@ class Watch:
         self._server._remove_watch(self)
 
     def get(self, timeout: Optional[float] = None) -> Optional[tuple[str, Obj]]:
+        if timeout is None or timeout > 0:
+            # a blocking wait on the event queue must never run while
+            # holding a store/cache lock (sanitizer probe; no-op when
+            # GRAFT_SANITIZE is off)
+            _sanitizer.note_blocking("Watch.get")
         try:
             return self._q.get(timeout=timeout)
         except queue.Empty:
@@ -526,7 +535,7 @@ class APIServer:
         snapshot_bytes: Optional[int] = None,
         group_commit: bool = True,
     ):
-        self._lock = threading.RLock()
+        self._lock = _sanitizer.new_rlock("apiserver.store")
         # durability: with a WriteAheadLog attached, every mutation is
         # prepared under the store lock, enqueued to the committer thread
         # which covers whole batches of concurrent writers with ONE fsync,
@@ -840,7 +849,14 @@ class APIServer:
                 target=self._committer_loop, name="apiserver-wal-committer", daemon=True
             )
             self._committer.start()
+            # under the schedule explorer: wait for the committer to
+            # register so the schedulable set is deterministic (no-op
+            # in production)
+            _schedule.thread_started(self._committer)
         self._commitq.put(entry)
+        # explorer yield marker: a prepared-but-unlogged record is in
+        # flight; racing writers/committer/snapshot interleave here
+        _schedule.sched_point("store.commit.enqueue")
         return entry
 
     def _commit_mutation(
@@ -885,10 +901,14 @@ class APIServer:
             # already timed out gets 504 instead of parking a handler
             # thread on an ack it will never read (the record stays
             # enqueued and may still commit — see DeadlineExceeded)
+            # a durability wait must never run under a store/cache lock
+            # (sanitizer probe); schedule.wait_event takes part in an
+            # exploration and is a plain Event.wait otherwise
+            _sanitizer.note_blocking("wal.commit-wait")
             rem = overload.remaining()
             if rem is None:
-                entry.done.wait()
-            elif rem <= 0 or not entry.done.wait(timeout=rem):
+                _schedule.wait_event(entry.done)
+            elif rem <= 0 or not _schedule.wait_event(entry.done, timeout=rem):
                 raise DeadlineExceeded(
                     "deadline expired awaiting the commit ack (the "
                     "write may still become durable)"
@@ -949,7 +969,7 @@ class APIServer:
         from odh_kubeflow_tpu_torch.machinery.wal import CrashPoint
 
         while True:
-            entry = self._commitq.get()
+            entry = _schedule.queue_get(self._commitq)
             if entry is None:
                 return
             batch = [entry]
@@ -988,15 +1008,21 @@ class APIServer:
                 self._batch_hwm = len(batch)
             groups = [batch] if self.group_commit else [[e] for e in batch]
             for gi, group in enumerate(groups):
+                # explorer yield marker: batch collected, fsync not yet
+                # issued — the window racing writers re-enqueue into
+                _schedule.sched_point("store.commit.fsync")
                 try:
                     with self._wal.io_lock:
                         for e in group:
                             self._wal.write_record(e.record)
-                        self._wal.sync()
+                        self._wal.sync()  # graftlint: disable=blocking-reachable-under-lock the group fsync under wal.io IS the commit; only snapshot rotation contends it, and rotation is O(1)
                 except BaseException as e:  # noqa: BLE001 — incl. CrashPoint
                     rest = [x for g in groups[gi + 1:] for x in g]
                     self._commit_failed(group + rest, e)
                     return
+                # explorer yield marker: durable but not yet applied —
+                # the log→fsync→apply→ack ordering's critical window
+                _schedule.sched_point("store.commit.apply")
                 with self._lock:
                     # buffer sharded watch delivery across the whole batch
                     # apply: one shard put per batch, not per record
@@ -1134,7 +1160,11 @@ class APIServer:
         concurrent appends safe)."""
         if self._wal is None:
             raise APIError("no write-ahead log attached")
+        # explorer yield markers around the cut: the snapshot racing
+        # the group-commit pipeline is one of the drilled interleavings
+        _schedule.sched_point("store.snapshot.cut")
         state = self._snapshot_cut()
+        _schedule.sched_point("store.snapshot.persist")
         self._wal.snapshot(state, state["rv"])
 
     @classmethod
@@ -1555,7 +1585,7 @@ class APIServer:
                     merged["metadata"][k] = current["metadata"][k]
             return self.update(merged)
 
-        return backoff.retry(
+        return backoff.retry(  # budget-ok: in-process optimistic-concurrency merge — retries re-run a local read-modify-write, no remote amplification
             attempt,
             retryable=lambda e: isinstance(e, Conflict),
             attempts=16,

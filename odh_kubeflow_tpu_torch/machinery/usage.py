@@ -50,9 +50,10 @@ Exposure: Prometheus (``gpu_allocated_seconds_total``,
 ``gpu_duty_samples_total``), the dashboard's ``GET /api/usage``
 showback endpoint, the JWA's per-notebook usage block and the
 ``/debug/usage`` zpage (``machinery/zpages.py``), which
-:meth:`UsageMeter.timelines` feeds. The port's store has no
-leader election, so the meter stands down on nothing: the JAX meter's
-``FencedOut``/``NotLeader`` branches are left out.
+:meth:`UsageMeter.timelines` feeds. A meter whose store answers
+``FencedOut`` or ``NotLeader`` (a deposed leader, ``machinery/leader.py``)
+stands down: ``flush`` raises it instead of counting a failed write, and
+the meter's loop stops, so the new leader's meter owns the ledger.
 """
 
 from __future__ import annotations
@@ -66,7 +67,12 @@ from typing import Any, Callable, Optional
 
 from odh_kubeflow_tpu_torch.apis import ACCELERATOR_MAPPING as _NAMES
 from odh_kubeflow_tpu_torch.machinery import objects as obj_util
-from odh_kubeflow_tpu_torch.machinery.store import APIError, AlreadyExists
+from odh_kubeflow_tpu_torch.machinery.store import (
+    AlreadyExists,
+    APIError,
+    FencedOut,
+    NotLeader,
+)
 from odh_kubeflow_tpu_torch.utils import prometheus
 
 Obj = dict[str, Any]
@@ -575,6 +581,10 @@ class UsageMeter:
                     bucket.namespace,
                 )
             return True
+        except (FencedOut, NotLeader):
+            # deposed leader: the new incumbent's meter owns the ledger
+            # now — stand down instead of fighting its writes
+            raise
         except APIError:
             return False
 
@@ -591,6 +601,8 @@ class UsageMeter:
                 self.api.delete(
                     "UsageRecord", self._record_name(b), b.namespace
                 )
+            except (FencedOut, NotLeader):
+                raise  # deposed: stand down, the new leader prunes
             except APIError:
                 pass  # already gone, or transient — re-pruned next flush
 
@@ -738,6 +750,10 @@ class UsageMeter:
             while not self._stop.wait(period):
                 try:
                     self.poll()
+                except (FencedOut, NotLeader):
+                    # this process lost the leadership epoch: stop
+                    # metering — the new leader's meter owns the ledger
+                    self._stop.set()
                 except Exception:  # noqa: BLE001 — telemetry must not die
                     self.m_flush_errors.inc()
 

@@ -18,9 +18,8 @@ required:
 - ``/debug/queues`` — workqueue depths/adds (from the metrics
   registry) plus the store's group-commit pipeline depths and WAL
   counters.
-- ``/debug/locks`` — the concurrency sanitizer's lock-order graph. The
-  port has no sanitizer (plain locks), so the page answers as the JAX
-  package's does with the sanitizer off.
+- ``/debug/locks`` — the concurrency sanitizer's live lock-order
+  graph and any reports, when ``GRAFT_SANITIZE=1``.
 - ``/debug/usage`` — the usage meter's per-notebook duty timelines.
 
 ``handle_debug`` serves these for a raw WSGI façade (httpapi);
@@ -197,15 +196,36 @@ def queues_text(
 
 
 def locks_json() -> Obj:
-    # no lock-order sanitizer in the port: always the "off" answer
-    return {"enabled": False, "orderGraph": {}, "reports": []}
+    from odh_kubeflow_tpu_torch.analysis import sanitizer
+
+    return {
+        "enabled": sanitizer.enabled(),
+        "orderGraph": sanitizer.order_graph() if sanitizer.enabled() else {},
+        "reports": sanitizer.reports() if sanitizer.enabled() else [],
+    }
 
 
 def locks_text() -> str:
-    return (
-        "/debug/locks\n\nsanitizer off — the port builds plain locks; "
-        "no lock-order graph is recorded\n"
-    )
+    data = locks_json()
+    if not data["enabled"]:
+        return (
+            "/debug/locks\n\nsanitizer off — start the process with "
+            "GRAFT_SANITIZE=1 to record the live lock-order graph\n"
+        )
+    lines = ["/debug/locks", "", "lock-order graph (held -> acquired-after):"]
+    graph = data["orderGraph"]
+    if not graph:
+        lines.append("  (no multi-lock acquisitions witnessed yet)")
+    for src, dsts in graph.items():
+        for dst, site in dsts.items():
+            lines.append(f"  {src} -> {dst}  (first: {site})")
+    lines.append("")
+    if data["reports"]:
+        lines.append("REPORTS:")
+        lines.extend(f"  {r}" for r in data["reports"])
+    else:
+        lines.append("no violations reported")
+    return "\n".join(lines) + "\n"
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +326,7 @@ def handle_debug(
     def _json(status: int, body: Obj) -> list[bytes]:
         return _respond(
             status,
-            json.dumps(body).encode(),
+            json.dumps(body).encode(),  # dumps-ok: cold debug page, not a serving path
             "application/json",
         )
 

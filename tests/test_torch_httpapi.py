@@ -231,10 +231,9 @@ def test_client_pages_its_lists(m, served):
     assert len(client.list("Notebook", namespace="team-a", limit=2)) == 2
 
 
-def test_api_from_env_refuses_several_urls():
-    """Named for the refusal it once pinned; the comma-separated form is
-    no longer refused: like the JAX package's, it builds a ReplicaFanout
-    over one client per URL."""
+def test_api_from_env_builds_a_fanout_over_several_urls():
+    """The comma-separated form, like the JAX package's, builds a
+    ReplicaFanout over one client per URL."""
     from odh_kubeflow_tpu_torch.machinery.client import ReplicaFanout, api_from_env
 
     api = api_from_env("http://127.0.0.1:1, http://127.0.0.1:2")

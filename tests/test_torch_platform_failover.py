@@ -66,10 +66,9 @@ def test_platform_failover_phase_on_cpu():
     assert record["caches"]["holder"]["cache_hits"] > 0
 
 
-def test_platform_failover_refuses_partitioned_settings(tmp_path):
-    """The partitioned shapes, refused before the partition router was
-    ported, now serve: a comma-separated ``REPLICA_OF`` (one leader a
-    partition) and ``REPLICA_OF`` at a router with ``STORE_PARTITIONS``
+def test_platform_failover_serves_partitioned_settings(tmp_path):
+    """The partitioned shapes serve: a comma-separated ``REPLICA_OF`` (one
+    leader a partition) and ``REPLICA_OF`` at a router with ``STORE_PARTITIONS``
     (``?partition=``-scoped pulls) each run a follower whose merged
     Notebook list equals the leaders'; the scheduler's ``main()`` runs
     over ``PARTITION_LEADERS``. None of the processes loads torch."""

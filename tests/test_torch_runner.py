@@ -83,9 +83,8 @@ def test_wrap_cached_counters_land_on_the_served_registry(clean_env):
     assert 'cache_hits_total{kind="Pod"} 1' in registry.exposition()
 
 
-def test_partition_leaders_refused_until_part_8(clean_env):
-    """``PARTITION_LEADERS`` (refused before the partition router was
-    ported) now routes: one remote client per leader behind a
+def test_partition_leaders_route_through_one_client_a_leader(clean_env):
+    """``PARTITION_LEADERS`` routes: one remote client per leader behind a
     ``PartitionRouter`` that owns every partition, as JAX's runner
     builds it; unset, the api passes through."""
     shapes = []
